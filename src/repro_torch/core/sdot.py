@@ -1,0 +1,183 @@
+"""S-DOT and SA-DOT: sample-wise distributed orthogonal iteration (Alg. 1).
+
+The twin of ``repro/core/sdot.py`` for the synchronous engines. The two
+algorithms share one implementation and differ only in the consensus budget
+``schedule`` (constant for S-DOT, increasing for SA-DOT).
+
+All N node states are carried as one stacked (N, d, r) tensor on the
+engine's device. Step 5 on raw data, V_i = X_i (X_i^T Q_i) / n_i, is one
+launch of the Hopper gram-apply kernel per outer iteration
+(``kernels/ops.batched_gram_apply``); no node forms a d x d covariance.
+
+Execution modes (``fused`` flag):
+  * fused (default): no host sync inside the loop. Debiasing divides by a
+    row of the device table of W^t e_1, each iteration's error is kept on
+    the device as its (N, r, r) cross products Q_true^T Q_i, whose singular
+    values are taken in one batched call at the end, and the ledger is
+    priced in closed form. The schedule is host data, so each outer
+    iteration runs exactly ``schedule[t]`` rounds.
+  * eager (``fused=False``): the reference's loop, with the host debias
+    weights and one host sync per iteration (the error value).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .._device import DeviceLike, resolve_device
+from ..kernels import ops as kops
+from .consensus import DenseConsensus, consensus_schedule
+from .linalg import cholesky_qr2, orthonormal_init
+from .metrics import CommLedger, subspace_error_from_cross
+
+__all__ = ["SDOTResult", "sdot", "sadot", "local_cov_apply"]
+
+
+@dataclasses.dataclass
+class SDOTResult:
+    q_nodes: torch.Tensor               # (N, d, r) final per-node estimates
+    error_trace: Optional[np.ndarray]   # (T_o,) mean subspace error vs q_true
+    consensus_trace: np.ndarray         # (T_o,) consensus rounds per outer iter
+    ledger: CommLedger                  # communication accounting
+
+    @property
+    def q_mean(self) -> torch.Tensor:
+        """Consensus-averaged estimate (for reporting; nodes already agree)."""
+        return self.q_nodes.mean(dim=0)
+
+
+def local_cov_apply(covs: torch.Tensor, q_nodes: torch.Tensor) -> torch.Tensor:
+    """Step 5 of Alg. 1 at every node: Z_i = M_i Q_i. covs: (N, d, d)."""
+    return covs @ q_nodes
+
+
+def _stack_data(xs: Sequence[torch.Tensor], device: torch.device):
+    """Zero-pad ragged node blocks (d, n_i) to one (N, d, n_max) stack.
+
+    Padding is exact for the gram apply; the true n_i go along for the
+    normalizer.
+    """
+    n_true = np.array([x.shape[1] for x in xs], np.float32)
+    n_max = int(n_true.max())
+    stack = torch.stack([F.pad(x.to(device, torch.float32),
+                               (0, n_max - x.shape[1])) for x in xs])
+    return stack, torch.as_tensor(n_true, device=device)
+
+
+def _apply_operand(operand, mode: str, q_nodes: torch.Tensor) -> torch.Tensor:
+    """Step 5 of Alg. 1 for either operand layout (cov stack or raw data)."""
+    if mode == "cov":
+        return local_cov_apply(operand, q_nodes)
+    x_stack, n_true = operand
+    return kops.batched_gram_apply(x_stack, q_nodes, n_true)
+
+
+def _prepare_sdot(*, covs, data, engine, r, t_outer, schedule, t_c, q_init,
+                  q_true, generator, device):
+    """Validate and normalise a run's inputs into device-ready pieces."""
+    if hasattr(engine, "sample_awake") or hasattr(engine, "sample_faults"):
+        raise NotImplementedError(
+            "asynchronous and network-fault gossip engines come with the "
+            "straggler/fault-gossip slice of the port")
+    if (covs is None) == (data is None):
+        raise ValueError("provide exactly one of covs / data")
+    dev = resolve_device(device)
+    if engine.device != dev:
+        raise ValueError(f"engine lives on {engine.device}, run asked for "
+                         f"{dev}")
+    n = engine.graph.n_nodes
+    if covs is not None:
+        d = covs.shape[1]
+        if covs.shape[0] != n:
+            raise ValueError("covs leading dim must equal number of nodes")
+        operand, mode = covs.to(dev, torch.float32), "cov"
+    else:
+        d = data[0].shape[0]
+        if len(data) != n:
+            raise ValueError("need one data block per node")
+        operand, mode = _stack_data(data, dev), "data"
+
+    if schedule is None:
+        schedule = consensus_schedule("const", t_outer, t_max=t_c)
+    elif len(schedule) < t_outer:
+        raise ValueError(f"schedule has {len(schedule)} entries but "
+                         f"t_outer={t_outer}")
+    sched = np.asarray(schedule[:t_outer])
+    if q_init is None:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        q_init = orthonormal_init(generator, d, r, device=dev)
+    # all nodes start from the same Q_init (Theorem 1 requires it)
+    q_nodes = q_init.to(dev, torch.float32)[None].expand(n, d, r).contiguous()
+    if q_true is not None:
+        q_true = q_true.to(dev, torch.float32)
+    return operand, mode, q_nodes, sched, q_true, d
+
+
+def sdot(
+    *,
+    covs: Optional[torch.Tensor] = None,
+    data: Optional[Sequence[torch.Tensor]] = None,
+    engine: DenseConsensus,
+    r: int,
+    t_outer: int,
+    schedule: Optional[np.ndarray] = None,
+    t_c: int = 50,
+    q_init: Optional[torch.Tensor] = None,
+    q_true: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    fused: bool = True,
+    device: DeviceLike = None,
+) -> SDOTResult:
+    """Run S-DOT / SA-DOT over a simulated network.
+
+    Exactly one of ``covs`` (N, d, d) or ``data`` (list of (d, n_i)) must be
+    given. ``schedule`` overrides ``t_c`` (constant) and makes this SA-DOT.
+    ``generator`` draws Q_init where ``q_init`` is not given. ``device``
+    defaults to CUDA and must be the engine's device.
+    """
+    operand, mode, q_nodes, sched, q_true, d = _prepare_sdot(
+        covs=covs, data=data, engine=engine, r=r, t_outer=t_outer,
+        schedule=schedule, t_c=t_c, q_init=q_init, q_true=q_true,
+        generator=generator, device=device)
+    t_max = int(sched.max()) if t_outer else 0
+    table = engine.debias_table(t_max) if fused else None
+    ledger = CommLedger()
+    errs = []
+    for t in range(t_outer):
+        z0 = _apply_operand(operand, mode, q_nodes)               # (N, d, r)
+        if fused:
+            v = engine.run_debiased_scan(z0, int(sched[t]), t_max=t_max,
+                                         table=table)
+        else:
+            v = engine.run_debiased(z0, int(sched[t]), ledger)
+        q_nodes = cholesky_qr2(v)[0]                              # per node
+        if q_true is not None:
+            cross = q_true.mT @ q_nodes                           # (N, r, r)
+            errs.append(cross if fused else
+                        float(subspace_error_from_cross(cross).mean()))
+    if fused:
+        ledger.log_gossip_rounds(sched, engine.graph.adjacency, d * r,
+                                 engine.payload_bytes_per_elem)
+    if q_true is None:
+        error_trace = None
+    elif fused and errs:
+        # one batched SVD of every iteration's cross products: every CUDA
+        # SVD in PyTorch waits for the device, so it runs once, at the end
+        error_trace = subspace_error_from_cross(
+            torch.stack(errs)).mean(dim=-1).cpu().numpy()
+    else:
+        error_trace = np.asarray(errs, np.float32 if fused else np.float64)
+    return SDOTResult(q_nodes=q_nodes, error_trace=error_trace,
+                      consensus_trace=sched, ledger=ledger)
+
+
+def sadot(*, schedule_kind: str = "lin2", cap: Optional[int] = None,
+          t_outer: int, **kw) -> SDOTResult:
+    """SA-DOT convenience wrapper: increasing consensus schedule."""
+    sched = consensus_schedule(schedule_kind, t_outer, cap=cap)
+    return sdot(t_outer=t_outer, schedule=sched, **kw)

@@ -1,0 +1,217 @@
+"""Sparse mixing weights for large gossip networks (padded ELL + CSR).
+
+The twin of ``repro/core/sparse.py``. At the 1k-10k-node scale the overlay
+topologies have O(N) edges, so the (N, N) mixing matrix is >99% zeros.
+``SparseW`` stores only the nonzero structure:
+
+* padded ELL form, ``ell_idx``/``ell_val``: (N, L) with L the max row
+  degree; slot (i, l) holds node i's l-th neighbour (ascending index), and
+  slots past ``row_nnz[i]`` self-point with weight 0. The diagonal is a
+  separate (N,) vector.
+* a CSR view (``csr()``) and a dense round trip (``to_dense()``) on the host.
+
+One gossip round is ``mix(z)``: the Hopper ELL kernel for a payload on the
+card, the reference's CPU forms otherwise (``kernels/ops.ell_spmm``).
+``payload_dtype="bfloat16"`` quantises neighbour messages to bf16 before
+the f32 accumulation; each node's own state stays full precision.
+
+Symmetry is required and checked: the debias recursion uses W^T = W.
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, resolve_device
+from ..kernels import ops as kops
+
+__all__ = ["SparseW", "auto_sparse", "AUTO_MIN_NODES", "AUTO_MAX_DENSITY"]
+
+# DenseConsensus(sparse=None) turns sparse mixing on only above the network
+# sizes of the paper's tables, so every N <= 200 result stays dense.
+AUTO_MIN_NODES = 256
+AUTO_MAX_DENSITY = 0.05
+_ENV_FLAG = "REPRO_SPARSE_GOSSIP"
+
+
+def auto_sparse(n_nodes: int, density: float,
+                sparse: Optional[bool] = None) -> bool:
+    """Resolve the engine-level ``sparse`` tri-state.
+
+    ``True``/``False`` are explicit; ``None`` turns sparse mixing on when the
+    network is both large (>= AUTO_MIN_NODES) and sparse (<= AUTO_MAX_DENSITY).
+    ``REPRO_SPARSE_GOSSIP=0`` or ``=1`` overrides the auto rule (explicit
+    arguments still win).
+    """
+    if sparse is not None:
+        return bool(sparse)
+    env = os.environ.get(_ENV_FLAG, "").strip().lower()
+    if env in ("0", "false", "off"):
+        return False
+    if env in ("1", "true", "on"):
+        return True
+    return n_nodes >= AUTO_MIN_NODES and density <= AUTO_MAX_DENSITY
+
+
+class SparseW:
+    """Symmetric doubly-stochastic mixing matrix in padded-ELL form."""
+
+    def __init__(self, ell_idx: torch.Tensor, ell_val: torch.Tensor,
+                 diag: torch.Tensor, row_nnz: torch.Tensor, n: int,
+                 ell_width: int, payload_dtype: Optional[str] = None,
+                 dense_off: Optional[torch.Tensor] = None):
+        self.ell_idx = ell_idx          # (N, L) int32, self past row_nnz
+        self.ell_val = ell_val          # (N, L) weights, 0 past row_nnz
+        self.diag = diag                # (N,)
+        self.row_nnz = row_nnz          # (N,) int32
+        self.n = int(n)
+        self.ell_width = int(ell_width)
+        self.payload_dtype = payload_dtype
+        # (N, N) f32 off-diagonal mirror: only for a CPU SparseW past the
+        # CPU crossover (ops.ell_densify_wins). On the card every round
+        # goes through the ELL kernel.
+        self.dense_off = dense_off
+
+    # -- constructors -------------------------------------------------------
+    @classmethod
+    def from_dense(cls, w: np.ndarray, adjacency: Optional[np.ndarray] = None,
+                   *, payload_dtype: Optional[str] = None,
+                   device: DeviceLike = None) -> "SparseW":
+        """Build from a host (N, N) symmetric weight matrix.
+
+        ``adjacency`` fixes the stored structure (a real edge is kept even
+        if its weight is 0); without it the structure is the nonzero
+        off-diagonal pattern of ``w``.
+        """
+        dev = resolve_device(device)
+        w = np.asarray(w, np.float64)
+        n = int(w.shape[0])
+        if w.shape != (n, n):
+            raise ValueError(f"w must be square, got {w.shape}")
+        if not np.allclose(w, w.T, atol=1e-12):
+            raise ValueError("SparseW requires a symmetric weight matrix "
+                             "(the debias recursion uses W^T = W)")
+        struct = np.asarray(adjacency) > 0 if adjacency is not None else w != 0
+        struct = np.array(struct, bool, copy=True)
+        np.fill_diagonal(struct, False)
+        struct |= struct.T
+        row_nnz = struct.sum(axis=1).astype(np.int32)
+        ell_width = max(int(row_nnz.max(initial=0)), 1)
+        rows, cols = np.nonzero(struct)   # row-major: ascending neighbours
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(row_nnz, out=indptr[1:])
+        slots = np.arange(rows.size) - indptr[rows]
+        ell_idx = np.tile(np.arange(n, dtype=np.int32)[:, None],
+                          (1, ell_width))
+        ell_val = np.zeros((n, ell_width), np.float32)
+        ell_idx[rows, slots] = cols.astype(np.int32)
+        ell_val[rows, slots] = w[rows, cols].astype(np.float32)
+        dense_off = None
+        if dev.type == "cpu" and kops.ell_densify_wins(n, ell_width):
+            off = w.astype(np.float32).copy()
+            np.fill_diagonal(off, 0.0)
+            dense_off = torch.from_numpy(off)
+        return cls(torch.from_numpy(ell_idx).to(dev),
+                   torch.from_numpy(ell_val).to(dev),
+                   torch.from_numpy(np.diagonal(w).astype(np.float32)).to(dev),
+                   torch.from_numpy(row_nnz).to(dev), n, ell_width,
+                   payload_dtype, dense_off)
+
+    @classmethod
+    def from_graph(cls, graph, weights: Optional[np.ndarray] = None, *,
+                   payload_dtype: Optional[str] = None,
+                   device: DeviceLike = None) -> "SparseW":
+        """Build from a ``topology.Graph`` (default: local-degree weights)."""
+        if weights is None:
+            from .topology import local_degree_weights
+            weights = local_degree_weights(graph)
+        return cls.from_dense(weights, graph.adjacency,
+                              payload_dtype=payload_dtype, device=device)
+
+    # -- array-protocol shims (the surface consensus.py relies on) ----------
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n, self.n)
+
+    @property
+    def device(self) -> torch.device:
+        return self.ell_val.device
+
+    def astype(self, dtype: torch.dtype) -> "SparseW":
+        """Cast the stored weights (structure untouched)."""
+        if dtype == self.ell_val.dtype:
+            return self
+        return SparseW(self.ell_idx, self.ell_val.to(dtype),
+                       self.diag.to(dtype), self.row_nnz, self.n,
+                       self.ell_width, self.payload_dtype, self.dense_off)
+
+    @property
+    def T(self) -> "SparseW":
+        """W^T == W: symmetry is enforced at construction."""
+        return self
+
+    # -- the gossip round ---------------------------------------------------
+    def mix(self, z: torch.Tensor) -> torch.Tensor:
+        """One gossip application ``out_i = diag_i z_i + sum_l val_il
+        z_{idx_il}`` over a payload z: (N, ...), f32 accumulation."""
+        zf = z.reshape(self.n, -1)
+        if self.dense_off is not None:
+            z_src = (zf if self.payload_dtype is None
+                     else zf.to(getattr(torch, self.payload_dtype)))
+            out = (self.diag.float()[:, None] * zf.float()
+                   + self.dense_off @ z_src.float())
+        else:
+            out = kops.ell_spmm(self.ell_idx, self.ell_val, self.diag, zf,
+                                payload_dtype=self.payload_dtype)
+        return out.to(z.dtype).reshape(z.shape)
+
+    def offdiag_mix(self, diag: torch.Tensor, val: torch.Tensor,
+                    z: torch.Tensor) -> torch.Tensor:
+        """Mixing round with overridden per-round diagonal and slot values
+        (same structure), the hook of the fault models."""
+        zf = z.reshape(self.n, -1)
+        out = kops.ell_spmm(self.ell_idx, val, diag, zf,
+                            payload_dtype=self.payload_dtype)
+        return out.to(z.dtype).reshape(z.shape)
+
+    # -- stats / views (host-side) ------------------------------------------
+    @property
+    def nnz(self) -> int:
+        """Stored entries (off-diagonal edges + the N diagonal entries)."""
+        return int(self.row_nnz.sum().item()) + self.n
+
+    @property
+    def density(self) -> float:
+        return self.nnz / float(self.n * self.n)
+
+    def row_stats(self) -> dict:
+        nnz = self.row_nnz.cpu().numpy()
+        return {"n": self.n, "ell_width": self.ell_width,
+                "nnz": self.nnz, "density": self.density,
+                "row_nnz_min": int(nnz.min()), "row_nnz_max": int(nnz.max()),
+                "row_nnz_mean": float(nnz.mean())}
+
+    def csr(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Host CSR view (indptr, indices, data) of the off-diagonal part."""
+        idx = self.ell_idx.cpu().numpy()
+        val = self.ell_val.cpu().numpy()
+        nnz = self.row_nnz.cpu().numpy()
+        keep = np.arange(self.ell_width)[None, :] < nnz[:, None]
+        indptr = np.zeros(self.n + 1, np.int64)
+        np.cumsum(nnz, out=indptr[1:])
+        return indptr, idx[keep].astype(np.int64), val[keep]
+
+    def to_dense(self) -> torch.Tensor:
+        """Dense (N, N) round trip (padded slots add 0 on the diagonal)."""
+        rows = torch.arange(self.n, device=self.device)[:, None].expand(
+            self.n, self.ell_width)
+        dense = torch.zeros((self.n, self.n), dtype=self.ell_val.dtype,
+                            device=self.device)
+        dense.index_put_((rows, self.ell_idx.long()), self.ell_val,
+                         accumulate=True)
+        ar = torch.arange(self.n, device=self.device)
+        dense[ar, ar] += self.diag
+        return dense

@@ -1,0 +1,1 @@
+"""PSA data generators and partitioners (NumPy RNG, as the reference)."""

@@ -1,0 +1,128 @@
+"""Dispatch for the ported kernels: the twin of ``repro/kernels/ops.py``.
+
+A CUDA tensor goes to the hand-written Hopper kernel, and the call raises
+if the kernel cannot take it; there is no fallback on the card. A CPU
+tensor goes to the plain version in ``ref.py``, choosing the gather, scan
+or densify form for the ELL round exactly as the reference's
+``ell_spmm_path`` does, so CPU results follow the reference's own CPU path.
+
+The reference's TPU guards (VMEM byte limits that fall back to the oracle,
+and padding the sample axis to a 512-column block) do not carry over: the
+CUDA kernels mask their own ragged edges.
+
+``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
+that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from . import ref
+
+__all__ = ["LAUNCHES", "reset_launches", "on_gpu", "gram_apply",
+           "batched_gram_apply", "ell_spmm", "ell_spmm_path",
+           "ell_densify_wins"]
+
+LAUNCHES: Dict[str, int] = {"gram_apply": 0, "batched_gram_apply": 0,
+                            "ell_spmm": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def on_gpu() -> bool:
+    """The counterpart of the reference's ``on_tpu()``."""
+    return torch.cuda.is_available()
+
+
+def gram_apply(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """V = X (X^T Q) / n. x: (d, n), q: (d, r) -> (d, r)."""
+    if not x.is_cuda:
+        return ref.gram_apply_ref(x, q)
+    from .gram_update import batched_gram_apply_cuda
+    n_true = torch.full((1,), float(x.shape[1]), dtype=torch.float32,
+                        device=x.device)
+    v = batched_gram_apply_cuda(x.contiguous()[None], q.contiguous()[None],
+                                n_true)[0]
+    LAUNCHES["gram_apply"] += 1
+    return v
+
+
+def batched_gram_apply(x_stack: torch.Tensor, q_stack: torch.Tensor,
+                       n_true: torch.Tensor) -> torch.Tensor:
+    """V[i] = X_i (X_i^T Q_i) / n_i — Step 5 of Alg. 1 for all nodes at once.
+
+    x_stack: (N, d, n) zero-padded blocks, q_stack: (N, d, r), n_true: (N,)
+    true per-node sample counts.
+    """
+    if not x_stack.is_cuda:
+        return ref.batched_gram_apply_ref(x_stack, q_stack, n_true)
+    from .gram_update import batched_gram_apply_cuda
+    v = batched_gram_apply_cuda(x_stack, q_stack.contiguous(), n_true)
+    LAUNCHES["batched_gram_apply"] += 1
+    return v
+
+
+# Above this many gathered message elements (N * L * K) the one-shot
+# gather's (N, L, K) intermediate is traded for the slot-at-a-time scan.
+_ELL_GATHER_ELEMS = 1 << 25
+
+# The reference's CPU crossover: past L ~ N / _ELL_DENSE_RATIO the gather
+# loses to scatter-to-dense + matmul on the CPU.
+_ELL_DENSE_RATIO = 11
+
+
+def ell_densify_wins(n: int, ell_width: int) -> bool:
+    """For this (N, L) the densified matmul beats the CPU gather/scan
+    forms, so a CPU ``SparseW`` mixes through a cached dense mirror."""
+    return ell_width * _ELL_DENSE_RATIO >= n
+
+
+def ell_spmm_path(n: int, ell_width: int, k: int,
+                  use_kernel: Optional[bool] = None) -> str:
+    """Which path ``ell_spmm`` takes for these shapes: 'cuda' |
+    'fallback_gather' | 'fallback_scan' | 'fallback_dense'.
+
+    'cuda' (the reference's 'pallas') whenever the payload is on the card,
+    with no size guard; the three plain forms are CPU-only.
+    """
+    if use_kernel is None:
+        use_kernel = on_gpu()
+    if use_kernel:
+        return "cuda"
+    if ell_densify_wins(n, ell_width):
+        return "fallback_dense"
+    if n * ell_width * k <= _ELL_GATHER_ELEMS:
+        return "fallback_gather"
+    return "fallback_scan"
+
+
+_CPU_PATHS = {"fallback_gather": ref.ell_spmm_ref,
+              "fallback_dense": ref.ell_spmm_dense_ref,
+              "fallback_scan": ref.ell_spmm_scan_ref}
+
+
+def ell_spmm(ell_idx: torch.Tensor, ell_val: torch.Tensor,
+             diag: torch.Tensor, z: torch.Tensor, *,
+             payload_dtype: Optional[str] = None) -> torch.Tensor:
+    """One sparse gossip round: out[i] = diag[i] z[i] + sum_l val[i,l]
+    z[idx[i,l]]. ell_idx/ell_val: (N, L), diag: (N,), z: (N, K) -> (N, K) f32.
+
+    ``payload_dtype`` (e.g. "bfloat16") quantises the gather source, the
+    neighbour messages, before the f32 accumulation; each node's own
+    diagonal term stays full precision.
+    """
+    n, k = z.shape
+    z_src = z if payload_dtype is None else z.to(getattr(torch, payload_dtype))
+    if not z.is_cuda:
+        path = ell_spmm_path(n, ell_idx.shape[1], k, use_kernel=False)
+        return _CPU_PATHS[path](ell_idx, ell_val, diag, z, z_src)
+    from .ell_spmm import ell_spmm_cuda
+    out = ell_spmm_cuda(ell_idx, ell_val, diag, z.float().contiguous(),
+                        z_src.contiguous())
+    LAUNCHES["ell_spmm"] += 1
+    return out
