@@ -21,6 +21,18 @@ Phases, one JSON line each:
   gram-apply) against the top-r eigenvalues.
 * ``profile``: device time by kernel over a short S-DOT run (torch.profiler),
   and the device's busy share of that run's wall time.
+* ``fdot_dense``: F-DOT (Alg. 2) on the same X, spread by features over the
+  same 20-node graph (19 slabs of 51 features and one of 55, all 50,000
+  samples each), r = 7, T_o = 100, t_c = t_c_qr = 50, under the constant
+  schedule and 2t+1 capped at 50. Checks: final mean subspace error <= 1e-4,
+  q_full orthonormal to 1e-5, one launch of each slab kernel per outer
+  iteration, the closed-form ledger, and F-DOT's subspace within 1e-4 of
+  S-DOT's consensus estimate.
+* ``bdot_dense``: B-DOT on the same X over a 4 x 5 grid (256 features x
+  10,000 samples a node), column engines erdos_renyi(4, 0.7, seed=j), row
+  engines erdos_renyi(5, 0.7, seed=10 + i), the same two schedules and
+  checks, with one launch of each grid kernel per outer iteration.
+* ``profile_fdot``, ``profile_bdot``: the profile of a T_o = 20 run of each.
 * ``sdot_sparse``: watts_strogatz(4096, k=6, p=0.1, seed=1) at MNIST width
   (d = 784, r = 5, 60,000 samples, 14 a node), T_o = 5, t_c = 20. The
   default engine must pick ELL gossip; the per-node estimates must agree
@@ -49,6 +61,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 GRAM_TOL = 1e-5               # f32 sums in another order, relative to |V|
+SLAB_TOL = 1e-5               # the same, relative to max |Z| or |V|
 ELL_TOL = 1e-6                # same (quantised) source both sides, rel. |out|
 SUBSPACE_TOL = 1e-4
 
@@ -74,19 +87,23 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one call, from CUDA events around each call."""
+def time_ms(fn, reps: int = 20, batches: int = 5, warmup: int = 3) -> float:
+    """Device time of one call: CUDA events around a batch of ``reps``
+    back-to-back calls, divided by ``reps`` (the host queues ahead of the
+    card, so the batch times the card and not each launch), median of
+    ``batches`` batches."""
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(batches):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -101,7 +118,8 @@ def ptxas_summary(text: str):
             if "registers" in ln or "spill" in ln]
 
 
-def profile_phase(run) -> dict:
+def profile_phase(run, phase: str = "profile",
+                  what: str = "sdot_dense S-DOT, T_o = 20, t_c = 50") -> dict:
     """Device time by kernel over one short run, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     run()                                             # warm
@@ -121,7 +139,7 @@ def profile_phase(run) -> dict:
             by_name[evt.key] = (dev_us / 1e3, evt.count)
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    return {"phase": "profile", "what": "sdot_dense S-DOT, T_o = 20, t_c = 50",
+    return {"phase": phase, "what": what,
             "wall_ms": wall_ms,
             "device_busy_ms": busy_ms if by_name else "not measured",
             "device_busy_share": busy_ms / wall_ms if by_name else
@@ -137,12 +155,15 @@ def main() -> None:
         sys.exit(2)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import topology
+    from repro_torch.core.bdot import bdot, pad_grid_blocks
     from repro_torch.core.consensus import (DenseConsensus, SparseConsensus,
                                             consensus_schedule)
+    from repro_torch.core.fdot import fdot, pad_feature_slabs
     from repro_torch.core.linalg import cholesky_qr2, orthonormal_init
     from repro_torch.core.metrics import subspace_error
     from repro_torch.core.sdot import _stack_data, sadot, sdot
     from repro_torch.data.pipeline import (gaussian_eigengap_data,
+                                           partition_features,
                                            partition_samples)
     from repro_torch.kernels import _build, ops, ref
 
@@ -170,6 +191,10 @@ def main() -> None:
     top_var = float(torch.linalg.eigvalsh(x64 @ x64.T / n_total)[-r:].sum())
     del x64, m
     graph = topology.erdos_renyi(n_nodes, 0.25, seed=1)
+    fslabs = partition_features(x, n_nodes)          # 19 x 51 rows + 1 x 55
+    g_rows, g_cols = 4, 5
+    grid = [partition_samples(sl, g_cols)
+            for sl in partition_features(x, g_rows)]  # (256, 10000) a node
 
     ds, rs, n_sp, n_sp_total, t_sp = 784, 5, 4096, 60_000, 5
     xs, _, _ = gaussian_eigengap_data(ds, n_sp_total, rs, 0.7, seed=0,
@@ -252,12 +277,62 @@ def main() -> None:
            None, ell_meta + f32 * 2 * z.numel() + 2 * z_bf16.numel(),
            ell_flops, ELL_TOL, "the same bf16-quantised source on both "
            "sides, so f32-tight; relative to max |out|")
+    del z, z_bf16, w_csr
+
+    # the slab kernels at F-DOT's shapes, the grid kernels at B-DOT's
+    x_pad = pad_feature_slabs(fslabs)                      # (20, 55, 50000)
+    q_pad = torch.randn((n_nodes, x_pad.shape[1], r), generator=gen,
+                        device=dev)
+    s_slab = torch.randn((n_nodes, n_total, r), generator=gen, device=dev)
+    record("batched_slab_tq", "src/repro_torch/kernels/csrc/slab_ops.cu",
+           "src/repro/kernels/slab_ops.py:60",
+           lambda: ops.batched_slab_tq(x_pad, q_pad),
+           lambda: ref.batched_slab_tq_ref(x_pad, q_pad),
+           lambda: torch.bmm(x_pad.mT, q_pad),
+           f32 * (x_pad.numel() + q_pad.numel() + n_nodes * n_total * r),
+           2.0 * x_pad.numel() * r, SLAB_TOL,
+           "f32 sums in another order than cuBLAS; relative to max |Z|")
+    record("batched_slab_apply", "src/repro_torch/kernels/csrc/slab_ops.cu",
+           "src/repro/kernels/slab_ops.py:109",
+           lambda: ops.batched_slab_apply(x_pad, s_slab),
+           lambda: ref.batched_slab_apply_ref(x_pad, s_slab),
+           lambda: torch.bmm(x_pad, s_slab),
+           f32 * (x_pad.numel() + s_slab.numel() + q_pad.numel()),
+           2.0 * x_pad.numel() * r, SLAB_TOL,
+           "f32 sums in another order than cuBLAS; relative to max |V|")
+    x_grid = pad_grid_blocks(grid)                         # (4, 5, 256, 10000)
+    n_blk = x_grid.shape[3]
+    q_grid = torch.randn((g_rows, x_grid.shape[2], r), generator=gen,
+                         device=dev)
+    s_grid = torch.randn((g_cols, n_blk, r), generator=gen, device=dev)
+    record("grid_block_tq", "src/repro_torch/kernels/csrc/slab_ops.cu",
+           "src/repro/kernels/slab_ops.py:148",
+           lambda: ops.grid_block_tq(x_grid, q_grid),
+           lambda: ref.grid_block_tq_ref(x_grid, q_grid),
+           lambda: torch.matmul(x_grid.mT, q_grid[:, None]),
+           f32 * (x_grid.numel() + q_grid.numel()
+                  + g_rows * g_cols * n_blk * r),
+           2.0 * x_grid.numel() * r, SLAB_TOL,
+           "f32 sums in another order than cuBLAS; relative to max |Z|")
+    record("grid_block_apply", "src/repro_torch/kernels/csrc/slab_ops.cu",
+           "src/repro/kernels/slab_ops.py:198",
+           lambda: ops.grid_block_apply(x_grid, s_grid),
+           lambda: ref.grid_block_apply_ref(x_grid, s_grid),
+           lambda: torch.matmul(x_grid, s_grid[None]),
+           f32 * (x_grid.numel() + s_grid.numel()
+                  + g_rows * g_cols * x_grid.shape[2] * r),
+           2.0 * x_grid.numel() * r, SLAB_TOL,
+           "f32 sums in another order than cuBLAS; relative to max |V|")
     emit({"phase": "kernels",
           "shapes": {"batched_gram_apply": list(x_stack.shape) + [r],
                      "gram_apply": list(x_one.shape) + [r],
-                     "ell_spmm": [n_sp, sw.ell_width, k_payload]},
+                     "ell_spmm": [n_sp, sw.ell_width, k_payload],
+                     "batched_slab_tq": list(x_pad.shape) + [r],
+                     "batched_slab_apply": list(x_pad.shape) + [r],
+                     "grid_block_tq": list(x_grid.shape) + [r],
+                     "grid_block_apply": list(x_grid.shape) + [r]},
           "kernels": list(rows.values())})
-    del z, z_bf16, w_csr
+    del x_pad, q_pad, s_slab, x_grid, q_grid, s_grid
 
     # -- sdot_dense: the main path at CIFAR-10 width -------------------------
     q_init = orthonormal_init(torch.Generator().manual_seed(0), d, r,
@@ -295,6 +370,8 @@ def main() -> None:
               f"{label}: ledger differs from the closed form")
         check(explained >= (1 - SUBSPACE_TOL) * top_var,
               f"{label}: explained variance {explained} < top-r {top_var}")
+        if label == "sdot_tc50":
+            q_sdot = q_mean
         runs[label] = {"wall_s": wall, "final_err": float(res.error_trace[-1]),
                        "err_at": {str(t): float(res.error_trace[t - 1])
                                   for t in (1, 10, 25, 50, 100)},
@@ -308,6 +385,111 @@ def main() -> None:
                                     q_init=q_init, q_true=q_true, device=dev,
                                     t_c=50)))
     del x_stack, q_stack
+
+    # -- fdot_dense / bdot_dense: the same X by features and by blocks -------
+    schedules = (("tc50", None),
+                 ("lin2_cap50", consensus_schedule("lin2", t_outer, cap=50)))
+    t_qr = 50
+
+    def summarise(res, wall, kernels, ledger_want):
+        q_full = res.q_full
+        return {"wall_s": wall, "final_err": float(res.error_trace[-1]),
+                "err_at": {str(t): float(res.error_trace[t - 1])
+                           for t in (1, 10, 25, 50, 100)},
+                "finite": bool(np.isfinite(res.error_trace).all()
+                               and res.error_trace.shape == (t_outer,)),
+                "orthonormality_err": float((
+                    q_full.T @ q_full - torch.eye(r, device=dev)).abs().max()),
+                "subspace_err_vs_sdot": float(subspace_error(q_sdot, q_full)),
+                "ledger": [res.ledger.p2p, res.ledger.matrices,
+                           res.ledger.scalars, res.ledger.payload_bytes],
+                "ledger_closed_form": list(ledger_want),
+                "launches": {k: ops.LAUNCHES[k] for k in kernels}}
+
+    def verify(phase, runs):
+        """Checks of a phase's runs, made after its line is printed."""
+        for label, run in runs.items():
+            where = f"{phase} {label}"
+            check(run["finite"], f"{where}: bad trace")
+            check(run["final_err"] <= SUBSPACE_TOL,
+                  f"{where}: final error {run['final_err']} > {SUBSPACE_TOL}")
+            check(run["orthonormality_err"] <= 1e-5, f"{where}: q_full off "
+                  f"orthonormal by {run['orthonormality_err']}")
+            for name, count in run["launches"].items():
+                check(count == t_outer, f"{where}: {count} {name} launches, "
+                      f"expected {t_outer}")
+                rows[name]["launches"] += count
+            check(run["ledger"] == run["ledger_closed_form"],
+                  f"{where}: ledger differs from the closed form")
+            check(run["subspace_err_vs_sdot"] <= SUBSPACE_TOL,
+                  f"{where}: subspace error {run['subspace_err_vs_sdot']} "
+                  "against S-DOT's estimate")
+
+    def closed_form(terms):
+        """(p2p, matrices, scalars, payload_bytes) of gossip terms
+        (adjacency, rounds, payload elements), f32 payloads."""
+        p2p = scalars = 0.0
+        for adj, rounds, payload in terms:
+            sends = float(adj.sum()) * float(rounds)
+            p2p += sends
+            scalars += sends * payload
+        return [p2p, p2p, scalars, scalars * 4]
+
+    fdot_runs = {}
+    for label, sched in schedules:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fdot(data_blocks=fslabs, engine=eng, r=r, t_outer=t_outer,
+                   t_c=50, t_c_qr=t_qr, schedule=sched, q_init=q_init,
+                   q_true=q_true, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rounds = sched.sum() if sched is not None else 50 * t_outer
+        want = closed_form([(graph.adjacency, rounds, n_total * r),
+                            (graph.adjacency, 2 * t_qr * t_outer, r * r)])
+        fdot_runs[label] = summarise(
+            res, wall, ("batched_slab_tq", "batched_slab_apply"), want)
+    emit({"phase": "fdot_dense", "d": d, "r": r, "nodes": n_nodes,
+          "slab_rows": sorted({int(b.shape[0]) for b in fslabs}),
+          "samples": n_total, "t_outer": t_outer, "runs": fdot_runs})
+    verify("fdot_dense", fdot_runs)
+    emit(profile_phase(
+        lambda: fdot(data_blocks=fslabs, engine=eng, r=r, t_outer=20,
+                     t_c=50, q_init=q_init, q_true=q_true, device=dev),
+        "profile_fdot", "fdot_dense F-DOT, T_o = 20, t_c = t_c_qr = 50"))
+
+    col_engs = [DenseConsensus(topology.erdos_renyi(g_rows, 0.7, seed=j),
+                               device=dev) for j in range(g_cols)]
+    row_engs = [DenseConsensus(topology.erdos_renyi(g_cols, 0.7, seed=10 + i),
+                               device=dev) for i in range(g_rows)]
+    d_i, n_j = grid[0][0].shape
+    bdot_runs = {}
+    for label, sched in schedules:
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = bdot(blocks=grid, col_engines=col_engs, row_engines=row_engs,
+                   r=r, t_outer=t_outer, t_c=50, t_c_qr=t_qr, schedule=sched,
+                   q_init=q_init, q_true=q_true, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rounds = sched.sum() if sched is not None else 50 * t_outer
+        want = closed_form(
+            [(e.graph.adjacency, rounds, n_j * r) for e in col_engs]
+            + [(e.graph.adjacency, rounds, d_i * r) for e in row_engs]
+            + [(col_engs[0].graph.adjacency, 2 * t_qr * t_outer, r * r)])
+        bdot_runs[label] = summarise(
+            res, wall, ("grid_block_tq", "grid_block_apply"), want)
+    emit({"phase": "bdot_dense", "d": d, "r": r, "grid": [g_rows, g_cols],
+          "block": [int(d_i), int(n_j)], "t_outer": t_outer,
+          "runs": bdot_runs})
+    verify("bdot_dense", bdot_runs)
+    emit(profile_phase(
+        lambda: bdot(blocks=grid, col_engines=col_engs, row_engines=row_engs,
+                     r=r, t_outer=20, t_c=50, q_init=q_init, q_true=q_true,
+                     device=dev),
+        "profile_bdot", "bdot_dense B-DOT 4 x 5, T_o = 20, t_c = t_c_qr = 50"))
 
     # -- sdot_sparse: the large-network path ----------------------------------
     q_init_sp = orthonormal_init(torch.Generator().manual_seed(1), ds, rs,
@@ -367,8 +549,7 @@ def main() -> None:
           "bf16_vs_f32_max_node_err": float(
               subspace_error(sparse_res.q_nodes, bf_res.q_nodes).max())})
 
-    for name in ("batched_gram_apply", "gram_apply", "ell_spmm",
-                 "ell_spmm_bf16"):
+    for name in rows:
         check(rows[name]["launches"] > 0,
               f"{name} was not launched on the main path")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -23,6 +23,7 @@ from .topology import Graph, local_degree_weights
 __all__ = [
     "DenseConsensus",
     "SparseConsensus",
+    "check_sync_engine",
     "consensus_schedule",
     "debias_weights",
     "debias_table",
@@ -32,6 +33,14 @@ __all__ = [
     "realized_round_weights",
     "safe_debias_scale",
 ]
+
+
+def check_sync_engine(engine) -> None:
+    """The port's algorithms take synchronous engines only so far."""
+    if hasattr(engine, "sample_awake") or hasattr(engine, "sample_faults"):
+        raise NotImplementedError(
+            "asynchronous and network-fault gossip engines come with the "
+            "straggler/fault-gossip slice of the port")
 
 
 def realized_round_weights(wz: torch.Tensor, mask: torch.Tensor,
@@ -61,9 +70,17 @@ def safe_debias_scale(p: torch.Tensor) -> torch.Tensor:
 def gossip_mix(wz, z: torch.Tensor) -> torch.Tensor:
     """One gossip application ``out_i = sum_j w_ij z_j``: the seam between
     dense mixing (``wz`` an (N, N) tensor, a plain matmul) and sparse
-    mixing (``wz`` a ``SparseW``, the ELL kernel)."""
+    mixing (``wz`` a ``SparseW``, the ELL kernel).
+
+    A (B, N, N) ``wz`` is a stack of B sub-networks (B-DOT's grid columns
+    or rows) mixing z: (B, N, ...) in one batched matmul; it stands in for
+    the reference's ``jax.vmap`` over engines.
+    """
     if isinstance(wz, SparseW):
         return wz.mix(z)
+    if wz.dim() == 3:
+        b, n = z.shape[:2]
+        return torch.bmm(wz, z.reshape(b, n, -1)).reshape(z.shape)
     n = z.shape[0]
     return (wz @ z.reshape(n, -1)).reshape(z.shape)
 
@@ -111,10 +128,16 @@ def debias_table(w, t_max: int) -> torch.Tensor:
 def debiased_gossip(w, table: torch.Tensor, z_stack: torch.Tensor,
                     t_c: int, t_max: int) -> torch.Tensor:
     """masked_gossip + debias by the table row ``t_c``: the fused
-    executor's inner step (no host sync)."""
+    executor's inner step (no host sync).
+
+    Batched form: ``w`` (B, N, N), ``table`` (B, t_max + 1, N) and
+    ``z_stack`` (B, N, ...) run all B sub-networks at once, one batched
+    matmul per round, each debiased by its own table's row ``t_c``.
+    """
     out = masked_gossip(w, z_stack, t_c, t_max)
-    bshape = (-1,) + (1,) * (z_stack.dim() - 1)
-    return out / table[int(t_c)].to(out.dtype).reshape(bshape)
+    row = table[..., int(t_c), :]                          # (N,) or (B, N)
+    bshape = row.shape + (1,) * (z_stack.dim() - row.dim())
+    return out / row.to(out.dtype).reshape(bshape)
 
 
 def debias_weights(w: np.ndarray, t_c: int) -> np.ndarray:

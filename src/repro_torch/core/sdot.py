@@ -30,7 +30,8 @@ import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
 from ..kernels import ops as kops
-from .consensus import DenseConsensus, consensus_schedule
+from .consensus import (DenseConsensus, check_sync_engine,
+                        consensus_schedule)
 from .linalg import cholesky_qr2, orthonormal_init
 from .metrics import CommLedger, subspace_error_from_cross
 
@@ -79,10 +80,7 @@ def _apply_operand(operand, mode: str, q_nodes: torch.Tensor) -> torch.Tensor:
 def _prepare_sdot(*, covs, data, engine, r, t_outer, schedule, t_c, q_init,
                   q_true, generator, device):
     """Validate and normalise a run's inputs into device-ready pieces."""
-    if hasattr(engine, "sample_awake") or hasattr(engine, "sample_faults"):
-        raise NotImplementedError(
-            "asynchronous and network-fault gossip engines come with the "
-            "straggler/fault-gossip slice of the port")
+    check_sync_engine(engine)
     if (covs is None) == (data is None):
         raise ValueError("provide exactly one of covs / data")
     dev = resolve_device(device)

@@ -1,11 +1,13 @@
 """Carry a reference run's state across as NumPy arrays.
 
-The JAX package's state for an S-DOT run is a handful of arrays: the
-graph's adjacency and weights, the data blocks or the covariance stack,
-``q_init`` and ``q_true``, and for a sparse engine the ELL arrays
-(``ell_idx``, ``ell_val``, ``diag``, ``row_nnz``). A caller extracts them
-with ``np.asarray(...)`` and hands them here, so both packages compute from
-the same values. This module imports nothing of the JAX package.
+The JAX package's state for an S-DOT, F-DOT or B-DOT run is a handful of
+arrays: the graph's adjacency and weights (one graph per grid column and
+per grid row for B-DOT), the data blocks, feature slabs, grid blocks or
+the covariance stack, ``q_init`` and ``q_true``, and for a sparse engine
+the ELL arrays (``ell_idx``, ``ell_val``, ``diag``, ``row_nnz``). A caller
+extracts them with ``np.asarray(...)`` and hands them here, so both
+packages compute from the same values. This module imports nothing of the
+JAX package.
 """
 from __future__ import annotations
 
@@ -36,18 +38,31 @@ def from_reference_arrays(arrays: Dict[str, np.ndarray],
     ``ell_val``, ``diag``, ``row_nnz`` -> ``sparse_w`` (a ``SparseW``, which
     a sparse engine then mixes through); ``covs``, ``q_init``, ``q_true``,
     ``x`` -> float32 tensors; ``blocks`` (a list) -> ``data``, a list of
-    float32 tensors. Integer arrays become int32, as the reference holds
-    them.
+    float32 tensors; ``slabs`` (a list of (d_i, n) feature slabs) ->
+    ``data_blocks``; ``grid`` (a list of lists of (d_i, n_j) blocks) ->
+    ``blocks``; ``col_adjacency`` / ``row_adjacency`` (lists of adjacency
+    matrices) -> ``col_engines`` / ``row_engines``, a ``DenseConsensus``
+    each with the reference's default local-degree weights. Integer arrays
+    become int32, as the reference holds them.
     """
     dev = resolve_device(device)
-    out: dict = {}
-    for key in _TENSORS:
-        if key in arrays:
-            out[key] = torch.as_tensor(np.array(arrays[key], np.float32),
-                                       device=dev)
+
+    def f32(a):
+        return torch.as_tensor(np.array(a, np.float32), device=dev)
+
+    out: dict = {key: f32(arrays[key]) for key in _TENSORS if key in arrays}
     if "blocks" in arrays:
-        out["data"] = [torch.as_tensor(np.array(b, np.float32), device=dev)
-                       for b in arrays["blocks"]]
+        out["data"] = [f32(b) for b in arrays["blocks"]]
+    if "slabs" in arrays:
+        out["data_blocks"] = [f32(b) for b in arrays["slabs"]]
+    if "grid" in arrays:
+        out["blocks"] = [[f32(b) for b in row] for row in arrays["grid"]]
+    for key, name in (("col_adjacency", "col_engines"),
+                      ("row_adjacency", "row_engines")):
+        if key in arrays:
+            out[name] = [DenseConsensus(
+                Graph(np.asarray(a, np.float64)), sparse=sparse,
+                payload_dtype=payload_dtype, device=dev) for a in arrays[key]]
     if all(k in arrays for k in _ELL):
         idx = np.asarray(arrays["ell_idx"], np.int32)
         out["sparse_w"] = SparseW(

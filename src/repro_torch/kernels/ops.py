@@ -22,10 +22,13 @@ import torch
 from . import ref
 
 __all__ = ["LAUNCHES", "reset_launches", "on_gpu", "gram_apply",
-           "batched_gram_apply", "ell_spmm", "ell_spmm_path",
+           "batched_gram_apply", "batched_slab_tq", "batched_slab_apply",
+           "grid_block_tq", "grid_block_apply", "ell_spmm", "ell_spmm_path",
            "ell_densify_wins"]
 
 LAUNCHES: Dict[str, int] = {"gram_apply": 0, "batched_gram_apply": 0,
+                            "batched_slab_tq": 0, "batched_slab_apply": 0,
+                            "grid_block_tq": 0, "grid_block_apply": 0,
                             "ell_spmm": 0}
 
 
@@ -65,6 +68,69 @@ def batched_gram_apply(x_stack: torch.Tensor, q_stack: torch.Tensor,
     v = batched_gram_apply_cuda(x_stack, q_stack.contiguous(), n_true)
     LAUNCHES["batched_gram_apply"] += 1
     return v
+
+
+def batched_slab_tq(x_stack: torch.Tensor,
+                    q_stack: torch.Tensor) -> torch.Tensor:
+    """Z[i] = X_i^T Q_i — F-DOT step 1 for all nodes at once.
+
+    x_stack: (N, d_max, n) zero-padded feature slabs, q_stack: (N, d_max, r)
+    zero-row-padded iterates -> (N, n, r).
+    """
+    if not x_stack.is_cuda:
+        return ref.batched_slab_tq_ref(x_stack, q_stack)
+    from .slab_ops import slab_tq_cuda
+    z = slab_tq_cuda(x_stack, q_stack.contiguous(), 1)
+    LAUNCHES["batched_slab_tq"] += 1
+    return z
+
+
+def batched_slab_apply(x_stack: torch.Tensor,
+                       s_stack: torch.Tensor) -> torch.Tensor:
+    """V[i] = X_i S_i — F-DOT step 3 for all nodes at once.
+
+    x_stack: (N, d_max, n), s_stack: (N, n, r) debiased consensus sums
+    -> (N, d_max, r): the grid (I, J) = (1, N) of the apply kernel.
+    """
+    if not x_stack.is_cuda:
+        return ref.batched_slab_apply_ref(x_stack, s_stack)
+    from .slab_ops import slab_apply_cuda
+    v = slab_apply_cuda(x_stack, s_stack.contiguous(), x_stack.shape[0])
+    LAUNCHES["batched_slab_apply"] += 1
+    return v
+
+
+def grid_block_tq(x_grid: torch.Tensor, q_stack: torch.Tensor) -> torch.Tensor:
+    """Z[i, j] = X_ij^T Q_i — B-DOT stage 1 for the whole grid.
+
+    x_grid: (I, J, d_max, n_max) zero-padded blocks, q_stack: (I, d_max, r)
+    row iterates -> (I, J, n_max, r).
+    """
+    if not x_grid.is_cuda:
+        return ref.grid_block_tq_ref(x_grid, q_stack)
+    from .slab_ops import slab_tq_cuda
+    i_rows, j_cols, d, n = x_grid.shape
+    z = slab_tq_cuda(x_grid.reshape(i_rows * j_cols, d, n),
+                     q_stack.contiguous(), j_cols)
+    LAUNCHES["grid_block_tq"] += 1
+    return z.reshape(i_rows, j_cols, n, q_stack.shape[-1])
+
+
+def grid_block_apply(x_grid: torch.Tensor,
+                     s_stack: torch.Tensor) -> torch.Tensor:
+    """V[i, j] = X_ij S_j — B-DOT stage 2 for the whole grid.
+
+    x_grid: (I, J, d_max, n_max), s_stack: (J, n_max, r) per-column sums
+    -> (I, J, d_max, r).
+    """
+    if not x_grid.is_cuda:
+        return ref.grid_block_apply_ref(x_grid, s_stack)
+    from .slab_ops import slab_apply_cuda
+    i_rows, j_cols, d, n = x_grid.shape
+    v = slab_apply_cuda(x_grid.reshape(i_rows * j_cols, d, n),
+                        s_stack.contiguous(), j_cols)
+    LAUNCHES["grid_block_apply"] += 1
+    return v.reshape(i_rows, j_cols, d, s_stack.shape[-1])
 
 
 # Above this many gathered message elements (N * L * K) the one-shot

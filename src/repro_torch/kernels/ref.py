@@ -11,7 +11,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["gram_apply_ref", "batched_gram_apply_ref", "ell_spmm_ref",
-           "ell_spmm_dense_ref", "ell_spmm_scan_ref"]
+           "ell_spmm_dense_ref", "ell_spmm_scan_ref", "batched_slab_tq_ref",
+           "batched_slab_apply_ref", "grid_block_tq_ref",
+           "grid_block_apply_ref"]
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -41,6 +43,55 @@ def batched_gram_apply_ref(x_stack: torch.Tensor, q_stack: torch.Tensor,
     v = xa @ (xa.mT @ q_stack.to(acc))
     v = v / n_true.to(acc)[:, None, None]
     return v.to(q_stack.dtype)
+
+
+def batched_slab_tq_ref(x_stack: torch.Tensor,
+                        q_stack: torch.Tensor) -> torch.Tensor:
+    """Z[i] = X_i^T Q_i over stacked feature slabs (F-DOT Alg. 2, step 1).
+
+    x_stack: (N, d_max, n) zero-padded slabs, q_stack: (N, d_max, r) iterates
+    padded with zero rows to match -> (N, n, r). The padded rows are null in
+    both operands, so they add nothing.
+    """
+    acc = _acc(x_stack.dtype)
+    return torch.einsum("idn,idr->inr", x_stack.to(acc),
+                        q_stack.to(acc)).to(q_stack.dtype)
+
+
+def batched_slab_apply_ref(x_stack: torch.Tensor,
+                           s_stack: torch.Tensor) -> torch.Tensor:
+    """V[i] = X_i S_i over stacked feature slabs (F-DOT Alg. 2, step 3).
+
+    x_stack: (N, d_max, n), s_stack: (N, n, r) -> (N, d_max, r). Padded rows
+    of X give zero rows of V.
+    """
+    acc = _acc(x_stack.dtype)
+    return torch.einsum("idn,inr->idr", x_stack.to(acc),
+                        s_stack.to(acc)).to(s_stack.dtype)
+
+
+def grid_block_tq_ref(x_grid: torch.Tensor,
+                      q_stack: torch.Tensor) -> torch.Tensor:
+    """Z[i, j] = X_ij^T Q_i over an I x J grid of blocks (B-DOT stage 1).
+
+    x_grid: (I, J, d_max, n_max) zero-padded blocks, q_stack: (I, d_max, r)
+    row iterates -> (I, J, n_max, r). Q is indexed by the grid row.
+    """
+    acc = _acc(x_grid.dtype)
+    return torch.einsum("ijdn,idr->ijnr", x_grid.to(acc),
+                        q_stack.to(acc)).to(q_stack.dtype)
+
+
+def grid_block_apply_ref(x_grid: torch.Tensor,
+                         s_stack: torch.Tensor) -> torch.Tensor:
+    """V[i, j] = X_ij S_j over an I x J grid of blocks (B-DOT stage 2).
+
+    x_grid: (I, J, d_max, n_max), s_stack: (J, n_max, r) per-column sums
+    -> (I, J, d_max, r). S is indexed by the grid column.
+    """
+    acc = _acc(x_grid.dtype)
+    return torch.einsum("ijdn,jnr->ijdr", x_grid.to(acc),
+                        s_stack.to(acc)).to(s_stack.dtype)
 
 
 def _diag_term(diag: torch.Tensor, z_own: torch.Tensor) -> torch.Tensor:

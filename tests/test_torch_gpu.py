@@ -1,5 +1,5 @@
 """The port's Hopper kernels on the card: each against its plain version,
-and S-DOT on the card against the same run on the CPU.
+and S-DOT, F-DOT and B-DOT on the card against the same runs on the CPU.
 
 Every test here needs an NVIDIA H100 with nvcc and skips elsewhere. This
 file imports neither JAX nor the reference package, so it runs on a machine
@@ -14,11 +14,14 @@ import pytest
 import torch
 
 from repro_torch.core import topology
-from repro_torch.core.consensus import DenseConsensus
+from repro_torch.core.bdot import bdot
+from repro_torch.core.consensus import DenseConsensus, consensus_schedule
+from repro_torch.core.fdot import fdot
 from repro_torch.core.linalg import orthonormal_init
 from repro_torch.core.sdot import sdot
 from repro_torch.core.sparse import SparseW
-from repro_torch.data.pipeline import gaussian_eigengap_data, partition_samples
+from repro_torch.data.pipeline import (gaussian_eigengap_data,
+                                       partition_features, partition_samples)
 from repro_torch.kernels import ops, ref
 
 pytestmark = pytest.mark.gpu
@@ -150,3 +153,150 @@ def test_fused_sdot_loop_never_waits_for_the_device(cuda_device, sparse):
     with no_host_sync():
         res = sdot(**kw)
     assert torch.equal(res.q_nodes, warm.q_nodes)
+
+
+# ---------------------------------------------------------------------------
+# slab and grid kernels (F-DOT / B-DOT)
+# ---------------------------------------------------------------------------
+SLAB_TOL = 1e-5      # f32 sums in another order than cuBLAS, rel. to max |out|
+
+
+def _close(got, want):
+    return float((got - want).abs().max()) <= SLAB_TOL * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("grid,d,n,r", [((20, 1), 55, 50_000, 7),
+                                        ((4, 5), 256, 10_000, 7),
+                                        ((3, 2), 37, 700, 5),
+                                        ((1, 3), 1300, 33, 20),
+                                        ((2, 2), 5, 257, 64),
+                                        ((1, 1), 1, 1, 1)])
+def test_slab_and_grid_kernels_match_plain(cuda_device, grid, d, n, r):
+    """Aligned and ragged shapes: n not a multiple of the 256-column tile,
+    d and r not multiples of 4, a tall d staged in Q chunks (1300 rows at
+    r = 20), r at the instantiated maximum. Each wrapper counts one launch
+    per call, and a second launch gives the same bits."""
+    i_rows, j_cols = grid
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((i_rows, j_cols, d, n), generator=gen, device=cuda_device)
+    q = torch.randn((i_rows, d, r), generator=gen, device=cuda_device)
+    s = torch.randn((j_cols, n, r), generator=gen, device=cuda_device)
+    cases = [("grid_block_tq", lambda: ops.grid_block_tq(x, q),
+              lambda: ref.grid_block_tq_ref(x, q)),
+             ("grid_block_apply", lambda: ops.grid_block_apply(x, s),
+              lambda: ref.grid_block_apply_ref(x, s))]
+    if j_cols == 1:
+        xs, qs = x[:, 0], q
+        cases.append(("batched_slab_tq", lambda: ops.batched_slab_tq(xs, qs),
+                      lambda: ref.batched_slab_tq_ref(xs, qs)))
+    if i_rows == 1:
+        xa = x[0]
+        cases.append(("batched_slab_apply",
+                      lambda: ops.batched_slab_apply(xa, s),
+                      lambda: ref.batched_slab_apply_ref(xa, s)))
+    for name, kernel, plain in cases:
+        before = ops.LAUNCHES[name]
+        got = kernel()
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES[name] == before + 1, name
+        assert bool(torch.isfinite(got).all()), name
+        assert _close(got, plain()), name
+        with no_host_sync():
+            again = kernel()
+        assert torch.equal(got, again), name    # no atomics, fixed order
+
+
+def test_grid_kernels_keep_zero_padding_exact(cuda_device):
+    """Padded feature rows and sample columns (the B-DOT invariants) come out
+    exactly zero, and the real part equals the unpadded product."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((2, 2, 6, 600), generator=gen, device=cuda_device)
+    q = torch.randn((2, 6, 3), generator=gen, device=cuda_device)
+    s = torch.randn((2, 600, 3), generator=gen, device=cuda_device)
+    x[1, :, 4:] = 0.0
+    q[1, 4:] = 0.0
+    x[:, 1, :, 400:] = 0.0
+    s[1, 400:] = 0.0
+    z = ops.grid_block_tq(x, q)
+    v = ops.grid_block_apply(x, s)
+    assert torch.count_nonzero(z[:, 1, 400:]) == 0
+    assert torch.count_nonzero(v[1, :, 4:]) == 0
+    want = ref.grid_block_tq_ref(x[1:, 1:, :4, :400].contiguous(),
+                                 q[1:, :4].contiguous())
+    assert _close(z[1, 1, :400], want[0, 0])
+
+
+def test_slab_wrappers_raise_instead_of_falling_back(cuda_device):
+    x = torch.randn((2, 8, 16), device=cuda_device)
+    q = torch.randn((2, 8, 3), device=cuda_device)
+    with pytest.raises(ValueError):
+        ops.batched_slab_tq(x.double(), q.double())
+    with pytest.raises(ValueError):
+        ops.batched_slab_apply(x, torch.randn((2, 16, 65), device=cuda_device))
+    with pytest.raises(ValueError):
+        ops.grid_block_apply(x[None], torch.randn((3, 16, 4),
+                                                  device=cuda_device))
+
+
+def _fdot_problem(dev):
+    d, r, n_nodes = 24, 4, 7
+    x, _, _ = gaussian_eigengap_data(d, 3000, r, 0.7, seed=0, device=dev)
+    q_true = torch.linalg.eigh(x @ x.T)[1][:, -r:]
+    q0 = orthonormal_init(torch.Generator().manual_seed(0), d, r, device=dev)
+    eng = DenseConsensus(topology.erdos_renyi(n_nodes, 0.6, seed=2),
+                         device=dev)
+    return dict(data_blocks=partition_features(x, n_nodes), engine=eng, r=r,
+                q_init=q0, q_true=q_true, device=dev)
+
+
+def _bdot_problem(dev):
+    d, r, i_rows, j_cols = 25, 4, 3, 2
+    x, _, _ = gaussian_eigengap_data(d, 3000, r, 0.6, seed=0, device=dev)
+    q_true = torch.linalg.eigh(x @ x.T)[1][:, -r:]
+    q0 = orthonormal_init(torch.Generator().manual_seed(0), d, r, device=dev)
+    sizes = [1600, 1400]                  # ragged n_j and (25 / 3) ragged d_i
+    blocks = [list(torch.split(sl, sizes, dim=1))
+              for sl in partition_features(x, i_rows)]
+    cols = [DenseConsensus(topology.erdos_renyi(i_rows, 0.7, seed=j),
+                           device=dev) for j in range(j_cols)]
+    rows = [DenseConsensus(topology.ring(j_cols), device=dev)
+            for _ in range(i_rows)]
+    return dict(blocks=blocks, col_engines=cols, row_engines=rows, r=r,
+                q_init=q0, q_true=q_true, device=dev)
+
+
+@pytest.mark.parametrize("algo", ["fdot", "bdot"])
+def test_fused_fdot_bdot_on_card_match_cpu(cuda_device, algo):
+    """The fused runs through the slab/grid kernels on the card against the
+    same runs on the CPU (plain versions): traces within 1e-5."""
+    run, problem = ((fdot, _fdot_problem) if algo == "fdot"
+                    else (bdot, _bdot_problem))
+    launches = {"fdot": ("batched_slab_tq", "batched_slab_apply"),
+                "bdot": ("grid_block_tq", "grid_block_apply")}[algo]
+    sched = consensus_schedule("lin2", 15, cap=40)
+    traces = {}
+    for dev in ("cpu", "cuda"):
+        ops.reset_launches()
+        res = run(t_outer=15, schedule=sched, t_c_qr=40, **problem(dev))
+        traces[dev] = res.error_trace
+        q = res.q_full
+        eye = torch.eye(4, device=q.device)
+        assert float((q.T @ q - eye).abs().max()) < 1e-5
+    assert all(ops.LAUNCHES[k] == 15 for k in launches)
+    np.testing.assert_allclose(traces["cuda"], traces["cpu"], rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("algo", ["fdot", "bdot"])
+def test_fused_fdot_bdot_loops_never_wait_for_the_device(cuda_device, algo):
+    """No host sync inside the fused loops: debias by a device-table row,
+    cholesky_ex and a batched triangular solve (q_true is None, so the
+    error trace's SVDs do not run)."""
+    run, problem = ((fdot, _fdot_problem) if algo == "fdot"
+                    else (bdot, _bdot_problem))
+    kw = dict(problem(cuda_device), q_true=None, t_outer=4, t_c=6)
+    warm = run(**kw)                       # builds the kernels and the tables
+    with no_host_sync():
+        res = run(**kw)
+    assert torch.equal(res.q_full, warm.q_full)
