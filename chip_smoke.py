@@ -38,6 +38,28 @@ Phases, one JSON line each:
   default engine must pick ELL gossip; the per-node estimates must agree
   with the dense matmul engine; a bf16-payload run must be finite and
   priced at 2 bytes per element.
+* ``lm_setup``: frees the PSA phases' tensors and puts qwen2-7b (28 layers,
+  d_model 3584, 28 / 4 heads, d_ff 18944, vocabulary 152,064; random
+  weights from torch.Generator seed 0 at the reference's init scales) on the
+  card in bf16.
+* ``lm_prefill``: ``forward`` over make_lm_batch(seed 0) of 4 x 2048 tokens
+  through the flash-attention kernel: wall time, prefill tokens/s, peak
+  memory, and exactly 28 kernel launches. Then the same forward with plain
+  ``blockwise_attention``: the logits' RMS difference relative to their RMS
+  must stay within LOGITS_TOL (max abs difference and top-1 agreement
+  reported beside it). Two control forwards with a faulty attention in
+  place of the kernel (q k^T rounded to bf16 before the softmax; the kernel
+  with its last 64 keys masked) must land outside LOGITS_TOL. Per layer:
+  the kernel against the plain version on the q, k, v of each of the 28
+  layers must stay within the kernel's bf16 limits, and each faulty
+  control must leave them at some layer.
+* ``profile_lm``: device time by kernel over one prefill, grouped into the
+  flash kernel, the GEMMs and the rest, and the device's busy share.
+* ``lm_decode``: teacher-forced ``decode_step`` over the first 64 tokens of
+  each sequence against ``forward`` of those 64 tokens (the kernel below one
+  tile), within DECODE_TOL; then 32 greedy tokens: decode tokens/s and the
+  KV cache's bytes.
+* ``profile_decode``: the same profile over 8 decode steps.
 
 Launch counts are set to 0 just before each phase of the main path and read
 just after it; launches made to compare or time a kernel do not count.
@@ -48,6 +70,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -60,10 +83,38 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_TC_FLOP_PER_S = 989e12   # H100 SXM bf16 on the tensor cores, dense
 GRAM_TOL = 1e-5               # f32 sums in another order, relative to |V|
 SLAB_TOL = 1e-5               # the same, relative to max |Z| or |V|
 ELL_TOL = 1e-6                # same (quantised) source both sides, rel. |out|
 SUBSPACE_TOL = 1e-4
+# flash attention against its plain version. bf16: both sides round an f32
+# result to bf16 once, so a pair on either side of a rounding boundary lands
+# one ulp apart: at most 2^-7 of that element, hence of the largest |out| in
+# its own row (a row that averages n keys has |out| ~ n^-1/2, so a limit
+# scaled by the whole tensor's max would pass a fault in the long rows).
+# Only pairs whose f32 values straddle a boundary differ at all, so the
+# RMS of the difference stays far below half an ulp (2^-8) of the RMS of
+# the output; a fault that moves whole rows does not. f32: sums in another
+# order, relative to max |out|, as for the others.
+ATTN_BF16_TOL = 2.0 ** -7
+ATTN_BF16_RMS_TOL = 2.0 ** -8
+ATTN_F32_TOL = 1e-5
+# qwen2-7b's logits, kernel against plain blockwise attention, RMS of the
+# difference over RMS of the logits. A one-ulp difference in one layer's
+# attention sets off bf16 rounding flips in every later GEMM and norm, so
+# no closed form bounds this. The limit sits between readings on the card
+# (NVIDIA H100 80GB HBM3, 700.00 W; the runs repeat to the last digit): the
+# sound kernel's 0.01655 and the nearer faulty control's 0.01984 (q k^T
+# rounded to bf16), at their geometric mean, 1.096x from each. lm_prefill
+# runs both controls every time and fails if either passes. The sharper
+# check is per layer: the kernel against the plain version on the same
+# q, k, v of each of the 28 layers, held to the ATTN_BF16 limits.
+LOGITS_TOL = (0.01655 * 0.01984) ** 0.5
+# teacher-forced decode against prefill: every GEMM and the attention sum in
+# another order, so each op's bf16 rounding may differ; the reference's own
+# decode-vs-prefill test allows 5e-2.
+DECODE_TOL = 5e-2
 
 
 def emit(obj) -> None:
@@ -87,6 +138,50 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def max_rel_judge(tol: float):
+    """max |got - want| within ``tol`` of max |want| (f32 tensors)."""
+    def judge(name, got, want):
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(err <= tol * scale, f"{name}: max abs err {err} > {tol} x {scale}")
+        return {"max_abs_err": err, "rel_err": err / scale}
+    return judge
+
+
+def attn_stats(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Flash attention's bf16 output against its plain version, (..., rows,
+    hd): the max abs error, the largest error over its own row's max |want|
+    (``row_rel_err``) and the relative RMS error."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    row_err = diff.amax(-1)
+    return {"max_abs_err": float(row_err.max()),
+            "row_rel_err": float(torch.where(
+                row_err == 0, 0.0, row_err / want.abs().amax(-1)).max()),
+            "rel_rms": float(diff.square().sum().sqrt()
+                             / want.square().sum().sqrt())}
+
+
+def attn_within(stats: dict) -> bool:
+    return (stats["row_rel_err"] <= ATTN_BF16_TOL
+            and stats["rel_rms"] <= ATTN_BF16_RMS_TOL)
+
+
+def attn_judge(dtype: torch.dtype):
+    """Flash attention against its plain version: bf16 by row
+    (ATTN_BF16_TOL) and by RMS (ATTN_BF16_RMS_TOL), f32 by max |out|
+    (ATTN_F32_TOL)."""
+    if dtype != torch.bfloat16:
+        return max_rel_judge(ATTN_F32_TOL)
+
+    def judge(name, got, want):
+        stats = attn_stats(got, want)
+        check(attn_within(stats), f"{name}: {stats} outside {ATTN_BF16_TOL} "
+              f"of a row's max |out| or {ATTN_BF16_RMS_TOL} relative RMS")
+        return {**stats, "rms_tolerance": ATTN_BF16_RMS_TOL}
+    return judge
+
+
 def time_ms(fn, reps: int = 20, batches: int = 5, warmup: int = 3) -> float:
     """Device time of one call: CUDA events around a batch of ``reps``
     back-to-back calls, divided by ``reps`` (the host queues ahead of the
@@ -107,9 +202,9 @@ def time_ms(fn, reps: int = 20, batches: int = 5, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -119,8 +214,13 @@ def ptxas_summary(text: str):
 
 
 def profile_phase(run, phase: str = "profile",
-                  what: str = "sdot_dense S-DOT, T_o = 20, t_c = 50") -> dict:
-    """Device time by kernel over one short run, from torch.profiler."""
+                  what: str = "sdot_dense S-DOT, T_o = 20, t_c = 50",
+                  groups=None) -> dict:
+    """Device time by kernel over one short run, from torch.profiler.
+
+    ``groups`` maps a label to name fragments: each kernel's time goes to
+    the first label one of whose fragments its name holds, else to "rest".
+    """
     from torch.profiler import ProfilerActivity, profile
     run()                                             # warm
     torch.cuda.synchronize()
@@ -139,7 +239,18 @@ def profile_phase(run, phase: str = "profile",
             by_name[evt.key] = (dev_us / 1e3, evt.count)
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    return {"phase": phase, "what": what,
+    grouped = {}
+    if groups:
+        grouped = {label: {"ms": 0.0, "calls": 0} for label in [*groups,
+                                                                 "rest"]}
+        for name, (ms, calls) in by_name.items():
+            label = next((lb for lb, frags in groups.items()
+                          if any(f in name.lower() for f in frags)), "rest")
+            grouped[label]["ms"] += ms
+            grouped[label]["calls"] += calls
+        for g in grouped.values():
+            g["share_of_busy"] = g["ms"] / busy_ms if busy_ms else None
+    return {"phase": phase, "what": what, "groups": grouped or None,
             "wall_ms": wall_ms,
             "device_busy_ms": busy_ms if by_name else "not measured",
             "device_busy_share": busy_ms / wall_ms if by_name else
@@ -165,7 +276,13 @@ def main() -> None:
     from repro_torch.data.pipeline import (gaussian_eigengap_data,
                                            partition_features,
                                            partition_samples)
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import make_lm_batch
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_decode_state,
+                                                init_params, tree_leaves)
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -216,23 +333,23 @@ def main() -> None:
     rows = {}
 
     def record(name, source, replaces, kernel, plain, library, nbytes, flops,
-               tol, note):
-        got = kernel()
+               tol, note, flop_rate=F32_FLOP_PER_S, judge=None):
+        got = kernel().float()
         torch.cuda.synchronize()
-        want = plain()
+        want = plain().float()
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-        check(err <= tol * scale, f"{name}: max abs err {err} > {tol} x {scale}")
-        b_ms, b_by = bound(nbytes, flops)
+        errs = (judge or max_rel_judge(tol))(name, got, want)
+        del got, want
+        b_ms, b_by = bound(nbytes, flops, flop_rate)
         rows[name] = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": 0, "max_abs_err": err,
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": errs.pop("max_abs_err"),
             "ms": time_ms(kernel), "plain_ms": time_ms(plain),
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None if library is None else time_ms(library),
-            "rel_err": err / scale, "tolerance": tol, "tolerance_reason": note,
+            **errs, "tolerance": tol, "tolerance_reason": note,
         }
 
     f32 = 4
@@ -323,16 +440,67 @@ def main() -> None:
                   + g_rows * g_cols * x_grid.shape[2] * r),
            2.0 * x_grid.numel() * r, SLAB_TOL,
            "f32 sums in another order than cuBLAS; relative to max |V|")
+    # flash attention at qwen2-7b's prefill: q (4, 28, 2048, 128), k/v
+    # (4, 4, 2048, 128), bf16, causal
+    fb, fhq, fhkv, fs, fhd = 4, 28, 4, 2048, 128
+
+    def attn_inputs(dtype, b, hq, hkv, sq, skv, hd):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((b, hq, sq, hd), (b, hkv, skv, hd),
+                              (b, hkv, skv, hd))]
+
+    def attn_plain(q, k, v, **kw):
+        """ops.flash_attention's CPU path, on the card."""
+        skv = k.shape[2]
+        return ref.flash_attention_plain(q, k, v, q_offset=skv - q.shape[2],
+                                         kv_valid=skv, **kw)
+
+    fq, fk, fv = attn_inputs(torch.bfloat16, fb, fhq, fhkv, fs, fs, fhd)
+    bf16 = 2
+    record("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention.py:86",
+           lambda: ops.flash_attention(fq, fk, fv, causal=True),
+           lambda: attn_plain(fq, fk, fv, causal=True),
+           lambda: torch.nn.functional.scaled_dot_product_attention(
+               fq, fk, fv, is_causal=True, enable_gqa=True),
+           bf16 * (2 * fq.numel() + fk.numel() + fv.numel()),
+           4.0 * fb * fhq * fhd * fs * (fs + 1) / 2, ATTN_BF16_TOL,
+           "bf16: each side rounds an f32 result once; one bf16 ulp (2^-7) "
+           "of the largest |out| in the element's own row, and relative RMS "
+           "within half an ulp (2^-8)",
+           flop_rate=BF16_TC_FLOP_PER_S, judge=attn_judge(torch.bfloat16))
+    flash_checks = {}
+    for label, dtype, shape, kw in (
+            ("window512", torch.bfloat16, (fb, fhq, fhkv, fs, fs, fhd),
+             dict(window=512)),
+            ("ragged2000", torch.bfloat16, (fb, fhq, fhkv, 2000, 2000, fhd),
+             {}),
+            ("cross128x2048", torch.bfloat16, (fb, fhq, fhkv, 128, fs, fhd),
+             {}),
+            ("f32_hd128", torch.float32, (1, fhq, fhkv, 1024, 1024, fhd),
+             {})):
+        q_, k_, v_ = attn_inputs(dtype, *shape)
+        got = ops.flash_attention(q_, k_, v_, causal=True, **kw).float()
+        want = attn_plain(q_, k_, v_, causal=True, **kw).float()
+        check(bool(torch.isfinite(got).all()), f"flash {label}: non-finite")
+        flash_checks[label] = {
+            "shape": list(shape),
+            **attn_judge(dtype)(f"flash {label}", got, want),
+            "tolerance": (ATTN_BF16_TOL if dtype == torch.bfloat16
+                          else ATTN_F32_TOL)}
+        del q_, k_, v_, got, want
     emit({"phase": "kernels",
+          "flash_attention_checks": flash_checks,
           "shapes": {"batched_gram_apply": list(x_stack.shape) + [r],
                      "gram_apply": list(x_one.shape) + [r],
                      "ell_spmm": [n_sp, sw.ell_width, k_payload],
                      "batched_slab_tq": list(x_pad.shape) + [r],
                      "batched_slab_apply": list(x_pad.shape) + [r],
                      "grid_block_tq": list(x_grid.shape) + [r],
-                     "grid_block_apply": list(x_grid.shape) + [r]},
+                     "grid_block_apply": list(x_grid.shape) + [r],
+                     "flash_attention": [list(fq.shape), list(fk.shape)]},
           "kernels": list(rows.values())})
-    del x_pad, q_pad, s_slab, x_grid, q_grid, s_grid
+    del x_pad, q_pad, s_slab, x_grid, q_grid, s_grid, fq, fk, fv
 
     # -- sdot_dense: the main path at CIFAR-10 width -------------------------
     q_init = orthonormal_init(torch.Generator().manual_seed(0), d, r,
@@ -548,6 +716,236 @@ def main() -> None:
           "max_node_subspace_err_vs_dense": float(per_node.max()),
           "bf16_vs_f32_max_node_err": float(
               subspace_error(sparse_res.q_nodes, bf_res.q_nodes).max())})
+
+    # -- lm_setup: qwen2-7b on the card, after the PSA phases' tensors ------
+    del (x, blocks, fslabs, grid, xs, sp_blocks, sp_eng, sw, dense_eng,
+         bf_eng, eng, col_engs, row_engs, sparse_res, dense_res, bf_res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cfg = get_arch("qwen2-7b")
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n_params = sum(leaf.numel() for leaf in leaves)
+    emit({"phase": "lm_setup", "arch": cfg.name, "dtype": cfg.dtype,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "heads": [cfg.n_heads, cfg.n_kv_heads], "d_ff": cfg.d_ff,
+          "vocab": cfg.vocab_size, "seconds": time.perf_counter() - t0,
+          "params": n_params,
+          "param_bytes": sum(leaf.numel() * leaf.element_size()
+                             for leaf in leaves),
+          "allocated_before_bytes": held_before})
+    check(n_params == cfg.param_count(), f"qwen2-7b: {n_params} params, "
+          f"param_count() says {cfg.param_count()}")
+    del leaves
+
+    # -- lm_prefill: 4 x 2048 tokens through the kernel, then plain ---------
+    lm_b, lm_s = 4, 2048
+    toks = make_lm_batch(cfg, 0, 0, lm_b, lm_s, device=dev)["tokens"]
+
+    def compare(got, want):
+        """(relative RMS difference, max abs difference, top-1 agreement),
+        in f32, one sequence at a time."""
+        sq_diff = sq_want = max_abs = 0.0
+        agree = 0
+        for i in range(got.shape[0]):
+            a, b = got[i].float(), want[i].float()
+            sq_diff += float((a - b).square().sum())
+            sq_want += float(b.square().sum())
+            max_abs = max(max_abs, float((a - b).abs().max()))
+            agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+        return ((sq_diff / sq_want) ** 0.5, max_abs,
+                agree / (got.shape[0] * got.shape[1]))
+
+    def attn_bf16_logits(q, k, v, *, causal, window):
+        """Faulty control: the plain version with q k^T rounded to bf16
+        before the f32 softmax, as a kernel that kept its logits in the
+        input dtype would compute."""
+        rep = q.shape[1] // k.shape[1]
+        k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+        sq, skv = q.shape[2], k.shape[2]
+        qpos = torch.arange(sq, device=q.device)[:, None] + skv - sq
+        kpos = torch.arange(skv, device=q.device)[None]
+        mask = kpos <= qpos if causal else torch.ones_like(kpos, dtype=bool)
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        logits = (q @ k.mT).float() * q.shape[-1] ** -0.5
+        probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), -1)
+        return (probs @ v.float()).to(q.dtype)
+
+    def kernel_uncounted(drop=0):
+        """The kernel through its launcher, not counted, with its last
+        ``drop`` keys masked: drop = 64 (one kv tile) is a faulty control,
+        a fault confined to the last 64 rows of each sequence."""
+        def attn(q, k, v, *, causal, window):
+            skv = k.shape[2]
+            return flash_attention_cuda(
+                q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                window=window, scale=q.shape[-1] ** -0.5,
+                q_offset=skv - q.shape[2], kv_valid=skv - drop)
+        return attn
+
+    def layer_check(attn, stats):
+        """An attention for forward_with that runs ``attn`` and the plain
+        version on the same q, k, v of every layer, appends attn_stats to
+        ``stats`` and passes the plain output on, so every layer sees the
+        activations of a forward through the plain version."""
+        def run(q, k, v, *, causal, window):
+            want = attn_plain(q, k, v, causal=causal, window=window)
+            stats.append(attn_stats(attn(q, k, v, causal=causal,
+                                         window=window), want))
+            return want
+        return run
+
+    def forward_with(attn):
+        """The kernel forward with ``attn`` in place of ops.flash_attention
+        (which models/attention.py looks up on every call)."""
+        kernel_attn = ops.flash_attention
+        ops.flash_attention = attn
+        out = forward(params, {"tokens": toks}, cfg, use_kernel=True)
+        ops.flash_attention = kernel_attn
+        return out
+
+    with torch.inference_mode():
+        forward(params, {"tokens": toks}, cfg)     # warm: cuBLAS plans
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits = forward(params, {"tokens": toks}, cfg, use_kernel=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        flash_launches = ops.LAUNCHES["flash_attention"]
+        peak = torch.cuda.max_memory_allocated()
+        rows["flash_attention"]["launches"] += flash_launches
+        finite = bool(torch.isfinite(logits).all())
+        t0 = time.perf_counter()
+        plain_logits = forward(params, {"tokens": toks}, cfg,
+                               use_kernel=False)
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        rel_rms, max_abs, top1 = compare(logits, plain_logits)
+        logits_rms = float(plain_logits.float().square().mean().sqrt())
+        shape = list(logits.shape)
+        del logits
+        faulty = {"bf16_attention_logits": attn_bf16_logits,
+                  "kernel_without_last_64_keys": kernel_uncounted(64)}
+        controls = {}
+        for label, attn in faulty.items():
+            ctrl = forward_with(attn)
+            c_rms, c_max, c_top1 = compare(ctrl, plain_logits)
+            controls[label] = {"rel_rms": c_rms, "max_abs": c_max,
+                               "top1_agreement": c_top1}
+            del ctrl
+        del plain_logits
+        per_layer = {}
+        for label, attn in {"kernel": kernel_uncounted(), **faulty}.items():
+            stats = []
+            forward_with(layer_check(attn, stats))     # logits unused
+            outside = [i for i, st in enumerate(stats) if not attn_within(st)]
+            per_layer[label] = {
+                "layers": len(stats),
+                "max_row_rel_err": max(st["row_rel_err"] for st in stats),
+                "max_rel_rms": max(st["rel_rms"] for st in stats),
+                "rel_rms_by_layer": [st["rel_rms"] for st in stats],
+                "first_layer_outside": outside[0] if outside else None}
+    emit({"phase": "lm_prefill", "batch": lm_b, "seq": lm_s,
+          "wall_s": wall, "prefill_tokens_per_s": lm_b * lm_s / wall,
+          "peak_bytes": peak, "flash_attention_launches": flash_launches,
+          "plain_attention_wall_s": plain_wall, "logits_shape": shape,
+          "logits_rms": logits_rms,
+          "vs_plain": {"rel_rms": rel_rms, "max_abs": max_abs,
+                       "top1_agreement": top1, "tolerance": LOGITS_TOL},
+          "faulty_controls_vs_plain": controls,
+          "attention_per_layer_vs_plain": per_layer})
+    check(finite, "lm_prefill: non-finite logits")
+    check(shape == [lm_b, lm_s, cfg.vocab_size], f"lm_prefill: logits {shape}")
+    check(flash_launches == cfg.n_layers, f"lm_prefill: {flash_launches} "
+          f"flash-attention launches, expected {cfg.n_layers}")
+    check(rel_rms <= LOGITS_TOL, f"lm_prefill: logits {rel_rms} (relative "
+          f"RMS) from the plain-attention forward > {LOGITS_TOL}")
+    for label, c in controls.items():
+        check(c["rel_rms"] > LOGITS_TOL, f"lm_prefill: faulty control "
+              f"{label} passes LOGITS_TOL ({c['rel_rms']})")
+    check(per_layer["kernel"]["layers"] == cfg.n_layers
+          and per_layer["kernel"]["first_layer_outside"] is None,
+          f"lm_prefill: the kernel against plain attention on the model's "
+          f"own activations: {per_layer['kernel']}")
+    for label in controls:
+        check(per_layer[label]["first_layer_outside"] is not None,
+              f"lm_prefill: faulty control {label} within the attention "
+              f"tolerances at every layer")
+
+    def prefill():
+        with torch.inference_mode():
+            forward(params, {"tokens": toks}, cfg)
+
+    emit(profile_phase(
+        prefill, "profile_lm", "lm_prefill qwen2-7b, 4 x 2048 tokens, bf16",
+        groups={"flash_attention": ("flash_attention_kernel",),
+                "gemm": ("gemm", "nvjet", "xmma", "cutlass", "splitk")}))
+
+    # -- lm_decode: teacher-forced against prefill, then greedy --------------
+    n_tf, n_gen = 64, 32
+    prompt = toks[:, :n_tf]
+    with torch.inference_mode():
+        state = init_decode_state(cfg, lm_b, n_tf + n_gen, device=dev)
+        kv_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(state["caches"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = []
+        for t in range(n_tf):
+            lg, state = decode_step(params, state, prompt[:, t:t + 1], cfg)
+            outs.append(lg)
+        decoded = torch.cat(outs, dim=1)
+        torch.cuda.synchronize()
+        tf_wall = time.perf_counter() - t0
+        prefilled = forward(params, {"tokens": prompt}, cfg)
+        dec_rms, dec_max, dec_top1 = compare(decoded, prefilled)
+        nxt = decoded[:, -1:].argmax(-1).to(torch.int32)
+        generated = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_gen):
+            lg, state = decode_step(params, state, nxt, cfg)
+            nxt = lg[:, -1:].argmax(-1).to(torch.int32)
+            generated.append(nxt)
+        torch.cuda.synchronize()
+        gen_wall = time.perf_counter() - t0
+        generated = torch.cat(generated, dim=1)
+        gen_ok = (bool(torch.isfinite(lg).all())
+                  and int(generated.min()) >= 0
+                  and int(generated.max()) < cfg.vocab_size)
+        del outs, decoded, prefilled
+    emit({"phase": "lm_decode", "batch": lm_b, "teacher_forced": n_tf,
+          "generated": n_gen, "kv_cache_bytes": kv_bytes,
+          "teacher_forced_wall_s": tf_wall, "generate_wall_s": gen_wall,
+          "decode_tokens_per_s": lm_b * n_gen / gen_wall,
+          "ms_per_step": gen_wall / n_gen * 1e3,
+          "vs_prefill": {"rel_rms": dec_rms, "max_abs": dec_max,
+                         "top1_agreement": dec_top1, "tolerance": DECODE_TOL},
+          "first_generated": generated[0, :8].tolist()})
+    prof = {"state": init_decode_state(cfg, lm_b, 16, device=dev)}
+
+    def decode_steps():
+        with torch.inference_mode():
+            for t in range(8):
+                _, prof["state"] = decode_step(params, prof["state"],
+                                               prompt[:, t:t + 1], cfg)
+
+    emit(profile_phase(
+        decode_steps, "profile_decode",
+        "lm_decode qwen2-7b, 8 steps at batch 4, bf16",
+        groups={"gemm": ("gemm", "nvjet", "xmma", "cutlass", "splitk",
+                         "gemv")}))
+    check(state["index"] == n_tf + n_gen, "lm_decode: step count")
+    check(gen_ok, "lm_decode: non-finite logits or a token out of range")
+    check(dec_rms <= DECODE_TOL, f"lm_decode: teacher-forced logits "
+          f"{dec_rms} (relative RMS) from prefill > {DECODE_TOL}")
 
     for name in rows:
         check(rows[name]["launches"] > 0,

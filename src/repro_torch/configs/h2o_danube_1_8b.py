@@ -1,0 +1,11 @@
+"""h2o-danube-1.8b — llama+mistral mix with sliding-window attention
+[arXiv:2401.16818; hf]. SWA window 4096 => O(w) decode state => long_500k runs."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="h2o-danube-1.8b", family="dense",
+    n_layers=24, d_model=2560, n_heads=32, n_kv_heads=8,
+    d_ff=6912, vocab_size=32_000,
+    block_pattern=("swa",), window=4096,
+    subquadratic=True,
+)

@@ -1,1 +1,2 @@
-"""PSA data generators and partitioners (NumPy RNG, as the reference)."""
+"""PSA data generators and partitioners (NumPy RNG, as the reference), and
+the LM token stream."""

@@ -1,14 +1,16 @@
 """PSA data generators: Gaussian data with a controlled r-th eigengap, a
 power-law stand-in for natural-image spectra, and the sample-wise /
-feature-wise partitioners.
+feature-wise partitioners; and the LM token stream.
 
-The generators draw from ``np.random.default_rng`` exactly as
+The PSA generators draw from ``np.random.default_rng`` exactly as
 ``repro/data/pipeline.py`` does, so the arrays are the reference's bit for
-bit before the float32 cast.
+bit before the float32 cast. ``make_lm_batch`` cannot replay
+``jax.random.randint``: it has the reference's shapes and labels rule, and
+draws from a ``torch.Generator``.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -16,7 +18,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 
 __all__ = ["gaussian_eigengap_data", "spectrum_matched_data",
-           "partition_samples", "partition_features"]
+           "partition_samples", "partition_features", "make_lm_batch"]
 
 
 def _eigengap_cov(rng, d: int, r: int, gap: float, lead: float,
@@ -75,3 +77,25 @@ def partition_features(x: torch.Tensor, n_nodes: int) -> List[torch.Tensor]:
     per = d // n_nodes
     return [x[i * per:(d if i == n_nodes - 1 else (i + 1) * per)]
             for i in range(n_nodes)]
+
+
+def make_lm_batch(cfg, seed: int, step: int, batch: int, seq: int,
+                  device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Pure function (seed, step) -> batch of int32 tokens; labels = next
+    token. ``cfg`` is a ``configs.base.ModelConfig``.
+
+    The draw comes from a CPU ``torch.Generator`` seeded from (seed, step),
+    so a batch is the same on every device; it is then moved to ``device``.
+    """
+    dev = resolve_device(device)
+    gen = torch.Generator().manual_seed(
+        int(np.random.SeedSequence([seed, step]).generate_state(1)[0]))
+    shape = ((batch, seq + 1, cfg.n_codebooks)
+             if cfg.frontend == "audio_codec" else (batch, seq + 1))
+    toks = torch.randint(0, cfg.vocab_size, shape, generator=gen,
+                         dtype=torch.int64).to(torch.int32)
+    out = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
+    if cfg.frontend == "vlm_patches":
+        out["patch_embeds"] = 0.02 * torch.randn(
+            (batch, cfg.n_prefix_tokens, cfg.d_model), generator=gen).to(dev)
+    return out

@@ -1,5 +1,8 @@
 """Carry a reference run's state across as NumPy arrays.
 
+``params_from_reference`` does the same for a decoder's parameters: the
+reference's nested dict, its leaves turned into NumPy arrays.
+
 The JAX package's state for an S-DOT, F-DOT or B-DOT run is a handful of
 arrays: the graph's adjacency and weights (one graph per grid column and
 per grid row for B-DOT), the data blocks, feature slabs, grid blocks or
@@ -20,8 +23,9 @@ from ._device import DeviceLike, resolve_device
 from .core.consensus import DenseConsensus
 from .core.sparse import SparseW
 from .core.topology import Graph
+from .models.transformer import tree_map
 
-__all__ = ["from_reference_arrays"]
+__all__ = ["from_reference_arrays", "params_from_reference"]
 
 _TENSORS = ("covs", "q_init", "q_true", "x")
 _ELL = ("ell_idx", "ell_val", "diag", "row_nnz")
@@ -85,3 +89,26 @@ def from_reference_arrays(arrays: Dict[str, np.ndarray],
             engine._w = out["sparse_w"]
         out["engine"] = engine
     return out
+
+
+def params_from_reference(params: dict, device: DeviceLike = None,
+                          dtype: Optional[torch.dtype] = None) -> dict:
+    """The reference's decoder parameters (``jax.tree.map(np.asarray,
+    params)``) as the port's: the same nested dict of tensors on ``device``.
+
+    A bf16 leaf arrives as an ``ml_dtypes.bfloat16`` array; it goes through
+    float32, which holds every bf16 value exactly, and back to
+    ``torch.bfloat16``, never through its raw bytes. ``dtype`` casts every
+    leaf; ``None`` keeps each leaf's own type.
+    """
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
+        return t.to(device=dev, dtype=dtype or t.dtype)
+
+    return tree_map(leaf, params)

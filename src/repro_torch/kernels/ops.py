@@ -7,8 +7,9 @@ or densify form for the ELL round exactly as the reference's
 ``ell_spmm_path`` does, so CPU results follow the reference's own CPU path.
 
 The reference's TPU guards (VMEM byte limits that fall back to the oracle,
-and padding the sample axis to a 512-column block) do not carry over: the
-CUDA kernels mask their own ragged edges.
+padding the sample axis to a 512-column block, padding attention's
+streams to 128 and the oracle below one block) do not carry over: the CUDA
+kernels mask their own ragged edges and take any size.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
 that its main path went through the kernels.
@@ -24,12 +25,12 @@ from . import ref
 __all__ = ["LAUNCHES", "reset_launches", "on_gpu", "gram_apply",
            "batched_gram_apply", "batched_slab_tq", "batched_slab_apply",
            "grid_block_tq", "grid_block_apply", "ell_spmm", "ell_spmm_path",
-           "ell_densify_wins"]
+           "ell_densify_wins", "flash_attention"]
 
 LAUNCHES: Dict[str, int] = {"gram_apply": 0, "batched_gram_apply": 0,
                             "batched_slab_tq": 0, "batched_slab_apply": 0,
                             "grid_block_tq": 0, "grid_block_apply": 0,
-                            "ell_spmm": 0}
+                            "ell_spmm": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -191,4 +192,32 @@ def ell_spmm(ell_idx: torch.Tensor, ell_val: torch.Tensor,
     out = ell_spmm_cuda(ell_idx, ell_val, diag, z.float().contiguous(),
                         z_src.contiguous())
     LAUNCHES["ell_spmm"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """GQA-aware attention. q: (b, hq, sq, hd); k/v: (b, hkv, skv, hd),
+    hq % hkv == 0. Queries align to the end of the key stream
+    (q_offset = skv - sq), so the same call serves prefill and a chunk of
+    decode.
+
+    On the card the kernel reads kv head h // (hq // hkv) in place; on the
+    CPU the plain version reads the same head.
+    """
+    b, hq, sq, hd = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
+    scale = (hd ** -0.5) if scale is None else scale
+    if not q.is_cuda:
+        return ref.flash_attention_plain(
+            q, k, v, causal=causal, window=window, scale=scale,
+            q_offset=skv - sq, kv_valid=skv)
+    from .flash_attention import flash_attention_cuda
+    out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                               causal=causal, window=window, scale=scale,
+                               q_offset=skv - sq, kv_valid=skv)
+    LAUNCHES["flash_attention"] += 1
     return out

@@ -4,16 +4,23 @@ Each function repeats the arithmetic of its twin in ``repro/kernels/ref.py``
 (f32 accumulation; the gather source of the ELL round may be a bf16
 quantisation of the payload, decided by the caller). They are what
 ``ops`` runs for a tensor on the CPU, and what the CUDA kernels are held
-against on the card.
+against on the card. ``flash_attention_plain`` is the plain version of the
+flash-attention kernel's own function (its masks, and zeros for a fully
+masked row); ``flash_attention_ref`` is the reference's softmax oracle.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 __all__ = ["gram_apply_ref", "batched_gram_apply_ref", "ell_spmm_ref",
            "ell_spmm_dense_ref", "ell_spmm_scan_ref", "batched_slab_tq_ref",
            "batched_slab_apply_ref", "grid_block_tq_ref",
-           "grid_block_apply_ref"]
+           "grid_block_apply_ref", "flash_attention_ref",
+           "flash_attention_plain"]
+
+_NEG = -1e30        # the flash kernel's mask value
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:
@@ -132,3 +139,71 @@ def ell_spmm_scan_ref(ell_idx: torch.Tensor, ell_val: torch.Tensor,
     for slot in range(ell_idx.shape[1]):
         acc = acc + ell_val[:, slot].float()[:, None] * z_src[idx[:, slot]].float()
     return acc
+
+
+def _attn_mask(sq: int, skv: int, q_offset: int, kv_valid: int, causal: bool,
+               window: Optional[int], device) -> torch.Tensor:
+    """(sq, skv) bool: key kpos is visible to query row i at qpos = i +
+    q_offset."""
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=device)[None, :]
+    mask = kpos < kv_valid
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Standard softmax attention oracle.
+
+    q: (b, h, sq, hd), k/v: (b, h, skv, hd). Queries align to the end of the
+    key stream. ``window``: attend to keys within [i - window + 1, i]. A
+    fully masked row gives NaN, as the reference's oracle does.
+    """
+    hd = q.shape[-1]
+    scale = (hd ** -0.5) if scale is None else scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    sq, skv = q.shape[2], k.shape[2]
+    mask = _attn_mask(sq, skv, skv - sq, skv, causal, window, q.device)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = probs / probs.sum(-1, keepdim=True)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None, q_offset: int = 0,
+                          kv_valid: Optional[int] = None) -> torch.Tensor:
+    """What the flash-attention kernel computes, in one pass.
+
+    q: (b, hq, sq, hd), k/v: (b, hkv, skv, hd), hq % hkv == 0, as the kernel
+    takes them: query head h reads kv head h // (hq // hkv), here through
+    ``repeat_interleave`` (the twin of the reference's ``jnp.repeat``; not
+    ``Tensor.repeat``, which would pair h with h % hkv). Row i sits at qpos
+    = i + q_offset; keys at kpos >= kv_valid are masked. f32 logits and
+    P V; masked logits are -1e30 and their p is 0; a row with no visible
+    key emits zeros (the kernel's l == 0 -> 1). Output in q's dtype.
+    """
+    hq, hd = q.shape[1], q.shape[-1]
+    hkv, skv = k.shape[1], k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
+    k = k.repeat_interleave(hq // hkv, dim=1)
+    v = v.repeat_interleave(hq // hkv, dim=1)
+    scale = (hd ** -0.5) if scale is None else scale
+    kv_valid = skv if kv_valid is None else kv_valid
+    mask = _attn_mask(q.shape[2], skv, q_offset, kv_valid, causal, window,
+                      q.device)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    logits = logits.masked_fill(~mask, _NEG)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m).masked_fill(~mask, 0.0)
+    l = p.sum(-1, keepdim=True)
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l).to(q.dtype)

@@ -1,5 +1,6 @@
-"""The port's Hopper kernels on the card: each against its plain version,
-and S-DOT, F-DOT and B-DOT on the card against the same runs on the CPU.
+"""The port's Hopper kernels on the card: each against its plain version;
+S-DOT, F-DOT, B-DOT and the LM prefill on the card against the same runs on
+the CPU; and decode on the card against prefill on the card.
 
 Every test here needs an NVIDIA H100 with nvcc and skips elsewhere. This
 file imports neither JAX nor the reference package, so it runs on a machine
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch, reduced_config
 from repro_torch.core import topology
 from repro_torch.core.bdot import bdot
 from repro_torch.core.consensus import DenseConsensus, consensus_schedule
@@ -21,8 +23,13 @@ from repro_torch.core.linalg import orthonormal_init
 from repro_torch.core.sdot import sdot
 from repro_torch.core.sparse import SparseW
 from repro_torch.data.pipeline import (gaussian_eigengap_data,
-                                       partition_features, partition_samples)
+                                       make_lm_batch, partition_features,
+                                       partition_samples)
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.models.transformer import (decode_step, forward,
+                                            init_decode_state, init_params,
+                                            tree_map)
 
 pytestmark = pytest.mark.gpu
 
@@ -300,3 +307,143 @@ def test_fused_fdot_bdot_loops_never_wait_for_the_device(cuda_device, algo):
     with no_host_sync():
         res = run(**kw)
     assert torch.equal(res.q_full, warm.q_full)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the LM serving stack
+# ---------------------------------------------------------------------------
+# Kernel against plain. f32: 1e-5 of max |out| (sums in another order).
+# bf16: each side rounds an f32 result to bf16 once, so a pair straddling a
+# rounding boundary lands one ulp apart: at most 2^-7 of the largest |out|
+# in its own row (a tensor-wide max would hide faults in the long rows,
+# whose outputs are small); only such pairs differ, so the relative RMS of
+# the difference stays within half an ulp, 2^-8.
+ATTN_F32_TOL = 1e-5
+ATTN_BF16_TOL = 2.0 ** -7
+ATTN_BF16_RMS_TOL = 2.0 ** -8
+
+
+def _attn_inputs(dev, dtype, b, hq, hkv, sq, skv, hd, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, hq, sq, hd), (b, hkv, skv, hd),
+                          (b, hkv, skv, hd))]
+
+
+def _assert_attn_close(got, want):
+    assert got.dtype == want.dtype
+    dtype = got.dtype
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    if dtype == torch.float32:
+        assert float(diff.max()) <= ATTN_F32_TOL * max(
+            float(want.abs().max()), 1e-30)
+        return
+    row_err = diff.amax(-1)
+    assert bool((row_err <= ATTN_BF16_TOL * want.abs().amax(-1)).all())
+    assert float(diff.square().sum().sqrt()) <= ATTN_BF16_RMS_TOL * float(
+        want.square().sum().sqrt())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,hd,causal,window", [
+    (2, 4, 4, 256, 256, 64, True, None),        # causal, whole tiles
+    (1, 14, 2, 200, 200, 128, True, None),      # GQA 7:1, ragged sq = skv
+    (1, 4, 2, 300, 300, 32, True, 64),          # sliding window
+    (1, 2, 2, 130, 130, 16, True, 1),           # window of one key
+    (2, 4, 1, 64, 500, 80, True, None),         # sq < skv, danube's hd
+    (1, 2, 2, 1, 333, 16, True, None),          # one query (decode-like)
+    (1, 4, 2, 96, 160, 128, False, None),       # not causal
+    (1, 2, 1, 70, 70, 128, False, 20),          # window without causal
+])
+def test_flash_kernel_matches_plain(cuda_device, b, hq, hkv, sq, skv, hd,
+                                    causal, window, dtype):
+    q, k, v = _attn_inputs(cuda_device, dtype, b, hq, hkv, sq, skv, hd)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=skv - sq, kv_valid=skv)
+    assert bool(torch.isfinite(got).all())
+    _assert_attn_close(got, want)
+    with no_host_sync():
+        again = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_offsets_and_masked_rows(cuda_device, dtype):
+    """The kernel's own q_offset / kv_valid arguments, as the reference's
+    Pallas kernel takes them; rows before the first key come out zero."""
+    q, k, v = _attn_inputs(cuda_device, dtype, 2, 4, 2, 150, 260, 64, seed=3)
+    for kw in (dict(causal=True, window=None, q_offset=40, kv_valid=190),
+               dict(causal=True, window=70, q_offset=-20, kv_valid=260),
+               dict(causal=False, window=None, q_offset=0, kv_valid=0)):
+        got = flash_attention_cuda(q, k, v, scale=0.1, **kw)
+        want = ref.flash_attention_plain(q, k, v, scale=0.1, **kw)
+        _assert_attn_close(got, want)
+    assert torch.equal(got, torch.zeros_like(got))          # kv_valid = 0
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+def test_flash_kernel_rows_sum_to_one(cuda_device, hd):
+    q, k, _ = _attn_inputs(cuda_device, torch.float32, 1, 4, 2, 190, 190, hd)
+    v = torch.ones_like(k)
+    out = ops.flash_attention(q, k, v, causal=True, window=50)
+    assert float((out - 1.0).abs().max()) <= 1e-5
+
+
+def test_flash_kernel_raises_on_what_it_does_not_take(cuda_device):
+    q, k, v = _attn_inputs(cuda_device, torch.float32, 1, 2, 2, 8, 8, 48)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q, k, v)
+    q, k, v = _attn_inputs(cuda_device, torch.float32, 1, 2, 2, 8, 8, 256)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q, k, v)
+    q, k, v = _attn_inputs(cuda_device, torch.float16, 1, 2, 2, 8, 8, 64)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k, v)
+    q, k, v = _attn_inputs(cuda_device, torch.float32, 1, 2, 2, 8, 8, 64)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k.bfloat16(), v)
+
+
+def _lm_setup(dev):
+    """Reduced qwen2-7b (f32, 3 layers) on the CPU and a copy on ``dev``."""
+    cfg = reduced_config(get_arch("qwen2-7b"), n_layers=3)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = make_lm_batch(cfg, 0, 0, 2, 256, device="cpu")["tokens"]
+    return (cfg, tree_map(lambda t: t.to(dev), params), toks.to(dev), params,
+            toks)
+
+
+def test_forward_on_card_matches_cpu(cuda_device):
+    """Reduced qwen2-7b (f32, 3 layers, S = 256: four kernel tiles) through
+    the kernel on the card against the plain version on the CPU.
+    Tolerance 1e-4: f32 in another order through three blocks (the CPU
+    parity tests see ~6e-6 at logits of ~4)."""
+    cfg, params, toks, cpu_params, cpu_toks = _lm_setup(cuda_device)
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = forward(params, {"tokens": toks}, cfg)
+        want = forward(cpu_params, {"tokens": cpu_toks}, cfg)
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_decode_on_card_matches_prefill_on_card(cuda_device):
+    """Teacher-forced decode_step against forward, both on the card (f32;
+    1e-4 as above: the same arithmetic, summed in another order)."""
+    cfg, params, toks, _, _ = _lm_setup(cuda_device)
+    toks = toks[:, :40]
+    with torch.inference_mode():
+        want = forward(params, {"tokens": toks}, cfg)
+        state = init_decode_state(cfg, 2, 40, device=cuda_device)
+        outs = []
+        for t in range(40):
+            lg, state = decode_step(params, state, toks[:, t:t + 1], cfg)
+            outs.append(lg)
+    torch.testing.assert_close(torch.cat(outs, dim=1), want, rtol=1e-4,
+                               atol=1e-4)
