@@ -10,14 +10,19 @@ Phases, one JSON line each:
 * ``kernels``: every ported kernel against its plain PyTorch version on the
   card, at the shapes the main path gives it, with its median time, the
   plain version's time, one PyTorch library call's time as a yardstick, and
-  the least time the card could take (its bound).
+  the least time the card could take (its bound). The CholeskyQR Gram
+  kernel also runs at F-DOT's and B-DOT's shapes and at
+  benchmarks/kernel_bench.py's (16384, 128) in f32 and bf16, each timed and
+  checked for the same bits on a second launch and exact symmetry.
 * ``sdot_dense``: S-DOT (t_c = 50) and SA-DOT (2t+1, capped at 50) at the
   paper's CIFAR-10 width: d = 1024, r = 7, N = 20 nodes of erdos_renyi(20,
   0.25, seed=1), T_o = 100, the full 50,000-sample training-set size (2,500
   samples a node), data from gaussian_eigengap_data(gap 0.7, seed 0).
-  Checks: final mean subspace error <= 1e-4 against a float64 eigh, one
-  gram-apply launch per outer iteration, the closed-form ledger, and the
-  explained variance of the estimate on the whole data (single-node
+  Both run through ``runtime.run_monolithic``. Checks: final mean subspace
+  error <= 1e-4 against a float64 eigh, one gram-apply launch per outer
+  iteration, two Gram launches per outer iteration (CholeskyQR2) and two
+  more for the explained-variance check's QR, the closed-form ledger, and
+  the explained variance of the estimate on the whole data (single-node
   gram-apply) against the top-r eigenvalues.
 * ``profile``: device time by kernel over a short S-DOT run (torch.profiler),
   and the device's busy share of that run's wall time.
@@ -27,12 +32,26 @@ Phases, one JSON line each:
   schedule and 2t+1 capped at 50. Checks: final mean subspace error <= 1e-4,
   q_full orthonormal to 1e-5, one launch of each slab kernel per outer
   iteration, the closed-form ledger, and F-DOT's subspace within 1e-4 of
-  S-DOT's consensus estimate.
+  S-DOT's consensus estimate, and two Gram launches per outer iteration
+  (one per distributed CholeskyQR pass).
 * ``bdot_dense``: B-DOT on the same X over a 4 x 5 grid (256 features x
   10,000 samples a node), column engines erdos_renyi(4, 0.7, seed=j), row
   engines erdos_renyi(5, 0.7, seed=10 + i), the same two schedules and
   checks, with one launch of each grid kernel per outer iteration.
 * ``profile_fdot``, ``profile_bdot``: the profile of a T_o = 20 run of each.
+* ``resume``: S-DOT, F-DOT and B-DOT at the configurations above (t_c = 50)
+  five ways each: (i) ``runtime.run_monolithic``; (ii) ``*_chunked`` with
+  chunk_size 10 and a ``CheckpointManager`` under ``build/``; (iii) the
+  same, killed after 4 chunks and resumed by a second call on the same
+  directory; (iv) chunk_size 7; and chunk_size 10 with no checkpoints
+  ((i), (ii) and the last timed twice each, in turns). The iterate, error
+  trace and ledger of every run must equal (i)'s bit for bit, and the
+  launch counts show that (iii) restored step 40. It reports the mean
+  wall times, the cost of chunking and of a checkpoint per chunk, the
+  RunState's bytes, and the cost of the error trace's SVDs in one batched
+  call against one call a step. It fails if a matrix's batched singular
+  values on this card depend on the batch it is in: the runtime's one SVD
+  call a chunk relies on that.
 * ``sdot_sparse``: watts_strogatz(4096, k=6, p=0.1, seed=1) at MNIST width
   (d = 784, r = 5, 60,000 samples, 14 a node), T_o = 5, t_c = 20. The
   default engine must pick ELL gossip; the per-node estimates must agree
@@ -72,6 +91,7 @@ from __future__ import annotations
 
 import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -87,6 +107,8 @@ BF16_TC_FLOP_PER_S = 989e12   # H100 SXM bf16 on the tensor cores, dense
 GRAM_TOL = 1e-5               # f32 sums in another order, relative to |V|
 SLAB_TOL = 1e-5               # the same, relative to max |Z| or |V|
 ELL_TOL = 1e-6                # same (quantised) source both sides, rel. |out|
+GRAM_QR_TOL = 1e-5            # f32 sums in another order, relative to |G|
+SPIN_CYCLES = 10_000_000      # ~5 ms of the card's clock ahead of a timed batch
 SUBSPACE_TOL = 1e-4
 # flash attention against its plain version. bf16: both sides round an f32
 # result to bf16 once, so a pair on either side of a rounding boundary lands
@@ -184,21 +206,42 @@ def attn_judge(dtype: torch.dtype):
 
 def time_ms(fn, reps: int = 20, batches: int = 5, warmup: int = 3) -> float:
     """Device time of one call: CUDA events around a batch of ``reps``
-    back-to-back calls, divided by ``reps`` (the host queues ahead of the
-    card, so the batch times the card and not each launch), median of
-    ``batches`` batches."""
+    back-to-back calls, divided by ``reps``, median of ``batches`` batches.
+
+    Each batch is queued behind a spin of the card (``torch.cuda._sleep``,
+    ~5 ms), so the host has enqueued the whole batch before the card reaches
+    it and the events time the card's work alone: a small kernel's wrapper
+    takes longer on the host than the kernel on the card, and without the
+    spin the batch would time the host's launch rate.
+    """
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(batches):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(reps):
             fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time to enqueue one call, in us: ``calls`` calls queued behind a
+    ~20 ms spin of the card, so none waits for the card, median of 3."""
+    fn()
+    times = []
+    for _ in range(3):
+        torch.cuda._sleep(4 * SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -265,14 +308,16 @@ def main() -> None:
               file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.core import topology
-    from repro_torch.core.bdot import bdot, pad_grid_blocks
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import runtime, topology
+    from repro_torch.core.bdot import bdot, bdot_program, pad_grid_blocks
     from repro_torch.core.consensus import (DenseConsensus, SparseConsensus,
                                             consensus_schedule)
-    from repro_torch.core.fdot import fdot, pad_feature_slabs
+    from repro_torch.core.fdot import (QR_PASSES, fdot, fdot_program,
+                                       pad_feature_slabs)
     from repro_torch.core.linalg import cholesky_qr2, orthonormal_init
     from repro_torch.core.metrics import subspace_error
-    from repro_torch.core.sdot import _stack_data, sadot, sdot
+    from repro_torch.core.sdot import _stack_data, sadot, sdot, sdot_program
     from repro_torch.data.pipeline import (gaussian_eigengap_data,
                                            partition_features,
                                            partition_samples)
@@ -283,6 +328,8 @@ def main() -> None:
     from repro_torch.models.transformer import (decode_step, forward,
                                                 init_decode_state,
                                                 init_params, tree_leaves)
+    from repro_torch.streaming.resume import (bdot_chunked, fdot_chunked,
+                                              sdot_chunked)
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -440,6 +487,53 @@ def main() -> None:
                   + g_rows * g_cols * x_grid.shape[2] * r),
            2.0 * x_grid.numel() * r, SLAB_TOL,
            "f32 sums in another order than cuBLAS; relative to max |V|")
+    # the CholeskyQR Gram: on the main path S-DOT's (N, d, r) node batch,
+    # F-DOT's (N, d_max, r) slabs and B-DOT's (I, d_max, r) row slabs, and
+    # benchmarks/kernel_bench.py's tall (16384, 128) matrix
+    def gram_qr_work(v):
+        """(bytes, flops, flop rate) of G = V^T V: V read once, G written
+        once, and the d r (r + 1) flops of the symmetric product a matrix,
+        at the peak rate of V's type."""
+        b, rows_, cols = v.shape
+        rate = (BF16_TC_FLOP_PER_S if v.dtype == torch.bfloat16
+                else F32_FLOP_PER_S)
+        return (v.numel() * v.element_size() + f32 * b * cols * cols,
+                float(b * rows_ * cols * (cols + 1)), rate)
+
+    v_qr = torch.randn((n_nodes, d, r), generator=gen, device=dev)
+    qr_bytes, qr_flops, _ = gram_qr_work(v_qr)
+    record("gram_qr", "src/repro_torch/kernels/csrc/gram_qr.cu",
+           "src/repro/kernels/gram_qr.py:40",
+           lambda: ops.gram_qr(v_qr), lambda: ref.gram_qr_ref(v_qr),
+           lambda: torch.bmm(v_qr.mT, v_qr), qr_bytes, qr_flops, GRAM_QR_TOL,
+           "f32 sums in another order than cuBLAS; relative to max |G|")
+    gram_qr_checks = {}
+    for label, shape, dtype in (
+            ("sdot", (n_nodes, d, r), torch.float32),
+            ("fdot", (n_nodes, 55, r), torch.float32),
+            ("bdot", (g_rows, 256, r), torch.float32),
+            ("bench_f32", (1, 16384, 128), torch.float32),
+            ("bench_bf16", (1, 16384, 128), torch.bfloat16)):
+        vq = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        got, again = ops.gram_qr(vq), ops.gram_qr(vq)
+        want = ref.gram_qr_ref(vq)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        nbytes, flops, rate = gram_qr_work(vq)
+        b_ms, b_by = bound(nbytes, flops, rate)
+        gram_qr_checks[label] = {
+            "shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
+            "max_abs_err": err, "rel_err": err / float(want.abs().max()),
+            "tolerance": GRAM_QR_TOL,
+            "same_bits_twice": bool(torch.equal(got, again)),
+            "symmetric": bool(torch.equal(got, got.mT)),
+            "ms": time_ms(lambda: ops.gram_qr(vq)),
+            "plain_ms": time_ms(lambda: ref.gram_qr_ref(vq)),
+            "library_ms": time_ms(lambda: torch.bmm(vq.mT, vq)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "host_us": host_us(lambda: ops.gram_qr(vq)),
+            "library_host_us": host_us(lambda: torch.bmm(vq.mT, vq))}
+        del vq, got, again, want
     # flash attention at qwen2-7b's prefill: q (4, 28, 2048, 128), k/v
     # (4, 4, 2048, 128), bf16, causal
     fb, fhq, fhkv, fs, fhd = 4, 28, 4, 2048, 128
@@ -491,6 +585,7 @@ def main() -> None:
         del q_, k_, v_, got, want
     emit({"phase": "kernels",
           "flash_attention_checks": flash_checks,
+          "gram_qr_checks": gram_qr_checks,
           "shapes": {"batched_gram_apply": list(x_stack.shape) + [r],
                      "gram_apply": list(x_one.shape) + [r],
                      "ell_spmm": [n_sp, sw.ell_width, k_payload],
@@ -498,9 +593,15 @@ def main() -> None:
                      "batched_slab_apply": list(x_pad.shape) + [r],
                      "grid_block_tq": list(x_grid.shape) + [r],
                      "grid_block_apply": list(x_grid.shape) + [r],
+                     "gram_qr": list(v_qr.shape),
                      "flash_attention": [list(fq.shape), list(fk.shape)]},
           "kernels": list(rows.values())})
-    del x_pad, q_pad, s_slab, x_grid, q_grid, s_grid, fq, fk, fv
+    for label, c in gram_qr_checks.items():
+        check(c["rel_err"] <= GRAM_QR_TOL, f"gram_qr {label}: relative error "
+              f"{c['rel_err']} > {GRAM_QR_TOL}")
+        check(c["same_bits_twice"], f"gram_qr {label}: two launches differ")
+        check(c["symmetric"], f"gram_qr {label}: G != G^T")
+    del x_pad, q_pad, s_slab, x_grid, q_grid, s_grid, fq, fk, fv, v_qr
 
     # -- sdot_dense: the main path at CIFAR-10 width -------------------------
     q_init = orthonormal_init(torch.Generator().manual_seed(0), d, r,
@@ -532,6 +633,10 @@ def main() -> None:
               f"{label}: {launches['batched_gram_apply']} gram-apply "
               f"launches, expected {t_outer}")
         check(launches["gram_apply"] == 1, f"{label}: gram_apply not launched")
+        # CholeskyQR2 a step, and once more for q_mean above
+        want_qr = 2 * t_outer + 2
+        check(launches["gram_qr"] == want_qr, f"{label}: {launches['gram_qr']}"
+              f" Gram launches, expected {want_qr}")
         check(res.ledger.p2p == sends and res.ledger.matrices == sends
               and res.ledger.scalars == sends * d * r
               and res.ledger.payload_bytes == sends * d * r * 4,
@@ -545,13 +650,18 @@ def main() -> None:
                                   for t in (1, 10, 25, 50, 100)},
                        "rounds": int(sched.sum()), "launches": launches,
                        "explained_over_top_r": explained / top_var}
-        for name in ("batched_gram_apply", "gram_apply"):
+        for name in ("batched_gram_apply", "gram_apply", "gram_qr"):
             rows[name]["launches"] += launches[name]
     emit({"phase": "sdot_dense", "d": d, "r": r, "nodes": n_nodes,
           "samples": n_total, "t_outer": t_outer, "runs": runs})
+    psa_groups = {"gram_qr": ("gram_qr_",),
+                  "gram_apply": ("gram_partial", "gram_reduce"),
+                  "slab_grid": ("slab_tq", "slab_apply"),
+                  "gemm": ("gemm", "nvjet", "xmma", "cutlass", "splitk",
+                           "gemv")}
     emit(profile_phase(lambda: sdot(data=blocks, engine=eng, r=r, t_outer=20,
                                     q_init=q_init, q_true=q_true, device=dev,
-                                    t_c=50)))
+                                    t_c=50), groups=psa_groups))
     del x_stack, q_stack
 
     # -- fdot_dense / bdot_dense: the same X by features and by blocks -------
@@ -560,6 +670,8 @@ def main() -> None:
     t_qr = 50
 
     def summarise(res, wall, kernels, ledger_want):
+        """``kernels`` maps each kernel of the run to its expected launch
+        count."""
         q_full = res.q_full
         return {"wall_s": wall, "final_err": float(res.error_trace[-1]),
                 "err_at": {str(t): float(res.error_trace[t - 1])
@@ -572,7 +684,8 @@ def main() -> None:
                 "ledger": [res.ledger.p2p, res.ledger.matrices,
                            res.ledger.scalars, res.ledger.payload_bytes],
                 "ledger_closed_form": list(ledger_want),
-                "launches": {k: ops.LAUNCHES[k] for k in kernels}}
+                "launches": {k: ops.LAUNCHES[k] for k in kernels},
+                "launches_expected": dict(kernels)}
 
     def verify(phase, runs):
         """Checks of a phase's runs, made after its line is printed."""
@@ -584,8 +697,9 @@ def main() -> None:
             check(run["orthonormality_err"] <= 1e-5, f"{where}: q_full off "
                   f"orthonormal by {run['orthonormality_err']}")
             for name, count in run["launches"].items():
-                check(count == t_outer, f"{where}: {count} {name} launches, "
-                      f"expected {t_outer}")
+                want = run["launches_expected"][name]
+                check(count == want, f"{where}: {count} {name} launches, "
+                      f"expected {want}")
                 rows[name]["launches"] += count
             check(run["ledger"] == run["ledger_closed_form"],
                   f"{where}: ledger differs from the closed form")
@@ -617,7 +731,9 @@ def main() -> None:
         want = closed_form([(graph.adjacency, rounds, n_total * r),
                             (graph.adjacency, 2 * t_qr * t_outer, r * r)])
         fdot_runs[label] = summarise(
-            res, wall, ("batched_slab_tq", "batched_slab_apply"), want)
+            res, wall, {"batched_slab_tq": t_outer,
+                        "batched_slab_apply": t_outer,
+                        "gram_qr": QR_PASSES * t_outer}, want)
     emit({"phase": "fdot_dense", "d": d, "r": r, "nodes": n_nodes,
           "slab_rows": sorted({int(b.shape[0]) for b in fslabs}),
           "samples": n_total, "t_outer": t_outer, "runs": fdot_runs})
@@ -625,7 +741,8 @@ def main() -> None:
     emit(profile_phase(
         lambda: fdot(data_blocks=fslabs, engine=eng, r=r, t_outer=20,
                      t_c=50, q_init=q_init, q_true=q_true, device=dev),
-        "profile_fdot", "fdot_dense F-DOT, T_o = 20, t_c = t_c_qr = 50"))
+        "profile_fdot", "fdot_dense F-DOT, T_o = 20, t_c = t_c_qr = 50",
+        groups=psa_groups))
 
     col_engs = [DenseConsensus(topology.erdos_renyi(g_rows, 0.7, seed=j),
                                device=dev) for j in range(g_cols)]
@@ -648,7 +765,8 @@ def main() -> None:
             + [(e.graph.adjacency, rounds, d_i * r) for e in row_engs]
             + [(col_engs[0].graph.adjacency, 2 * t_qr * t_outer, r * r)])
         bdot_runs[label] = summarise(
-            res, wall, ("grid_block_tq", "grid_block_apply"), want)
+            res, wall, {"grid_block_tq": t_outer, "grid_block_apply": t_outer,
+                        "gram_qr": QR_PASSES * t_outer}, want)
     emit({"phase": "bdot_dense", "d": d, "r": r, "grid": [g_rows, g_cols],
           "block": [int(d_i), int(n_j)], "t_outer": t_outer,
           "runs": bdot_runs})
@@ -657,7 +775,146 @@ def main() -> None:
         lambda: bdot(blocks=grid, col_engines=col_engs, row_engines=row_engs,
                      r=r, t_outer=20, t_c=50, q_init=q_init, q_true=q_true,
                      device=dev),
-        "profile_bdot", "bdot_dense B-DOT 4 x 5, T_o = 20, t_c = t_c_qr = 50"))
+        "profile_bdot", "bdot_dense B-DOT 4 x 5, T_o = 20, t_c = t_c_qr = 50",
+        groups=psa_groups))
+
+    # -- resume: kill and resume each family, the same bits -----------------
+    ckpt_root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    families = {
+        "sdot": (sdot_program, sdot_chunked, "q_nodes", ("batched_gram_apply",),
+                 dict(data=blocks, engine=eng)),
+        "fdot": (fdot_program, fdot_chunked, "q_full",
+                 ("batched_slab_tq", "batched_slab_apply"),
+                 dict(data_blocks=fslabs, engine=eng, t_c_qr=t_qr)),
+        "bdot": (bdot_program, bdot_chunked, "q_full",
+                 ("grid_block_tq", "grid_block_apply"),
+                 dict(blocks=grid, col_engines=col_engs, row_engines=row_engs,
+                      t_c_qr=t_qr))}
+    # (i), (ii) and a run chunked by 10 with no checkpoints, each timed
+    # twice in the order i, bare, ii, ii, bare, i; then (iii) and (iv):
+    # 8 whole runs
+    chunk, kill_after, steps_run = 10, 4, 8 * t_outer
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def same_bits(a, b, q_attr, iterate=True):
+        return (torch.equal(torch.from_numpy(a.error_trace),
+                            torch.from_numpy(b.error_trace))
+                and (not iterate or (torch.equal(getattr(a, q_attr),
+                                                 getattr(b, q_attr))
+                                     and a.ledger == b.ledger)))
+
+    resume = {}
+    for fam, (program, chunked, q_attr, kernels, extra) in families.items():
+        kw = dict(r=r, t_outer=t_outer, t_c=50, q_init=q_init, q_true=q_true,
+                  device=dev, **extra)
+        ops.reset_launches()
+        runs_, walls = {}, {"monolithic": [], "chunked_10": [],
+                            "chunked_10_checkpointed": []}
+        order = ("monolithic", "chunked_10", "chunked_10_checkpointed")
+        for i, how in enumerate(order + order[::-1]):
+            if how == "monolithic":
+                fn = lambda: runtime.run_monolithic(program(**kw))  # noqa
+            elif how == "chunked_10":
+                fn = lambda: chunked(chunk_size=chunk, **kw)  # noqa: E731
+            else:
+                mgr = CheckpointManager(str(ckpt_root / fam / f"ii{i}"))
+                fn = lambda: chunked(chunk_size=chunk, manager=mgr,  # noqa
+                                     **kw)
+            runs_[how], wall = timed(fn)
+            walls[how].append(wall)
+        mono, bare, whole = (runs_["monolithic"], runs_["chunked_10"],
+                             runs_["chunked_10_checkpointed"])
+        wall = {how: statistics.mean(w) for how, w in walls.items()}
+        with open(ckpt_root / fam / "ii2" / f"step_{t_outer:08d}"
+                  / "manifest.json") as f:
+            manifest = json.load(f)
+        state_bytes = sum(int(np.prod(shape)) * np.dtype(dt).itemsize
+                          for shape, dt in zip(manifest["shapes"],
+                                               manifest["dtypes"]))
+        mgr_kill = CheckpointManager(str(ckpt_root / fam / "iii"))
+        killed = chunked(chunk_size=chunk, manager=mgr_kill,
+                         max_chunks=kill_after, **kw)
+        killed_at = mgr_kill.latest_step()
+        resumed = chunked(chunk_size=chunk, manager=mgr_kill, **kw)
+        seven = chunked(chunk_size=7, **kw)
+        torch.cuda.synchronize()
+        launches = {k: ops.LAUNCHES[k] for k in (*kernels, "gram_qr")}
+        # two CholeskyQR passes a step in every family
+        want = {**{k: steps_run for k in kernels}, "gram_qr": 2 * steps_run}
+        n_chunks = t_outer / chunk
+        resume[fam] = {
+            "wall_s": walls, "wall_s_mean": wall,
+            "chunking_ms_per_chunk": (wall["chunked_10"] - wall["monolithic"])
+            / n_chunks * 1e3,
+            "checkpoint_ms_per_chunk": (wall["chunked_10_checkpointed"]
+                                        - wall["chunked_10"]) / n_chunks * 1e3,
+            "runstate_bytes": state_bytes, "killed_at_step": killed_at,
+            "killed_trace_len": len(killed.error_trace),
+            "final_err": float(mono.error_trace[-1]),
+            "chunked_equals_i": same_bits(bare, mono, q_attr),
+            "ii_equals_i": same_bits(whole, mono, q_attr),
+            "iii_equals_i": same_bits(resumed, mono, q_attr),
+            "iv_trace_equals_i": same_bits(seven, mono, q_attr, False),
+            "iv_iterate_equals_i": same_bits(seven, mono, q_attr),
+            "launches": launches, "launches_expected": want}
+        for k, count in launches.items():
+            rows[k]["launches"] += count
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    # the error trace's SVDs: the runtime takes one batched call a chunk,
+    # which keeps resume bitwise only while cuSOLVER's result for a matrix
+    # does not depend on the batch it is in; one call a step would not need
+    # that, at the cost timed here. S-DOT hands it (L, N, r, r) crosses,
+    # F-DOT and B-DOT (L, r, r): L = 1 (a one-step chunk or remainder) is a
+    # batch of one, which may take another cuSOLVER routine
+    crosses = {"sdot": torch.randn((t_outer, n_nodes, r, r), generator=gen,
+                                   device=dev),
+               "fdot_bdot": torch.randn((t_outer, r, r), generator=gen,
+                                        device=dev)}
+
+    def svd_per_step():
+        for c in crosses["sdot"]:
+            torch.linalg.svdvals(c)
+
+    def chunked_equals_whole(c, n):
+        return bool(torch.equal(torch.cat([
+            torch.linalg.svdvals(c[i:i + n]) for i in range(0, t_outer, n)]),
+            torch.linalg.svdvals(c)))
+
+    trace_svd = {
+        "per_step_ms_a_run": timed(svd_per_step)[1] * 1e3,
+        "one_batched_call_ms_a_run": timed(
+            lambda: torch.linalg.svdvals(crosses["sdot"]))[1] * 1e3,
+        "batched_by_chunks_of_equals_whole": {
+            f"{fam}_{n}": chunked_equals_whole(crosses[fam], n)
+            for fam, sizes in (("sdot", (1, 7, 10)),
+                               ("fdot_bdot", (1, 2, 7, 10)))
+            for n in sizes}}
+    emit({"phase": "resume", "t_outer": t_outer, "t_c": 50,
+          "chunk_size": chunk, "killed_after_chunks": kill_after,
+          "families": resume, "trace_svd": trace_svd})
+    for fam, res in resume.items():
+        for key in ("chunked_equals_i", "ii_equals_i", "iii_equals_i",
+                    "iv_trace_equals_i", "iv_iterate_equals_i"):
+            check(res[key], f"resume {fam}: {key} is false")
+        check(res["killed_at_step"] == kill_after * chunk
+              and res["killed_trace_len"] == kill_after * chunk,
+              f"resume {fam}: the killed run stopped at "
+              f"{res['killed_at_step']}")
+        # a resume that did not restore would run kill_after * chunk more
+        check(res["launches"] == res["launches_expected"],
+              f"resume {fam}: launches {res['launches']}, expected "
+              f"{res['launches_expected']}")
+        check(res["final_err"] <= SUBSPACE_TOL,
+              f"resume {fam}: final error {res['final_err']}")
+    check(all(trace_svd["batched_by_chunks_of_equals_whole"].values()),
+          "resume: a matrix's batched singular values depend on its batch")
 
     # -- sdot_sparse: the large-network path ----------------------------------
     q_init_sp = orthonormal_init(torch.Generator().manual_seed(1), ds, rs,
@@ -677,9 +934,10 @@ def main() -> None:
           f"{rounds} rounds + 20 debias-table rows")
     check(launches_sparse["batched_gram_apply"] == t_sp,
           "sparse: gram-apply launches != T_o")
-    rows["ell_spmm"]["launches"] += launches_sparse["ell_spmm"]
-    rows["batched_gram_apply"]["launches"] += launches_sparse[
-        "batched_gram_apply"]
+    check(launches_sparse["gram_qr"] == 2 * t_sp,
+          "sparse: Gram launches != 2 T_o")
+    for name in ("ell_spmm", "batched_gram_apply", "gram_qr"):
+        rows[name]["launches"] += launches_sparse[name]
 
     dense_eng = DenseConsensus(sp_graph, sparse=False, device=dev)
     torch.cuda.synchronize()
@@ -703,6 +961,7 @@ def main() -> None:
     launches_bf = dict(ops.LAUNCHES)
     rows["ell_spmm_bf16"]["launches"] += launches_bf["ell_spmm"]
     rows["batched_gram_apply"]["launches"] += launches_bf["batched_gram_apply"]
+    rows["gram_qr"]["launches"] += launches_bf["gram_qr"]
     check(bool(torch.isfinite(bf_res.q_nodes).all()), "bf16: non-finite")
     check(bf_res.ledger.payload_bytes == 2 * bf_res.ledger.scalars,
           "bf16: ledger does not price 2 bytes per element")

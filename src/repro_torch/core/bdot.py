@@ -10,18 +10,20 @@ V = X X^T Q block-wise:
     Q_i = distributed CholeskyQR over the row representatives (r x r Grams)
 
 Execution modes (``fused`` flag, as in ``sdot.py`` / ``fdot.py``):
-  * fused (default): the ragged grid is zero-padded into one
-    (I, J, d_max, n_max) stack and the row iterates into (I, d_max, r).
-    The padding is exact: padded feature rows are zero in X_ij and Q_i;
-    padded sample columns of X_ij give zero rows of Z_ij, which stay zero
-    through gossip (a convex row mix) and debiasing, so stage 2 never reads
-    anything but zeros there. Stages 1 and 2 are one launch each of the
-    Hopper grid kernels (``kernels/ops.grid_block_tq`` /
-    ``grid_block_apply``); the J column (I row) gossips run as one batched
-    matmul per round over the stacked (J, I, I) ((I, J, J)) weights, each
-    debiased by its own device table. Stage 3 is the in-loop distributed
-    CholeskyQR over the column-0 engine. No host sync inside the loop; the
-    ledger is priced in closed form.
+  * fused (default): ``runtime.run_monolithic`` over ``bdot_program``. The
+    ragged grid is zero-padded into one (I, J, d_max, n_max) stack and the
+    row iterates into (I, d_max, r). The padding is exact: padded feature
+    rows are zero in X_ij and Q_i; padded sample columns of X_ij give zero
+    rows of Z_ij, which stay zero through gossip (a convex row mix) and
+    debiasing, so stage 2 never reads anything but zeros there. Stages 1
+    and 2 are one launch each of the Hopper grid kernels
+    (``kernels/ops.grid_block_tq`` / ``grid_block_apply``); the J column
+    (I row) gossips run as one batched matmul per round over the stacked
+    (J, I, I) ((I, J, J)) weights, each debiased by its own device table.
+    Stage 3 is the in-loop distributed CholeskyQR over the column-0 engine,
+    its I Grams one launch of the Gram kernel a pass. No host sync inside
+    the loop; the ledger is priced in closed form.
+    ``streaming/resume.bdot_chunked`` runs the same Program chunk by chunk.
   * eager (``fused=False``): the reference's per-iteration loop over the
     ragged block lists, one gossip call per column and per row.
 """
@@ -36,15 +38,16 @@ import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
 from ..kernels import ops as kops
+from . import runtime
 from .consensus import (DenseConsensus, check_sync_engine,
                         consensus_schedule, debiased_gossip)
-from .fdot import (QR_PASSES, _errors_from_crosses, _qr_pass,
-                   distributed_cholesky_qr, split_pad_rows)
+from .fdot import (QR_PASSES, _qr_pass, distributed_cholesky_qr,
+                   split_pad_rows)
 from .linalg import orthonormal_init
 from .metrics import CommLedger, subspace_error
 from .sparse import SparseW
 
-__all__ = ["BDOTResult", "bdot", "pad_grid_blocks"]
+__all__ = ["BDOTResult", "bdot", "bdot_program", "pad_grid_blocks"]
 
 
 def _stack_weights(engines: Sequence[DenseConsensus]) -> torch.Tensor:
@@ -137,57 +140,105 @@ def _prepare_bdot(*, blocks, col_engines, row_engines, r, t_outer, t_c,
         t_max=int(max(schedule.max(), t_c_qr)) if t_outer else t_c_qr)
 
 
-def _bdot_ledger(run: _BDOTRun, col_engines, row_engines, r: int
-                 ) -> CommLedger:
-    """Closed-form accounting of a whole run (the reference's
-    ``bdot_program`` finalize)."""
+def _bdot_ledger(run: _BDOTRun, col_engines, row_engines, r: int,
+                 done: int) -> CommLedger:
+    """Closed-form accounting of the first ``done`` outer iterations (the
+    reference's ``bdot_program`` finalize)."""
+    sched = run.schedule[:done]
     ledger = CommLedger()
     for j, eng in enumerate(col_engines):
-        ledger.log_gossip_rounds(run.schedule, eng.graph.adjacency,
+        ledger.log_gossip_rounds(sched, eng.graph.adjacency,
                                  run.n_samps[j] * r,
                                  eng.payload_bytes_per_elem)
     for i, eng in enumerate(row_engines):
-        ledger.log_gossip_rounds(run.schedule, eng.graph.adjacency,
-                                 run.dims[i] * r, eng.payload_bytes_per_elem)
-    ledger.log_gossip_rounds(np.full(len(run.schedule),
-                                     QR_PASSES * run.t_c_qr),
+        ledger.log_gossip_rounds(sched, eng.graph.adjacency, run.dims[i] * r,
+                                 eng.payload_bytes_per_elem)
+    ledger.log_gossip_rounds(np.full(done, QR_PASSES * run.t_c_qr),
                              col_engines[0].graph.adjacency, r * r,
                              col_engines[0].payload_bytes_per_elem)
     return ledger
 
 
-def _bdot_fused(run: _BDOTRun, col_engines, row_engines, r: int
-                ) -> BDOTResult:
-    """The fused loop: two grid-kernel launches per outer iteration, no host
-    sync until the error trace at the end."""
-    x_grid = pad_grid_blocks(run.blocks)               # (I, J, d_max, n_max)
-    q_pad = split_pad_rows(run.q_init, run.dims)       # (I, d_max, r)
-    qtrue_pad = (None if run.q_true is None
-                 else split_pad_rows(run.q_true, run.dims))
-    t_max = run.t_max
-    w_col = _stack_weights(col_engines)                # (J, I, I)
-    tab_col = torch.stack([e.debias_table(t_max) for e in col_engines])
-    w_row = _stack_weights(row_engines)                # (I, J, J)
-    tab_row = torch.stack([e.debias_table(t_max) for e in row_engines])
-    crosses = []
-    for t_c in run.schedule:
-        t_c = int(t_c)
+def _bdot_outer_body(x_grid, w_col, tab_col, w_row, tab_row,
+                     qtrue_pad: Optional[torch.Tensor], *, t_max: int,
+                     t_c_qr: int):
+    """One outer iteration ``(q_pad, t_c) -> (q_new, cross)``: two
+    grid-kernel launches, the batched column and row gossips, and two
+    distributed CholeskyQR passes (``cross`` is None without a ground
+    truth)."""
+
+    def outer(q_pad, t_c):
         # stage 1: column-wise consensus over the (n_max, r) partials
         z = kops.grid_block_tq(x_grid, q_pad).transpose(0, 1)  # (J, I, n, r)
         s = debiased_gossip(w_col, tab_col, z, t_c, t_max).mean(dim=1)
         # stage 2: row-wise consensus over the (d_max, r) expansions
-        v = kops.grid_block_apply(x_grid, s)           # (I, J, d_max, r)
+        v = kops.grid_block_apply(x_grid, s)               # (I, J, d_max, r)
         q_pad = debiased_gossip(w_row, tab_row, v, t_c, t_max).mean(dim=1)
         # stage 3: distributed CholeskyQR across the I feature slabs
         for _ in range(QR_PASSES):
-            q_pad = _qr_pass(w_col[0], tab_col[0], q_pad, run.t_c_qr,
-                             run.t_c_qr)
-        if qtrue_pad is not None:
-            crosses.append(torch.einsum("idr,ids->rs", qtrue_pad, q_pad))
-    return BDOTResult(
-        q_rows=[q_pad[i, :di] for i, di in enumerate(run.dims)],
-        error_trace=_errors_from_crosses(crosses),
-        ledger=_bdot_ledger(run, col_engines, row_engines, r))
+            q_pad = _qr_pass(w_col[0], tab_col[0], q_pad, t_c_qr, t_c_qr)
+        cross = (None if qtrue_pad is None
+                 else torch.einsum("idr,ids->rs", qtrue_pad, q_pad))
+        return q_pad, cross
+
+    return outer
+
+
+def _bdot_build_body(operands, *, t_max: int, t_c_qr: int):
+    """The Program protocol's ``build_body`` for B-DOT (sync only)."""
+    return _bdot_outer_body(*operands, t_max=t_max, t_c_qr=t_c_qr)
+
+
+def bdot_program(
+    *,
+    blocks: Sequence[Sequence[torch.Tensor]],
+    col_engines: Sequence[DenseConsensus],
+    row_engines: Sequence[DenseConsensus],
+    r: int,
+    t_outer: int,
+    t_c: int = 50,
+    t_c_qr: Optional[int] = None,
+    schedule: Optional[np.ndarray] = None,
+    q_init: Optional[torch.Tensor] = None,
+    q_true: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
+) -> runtime.Program:
+    """Register a B-DOT run with the runtime: ``run_monolithic`` gives
+    ``bdot(fused=True)``, ``run_chunked`` its restartable twin. Every row
+    and column engine must mix on the device (``debias_table``)."""
+    if not all(hasattr(e, "debias_table")
+               for e in list(col_engines) + list(row_engines)):
+        raise ValueError("fused B-DOT needs fused-capable engines "
+                         "(debias_table) on every row and column")
+    run = _prepare_bdot(blocks=blocks, col_engines=col_engines,
+                        row_engines=row_engines, r=r, t_outer=t_outer,
+                        t_c=t_c, t_c_qr=t_c_qr, schedule=schedule,
+                        q_init=q_init, q_true=q_true, generator=generator,
+                        device=device)
+    t_max = run.t_max
+    qtrue_pad = (None if run.q_true is None
+                 else split_pad_rows(run.q_true, run.dims))
+    operands = (
+        pad_grid_blocks(run.blocks),                       # (I, J, d, n)
+        _stack_weights(col_engines),                       # (J, I, I)
+        torch.stack([e.debias_table(t_max) for e in col_engines]),
+        _stack_weights(row_engines),                       # (I, J, J)
+        torch.stack([e.debias_table(t_max) for e in row_engines]),
+        qtrue_pad)
+
+    def finalize(state: runtime.RunState, done: int) -> BDOTResult:
+        return BDOTResult(
+            q_rows=[state.q[i, :di] for i, di in enumerate(run.dims)],
+            error_trace=(None if run.q_true is None
+                         else state.errs[:done].cpu().numpy().copy()),
+            ledger=_bdot_ledger(run, col_engines, row_engines, r, done))
+
+    return runtime.Program(
+        build_body=_bdot_build_body, operands=operands,
+        statics=(("t_max", t_max), ("t_c_qr", run.t_c_qr)),
+        xs=run.schedule, q0=split_pad_rows(run.q_init, run.dims),
+        finalize=finalize)
 
 
 def bdot(
@@ -215,13 +266,13 @@ def bdot(
     constant ``t_c_qr``, default ``t_c``). ``device`` defaults to CUDA and
     must be every engine's device.
     """
-    run = _prepare_bdot(blocks=blocks, col_engines=col_engines,
-                        row_engines=row_engines, r=r, t_outer=t_outer,
-                        t_c=t_c, t_c_qr=t_c_qr, schedule=schedule,
-                        q_init=q_init, q_true=q_true, generator=generator,
-                        device=device)
+    kw = dict(blocks=blocks, col_engines=col_engines,
+              row_engines=row_engines, r=r, t_outer=t_outer, t_c=t_c,
+              t_c_qr=t_c_qr, schedule=schedule, q_init=q_init,
+              q_true=q_true, generator=generator, device=device)
     if fused:
-        return _bdot_fused(run, col_engines, row_engines, r)
+        return runtime.run_monolithic(bdot_program(**kw))
+    run = _prepare_bdot(**kw)
 
     n_rows, n_cols = len(run.blocks), len(run.blocks[0])
     offs = np.cumsum([0] + run.dims)

@@ -10,18 +10,22 @@ a feature slab X_i (d_i x n). One outer iteration:
        R = chol(G)^T ; Q_i = V_i R^{-1}     (x2 passes)
 
 Execution modes (``fused`` flag, as in ``sdot.py``):
-  * fused (default): the ragged slabs are zero-padded to one (N, d_max, n)
-    stack (exact: padded rows are null in every product) and steps 1 and 3
-    are one launch each of the Hopper slab kernels
-    (``kernels/ops.batched_slab_tq`` / ``batched_slab_apply``). No host sync
-    inside the loop: debiasing divides by a row of the device table, the
-    CholeskyQR passes use ``cholesky_ex`` and one batched triangular solve,
-    each iteration's cross product Q_true^T Q stays on the device and their
-    SVDs run in one batched call at the end, and the ledger is priced in
-    closed form.
+  * fused (default): ``runtime.run_monolithic`` over ``fdot_program``. The
+    ragged slabs are zero-padded to one (N, d_max, n) stack (exact: padded
+    rows are null in every product) and steps 1 and 3 are one launch each
+    of the Hopper slab kernels (``kernels/ops.batched_slab_tq`` /
+    ``batched_slab_apply``). No host sync inside the loop: debiasing divides
+    by a row of the device table, each CholeskyQR pass takes its N Grams in
+    one launch of the Gram kernel (``kernels/ops.gram_qr``), then
+    ``cholesky_ex`` and one batched triangular solve; each iteration's cross
+    product Q_true^T Q stays on the device until the runtime takes its SVD
+    after the loop, and the ledger is priced in closed form.
+    ``streaming/resume.fdot_chunked`` runs the same Program chunk by chunk.
   * eager (``fused=False``): the reference's per-iteration loop over the
     ragged slab lists, with host debias weights and one host sync per
-    iteration (the error value).
+    iteration (the error value). Its distributed QR forms each node's Gram
+    with its own product, so the fused-vs-eager checks hold the kernel
+    against an independent computation.
 """
 from __future__ import annotations
 
@@ -34,12 +38,13 @@ import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
 from ..kernels import ops as kops
+from . import runtime
 from .consensus import (DenseConsensus, check_sync_engine,
                         consensus_schedule, debiased_gossip)
 from .linalg import orthonormal_init
-from .metrics import CommLedger, subspace_error, subspace_error_from_cross
+from .metrics import CommLedger, subspace_error
 
-__all__ = ["FDOTResult", "fdot", "distributed_cholesky_qr",
+__all__ = ["FDOTResult", "fdot", "fdot_program", "distributed_cholesky_qr",
            "pad_feature_slabs", "unpad_feature_slabs", "split_pad_rows"]
 
 QR_PASSES = 2
@@ -123,7 +128,7 @@ def _qr_pass(w, table: torch.Tensor, v: torch.Tensor, t_qr: int,
              t_max: int) -> torch.Tensor:
     """One in-loop distributed CholeskyQR pass over padded slabs
     (N, d_max, r)."""
-    grams = v.mT @ v                                              # (N, r, r)
+    grams = kops.gram_qr(v)                                       # (N, r, r)
     gsum = debiased_gossip(w, table, grams, t_qr, t_max)
     return _solve_from_gram_sum(gsum, v)
 
@@ -179,12 +184,76 @@ def _prepare_fdot(*, data_blocks, engine, r, t_outer, t_c, t_c_qr, schedule,
         t_max=t_max, device=dev)
 
 
-def _errors_from_crosses(crosses: List[torch.Tensor]) -> Optional[np.ndarray]:
-    """One batched SVD of every iteration's Q_true^T Q (every CUDA SVD in
-    PyTorch waits for the device, so it runs once, at the end)."""
-    if not crosses:
-        return None
-    return subspace_error_from_cross(torch.stack(crosses)).cpu().numpy()
+def _fdot_outer_body(x_pad, w, table: torch.Tensor,
+                     qtrue_pad: Optional[torch.Tensor], *, t_max: int,
+                     t_c_qr: int):
+    """One outer iteration ``(q_pad, t_c) -> (q_new, cross)`` over the padded
+    slabs: two slab-kernel launches and two distributed CholeskyQR passes
+    (``cross`` is None without a ground truth)."""
+
+    def outer(q_pad, t_c):
+        z0 = kops.batched_slab_tq(x_pad, q_pad)                  # (N, n, r)
+        s = debiased_gossip(w, table, z0, t_c, t_max)
+        v = kops.batched_slab_apply(x_pad, s)                    # (N, d_max, r)
+        for _ in range(QR_PASSES):
+            v = _qr_pass(w, table, v, t_c_qr, t_max)
+        cross = (None if qtrue_pad is None
+                 else torch.einsum("idr,ids->rs", qtrue_pad, v))
+        return v, cross
+
+    return outer
+
+
+def _fdot_build_body(operands, *, t_max: int, t_c_qr: int):
+    """The Program protocol's ``build_body`` for F-DOT (sync engines)."""
+    return _fdot_outer_body(*operands, t_max=t_max, t_c_qr=t_c_qr)
+
+
+def fdot_program(
+    *,
+    data_blocks: Sequence[torch.Tensor],
+    engine: DenseConsensus,
+    r: int,
+    t_outer: int,
+    t_c: int = 50,
+    t_c_qr: Optional[int] = None,
+    schedule: Optional[np.ndarray] = None,
+    q_init: Optional[torch.Tensor] = None,
+    q_true: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
+) -> runtime.Program:
+    """Register an F-DOT run with the runtime: ``run_monolithic`` gives
+    ``fdot(fused=True)``, ``run_chunked`` its restartable twin."""
+    run = _prepare_fdot(data_blocks=data_blocks, engine=engine, r=r,
+                        t_outer=t_outer, t_c=t_c, t_c_qr=t_c_qr,
+                        schedule=schedule, q_init=q_init, q_true=q_true,
+                        generator=generator, device=device)
+    x_pad = pad_feature_slabs([x.to(run.device, torch.float32)
+                               for x in data_blocks])     # (N, d_max, n)
+    qtrue_pad = (None if run.q_true is None
+                 else split_pad_rows(run.q_true, run.dims))
+
+    def finalize(state: runtime.RunState, done: int) -> FDOTResult:
+        adj, bpe = engine.graph.adjacency, engine.payload_bytes_per_elem
+        ledger = CommLedger()
+        ledger.log_gossip_rounds(run.schedule[:done], adj, run.n_samples * r,
+                                 bpe)
+        ledger.log_gossip_rounds(np.full(done, QR_PASSES * run.t_c_qr), adj,
+                                 r * r, bpe)
+        return FDOTResult(
+            q_blocks=unpad_feature_slabs(state.q, run.dims),
+            error_trace=(None if run.q_true is None
+                         else state.errs[:done].cpu().numpy().copy()),
+            ledger=ledger)
+
+    return runtime.Program(
+        build_body=_fdot_build_body,
+        operands=(x_pad, engine._w, engine.debias_table(run.t_max),
+                  qtrue_pad),
+        statics=(("t_max", run.t_max), ("t_c_qr", run.t_c_qr)),
+        xs=run.schedule, q0=pad_feature_slabs(run.q_blocks),
+        finalize=finalize)
 
 
 def fdot(
@@ -210,13 +279,13 @@ def fdot(
     ``q_init`` is not given. ``device`` defaults to CUDA and must be the
     engine's device.
     """
-    run = _prepare_fdot(data_blocks=data_blocks, engine=engine, r=r,
-                        t_outer=t_outer, t_c=t_c, t_c_qr=t_c_qr,
-                        schedule=schedule, q_init=q_init, q_true=q_true,
-                        generator=generator, device=device)
-    xs = [x.to(run.device, torch.float32) for x in data_blocks]
+    kw = dict(data_blocks=data_blocks, engine=engine, r=r, t_outer=t_outer,
+              t_c=t_c, t_c_qr=t_c_qr, schedule=schedule, q_init=q_init,
+              q_true=q_true, generator=generator, device=device)
     if fused:
-        return _fdot_fused(run, xs, engine, r)
+        return runtime.run_monolithic(fdot_program(**kw))
+    run = _prepare_fdot(**kw)
+    xs = [x.to(run.device, torch.float32) for x in data_blocks]
 
     ledger = CommLedger()
     errs = []
@@ -236,33 +305,3 @@ def fdot(
         q_blocks=q_blocks,
         error_trace=np.asarray(errs) if run.q_true is not None else None,
         ledger=ledger)
-
-
-def _fdot_fused(run: _FDOTRun, xs: List[torch.Tensor], engine, r: int
-                ) -> FDOTResult:
-    """The fused loop: two slab-kernel launches per outer iteration, no host
-    sync until the error trace at the end."""
-    x_pad = pad_feature_slabs(xs)                             # (N, d_max, n)
-    q_pad = pad_feature_slabs(run.q_blocks)                   # (N, d_max, r)
-    qtrue_pad = (None if run.q_true is None
-                 else split_pad_rows(run.q_true, run.dims))
-    w, t_max = engine._w, run.t_max
-    table = engine.debias_table(t_max)
-    crosses = []
-    for t_c in run.schedule:
-        z0 = kops.batched_slab_tq(x_pad, q_pad)              # (N, n, r)
-        s = debiased_gossip(w, table, z0, int(t_c), t_max)
-        q_pad = kops.batched_slab_apply(x_pad, s)            # (N, d_max, r)
-        for _ in range(QR_PASSES):
-            q_pad = _qr_pass(w, table, q_pad, run.t_c_qr, t_max)
-        if qtrue_pad is not None:
-            crosses.append(torch.einsum("idr,ids->rs", qtrue_pad, q_pad))
-
-    adj, bpe = engine.graph.adjacency, engine.payload_bytes_per_elem
-    ledger = CommLedger()
-    ledger.log_gossip_rounds(run.schedule, adj, run.n_samples * r, bpe)
-    ledger.log_gossip_rounds(np.full(len(run.schedule),
-                                     QR_PASSES * run.t_c_qr), adj, r * r, bpe)
-    return FDOTResult(q_blocks=unpad_feature_slabs(q_pad, run.dims),
-                      error_trace=_errors_from_crosses(crosses),
-                      ledger=ledger)

@@ -4,7 +4,9 @@ top-r eigenpairs.
 CholeskyQR2 is the reference's QR everywhere: three matmuls and one tiny
 (r x r) Cholesky per pass, two passes to restore the orthogonality lost to
 squaring the condition number. Here every function takes a leading batch
-of nodes as ordinary leading dims of the tensor.
+of nodes as ordinary leading dims of the tensor. Each pass's Gram V^T V
+goes through ``kernels/ops.gram_qr``: on the card one launch of the Hopper
+Gram kernel for the whole batch, on the CPU the plain product.
 """
 from __future__ import annotations
 
@@ -12,17 +14,22 @@ from typing import Optional
 
 import torch
 
+from ..kernels import ops as kops
+
 __all__ = ["cholesky_qr", "cholesky_qr2", "orthonormal_init", "eigh_topr"]
 
 
 def cholesky_qr(v: torch.Tensor, eps: float = 0.0):
     """One CholeskyQR pass: V = Q R with Q^T Q ~= I. v: (..., d, r).
 
-    The Gram is computed in float32 at minimum, as in the reference.
+    The Gram is computed in float32 at minimum, as in the reference. On the
+    card ``v`` must be f32 or bf16 (bf16 is promoted first): the Gram kernel
+    has no f64 form, so a float64 ``v`` raises ValueError there. The CPU
+    takes any floating dtype.
     """
     acc = torch.promote_types(v.dtype, torch.float32)
     va = v.to(acc)
-    g = va.mT @ va
+    g = kops.gram_qr(va).to(acc)
     if eps:
         g = g + eps * torch.eye(g.shape[-1], dtype=acc, device=g.device)
     # cholesky_ex: like jnp.linalg.cholesky it does not raise on a Gram that

@@ -12,6 +12,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import _tree
+
 __all__ = [
     "subspace_error",
     "subspace_error_from_cross",
@@ -97,3 +99,23 @@ class CommLedger:
 
     def per_node_p2p(self, n_nodes: int) -> float:
         return self.p2p / n_nodes
+
+
+def _ledger_flatten(ledger: CommLedger):
+    # awake_counts travels as one float64 leaf, as in the reference, so a
+    # ledger checkpoints through array-only channels
+    return ((ledger.p2p, ledger.matrices, ledger.scalars,
+             np.asarray(ledger.awake_counts, np.float64),
+             ledger.payload_bytes), None)
+
+
+def _ledger_unflatten(_aux, children) -> CommLedger:
+    p2p, matrices, scalars, awake, payload_bytes = children
+    return CommLedger(float(p2p), float(matrices), float(scalars),
+                      [int(c) for c in np.asarray(awake).ravel()],
+                      float(payload_bytes))
+
+
+# a CommLedger checkpoints through checkpoint/manager.py as a node of the
+# run's state, its list-valued awake_counts rebuilt on restore
+_tree.register_node(CommLedger, _ledger_flatten, _ledger_unflatten)

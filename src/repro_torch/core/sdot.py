@@ -10,12 +10,14 @@ launch of the Hopper gram-apply kernel per outer iteration
 (``kernels/ops.batched_gram_apply``); no node forms a d x d covariance.
 
 Execution modes (``fused`` flag):
-  * fused (default): no host sync inside the loop. Debiasing divides by a
-    row of the device table of W^t e_1, each iteration's error is kept on
-    the device as its (N, r, r) cross products Q_true^T Q_i, whose singular
-    values are taken in one batched call at the end, and the ledger is
-    priced in closed form. The schedule is host data, so each outer
-    iteration runs exactly ``schedule[t]`` rounds.
+  * fused (default): ``runtime.run_monolithic`` over ``sdot_program``. No
+    host sync inside the loop: debiasing divides by a row of the device
+    table of W^t e_1, each iteration's error is kept on the device as its
+    (N, r, r) cross products Q_true^T Q_i, whose singular values the
+    runtime takes after the loop, and the ledger is priced in closed form.
+    The schedule is host data, so each outer iteration runs exactly
+    ``schedule[t]`` rounds. ``streaming/resume.sdot_chunked`` runs the same
+    Program chunk by chunk with checkpoints.
   * eager (``fused=False``): the reference's loop, with the host debias
     weights and one host sync per iteration (the error value).
 """
@@ -30,12 +32,13 @@ import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
 from ..kernels import ops as kops
+from . import runtime
 from .consensus import (DenseConsensus, check_sync_engine,
-                        consensus_schedule)
+                        consensus_schedule, debiased_gossip)
 from .linalg import cholesky_qr2, orthonormal_init
 from .metrics import CommLedger, subspace_error_from_cross
 
-__all__ = ["SDOTResult", "sdot", "sadot", "local_cov_apply"]
+__all__ = ["SDOTResult", "sdot", "sadot", "sdot_program", "local_cov_apply"]
 
 
 @dataclasses.dataclass
@@ -116,6 +119,67 @@ def _prepare_sdot(*, covs, data, engine, r, t_outer, schedule, t_c, q_init,
     return operand, mode, q_nodes, sched, q_true, d
 
 
+def _sync_outer_body(operand, w, table: torch.Tensor,
+                     q_true: Optional[torch.Tensor], *, mode: str,
+                     t_max: int):
+    """One outer iteration ``(q_nodes, t_c) -> (q_new, cross)``, the body
+    every runtime driver steps through (``cross`` is None without a ground
+    truth)."""
+
+    def outer(q_nodes, t_c):
+        z0 = _apply_operand(operand, mode, q_nodes)              # (N, d, r)
+        v = debiased_gossip(w, table, z0, t_c, t_max)
+        q_new = cholesky_qr2(v)[0]                               # per node
+        return q_new, None if q_true is None else q_true.mT @ q_new
+
+    return outer
+
+
+def _sdot_build_body(operands, *, mode: str, t_max: int):
+    """The Program protocol's ``build_body`` for S-DOT/SA-DOT."""
+    return _sync_outer_body(*operands, mode=mode, t_max=t_max)
+
+
+def sdot_program(
+    *,
+    covs: Optional[torch.Tensor] = None,
+    data: Optional[Sequence[torch.Tensor]] = None,
+    engine: DenseConsensus,
+    r: int,
+    t_outer: int,
+    schedule: Optional[np.ndarray] = None,
+    t_c: int = 50,
+    q_init: Optional[torch.Tensor] = None,
+    q_true: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
+) -> runtime.Program:
+    """Register an S-DOT/SA-DOT run with the runtime: ``run_monolithic``
+    gives ``sdot(fused=True)``, ``run_chunked`` its restartable twin. Built
+    from the same ``_prepare_sdot`` as the eager oracle."""
+    operand, mode, q_nodes, sched, q_true, d = _prepare_sdot(
+        covs=covs, data=data, engine=engine, r=r, t_outer=t_outer,
+        schedule=schedule, t_c=t_c, q_init=q_init, q_true=q_true,
+        generator=generator, device=device)
+    t_max = int(sched.max()) if t_outer else 0
+
+    def finalize(state: runtime.RunState, done: int) -> SDOTResult:
+        ledger = CommLedger()
+        ledger.log_gossip_rounds(sched[:done], engine.graph.adjacency, d * r,
+                                 engine.payload_bytes_per_elem)
+        return SDOTResult(
+            q_nodes=state.q,
+            error_trace=(None if q_true is None
+                         else state.errs[:done].cpu().numpy().copy()),
+            consensus_trace=sched[:done], ledger=ledger)
+
+    return runtime.Program(
+        build_body=_sdot_build_body,
+        operands=(operand, engine._w, engine.debias_table(t_max), q_true),
+        statics=(("mode", mode), ("t_max", t_max)),
+        xs=sched, q0=q_nodes, finalize=finalize)
+
+
 def sdot(
     *,
     covs: Optional[torch.Tensor] = None,
@@ -138,40 +202,25 @@ def sdot(
     ``generator`` draws Q_init where ``q_init`` is not given. ``device``
     defaults to CUDA and must be the engine's device.
     """
-    operand, mode, q_nodes, sched, q_true, d = _prepare_sdot(
-        covs=covs, data=data, engine=engine, r=r, t_outer=t_outer,
-        schedule=schedule, t_c=t_c, q_init=q_init, q_true=q_true,
-        generator=generator, device=device)
-    t_max = int(sched.max()) if t_outer else 0
-    table = engine.debias_table(t_max) if fused else None
+    kw = dict(covs=covs, data=data, engine=engine, r=r, t_outer=t_outer,
+              schedule=schedule, t_c=t_c, q_init=q_init, q_true=q_true,
+              generator=generator, device=device)
+    if fused:
+        return runtime.run_monolithic(sdot_program(**kw))
+    operand, mode, q_nodes, sched, q_true, d = _prepare_sdot(**kw)
     ledger = CommLedger()
     errs = []
     for t in range(t_outer):
         z0 = _apply_operand(operand, mode, q_nodes)               # (N, d, r)
-        if fused:
-            v = engine.run_debiased_scan(z0, int(sched[t]), t_max=t_max,
-                                         table=table)
-        else:
-            v = engine.run_debiased(z0, int(sched[t]), ledger)
+        v = engine.run_debiased(z0, int(sched[t]), ledger)
         q_nodes = cholesky_qr2(v)[0]                              # per node
         if q_true is not None:
-            cross = q_true.mT @ q_nodes                           # (N, r, r)
-            errs.append(cross if fused else
-                        float(subspace_error_from_cross(cross).mean()))
-    if fused:
-        ledger.log_gossip_rounds(sched, engine.graph.adjacency, d * r,
-                                 engine.payload_bytes_per_elem)
-    if q_true is None:
-        error_trace = None
-    elif fused and errs:
-        # one batched SVD of every iteration's cross products: every CUDA
-        # SVD in PyTorch waits for the device, so it runs once, at the end
-        error_trace = subspace_error_from_cross(
-            torch.stack(errs)).mean(dim=-1).cpu().numpy()
-    else:
-        error_trace = np.asarray(errs, np.float32 if fused else np.float64)
-    return SDOTResult(q_nodes=q_nodes, error_trace=error_trace,
-                      consensus_trace=sched, ledger=ledger)
+            errs.append(float(subspace_error_from_cross(
+                q_true.mT @ q_nodes).mean()))
+    return SDOTResult(
+        q_nodes=q_nodes,
+        error_trace=None if q_true is None else np.asarray(errs, np.float64),
+        consensus_trace=sched, ledger=ledger)
 
 
 def sadot(*, schedule_kind: str = "lin2", cap: Optional[int] = None,

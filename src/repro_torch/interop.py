@@ -11,6 +11,13 @@ the ELL arrays (``ell_idx``, ``ell_val``, ``diag``, ``row_nnz``). A caller
 extracts them with ``np.asarray(...)`` and hands them here, so both
 packages compute from the same values. This module imports nothing of the
 JAX package.
+
+A run's state in flight needs no mapping: the port's ``RunState`` has the
+reference's leaves in the reference's order (``0`` ... ``5``: iterate,
+key, step, error trace, sends, counts) and ``checkpoint/manager.py`` reads
+and writes the reference's on-disk layout. A sync S-DOT, F-DOT or B-DOT
+run the reference checkpointed with ``run_chunked`` is finished by the
+port's ``streaming/resume.*_chunked`` on the same directory and inputs.
 """
 from __future__ import annotations
 

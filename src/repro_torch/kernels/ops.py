@@ -24,13 +24,14 @@ from . import ref
 
 __all__ = ["LAUNCHES", "reset_launches", "on_gpu", "gram_apply",
            "batched_gram_apply", "batched_slab_tq", "batched_slab_apply",
-           "grid_block_tq", "grid_block_apply", "ell_spmm", "ell_spmm_path",
-           "ell_densify_wins", "flash_attention"]
+           "grid_block_tq", "grid_block_apply", "gram_qr", "ell_spmm",
+           "ell_spmm_path", "ell_densify_wins", "flash_attention"]
 
 LAUNCHES: Dict[str, int] = {"gram_apply": 0, "batched_gram_apply": 0,
                             "batched_slab_tq": 0, "batched_slab_apply": 0,
                             "grid_block_tq": 0, "grid_block_apply": 0,
-                            "ell_spmm": 0, "flash_attention": 0}
+                            "gram_qr": 0, "ell_spmm": 0,
+                            "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -132,6 +133,26 @@ def grid_block_apply(x_grid: torch.Tensor,
                         s_stack.contiguous(), j_cols)
     LAUNCHES["grid_block_apply"] += 1
     return v.reshape(i_rows, j_cols, d, s_stack.shape[-1])
+
+
+def gram_qr(v: torch.Tensor) -> torch.Tensor:
+    """G = V^T V — the Gram of every CholeskyQR pass, over any leading
+    batch. v: (..., d, r) f32 or bf16 -> (..., r, r) f32, exactly symmetric
+    on the card.
+
+    All matrices of the batch go through one launch. The reference's guard
+    (d below one block -> oracle) and its padding of d do not carry over:
+    the kernel masks its own ragged d.
+    """
+    if not v.is_cuda:
+        return ref.gram_qr_ref(v)
+    if v.dim() < 2:
+        raise ValueError(f"gram_qr takes (..., d, r), got {tuple(v.shape)}")
+    from .gram_qr import gram_qr_cuda
+    d, r = v.shape[-2:]
+    g = gram_qr_cuda(v.reshape(-1, d, r).contiguous())
+    LAUNCHES["gram_qr"] += 1
+    return g.reshape(*v.shape[:-2], r, r)
 
 
 # Above this many gathered message elements (N * L * K) the one-shot

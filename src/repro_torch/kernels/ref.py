@@ -17,7 +17,7 @@ import torch
 __all__ = ["gram_apply_ref", "batched_gram_apply_ref", "ell_spmm_ref",
            "ell_spmm_dense_ref", "ell_spmm_scan_ref", "batched_slab_tq_ref",
            "batched_slab_apply_ref", "grid_block_tq_ref",
-           "grid_block_apply_ref", "flash_attention_ref",
+           "grid_block_apply_ref", "gram_qr_ref", "flash_attention_ref",
            "flash_attention_plain"]
 
 _NEG = -1e30        # the flash kernel's mask value
@@ -99,6 +99,15 @@ def grid_block_apply_ref(x_grid: torch.Tensor,
     acc = _acc(x_grid.dtype)
     return torch.einsum("ijdn,jnr->ijdr", x_grid.to(acc),
                         s_stack.to(acc)).to(s_stack.dtype)
+
+
+def gram_qr_ref(v: torch.Tensor) -> torch.Tensor:
+    """G = V^T V in f32 (the oracle of the CholeskyQR Gram kernel).
+
+    v: (..., d, r) -> (..., r, r) float32; bf16 is promoted first.
+    """
+    va = v.to(_acc(v.dtype))
+    return (va.mT @ va).to(torch.float32)
 
 
 def _diag_term(diag: torch.Tensor, z_own: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """The port's Hopper kernels on the card: each against its plain version;
 S-DOT, F-DOT, B-DOT and the LM prefill on the card against the same runs on
-the CPU; and decode on the card against prefill on the card.
+the CPU; decode on the card against prefill on the card; and a killed and
+resumed chunked S-DOT run against the uninterrupted one, bit for bit.
 
 Every test here needs an NVIDIA H100 with nvcc and skips elsewhere. This
 file imports neither JAX nor the reference package, so it runs on a machine
@@ -14,12 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_arch, reduced_config
 from repro_torch.core import topology
 from repro_torch.core.bdot import bdot
 from repro_torch.core.consensus import DenseConsensus, consensus_schedule
 from repro_torch.core.fdot import fdot
-from repro_torch.core.linalg import orthonormal_init
+from repro_torch.core.linalg import cholesky_qr, orthonormal_init
 from repro_torch.core.sdot import sdot
 from repro_torch.core.sparse import SparseW
 from repro_torch.data.pipeline import (gaussian_eigengap_data,
@@ -30,6 +32,7 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models.transformer import (decode_step, forward,
                                             init_decode_state, init_params,
                                             tree_map)
+from repro_torch.streaming.resume import sdot_chunked
 
 pytestmark = pytest.mark.gpu
 
@@ -447,3 +450,88 @@ def test_decode_on_card_matches_prefill_on_card(cuda_device):
             outs.append(lg)
     torch.testing.assert_close(torch.cat(outs, dim=1), want, rtol=1e-4,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the CholeskyQR Gram kernel and checkpointed resume
+# ---------------------------------------------------------------------------
+GRAM_QR_TOL = 1e-5   # f32 sums in another order, relative to max |G|
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,d,r", [(20, 1024, 7), (1, 1031, 7),
+                                       (20, 55, 7), (1, 16421, 128),
+                                       (20, 3001, 64), (4, 257, 13),
+                                       (1, 5000, 33), (2, 1, 3)])
+def test_gram_qr_kernel_matches_plain(cuda_device, dtype, batch, d, r):
+    """Ragged d (no multiple of any tile or range), one pass and two:
+    within GRAM_QR_TOL of the plain version, the same bits on a second
+    launch, and exactly symmetric."""
+    gen = torch.Generator(device=cuda_device).manual_seed(batch + d + r)
+    v = torch.randn((batch, d, r), generator=gen, device=cuda_device).to(dtype)
+    before = ops.LAUNCHES["gram_qr"]
+    got = ops.gram_qr(v)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gram_qr"] == before + 1
+    assert got.shape == (batch, r, r) and got.dtype == torch.float32
+    want = ref.gram_qr_ref(v)
+    assert float((got - want).abs().max()) <= GRAM_QR_TOL * float(
+        want.abs().max())
+    with no_host_sync():
+        again = ops.gram_qr(v)
+    assert torch.equal(got, again)          # fixed-order reduction
+    assert torch.equal(got, got.mT)
+
+
+def test_gram_qr_wrapper_raises_instead_of_falling_back(cuda_device):
+    for dtype in (torch.float64, torch.float16, torch.int32):
+        with pytest.raises(ValueError):
+            ops.gram_qr(torch.ones((3, 40, 5), dtype=dtype,
+                                   device=cuda_device))
+    # so CholeskyQR takes no f64 on the card (the kernel has no f64 form)
+    with pytest.raises(ValueError):
+        cholesky_qr(torch.ones((40, 5), dtype=torch.float64,
+                               device=cuda_device))
+
+
+def test_sdot_cholesky_qr_goes_through_the_gram_kernel(cuda_device):
+    """Two Gram launches per outer iteration (CholeskyQR2), none on the CPU."""
+    d, r, n = 64, 5, 8
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn((n, d, d), generator=g, device=cuda_device)
+    eng = DenseConsensus(topology.erdos_renyi(n, 0.5, seed=1),
+                         device=cuda_device)
+    q0 = orthonormal_init(torch.Generator().manual_seed(0), d, r,
+                          device=cuda_device)
+    ops.reset_launches()
+    sdot(covs=a @ a.mT / d, engine=eng, r=r, t_outer=6, t_c=10, q_init=q0,
+         device=cuda_device)
+    assert ops.LAUNCHES["gram_qr"] == 2 * 6
+
+
+def test_sdot_kill_and_resume_is_bitwise_on_card(cuda_device, tmp_path):
+    """A raw-data S-DOT run killed after 2 chunks of 4 and resumed from its
+    checkpoint gives the uninterrupted run's trace, iterate and ledger, bit
+    for bit; so does a run chunked by 3."""
+    d, r, n = 96, 4, 10
+    x, _, _ = gaussian_eigengap_data(d, n * 400, r, 0.7, seed=0,
+                                     device=cuda_device)
+    blocks = partition_samples(x, n)
+    q_true = torch.linalg.eigh(sum(b @ b.T for b in blocks))[1][:, -r:]
+    kw = dict(data=blocks,
+              engine=DenseConsensus(topology.erdos_renyi(n, 0.5, seed=1),
+                                    device=cuda_device),
+              r=r, t_outer=14, t_c=20, q_true=q_true,
+              q_init=orthonormal_init(torch.Generator().manual_seed(0), d, r,
+                                      device=cuda_device),
+              device=cuda_device)
+    mono = sdot(**kw)
+    mgr = CheckpointManager(str(tmp_path))
+    sdot_chunked(chunk_size=4, manager=mgr, max_chunks=2, **kw)
+    assert mgr.latest_step() == 8
+    runs = [sdot_chunked(chunk_size=4, manager=mgr, **kw),
+            sdot_chunked(chunk_size=3, **kw)]
+    for res in runs:
+        np.testing.assert_array_equal(res.error_trace, mono.error_trace)
+        assert torch.equal(res.q_nodes, mono.q_nodes)
+        assert res.ledger == mono.ledger
