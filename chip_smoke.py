@@ -13,7 +13,14 @@ Phases, one JSON line each:
   the least time the card could take (its bound). The CholeskyQR Gram
   kernel also runs at F-DOT's and B-DOT's shapes and at
   benchmarks/kernel_bench.py's (16384, 128) in f32 and bf16, each timed and
-  checked for the same bits on a second launch and exact symmetry.
+  checked for the same bits on a second launch and exact symmetry. Flash
+  attention has two rows: bf16 at qwen2-7b's prefill (the tensor-core
+  kernel, checked for the same bits on a second launch, with its ptxas
+  report and its count of HGMMA instructions from cuobjdump) and f32 at
+  (1, 28 / 4 heads, 1024, 128) (the CUDA-core kernel, off the main path);
+  more bf16 cases (a 512-key window, ragged 2000, 128 x 2048 cross, and
+  h2o-danube-1.8b's 32 / 8 heads at head dim 80 with a 512-key window)
+  and f32 are held to their limits.
 * ``sdot_dense``: S-DOT (t_c = 50) and SA-DOT (2t+1, capped at 50) at the
   paper's CIFAR-10 width: d = 1024, r = 7, N = 20 nodes of erdos_renyi(20,
   0.25, seed=1), T_o = 100, the full 50,000-sample training-set size (2,500
@@ -63,8 +70,9 @@ Phases, one JSON line each:
   card in bf16.
 * ``lm_prefill``: ``forward`` over make_lm_batch(seed 0) of 4 x 2048 tokens
   through the flash-attention kernel: wall time, prefill tokens/s, peak
-  memory, and exactly 28 kernel launches. Then the same forward with plain
-  ``blockwise_attention``: the logits' RMS difference relative to their RMS
+  memory, and exactly 28 kernel launches, all on the tensor-core route.
+  Then the same forward with plain ``blockwise_attention``: the logits'
+  RMS difference relative to their RMS
   must stay within LOGITS_TOL (max abs difference and top-1 agreement
   reported beside it). Two control forwards with a faulty attention in
   place of the kernel (q k^T rounded to bf16 before the softmax; the kernel
@@ -256,6 +264,47 @@ def ptxas_summary(text: str):
             if "registers" in ln or "spill" in ln]
 
 
+def ptxas_entries(text: str, fragment: str) -> dict:
+    """The ptxas report of each kernel whose (mangled) name holds
+    ``fragment``: registers, spill stores and loads, static shared memory."""
+    entries, cur = {}, None
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            cur = name if fragment in name else None
+            if cur:
+                entries[cur] = {"line": []}
+        elif cur and ("registers" in ln or "spill" in ln):
+            entries[cur]["line"].append(ln.strip())
+            words = ln.replace(",", " ").split()
+            for i, w in enumerate(words[1:], 1):
+                if w == "registers":
+                    entries[cur]["registers"] = int(words[i - 1])
+                elif w == "stores":
+                    entries[cur]["spill_store_bytes"] = int(words[i - 3])
+                elif w == "loads":
+                    entries[cur]["spill_load_bytes"] = int(words[i - 3])
+                elif w.startswith("smem"):
+                    entries[cur]["static_smem_bytes"] = int(words[i - 2])
+    return entries
+
+
+def sass_counts(tool: Path, lib: Path, fragment: str, opcode: str) -> dict:
+    """How many ``opcode`` instructions the SASS of each kernel whose name
+    holds ``fragment`` has (``tool`` = cuobjdump, on the built library), or
+    "not measured" where the toolkit has no cuobjdump."""
+    if not tool.exists():
+        return {"not measured": "no cuobjdump"}
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts = {}
+    for part in out.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if fragment in name:
+            counts[name] = sum(ln.count(opcode) for ln in part.splitlines())
+    return counts
+
+
 def profile_phase(run, phase: str = "profile",
                   what: str = "sdot_dense S-DOT, T_o = 20, t_c = 50",
                   groups=None) -> dict:
@@ -324,7 +373,9 @@ def main() -> None:
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import make_lm_batch
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES,
+                                                     flash_attention_cuda,
+                                                     tc_smem_bytes)
     from repro_torch.models.transformer import (decode_step, forward,
                                                 init_decode_state,
                                                 init_params, tree_leaves)
@@ -551,6 +602,7 @@ def main() -> None:
 
     fq, fk, fv = attn_inputs(torch.bfloat16, fb, fhq, fhkv, fs, fs, fhd)
     bf16 = 2
+    # bf16 runs on the tensor-core kernel, f32 on the CUDA-core kernel
     record("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
            "src/repro/kernels/flash_attention.py:86",
            lambda: ops.flash_attention(fq, fk, fv, causal=True),
@@ -563,6 +615,28 @@ def main() -> None:
            "of the largest |out| in the element's own row, and relative RMS "
            "within half an ulp (2^-8)",
            flop_rate=BF16_TC_FLOP_PER_S, judge=attn_judge(torch.bfloat16))
+    rows["flash_attention"]["kernel"] = "flash_attention_wgmma_kernel"
+    flash_once = ops.flash_attention(fq, fk, fv, causal=True)
+    flash_twice = ops.flash_attention(fq, fk, fv, causal=True)
+    flash_same_bits = bool(torch.equal(flash_once, flash_twice))
+    del flash_once, flash_twice
+    f32q, f32k, f32v = attn_inputs(torch.float32, 1, fhq, fhkv, 1024, 1024,
+                                   fhd)
+    record("flash_attention_f32",
+           "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "src/repro/kernels/flash_attention.py:86",
+           lambda: ops.flash_attention(f32q, f32k, f32v, causal=True),
+           lambda: attn_plain(f32q, f32k, f32v, causal=True),
+           lambda: torch.nn.functional.scaled_dot_product_attention(
+               f32q, f32k, f32v, is_causal=True, enable_gqa=True),
+           f32 * (2 * f32q.numel() + f32k.numel() + f32v.numel()),
+           4.0 * fhq * fhd * 1024 * 1025 / 2, ATTN_F32_TOL,
+           "f32 sums in another order; relative to max |out|",
+           judge=attn_judge(torch.float32))
+    rows["flash_attention_f32"].update(
+        kernel="flash_attention_simt_kernel", main_path=False,
+        note="the f32 route: not on the bf16 main path, so 0 launches there")
+    del f32q, f32k, f32v
     flash_checks = {}
     for label, dtype, shape, kw in (
             ("window512", torch.bfloat16, (fb, fhq, fhkv, fs, fs, fhd),
@@ -571,6 +645,9 @@ def main() -> None:
              {}),
             ("cross128x2048", torch.bfloat16, (fb, fhq, fhkv, 128, fs, fhd),
              {}),
+            # h2o-danube-1.8b's heads (32 / 8) and head dim 80
+            ("hd80_window512", torch.bfloat16, (fb, 32, 8, fs, fs, 80),
+             dict(window=512)),
             ("f32_hd128", torch.float32, (1, fhq, fhkv, 1024, 1024, fhd),
              {})):
         q_, k_, v_ = attn_inputs(dtype, *shape)
@@ -583,8 +660,24 @@ def main() -> None:
             "tolerance": (ATTN_BF16_TOL if dtype == torch.bfloat16
                           else ATTN_F32_TOL)}
         del q_, k_, v_, got, want
+    flash_lib = libs["flash_attention"]
+    flash_report = flash_lib.with_suffix(".ptxas.txt").read_text()
+    flash_ptxas = ptxas_entries(flash_report, "flash_attention_wgmma_kernel")
+    for name, entry in flash_ptxas.items():
+        entry["dynamic_smem_bytes"] = tc_smem_bytes(64 if "ILi64E" in name
+                                                    else 128)
+    flash_hgmma = sass_counts(Path(_build.nvcc_path()).with_name("cuobjdump"),
+                              flash_lib, "flash_attention_wgmma_kernel",
+                              "HGMMA")
     emit({"phase": "kernels",
           "flash_attention_checks": flash_checks,
+          "flash_attention_same_bits_twice": flash_same_bits,
+          "flash_attention_wgmma_ptxas": flash_ptxas,
+          "flash_attention_wgmma_hgmma": flash_hgmma,
+          # ptxas's C75xx notes: wgmmas it had to serialize
+          "flash_attention_wgmma_serialized": [
+              ln.split(":", 1)[-1].strip() for ln in flash_report.splitlines()
+              if "C75" in ln and "flash_attention_wgmma_kernel" in ln],
           "gram_qr_checks": gram_qr_checks,
           "shapes": {"batched_gram_apply": list(x_stack.shape) + [r],
                      "gram_apply": list(x_one.shape) + [r],
@@ -594,13 +687,21 @@ def main() -> None:
                      "grid_block_tq": list(x_grid.shape) + [r],
                      "grid_block_apply": list(x_grid.shape) + [r],
                      "gram_qr": list(v_qr.shape),
-                     "flash_attention": [list(fq.shape), list(fk.shape)]},
+                     "flash_attention": [list(fq.shape), list(fk.shape)],
+                     "flash_attention_f32": [[1, fhq, 1024, fhd],
+                                             [1, fhkv, 1024, fhd]]},
           "kernels": list(rows.values())})
     for label, c in gram_qr_checks.items():
         check(c["rel_err"] <= GRAM_QR_TOL, f"gram_qr {label}: relative error "
               f"{c['rel_err']} > {GRAM_QR_TOL}")
         check(c["same_bits_twice"], f"gram_qr {label}: two launches differ")
         check(c["symmetric"], f"gram_qr {label}: G != G^T")
+    check(flash_same_bits, "flash_attention: two launches differ")
+    check(bool(flash_ptxas), "flash_attention: no ptxas report of the "
+          "wgmma kernel")
+    for name, n in flash_hgmma.items():
+        check(name == "not measured" or n > 0,
+              f"flash_attention: no HGMMA in {name}")
     del x_pad, q_pad, s_slab, x_grid, q_grid, s_grid, fq, fk, fv, v_qr
 
     # -- sdot_dense: the main path at CIFAR-10 width -------------------------
@@ -1078,6 +1179,7 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         flash_launches = ops.LAUNCHES["flash_attention"]
+        flash_routes = dict(ROUTE_LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         rows["flash_attention"]["launches"] += flash_launches
         finite = bool(torch.isfinite(logits).all())
@@ -1114,6 +1216,7 @@ def main() -> None:
     emit({"phase": "lm_prefill", "batch": lm_b, "seq": lm_s,
           "wall_s": wall, "prefill_tokens_per_s": lm_b * lm_s / wall,
           "peak_bytes": peak, "flash_attention_launches": flash_launches,
+          "flash_attention_route_launches": flash_routes,
           "plain_attention_wall_s": plain_wall, "logits_shape": shape,
           "logits_rms": logits_rms,
           "vs_plain": {"rel_rms": rel_rms, "max_abs": max_abs,
@@ -1124,6 +1227,9 @@ def main() -> None:
     check(shape == [lm_b, lm_s, cfg.vocab_size], f"lm_prefill: logits {shape}")
     check(flash_launches == cfg.n_layers, f"lm_prefill: {flash_launches} "
           f"flash-attention launches, expected {cfg.n_layers}")
+    check(flash_routes == {"tc_bf16": cfg.n_layers, "simt_f32": 0},
+          f"lm_prefill: flash-attention routes {flash_routes}, expected "
+          f"all {cfg.n_layers} on the tensor-core kernel")
     check(rel_rms <= LOGITS_TOL, f"lm_prefill: logits {rel_rms} (relative "
           f"RMS) from the plain-attention forward > {LOGITS_TOL}")
     for label, c in controls.items():
@@ -1144,7 +1250,8 @@ def main() -> None:
 
     emit(profile_phase(
         prefill, "profile_lm", "lm_prefill qwen2-7b, 4 x 2048 tokens, bf16",
-        groups={"flash_attention": ("flash_attention_kernel",),
+        groups={"flash_attention": ("flash_attention_wgmma_kernel",
+                                    "flash_attention_simt_kernel"),
                 "gemm": ("gemm", "nvjet", "xmma", "cutlass", "splitk")}))
 
     # -- lm_decode: teacher-forced against prefill, then greedy --------------
@@ -1206,8 +1313,8 @@ def main() -> None:
     check(dec_rms <= DECODE_TOL, f"lm_decode: teacher-forced logits "
           f"{dec_rms} (relative RMS) from prefill > {DECODE_TOL}")
 
-    for name in rows:
-        check(rows[name]["launches"] > 0,
+    for name, row in rows.items():
+        check(row["launches"] > 0 or not row.get("main_path", True),
               f"{name} was not launched on the main path")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": list(rows.values())})

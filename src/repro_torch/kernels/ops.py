@@ -35,8 +35,12 @@ LAUNCHES: Dict[str, int] = {"gram_apply": 0, "batched_gram_apply": 0,
 
 
 def reset_launches() -> None:
+    """Zero every wrapper's count, and the flash-attention kernels' counts
+    by route."""
+    from .flash_attention import reset_route_launches
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    reset_route_launches()
 
 
 def on_gpu() -> bool:

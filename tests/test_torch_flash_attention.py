@@ -162,3 +162,41 @@ def test_flash_attention_matches_reference_property(b, hq, gqa, sq, hd, dtype,
     arrays = _qkv(seed, b, hq, hq // gqa, sq, sq, hd)
     got, want = _both(arrays, dtype, causal=True)
     _assert_close(got, want, dtype)
+
+
+# the CUDA wrapper's host-side choices (the kernels themselves run only on
+# the card: tests/test_torch_gpu.py)
+def test_route_is_chosen_by_dtype_alone():
+    from repro_torch.kernels import flash_attention as tfa
+    assert tfa.route(torch.bfloat16) == "tc_bf16"
+    assert tfa.route(torch.float32) == "simt_f32"
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfa.route(torch.float16)
+    assert set(tfa.ROUTE_LAUNCHES) == {"tc_bf16", "simt_f32"}
+
+
+@pytest.mark.parametrize("hd,padded", [(16, 64), (32, 64), (64, 64),
+                                       (80, 128), (128, 128)])
+def test_tensor_core_kernel_pads_head_dims_to_its_boxes(hd, padded):
+    """Every head dim the kernels take runs on the tensor cores, in tiles of
+    64-column boxes: at most one box of zeros past hd."""
+    from repro_torch.kernels import flash_attention as tfa
+    assert hd in tfa.HEAD_DIMS
+    assert tfa.padded_head_dim(hd) == padded
+    assert padded % 64 == 0 and 0 <= padded - hd < 64
+
+
+@pytest.mark.parametrize("hd", [8, 48, 96, 256])
+def test_padded_head_dim_refuses_what_no_kernel_takes(hd):
+    from repro_torch.kernels import flash_attention as tfa
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.padded_head_dim(hd)
+
+
+def test_reset_launches_zeroes_the_route_counts():
+    from repro_torch.kernels import flash_attention as tfa
+    tfa.ROUTE_LAUNCHES["tc_bf16"] += 3
+    tops.LAUNCHES["flash_attention"] += 3
+    tops.reset_launches()
+    assert tfa.ROUTE_LAUNCHES == {"tc_bf16": 0, "simt_f32": 0}
+    assert tops.LAUNCHES["flash_attention"] == 0

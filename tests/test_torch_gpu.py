@@ -28,6 +28,7 @@ from repro_torch.data.pipeline import (gaussian_eigengap_data,
                                        make_lm_batch, partition_features,
                                        partition_samples)
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models.transformer import (decode_step, forward,
                                             init_decode_state, init_params,
@@ -413,6 +414,98 @@ def test_flash_kernel_raises_on_what_it_does_not_take(cuda_device):
         ops.flash_attention(q, k.bfloat16(), v)
 
 
+# bf16 goes to the tensor-core kernel (wgmma, TMA; head dims padded to 64 or
+# 128 in its tiles), f32 to the CUDA-core kernel; ROUTE_LAUNCHES shows which.
+TILE_EDGES = (1, 63, 64, 65, 127, 128, 129, 2000)
+
+
+def _routes_after(before, **added):
+    return {name: before[name] + added.get(name, 0) for name in before}
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+def test_flash_bf16_runs_on_the_tensor_core_route(cuda_device, hd):
+    q, k, v = _attn_inputs(cuda_device, torch.bfloat16, 2, 6, 2, 300, 300,
+                           hd, seed=hd)
+    before = dict(fa.ROUTE_LAUNCHES)
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.ROUTE_LAUNCHES == _routes_after(before, tc_bf16=1)
+    want = ref.flash_attention_plain(q, k, v, causal=True, q_offset=0,
+                                     kv_valid=300)
+    _assert_attn_close(got, want)
+    again = ops.flash_attention(q, k, v, causal=True)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_f32_runs_on_the_cuda_core_route(cuda_device, hd):
+    q, k, v = _attn_inputs(cuda_device, torch.float32, 1, 4, 2, 130, 130, hd)
+    before = dict(fa.ROUTE_LAUNCHES)
+    got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.ROUTE_LAUNCHES == _routes_after(before, simt_f32=1)
+    want = ref.flash_attention_plain(q, k, v, causal=True, q_offset=0,
+                                     kv_valid=130)
+    _assert_attn_close(got, want)
+
+
+@pytest.mark.parametrize("sq,skv", [(sq, skv) for sq in TILE_EDGES
+                                    for skv in TILE_EDGES if sq <= skv])
+def test_flash_tensor_core_tile_edges(cuda_device, sq, skv):
+    """Query and key lengths on either side of the kernel's 64-row
+    warpgroup tiles and 128-row / 128-key block tiles, causal with the
+    queries at the end of the key stream."""
+    q, k, v = _attn_inputs(cuda_device, torch.bfloat16, 1, 4, 2, sq, skv,
+                           128, seed=sq + skv)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_plain(q, k, v, causal=True,
+                                     q_offset=skv - sq, kv_valid=skv)
+    assert bool(torch.isfinite(got).all())
+    _assert_attn_close(got, want)
+
+
+@pytest.mark.parametrize("hd", [80, 128])
+@pytest.mark.parametrize("kw", [
+    dict(causal=True, window=None, q_offset=-20, kv_valid=260),
+    dict(causal=True, window=None, q_offset=40, kv_valid=190),
+    dict(causal=True, window=1, q_offset=110, kv_valid=260),
+    dict(causal=True, window=70, q_offset=-20, kv_valid=260),
+    dict(causal=False, window=None, q_offset=0, kv_valid=200),
+    dict(causal=False, window=None, q_offset=0, kv_valid=0),
+], ids=["q_offset_neg", "q_offset_pos", "window1", "window70_neg",
+        "not_causal", "kv_valid0"])
+def test_flash_tensor_core_masks(cuda_device, hd, kw):
+    """The kernel's own arguments on the tensor-core route: rows before the
+    first key, keys past kv_valid, a window of one key; the same bits on a
+    second launch."""
+    q, k, v = _attn_inputs(cuda_device, torch.bfloat16, 2, 4, 2, 150, 260,
+                           hd, seed=7)
+    before = dict(fa.ROUTE_LAUNCHES)
+    got = flash_attention_cuda(q, k, v, scale=hd ** -0.5, **kw)
+    again = flash_attention_cuda(q, k, v, scale=hd ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert fa.ROUTE_LAUNCHES == _routes_after(before, tc_bf16=2)
+    want = ref.flash_attention_plain(q, k, v, scale=hd ** -0.5, **kw)
+    _assert_attn_close(got, want)
+    assert torch.equal(got, again)
+    if kw["kv_valid"] == 0:
+        assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_flash_tensor_core_reads_unaligned_views(cuda_device):
+    """TMA needs 16-byte-aligned bases: a contiguous view that starts one
+    element into its storage goes through a copy, with the same result."""
+    q, k, v = _attn_inputs(cuda_device, torch.bfloat16, 1, 2, 2, 96, 96, 64)
+    flat = torch.empty(q.numel() + 1, device=cuda_device,
+                       dtype=torch.bfloat16)
+    q_view = flat[1:].view(q.shape)
+    q_view.copy_(q)
+    assert q_view.data_ptr() % fa.TMA_ALIGN != 0
+    assert torch.equal(ops.flash_attention(q_view, k, v),
+                       ops.flash_attention(q, k, v))
+
+
 def _lm_setup(dev):
     """Reduced qwen2-7b (f32, 3 layers) on the CPU and a copy on ``dev``."""
     cfg = reduced_config(get_arch("qwen2-7b"), n_layers=3)
@@ -433,6 +526,7 @@ def test_forward_on_card_matches_cpu(cuda_device):
         got = forward(params, {"tokens": toks}, cfg)
         want = forward(cpu_params, {"tokens": cpu_toks}, cfg)
     assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert fa.ROUTE_LAUNCHES == {"tc_bf16": 0, "simt_f32": cfg.n_layers}
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
