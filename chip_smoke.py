@@ -10,7 +10,10 @@ Phases, one JSON line each:
 * ``kernels``: every ported kernel against its plain PyTorch version on the
   card, at the shapes the main path gives it, with its median time, the
   plain version's time, one PyTorch library call's time as a yardstick, and
-  the least time the card could take (its bound). The CholeskyQR Gram
+  the least time the card could take (its bound). The gram-apply and
+  slab-apply rows also give the host's time to issue one call (and the
+  library call's), and must repeat their bits on a second launch; the
+  phase prints the ptxas report (registers, spills) of both kernels. The CholeskyQR Gram
   kernel also runs at F-DOT's and B-DOT's shapes and at
   benchmarks/kernel_bench.py's (16384, 128) in f32 and bf16, each timed and
   checked for the same bits on a second launch and exact symmetry. Flash
@@ -90,6 +93,9 @@ Phases, one JSON line each:
 
 Launch counts are set to 0 just before each phase of the main path and read
 just after it; launches made to compare or time a kernel do not count.
+Every gram-apply and slab-apply launch of the main path must have taken the
+TMA route (``gram_update.ROUTE_LAUNCHES``, ``slab_ops.ROUTE_LAUNCHES``): the
+rows count them as ``tma_launches``.
 Before the last line it prints ``{"kernels": [...]}`` and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``. Any failed
 build, launch or check exits nonzero. With no CUDA device it exits 2 and
@@ -372,7 +378,7 @@ def main() -> None:
                                            partition_samples)
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import make_lm_batch
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import _build, gram_update, ops, ref, slab_ops
     from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES,
                                                      flash_attention_cuda,
                                                      tc_smem_bytes)
@@ -431,14 +437,19 @@ def main() -> None:
     rows = {}
 
     def record(name, source, replaces, kernel, plain, library, nbytes, flops,
-               tol, note, flop_rate=F32_FLOP_PER_S, judge=None):
+               tol, note, flop_rate=F32_FLOP_PER_S, judge=None, host=False):
+        """One kernel row; ``host`` adds the host's time to issue a call
+        (the kernel's and the library call's) and a check that a second
+        launch repeats the bits."""
         got = kernel().float()
+        again = kernel().float() if host else got
         torch.cuda.synchronize()
         want = plain().float()
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(torch.equal(got, again), f"{name}: two launches differ")
         errs = (judge or max_rel_judge(tol))(name, got, want)
-        del got, want
+        del got, again, want
         b_ms, b_by = bound(nbytes, flops, flop_rate)
         rows[name] = {
             "name": name, "route": "cuda", "source": source,
@@ -449,6 +460,25 @@ def main() -> None:
             "library_ms": None if library is None else time_ms(library),
             **errs, "tolerance": tol, "tolerance_reason": note,
         }
+        if host:
+            rows[name].update(
+                same_bits_twice=True, tma_launches=0,
+                host_us=host_us(kernel),
+                library_host_us=None if library is None else host_us(library))
+
+    def tma_only(where, launches):
+        """Every gram-apply and slab-apply launch since the last reset took
+        the TMA route: count them on the rows."""
+        for module, names in (
+                (gram_update, ("batched_gram_apply", "gram_apply")),
+                (slab_ops, ("batched_slab_apply", "grid_block_apply"))):
+            want = sum(launches.get(k, 0) for k in names)
+            got = dict(module.ROUTE_LAUNCHES)
+            check(got == {"tma": want, "cp_async": 0},
+                  f"{where}: {module.__name__} routes {got}, expected all "
+                  f"{want} launches on the TMA route")
+            for k in names:
+                rows[k]["tma_launches"] += launches.get(k, 0)
 
     f32 = 4
     record("batched_gram_apply", "src/repro_torch/kernels/csrc/gram_update.cu",
@@ -458,7 +488,8 @@ def main() -> None:
            lambda: torch.bmm(x_stack, torch.bmm(x_stack.mT, q_stack)),
            f32 * (x_stack.numel() + 2 * q_stack.numel() + n_nodes),
            4.0 * x_stack.numel() * r, GRAM_TOL,
-           "f32 sums in another order than cuBLAS; relative to max |V|")
+           "f32 sums in another order than cuBLAS; relative to max |V|",
+           host=True)
     x_one, q_one = blocks[0].contiguous(), q_stack[0]
     record("gram_apply", "src/repro_torch/kernels/csrc/gram_update.cu",
            "src/repro/kernels/gram_update.py:51",
@@ -467,7 +498,7 @@ def main() -> None:
            lambda: x_one @ (x_one.T @ q_one),
            f32 * (x_one.numel() + 2 * q_one.numel()), 4.0 * x_one.numel() * r,
            GRAM_TOL, "f32 sums in another order than cuBLAS; relative to "
-           "max |V|")
+           "max |V|", host=True)
     sw = sp_eng._w
     k_payload = ds * rs
     z = torch.randn((n_sp, k_payload), generator=gen, device=dev)
@@ -514,7 +545,8 @@ def main() -> None:
            lambda: torch.bmm(x_pad, s_slab),
            f32 * (x_pad.numel() + s_slab.numel() + q_pad.numel()),
            2.0 * x_pad.numel() * r, SLAB_TOL,
-           "f32 sums in another order than cuBLAS; relative to max |V|")
+           "f32 sums in another order than cuBLAS; relative to max |V|",
+           host=True)
     x_grid = pad_grid_blocks(grid)                         # (4, 5, 256, 10000)
     n_blk = x_grid.shape[3]
     q_grid = torch.randn((g_rows, x_grid.shape[2], r), generator=gen,
@@ -537,7 +569,8 @@ def main() -> None:
            f32 * (x_grid.numel() + s_grid.numel()
                   + g_rows * g_cols * x_grid.shape[2] * r),
            2.0 * x_grid.numel() * r, SLAB_TOL,
-           "f32 sums in another order than cuBLAS; relative to max |V|")
+           "f32 sums in another order than cuBLAS; relative to max |V|",
+           host=True)
     # the CholeskyQR Gram: on the main path S-DOT's (N, d, r) node batch,
     # F-DOT's (N, d_max, r) slabs and B-DOT's (I, d_max, r) row slabs, and
     # benchmarks/kernel_bench.py's tall (16384, 128) matrix
@@ -669,7 +702,14 @@ def main() -> None:
     flash_hgmma = sass_counts(Path(_build.nvcc_path()).with_name("cuobjdump"),
                               flash_lib, "flash_attention_wgmma_kernel",
                               "HGMMA")
+    stream_ptxas = {
+        name: ptxas_entries(libs[lib].with_suffix(".ptxas.txt").read_text(),
+                            fragment)
+        for name, lib, fragment in (
+            ("gram_apply", "gram_update", "gram_apply_kernelILi8ELi4E"),
+            ("slab_apply", "slab_ops", "slab_apply_kernelILi7ELb1E"))}
     emit({"phase": "kernels",
+          "gram_slab_apply_ptxas": stream_ptxas,
           "flash_attention_checks": flash_checks,
           "flash_attention_same_bits_twice": flash_same_bits,
           "flash_attention_wgmma_ptxas": flash_ptxas,
@@ -724,6 +764,7 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
+        tma_only(label, launches)
         sched = res.consensus_trace
         sends = float(graph.adjacency.sum()) * float(sched.sum())
         check(res.error_trace.shape == (t_outer,)
@@ -756,7 +797,7 @@ def main() -> None:
     emit({"phase": "sdot_dense", "d": d, "r": r, "nodes": n_nodes,
           "samples": n_total, "t_outer": t_outer, "runs": runs})
     psa_groups = {"gram_qr": ("gram_qr_",),
-                  "gram_apply": ("gram_partial", "gram_reduce"),
+                  "gram_apply": ("gram_apply_kernel",),
                   "slab_grid": ("slab_tq", "slab_apply"),
                   "gemm": ("gemm", "nvjet", "xmma", "cutlass", "splitk",
                            "gemv")}
@@ -828,6 +869,7 @@ def main() -> None:
                    q_true=q_true, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        tma_only(f"fdot_dense {label}", dict(ops.LAUNCHES))
         rounds = sched.sum() if sched is not None else 50 * t_outer
         want = closed_form([(graph.adjacency, rounds, n_total * r),
                             (graph.adjacency, 2 * t_qr * t_outer, r * r)])
@@ -860,6 +902,7 @@ def main() -> None:
                    q_init=q_init, q_true=q_true, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        tma_only(f"bdot_dense {label}", dict(ops.LAUNCHES))
         rounds = sched.sum() if sched is not None else 50 * t_outer
         want = closed_form(
             [(e.graph.adjacency, rounds, n_j * r) for e in col_engs]
@@ -946,6 +989,7 @@ def main() -> None:
         resumed = chunked(chunk_size=chunk, manager=mgr_kill, **kw)
         seven = chunked(chunk_size=7, **kw)
         torch.cuda.synchronize()
+        tma_only(f"resume {fam}", dict(ops.LAUNCHES))
         launches = {k: ops.LAUNCHES[k] for k in (*kernels, "gram_qr")}
         # two CholeskyQR passes a step in every family
         want = {**{k: steps_run for k in kernels}, "gram_qr": 2 * steps_run}
@@ -1029,6 +1073,7 @@ def main() -> None:
     torch.cuda.synchronize()
     wall_sparse = time.perf_counter() - t0
     launches_sparse = dict(ops.LAUNCHES)
+    tma_only("sdot_sparse", launches_sparse)
     rounds = int(sparse_res.consensus_trace.sum())
     check(launches_sparse["ell_spmm"] == rounds + 20,
           f"sparse: {launches_sparse['ell_spmm']} ELL launches, expected "
@@ -1060,6 +1105,7 @@ def main() -> None:
     torch.cuda.synchronize()
     wall_bf = time.perf_counter() - t0
     launches_bf = dict(ops.LAUNCHES)
+    tma_only("sdot_sparse bf16", launches_bf)
     rows["ell_spmm_bf16"]["launches"] += launches_bf["ell_spmm"]
     rows["batched_gram_apply"]["launches"] += launches_bf["batched_gram_apply"]
     rows["gram_qr"]["launches"] += launches_bf["gram_qr"]

@@ -18,6 +18,8 @@ __all__ = [
     "subspace_error",
     "subspace_error_from_cross",
     "mean_subspace_error",
+    "projector_distance",
+    "principal_angles",
     "CommLedger",
     "p2p_per_consensus_round",
 ]
@@ -51,6 +53,21 @@ def mean_subspace_error(q_true: torch.Tensor, q_nodes: torch.Tensor,
         return errs.mean()
     m = node_mask.to(errs.dtype)
     return (errs * m).sum() / m.sum()
+
+
+def projector_distance(q_true: torch.Tensor,
+                       q_hat: torch.Tensor) -> torch.Tensor:
+    """||QQ^T - Qhat Qhat^T||_2 — the quantity bounded by Theorem 1."""
+    p1 = q_true @ q_true.T
+    p2 = q_hat @ q_hat.T
+    return torch.linalg.matrix_norm(p1 - p2, ord=2)
+
+
+def principal_angles(q_true: torch.Tensor,
+                     q_hat: torch.Tensor) -> torch.Tensor:
+    """The principal angles between span(q_true) and span(q_hat), (r,)."""
+    s = torch.linalg.svdvals(q_true.T @ q_hat)
+    return torch.arccos(s.clamp(-1.0, 1.0))
 
 
 def p2p_per_consensus_round(adjacency: np.ndarray) -> float:

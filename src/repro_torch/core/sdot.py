@@ -63,10 +63,12 @@ def _stack_data(xs: Sequence[torch.Tensor], device: torch.device):
     """Zero-pad ragged node blocks (d, n_i) to one (N, d, n_max) stack.
 
     Padding is exact for the gram apply; the true n_i go along for the
-    normalizer.
+    normalizer. n_max is rounded up to a multiple of 4, so that the rows of
+    the stack are 16-byte aligned and the gram-apply kernel can read it
+    through TMA.
     """
     n_true = np.array([x.shape[1] for x in xs], np.float32)
-    n_max = int(n_true.max())
+    n_max = -(-int(n_true.max()) // 4) * 4
     stack = torch.stack([F.pad(x.to(device, torch.float32),
                                (0, n_max - x.shape[1])) for x in xs])
     return stack, torch.as_tensor(n_true, device=device)

@@ -177,6 +177,24 @@ class SparseW:
                             payload_dtype=self.payload_dtype)
         return out.to(z.dtype).reshape(z.shape)
 
+    def mix_host(self, x: np.ndarray) -> np.ndarray:
+        """NumPy matvec/matmat (host), O(nnz): the oracle for power-iteration
+        spectral estimates without materializing the dense matrix."""
+        x = np.asarray(x)
+        idx = self.ell_idx.cpu().numpy()
+        val = self.ell_val.cpu().numpy()
+        diag = self.diag.cpu().numpy()
+        gathered = x[idx]                       # (N, L) or (N, L, K)
+        if x.ndim == 1:
+            return diag * x + (val * gathered).sum(axis=1)
+        return diag[:, None] * x + (val[..., None] * gathered).sum(axis=1)
+
+    def spectral_gap(self, iters: int = 1000, seed: int = 0) -> float:
+        """1 - |lambda_2(W)| via deflated power iteration (O(nnz) a step)."""
+        from .topology import power_iteration_gap
+        return power_iteration_gap(self.mix_host, self.n, iters=iters,
+                                   seed=seed)
+
     # -- stats / views (host-side) ------------------------------------------
     @property
     def nnz(self) -> int:

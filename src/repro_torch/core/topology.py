@@ -9,7 +9,8 @@ Metropolis-Hastings weight rules.
 
 Spectral quantities (``spectral_gap``, ``mixing_time``) route by size:
 exact dense eigendecompositions for the table-scale networks, deflated
-power iteration / contraction bounds beyond that.
+power iteration / contraction bounds beyond that and for a ``SparseW``
+(through its O(nnz) host matvec ``mix_host``).
 """
 from __future__ import annotations
 
@@ -336,11 +337,17 @@ def spectral_gap(w, method: str = "auto", iters: int = 1000,
                  seed: int = 0) -> float:
     """1 - |lambda_2(W)|; gossip contraction factor per round.
 
-    ``w`` is a dense (N, N) array. ``method``: 'exact' forces the dense
+    Accepts a dense (N, N) array or a ``core.sparse.SparseW`` (anything
+    with a ``mix_host`` matvec). ``method``: 'exact' forces the dense
     eigendecomposition, 'power' forces deflated power iteration, 'auto'
-    (default) uses exact up to _EXACT_SPECTRUM_MAX_N nodes and power
-    iteration beyond.
+    (default) uses exact for small dense inputs and power iteration for
+    sparse or large ones.
     """
+    if hasattr(w, "mix_host"):              # SparseW (duck-typed: topology
+        if method == "exact":               # must not import core.sparse)
+            raise ValueError("exact spectral_gap needs a dense matrix; "
+                             "use SparseW.to_dense() explicitly")
+        return power_iteration_gap(w.mix_host, w.n, iters=iters, seed=seed)
     w = np.asarray(w)
     n = w.shape[0]
     if method == "exact" or (method == "auto" and n <= _EXACT_SPECTRUM_MAX_N):
@@ -357,14 +364,16 @@ def mixing_time(w, max_t: int = 100_000, method: str = "auto") -> Optional[int]:
     Returns None when the chain is periodic / non-mixing (e.g. even ring),
     mirroring the paper's observation that tau_mix -> inf for ring topologies.
 
-    Inputs up to _EXACT_SPECTRUM_MAX_N nodes use the exact repeated-product
-    definition; larger inputs use the contraction bound
-    t = ceil(ln 2 / -ln |lambda_2|), which suffices since
+    Dense inputs up to _EXACT_SPECTRUM_MAX_N nodes use the exact repeated-
+    product definition; sparse (``SparseW``) or larger inputs use the
+    contraction bound t = ceil(ln 2 / -ln |lambda_2|), which suffices since
     ||e_i^T W^t - 1/N||_2 <= |lambda_2|^t ||e_i - 1/N||_2 <= |lambda_2|^t.
     """
-    w = np.asarray(w)
-    n = w.shape[0]
-    if method != "bound" and (method == "exact" or n <= _EXACT_SPECTRUM_MAX_N):
+    sparse_like = hasattr(w, "mix_host")
+    n = w.n if sparse_like else np.asarray(w).shape[0]
+    if (method != "bound" and not sparse_like
+            and (method == "exact" or n <= _EXACT_SPECTRUM_MAX_N)):
+        w = np.asarray(w)
         target = np.full((n, n), 1.0 / n)
         wt = np.eye(n)
         for t in range(1, max_t + 1):

@@ -356,39 +356,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (a CUDA driver API call) through the CUDA runtime's
-// entry-point lookup, so the library needs no -lcuda and keeps its plain C
-// interface.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // (hd, rows, heads) bf16, row-major, boxes of 64 columns x box_rows rows of
 // one head, 128-byte swizzle, zeros out of bounds
-bool make_map(EncodeTiledFn encode, CUtensorMap* map, const void* base, int hd,
-              int rows, int heads, int box_rows) {
+bool make_map(hopper::EncodeTiledFn encode, CUtensorMap* map,
+              const void* base, int hd, int rows, int heads, int box_rows) {
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)rows,
                               (cuuint64_t)heads};
   const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
@@ -407,7 +378,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       int batch, int hq, int hkv, int sq, int skv, int hd,
                       int q_offset, int kv_valid, int causal, int use_window,
                       int window, float scale, cudaStream_t stream) {
-  EncodeTiledFn encode = encode_tiled();
+  hopper::EncodeTiledFn encode = hopper::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
   if (!make_map(encode, &tq, q, hd, sq, batch * hq, kTcBlockM) ||

@@ -9,281 +9,461 @@
 // (CUDA cores) overtake its 3.35 TB/s of HBM, so the least time is the time
 // to stream X once.
 //
-// What the design does about it:
-//  * X is read from device memory ONCE. A block owns (node i, a range of
-//    columns). For each tile of BN columns it stages the d x BN tile of X in
-//    shared memory, computes S = X_b^T Q (BN x r, a reduction over d) from
-//    the staged tile, then accumulates V += X_b S (d x r) from the same
-//    staged tile. Q_i is staged in shared memory once per block: read
-//    through the cache it missed L1 (which shares the SM's 256 KB with the
-//    tiles) and paid an L2 round trip per FMA.
-//  * The TPU kernel carries V across a sequential grid over column blocks.
-//    Hopper blocks run in parallel and in no order, so the column axis is
-//    split into `splits` ranges: pass 1 writes one (d x r) partial per
-//    (node, range), and pass 2 sums the partials in a fixed order and divides
-//    by n_true. No atomics: repeated runs give the same bits.
-//  * The tile is staged with cp.async, so all of its loads are in flight at
-//    once; two blocks fit on an SM at the paper's shapes, so one block's
-//    loads overlap the other's arithmetic. The wrapper sizes the column
-//    split from the card's occupancy so that all blocks run in one wave.
-//  * In V += X_b S each thread updates several rows per read of S from
-//    shared memory (4 rows for r <= 8).
-//  * Columns past ceil(n_true[i]) are padding: they are not read. The ragged
-//    last tile of a range is zero-filled in shared memory.
+// What the design does about it (one launch, X read from device memory once):
+//  * A persistent grid, at most one block an SM, each block walking a fixed
+//    list of work items (node, tiles) made by the wrapper from the shapes
+//    alone (``plan`` in gram_update.py). Where the nodes fit on the SMs a
+//    node's tiles are dealt round-robin to blocks of its own, so blocks
+//    running side by side read neighbouring columns of the same rows.
+//  * What holds it back: the TMA engine streams a tile of 64-byte row
+//    segments (1024 rows x 16 columns) at ~15-19 GB/s an SM, ~1.8 TB/s in
+//    all, and the kernel takes no longer than that stream alone. Wider rows
+//    need more shared memory than the ring has; L2 promotion, 32-byte rows,
+//    L2 prefetch and another row stride did not help (PERF.md).
+//  * Tiles of X (all d rows x bn columns) stream into a ring of 2-8 stages
+//    in shared memory, each stage completing on its own mbarrier: TMA boxes
+//    of 256 rows x bn columns of a 3-D tensor map over (n, d, N), swizzled
+//    so that the row reads below are free of bank conflicts. Thread 0 issues
+//    tile t + stages - 1 as soon as tile t - 1 is consumed, so all but one
+//    stage are in flight while a tile is computed. Where the row stride of X
+//    is not 16-byte aligned (n % 4 != 0) TMA cannot take it: the same ring is
+//    filled by every thread with 4-byte cp.async copies into the same layout,
+//    counted on the same mbarriers (cp.async.mbarrier.arrive.noinc).
+//  * Thread-owned rows: thread t owns rows t, t + 256, ... of the node. It
+//    holds Q_i[k, :] and its V[k, :] sums in registers for the whole item;
+//    Q and V never touch shared memory, and every element of X is read
+//    from shared memory once. For a batch of CB columns (CB * RMAX = 64
+//    values) each thread forms its partial of z_c = x_c^T Q over its rows,
+//    the warp reduce-scatters the 64 values with a shuffle butterfly (each
+//    step halves the values a lane holds), the 8 warps' sums are added in
+//    warp order through shared memory, and each thread adds x[k, c] z_c to
+//    its rows of V from the x values it already holds.
+//  * The column sum of a node is split over several blocks. Each block
+//    writes its (d x r) partial, fences, and takes a ticket (an atomic
+//    counter, never an atomic sum); the last block sums the partials in a
+//    fixed order and divides by n_true, then resets the ticket, so no memset
+//    launch is needed. The same bits on every run. Where a node has many
+//    blocks (N = 1 spreads one node over every SM) the partials are summed
+//    in two levels, groups of about sqrt(blocks), so that no last block
+//    reads them all (hopper::fold_partials).
+//  * Columns past ceil(n_true[i]) are padding: whole tiles past them are not
+//    loaded, and in the straddling tile the value is masked with a select,
+//    so padding that holds NaN cannot leak.
 //  * f32 FMAs on CUDA cores, no TF32 (the reference is float32 throughout).
-//    wgmma/TMA and a double-buffered pipeline over tiles are later work.
 //
-// Shared memory: X tile d*(BN+1) floats (odd row stride: conflict-free for
-// both the column reduction and the row sweep), Q_i d*r floats, the V
-// partial r*d floats, S BN*r floats and a reduction buffer of kThreads
-// floats. The wrapper picks BN so that two blocks fit on an SM where it can.
+// Shared memory: stages x ceil(d / 256) boxes of (min(d, 256) x bn) floats,
+// each box 1024-byte aligned; 8 x 64 floats for the warps' sums, 64 for z,
+// one mbarrier a stage. gram_update.py's ``smem_bytes`` is the same sum.
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBoxRows = 256;       // rows of a TMA box = rows a thread step
+constexpr int kVals = 64;           // values reduced a column batch
+constexpr int kMaxStages = 8;
+constexpr int kMaxRowVals = 128;    // ROWS * RMAX: Q and V held in registers
 
-// 4-byte global -> shared copy that does not wait for the data; with
-// valid = false it writes 0 and reads nothing (src-size 0).
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
-                                             bool valid) {
-  const unsigned saddr =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr),
-               "l"(src), "r"(valid ? 4 : 0));
+struct GramArgs {
+  const float* x;                   // (nodes, d, n)
+  const float* q;                   // (nodes, d, r)
+  const float* n_true;              // (nodes,)
+  float* partial;                   // (slots, d, r) scratch
+  float* v;                         // (nodes, d, r) output
+  int* tickets;                     // (groups + nodes,) zero before and after
+  const int* items;                 // (items, 6): node, first tile, end tile,
+                                    // tile step, partial slot (-1: the
+                                    // node's sole item), group
+  const int* block_items;           // (grid + 1,): a block's first item
+  const int* groups;                // (groups, 3): see hopper::fold_partials
+  const int* node_groups;           // (nodes + 1,): a node's first group
+  int d, n, r, bn, stages, box_rows, tma, n_groups;
+};
+
+__host__ __device__ inline uint32_t box_stride_bytes(int box_rows, int bn) {
+  return ((uint32_t)box_rows * bn * 4 + 1023u) & ~1023u;
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+__host__ __device__ inline int swizzle_bits(int bn) {
+  return bn == 32 ? 3 : (bn == 16 ? 2 : 1);
 }
 
-template <int RMAX>
-__global__ void __launch_bounds__(kThreads)
-gram_partial_kernel(const float* __restrict__ x, const float* __restrict__ q,
-                    const float* __restrict__ n_true, float* __restrict__ partial,
-                    int d, int n, int r, int bn, int cols_per_split, int splits) {
-  // rows per thread that share one read of S in the V update
-  constexpr int ROWS = RMAX <= 8 ? 4 : (RMAX <= 16 ? 2 : 1);
-  extern __shared__ float smem[];
-  const int xs_stride = bn + 1;
-  float* xs = smem;                        // d * (bn + 1)
-  float* qs = xs + d * xs_stride;          // d * r   (Q_i, row-major)
-  float* vs = qs + d * r;                  // r * d   (vs[j * d + k])
-  float* ss = vs + r * d;                  // bn * r  (ss[c * r + j])
-  float* red = ss + bn * r;                // kThreads
+// Bytes of dynamic shared memory for (d, bn, stages): the 1024-byte
+// alignment slack, the ring, the reduction buffers, the mbarriers.
+inline size_t smem_bytes(int d, int bn, int stages) {
+  const int box_rows = d < kBoxRows ? d : kBoxRows;
+  const int boxes = (d + box_rows - 1) / box_rows;
+  return 1024 + (size_t)stages * boxes * box_stride_bytes(box_rows, bn) +
+         sizeof(float) * (kWarps * kVals + kVals) + 8 * (size_t)stages;
+}
 
-  const int node = blockIdx.y;
-  const int split = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* xi = x + (size_t)node * d * n;
-  const float* qi = q + (size_t)node * d * r;
-
-  int ncols = (int)ceilf(n_true[node]);
-  ncols = ncols < n ? ncols : n;
-  const int c_begin = split * cols_per_split;
-  int c_end = c_begin + cols_per_split;
-  c_end = c_end < ncols ? c_end : ncols;
-
-  for (int idx = tid; idx < r * d; idx += kThreads) {
-    vs[idx] = 0.f;
-    cp_async_f32(qs + idx, qi + idx, true);
+// Columns [cb, cb + CB) of one staged row, 16-byte chunks swizzled by ``swz``.
+template <int CB>
+__device__ __forceinline__ void load_cols(const unsigned char* row, int cb,
+                                          int swz, float (&out)[CB]) {
+  if constexpr (CB >= 4) {
+#pragma unroll
+    for (int h = 0; h < CB / 4; ++h) {
+      const float4 w = *reinterpret_cast<const float4*>(
+          row + (((cb >> 2) + h) ^ swz) * 16);
+      out[4 * h] = w.x;
+      out[4 * h + 1] = w.y;
+      out[4 * h + 2] = w.z;
+      out[4 * h + 3] = w.w;
+    }
+  } else if constexpr (CB == 2) {
+    const float2 w = *reinterpret_cast<const float2*>(
+        row + ((cb >> 2) ^ swz) * 16 + (cb & 3) * 4);
+    out[0] = w.x;
+    out[1] = w.y;
+  } else {
+    out[0] = *reinterpret_cast<const float*>(row + ((cb >> 2) ^ swz) * 16 +
+                                             (cb & 3) * 4);
   }
-  cp_async_wait_all();
+}
 
-  const int out = bn * r;                  // S outputs per tile
-  const int ksplit = out <= kThreads ? kThreads / out : 1;
+// One step of a warp's reduce-scatter of p[0 : 2 HALF]: the lanes whose bit
+// ``o`` is set keep the upper half, the others the lower, each adding its
+// partner's copy of the half it keeps into p[0 : HALF]. The halves are
+// picked with bit masks on values in registers: a select of array elements
+// becomes a select of addresses, which puts the array in local memory.
+template <int HALF>
+__device__ __forceinline__ void halve(float (&p)[kVals], int lane, int o) {
+  const unsigned up = (lane & o) ? ~0u : 0u;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const unsigned lo = __float_as_uint(p[i]);
+    const unsigned hi = __float_as_uint(p[i + HALF]);
+    const float send = __uint_as_float((lo & up) | (hi & ~up));
+    const float keep = __uint_as_float((hi & up) | (lo & ~up));
+    p[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+  }
+}
 
-  // this thread's column of every tile, and its rows: bn divides kThreads
-  const int lc = tid % bn, lk0 = tid / bn, lkstep = kThreads / bn;
+// Item ``it``'s node, the node's columns below ceil(n_true) (``ncols``) and
+// the end of the item's tiles clipped to them.
+__device__ __forceinline__ int item_tiles(const GramArgs& a, int it,
+                                          int* node, int* ncols) {
+  *node = a.items[6 * it];
+  const float nt = ceilf(a.n_true[*node]);
+  *ncols = nt <= 0.f ? 0 : (nt >= (float)a.n ? a.n : (int)nt);
+  const int t_end = (*ncols + a.bn - 1) / a.bn;
+  const int e = a.items[6 * it + 2];
+  return e < t_end ? e : t_end;
+}
 
-  for (int c0 = c_begin; c0 < c_end; c0 += bn) {
-    __syncthreads();                       // previous tile fully consumed
-    // Stage the tile with cp.async: every load of the tile is in flight at
-    // once, instead of one round trip to device memory per element.
-    const bool valid = c0 + lc < c_end;
-    for (int k = lk0; k < d; k += lkstep) {
-      const float* row = xi + (size_t)k * n;
-      cp_async_f32(xs + k * xs_stride + lc, valid ? row + c0 + lc : row, valid);
+// The tiles of one block, in order: item by item, each item's tiles clipped
+// to its node's columns (items left with none are skipped).
+struct TileWalk {
+  int item, end, tile, tile_end, node;
+
+  __device__ void settle(const GramArgs& a) {
+    int ncols;
+    while (item < end) {
+      tile_end = item_tiles(a, item, &node, &ncols);
+      if (tile < tile_end) return;
+      ++item;
+      if (item < end) tile = a.items[6 * item + 1];
     }
-    cp_async_wait_all();
-    __syncthreads();
+  }
 
-    // S = X_b^T Q: output o = j * bn + c, `ksplit` threads per output, each
-    // over a strided slice of k; the slices are summed in a fixed order.
-    if (out <= kThreads) {
-      const int o = tid % out, ks = tid / out;
-      float s = 0.f;
-      if (ks < ksplit) {
-        const int c = o % bn, j = o / bn;
-        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-        int k = ks;
-        const int step = ksplit;
-        for (; k + 3 * step < d; k += 4 * step) {
-          a0 = fmaf(xs[k * xs_stride + c], qs[k * r + j], a0);
-          a1 = fmaf(xs[(k + step) * xs_stride + c],
-                    qs[(k + step) * r + j], a1);
-          a2 = fmaf(xs[(k + 2 * step) * xs_stride + c],
-                    qs[(k + 2 * step) * r + j], a2);
-          a3 = fmaf(xs[(k + 3 * step) * xs_stride + c],
-                    qs[(k + 3 * step) * r + j], a3);
-        }
-        for (; k < d; k += step)
-          a0 = fmaf(xs[k * xs_stride + c], qs[k * r + j], a0);
-        s = (a0 + a1) + (a2 + a3);
-      }
-      red[tid] = s;
-      __syncthreads();
-      if (tid < out) {
-        float t = 0.f;
-        for (int p = 0; p < ksplit; ++p) t += red[p * out + tid];
-        const int c = tid % bn, j = tid / bn;
-        ss[c * r + j] = t;
-      }
-    } else {
-      for (int o = tid; o < out; o += kThreads) {
-        const int c = o % bn, j = o / bn;
-        float a = 0.f;
-        for (int k = 0; k < d; ++k)
-          a = fmaf(xs[k * xs_stride + c], qs[k * r + j], a);
-        ss[c * r + j] = a;
-      }
-    }
-    __syncthreads();
+  __device__ void start(const GramArgs& a, int first, int last) {
+    item = first;
+    end = last;
+    tile = first < last ? a.items[6 * first + 1] : 0;
+    settle(a);
+  }
 
-    // V += X_b S: each thread owns rows k = tid, tid + kThreads, ...; it
-    // takes them ROWS at a time, so each S value read from shared memory
-    // serves ROWS rows. The sum over c runs in order for every row.
-    for (int k0 = tid; k0 < d; k0 += ROWS * kThreads) {
-      float acc[ROWS][RMAX];
-#pragma unroll
-      for (int m = 0; m < ROWS; ++m)
-#pragma unroll
-        for (int j = 0; j < RMAX; ++j) acc[m][j] = 0.f;
-      for (int c = 0; c < bn; ++c) {
-        float sv[RMAX];
-#pragma unroll
-        for (int j = 0; j < RMAX; ++j) sv[j] = j < r ? ss[c * r + j] : 0.f;
-#pragma unroll
-        for (int m = 0; m < ROWS; ++m) {
-          const int k = k0 + m * kThreads;
-          const float xv = k < d ? xs[k * xs_stride + c] : 0.f;
-#pragma unroll
-          for (int j = 0; j < RMAX; ++j) acc[m][j] = fmaf(xv, sv[j], acc[m][j]);
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < ROWS; ++m) {
-        const int k = k0 + m * kThreads;
-        if (k < d) {
-#pragma unroll
-          for (int j = 0; j < RMAX; ++j)
-            if (j < r) vs[j * d + k] += acc[m][j];
-        }
-      }
+  __device__ bool valid() const { return item < end; }
+
+  __device__ void next(const GramArgs& a) {
+    tile += a.items[6 * item + 3];
+    if (tile >= tile_end) {
+      ++item;
+      if (item < end) tile = a.items[6 * item + 1];
+      settle(a);
     }
+  }
+};
+
+// Put the tile (node, tile) of X into ring stage ``s``.
+__device__ __forceinline__ void load_tile(const GramArgs& a,
+                                          const CUtensorMap* map,
+                                          uint32_t stage, uint32_t bar,
+                                          int node, int tile, int tid) {
+  const int boxes = (a.d + a.box_rows - 1) / a.box_rows;
+  const uint32_t stride = box_stride_bytes(a.box_rows, a.bn);
+  const int c0 = tile * a.bn;
+  if (a.tma) {
+    if (tid == 0) {
+      hopper::mbar_expect_tx(bar, (uint32_t)boxes * a.box_rows * a.bn * 4);
+      for (int b = 0; b < boxes; ++b)
+        hopper::tma_load_3d(stage + b * stride, map, bar, c0,
+                            b * a.box_rows, node);
+    }
+    return;
+  }
+  // cp.async: element (k, c) of the tile to the place TMA would put it
+  const int sb = swizzle_bits(a.bn);
+  const int lg = sb + 2;                          // log2(bn)
+  const float* xn = a.x + (size_t)node * a.d * a.n;
+  for (int idx = tid; idx < a.d * a.bn; idx += kThreads) {
+    const int k = idx >> lg, c = idx & (a.bn - 1);
+    const int b = k / a.box_rows, rr = k - b * a.box_rows;
+    const uint32_t dst = stage + b * stride + rr * a.bn * 4 +
+                         hopper::swizzle_chunk(c >> 2, rr, sb) * 16 +
+                         (c & 3) * 4;
+    const bool valid = c0 + c < a.n;
+    hopper::cp_async_4(dst, valid ? xn + (size_t)k * a.n + c0 + c : a.x,
+                       valid);
+  }
+  hopper::cp_async_arrive(bar);
+}
+
+template <int RMAX, int ROWS>
+__global__ void __launch_bounds__(kThreads, 1)
+gram_apply_kernel(const __grid_constant__ CUtensorMap xmap, const GramArgs a) {
+  constexpr int CB = kVals / RMAX;          // columns a batch
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int is_last;
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* basep = smem_raw + (base - raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d = a.d, r = a.r, bn = a.bn, stages = a.stages;
+  const int boxes = (d + a.box_rows - 1) / a.box_rows;
+  const uint32_t box_stride = box_stride_bytes(a.box_rows, bn);
+  const uint32_t stage_bytes = boxes * box_stride;
+  float* red = reinterpret_cast<float*>(basep + stages * stage_bytes);
+  float* zs = red + kWarps * kVals;
+  const uint32_t bar0 = hopper::smem_u32(zs + kVals);
+  const int rowbytes = bn * 4;
+  // a thread's row of every box is its own index: one swizzle for all
+  const int swz = hopper::swizzle_chunk(0, tid, swizzle_bits(bn));
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s)
+      hopper::mbar_init(bar0 + 8 * s, a.tma ? 1 : kThreads);
+    hopper::mbar_init_fence();
   }
   __syncthreads();
 
-  float* p = partial + ((size_t)node * splits + split) * d * r;
-  for (int idx = tid; idx < d * r; idx += kThreads) {
-    const int k = idx / r, j = idx - k * r;
-    p[idx] = vs[j * d + k];
+  const int first = a.block_items[blockIdx.x];
+  const int last = a.block_items[blockIdx.x + 1];
+  TileWalk prod;
+  prod.start(a, first, last);
+  int pseq = 0;
+  for (; pseq < stages - 1 && prod.valid(); ++pseq, prod.next(a))
+    load_tile(a, &xmap, base + pseq * stage_bytes, bar0 + 8 * pseq,
+              prod.node, prod.tile, tid);
+
+  int seq = 0;
+  for (int it = first; it < last; ++it) {
+    int node, ncols;
+    const int t_end = item_tiles(a, it, &node, &ncols);
+
+    float qr[ROWS][RMAX], vacc[ROWS][RMAX];
+    const float* qn = a.q + (size_t)node * d * r;
+#pragma unroll
+    for (int m = 0; m < ROWS; ++m) {
+      const int k = tid + m * kBoxRows;
+#pragma unroll
+      for (int j = 0; j < RMAX; ++j) {
+        qr[m][j] = (k < d && j < r) ? __ldg(qn + (size_t)k * r + j) : 0.f;
+        vacc[m][j] = 0.f;
+      }
+    }
+
+    const int step = a.items[6 * it + 3];
+    for (int tile = a.items[6 * it + 1]; tile < t_end; tile += step, ++seq) {
+      const int s = seq % stages;
+      hopper::mbar_wait(bar0 + 8 * s, (seq / stages) & 1);
+      const unsigned char* st = basep + s * stage_bytes + tid * rowbytes;
+      const int col0 = tile * bn;
+      for (int cb = 0; cb < bn; cb += CB) {
+        const int lim = ncols - col0 - cb;      // columns of the batch < ncols
+        float xv[ROWS][CB];
+#pragma unroll
+        for (int m = 0; m < ROWS; ++m) {
+          const int k = tid + m * kBoxRows;
+          float w[CB];
+#pragma unroll
+          for (int c = 0; c < CB; ++c) w[c] = 0.f;
+          if (k < d) load_cols<CB>(st + m * box_stride, cb, swz, w);
+#pragma unroll
+          for (int c = 0; c < CB; ++c) xv[m][c] = (k < d && c < lim) ? w[c] : 0.f;
+        }
+        // this thread's partial of z_c = x_c^T Q over its rows
+        float p[kVals];
+#pragma unroll
+        for (int c = 0; c < CB; ++c)
+#pragma unroll
+          for (int j = 0; j < RMAX; ++j) {
+            float t = xv[0][c] * qr[0][j];
+#pragma unroll
+            for (int m = 1; m < ROWS; ++m) t = fmaf(xv[m][c], qr[m][j], t);
+            p[c * RMAX + j] = t;
+          }
+        // reduce-scatter over the warp, bit 4 of the lane first: lane l
+        // ends with values 2 l and 2 l + 1, summed over all 32 lanes
+        halve<32>(p, lane, 16);
+        halve<16>(p, lane, 8);
+        halve<8>(p, lane, 4);
+        halve<4>(p, lane, 2);
+        halve<2>(p, lane, 1);
+        const int idx = 2 * lane;
+        red[warp * kVals + idx] = p[0];
+        red[warp * kVals + idx + 1] = p[1];
+        __syncthreads();
+        // tile seq - 1 is consumed by all: its stage takes the next tile
+        if (cb == 0 && prod.valid()) {
+          const int ps = pseq % stages;
+          load_tile(a, &xmap, base + ps * stage_bytes, bar0 + 8 * ps,
+                    prod.node, prod.tile, tid);
+          ++pseq;
+          prod.next(a);
+        }
+        if (tid < kVals) {
+          float z = red[tid];
+#pragma unroll
+          for (int w = 1; w < kWarps; ++w) z += red[w * kVals + tid];
+          zs[tid] = z;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int c = 0; c < CB; ++c) {
+          float zc[RMAX];
+#pragma unroll
+          for (int j4 = 0; j4 < RMAX / 4; ++j4) {
+            const float4 w =
+                reinterpret_cast<const float4*>(zs + c * RMAX)[j4];
+            zc[4 * j4] = w.x;
+            zc[4 * j4 + 1] = w.y;
+            zc[4 * j4 + 2] = w.z;
+            zc[4 * j4 + 3] = w.w;
+          }
+#pragma unroll
+          for (int m = 0; m < ROWS; ++m)
+#pragma unroll
+            for (int j = 0; j < RMAX; ++j)
+              vacc[m][j] = fmaf(xv[m][c], zc[j], vacc[m][j]);
+        }
+      }
+    }
+
+    const float div = a.n_true[node];
+    float* vn = a.v + (size_t)node * d * r;
+    const int slot = a.items[6 * it + 4];
+    // the node's sole item writes V; any other its partial, to be summed
+    // in order by the last blocks (hopper::fold_partials)
+    float* out = slot < 0 ? vn : a.partial + (size_t)slot * d * r;
+    const float scale = slot < 0 ? div : 1.f;
+#pragma unroll
+    for (int m = 0; m < ROWS; ++m) {
+      const int k = tid + m * kBoxRows;
+      if (k < d) {
+#pragma unroll
+        for (int j = 0; j < RMAX; ++j)
+          if (j < r) out[(size_t)k * r + j] = vacc[m][j] / scale;
+      }
+    }
+    if (slot >= 0)
+      hopper::fold_partials(a.items, a.groups, a.node_groups, a.tickets,
+                            a.n_groups, a.partial, (size_t)d * r, d * r, vn,
+                            div, it, &is_last);
   }
 }
 
-// Pass 2: V[i] = (sum over splits of the partials, in order) / n_true[i].
-__global__ void gram_reduce_kernel(const float* __restrict__ partial,
-                                   const float* __restrict__ n_true,
-                                   float* __restrict__ v, int nodes, int dr,
-                                   int splits) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)nodes * dr) return;
-  const int node = (int)(idx / dr);
-  const int e = (int)(idx - (size_t)node * dr);
-  const float* p = partial + (size_t)node * splits * dr + e;
-  float s = 0.f;
-  for (int sp = 0; sp < splits; ++sp) s += p[(size_t)sp * dr];
-  v[idx] = s / n_true[node];
-}
-
-template <int RMAX>
-cudaError_t launch_partial(dim3 grid, size_t smem, cudaStream_t stream,
-                           const float* x, const float* q, const float* n_true,
-                           float* partial, int d, int n, int r, int bn,
-                           int cols_per_split, int splits) {
+template <int RMAX, int ROWS>
+cudaError_t launch(const CUtensorMap& map, const GramArgs& a, int grid,
+                   size_t smem, cudaStream_t stream) {
+  auto kernel = gram_apply_kernel<RMAX, ROWS>;
   cudaError_t err = cudaFuncSetAttribute(
-      gram_partial_kernel<RMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  gram_partial_kernel<RMAX><<<grid, kThreads, smem, stream>>>(
-      x, q, n_true, partial, d, n, r, bn, cols_per_split, splits);
+  kernel<<<grid, kThreads, smem, stream>>>(map, a);
   return cudaGetLastError();
 }
 
+template <int RMAX, int ROWS>
+cudaError_t launch_fits(const CUtensorMap& map, const GramArgs& a, int grid,
+                        size_t smem, cudaStream_t stream) {
+  if constexpr (ROWS * RMAX <= kMaxRowVals)
+    return launch<RMAX, ROWS>(map, a, grid, smem, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <int RMAX>
-int blocks_per_sm(size_t smem) {
-  if (cudaFuncSetAttribute(gram_partial_kernel<RMAX>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess)
-    return 0;
-  int blocks = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, gram_partial_kernel<RMAX>, kThreads, smem) != cudaSuccess)
-    return 0;
-  return blocks;
+cudaError_t launch_rows(int rows, const CUtensorMap& map, const GramArgs& a,
+                        int grid, size_t smem, cudaStream_t stream) {
+  switch (rows) {
+    case 1: return launch_fits<RMAX, 1>(map, a, grid, smem, stream);
+    case 2: return launch_fits<RMAX, 2>(map, a, grid, smem, stream);
+    case 4: return launch_fits<RMAX, 4>(map, a, grid, smem, stream);
+    case 8: return launch_fits<RMAX, 8>(map, a, grid, smem, stream);
+    case 16: return launch_fits<RMAX, 16>(map, a, grid, smem, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory pass 1 needs for (d, r, bn).
-size_t gram_apply_smem_bytes(int d, int r, int bn) {
-  return sizeof(float) * ((size_t)d * (bn + 1) + 2 * (size_t)r * d +
-                          (size_t)bn * r + kThreads);
+// Bytes of dynamic shared memory the kernel needs for (d, bn, stages).
+size_t gram_apply_smem_bytes(int d, int bn, int stages) {
+  return smem_bytes(d, bn, stages);
 }
 
-// Blocks of pass 1 that fit on one SM at once for (d, r, bn); 0 on error.
-int gram_apply_blocks_per_sm(int d, int r, int bn) {
-  const size_t smem = gram_apply_smem_bytes(d, r, bn);
-  if (r <= 8) return blocks_per_sm<8>(smem);
-  if (r <= 16) return blocks_per_sm<16>(smem);
-  if (r <= 32) return blocks_per_sm<32>(smem);
-  if (r <= 64) return blocks_per_sm<64>(smem);
-  return 0;
-}
-
-// x: (nodes, d, n) f32, q: (nodes, d, r) f32, n_true: (nodes,) f32,
-// partial: (nodes, splits, d, r) f32 scratch, v: (nodes, d, r) f32 output.
-// Returns the CUDA error code of the launches (0 on success).
+// x: (nodes, d, n), q: (nodes, d, r), n_true: (nodes,), all f32; partial:
+// (slots, d, r) f32 scratch; v: (nodes, d, r) f32 output; tickets: (groups +
+// nodes,) int32, zero; items / block_items / groups / node_groups: the
+// wrapper's plan. rmax and rows pick the instantiation (r <= rmax, d <= 256
+// x rows, rows x rmax <= 128). tma = 1 takes X through a tensor map (n % 4
+// == 0, x 16-byte aligned), else cp.async. Returns the CUDA error code of
+// the launch (0 on success).
 int gram_apply_launch(const float* x, const float* q, const float* n_true,
-                      float* partial, float* v, int nodes, int d, int n, int r,
-                      int bn, int cols_per_split, int splits, void* stream_ptr) {
+                      float* partial, float* v, int* tickets, const int* items,
+                      const int* block_items, const int* groups,
+                      const int* node_groups, int nodes, int d, int n, int r,
+                      int rmax, int rows, int bn, int stages, int grid,
+                      int smem, int tma, int n_groups, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t smem = gram_apply_smem_bytes(d, r, bn);
-  const dim3 grid(splits, nodes);
-  cudaError_t err;
-  if (r <= 8)
-    err = launch_partial<8>(grid, smem, stream, x, q, n_true, partial, d, n, r,
-                            bn, cols_per_split, splits);
-  else if (r <= 16)
-    err = launch_partial<16>(grid, smem, stream, x, q, n_true, partial, d, n, r,
-                             bn, cols_per_split, splits);
-  else if (r <= 32)
-    err = launch_partial<32>(grid, smem, stream, x, q, n_true, partial, d, n, r,
-                             bn, cols_per_split, splits);
-  else if (r <= 64)
-    err = launch_partial<64>(grid, smem, stream, x, q, n_true, partial, d, n, r,
-                             bn, cols_per_split, splits);
-  else
+  if ((bn != 8 && bn != 16 && bn != 32) || stages < 2 ||
+      stages > kMaxStages || r > rmax || d > rows * kBoxRows ||
+      rows * rmax > kMaxRowVals ||
+      (size_t)smem < smem_bytes(d, bn, stages))
     return (int)cudaErrorInvalidValue;
-  if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)nodes * d * r;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  gram_reduce_kernel<<<blocks, threads, 0, stream>>>(partial, n_true, v, nodes,
-                                                     d * r, splits);
-  return (int)cudaGetLastError();
+  const int box_rows = d < kBoxRows ? d : kBoxRows;
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (tma) {
+    const CUtensorMapSwizzle swz =
+        bn == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
+                 : (bn == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_32B);
+    if (!hopper::f32_map_3d(&map, x, (uint64_t)n, (uint64_t)d,
+                            (uint64_t)nodes, (uint32_t)bn,
+                            (uint32_t)box_rows, swz))
+      return (int)cudaErrorNotSupported;
+  }
+  const GramArgs a{x, q, n_true, partial, v, tickets, items, block_items,
+                   groups, node_groups, d, n, r, bn, stages, box_rows, tma,
+                   n_groups};
+  cudaError_t err;
+  switch (rmax) {
+    case 8: err = launch_rows<8>(rows, map, a, grid, smem, stream); break;
+    case 16: err = launch_rows<16>(rows, map, a, grid, smem, stream); break;
+    case 32: err = launch_rows<32>(rows, map, a, grid, smem, stream); break;
+    case 64: err = launch_rows<64>(rows, map, a, grid, smem, stream); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return (int)err;
 }
 
 }  // extern "C"

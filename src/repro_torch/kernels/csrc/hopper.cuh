@@ -1,14 +1,23 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels of this
-// directory: mbarriers, TMA tile loads, wgmma shared-memory descriptors and
-// the wgmma instructions themselves, as inline PTX (no CUTLASS).
+// directory: mbarriers, TMA tile loads, bulk and cp.async copies that
+// complete on an mbarrier, wgmma shared-memory descriptors and the wgmma
+// instructions themselves, as inline PTX (no CUTLASS); and, on the host, the
+// encoding of TMA tensor maps without linking the driver library.
 //
-// Shared-memory tiles are the ones TMA writes under CU_TENSOR_MAP_SWIZZLE_128B:
-// rows of 64 bf16 (128 bytes), the 16-byte chunks of row r XOR-ed with r % 8,
-// in 1024-byte atoms of 8 rows, each tile 1024-byte aligned.
+// Shared-memory tiles of the flash kernel are the ones TMA writes under
+// CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), the 16-byte chunks
+// of row r XOR-ed with r % 8, in 1024-byte atoms of 8 rows, each tile
+// 1024-byte aligned. In general a swizzle of 16 * 2^B bytes XORs the 16-byte
+// chunk index of a row with address bits [7, 7 + B) (``swizzle_chunk``).
 #pragma once
 
+#include <cuda.h>   // CUtensorMap; cuTensorMapEncodeTiled is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
 
 namespace hopper {
 
@@ -69,6 +78,163 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// One contiguous run of ``bytes`` (a multiple of 16; both addresses 16-byte
+// aligned) from global into shared memory; completion counted on ``bar``.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// -- cp.async ------------------------------------------------------------------
+// 4-byte global -> shared copy that does not wait for the data; with
+// valid = false it writes 0 and reads nothing (src-size 0).
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// One arrival on ``bar`` once every cp.async this thread issued before has
+// landed. The barrier's expected count includes it (.noinc).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// The physical 16-byte chunk of logical chunk ``chunk`` in row ``row`` of a
+// tile whose rows are 16 * 2^b bytes long, written by TMA under the swizzle
+// of the same width, the tile 1024-byte aligned (b = 1, 2, 3: 32-, 64-,
+// 128-byte swizzle).
+__device__ __forceinline__ int swizzle_chunk(int chunk, int row, int b) {
+  return chunk ^ ((row >> (3 - b)) & ((1 << b) - 1));
+}
+
+// -- ordered sums -----------------------------------------------------------------
+// out[e] = (src[e] + src[stride + e] + ... + src[(count - 1) stride + e]) /
+// div for e < n, summed from 0 in this order (the same bits on every run),
+// by all threads of the block. A thread takes G elements (float4 groups
+// where n, stride and both pointers allow) and loads each term of all of
+// them before adding, so the block keeps many loads in flight instead of
+// one dependent load at a time. Reads bypass L1: the terms were written by
+// other blocks of the same launch.
+template <int G>
+__device__ __forceinline__ void ordered_sum(const float* src, size_t stride,
+                                            int count, int n, float* out,
+                                            float div) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const bool vec = n % 4 == 0 && stride % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(src) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  if (vec) {
+    const float4* s4 = reinterpret_cast<const float4*>(src);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    const int n4 = n / 4;
+    const size_t st4 = stride / 4;
+    for (int e0 = tid; e0 < n4; e0 += nt * G) {
+      float4 t[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) t[g] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int i = 0; i < count; ++i) {
+        float4 w[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const int e = e0 + g * nt;
+          w[g] = e < n4 ? __ldcg(s4 + i * st4 + e)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          t[g].x += w[g].x;
+          t[g].y += w[g].y;
+          t[g].z += w[g].z;
+          t[g].w += w[g].w;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int e = e0 + g * nt;
+        if (e < n4)
+          o4[e] = make_float4(t[g].x / div, t[g].y / div, t[g].z / div,
+                              t[g].w / div);
+      }
+    }
+    return;
+  }
+  for (int e0 = tid; e0 < n; e0 += nt * G) {
+    float t[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) t[g] = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < count; ++i) {
+      float w[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const int e = e0 + g * nt;
+        w[g] = e < n ? __ldcg(src + i * stride + e) : 0.f;
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) t[g] += w[g];
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int e = e0 + g * nt;
+      if (e < n) out[e] = t[g] / div;
+    }
+  }
+}
+
+// The end of a work item of a kernel whose units (a node, a block of rows)
+// are split over several blocks: this block has written item ``it``'s
+// partial sum (``n`` floats, slot ``items[6 it + 4]``, ``stride`` floats
+// apart in ``partial``). Items are (unit, first tile, end tile, tile step,
+// slot, group); a unit's items are cut into groups of consecutive slots,
+// ``groups[3 g : 3 g + 3]`` = (first slot, slots, slot of the group's sum,
+// -1 for a unit's sole group), ``unit_groups[u]`` the unit's first group.
+// Each group's last block (a ticket: an atomic counter, never an atomic
+// sum) sums the group's partials in slot order, and the unit's last group
+// sums the group sums in order, into out[0 : n] / div. The last blocks
+// reset their tickets, so the tickets stay zero between launches. The same
+// bits on every run. All threads of the block call it; ``flag`` is a
+// shared int.
+__device__ __forceinline__ void fold_partials(
+    const int* items, const int* groups, const int* unit_groups,
+    int* tickets, int n_groups, float* partial, size_t stride, int n,
+    float* out, float div, int it, int* flag) {
+  const int unit = items[6 * it], g = items[6 * it + 5];
+  const int* grp = groups + 3 * g;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    *flag = atomicAdd(tickets + g, 1) == grp[1] - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  const bool sole = grp[2] < 0;
+  ordered_sum<8>(partial + (size_t)grp[0] * stride, stride, grp[1], n,
+                 sole ? out : partial + (size_t)grp[2] * stride,
+                 sole ? div : 1.f);
+  if (threadIdx.x == 0) tickets[g] = 0;
+  if (sole) return;
+  __threadfence();
+  __syncthreads();
+  const int g0 = unit_groups[unit], g1 = unit_groups[unit + 1];
+  if (threadIdx.x == 0)
+    *flag = atomicAdd(tickets + n_groups + unit, 1) == g1 - g0 - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  ordered_sum<8>(partial + (size_t)groups[3 * g0 + 2] * stride, stride,
+                 g1 - g0, n, out, div);
+  if (threadIdx.x == 0) tickets[n_groups + unit] = 0;
 }
 
 // -- wgmma -----------------------------------------------------------------------
@@ -221,6 +387,85 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// -- host: tensor maps -------------------------------------------------------------
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a CUDA driver API call) through the CUDA runtime's
+// entry-point lookup, so a library needs no -lcuda and keeps its plain C
+// interface.
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A tensor map over a row-major (d2, d1, d0) f32 array (d0 innermost, its
+// rows 16-byte aligned) with boxes of (box0, box1, 1), zeros out of bounds
+// and L2 promotion of 256 bytes. Encoding costs host time on every call of
+// a wrapper, so maps are cached by all of their arguments (a map holds
+// nothing else: a new tensor at a freed tensor's address and shape gets the
+// same, valid, map). Returns false if the driver refuses the map.
+inline bool f32_map_3d(CUtensorMap* out, const void* base, uint64_t d0,
+                       uint64_t d1, uint64_t d2, uint32_t box0, uint32_t box1,
+                       CUtensorMapSwizzle swizzle) {
+  struct Entry {
+    const void* base;
+    uint64_t d0, d1, d2;
+    uint32_t box0, box1;
+    int swizzle;
+    CUtensorMap map;
+  };
+  constexpr int kEntries = 64;
+  static Entry cache[kEntries];
+  static int used = 0, next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.base == base && e.d0 == d0 && e.d1 == d1 && e.d2 == d2 &&
+        e.box0 == box0 && e.box1 == box1 && e.swizzle == (int)swizzle) {
+      memcpy(out, &e.map, sizeof(CUtensorMap));
+      return true;
+    }
+  }
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 4, d0 * 4 * d1};
+  const cuuint32_t box[3] = {box0, box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  Entry e{base, d0, d1, d2, box0, box1, (int)swizzle, {}};
+  if (encode(&e.map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+             const_cast<void*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  cache[next] = e;
+  next = (next + 1) % kEntries;
+  if (used < kEntries) ++used;
+  memcpy(out, &e.map, sizeof(CUtensorMap));
+  return true;
 }
 
 }  // namespace hopper

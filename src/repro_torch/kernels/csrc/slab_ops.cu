@@ -29,47 +29,53 @@
 //    at stride r: the tile is staged in shared memory and stored by the
 //    block in one coalesced sweep.
 //
-// apply (V = X S, output (d, r) per block, a sum over the long sample axis):
-//  * the TPU kernel carries V across a sequential grid over sample blocks;
-//    Hopper blocks run in parallel. The sample axis is split into ranges:
-//    pass 1 writes one (d, r) partial per (block, range), pass 2 sums the
-//    partials in a fixed order. No atomics: repeated runs give the same
-//    bits. The wrapper sizes the split from the card's occupancy.
-//  * a warp owns ROWS rows of X and its lanes walk the range's columns, so
-//    each load of a row is 32 consecutive floats (coalesced); the lane
-//    keeps ROWS x r sums in registers (8 x 8 at r <= 8: ROWS loads in
-//    flight a step) and each S value it reads from shared memory serves
-//    ROWS rows. At the end of the range the lanes' sums are combined by a
-//    butterfly of shuffles (fixed order).
-//  * S is staged 256 columns at a time with an odd row stride, so lanes on
-//    consecutive columns read distinct banks. Where a block has at most half
-//    as many row groups as warps (a short d), the spare warps split the
-//    columns with the others and their sums are added in a fixed order.
-//  * a third grid axis splits tall blocks into chunks of 8 warps x ROWS
-//    rows (F-DOT's 55 rows: 1 chunk; B-DOT's 256: 4).
+// apply (V = X S, output (d, r) per block, a sum over the long sample axis),
+// one launch:
+//  * a persistent grid, at most one block an SM; the work is the (unit,
+//    tile) pairs, a unit being a block b of the stack and a chunk of at most
+//    8 x ROWS of its rows (F-DOT's 55 rows: 1 chunk; B-DOT's 256: 4), a tile
+//    C (<= 256) columns. The wrapper (``_apply_plan`` in slab_ops.py) cuts
+//    them, unit-major, into one contiguous range a block, from the shapes
+//    alone.
+//  * each tile, the chunk's rows x C columns of X and the matching C x r
+//    floats of S[b % J], streams into a ring of 2-8 stages in shared memory
+//    under one mbarrier a stage: X as a TMA box of a 3-D tensor map over (n,
+//    d, B), S (rows of r floats, no 16-byte row stride) as one 1-D bulk copy.
+//    Thread 0 refills a stage as soon as the block has consumed it, so the
+//    other stages (~130 KB) are in flight while a tile is computed. Where n
+//    % 4 != 0 (the row stride of X and the offsets into S are not 16-byte
+//    aligned) every thread fills the same ring with 4-byte cp.async copies
+//    instead, counted on the same mbarriers.
+//  * the chunk's rows are dealt out evenly to the 8 warps (at d = 55: seven
+//    warps of 7 rows and one of 6, so no warp idles); a warp's lanes walk
+//    the tile's columns, 4 at a time for r <= 8 (x a float4 a row, S r
+//    float4s, both without bank conflicts at odd r), and keep ROWS x r
+//    sums in registers for the whole work item. At the item's end a
+//    butterfly of shuffles combines the lanes' sums (fixed order).
+//  * the sample axis of a unit is split over several blocks: each block
+//    writes its partial, fences and takes a ticket (an atomic counter, never
+//    an atomic sum); the last block sums the partials in a fixed order (in
+//    two levels where a unit has many blocks) and resets the ticket
+//    (hopper::fold_partials). The same bits on every run, and no second
+//    launch.
 //
-// Ragged edges: a tile or range past n and rows past d are masked; any d,
-// n >= 1 and 1 <= r <= 64 are taken. The zero padding of the reference's
-// stacks is data like any other.
+// Ragged edges: a tile past n and rows past d are masked; any d, n >= 1 and
+// 1 <= r <= 64 are taken. The zero padding of the reference's stacks is data
+// like any other.
+#include <cuda.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kQChunkFloats = 8192;   // Q rows staged at once: 32 KB
-constexpr int kApplyChunk = 256;      // columns of S staged at once
 constexpr int kUnroll = 8;            // rows of X in flight per tq thread
-
-template <int RMAX>
-struct ApplyRows {
-  // rows a warp accumulates at once: ROWS * RMAX sums in registers
-  static constexpr int value = RMAX <= 8 ? 8 : (RMAX <= 16 ? 4 : (RMAX <= 32 ? 2 : 1));
-};
-
-inline int apply_rows(int r) {
-  return r <= 8 ? 8 : (r <= 16 ? 4 : (r <= 32 ? 2 : 1));
-}
+constexpr int kApplyVals = 64;        // ROWS * RMAX sums a lane of apply
+constexpr int kMaxStages = 8;
 
 inline int tq_chunk_rows(int d, int r) {
   const int r4 = (r + 3) / 4;
@@ -83,9 +89,16 @@ inline size_t tq_smem_bytes(int d, int r) {
                           (size_t)kThreads * r);
 }
 
-inline size_t apply_smem_bytes(int r) {
-  return sizeof(float) * ((size_t)kApplyChunk * (r | 1) +
-                          (size_t)kWarps * apply_rows(r) * r);
+// A ring stage of apply: the X tile (rows x cols), then the S chunk (cols x
+// r), padded to 1024 bytes.
+__host__ __device__ inline size_t apply_stage_bytes(int rows, int cols,
+                                                    int r) {
+  return ((size_t)4 * cols * (rows + r) + 1023) & ~(size_t)1023;
+}
+
+// Dynamic shared memory of apply: alignment slack, the ring, the mbarriers.
+inline size_t apply_smem_bytes(int rows, int cols, int r, int stages) {
+  return 1024 + stages * apply_stage_bytes(rows, cols, r) + 8 * (size_t)stages;
 }
 
 // acc += X[k : k + count, c] (count <= U rows) times the staged Q rows.
@@ -171,114 +184,206 @@ slab_tq_kernel(const float* __restrict__ x, const float* __restrict__ q,
   for (int idx = threadIdx.x; idx < cols * r; idx += kThreads) zt[idx] = zs[idx];
 }
 
-template <int RMAX>
-__global__ void __launch_bounds__(kThreads)
-slab_apply_partial_kernel(const float* __restrict__ x,
-                          const float* __restrict__ s,
-                          float* __restrict__ partial, int J, int d, int n,
-                          int r, int cols_per_split, int splits) {
-  constexpr int ROWS = ApplyRows<RMAX>::value;
-  extern __shared__ float smem[];
-  const int rp = r | 1;                    // odd stride: conflict-free lanes
-  float* ss = smem;                        // kApplyChunk * rp
-  float* red = ss + kApplyChunk * rp;      // kWarps * ROWS * r
+struct ApplyArgs {
+  const float* x;                   // (B, d, n)
+  const float* s;                   // (J, n, r)
+  float* partial;                   // (slots, rows, r) scratch
+  float* v;                         // (B, d, r) output
+  int* tickets;                     // (groups + units,) zero before and after
+  const int* items;                 // (items, 6): unit, first tile, end tile,
+                                    // tile step, partial slot (-1: the
+                                    // unit's sole item), group
+  const int* block_items;           // (grid + 1,): a block's first item
+  const int* groups;                // (groups, 3): see hopper::fold_partials
+  const int* unit_groups;           // (units + 1,): a unit's first group
+  int J, d, n, r, chunks, rows, rpw, cols, stages, tma, n_groups;
+};
 
-  const int split = blockIdx.x;
-  const int b = blockIdx.z;
-  const int groups = (d + ROWS - 1) / ROWS;
-  const int g0 = blockIdx.y * kWarps;      // first row group of this block
-  const int gb = groups - g0 < kWarps ? groups - g0 : kWarps;
-  const int phases = kWarps / gb;          // warps that share a row group
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = warp % gb, p = warp / gb;  // warp = p * gb + g
-  const bool active = p < phases;
-  const int k0 = (g0 + g) * ROWS;
-
-  const float* xb = x + (size_t)b * d * n;
-  const float* sb = s + (size_t)(b % J) * n * r;
-  const int c_begin = split * cols_per_split;
-  int c_end = c_begin + cols_per_split;
-  c_end = c_end < n ? c_end : n;
-
-  float acc[ROWS][RMAX];
-#pragma unroll
-  for (int m = 0; m < ROWS; ++m)
-#pragma unroll
-    for (int j = 0; j < RMAX; ++j) acc[m][j] = 0.f;
-
-  for (int c0 = c_begin; c0 < c_end; c0 += kApplyChunk) {
-    const int cols = c_end - c0 < kApplyChunk ? c_end - c0 : kApplyChunk;
-    __syncthreads();                       // previous chunk fully consumed
-    const float* sc = sb + (size_t)c0 * r; // cols * r contiguous floats
-    for (int idx = threadIdx.x; idx < cols * r; idx += kThreads) {
-      const int cc = idx / r, j = idx - cc * r;
-      ss[cc * rp + j] = __ldg(sc + idx);
+// Put tile ``tile`` of unit ``unit`` (X rows and S columns) into a stage.
+__device__ __forceinline__ void apply_load(const ApplyArgs& a,
+                                           const CUtensorMap* map,
+                                           uint32_t stage, uint32_t bar,
+                                           int unit, int tile, int tid) {
+  const int b = unit / a.chunks, k0 = (unit - b * a.chunks) * a.rows;
+  const int c0 = tile * a.cols;
+  const int cols = a.n - c0 < a.cols ? a.n - c0 : a.cols;
+  const float* sc = a.s + ((size_t)(b % a.J) * a.n + c0) * a.r;
+  const uint32_t s_dst = stage + 4 * a.rows * a.cols;
+  if (a.tma) {
+    if (tid == 0) {
+      const uint32_t s_bytes = 4u * ((cols + 3) & ~3) * a.r;
+      hopper::mbar_expect_tx(bar, 4u * a.rows * a.cols + s_bytes);
+      hopper::tma_load_3d(stage, map, bar, c0, k0, b);
+      hopper::bulk_load(s_dst, sc, s_bytes, bar);
     }
-    __syncthreads();
-    if (active) {
-      for (int cc = p * 32 + lane; cc < cols; cc += phases * 32) {
-        float sv[RMAX];
+    return;
+  }
+  const float* xb = a.x + (size_t)b * a.d * a.n;
+  for (int idx = tid; idx < a.rows * a.cols; idx += kThreads) {
+    const int row = idx / a.cols, c = idx - row * a.cols;
+    const bool valid = k0 + row < a.d && c < cols;
+    hopper::cp_async_4(stage + 4 * idx,
+                       valid ? xb + (size_t)(k0 + row) * a.n + c0 + c : a.x,
+                       valid);
+  }
+  for (int idx = tid; idx < cols * a.r; idx += kThreads)
+    hopper::cp_async_4(s_dst + 4 * idx, sc + idx, true);
+  hopper::cp_async_arrive(bar);
+}
+
+// acc[m][j] += x[row0 + m, c] S[c, j] over the tile's columns c < cols.
+// EXACT (r == R, R <= 8): a lane takes 4 columns at a time, x of each row
+// as one float4 and the 4 x R floats of S as R float4s (conflict-free for
+// odd R), the columns of a ragged last group masked to 0 in S; else (r <=
+// R) one column at a time with scalar reads.
+template <int R, bool EXACT, int ROWS>
+__device__ __forceinline__ void apply_tile(const float* xs, const float* ss,
+                                           int stride, int r, int cols,
+                                           int row0, int mine, int lane,
+                                           float (&acc)[ROWS][R]) {
+  if constexpr (EXACT) {
+    for (int c4 = 4 * lane; c4 < cols; c4 += 128) {
+      float sv[4 * R];
+      const float4* s4 = reinterpret_cast<const float4*>(ss + c4 * R);
 #pragma unroll
-        for (int j = 0; j < RMAX; ++j) sv[j] = j < r ? ss[cc * rp + j] : 0.f;
-        float xv[ROWS];
+      for (int k = 0; k < R; ++k) {
+        const float4 w = s4[k];
+        sv[4 * k] = w.x;
+        sv[4 * k + 1] = w.y;
+        sv[4 * k + 2] = w.z;
+        sv[4 * k + 3] = w.w;
+      }
+      if (c4 + 4 > cols) {               // S past cols is stale: mask it
 #pragma unroll
-        for (int m = 0; m < ROWS; ++m) {
-          const int k = k0 + m;
-          xv[m] = k < d ? __ldg(xb + (size_t)k * n + c0 + cc) : 0.f;
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int j = 0; j < R; ++j)
+            sv[q * R + j] = c4 + q < cols ? sv[q * R + j] : 0.f;
+      }
+#pragma unroll
+      for (int m = 0; m < ROWS; ++m) {
+        if (m < mine) {
+          const float4 w = *reinterpret_cast<const float4*>(
+              xs + (row0 + m) * stride + c4);
+          const float xq[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int j = 0; j < R; ++j)
+              acc[m][j] = fmaf(xq[q], sv[q * R + j], acc[m][j]);
         }
+      }
+    }
+  } else {
+    for (int cc = lane; cc < cols; cc += 32) {
+      float sv[R];
 #pragma unroll
-        for (int m = 0; m < ROWS; ++m)
+      for (int j = 0; j < R; ++j) sv[j] = j < r ? ss[cc * r + j] : 0.f;
 #pragma unroll
-          for (int j = 0; j < RMAX; ++j) acc[m][j] = fmaf(xv[m], sv[j], acc[m][j]);
+      for (int m = 0; m < ROWS; ++m) {
+        if (m < mine) {
+          const float xv = xs[(row0 + m) * stride + cc];
+#pragma unroll
+          for (int j = 0; j < R; ++j) acc[m][j] = fmaf(xv, sv[j], acc[m][j]);
+        }
       }
     }
   }
+}
 
-  // lanes' sums -> one per (row, j): a butterfly, the same order every run
-  if (active) {
+template <int R, bool EXACT>
+__global__ void __launch_bounds__(kThreads, 1)
+slab_apply_kernel(const __grid_constant__ CUtensorMap xmap, const ApplyArgs a) {
+  constexpr int RMAX = R;
+  constexpr int ROWS = kApplyVals / (R <= 8 ? 8 : R);  // rows a warp, at most
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int is_last;
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* basep = smem_raw + (base - raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r = a.r, stages = a.stages;
+  const uint32_t stage_bytes = (uint32_t)apply_stage_bytes(a.rows, a.cols, r);
+  const uint32_t bar0 = base + stages * stage_bytes;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s)
+      hopper::mbar_init(bar0 + 8 * s, a.tma ? 1 : kThreads);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int first = a.block_items[blockIdx.x];
+  const int last = a.block_items[blockIdx.x + 1];
+  // the producer's walk over (item, tile): items are never empty
+  int p_item = first, p_tile = first < last ? a.items[6 * first + 1] : 0;
+  int pseq = 0;
+  auto issue = [&]() {
+    if (p_item >= last) return;
+    const int ps = pseq % stages;
+    apply_load(a, &xmap, base + ps * stage_bytes, bar0 + 8 * ps,
+               a.items[6 * p_item], p_tile, tid);
+    ++pseq;
+    p_tile += a.items[6 * p_item + 3];
+    if (p_tile >= a.items[6 * p_item + 2] && ++p_item < last)
+      p_tile = a.items[6 * p_item + 1];
+  };
+  for (int s = 0; s < stages; ++s) issue();
+
+  int seq = 0;
+  for (int it = first; it < last; ++it) {
+    const int unit = a.items[6 * it];
+    const int b = unit / a.chunks, k0 = (unit - b * a.chunks) * a.rows;
+    const int unit_rows = a.d - k0 < a.rows ? a.d - k0 : a.rows;
+    const int row0 = warp * a.rpw;
+    int mine = unit_rows - row0 < a.rpw ? unit_rows - row0 : a.rpw;
+    mine = mine < 0 ? 0 : mine;
+
+    float acc[ROWS][RMAX];
+#pragma unroll
+    for (int m = 0; m < ROWS; ++m)
+#pragma unroll
+      for (int j = 0; j < RMAX; ++j) acc[m][j] = 0.f;
+
+    for (int tile = a.items[6 * it + 1]; tile < a.items[6 * it + 2];
+         tile += a.items[6 * it + 3], ++seq) {
+      const int s = seq % stages;
+      hopper::mbar_wait(bar0 + 8 * s, (seq / stages) & 1);
+      const float* xs =
+          reinterpret_cast<const float*>(basep + s * stage_bytes);
+      const float* ss = xs + a.rows * a.cols;
+      const int c0 = tile * a.cols;
+      const int cols = a.n - c0 < a.cols ? a.n - c0 : a.cols;
+      apply_tile<R, EXACT, ROWS>(xs, ss, a.cols, r, cols, row0, mine, lane,
+                                 acc);
+      __syncthreads();                  // stage s consumed by every warp
+      issue();
+    }
+
+    // lanes' sums -> one per (row, j): a butterfly, the same order every
+    // run; a unit's sole item writes V, any other its partial
+    const int slot = a.items[6 * it + 4];
+    float* out = slot < 0 ? a.v + ((size_t)b * a.d + k0) * r
+                          : a.partial + (size_t)slot * a.rows * r;
 #pragma unroll
     for (int m = 0; m < ROWS; ++m) {
 #pragma unroll
       for (int j = 0; j < RMAX; ++j) {
         if (j < r) {
-          float v = acc[m][j];
+          float t = acc[m][j];
 #pragma unroll
           for (int off = 16; off > 0; off >>= 1)
-            v += __shfl_xor_sync(0xffffffffu, v, off);
-          if (lane == 0) red[(warp * ROWS + m) * r + j] = v;
+            t += __shfl_xor_sync(0xffffffffu, t, off);
+          if (lane == 0 && m < mine) out[(row0 + m) * r + j] = t;
         }
       }
     }
+    if (slot >= 0)
+      hopper::fold_partials(a.items, a.groups, a.unit_groups, a.tickets,
+                            a.n_groups, a.partial, (size_t)a.rows * r,
+                            unit_rows * r, a.v + ((size_t)b * a.d + k0) * r,
+                            1.f, it, &is_last);
   }
-  __syncthreads();
-
-  // phases of a row group summed in order; this block's rows of the partial
-  float* pb = partial + ((size_t)b * splits + split) * d * r;
-  for (int idx = threadIdx.x; idx < gb * ROWS * r; idx += kThreads) {
-    const int gg = idx / (ROWS * r);
-    const int rem = idx - gg * ROWS * r;
-    const int m = rem / r, j = rem - m * r;
-    const int k = (g0 + gg) * ROWS + m;
-    if (k < d) {
-      float t = 0.f;
-      for (int ph = 0; ph < phases; ++ph) t += red[((ph * gb + gg) * ROWS + m) * r + j];
-      pb[(size_t)k * r + j] = t;
-    }
-  }
-}
-
-// Pass 2: V[b] = sum over splits of the partials, in order.
-__global__ void slab_apply_reduce_kernel(const float* __restrict__ partial,
-                                         float* __restrict__ v, int blocks,
-                                         int dr, int splits) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)blocks * dr) return;
-  const int b = (int)(idx / dr);
-  const int e = (int)(idx - (size_t)b * dr);
-  const float* p = partial + (size_t)b * splits * dr + e;
-  float t = 0.f;
-  for (int sp = 0; sp < splits; ++sp) t += p[(size_t)sp * dr];
-  v[idx] = t;
 }
 
 template <typename Kernel>
@@ -299,28 +404,13 @@ cudaError_t launch_tq(const float* x, const float* q, float* z, int blocks,
   return cudaGetLastError();
 }
 
-template <int RMAX>
-cudaError_t launch_apply(const float* x, const float* s, float* partial,
-                         int blocks, int J, int d, int n, int r,
-                         int cols_per_split, int splits, cudaStream_t stream) {
-  const size_t smem = apply_smem_bytes(r);
-  cudaError_t err = set_smem(slab_apply_partial_kernel<RMAX>, smem);
+template <int R, bool EXACT>
+cudaError_t launch_apply(const CUtensorMap& map, const ApplyArgs& a, int grid,
+                         size_t smem, cudaStream_t stream) {
+  cudaError_t err = set_smem(slab_apply_kernel<R, EXACT>, smem);
   if (err != cudaSuccess) return err;
-  const int groups = (d + ApplyRows<RMAX>::value - 1) / ApplyRows<RMAX>::value;
-  const dim3 grid(splits, (groups + kWarps - 1) / kWarps, blocks);
-  slab_apply_partial_kernel<RMAX><<<grid, kThreads, smem, stream>>>(
-      x, s, partial, J, d, n, r, cols_per_split, splits);
+  slab_apply_kernel<R, EXACT><<<grid, kThreads, smem, stream>>>(map, a);
   return cudaGetLastError();
-}
-
-template <int RMAX>
-int apply_blocks_per_sm(size_t smem) {
-  if (set_smem(slab_apply_partial_kernel<RMAX>, smem) != cudaSuccess) return 0;
-  int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, slab_apply_partial_kernel<RMAX>, kThreads, smem) != cudaSuccess)
-    return 0;
-  return per_sm;
 }
 
 }  // namespace
@@ -346,54 +436,58 @@ int slab_tq_launch(const float* x, const float* q, float* z, int blocks,
   return (int)err;
 }
 
-// Grid rows (the y axis) of the apply kernel for (d, r).
-int slab_apply_row_chunks(int d, int r) {
-  const int groups = (d + apply_rows(r) - 1) / apply_rows(r);
-  return (groups + kWarps - 1) / kWarps;
+// Bytes of dynamic shared memory apply needs for (rows, cols, r, stages).
+size_t slab_apply_smem_bytes(int rows, int cols, int r, int stages) {
+  return apply_smem_bytes(rows, cols, r, stages);
 }
 
-// Columns a range of the sample axis is a multiple of.
-int slab_apply_chunk(void) { return kApplyChunk; }
-
-// Blocks of pass 1 that fit on one SM at once for r; 0 on error.
-int slab_apply_blocks_per_sm(int r) {
-  const size_t smem = apply_smem_bytes(r);
-  if (r <= 8) return apply_blocks_per_sm<8>(smem);
-  if (r <= 16) return apply_blocks_per_sm<16>(smem);
-  if (r <= 32) return apply_blocks_per_sm<32>(smem);
-  if (r <= 64) return apply_blocks_per_sm<64>(smem);
-  return 0;
-}
-
-// V[b] = X_b S[b % J]. x: (blocks, d, n), s: (J, n, r), partial:
-// (blocks, splits, d, r) scratch, v: (blocks, d, r), all f32.
-// Returns the CUDA error code of the launches (0 on success).
+// V[b] = X_b S[b % J]. x: (blocks, d, n), s: (J, n, r), v: (blocks, d, r),
+// all f32; partial: (slots, rows, r) f32 scratch; tickets: (groups + blocks *
+// chunks,) int32, zero; items / block_items / groups / unit_groups: the
+// wrapper's plan (chunks
+// of ``rows`` rows, ``rpw`` of them a warp, tiles of ``cols`` columns). tma =
+// 1 reads X through a tensor map and S by bulk copies (n % 4 == 0, x and s
+// 16-byte aligned), else cp.async. Returns the CUDA error code of the launch
+// (0 on success).
 int slab_apply_launch(const float* x, const float* s, float* partial, float* v,
-                      int blocks, int J, int d, int n, int r,
-                      int cols_per_split, int splits, void* stream_ptr) {
+                      int* tickets, const int* items, const int* block_items,
+                      const int* groups, const int* unit_groups, int blocks,
+                      int J, int d, int n, int r, int chunks, int rows,
+                      int rpw, int cols, int stages, int grid, int smem,
+                      int tma, int n_groups, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err;
-  if (r <= 8)
-    err = launch_apply<8>(x, s, partial, blocks, J, d, n, r, cols_per_split,
-                          splits, stream);
-  else if (r <= 16)
-    err = launch_apply<16>(x, s, partial, blocks, J, d, n, r, cols_per_split,
-                           splits, stream);
-  else if (r <= 32)
-    err = launch_apply<32>(x, s, partial, blocks, J, d, n, r, cols_per_split,
-                           splits, stream);
-  else if (r <= 64)
-    err = launch_apply<64>(x, s, partial, blocks, J, d, n, r, cols_per_split,
-                           splits, stream);
-  else
+  const int r_max = r <= 8 ? 8 : (r <= 16 ? 16 : (r <= 32 ? 32 : 64));
+  if (r < 1 || r > 64 || rows < 1 || rows > 256 || rpw * kWarps < rows ||
+      rpw > kApplyVals / r_max || cols < 4 || cols > 256 || cols % 4 ||
+      stages < 2 || stages > kMaxStages || chunks * rows < d ||
+      (size_t)smem < apply_smem_bytes(rows, cols, r, stages))
     return (int)cudaErrorInvalidValue;
-  if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)blocks * d * r;
-  const int threads = 256;
-  const unsigned grid = (unsigned)((total + threads - 1) / threads);
-  slab_apply_reduce_kernel<<<grid, threads, 0, stream>>>(partial, v, blocks,
-                                                         d * r, splits);
-  return (int)cudaGetLastError();
+  CUtensorMap map;
+  memset(&map, 0, sizeof(map));
+  if (tma && !hopper::f32_map_3d(&map, x, (uint64_t)n, (uint64_t)d,
+                                 (uint64_t)blocks, (uint32_t)cols,
+                                 (uint32_t)rows, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorNotSupported;
+  const ApplyArgs a{x, s, partial, v, tickets, items, block_items, groups,
+                    unit_groups, J, d, n, r, chunks, rows, rpw, cols, stages,
+                    tma, n_groups};
+  cudaError_t err;
+  switch (r) {
+    case 1: err = launch_apply<1, true>(map, a, grid, smem, stream); break;
+    case 2: err = launch_apply<2, true>(map, a, grid, smem, stream); break;
+    case 3: err = launch_apply<3, true>(map, a, grid, smem, stream); break;
+    case 4: err = launch_apply<4, true>(map, a, grid, smem, stream); break;
+    case 5: err = launch_apply<5, true>(map, a, grid, smem, stream); break;
+    case 6: err = launch_apply<6, true>(map, a, grid, smem, stream); break;
+    case 7: err = launch_apply<7, true>(map, a, grid, smem, stream); break;
+    case 8: err = launch_apply<8, true>(map, a, grid, smem, stream); break;
+    default:
+      err = r_max == 16 ? launch_apply<16, false>(map, a, grid, smem, stream)
+            : r_max == 32
+                ? launch_apply<32, false>(map, a, grid, smem, stream)
+                : launch_apply<64, false>(map, a, grid, smem, stream);
+  }
+  return (int)err;
 }
 
 }  // extern "C"

@@ -1,72 +1,180 @@
 """CUDA wrapper for the Hopper gram-apply kernel (``csrc/gram_update.cu``).
 
-V[i] = X_i (X_i^T Q_i) / n_i for all nodes in one launch pair: pass 1 writes
-one (d, r) partial per (node, column range), pass 2 sums them in a fixed
-order and divides by n_true. Replaces ``batched_gram_apply_pallas`` and, as
-its N = 1 launch, ``gram_apply_pallas`` (``repro/kernels/gram_update.py``).
-Call through ``ops.batched_gram_apply`` / ``ops.gram_apply``.
+V[i] = X_i (X_i^T Q_i) / n_i for all nodes in one launch: a persistent grid
+streams X through a ring of shared-memory tiles (TMA, or cp.async where
+n % 4 != 0), and the last block of each node sums the node's partials in a
+fixed order. Replaces ``batched_gram_apply_pallas`` and, as its N = 1 launch,
+``gram_apply_pallas`` (``repro/kernels/gram_update.py``). Call through
+``ops.batched_gram_apply`` / ``ops.gram_apply``.
+
+``plan`` is a pure function of the shapes and the card's SM count and
+shared-memory limit, so a run's summation order, and its bits, depend on
+nothing else. Each launch adds one to its staging route's count in
+``ROUTE_LAUNCHES``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
+from typing import Dict, Tuple
 
 import torch
 
 from . import _launch
 
-__all__ = ["batched_gram_apply_cuda", "MAX_R"]
+__all__ = ["batched_gram_apply_cuda", "MAX_R", "ROUTE_LAUNCHES",
+           "reset_route_launches", "route", "Plan", "plan", "smem_bytes"]
 
 MAX_R = 64                      # largest r the kernel instantiates
-_BLOCK_COLS = (16, 8, 4, 2, 1)  # column-tile widths, widest that fits first
-_SMEM_OPTIN = 232_448           # H100: dynamic shared memory a block can use
+THREADS = 256                   # a block; thread t owns rows t, t + 256, ...
+BOX_ROWS = 256                  # rows of a TMA box
+RED_VALS = 64                   # values a column batch reduces (CB * r_max)
+MAX_STAGES = 8
+MAX_ROW_VALS = 128              # rows a thread x r_max: Q and V in registers
+STATIC_SMEM = 128               # the kernel's static shared memory, rounded up
+_TILE_COLS = (32, 16, 8)        # 128-, 64-, 32-byte row segments, widest first
+_MIN_STAGES = 3                 # the widest tile whose ring holds this many
+ROUTE_LAUNCHES: Dict[str, int] = {"tma": 0, "cp_async": 0}
 
 
-def _lib():
-    from . import _build
-    lib = _build.load("gram_update")
+def reset_route_launches() -> None:
+    for name in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[name] = 0
+
+
+def route(x: torch.Tensor) -> str:
+    """'tma' where a tensor map can take x (rows 16-byte aligned), else
+    'cp_async'."""
+    aligned = x.shape[-1] % 4 == 0 and x.data_ptr() % 16 == 0
+    return "tma" if aligned else "cp_async"
+
+
+def smem_bytes(d: int, bn: int, stages: int) -> int:
+    """Dynamic shared memory of one block (the kernel's ``smem_bytes``): the
+    1024-byte alignment slack, ``stages`` tiles of ceil(d / 256) boxes each
+    padded to 1024 bytes, the warps' sums and z, one mbarrier a stage."""
+    box_rows = min(d, BOX_ROWS)
+    boxes = math.ceil(d / box_rows)
+    box_stride = math.ceil(box_rows * bn * 4 / 1024) * 1024
+    return (1024 + stages * boxes * box_stride
+            + 4 * (THREADS // 32 * RED_VALS + RED_VALS) + 8 * stages)
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch's shape: the instantiation (``r_max``, ``rows``), the tile
+    (``bn`` columns) and ring depth, the grid and its work items.
+
+    ``items[k] = (node, first tile, end tile, tile step, slot, group)`` in
+    the order the blocks walk them: block b takes items
+    ``block_items[b]:block_items[b + 1]``. ``groups``, ``node_groups`` and
+    the slots say how the partial sums are added up
+    (``_launch.fold_plan``); ``slots`` is the scratch's size in partials.
+    """
+    r_max: int
+    rows: int
+    bn: int
+    stages: int
+    grid: int
+    smem: int
+    items: Tuple[Tuple[int, ...], ...]
+    block_items: Tuple[int, ...]
+    groups: Tuple[Tuple[int, int, int], ...]
+    node_groups: Tuple[int, ...]
+    slots: int
+
+
+@functools.lru_cache(maxsize=256)
+def plan(nodes: int, d: int, n: int, r: int, sm_count: int,
+         smem_limit: int) -> Plan:
+    """The launch for these shapes on a card with ``sm_count`` SMs and
+    ``smem_limit`` bytes of shared memory a block (pure: no card needed).
+
+    The tile is the widest of 32, 16 and 8 columns whose ring holds three
+    stages (else two). At most one block an SM. Where the nodes fit on the
+    SMs, each node's tiles are dealt round-robin to SMs // N blocks of its
+    own, so that blocks running side by side read neighbouring columns of
+    the same rows; else the (node, tile) pairs, node-major, are cut into one
+    contiguous range a block.
+    """
+    r_max = next((m for m in (8, 16, 32, 64) if r <= m), None)
+    if r_max is None or r < 1:
+        raise ValueError(f"gram-apply kernel takes 1 <= r <= {MAX_R}, got {r}")
+    rows = 1
+    while rows * BOX_ROWS < d:
+        rows *= 2
+    if rows * r_max > MAX_ROW_VALS:
+        raise ValueError(f"gram-apply kernel takes d <= "
+                         f"{MAX_ROW_VALS // r_max * BOX_ROWS} at r = {r}, "
+                         f"got d = {d}")
+    budget = smem_limit - STATIC_SMEM
+
+    def depth(bn):
+        return max((s for s in range(2, MAX_STAGES + 1)
+                    if smem_bytes(d, bn, s) <= budget), default=0)
+
+    bn = next((b for b in _TILE_COLS if depth(b) >= _MIN_STAGES), None)
+    if bn is None:
+        bn = next((b for b in _TILE_COLS if depth(b) >= 2), None)
+    if bn is None:
+        raise ValueError(f"gram-apply: d={d} needs more shared memory than a "
+                         f"block has ({smem_limit} bytes)")
+    stages = depth(bn)
+    per_node = math.ceil(n / bn)
+    if nodes <= sm_count:
+        items, block_items = _interleaved(
+            nodes, per_node, min(sm_count // nodes, per_node))
+    else:
+        items, block_items = _launch.contiguous_items(
+            nodes, per_node, min(sm_count, nodes * per_node))
+    items, groups, node_groups, slots = _launch.fold_plan(items, nodes)
+    return Plan(r_max, rows, bn, stages, len(block_items) - 1,
+                smem_bytes(d, bn, stages), items, tuple(block_items), groups,
+                node_groups, slots)
+
+
+def _interleaved(units: int, per_unit: int, share: int):
+    """Each unit's tiles dealt round-robin to ``share`` blocks of its own, so
+    that blocks running side by side read neighbouring columns: -> (items
+    (unit, first tile, end tile, share), first item of each block)."""
+    items = [(u, j, per_unit, share) for u in range(units)
+             for j in range(max(1, share))]
+    return items, list(range(len(items) + 1))
+
+
+def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of csrc/gram_update.cu) with its C signatures set."""
     if not getattr(lib, "_repro_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.gram_apply_launch.argtypes = [vp] * 5 + [i] * 7 + [vp]
+        lib.gram_apply_launch.argtypes = [vp] * 10 + [i] * 12 + [vp]
         lib.gram_apply_launch.restype = ctypes.c_int
         lib.gram_apply_smem_bytes.argtypes = [i, i, i]
         lib.gram_apply_smem_bytes.restype = ctypes.c_size_t
-        lib.gram_apply_blocks_per_sm.argtypes = [i, i, i]
-        lib.gram_apply_blocks_per_sm.restype = ctypes.c_int
         lib._repro_typed = True
     return lib
 
 
-@functools.lru_cache(maxsize=64)
-def _plan(device_index: int, nodes: int, d: int, n: int, r: int):
-    """(bn, splits, cols_per_split) for these shapes on this card.
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    from . import _build
+    return _typed(_build.load("gram_update"))
 
-    The column axis is split so that all (node, range) blocks run in one wave
-    of the resident blocks the card holds: a second, nearly empty wave
-    would double the time.
-    """
-    lib = _lib()
-    props = torch.cuda.get_device_properties(device_index)
-    limit = getattr(props, "shared_memory_per_block_optin", _SMEM_OPTIN)
-    fits = [bn for bn in _BLOCK_COLS
-            if lib.gram_apply_smem_bytes(d, r, bn) <= limit]
-    if not fits:
-        raise ValueError(f"gram-apply: d={d}, r={r} needs more shared memory "
-                         f"than a block has ({limit} bytes)")
-    occupancy = {bn: lib.gram_apply_blocks_per_sm(d, r, bn) for bn in fits}
-    # the widest tile that still lets two blocks share an SM (one block's
-    # loads overlap the other's arithmetic), else the widest that fits
-    bn = next((b for b in fits if occupancy[b] >= 2), fits[0])
-    per_sm = occupancy[bn]
-    if per_sm <= 0:
-        raise RuntimeError(f"gram-apply: no block of (d={d}, r={r}, "
-                           f"bn={bn}) fits on an SM")
-    slots = per_sm * props.multi_processor_count
-    tiles = max(1, math.ceil(n / bn))
-    splits = min(tiles, max(1, slots // nodes))
-    cols_per_split = math.ceil(tiles / splits) * bn
-    return bn, max(1, math.ceil(n / cols_per_split)), cols_per_split
+
+@functools.lru_cache(maxsize=64)
+def _device_plan(device_index: int, nodes: int, d: int, n: int, r: int):
+    """The plan for this card, its tables as one int32 tensor on it, and
+    the kernel's pointers to them."""
+    p = plan(nodes, d, n, r, *_launch.card(device_index))
+    table = _launch.plan_table(device_index, p.items, p.block_items,
+                               p.groups, p.node_groups)
+    return p, table, _launch.table_pointers(
+        table, 6 * len(p.items), p.grid + 1, 3 * len(p.groups), nodes + 1)
+
+
+# (device, stream) -> (tickets, partial scratch), see _launch.workspace
+_WORK: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def batched_gram_apply_cuda(x_stack: torch.Tensor, q_stack: torch.Tensor,
@@ -74,7 +182,7 @@ def batched_gram_apply_cuda(x_stack: torch.Tensor, q_stack: torch.Tensor,
     """x_stack: (N, d, n) f32, q_stack: (N, d, r) f32, n_true: (N,) f32,
     all contiguous on one CUDA device -> (N, d, r) f32.
 
-    Columns of node i past ceil(n_true[i]) are padding and are not read.
+    Columns of node i past ceil(n_true[i]) are padding and are not used.
     """
     dev = x_stack.device
     _launch.check(x_stack, "x_stack", (torch.float32,), 3, dev)
@@ -88,21 +196,21 @@ def batched_gram_apply_cuda(x_stack: torch.Tensor, q_stack: torch.Tensor,
     r = q_stack.shape[2]
     if not 1 <= r <= MAX_R:
         raise ValueError(f"gram-apply kernel takes 1 <= r <= {MAX_R}, got {r}")
-    if not 1 <= nodes <= _launch.MAX_GRID_Y:
-        raise ValueError(f"gram-apply kernel takes 1..{_launch.MAX_GRID_Y} "
-                         f"nodes, got {nodes}")
     v = torch.empty((nodes, d, r), dtype=torch.float32, device=dev)
-    if d == 0 or n == 0:
+    if d == 0 or n == 0 or nodes == 0:
         return v.zero_()
-    lib = _lib()
-    bn, splits, cols = _plan(dev.index if dev.index is not None
-                             else torch.cuda.current_device(), nodes, d, n, r)
-    partial = torch.empty((nodes, splits, d, r), dtype=torch.float32,
-                          device=dev)
-    with torch.cuda.device(dev):
-        err = lib.gram_apply_launch(
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    p, _, tables = _device_plan(index, nodes, d, n, r)
+    stream = _launch.stream(dev)
+    tickets, partial = _launch.workspace(
+        _WORK, index, stream.value, len(p.groups) + nodes, p.slots * d * r)
+    how = route(x_stack)
+    with _launch.on_device(index):
+        err = _lib().gram_apply_launch(
             _launch.ptr(x_stack), _launch.ptr(q_stack), _launch.ptr(n_true),
-            _launch.ptr(partial), _launch.ptr(v), nodes, d, n, r, bn, cols,
-            splits, _launch.stream(dev))
+            _launch.ptr(partial), _launch.ptr(v), _launch.ptr(tickets),
+            *tables, nodes, d, n, r, p.r_max, p.rows, p.bn, p.stages, p.grid,
+            p.smem, int(how == "tma"), len(p.groups), stream)
     _launch.raise_on_error(err, "gram_apply_launch")
+    ROUTE_LAUNCHES[how] += 1
     return v

@@ -16,6 +16,7 @@ that its main path went through the kernels.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -35,12 +36,13 @@ LAUNCHES: Dict[str, int] = {"gram_apply": 0, "batched_gram_apply": 0,
 
 
 def reset_launches() -> None:
-    """Zero every wrapper's count, and the flash-attention kernels' counts
-    by route."""
-    from .flash_attention import reset_route_launches
+    """Zero every wrapper's count, and the counts by route of the flash-
+    attention, gram-apply and slab-apply kernels."""
+    from . import flash_attention, gram_update, slab_ops
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    reset_route_launches()
+    for module in (flash_attention, gram_update, slab_ops):
+        module.reset_route_launches()
 
 
 def on_gpu() -> bool:
@@ -48,15 +50,19 @@ def on_gpu() -> bool:
     return torch.cuda.is_available()
 
 
+@functools.lru_cache(maxsize=64)
+def _sample_count(device: torch.device, n: int) -> torch.Tensor:
+    """(1,) f32 [n] on the card, made once: the kernel only reads it."""
+    return torch.full((1,), float(n), dtype=torch.float32, device=device)
+
+
 def gram_apply(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """V = X (X^T Q) / n. x: (d, n), q: (d, r) -> (d, r)."""
     if not x.is_cuda:
         return ref.gram_apply_ref(x, q)
     from .gram_update import batched_gram_apply_cuda
-    n_true = torch.full((1,), float(x.shape[1]), dtype=torch.float32,
-                        device=x.device)
     v = batched_gram_apply_cuda(x.contiguous()[None], q.contiguous()[None],
-                                n_true)[0]
+                                _sample_count(x.device, x.shape[1]))[0]
     LAUNCHES["gram_apply"] += 1
     return v
 

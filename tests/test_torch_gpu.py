@@ -29,6 +29,7 @@ from repro_torch.data.pipeline import (gaussian_eigengap_data,
                                        partition_samples)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gram_update, slab_ops
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models.transformer import (decode_step, forward,
                                             init_decode_state, init_params,
@@ -87,6 +88,86 @@ def test_gram_kernel_matches_plain(cuda_device, n_true, d, r):
     want0 = ref.gram_apply_ref(x0, q[0])
     assert float((single - want0).abs().max()) <= 1e-5 * float(
         want0.abs().max())
+
+
+def _routes_delta(module, before):
+    return {k: v - before[k] for k, v in module.ROUTE_LAUNCHES.items()}
+
+
+@pytest.mark.parametrize("n", [2500, 2498])    # TMA route, cp.async route
+def test_gram_kernel_ignores_nan_padding(cuda_device, n):
+    """Columns past ceil(n_true) hold NaN: the output is finite and equals
+    the zero-padded stack's bit for bit (the kernel masks with a select)."""
+    rng = np.random.default_rng(3)
+    n_true = [n, n - 700, n - 1, 5]
+    x = torch.from_numpy(_ragged_stack(rng, n_true, 1024)).to(cuda_device)
+    x_nan = x.clone()
+    for i, ni in enumerate(n_true):
+        x_nan[i, :, ni:] = float("nan")
+    q = torch.randn((4, 1024, 7), device=cuda_device)
+    nt = torch.tensor(n_true, dtype=torch.float32, device=cuda_device)
+    got = ops.batched_gram_apply(x_nan, q, nt)
+    want = ops.batched_gram_apply(x, q, nt)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,how", [(2500, "tma"), (14, "cp_async")])
+def test_gram_kernel_staging_routes(cuda_device, n, how):
+    """n % 4 == 0 streams X by TMA, any other n by cp.async: each launch is
+    counted on its route, both hold the plain version (1e-5 of max |V|) and
+    repeat their bits without a host wait."""
+    x = torch.randn((20, 1024, n), device=cuda_device)
+    q = torch.randn((20, 1024, 7), device=cuda_device)
+    nt = torch.full((20,), float(n), device=cuda_device)
+    before = dict(gram_update.ROUTE_LAUNCHES)
+    got = ops.batched_gram_apply(x, q, nt)
+    torch.cuda.synchronize()
+    assert _routes_delta(gram_update, before) == {
+        "tma": int(how == "tma"), "cp_async": int(how == "cp_async")}
+    want = ref.batched_gram_apply_ref(x, q, nt)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    with no_host_sync():
+        again = ops.batched_gram_apply(x, q, nt)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n,how", [(10_000, "tma"), (257, "cp_async")])
+def test_slab_apply_staging_routes(cuda_device, n, how):
+    """The same for the slab / grid apply kernel, on both of its grids."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((4, 5, 256, n), generator=gen, device=cuda_device)
+    s = torch.randn((5, n, 7), generator=gen, device=cuda_device)
+    xa, sa = x[0], torch.randn((5, n, 7), generator=gen, device=cuda_device)
+    for kernel, plain in ((lambda: ops.grid_block_apply(x, s),
+                           lambda: ref.grid_block_apply_ref(x, s)),
+                          (lambda: ops.batched_slab_apply(xa, sa),
+                           lambda: ref.batched_slab_apply_ref(xa, sa))):
+        before = dict(slab_ops.ROUTE_LAUNCHES)
+        got = kernel()
+        torch.cuda.synchronize()
+        assert _routes_delta(slab_ops, before) == {
+            "tma": int(how == "tma"), "cp_async": int(how == "cp_async")}
+        assert _close(got, plain())
+        with no_host_sync():
+            again = kernel()
+        assert torch.equal(got, again)
+
+
+def test_kernel_plans_match_the_kernels_shared_memory(cuda_device):
+    """The planners' byte counts are the kernels' own (one formula on each
+    side of the ctypes boundary), at the main path's shapes."""
+    for nodes, d, n, r in ((20, 1024, 2500, 7), (1, 1024, 50_000, 7),
+                           (4096, 784, 16, 5)):
+        p = gram_update._device_plan(cuda_device.index or 0, nodes, d, n,
+                                     r)[0]
+        assert gram_update._lib().gram_apply_smem_bytes(d, p.bn, p.stages) \
+            == p.smem
+    for blocks, d, n, r in ((20, 55, 50_000, 7), (20, 256, 10_000, 7)):
+        p = slab_ops._device_apply_plan(cuda_device.index or 0, blocks, d, n,
+                                        r)[0]
+        assert slab_ops._lib().slab_apply_smem_bytes(
+            p.rows, p.cols, r, p.stages) == p.smem
 
 
 @pytest.mark.parametrize("payload", [None, "bfloat16"])

@@ -1,0 +1,243 @@
+"""Time text variants of the gram-apply and slab-apply kernels beside the
+kernels themselves, on the card, in one process.
+
+    python3 tools/psa_kernel_variants.py [--variant NAME ...] [--rounds 2]
+
+Each variant is ``csrc/gram_update.cu`` or ``csrc/slab_ops.cu`` with a few
+lines replaced, in the source or in ``hopper.cuh`` (see ``VARIANTS``): a
+piece of the work taken out, to see what that piece costs, or a parameter
+changed; or the wrapper's module with a constant replaced (``PLAN``, e.g.
+the tile widths the planner may pick); or the kernel itself on S-DOT's
+stack zero-padded to a longer row (``STRIDE``: the same work at another row
+stride). A variant whose lines are not in the
+sources any more is skipped with a note. Each variant's sources go to its
+own directory under ``build/psa_variants/`` and are built there by nvcc in
+parallel, with the flags of ``kernels/_build.py``. Each runs through the
+port's own wrapper (``ops.batched_gram_apply`` and ``ops.gram_apply``, or
+``ops.batched_slab_apply`` and ``ops.grid_block_apply``) at chip_smoke.py's
+main-path shapes, in turns, for ``--rounds`` rounds: device time a launch as
+chip_smoke.py takes it (CUDA events around 20 launches behind a spin of the
+card, median of 5), and the largest error relative to the plain version's
+max |V| (a variant that leaves work out is wrong on purpose). Prints one
+JSON line a variant, shape and round, then a summary with the card's name
+and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# the last blocks' ordered sums of the partials (the tickets still count)
+_FOLD = ("  __syncthreads();\n  if (!*flag) return;\n  __threadfence();\n"
+         "  const bool sole")
+_HALVES = ("        halve<32>(p, lane, 16);\n        halve<16>(p, lane, 8);\n"
+           "        halve<8>(p, lane, 4);\n        halve<4>(p, lane, 2);\n"
+           "        halve<2>(p, lane, 1);\n")
+_VUPDATE = "              vacc[m][j] = fmaf(xv[m][c], zc[j], vacc[m][j]);\n"
+_PARTIAL = "            p[c * RMAX + j] = t;\n"
+_PROMO = "CU_TENSOR_MAP_L2_PROMOTION_L2_256B"
+_STREAM = [(_HALVES, ""), (_VUPDATE, "              {}\n"),
+           (_PARTIAL, "            p[c * RMAX + j] = xv[0][c];\n")]
+_SLAB_STREAM = [("    for (int c4 = 4 * lane; c4 < cols; c4 += 128) {",
+                 "    for (int c4 = 4 * lane; c4 < 0; c4 += 128) {")]
+# source -> variant -> [(text, replacement)]
+VARIANTS = {
+    "gram_update": {
+        "kernel": [],
+        # the node's last block does not sum the partials
+        "no_fold": [(_FOLD, _FOLD.replace("return;", "return;\n  return;"))],
+        # no shuffles: each warp's own partials stand in for the sums
+        "no_reduce": [(_HALVES, "")],
+        # no V += x z
+        "no_vupdate": [(_VUPDATE, "              {}\n")],
+        # no z partials: each lane's first x stands in
+        "no_partials": [(_PARTIAL, "            p[c * RMAX + j] = xv[0][c];\n")],
+        # only the ring, the reductions' barriers and the fold
+        "stream_only": _STREAM,
+        # the tensor map's L2 promotion: none, or 128 bytes
+        "promo_none": [(_PROMO, "CU_TENSOR_MAP_L2_PROMOTION_NONE")],
+        "promo_128": [(_PROMO, "CU_TENSOR_MAP_L2_PROMOTION_L2_128B")],
+        "stream_promo_none": _STREAM + [(_PROMO,
+                                         "CU_TENSOR_MAP_L2_PROMOTION_NONE")],
+        # 32-byte row segments (the planner's narrowest tile), deeper ring
+        "bn8": [],
+        "stream_bn8": _STREAM,
+        # X staged by the 4-byte cp.async route, as for n % 4 != 0
+        "stream_cp_async": _STREAM + [(
+            "node_groups, d, n, r, bn, stages, box_rows, tma,",
+            "node_groups, d, n, r, bn, stages, box_rows, 0,")],
+    },
+    "slab_ops": {
+        "kernel": [],
+        "no_fold": [(_FOLD, _FOLD.replace("return;", "return;\n  return;"))],
+        # only the ring: no column loop
+        "stream_only": _SLAB_STREAM,
+        "promo_none": [(_PROMO, "CU_TENSOR_MAP_L2_PROMOTION_NONE")],
+        "stream_promo_none": _SLAB_STREAM + [
+            (_PROMO, "CU_TENSOR_MAP_L2_PROMOTION_NONE")],
+        # narrower tiles, deeper ring
+        "c128": [],
+        "c64": [],
+        "stream_c128": _SLAB_STREAM,
+    },
+}
+# source -> variant -> row length: S-DOT's stack zero-padded to this many
+# columns (the same work, another row stride), the kernel's own source
+STRIDE = {"gram_update": {f"n{n}": n for n in (2504, 2512, 2528, 2560, 2592)}}
+# source -> variant -> {module constant: value} for the wrapper
+_BN8 = {"_TILE_COLS": (8,)}
+PLAN = {"gram_update": {"bn8": _BN8, "stream_bn8": _BN8},
+        "slab_ops": {"c128": {"_TILE_COLS": (128,)},
+                     "c64": {"_TILE_COLS": (64,)},
+                     "stream_c128": {"_TILE_COLS": (128,)}}}
+
+
+def build(names, out: Path):
+    """Build the variants ``names`` ((source, variant) pairs) -> ({pair:
+    library path}, {pair: why skipped})."""
+    from repro_torch.kernels import _build
+
+    procs, skipped = {}, {}
+    for source, variant in names:
+        text = (_build.CSRC / f"{source}.cu").read_text()
+        header = (_build.CSRC / "hopper.cuh").read_text()
+        missing = [a for a, _ in VARIANTS[source][variant]
+                   if a not in text and a not in header]
+        if missing:
+            skipped[(source, variant)] = (f"lines not in the sources: "
+                                          f"{missing[0][:60]!r}")
+            continue
+        for a, b in VARIANTS[source][variant]:
+            text, header = text.replace(a, b), header.replace(a, b)
+        where = out / f"{source}_{variant}"
+        where.mkdir(parents=True, exist_ok=True)
+        (where / "hopper.cuh").write_text(header)
+        cu = where / f"{source}.cu"
+        cu.write_text(text)
+        lib = where / f"lib{source}.so"
+        procs[(source, variant)] = (lib, subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for key, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        built[key] = lib
+    return built, skipped
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--variant", action="append",
+                    help="SOURCE:VARIANT to time beside the kernels "
+                         "(default: all)")
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("psa_kernel_variants: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    from chip_smoke import nvidia_smi, time_ms
+    from repro_torch.core.bdot import pad_grid_blocks
+    from repro_torch.core.fdot import pad_feature_slabs
+    from repro_torch.core.sdot import _stack_data
+    from repro_torch.data.pipeline import (gaussian_eigengap_data,
+                                           partition_features,
+                                           partition_samples)
+    from repro_torch.kernels import gram_update, ops, ref, slab_ops
+
+    names = [tuple(v.split(":")) for v in args.variant] if args.variant else [
+        (src, v) for src, vs in VARIANTS.items() for v in vs]
+    strides = [(src, v) for src, v in names if v in STRIDE.get(src, {})]
+    names = [key for key in names if key not in strides]
+    names = sorted(set(names) | {(src, "kernel") for src, _ in names + strides})
+    built, skipped = build(names, ROOT / "build" / "psa_variants")
+    for key, why in skipped.items():
+        print(json.dumps({"variant": ":".join(key), "skipped": why}),
+              flush=True)
+
+    dev = torch.device("cuda")
+    d, r, nodes, n_total = 1024, 7, 20, 50_000
+    x, _, _ = gaussian_eigengap_data(d, n_total, r, 0.7, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x_stack, n_true = _stack_data(partition_samples(x, nodes), dev)
+    q_stack = torch.linalg.qr(torch.randn((nodes, d, r), generator=gen,
+                                          device=dev))[0].contiguous()
+    x_one, q_one = x_stack[0, :, :2500].contiguous(), q_stack[0]
+    x_pad = pad_feature_slabs(partition_features(x, nodes))
+    s_slab = torch.randn((nodes, n_total, r), generator=gen, device=dev)
+    x_grid = pad_grid_blocks([partition_samples(sl, 5)
+                              for sl in partition_features(x, 4)])
+    s_grid = torch.randn((5, x_grid.shape[3], r), generator=gen, device=dev)
+    cases = {
+        "gram_update": {
+            "batched_gram_apply": (
+                lambda: ops.batched_gram_apply(x_stack, q_stack, n_true),
+                ref.batched_gram_apply_ref(x_stack, q_stack, n_true)),
+            "gram_apply": (lambda: ops.gram_apply(x_one, q_one),
+                           ref.gram_apply_ref(x_one, q_one))},
+        "slab_ops": {
+            "batched_slab_apply": (
+                lambda: ops.batched_slab_apply(x_pad, s_slab),
+                ref.batched_slab_apply_ref(x_pad, s_slab)),
+            "grid_block_apply": (
+                lambda: ops.grid_block_apply(x_grid, s_grid),
+                ref.grid_block_apply_ref(x_grid, s_grid))}}
+    modules = {"gram_update": gram_update, "slab_ops": slab_ops}
+    libs = {key: modules[key[0]]._typed(ctypes.CDLL(str(path)))
+            for key, path in built.items()}
+    for src, v in strides:
+        width = STRIDE[src][v]
+        xw = torch.nn.functional.pad(x_stack, (0, width - x_stack.shape[2]))
+        cases.setdefault(f"{src}:{v}", {})["batched_gram_apply"] = (
+            lambda xw=xw: ops.batched_gram_apply(xw, q_stack, n_true),
+            cases[src]["batched_gram_apply"][1])
+        libs[(src, v)] = libs[(src, "kernel")]
+    real = {src: m._lib for src, m in modules.items()}
+    runs = {}
+    for rnd in range(args.rounds):
+        for (source, variant), lib in libs.items():
+            module = modules[source]
+            module._lib = lambda lib=lib: lib
+            saved = {k: getattr(module, k)
+                     for k in PLAN.get(source, {}).get(variant, {})}
+            for k, value in PLAN.get(source, {}).get(variant, {}).items():
+                setattr(module, k, value)
+            # a variant may leave its tickets set, or plan other tiles:
+            # fresh tickets and plans for each
+            module._WORK.clear()
+            for fn in (gram_update.plan, gram_update._device_plan,
+                       slab_ops.apply_plan, slab_ops._device_apply_plan):
+                fn.cache_clear()
+            for shape, (kernel, want) in cases.get(
+                    f"{source}:{variant}", cases[source]).items():
+                ms = time_ms(kernel)
+                got = kernel()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max() / want.abs().max())
+                runs.setdefault(f"{source}:{variant}:{shape}", []).append(ms)
+                print(json.dumps({"variant": f"{source}:{variant}",
+                                  "shape": shape, "round": rnd, "ms": ms,
+                                  "rel_err": err}), flush=True)
+            module._WORK.clear()
+            module._lib = real[source]
+            for k, value in saved.items():
+                setattr(module, k, value)
+            for fn in (gram_update.plan, gram_update._device_plan,
+                       slab_ops.apply_plan, slab_ops._device_apply_plan):
+                fn.cache_clear()
+    print(json.dumps({"card": nvidia_smi(), "median_ms": {
+        k: statistics.median(v) for k, v in runs.items()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
