@@ -27,6 +27,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from ..kernels import ops as kops
+from ..kernels.ell_spmm import WindowPlan, window_plan
 
 __all__ = ["SparseW", "auto_sparse", "AUTO_MIN_NODES", "AUTO_MAX_DENSITY"]
 
@@ -62,7 +63,8 @@ class SparseW:
     def __init__(self, ell_idx: torch.Tensor, ell_val: torch.Tensor,
                  diag: torch.Tensor, row_nnz: torch.Tensor, n: int,
                  ell_width: int, payload_dtype: Optional[str] = None,
-                 dense_off: Optional[torch.Tensor] = None):
+                 dense_off: Optional[torch.Tensor] = None,
+                 window: Optional[WindowPlan] = None):
         self.ell_idx = ell_idx          # (N, L) int32, self past row_nnz
         self.ell_val = ell_val          # (N, L) weights, 0 past row_nnz
         self.diag = diag                # (N,)
@@ -74,6 +76,10 @@ class SparseW:
         # CPU crossover (ops.ell_densify_wins). On the card every round
         # goes through the ELL kernel.
         self.dense_off = dense_off
+        # the ELL kernel's shared-memory window (band and halo), from the
+        # host indices once, so that no round asks the card about the graph
+        self.window = (window if window is not None
+                       else window_plan(ell_idx.cpu().numpy()))
 
     # -- constructors -------------------------------------------------------
     @classmethod
@@ -146,7 +152,8 @@ class SparseW:
             return self
         return SparseW(self.ell_idx, self.ell_val.to(dtype),
                        self.diag.to(dtype), self.row_nnz, self.n,
-                       self.ell_width, self.payload_dtype, self.dense_off)
+                       self.ell_width, self.payload_dtype, self.dense_off,
+                       self.window)
 
     @property
     def T(self) -> "SparseW":
@@ -165,7 +172,8 @@ class SparseW:
                    + self.dense_off @ z_src.float())
         else:
             out = kops.ell_spmm(self.ell_idx, self.ell_val, self.diag, zf,
-                                payload_dtype=self.payload_dtype)
+                                payload_dtype=self.payload_dtype,
+                                window=self.window)
         return out.to(z.dtype).reshape(z.shape)
 
     def offdiag_mix(self, diag: torch.Tensor, val: torch.Tensor,
@@ -174,7 +182,8 @@ class SparseW:
         (same structure), the hook of the fault models."""
         zf = z.reshape(self.n, -1)
         out = kops.ell_spmm(self.ell_idx, val, diag, zf,
-                            payload_dtype=self.payload_dtype)
+                            payload_dtype=self.payload_dtype,
+                            window=self.window)
         return out.to(z.dtype).reshape(z.shape)
 
     def mix_host(self, x: np.ndarray) -> np.ndarray:

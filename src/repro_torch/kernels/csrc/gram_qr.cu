@@ -6,61 +6,94 @@
 // kernel; the port's CholeskyQR2 sends every node's (or slab's) Gram of one
 // pass through one launch.
 //
-// What bounds it on the H100: at the main path's r = 7 it reads d * r
-// values and does d r (r + 1) flops of the symmetric product, r + 1 = 8
-// flops per 4-byte value: bytes. At r = 128 it is 129 flops per value, 32
-// per byte of f32: the 67 TFLOP/s of f32 FMA on the CUDA cores, which this
-// kernel uses (no tensor cores: the reference is float32, and a TF32 or
-// bf16 product would move the Gram).
+// What bounds it on the H100, by shape:
+//  * The main path's r = 7 (S-DOT (20, 1024, 7), F-DOT (20, 55, 7), B-DOT
+//    (4, 256, 7)): d * r values read for d r (r + 1) flops, 8 flops a 4-byte
+//    value, and at most 573 KB a launch, which the card's 3.35 TB/s moves in
+//    0.2 us. What is left is latency: the launch (the card's floor for an
+//    empty kernel is 2 us), the round trip to device memory, the sums and
+//    the write of G.
+//  * (16384, 128) f32: 129 flops a value, 32 a byte: the 67 TFLOP/s of f32
+//    FMA on the CUDA cores. TF32 stays off: it would move the Gram of f32
+//    inputs.
+//  * (16384, 128) bf16: the products of two bf16 values are exact in f32,
+//    so bf16 inputs go through the tensor cores (mma.sync m16n8k16, f32
+//    accumulation) and only the order of the sums changes; what bounds it
+//    is the 4 MB of V, the partial sums and the latency of the fold.
 //
-// Design:
-//  * G is symmetric, so only tile pairs (ti, tj) with ti <= tj of the T x T
-//    output tiles are computed; each (i, j), i <= j, is summed once and
-//    written to both G[i][j] and G[j][i]: G is exactly symmetric.
-//  * A block owns one tile pair of one matrix and one range of rows. It
-//    stages the two column panels of a chunk of rows in shared memory (as
-//    f32: bf16 is widened on load) and each thread keeps an M x M micro-tile
-//    of sums in registers. Where the tile has fewer outputs than the block
-//    has threads (r <= 8), P groups of threads take every P-th row and their
-//    sums are added in phase order at the end.
-//  * The TPU kernel carries G across a sequential grid over row blocks;
-//    Hopper blocks run in parallel and in no order. For a short d (the
-//    wrapper's choice) one block walks all rows in order and writes G. For
-//    a tall d the rows are split into fixed ranges: pass 1 writes one partial
-//    Gram per range, pass 2 sums the partials in range order. No atomics:
-//    every launch gives the same bits, which the bitwise resume of a
-//    checkpointed run relies on.
+// Design (one launch at every shape):
+//  * G is symmetric: only tile pairs (ti, tj), ti <= tj, of the T x T output
+//    tiles are computed, and each sum G[i][j], i <= j, is written to both
+//    G[i][j] and G[j][i]: G is exactly symmetric.
+//  * A block owns one tile pair of one matrix and one fixed range of rows;
+//    the wrapper's plan (gram_qr.py, a pure function of the shapes and the
+//    card's SM count) cuts each matrix into as many ranges as fill one wave.
+//  * r <= 8 (the PSA families' r = 7 and 5): no staging, and one block a
+//    matrix up to 4096 rows; each thread reads whole rows straight into
+//    registers (four rows' loads before their FMAs) and sums all their
+//    products, and a warp reduce-scatter and the warps' sums in order give
+//    the tile. At S-DOT's shape the one pass beats a split into row ranges
+//    staged in shared memory and folded (PERF.md).
+//  * Above r = 8, staging: a block copies its rows (all r columns; the rows
+//    of a matrix are contiguous) into shared memory with 16-byte cp.async
+//    copies, every copy of a chunk issued before one wait. Each value is
+//    loaded once.
+//    Where r is a multiple of a 16-byte unit each row is placed at a padded
+//    stride (aligned rows, no bank conflicts); else the range is copied flat
+//    from the 16-byte unit that holds its first value. A range larger than
+//    a chunk streams through two buffers: chunk c + 1 is in flight while
+//    chunk c is summed.
+//  * CUDA cores (f32 above r = 8, and bf16 up to r = 16 or not a multiple
+//    of 8): a thread keeps an M x M micro-tile of sums (M = T / 8: up to
+//    8 x 8, read with 16-byte loads where rows are aligned) over every 4th
+//    row; the 4 row phases are added in order.
+//  * Tensor cores (bf16, r a multiple of 8 and above 16): 64 x 64 tiles,
+//    warp w owns a 16 x 32 piece; V^T (the A operand) and V (the B operand)
+//    both come from the same row-major staged rows through ldmatrix.trans.
+//    The running sums stay on the CUDA cores (see mma_bf16).
+//  * The ranges of a tile pair are folded in the same launch: each block
+//    writes its range's sum, fences and takes a ticket (an atomic counter,
+//    never an atomic sum); the last sums the ranges' partials in range
+//    order (hopper::fold_partials, in two levels past 16 ranges) and writes
+//    both triangles, then resets the ticket. No second launch, no atomics
+//    on the sums: every launch gives the same bits, which the bitwise
+//    resume of a checkpointed run relies on.
 //  * Ragged edges: rows past a range or d, and columns past r, are masked;
-//    any d >= 1 and r >= 1 are taken (no padding of d, unlike ops.py's
-//    TPU path).
+//    any d >= 1 and r >= 1 are taken (no padding of d, unlike ops.py's TPU
+//    path).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPanelFloats = 2048;   // one staged column panel: 8 KB
+
+struct QrArgs {
+  const void* v;                 // (batch, d, r), f32 or bf16
+  float* g;                      // (batch, r, r)
+  float* partial;                // (slots, T, T) scratch
+  int* tickets;                  // (groups + units,) zero before and after
+  const int* items;              // (blocks, 6): unit, range of the unit,
+                                 // + 1, 1, partial slot, group
+  const int* groups;             // (groups, 3), see hopper::fold_partials
+  const int* unit_groups;        // (units + 1,)
+  int n_groups;
+  int d, r;
+  int pairs;                     // tile pairs a matrix
+  int ranges;                    // ranges a tile pair (one: no fold)
+  int rows_per_range;
+  int chunk_rows;                // rows staged at once, a multiple of 16
+  int stride;                    // elements between staged rows
+  int buf_elems;                 // elements of one staging buffer
+  size_t total;                  // batch * d * r
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-// M: the side of a thread's micro-tile for output tiles of side T.
-template <int T> struct Micro;
-template <> struct Micro<8> { static constexpr int M = 1; };
-template <> struct Micro<16> { static constexpr int M = 1; };
-template <> struct Micro<32> { static constexpr int M = 2; };
-template <> struct Micro<64> { static constexpr int M = 4; };
-
-inline int tile_side(int r) {
-  return r <= 8 ? 8 : (r <= 16 ? 16 : (r <= 32 ? 32 : 64));
-}
-
-inline int tile_pairs(int r) {
-  const int t = tile_side(r);
-  const int nt = (r + t - 1) / t;
-  return nt * (nt + 1) / 2;
 }
 
 // (ti, tj), ti <= tj: the p-th tile pair of the upper triangle, row by row.
@@ -73,160 +106,398 @@ __device__ __forceinline__ void tile_pair(int p, int nt, int& ti, int& tj) {
   tj = ti + p;
 }
 
-// out = G (splits == 1, both triangles) or the partials (splits > 1,
-// (B, splits, r, r), upper triangle only).
-template <typename In, int T>
-__global__ void __launch_bounds__(kThreads)
-gram_qr_kernel(const In* __restrict__ v, float* __restrict__ out, int d, int r,
-               int rows_per_split, int splits) {
-  constexpr int M = Micro<T>::M;
-  constexpr int TT = T / M;                 // threads along a tile side
-  constexpr int P = kThreads / (TT * TT);   // row phases
-  constexpr int KC = kPanelFloats / T;      // rows staged at once
-  __shared__ float as[KC][T];
-  __shared__ float bs[KC][T];
-  __shared__ float red[P > 1 ? P * T * T : 1];
+// Issue the copies of rows [k0, k1) of matrix b into ``buf``; returns the
+// element of ``buf`` that holds (k0, 0). Padded (stride != r): one unit a
+// copy, row k at k * stride, rows up to the next multiple of 16 zero-filled.
+// Flat: the units from the one holding (k0, 0) on, the last clipped at the
+// end of the tensor.
+template <typename In>
+__device__ __forceinline__ int stage_rows(const QrArgs& a, int b, int k0,
+                                          int k1, In* buf) {
+  constexpr int U = 16 / sizeof(In);
+  const In* v = static_cast<const In*>(a.v);
+  const size_t first = ((size_t)b * a.d + k0) * a.r;
+  if (a.stride != a.r) {
+    const int upr = a.r / U;
+    const int n = ((k1 - k0 + 15) & ~15) * upr;
+    for (int u = threadIdx.x; u < n; u += kThreads) {
+      const int k = u / upr, c = (u - k * upr) * U;
+      const bool ok = k0 + k < k1;
+      hopper::cp_async_16(hopper::smem_u32(buf + k * a.stride + c),
+                          v + first + (ok ? (size_t)k * a.r + c : 0),
+                          ok ? 16 : 0);
+    }
+    return 0;
+  }
+  const size_t s0 = first & ~(size_t)(U - 1);
+  const size_t end = ((size_t)b * a.d + k1) * a.r;
+  const int n = (int)((end - s0 + U - 1) / U);
+  for (int u = threadIdx.x; u < n; u += kThreads) {
+    const size_t at = s0 + (size_t)u * U;
+    const size_t left = a.total - at;
+    hopper::cp_async_16(hopper::smem_u32(buf + u * U), v + at,
+                        left >= (size_t)U ? 16 : (int)(left * sizeof(In)));
+  }
+  return (int)(first - s0);
+}
 
-  const int split = blockIdx.x, b = blockIdx.z;
-  const int nt = (r + T - 1) / T;
-  int ti, tj;
-  tile_pair(blockIdx.y, nt, ti, tj);
-  const int e = threadIdx.x % (TT * TT), p = threadIdx.x / (TT * TT);
-  const int ta = e / TT, tb = e % TT;
-  const In* vb = v + (size_t)b * d * r;
-  const int k_begin = split * rows_per_split;
-  const int k_end = min(d, k_begin + rows_per_split);
-
-  float acc[M][M];
+// -- CUDA cores --------------------------------------------------------------
+template <typename In, int M, bool VEC>
+__device__ __forceinline__ void load_micro(const In* p, float (&x)[M]) {
+  if constexpr (VEC) {
 #pragma unroll
-  for (int m = 0; m < M; ++m)
+    for (int m = 0; m < M; m += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + m);
+      x[m] = q.x; x[m + 1] = q.y; x[m + 2] = q.z; x[m + 3] = q.w;
+    }
+  } else {
 #pragma unroll
-    for (int n = 0; n < M; ++n) acc[m][n] = 0.f;
+    for (int m = 0; m < M; ++m) x[m] = to_f32(p[m]);
+  }
+}
 
-  for (int k0 = k_begin; k0 < k_end; k0 += KC) {
-    const int rows = min(KC, k_end - k0);
-    __syncthreads();                       // previous chunk fully consumed
-    for (int idx = threadIdx.x; idx < rows * T; idx += kThreads) {
-      const int k = idx / T, c = idx - k * T;
-      const In* row = vb + (size_t)(k0 + k) * r;
-      const int ci = ti * T + c, cj = tj * T + c;
-      as[k][c] = ci < r ? to_f32(row[ci]) : 0.f;
-      bs[k][c] = cj < r ? to_f32(row[cj]) : 0.f;
+// r <= 8: thread t takes rows t, t + 256, ... of the range straight from
+// device memory into registers (four rows' loads before their FMAs) and
+// keeps all 8 x 8 products of a row, the upper triangle's summed; a warp
+// reduce-scatters the 64 sums (lane l: 2 l and 2 l + 1) and the 8 warps'
+// sums are added in warp order. Each value is loaded once, no shared-memory
+// staging, and every thread does the FMAs of whole rows.
+template <typename In>
+struct Rows {
+  static constexpr bool kDirect = true;
+  float p[64];
+
+  __device__ void init(int, int, int) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) p[i] = 0.f;
+  }
+
+  template <int U>
+  __device__ __forceinline__ void take(const In* v, int r, int k) {
+    float x[U][8];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        x[u][c] = c < r ? to_f32(v[(size_t)(k + u * kThreads) * r + c]) : 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = i; j < 8; ++j)
+          p[i * 8 + j] = fmaf(x[u][i], x[u][j], p[i * 8 + j]);
+  }
+
+  __device__ void direct(const QrArgs& a, int b, int k0, int k1) {
+    const In* v = static_cast<const In*>(a.v) + (size_t)b * a.d * a.r;
+    int k = k0 + threadIdx.x;
+    for (; k + 3 * kThreads < k1; k += 4 * kThreads) take<4>(v, a.r, k);
+    for (; k < k1; k += kThreads) take<1>(v, a.r, k);
+  }
+
+  __device__ void finish(float* tile, int, int) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    hopper::halve<32>(p, lane, 16);
+    hopper::halve<16>(p, lane, 8);
+    hopper::halve<8>(p, lane, 4);
+    hopper::halve<4>(p, lane, 2);
+    hopper::halve<2>(p, lane, 1);
+    float* red = tile + 64;
+    red[warp * 64 + 2 * lane] = p[0];
+    red[warp * 64 + 2 * lane + 1] = p[1];
+    __syncthreads();
+    if (threadIdx.x < 64) {
+      float s = red[threadIdx.x];
+#pragma unroll
+      for (int w = 1; w < kThreads / 32; ++w) s += red[w * 64 + threadIdx.x];
+      tile[threadIdx.x] = s;
     }
     __syncthreads();
-#pragma unroll 4
-    for (int k = p; k < rows; k += P) {
-      float a[M], bv[M];
+  }
+};
+
+// Thread e of a phase owns micro-tile (e / 8, e % 8) of the 8 x 8 micro-
+// tiles of a T x T tile; 4 phases of 64 threads take every 4th row. Below a
+// diagonal pair's diagonal the micro-tiles idle.
+template <typename In, int T, bool VEC>
+struct Simt {
+  static constexpr bool kDirect = false;
+  static constexpr int M = T / 8;
+  static constexpr int kPer = 64;                 // threads a phase
+  static constexpr int kPhases = kThreads / kPer;
+  float acc[M][M];
+  int i0, j0;
+  bool active;
+
+  __device__ void init(int r, int ti, int tj) {
+    const int e = threadIdx.x % kPer;
+    const int ta = e / 8, tb = e % 8;
+    i0 = ti * T + ta * M;
+    j0 = tj * T + tb * M;
+    active = i0 < r && j0 < r && (ti != tj || ta <= tb);
 #pragma unroll
-      for (int m = 0; m < M; ++m) {
-        a[m] = as[k][ta * M + m];
-        bv[m] = bs[k][tb * M + m];
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int n = 0; n < M; ++n) acc[m][n] = 0.f;
+  }
+
+  // every kPhases-th row from the thread's phase; four rows' values are
+  // loaded before their FMAs
+  __device__ void rows(const In* buf, int stride, int rows) {
+    if (!active) return;
+    int k = threadIdx.x / kPer;
+    for (; k + 3 * kPhases < rows; k += 4 * kPhases) {
+      float x[4][M], y[4][M];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        load_micro<In, M, VEC>(buf + (k + u * kPhases) * stride + i0, x[u]);
+        load_micro<In, M, VEC>(buf + (k + u * kPhases) * stride + j0, y[u]);
       }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+#pragma unroll
+          for (int n = 0; n < M; ++n)
+            acc[m][n] = fmaf(x[u][m], y[u][n], acc[m][n]);
+    }
+    for (; k < rows; k += kPhases) {
+      float x[M], y[M];
+      load_micro<In, M, VEC>(buf + k * stride + i0, x);
+      load_micro<In, M, VEC>(buf + k * stride + j0, y);
 #pragma unroll
       for (int m = 0; m < M; ++m)
 #pragma unroll
-        for (int n = 0; n < M; ++n) acc[m][n] = fmaf(a[m], bv[n], acc[m][n]);
+        for (int n = 0; n < M; ++n) acc[m][n] = fmaf(x[m], y[n], acc[m][n]);
     }
   }
 
-  if constexpr (P > 1) {                   // M == 1 here
-    red[(p * T + ta) * T + tb] = acc[0][0];
+  // the tile's sums into tile[T][T] (shared), the phases added in order;
+  // the phases' sums go after the tile, a micro-tile a thread
+  __device__ void finish(float* tile, int, int) {
+    float* red = tile + T * T;
+    float* mine = red + threadIdx.x * M * M;
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int n = 0; n < M; ++n) mine[m * M + n] = active ? acc[m][n] : 0.f;
     __syncthreads();
-    if (p == 0) {
-      float t = red[ta * T + tb];
-      for (int q = 1; q < P; ++q) t += red[(q * T + ta) * T + tb];
-      acc[0][0] = t;
+    for (int x = threadIdx.x; x < T * T; x += kThreads) {
+      const int ii = x / T, jj = x % T;
+      const float* at = red + ((ii / M) * 8 + jj / M) * M * M +
+                        (ii % M) * M + jj % M;
+      float s = at[0];
+#pragma unroll
+      for (int ph = 1; ph < kPhases; ++ph) s += at[ph * kPer * M * M];
+      tile[x] = s;
+    }
+    __syncthreads();
+  }
+};
+
+// -- tensor cores (bf16) -----------------------------------------------------
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(hopper::smem_u32(p)));
+}
+
+// acc += a (16 x 16, row-major) b (16 x 8, column-major), bf16 in. The
+// tensor cores sum each element's 16 products from zero, and the CUDA cores
+// add that to acc: summed inside the mma, acc is cut to the tensor cores'
+// width at every step, a bias that grows with the rows of a range (5.4e-6
+// of max |G| at (3, 16384, 128), tools/gram_qr_accuracy.py).
+__device__ __forceinline__ void mma_bf16(float (&acc)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  float d[4];
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+#pragma unroll
+  for (int c = 0; c < 4; ++c) acc[c] += d[c];
+}
+
+// T = 64: warp w owns rows 16 (w % 4) .. + 16 and columns 32 (w / 4) .. + 32
+// of the tile, four m16n8 pieces. Rows of the staged chunk are k, columns
+// of V are both the tile's i (A = V^T, m) and j (B = V, n).
+struct Tc {
+  static constexpr bool kDirect = false;
+  static constexpr int T = 64;
+  float acc[4][4];
+  int mw, nw, ia, jb;
+  bool active;
+
+  __device__ void init(int, int ti, int tj) {
+    const int warp = threadIdx.x / 32;
+    mw = warp % 4;
+    nw = warp / 4;
+    ia = ti * T + 16 * mw;
+    jb = tj * T + 32 * nw;
+    active = !(ti == tj && mw >= 2 * nw + 2);   // wholly below the diagonal
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[q][c] = 0.f;
+  }
+
+  // rows: the chunk's rows; the staging zero-filled them up to a multiple
+  // of 16.
+  __device__ void rows(const __nv_bfloat16* buf, int stride, int rows) {
+    if (!active) return;
+    const int lane = threadIdx.x % 32, q8 = lane / 8, r8 = lane % 8;
+    // A: matrices (k 0-7, m 0-7), (k 0-7, m 8-15), (k 8-15, m 0-7), (k 8-15,
+    // m 8-15); B: (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), ...
+    const __nv_bfloat16* pa = buf + (r8 + 8 * (q8 / 2)) * stride + ia +
+                              8 * (q8 % 2);
+    const __nv_bfloat16* pb = buf + (r8 + 8 * (q8 % 2)) * stride + jb +
+                              8 * (q8 / 2);
+    for (int k = 0; k < rows; k += 16) {
+      uint32_t a[4], b0[4], b1[4];
+      ldmatrix_x4_trans(a, pa + k * stride);
+      ldmatrix_x4_trans(b0, pb + k * stride);
+      ldmatrix_x4_trans(b1, pb + k * stride + 16);
+      mma_bf16(acc[0], a, b0[0], b0[1]);
+      mma_bf16(acc[1], a, b0[2], b0[3]);
+      mma_bf16(acc[2], a, b1[0], b1[1]);
+      mma_bf16(acc[3], a, b1[2], b1[3]);
     }
   }
-  if (p != 0) return;
+
+  __device__ void finish(float* tile, int, int) {
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
-  for (int m = 0; m < M; ++m) {
-#pragma unroll
-    for (int n = 0; n < M; ++n) {
-      const int i = ti * T + ta * M + m, j = tj * T + tb * M + n;
-      if (i < r && j < r && i <= j) {
-        if (splits == 1) {
-          float* g = out + (size_t)b * r * r;
-          g[(size_t)i * r + j] = acc[m][n];
-          g[(size_t)j * r + i] = acc[m][n];
-        } else {
-          out[(((size_t)b * splits + split) * r + i) * r + j] = acc[m][n];
-        }
+    for (int q = 0; q < 4; ++q) {
+      const int ii = 16 * mw + g, jj = 32 * nw + 8 * q + 2 * t;
+      tile[ii * T + jj] = active ? acc[q][0] : 0.f;
+      tile[ii * T + jj + 1] = active ? acc[q][1] : 0.f;
+      tile[(ii + 8) * T + jj] = active ? acc[q][2] : 0.f;
+      tile[(ii + 8) * T + jj + 1] = active ? acc[q][3] : 0.f;
+    }
+    __syncthreads();
+  }
+};
+
+// tile (T x T, shared) -> G[b], upper-triangle sums to both triangles:
+// the rows of the tile, then its columns as rows of the mirror, so both
+// passes write whole rows of G
+template <int T>
+__device__ __forceinline__ void write_gram(const float* tile, float* gb,
+                                           int r, int ti, int tj) {
+  for (int x = threadIdx.x; x < T * T; x += kThreads) {
+    const int ii = x / T, jj = x - ii * T;
+    const int i = ti * T + ii, j = tj * T + jj;
+    if (i < r && j < r && (ti < tj || ii <= jj))
+      gb[(size_t)i * r + j] = tile[x];
+  }
+  for (int x = threadIdx.x; x < T * T; x += kThreads) {
+    const int jj = x / T, ii = x - jj * T;
+    const int i = ti * T + ii, j = tj * T + jj;
+    if (i < r && j < r && (ti < tj || ii < jj))
+      gb[(size_t)j * r + i] = tile[ii * T + jj];
+  }
+}
+
+template <typename In, int T, class Route>
+__global__ void __launch_bounds__(kThreads) gram_qr_kernel(QrArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int flag;
+  const int it = blockIdx.x;                      // = items[it]: (unit,
+  const int unit = it / a.ranges;                 // range of the unit)
+  const int range = it - unit * a.ranges;
+  const int b = unit / a.pairs;
+  int ti, tj;
+  tile_pair(unit - b * a.pairs, (a.r + T - 1) / T, ti, tj);
+  const int k_begin = range * a.rows_per_range;
+  const int k_end = min(a.d, k_begin + a.rows_per_range);
+
+  Route route;
+  route.init(a.r, ti, tj);
+  if constexpr (Route::kDirect) {
+    route.direct(a, b, k_begin, k_end);
+  } else {
+    In* const buf0 = reinterpret_cast<In*>(smem);   // two buffers in turn
+    const int chunks = k_end > k_begin
+        ? (k_end - k_begin + a.chunk_rows - 1) / a.chunk_rows : 0;
+    int off = chunks ? stage_rows(a, b, k_begin,
+                                  min(k_end, k_begin + a.chunk_rows), buf0)
+                     : 0;
+    hopper::cp_async_commit();
+    for (int c = 0; c < chunks; ++c) {
+      const int k0 = k_begin + c * a.chunk_rows;
+      const int k1 = min(k_end, k0 + a.chunk_rows);
+      int next_off = 0;
+      if (c + 1 < chunks) {
+        next_off = stage_rows(a, b, k1, min(k_end, k1 + a.chunk_rows),
+                              buf0 + ((c + 1) & 1) * a.buf_elems);
+        hopper::cp_async_commit();
+        hopper::cp_async_wait<1>();
+      } else {
+        hopper::cp_async_wait<0>();
       }
+      __syncthreads();
+      route.rows(buf0 + (c & 1) * a.buf_elems + off, a.stride, k1 - k0);
+      __syncthreads();               // the buffer is free for chunk c + 2
+      off = next_off;
     }
   }
+
+  float* tile = reinterpret_cast<float*>(smem);
+  route.finish(tile, ti, tj);
+  float* gb = a.g + (size_t)b * a.r * a.r;
+  if (a.ranges == 1) {               // the tile pair's only range
+    write_gram<T>(tile, gb, a.r, ti, tj);
+    return;
+  }
+  const int slot = a.items[6 * it + 4];
+  float4* part = reinterpret_cast<float4*>(a.partial + (size_t)slot * T * T);
+  const float4* t4 = reinterpret_cast<const float4*>(tile);
+  for (int x = threadIdx.x; x < T * T / 4; x += kThreads) part[x] = t4[x];
+  hopper::fold_partials(a.items, a.groups, a.unit_groups, a.tickets,
+                        a.n_groups, a.partial, (size_t)T * T, T * T, tile,
+                        1.f, it, &flag);
+  if (!flag) return;                 // not the unit's last range
+  __syncthreads();
+  write_gram<T>(tile, gb, a.r, ti, tj);
 }
 
-// Pass 2: G[b][i][j] = sum over ranges of the partial at (min, max), in
-// range order, so G[b][i][j] and G[b][j][i] are the same sum.
-__global__ void gram_qr_reduce_kernel(const float* __restrict__ partial,
-                                      float* __restrict__ g, int batch, int r,
-                                      int splits) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t rr = (size_t)r * r;
-  if (idx >= (size_t)batch * rr) return;
-  const size_t b = idx / rr;
-  const int e = (int)(idx - b * rr);
-  const int i = e / r, j = e - i * r;
-  const int lo = i < j ? i : j, hi = i < j ? j : i;
-  const float* pp = partial + b * splits * rr + (size_t)lo * r + hi;
-  float t = 0.f;
-  for (int s = 0; s < splits; ++s) t += pp[(size_t)s * rr];
-  g[idx] = t;
-}
-
-template <typename In, int T>
-cudaError_t launch(const In* v, float* partial, float* g, int batch, int d,
-                   int r, int rows_per_split, int splits,
-                   cudaStream_t stream) {
-  const dim3 grid(splits, tile_pairs(r), batch);
-  gram_qr_kernel<In, T><<<grid, kThreads, 0, stream>>>(
-      v, splits == 1 ? g : partial, d, r, rows_per_split, splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const size_t total = (size_t)batch * r * r;
-  const int threads = 256;
-  gram_qr_reduce_kernel<<<(unsigned)((total + threads - 1) / threads), threads,
-                          0, stream>>>(partial, g, batch, r, splits);
+template <typename In, int T, class Route>
+cudaError_t launch(const QrArgs& a, int blocks, int smem, cudaStream_t s) {
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gram_qr_kernel<In, T, Route>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024);
+    if (err != cudaSuccess) return err;
+    attr = true;
+  }
+  gram_qr_kernel<In, T, Route><<<blocks, kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
 template <typename In>
-cudaError_t dispatch(const In* v, float* partial, float* g, int batch, int d,
-                     int r, int rows_per_split, int splits,
-                     cudaStream_t stream) {
-  switch (tile_side(r)) {
+cudaError_t dispatch_simt(const QrArgs& a, int tile, int vec, int blocks,
+                          int smem, cudaStream_t s) {
+  switch (tile) {
     case 8:
-      return launch<In, 8>(v, partial, g, batch, d, r, rows_per_split, splits,
-                           stream);
+      return launch<In, 8, Rows<In>>(a, blocks, smem, s);
     case 16:
-      return launch<In, 16>(v, partial, g, batch, d, r, rows_per_split,
-                            splits, stream);
+      return launch<In, 16, Simt<In, 16, false>>(a, blocks, smem, s);
     case 32:
-      return launch<In, 32>(v, partial, g, batch, d, r, rows_per_split,
-                            splits, stream);
-    default:
-      return launch<In, 64>(v, partial, g, batch, d, r, rows_per_split,
-                            splits, stream);
-  }
-}
-
-template <typename In, int T>
-int blocks_per_sm() {
-  int per_sm = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, gram_qr_kernel<In, T>, kThreads, 0) != cudaSuccess)
-    return 0;
-  return per_sm;
-}
-
-template <typename In>
-int blocks_per_sm_for(int r) {
-  switch (tile_side(r)) {
-    case 8: return blocks_per_sm<In, 8>();
-    case 16: return blocks_per_sm<In, 16>();
-    case 32: return blocks_per_sm<In, 32>();
-    default: return blocks_per_sm<In, 64>();
+      return vec ? launch<In, 32, Simt<In, 32, true>>(a, blocks, smem, s)
+                 : launch<In, 32, Simt<In, 32, false>>(a, blocks, smem, s);
+    case 64:
+      return vec ? launch<In, 64, Simt<In, 64, true>>(a, blocks, smem, s)
+                 : launch<In, 64, Simt<In, 64, false>>(a, blocks, smem, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -234,31 +505,36 @@ int blocks_per_sm_for(int r) {
 
 extern "C" {
 
-// Output tile pairs (the grid's y axis) a matrix with r columns takes.
-int gram_qr_tile_pairs(int r) { return tile_pairs(r); }
-
-// Blocks of pass 1 that fit on one SM at once; 0 on error.
-int gram_qr_blocks_per_sm(int r, int is_bf16) {
-  return is_bf16 ? blocks_per_sm_for<__nv_bfloat16>(r)
-                 : blocks_per_sm_for<float>(r);
-}
-
-// G[b] = V_b^T V_b. v: (batch, d, r) f32 or bf16 (is_bf16), g: (batch, r, r)
-// f32; partial: (batch, splits, r, r) f32 scratch, read only when
-// splits > 1. Rows [s * rows_per_split, (s + 1) * rows_per_split) form range
-// s. Returns the CUDA error code of the launches (0 on success).
-int gram_qr_launch(const void* v, int is_bf16, float* partial, float* g,
-                   int batch, int d, int r, int rows_per_split, int splits,
-                   void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (batch < 1 || d < 1 || r < 1 || splits < 1 || rows_per_split < 1)
+// G[b] = V_b^T V_b for b < batch. v: (batch, d, r) f32 or bf16; g: (batch,
+// r, r) f32; partial and tickets: the fold's scratch; table: the plan's
+// work items, groups and unit groups, one int32 run on the card. params (on
+// the host, in this order): is_bf16, batch, d, r, tile, tc (tensor cores,
+// bf16 only, tile 64; else CUDA cores with tiles of ``tile``), vec (16-byte
+// shared-memory reads), pairs, ranges (a tile pair), rows_per_range,
+// chunk_rows, stride, buf_elems, blocks, smem, n_groups, the offsets of the
+// groups and the unit groups in table. One
+// array, so a launch converts few arguments on the host. Returns the CUDA
+// error code of the launch (0 on success).
+int gram_qr_launch(const void* v, float* g, float* partial, int* tickets,
+                   const int* table, const int* params, void* stream_ptr) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  const int is_bf16 = params[0], batch = params[1], d = params[2],
+            r = params[3], tile = params[4], tc = params[5], vec = params[6],
+            pairs = params[7], ranges = params[8];
+  const int blocks = params[13], smem = params[14];
+  if (batch < 1 || d < 1 || r < 1 || blocks < 1 || params[10] % 16 != 0 ||
+      ranges < 1 || blocks != batch * pairs * ranges ||
+      (tc && (!is_bf16 || tile != 64 || r % 8 != 0)) ||
+      (vec && (is_bf16 || tile < 32 || r % 4 != 0)))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      is_bf16 ? dispatch(static_cast<const __nv_bfloat16*>(v), partial, g,
-                         batch, d, r, rows_per_split, splits, stream)
-              : dispatch(static_cast<const float*>(v), partial, g, batch, d,
-                         r, rows_per_split, splits, stream);
-  return (int)err;
+  QrArgs a{v, g, partial, tickets, table, table + params[16],
+           table + params[17], params[15], d, r, pairs, ranges,
+           params[9], params[10], params[11], params[12],
+           (size_t)batch * d * r};
+  if (tc) return (int)launch<__nv_bfloat16, 64, Tc>(a, blocks, smem, s);
+  return (int)(is_bf16 ? dispatch_simt<__nv_bfloat16>(a, tile, vec, blocks,
+                                                       smem, s)
+                       : dispatch_simt<float>(a, tile, vec, blocks, smem, s));
 }
 
 }  // extern "C"

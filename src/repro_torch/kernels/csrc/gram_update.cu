@@ -127,24 +127,6 @@ __device__ __forceinline__ void load_cols(const unsigned char* row, int cb,
   }
 }
 
-// One step of a warp's reduce-scatter of p[0 : 2 HALF]: the lanes whose bit
-// ``o`` is set keep the upper half, the others the lower, each adding its
-// partner's copy of the half it keeps into p[0 : HALF]. The halves are
-// picked with bit masks on values in registers: a select of array elements
-// becomes a select of addresses, which puts the array in local memory.
-template <int HALF>
-__device__ __forceinline__ void halve(float (&p)[kVals], int lane, int o) {
-  const unsigned up = (lane & o) ? ~0u : 0u;
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const unsigned lo = __float_as_uint(p[i]);
-    const unsigned hi = __float_as_uint(p[i + HALF]);
-    const float send = __uint_as_float((lo & up) | (hi & ~up));
-    const float keep = __uint_as_float((hi & up) | (lo & ~up));
-    p[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
-  }
-}
-
 // Item ``it``'s node, the node's columns below ceil(n_true) (``ncols``) and
 // the end of the item's tiles clipped to them.
 __device__ __forceinline__ int item_tiles(const GramArgs& a, int it,
@@ -311,11 +293,11 @@ gram_apply_kernel(const __grid_constant__ CUtensorMap xmap, const GramArgs a) {
           }
         // reduce-scatter over the warp, bit 4 of the lane first: lane l
         // ends with values 2 l and 2 l + 1, summed over all 32 lanes
-        halve<32>(p, lane, 16);
-        halve<16>(p, lane, 8);
-        halve<8>(p, lane, 4);
-        halve<4>(p, lane, 2);
-        halve<2>(p, lane, 1);
+        hopper::halve<32>(p, lane, 16);
+        hopper::halve<16>(p, lane, 8);
+        hopper::halve<8>(p, lane, 4);
+        hopper::halve<4>(p, lane, 2);
+        hopper::halve<2>(p, lane, 1);
         const int idx = 2 * lane;
         red[warp * kVals + idx] = p[0];
         red[warp * kVals + idx + 1] = p[1];

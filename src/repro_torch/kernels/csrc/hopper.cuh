@@ -101,6 +101,27 @@ __device__ __forceinline__ void cp_async_4(uint32_t dst, const float* src,
                : "memory");
 }
 
+// 16-byte global -> shared copy (both addresses 16-byte aligned) that does
+// not wait for the data and bypasses L1; it reads ``src_bytes`` (0-16) and
+// fills the rest of the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// Close this thread's group of cp.async copies issued so far.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // One arrival on ``bar`` once every cp.async this thread issued before has
 // landed. The barrier's expected count includes it (.noinc).
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
@@ -115,6 +136,27 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 // 128-byte swizzle).
 __device__ __forceinline__ int swizzle_chunk(int chunk, int row, int b) {
   return chunk ^ ((row >> (3 - b)) & ((1 << b) - 1));
+}
+
+// -- warp reduce-scatter -----------------------------------------------------
+// One step of a warp's reduce-scatter of p[0 : 2 HALF]: the lanes whose bit
+// ``o`` is set keep the upper half, the others the lower, each adding its
+// partner's copy of the half it keeps into p[0 : HALF]. The halves are
+// picked with bit masks on values in registers: a select of array elements
+// becomes a select of addresses, which puts the array in local memory.
+// Steps o = 16, 8, 4, 2, 1 on 64 values leave lane l with values 2 l and
+// 2 l + 1 summed over the warp, in the same order on every run.
+template <int HALF, int N>
+__device__ __forceinline__ void halve(float (&p)[N], int lane, int o) {
+  const unsigned up = (lane & o) ? ~0u : 0u;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const unsigned lo = __float_as_uint(p[i]);
+    const unsigned hi = __float_as_uint(p[i + HALF]);
+    const float send = __uint_as_float((lo & up) | (hi & ~up));
+    const float keep = __uint_as_float((hi & up) | (lo & ~up));
+    p[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+  }
 }
 
 // -- ordered sums -----------------------------------------------------------------

@@ -37,11 +37,11 @@ LAUNCHES: Dict[str, int] = {"gram_apply": 0, "batched_gram_apply": 0,
 
 def reset_launches() -> None:
     """Zero every wrapper's count, and the counts by route of the flash-
-    attention, gram-apply and slab-apply kernels."""
-    from . import flash_attention, gram_update, slab_ops
+    attention, gram-apply, slab-apply and Gram kernels."""
+    from . import flash_attention, gram_qr, gram_update, slab_ops
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    for module in (flash_attention, gram_update, slab_ops):
+    for module in (flash_attention, gram_update, slab_ops, gram_qr):
         module.reset_route_launches()
 
 
@@ -150,7 +150,8 @@ def gram_qr(v: torch.Tensor) -> torch.Tensor:
     batch. v: (..., d, r) f32 or bf16 -> (..., r, r) f32, exactly symmetric
     on the card.
 
-    All matrices of the batch go through one launch. The reference's guard
+    All matrices of the batch go through one launch (bf16 on the tensor
+    cores where r is a multiple of 8 above 16). The reference's guard
     (d below one block -> oracle) and its padding of d do not carry over:
     the kernel masks its own ragged d.
     """
@@ -206,22 +207,35 @@ _CPU_PATHS = {"fallback_gather": ref.ell_spmm_ref,
 
 def ell_spmm(ell_idx: torch.Tensor, ell_val: torch.Tensor,
              diag: torch.Tensor, z: torch.Tensor, *,
-             payload_dtype: Optional[str] = None) -> torch.Tensor:
+             payload_dtype: Optional[str] = None,
+             window=None) -> torch.Tensor:
     """One sparse gossip round: out[i] = diag[i] z[i] + sum_l val[i,l]
     z[idx[i,l]]. ell_idx/ell_val: (N, L), diag: (N,), z: (N, K) -> (N, K) f32.
 
     ``payload_dtype`` (e.g. "bfloat16") quantises the gather source, the
     neighbour messages, before the f32 accumulation; each node's own
-    diagonal term stays full precision.
+    diagonal term stays full precision. On the card the kernel rounds each
+    message itself (one launch a round; bf16 is the payload type it
+    takes), and ``window``, which the card needs, is the graph's
+    shared-memory staging (``SparseW.window``, an ``ell_spmm.WindowPlan``
+    planned once from the host indices), which moves the time and never
+    the bits; the CPU ignores it.
     """
     n, k = z.shape
-    z_src = z if payload_dtype is None else z.to(getattr(torch, payload_dtype))
     if not z.is_cuda:
+        z_src = (z if payload_dtype is None
+                 else z.to(getattr(torch, payload_dtype)))
         path = ell_spmm_path(n, ell_idx.shape[1], k, use_kernel=False)
         return _CPU_PATHS[path](ell_idx, ell_val, diag, z, z_src)
     from .ell_spmm import ell_spmm_cuda
+    if payload_dtype not in (None, "float32", "bfloat16"):
+        raise ValueError(f"the ELL kernel takes f32 or bf16 payloads, got "
+                         f"{payload_dtype}")
+    if window is None:
+        raise ValueError("the ELL kernel needs the graph's window "
+                         "(SparseW.window)")
     out = ell_spmm_cuda(ell_idx, ell_val, diag, z.float().contiguous(),
-                        z_src.contiguous())
+                        window=window, quantise=payload_dtype == "bfloat16")
     LAUNCHES["ell_spmm"] += 1
     return out
 

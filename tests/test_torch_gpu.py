@@ -1,7 +1,8 @@
 """The port's Hopper kernels on the card: each against its plain version;
 S-DOT, F-DOT, B-DOT and the LM prefill on the card against the same runs on
-the CPU; decode on the card against prefill on the card; and a killed and
-resumed chunked S-DOT run against the uninterrupted one, bit for bit.
+the CPU; decode on the card against prefill on the card; a killed and
+resumed chunked S-DOT run against the uninterrupted one, bit for bit; and,
+last, the f32 forward repeated after all of that in the same process.
 
 Every test here needs an NVIDIA H100 with nvcc and skips elsewhere. This
 file imports neither JAX nor the reference package, so it runs on a machine
@@ -29,7 +30,7 @@ from repro_torch.data.pipeline import (gaussian_eigengap_data,
                                        partition_samples)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import gram_update, slab_ops
+from repro_torch.kernels import ell_spmm, gram_qr, gram_update, slab_ops
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models.transformer import (decode_step, forward,
                                             init_decode_state, init_params,
@@ -179,12 +180,12 @@ def test_ell_kernel_matches_plain(cuda_device, payload, k):
     z = torch.randn((512, k), device=cuda_device)
     before = ops.LAUNCHES["ell_spmm"]
     got = ops.ell_spmm(sw.ell_idx, sw.ell_val, sw.diag, z,
-                       payload_dtype=payload)
+                       payload_dtype=payload, window=sw.window)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["ell_spmm"] == before + 1
     with no_host_sync():
         again = ops.ell_spmm(sw.ell_idx, sw.ell_val, sw.diag, z,
-                             payload_dtype=payload)
+                             payload_dtype=payload, window=sw.window)
     assert torch.equal(got, again)
     z_src = z if payload is None else z.to(torch.bfloat16)
     want = ref.ell_spmm_ref(sw.ell_idx, sw.ell_val, sw.diag, z, z_src)
@@ -201,6 +202,9 @@ def test_wrappers_raise_instead_of_falling_back(cuda_device):
     val = torch.zeros((4, 2), device=cuda_device)
     with pytest.raises(ValueError):
         ops.ell_spmm(idx, val, torch.ones(4, device=cuda_device),
+                     torch.randn((4, 3), device=cuda_device))
+    with pytest.raises(ValueError, match="window"):   # no graph plan
+        ops.ell_spmm(idx.int(), val, torch.ones(4, device=cuda_device),
                      torch.randn((4, 3), device=cuda_device))
 
 
@@ -710,3 +714,205 @@ def test_sdot_kill_and_resume_is_bitwise_on_card(cuda_device, tmp_path):
         np.testing.assert_array_equal(res.error_trace, mono.error_trace)
         assert torch.equal(res.q_nodes, mono.q_nodes)
         assert res.ledger == mono.ledger
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r", [1, 7, 8, 9, 64, 128])
+@pytest.mark.parametrize("d", [1, 3, 55, 1023, 1025, 16384])
+def test_gram_qr_kernel_at_plan_shapes(cuda_device, dtype, d, r):
+    """The plan tests' shapes (tests/test_torch_kernel_plans.py) on the
+    card: one launch on the route the plan names, exactly symmetric, the
+    same bits twice, within GRAM_QR_TOL of the Gram in float64 (the plain
+    version in f32 is itself 1.1e-5 of max |G| off it at (3, 16384, r) on
+    the card: cuBLAS's batched f32 product)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 131 + r)
+    v = torch.randn((3, d, r), generator=gen, device=cuda_device).to(dtype)
+    ops.reset_launches()
+    got = ops.gram_qr(v)
+    torch.cuda.synchronize()
+    how = gram_qr.route(r, dtype == torch.bfloat16)
+    assert ops.LAUNCHES["gram_qr"] == 1
+    assert gram_qr.ROUTE_LAUNCHES == {"tc_bf16": int(how == "tc_bf16"),
+                                      "simt": int(how == "simt")}
+    want = ref.gram_qr_ref(v.double())
+    assert float((got - want).abs().max()) <= GRAM_QR_TOL * float(
+        want.abs().max())
+    with no_host_sync():
+        again = ops.gram_qr(v)
+    assert torch.equal(got, again) and torch.equal(got, got.mT)
+
+
+def test_gram_qr_kernel_reads_unaligned_views(cuda_device):
+    """A view that starts 4 bytes into its storage: the wrapper copies it
+    to an aligned buffer for the 16-byte copies; the same bits as the
+    aligned tensor."""
+    flat = torch.randn(20 * 1024 * 7 + 1, device=cuda_device)
+    v = flat[1:].view(20, 1024, 7)
+    assert v.data_ptr() % 16 != 0
+    assert torch.equal(ops.gram_qr(v), ops.gram_qr(v.clone()))
+
+
+def _ell_graph(kind, n, dev):
+    g = (topology.watts_strogatz(n, k=6, p=0.1, seed=1) if kind == "ws"
+         else topology.erdos_renyi(n, 6 / n, seed=1, ensure_connected=False))
+    return SparseW.from_graph(g, device=dev)
+
+
+@pytest.mark.parametrize("payload", [None, "bfloat16"])
+@pytest.mark.parametrize("k", [3920, 35, 1])
+@pytest.mark.parametrize("kind", ["ws", "er"])
+def test_ell_kernel_on_local_and_random_graphs(cuda_device, kind, k,
+                                               payload):
+    """Watts-Strogatz (a halo) and Erdos-Renyi (none), ragged K: one launch
+    a round, within ELL's 1e-6 of the plain version on the same quantised
+    source, the same bits twice."""
+    sw = _ell_graph(kind, 1024, cuda_device)
+    assert sw.window.halo == (2 if kind == "ws" else 0)
+    z = torch.randn((1024, k), device=cuda_device)
+    before = ops.LAUNCHES["ell_spmm"]
+    got = sw.mix(z) if payload is None else SparseW(
+        sw.ell_idx, sw.ell_val, sw.diag, sw.row_nnz, sw.n, sw.ell_width,
+        payload, window=sw.window).mix(z)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ell_spmm"] == before + 1
+    with no_host_sync():
+        again = ops.ell_spmm(sw.ell_idx, sw.ell_val, sw.diag, z,
+                             payload_dtype=payload, window=sw.window)
+    assert torch.equal(got, again)
+    z_src = z if payload is None else z.to(torch.bfloat16)
+    want = ref.ell_spmm_ref(sw.ell_idx, sw.ell_val, sw.diag, z, z_src)
+    assert float((got - want).abs().max()) <= 1e-6 * float(
+        want.abs().max()) + 1e-7
+
+
+# (band, halo): wide and narrow bands, no halo and a wide one
+ELL_WINDOWS = [(64, 0), (32, 2), (16, 16), (8, 0), (1, 4)]
+
+
+@pytest.mark.parametrize("kind", ["ws", "er"])
+def test_ell_bits_do_not_depend_on_the_window(cuda_device, kind):
+    """Every staging (more or fewer messages from shared memory, the rest
+    from device memory), the 4-byte route of an unaligned view,
+    and the one-launch bf16 round against the kernel fed a source quantised
+    beforehand: the same FMA chain in slot order, so the same bits."""
+    sw = _ell_graph(kind, 1024, cuda_device)
+    args = (sw.ell_idx, sw.ell_val, sw.diag)
+    z = torch.randn((1024, 3920), device=cuda_device)
+    flat = torch.empty(1024 * 3920 + 1, device=cuda_device)
+    z_view = flat[1:].view(1024, 3920)
+    z_view.copy_(z)
+    assert z_view.data_ptr() % 16 != 0
+    windows = [sw.window] + [ell_spmm.WindowPlan(*w, 0, 1)
+                             for w in ELL_WINDOWS]
+    for quantise in (False, True):
+        runs = [ell_spmm.ell_spmm_cuda(*args, z, quantise=quantise,
+                                       window=w) for w in windows]
+        runs.append(ell_spmm.ell_spmm_cuda(*args, z_view, quantise=quantise,
+                                           window=sw.window))
+        assert all(torch.equal(runs[0], x) for x in runs[1:])
+    one = ops.ell_spmm(*args, z, payload_dtype="bfloat16", window=sw.window)
+    assert torch.equal(one, _ell_prequantised(sw, z))
+
+
+def _ell_prequantised(sw, z):
+    """The two-launch bf16 round, z cast to bf16 first and the kernel fed
+    the cast messages beside the f32 own rows, through ops.ell_spmm in f32:
+    rows N.. of a 2N-row payload hold the cast z, and row i's slots point
+    there (rows N.. themselves have no slots and no diagonal)."""
+    n = sw.n
+    idx = torch.cat([sw.ell_idx + n, torch.arange(
+        n, 2 * n, dtype=torch.int32, device=z.device)[:, None].expand_as(
+            sw.ell_idx)]).contiguous()
+    val = torch.cat([sw.ell_val, torch.zeros_like(sw.ell_val)])
+    diag = torch.cat([sw.diag, torch.zeros_like(sw.diag)])
+    z2 = torch.cat([z, z.to(torch.bfloat16).float()])
+    window = ell_spmm.window_plan(idx.cpu().numpy())
+    return ops.ell_spmm(idx, val, diag, z2, window=window)[:n]
+
+
+@pytest.mark.parametrize("payload", [None, "bfloat16"])
+@pytest.mark.parametrize("k", [36, 35])
+def test_ell_kernel_on_a_star(cuda_device, k, payload):
+    """star(4096): the hub's 4095 slots do not fit shared memory beside any
+    window, so the band's slots are read from device memory; within ELL's
+    1e-6 of the plain version on the same quantised source, the same bits
+    twice."""
+    sw = SparseW.from_graph(topology.star(4096), payload_dtype=payload,
+                            device=cuda_device)
+    assert sw.ell_width == 4095
+    p = ell_spmm.plan(4096, k, 4095, (sw.window.band_rows, sw.window.halo),
+                      k % 4 == 0)
+    assert not p.staged and p.smem <= ell_spmm.SMEM_LIMIT
+    z = torch.randn((4096, k), device=cuda_device)
+    got, again = sw.mix(z), sw.mix(z)
+    z_src = z if payload is None else z.to(torch.bfloat16)
+    want = ref.ell_spmm_ref(sw.ell_idx, sw.ell_val, sw.diag, z, z_src)
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 1e-6 * float(
+        want.abs().max()) + 1e-7
+
+
+def test_ell_bits_do_not_depend_on_slot_staging(cuda_device):
+    """A graph of ~600 slots a row: a band of 8 stages its slots beside the
+    window, a band of 32 cannot and reads them from device memory; the same
+    bits either way, in f32 and bf16, and within 1e-6 of the plain
+    version."""
+    sw = SparseW.from_graph(topology.erdos_renyi(1024, 0.55, seed=1),
+                            device=cuda_device)
+    args = (sw.ell_idx, sw.ell_val, sw.diag)
+    z = torch.randn((1024, 256), device=cuda_device)
+    staged = [ell_spmm.plan(1024, 256, sw.ell_width, w, True).staged
+              for w in ((8, 0), (32, 0))]
+    assert staged == [True, False]
+    for quantise in (False, True):
+        a, b = (ell_spmm.ell_spmm_cuda(*args, z, quantise=quantise,
+                                       window=ell_spmm.WindowPlan(*w, 0, 1))
+                for w in ((8, 0), (32, 0)))
+        assert torch.equal(a, b)
+        z_src = z if not quantise else z.to(torch.bfloat16)
+        want = ref.ell_spmm_ref(*args, z, z_src)
+        assert float((a - want).abs().max()) <= 1e-6 * float(
+            want.abs().max()) + 1e-7
+
+
+def test_ell_bf16_round_is_one_launch(cuda_device):
+    """A bf16-payload gossip run: one ELL launch a round, and no cast of
+    the payload (no copy kernel beside it in the profile)."""
+    from torch.profiler import ProfilerActivity, profile
+    sw = _ell_graph("ws", 1024, cuda_device)
+    bf = SparseW(sw.ell_idx, sw.ell_val, sw.diag, sw.row_nnz, sw.n,
+                 sw.ell_width, "bfloat16", window=sw.window)
+    z = torch.randn((1024, 3920), device=cuda_device)
+    bf.mix(z)
+    torch.cuda.synchronize()
+    before = ops.LAUNCHES["ell_spmm"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            z = bf.mix(z)
+        torch.cuda.synchronize()
+    assert ops.LAUNCHES["ell_spmm"] == before + 3
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert kernels and all("ell_spmm" in k for k in kernels), kernels
+
+
+def test_zz_forward_after_the_other_card_tests(cuda_device):
+    """Last in the file: the f32 forward of
+    test_forward_on_card_matches_cpu, repeated 50 times in the process that
+    ran every card test before it, each within that test's limit (1e-4 +
+    1e-4 |cpu|). Prints the readings (run with -s to see them)."""
+    cfg, params, toks, cpu_params, cpu_toks = _lm_setup(cuda_device)
+    with torch.inference_mode():
+        want = forward(cpu_params, {"tokens": cpu_toks}, cfg)
+        readings, first, same, fails = [], None, 0, 0
+        for _ in range(50):
+            got = forward(params, {"tokens": toks}, cfg).cpu()
+            diff = (got - want).abs()
+            readings.append(float(diff.max()))
+            fails += bool((diff > 1e-4 + 1e-4 * want.abs()).any())
+            first = got if first is None else first
+            same += bool(torch.equal(got, first))
+    print(f"forward_after_card_tests: max |diff| min {min(readings)} "
+          f"max {max(readings)}; outside the limit {fails}; logits equal "
+          f"to run 0 in {same} of {len(readings)}")
+    assert fails == 0

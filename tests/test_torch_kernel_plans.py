@@ -1,17 +1,21 @@
-"""The launch planners of the gram-apply and slab-apply kernels, on the CPU.
+"""The launch planners of the gram-apply, slab-apply, Gram and ELL kernels,
+on the CPU.
 
-Both are pure functions of the shapes and of the card's SM count and
+All are pure functions of the shapes (the ELL kernel's also of the graph's
+window, planned from its host-side indices) and of the card's SM count and
 shared-memory limit (an H100's 132 SMs and 232,448 bytes here), so their
 work lists, and with them the kernels' summation order, can be checked
-without a card: every column falls in exactly one work item, each unit's
-partials are summed in one fixed order, and the ring fits shared memory.
+without a card: every column (or row) falls in exactly one work item, each
+unit's partials are summed in one fixed order, and the staging fits shared
+memory.
 """
 import math
 
+import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import gram_update, slab_ops
+from repro_torch.kernels import ell_spmm, gram_qr, gram_update, slab_ops
 
 H100 = (132, 232_448)
 
@@ -203,3 +207,209 @@ def test_staging_route_follows_the_row_alignment(n, want):
     # a view that starts 4 bytes in is never 16-byte aligned
     assert gram_update.route(torch.zeros(2 * 8 * n + 1)[1:].view(2, 8, n)) \
         == "cp_async"
+
+
+# -- the CholeskyQR Gram kernel ------------------------------------------------
+QR_D = [1, 3, 55, 1023, 1025, 16384]
+QR_R = [1, 7, 8, 9, 64, 128]
+
+
+def _qr_rows(p, batch, d):
+    """Each matrix's rows as the plan's blocks take them, per tile pair:
+    block k takes work item k, ranges of a unit in order."""
+    seen = {}
+    for unit, c, end, step, _, _ in p.items:
+        assert (end, step) == (c + 1, 1)
+    for block in range(p.blocks):
+        unit, rows = p.block_rows(block, d)
+        assert unit == p.items[block][0]
+        seen.setdefault(unit, []).append(rows)
+    assert sorted(seen) == list(range(batch * p.pairs))
+    return seen
+
+
+@pytest.mark.parametrize("is_bf16", [False, True])
+@pytest.mark.parametrize("r", QR_R)
+@pytest.mark.parametrize("d", QR_D)
+def test_gram_qr_plan_covers_every_row_once(d, r, is_bf16):
+    """Every row of every matrix falls in exactly one range of each tile
+    pair; ranges start a whole number of 16-byte units into their matrix
+    and none is empty; the blocks fit one wave (one an SM) unless the
+    batch alone exceeds it; the staging buffers and the phase sums fit
+    shared memory."""
+    batch = 3
+    p = gram_qr.plan(batch, d, r, is_bf16, H100[0])
+    esize = 2 if is_bf16 else 4
+    for unit, ranges in _qr_rows(p, batch, d).items():
+        rows = [k for rg in ranges for k in rg]
+        assert rows == list(range(d)), unit
+        assert all(rg.start * r * esize % 16 == 0 for rg in ranges)
+        assert all(len(rg) > 0 for rg in ranges)
+    assert p.blocks == batch * p.pairs * p.ranges
+    assert p.blocks <= H100[0] or p.ranges == 1
+    assert p.rows_per_range % 8 == 0 and p.chunk_rows % 16 == 0
+    assert p.smem <= H100[1] and p.buf_elems * esize % 16 == 0
+    _check_fold(p.items, p.groups, p.unit_groups, batch * p.pairs, p.slots)
+
+
+@pytest.mark.parametrize("r,is_bf16,want", [
+    (7, False, ("simt", 8)), (7, True, ("simt", 8)), (16, True, ("simt", 16)),
+    (24, True, ("tc_bf16", 64)), (33, True, ("simt", 64)),
+    (64, True, ("tc_bf16", 64)), (128, True, ("tc_bf16", 64)),
+    (128, False, ("simt", 64))])
+def test_gram_qr_route_follows_type_and_width(r, is_bf16, want):
+    """bf16 goes to the tensor cores where r is a multiple of 8 above 16;
+    f32 never does (TF32 would move the Gram)."""
+    p = gram_qr.plan(2, 1000, r, is_bf16, H100[0])
+    assert (p.route, p.tile) == want
+    assert gram_qr.route(r, is_bf16) == want[0]
+
+
+def test_gram_qr_plan_main_path_shapes():
+    """S-DOT's (20, 1024, 7), B-DOT's (4, 256, 7) and F-DOT's (20, 55, 7):
+    one block a matrix, whose threads read 4 rows or fewer each straight
+    into registers, no partials; (1, 16384, 7): 4 ranges of 4096 rows, one
+    group; the tall (16384, 128): 3 tile pairs of 44 ranges (132 blocks,
+    one an SM), folded a tile pair in 7 groups of at most 7 and then the
+    groups' sums."""
+    p = gram_qr.plan(20, 1024, 7, False, H100[0])
+    assert (p.ranges, p.rows_per_range, p.blocks, p.slots) == (
+        1, 1024, 20, 0)
+    assert p.groups == () and len(p.items) == 20 and p.buf_elems == 0
+    assert (gram_qr.plan(4, 256, 7, False, H100[0]).blocks,
+            gram_qr.plan(20, 55, 7, False, H100[0]).blocks) == (4, 20)
+    p = gram_qr.plan(1, 16384, 7, False, H100[0])
+    assert (p.ranges, p.rows_per_range, p.groups) == (4, 4096, ((0, 4, -1),))
+    for is_bf16 in (False, True):
+        p = gram_qr.plan(1, 16384, 128, is_bf16, H100[0])
+        assert (p.pairs, p.ranges, p.blocks) == (3, 44, 132)
+        assert [c for _, c, _ in p.groups] == ([7] * 6 + [2]) * 3
+        assert p.unit_groups == (0, 7, 14, 21) and p.slots == 153
+
+
+def test_gram_qr_plan_is_a_function_of_the_shapes():
+    shapes = [(b, d, r, f) for b in (1, 20) for d in QR_D for r in QR_R
+              for f in (False, True)]
+    want = [gram_qr.plan(*s, H100[0]) for s in shapes]
+    gram_qr.plan.cache_clear()
+    assert [gram_qr.plan(*s, H100[0]) for s in shapes] == want
+    with pytest.raises(ValueError):
+        gram_qr.plan(1, 0, 7, False, H100[0])
+
+
+# -- the ELL gossip kernel ----------------------------------------------------
+def _sparse(kind, n):
+    from repro_torch.core import topology
+    from repro_torch.core.sparse import SparseW
+    g = (topology.watts_strogatz(n, k=6, p=0.1, seed=1) if kind == "ws"
+         else topology.erdos_renyi(n, 6 / n, seed=1, ensure_connected=False))
+    return SparseW.from_graph(g, device="cpu")
+
+
+@pytest.mark.parametrize("n,k,width,window,vec", [
+    (4096, 3920, 9, (32, 2), True), (4096, 3920, 16, (32, 0), True),
+    (300, 35, 5, (64, 8), False), (1, 1, 1, (64, 16), False),
+    (130, 257, 40, (16, 4), False), (64, 512, 3, (32, 0), True),
+    (5000, 8, 700, (8, 2), True)])
+def test_ell_plan_covers_every_element_once(n, k, width, window, vec):
+    """Every (row, column) in exactly one block; the window is the band
+    and ``halo`` rows either side, clipped at row 0 and row N - 1."""
+    band, halo = window
+    p = ell_spmm.plan(n, k, width, window, vec)
+    assert (p.band_rows, p.halo) == window
+    hits = np.zeros((n, k), np.int32)
+    for b in range(p.blocks):
+        rows, cols, win = p.block(b, n, k)
+        assert len(rows) > 0 and len(cols) > 0
+        hits[rows.start:rows.stop, cols.start:cols.stop] += 1
+        assert win.start == max(0, rows.start - halo)
+        assert win.stop == min(n, rows.stop + halo)
+        assert len(win) <= band + 2 * halo
+    assert (hits == 1).all()
+    assert p.tile_cols <= ell_spmm.TILE_COLS
+    assert not vec or p.tile_cols % 4 == 0
+    assert p.smem <= 232_448
+
+
+def test_ell_plan_main_path_shape():
+    """watts_strogatz(4096, 6, 0.1) at K = 3920: 128 bands of 32 rows by 16
+    tiles of 248 columns; ~38 KB of shared memory, so four blocks an SM."""
+    p = ell_spmm.plan(4096, 3920, 9, (32, 2), True)
+    assert (p.band_rows, p.tile_cols, p.bands, p.tiles) == (32, 248, 128, 16)
+    assert p.smem <= ell_spmm.SMEM_BUDGET
+
+
+@pytest.mark.parametrize("kind", ["ws", "er"])
+def test_ell_window_plan_from_host_indices(kind, monkeypatch):
+    """The staging comes from the host-side indices alone (no torch CUDA
+    call), once per SparseW: watts_strogatz(4096, 6, 0.1) gets a halo of 2
+    (92.6% of slots in the window), a graph without locality none (its
+    window is the band, which still serves the padded slots); the counts
+    are the indices' own."""
+    def no_cuda(*a, **k):
+        raise AssertionError("a CUDA call while planning the window")
+    monkeypatch.setattr(torch.cuda, "is_available", no_cuda)
+    monkeypatch.setattr(torch.cuda, "current_device", no_cuda)
+    sw = _sparse(kind, 4096)
+    wp = sw.window
+    idx = sw.ell_idx.numpy()
+    assert wp == ell_spmm.window_plan(idx)
+    assert (wp.band_rows, wp.halo) == ((32, 2) if kind == "ws" else (32, 0))
+    n = idx.shape[0]
+    rows = np.arange(n)[:, None] // wp.band_rows * wp.band_rows
+    inside = ((idx >= np.maximum(rows - wp.halo, 0))
+              & (idx < np.minimum(rows + wp.band_rows + wp.halo, n)))
+    assert wp.in_window == int(inside.sum()) and wp.slots == idx.size
+    assert wp.gathers == idx.size - wp.in_window
+    # padded slots point at their own row: always in the window
+    pads = sw.ell_width * n - int(sw.row_nnz.sum())
+    assert wp.in_window >= pads
+    if kind == "ws":
+        assert wp.in_window_share > 0.9
+    assert sw.astype(torch.float64).window is wp
+
+
+def test_ell_window_plan_weighs_staged_rows_against_gathers():
+    """A ring lattice's neighbours lie 1-3 rows away: a halo of 2 or more
+    serves nearly every slot from the window. A star's hub has N - 1 slots:
+    no band's slots fit the budget beside a window, so the window is staged
+    alone (the slots read from device memory), and a halo buys nothing."""
+    n = 1024
+    rows = np.arange(n)[:, None]
+    lattice = (rows + np.array([-3, -2, -1, 1, 2, 3])) % n
+    wp = ell_spmm.window_plan(lattice.astype(np.int32))
+    assert wp.halo >= 2 and wp.in_window_share > 0.98
+    assert ell_spmm.plan(n, 3920, 6, (wp.band_rows, wp.halo), True).staged
+    star = _star(n)
+    wp = ell_spmm.window_plan(star)
+    assert wp.halo == 0
+    for k in (3920, 35):
+        p = ell_spmm.plan(n, k, n - 1, (wp.band_rows, wp.halo), k % 4 == 0)
+        assert not p.staged
+        assert p.smem == 4 * wp.band_rows * p.tile_cols <= \
+            ell_spmm.SMEM_BUDGET
+
+
+def _star(n):
+    star = np.tile(np.arange(n, dtype=np.int32)[:, None], (1, n - 1))
+    star[0] = np.arange(1, n)
+    star[1:, 0] = 0
+    return star
+
+
+@pytest.mark.parametrize("width", [1, 9, 100, 613, 614, 1023, 3075, 3076,
+                                   4095, 16383])
+def test_ell_plan_fits_the_kernel_at_every_width(width):
+    """At any width and any window of BANDS x HALOS the launch's shared
+    memory stays within the kernel's 200 KB: the band's slots are staged
+    where they fit the budget beside the window, else read from device
+    memory; what the kernel is told matches what it stages."""
+    for band in ell_spmm.BANDS:
+        for halo in ell_spmm.HALOS:
+            for k, vec in ((3920, True), (35, False), (1, False)):
+                p = ell_spmm.plan(4096, k, width, (band, halo), vec)
+                window = 4 * (band + 2 * halo) * p.tile_cols
+                slots = 4 * band * (2 * width + 1)
+                assert p.staged == (window + slots <= ell_spmm.SMEM_BUDGET)
+                assert p.smem == window + (slots if p.staged else 0)
+                assert p.smem <= ell_spmm.SMEM_LIMIT == 200 * 1024

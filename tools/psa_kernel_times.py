@@ -1,17 +1,27 @@
-"""Device time of the gram-apply and slab-apply kernels, at chip_smoke.py's
-main-path shapes, for one or more checkouts of this repository, in turns.
+"""Device time of the gram-apply, slab-apply, ELL and Gram kernels, at
+chip_smoke.py's main-path shapes, for one or more checkouts of this
+repository, in turns.
 
     python3 tools/psa_kernel_times.py [--tree DIR ...] [--rounds 1]
+        [--rows ROW,ROW]
 
 Each ``--tree`` is the root of a checkout (default: this one). The trees run
 in the order given and then in reverse, ``--rounds`` times over (A B B A for
 two trees and one round), each in a fresh process that imports that tree's
 ``src/repro_torch`` and builds its kernels. The rows: ``batched_gram_apply``
 on S-DOT's stack (20 x 1024 x 2500, r = 7), ``gram_apply`` on one node's
-(1024, 2500) block, ``batched_slab_apply`` on F-DOT's (20, 55, 50000) slabs
-and ``grid_block_apply`` on B-DOT's (4, 5, 256, 10000) grid, on the data of
-chip_smoke.py. For each: device time a launch as chip_smoke.py takes it
-(CUDA events around 20 launches behind a spin of the card, median of 5), the
+(1024, 2500) block, ``batched_slab_apply`` on F-DOT's (20, 55, 50000)
+slabs and ``grid_block_apply`` on B-DOT's (4, 5, 256, 10000) grid, on the
+data of
+chip_smoke.py; one ELL gossip round (``SparseW.mix``) over a (4096, 3920)
+payload on watts_strogatz(4096, 6, 0.1, seed 1) in f32 and with bf16
+messages, and on erdos_renyi(4096, 0.0015, seed 1, not resampled until
+connected) in f32 and bf16; and the CholeskyQR Gram (``ops.gram_qr``) at
+chip_smoke.py's five shapes (S-DOT (20, 1024, 7), F-DOT (20, 55, 7), B-DOT
+(4, 256, 7) and (1, 16384, 128) in f32 and bf16), and at (1, 16384, 7)
+in f32 (four ranges of r = 7 folded in one launch). For each: device time
+a launch as chip_smoke.py takes it (CUDA events around 20 launches behind a
+spin of the card, median of 5), the
 host's time to issue one call, the largest error relative to the plain
 version's max |V| and whether a second launch repeats the bits. One JSON
 line a process, then a summary: each tree's median ms a row, and the card's
@@ -28,18 +38,22 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 ROWS = ("batched_gram_apply", "gram_apply", "batched_slab_apply",
-        "grid_block_apply")
+        "grid_block_apply", "ell_spmm_ws", "ell_spmm_ws_bf16", "ell_spmm_er",
+        "ell_spmm_er_bf16", "gram_qr_sdot", "gram_qr_fdot", "gram_qr_bdot",
+        "gram_qr_bench_f32", "gram_qr_bench_bf16", "gram_qr_tall7")
 
 
-def worker(tree: Path) -> dict:
+def worker(tree: Path, only=None) -> dict:
     import torch
 
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     sys.path.insert(0, str(tree / "src"))
+    from repro_torch.core import topology
     from repro_torch.core.bdot import pad_grid_blocks
     from repro_torch.core.fdot import pad_feature_slabs
     from repro_torch.core.sdot import _stack_data
+    from repro_torch.core.sparse import SparseW
     from repro_torch.data.pipeline import (gaussian_eigengap_data,
                                            partition_features,
                                            partition_samples)
@@ -71,8 +85,33 @@ def worker(tree: Path) -> dict:
         "grid_block_apply": (
             lambda: ops.grid_block_apply(x_grid, s_grid),
             lambda: ref.grid_block_apply_ref(x_grid, s_grid))}
-    out = {"tree": str(tree), "rows": {}}
+    z = torch.randn((4096, 3920), generator=gen, device=dev)
+    for name, graph in (
+            ("ws", topology.watts_strogatz(4096, k=6, p=0.1, seed=1)),
+            ("er", topology.erdos_renyi(4096, 0.0015, seed=1,
+                                        ensure_connected=False))):
+        for payload in (None, "bfloat16"):
+            sw = SparseW.from_graph(graph, payload_dtype=payload, device=dev)
+            src = z if payload is None else z.to(torch.bfloat16)
+            cases[f"ell_spmm_{name}" + ("_bf16" if payload else "")] = (
+                lambda sw=sw: sw.mix(z),
+                lambda sw=sw, src=src: ref.ell_spmm_ref(
+                    sw.ell_idx, sw.ell_val, sw.diag, z, src))
+    for label, shape, dtype in (
+            ("sdot", (nodes, d, r), torch.float32),
+            ("fdot", (nodes, 55, r), torch.float32),
+            ("bdot", (4, 256, r), torch.float32),
+            ("bench_f32", (1, 16384, 128), torch.float32),
+            ("bench_bf16", (1, 16384, 128), torch.bfloat16),
+            ("tall7", (1, 16384, 7), torch.float32)):
+        vq = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        cases[f"gram_qr_{label}"] = (lambda vq=vq: ops.gram_qr(vq),
+                                     lambda vq=vq: ref.gram_qr_ref(vq))
+    out = {"tree": str(tree), "rows": {},
+           "launch_floor_ms": cs.time_ms(lambda: torch.cuda._sleep(1))}
     for name, (kernel, plain) in cases.items():
+        if only and name not in only:
+            continue
         got, again, want = kernel(), kernel(), plain()
         torch.cuda.synchronize()
         out["rows"][name] = {
@@ -87,20 +126,24 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", action="append", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--rows", help="comma-separated rows to time (default: "
+                    "all)")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    only = args.rows.split(",") if args.rows else None
     if args.worker is not None:
-        print(json.dumps(worker(args.worker)), flush=True)
+        print(json.dumps(worker(args.worker, only)), flush=True)
         return
     import torch
     if not torch.cuda.is_available():
         sys.exit("psa_kernel_times: no CUDA device")
     trees = [t.resolve() for t in (args.tree or [ROOT])]
-    ms = {str(t): {row: [] for row in ROWS} for t in trees}
+    ms = {str(t): {row: [] for row in only or ROWS} for t in trees}
     for _ in range(args.rounds):
         for tree in trees + trees[::-1]:
             line = subprocess.run(
-                [sys.executable, __file__, "--worker", str(tree)], check=True,
+                [sys.executable, __file__, "--worker", str(tree)]
+                + (["--rows", args.rows] if only else []), check=True,
                 capture_output=True, text=True).stdout.strip().splitlines()[-1]
             print(line, flush=True)
             for row, res in json.loads(line)["rows"].items():

@@ -1,24 +1,29 @@
-"""Time text variants of the gram-apply and slab-apply kernels beside the
-kernels themselves, on the card, in one process.
+"""Time text variants of the gram-apply, slab-apply, Gram and ELL kernels
+beside the kernels themselves, on the card, in one process.
 
     python3 tools/psa_kernel_variants.py [--variant NAME ...] [--rounds 2]
 
-Each variant is ``csrc/gram_update.cu`` or ``csrc/slab_ops.cu`` with a few
-lines replaced, in the source or in ``hopper.cuh`` (see ``VARIANTS``): a
-piece of the work taken out, to see what that piece costs, or a parameter
-changed; or the wrapper's module with a constant replaced (``PLAN``, e.g.
-the tile widths the planner may pick); or the kernel itself on S-DOT's
+Each variant is a source of ``csrc/`` (``gram_update``, ``slab_ops``,
+``gram_qr``, ``ell_spmm``) with a few lines replaced, in the source or in
+``hopper.cuh`` (see ``VARIANTS``): a piece of the work taken out, to see
+what that piece costs, or a parameter changed; or the wrapper's module with
+a constant replaced (``PLAN``, e.g. the tile widths the planner may pick,
+or the bytes a Gram range holds at least); or the kernel itself on S-DOT's
 stack zero-padded to a longer row (``STRIDE``: the same work at another row
-stride). A variant whose lines are not in the
+stride); or the ELL kernel with another window (band, halo) than the
+graph's own (``HALO``). A variant whose lines are not in the
 sources any more is skipped with a note. Each variant's sources go to its
 own directory under ``build/psa_variants/`` and are built there by nvcc in
 parallel, with the flags of ``kernels/_build.py``. Each runs through the
 port's own wrapper (``ops.batched_gram_apply`` and ``ops.gram_apply``, or
-``ops.batched_slab_apply`` and ``ops.grid_block_apply``) at chip_smoke.py's
-main-path shapes, in turns, for ``--rounds`` rounds: device time a launch as
-chip_smoke.py takes it (CUDA events around 20 launches behind a spin of the
-card, median of 5), and the largest error relative to the plain version's
-max |V| (a variant that leaves work out is wrong on purpose). Prints one
+``ops.batched_slab_apply`` and ``ops.grid_block_apply``, ``ops.gram_qr`` at
+chip_smoke.py's five Gram shapes, ``ops.ell_spmm`` over a (4096, 3920)
+payload on watts_strogatz(4096, 6, 0.1) in f32 and bf16 and on
+erdos_renyi(4096, 0.0015) in f32) at chip_smoke.py's main-path shapes, in
+turns, for ``--rounds`` rounds: device time a launch as chip_smoke.py takes
+it (CUDA events around 20 launches behind a spin of the card, median of
+5), and the largest error relative to the plain version's max |V| (a
+variant that leaves work out is wrong on purpose). Prints one
 JSON line a variant, shape and round, then a summary with the card's name
 and power limit.
 """
@@ -37,9 +42,11 @@ ROOT = Path(__file__).resolve().parents[1]
 # the last blocks' ordered sums of the partials (the tickets still count)
 _FOLD = ("  __syncthreads();\n  if (!*flag) return;\n  __threadfence();\n"
          "  const bool sole")
-_HALVES = ("        halve<32>(p, lane, 16);\n        halve<16>(p, lane, 8);\n"
-           "        halve<8>(p, lane, 4);\n        halve<4>(p, lane, 2);\n"
-           "        halve<2>(p, lane, 1);\n")
+_HALVES = ("        hopper::halve<32>(p, lane, 16);\n"
+           "        hopper::halve<16>(p, lane, 8);\n"
+           "        hopper::halve<8>(p, lane, 4);\n"
+           "        hopper::halve<4>(p, lane, 2);\n"
+           "        hopper::halve<2>(p, lane, 1);\n")
 _VUPDATE = "              vacc[m][j] = fmaf(xv[m][c], zc[j], vacc[m][j]);\n"
 _PARTIAL = "            p[c * RMAX + j] = t;\n"
 _PROMO = "CU_TENSOR_MAP_L2_PROMOTION_L2_256B"
@@ -88,6 +95,52 @@ VARIANTS = {
         "stream_c128": _SLAB_STREAM,
     },
 }
+_QR_FOLD = "  hopper::fold_partials(a.items"
+_QR_STAGE = ("    hopper::cp_async_16(hopper::smem_u32(buf + u * U), v + at,\n"
+             "                        left >= (size_t)U ? 16 : (int)(left * "
+             "sizeof(In)));\n")
+VARIANTS["gram_qr"] = {
+    "kernel": [],
+    # the plan with other range sizes (PLAN)
+    **{f"range{b}": [] for b in (1024, 8192, 16384, 1 << 40)},
+    # the ranges' partials are written but not folded
+    "no_fold": [(_QR_FOLD, "  return;\n" + _QR_FOLD)],
+    # the flat copy as plain 16-byte loads (the tail unit left out)
+    "plain_stage": [(_QR_STAGE, "    if (left >= (size_t)U)\n"
+                     "      *reinterpret_cast<uint4*>(buf + u * U) =\n"
+                     "          __ldcg(reinterpret_cast<const uint4*>(v + at));\n")],
+    # no sums (the staged rows are not read; above r = 8)
+    "no_compute": [("      route.rows(buf0 + (c & 1) * a.buf_elems + off, "
+                    "a.stride, k1 - k0);\n", "      {}\n")],
+    # a tile pair's only range writes nothing
+    "no_write": [("    write_gram<T>(tile, gb, a.r, ti, tj);\n    return;\n  }\n"
+                  "  const int slot",
+                  "    return;\n  }\n  const int slot")],
+    # no barrier after a chunk's sums
+    "no_chunk_sync": [("      __syncthreads();               // the buffer "
+                       "is free for chunk c + 2\n", "")]}
+VARIANTS["ell_spmm"] = {
+    "kernel": [],
+    # another staging (HALO)
+    **{v: [] for v in ("b64h2", "b32h0", "b32h8", "b16h2", "b8h0")},
+    # at most 64 registers a thread: four blocks an SM
+    "regs64": [("__launch_bounds__(kThreads)\nell_spmm_kernel",
+                "__launch_bounds__(kThreads, 4)\nell_spmm_kernel")],
+    # four messages loaded before their FMAs
+    "slots4": [("constexpr int kSlots = 2;", "constexpr int kSlots = 4;")],
+    # no slots summed (the own term alone)
+    "no_slots": [("    int l = 0;\n", "    int l = a.width;\n")],
+    # nothing stored (a condition the compiler cannot prove false)
+    "no_store": [("    float* o = a.out + (size_t)row * a.k + c0;\n",
+                  "    if (a.k > 0) continue;\n"
+                  "    float* o = a.out + (size_t)row * a.k + c0;\n")],
+    # nothing is copied (the sums read whatever shared memory holds)
+    "no_stage": [("        hopper::cp_async_16(hopper::smem_u32(d), src, 16);\n",
+                  "        {}\n")]}
+# source -> variant -> the ELL kernel's (band, halo) in place of the
+# graph's own
+HALO = {"ell_spmm": {"b64h2": (64, 2), "b32h0": (32, 0), "b32h8": (32, 8),
+                     "b16h2": (16, 2), "b8h0": (8, 0)}}
 # source -> variant -> row length: S-DOT's stack zero-padded to this many
 # columns (the same work, another row stride), the kernel's own source
 STRIDE = {"gram_update": {f"n{n}": n for n in (2504, 2512, 2528, 2560, 2592)}}
@@ -96,7 +149,10 @@ _BN8 = {"_TILE_COLS": (8,)}
 PLAN = {"gram_update": {"bn8": _BN8, "stream_bn8": _BN8},
         "slab_ops": {"c128": {"_TILE_COLS": (128,)},
                      "c64": {"_TILE_COLS": (64,)},
-                     "stream_c128": {"_TILE_COLS": (128,)}}}
+                     "stream_c128": {"_TILE_COLS": (128,)}},
+        "gram_qr": {f"range{b}": {"MIN_RANGE_BYTES": b}
+                    for b in (1024, 8192, 16384, 1 << 40)},
+}
 
 
 def build(names, out: Path):
@@ -153,11 +209,15 @@ def main() -> None:
     from repro_torch.data.pipeline import (gaussian_eigengap_data,
                                            partition_features,
                                            partition_samples)
-    from repro_torch.kernels import gram_update, ops, ref, slab_ops
+    from repro_torch.core import topology
+    from repro_torch.core.sparse import SparseW
+    from repro_torch.kernels import (ell_spmm, gram_qr, gram_update, ops,
+                                     ref, slab_ops)
 
     names = [tuple(v.split(":")) for v in args.variant] if args.variant else [
         (src, v) for src, vs in VARIANTS.items() for v in vs]
-    strides = [(src, v) for src, v in names if v in STRIDE.get(src, {})]
+    strides = [(src, v) for src, v in names
+               if v in STRIDE.get(src, {}) or v in HALO.get(src, {})]
     names = [key for key in names if key not in strides]
     names = sorted(set(names) | {(src, "kernel") for src, _ in names + strides})
     built, skipped = build(names, ROOT / "build" / "psa_variants")
@@ -192,10 +252,44 @@ def main() -> None:
             "grid_block_apply": (
                 lambda: ops.grid_block_apply(x_grid, s_grid),
                 ref.grid_block_apply_ref(x_grid, s_grid))}}
-    modules = {"gram_update": gram_update, "slab_ops": slab_ops}
+    ell_z = torch.randn((4096, 3920), generator=gen, device=dev)
+    ws = SparseW.from_graph(topology.watts_strogatz(4096, k=6, p=0.1, seed=1),
+                            device=dev)
+    er = SparseW.from_graph(topology.erdos_renyi(
+        4096, 0.0015, seed=1, ensure_connected=False), device=dev)
+
+    def ell_case(sw, payload, window=None):
+        src = ell_z if payload is None else ell_z.to(torch.bfloat16)
+        return (lambda: ops.ell_spmm(
+                    sw.ell_idx, sw.ell_val, sw.diag, ell_z,
+                    payload_dtype=payload,
+                    window=sw.window if window is None else window),
+                ref.ell_spmm_ref(sw.ell_idx, sw.ell_val, sw.diag, ell_z, src))
+    cases["ell_spmm"] = {"ws": ell_case(ws, None),
+                         "ws_bf16": ell_case(ws, "bfloat16"),
+                         "er": ell_case(er, None)}
+    cases["gram_qr"] = {}
+    for label, shape, dtype in (
+            ("sdot", (nodes, d, r), torch.float32),
+            ("fdot", (nodes, 55, r), torch.float32),
+            ("bdot", (4, 256, r), torch.float32),
+            ("bench_f32", (1, 16384, 128), torch.float32),
+            ("bench_bf16", (1, 16384, 128), torch.bfloat16)):
+        vq = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        cases["gram_qr"][label] = (lambda vq=vq: ops.gram_qr(vq),
+                                   ref.gram_qr_ref(vq))
+    modules = {"gram_update": gram_update, "slab_ops": slab_ops,
+               "gram_qr": gram_qr, "ell_spmm": ell_spmm}
     libs = {key: modules[key[0]]._typed(ctypes.CDLL(str(path)))
             for key, path in built.items()}
     for src, v in strides:
+        if v in HALO.get(src, {}):
+            cases[f"{src}:{v}"] = {
+                name: ell_case(g, None, ell_spmm.WindowPlan(*HALO[src][v],
+                                                            0, 1))
+                for name, g in (("ws", ws), ("er", er))}
+            libs[(src, v)] = libs[(src, "kernel")]
+            continue
         width = STRIDE[src][v]
         xw = torch.nn.functional.pad(x_stack, (0, width - x_stack.shape[2]))
         cases.setdefault(f"{src}:{v}", {})["batched_gram_apply"] = (
@@ -203,6 +297,9 @@ def main() -> None:
             cases[src]["batched_gram_apply"][1])
         libs[(src, v)] = libs[(src, "kernel")]
     real = {src: m._lib for src, m in modules.items()}
+    planners = (gram_update.plan, gram_update._device_plan,
+                slab_ops.apply_plan, slab_ops._device_apply_plan,
+                gram_qr.plan, gram_qr._device_plan, ell_spmm.plan)
     runs = {}
     for rnd in range(args.rounds):
         for (source, variant), lib in libs.items():
@@ -214,9 +311,8 @@ def main() -> None:
                 setattr(module, k, value)
             # a variant may leave its tickets set, or plan other tiles:
             # fresh tickets and plans for each
-            module._WORK.clear()
-            for fn in (gram_update.plan, gram_update._device_plan,
-                       slab_ops.apply_plan, slab_ops._device_apply_plan):
+            getattr(module, "_WORK", {}).clear()
+            for fn in planners:
                 fn.cache_clear()
             for shape, (kernel, want) in cases.get(
                     f"{source}:{variant}", cases[source]).items():
@@ -228,12 +324,11 @@ def main() -> None:
                 print(json.dumps({"variant": f"{source}:{variant}",
                                   "shape": shape, "round": rnd, "ms": ms,
                                   "rel_err": err}), flush=True)
-            module._WORK.clear()
+            getattr(module, "_WORK", {}).clear()
             module._lib = real[source]
             for k, value in saved.items():
                 setattr(module, k, value)
-            for fn in (gram_update.plan, gram_update._device_plan,
-                       slab_ops.apply_plan, slab_ops._device_apply_plan):
+            for fn in planners:
                 fn.cache_clear()
     print(json.dumps({"card": nvidia_smi(), "median_ms": {
         k: statistics.median(v) for k, v in runs.items()}}), flush=True)
