@@ -25,7 +25,11 @@ Execution modes (``fused`` flag, as in ``sdot.py`` / ``fdot.py``):
     the loop; the ledger is priced in closed form.
     ``streaming/resume.bdot_chunked`` runs the same Program chunk by chunk.
   * eager (``fused=False``): the reference's per-iteration loop over the
-    ragged block lists, one gossip call per column and per row.
+    ragged block lists, one gossip call per column and per row. It also
+    takes asynchronous and faulty engines, each call drawing from the
+    engine's own stream through its ``run_debiased``, as the reference's
+    eager loop does; the fused path needs ``debias_table`` on every
+    engine.
 """
 from __future__ import annotations
 
@@ -39,8 +43,7 @@ import torch.nn.functional as F
 from .._device import DeviceLike, resolve_device
 from ..kernels import ops as kops
 from . import runtime
-from .consensus import (DenseConsensus, check_sync_engine,
-                        consensus_schedule, debiased_gossip)
+from .consensus import DenseConsensus, consensus_schedule, debiased_gossip
 from .fdot import (QR_PASSES, _qr_pass, distributed_cholesky_qr,
                    split_pad_rows)
 from .linalg import orthonormal_init
@@ -113,7 +116,6 @@ def _prepare_bdot(*, blocks, col_engines, row_engines, r, t_outer, t_c,
         raise ValueError("need one column engine per grid column and one "
                          "row engine per grid row")
     for eng in list(col_engines) + list(row_engines):
-        check_sync_engine(eng)
         if eng.device != dev:
             raise ValueError(f"engine lives on {eng.device}, run asked for "
                              f"{dev}")
@@ -185,8 +187,9 @@ def _bdot_outer_body(x_grid, w_col, tab_col, w_row, tab_row,
 
 
 def _bdot_build_body(operands, *, t_max: int, t_c_qr: int):
-    """The Program protocol's ``build_body`` for B-DOT (sync only)."""
-    return _bdot_outer_body(*operands, t_max=t_max, t_c_qr=t_c_qr)
+    """The Program protocol's ``build_body`` for B-DOT (sync engines)."""
+    return runtime.sync_body(
+        _bdot_outer_body(*operands, t_max=t_max, t_c_qr=t_c_qr))
 
 
 def bdot_program(

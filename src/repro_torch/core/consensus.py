@@ -23,7 +23,6 @@ from .topology import Graph, local_degree_weights
 __all__ = [
     "DenseConsensus",
     "SparseConsensus",
-    "check_sync_engine",
     "consensus_schedule",
     "debias_weights",
     "debias_table",
@@ -35,29 +34,22 @@ __all__ = [
 ]
 
 
-def check_sync_engine(engine) -> None:
-    """The port's algorithms take synchronous engines only so far."""
-    if hasattr(engine, "sample_awake") or hasattr(engine, "sample_faults"):
-        raise NotImplementedError(
-            "asynchronous and network-fault gossip engines come with the "
-            "straggler/fault-gossip slice of the port")
-
-
 def realized_round_weights(wz: torch.Tensor, mask: torch.Tensor,
                            off: torch.Tensor):
     """Renormalise the nominal weights over one round's surviving edges.
 
-    ``wz``: (N, N) nominal weights; ``mask``: (N, N) bool, symmetric, edge
-    survived; ``off``: (N, N) bool off-diagonal selector. Returns
-    ``(w_off, dd)``: the surviving off-diagonal weights and the diagonal
-    with every dropped weight returned to it. A node whose every link
-    dropped gets a diagonal of exactly 1.
+    ``wz``: (N, N) nominal weights; ``mask``: (..., N, N) bool, symmetric,
+    edge survived (a leading batch of rounds is one batched op); ``off``:
+    (N, N) bool off-diagonal selector. Returns ``(w_off, dd)``: the
+    surviving off-diagonal weights and the diagonal with every dropped
+    weight returned to it. A node whose every link dropped gets a diagonal
+    of exactly 1.
     """
     zero = torch.zeros((), dtype=wz.dtype, device=wz.device)
     w_off = torch.where(off & mask, wz, zero)
-    dropped = torch.where(off & ~mask, wz, zero).sum(dim=1)
-    dd = torch.diagonal(wz) + dropped
-    isolated = ~torch.any(off & mask, dim=1)
+    dropped = torch.where(off & ~mask, wz, zero).sum(dim=-1)
+    dd = torch.diagonal(wz, dim1=-2, dim2=-1) + dropped
+    isolated = ~torch.any(off & mask, dim=-1)
     return w_off, torch.where(isolated, torch.ones_like(dd), dd)
 
 

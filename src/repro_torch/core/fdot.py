@@ -1,6 +1,6 @@
 """F-DOT: feature-wise distributed orthogonal iteration (Alg. 2).
 
-The twin of ``repro/core/fdot.py`` for the synchronous engines. Node i holds
+The twin of ``repro/core/fdot.py``. Node i holds
 a feature slab X_i (d_i x n). One outer iteration:
   1. Z_i = X_i^T Q_i                              (local, n x r)
   2. consensus-average + debias -> S ~= sum_j X_j^T Q_j at every node
@@ -21,6 +21,10 @@ Execution modes (``fused`` flag, as in ``sdot.py``):
     product Q_true^T Q stays on the device until the runtime takes its SVD
     after the loop, and the ledger is priced in closed form.
     ``streaming/resume.fdot_chunked`` runs the same Program chunk by chunk.
+    Async and faulty engines gossip three times a step (the partial
+    products, then each CholeskyQR pass), each call one draw of the run's
+    key in that order; a faulty step holds one crash mask for all three
+    and freezes crashed nodes' slabs at its end.
   * eager (``fused=False``): the reference's per-iteration loop over the
     ragged slab lists, with host debias weights and one host sync per
     iteration (the error value). Its distributed QR forms each node's Gram
@@ -39,10 +43,13 @@ import torch.nn.functional as F
 from .._device import DeviceLike, resolve_device
 from ..kernels import ops as kops
 from . import runtime
-from .consensus import (DenseConsensus, check_sync_engine,
-                        consensus_schedule, debiased_gossip)
+from .async_gossip import (GossipDraws, check_draws, engine_kind,
+                           masked_async_rounds)
+from .consensus import (DenseConsensus, consensus_schedule, debias_table,
+                        debiased_gossip)
 from .linalg import orthonormal_init
 from .metrics import CommLedger, subspace_error
+from .netfaults import masked_faulty_rounds, realized_debias
 
 __all__ = ["FDOTResult", "fdot", "fdot_program", "distributed_cholesky_qr",
            "pad_feature_slabs", "unpad_feature_slabs", "split_pad_rows"]
@@ -98,18 +105,40 @@ def _cholesky_upper(gsum: torch.Tensor) -> torch.Tensor:
 def distributed_cholesky_qr(v_blocks: Sequence[torch.Tensor],
                             engine: DenseConsensus, t_c: int,
                             ledger: Optional[CommLedger] = None,
-                            passes: int = QR_PASSES) -> List[torch.Tensor]:
+                            passes: int = QR_PASSES,
+                            awake_pad: Optional[int] = None,
+                            faults_pad: Optional[int] = None,
+                            node_up=None,
+                            draws: Optional[GossipDraws] = None
+                            ) -> List[torch.Tensor]:
     """Distributed QR of row-partitioned V = [V_1; ...; V_N] by CholeskyQR.
 
     Only r x r Gram matrices cross the network. With passes=2 this is
     CholeskyQR2 and the result is orthonormal to ~machine precision. The
     eager oracle: one gossip call and one Cholesky per node per pass.
+
+    ``awake_pad``: with an async engine, each pass draws its awake masks
+    padded to (awake_pad, N), as the fused executors draw, so a seeded
+    eager run gives the fused run's rounds. ``faults_pad``/``node_up`` are
+    the network-fault twin: each pass draws padded fault blocks and
+    gossips under the iteration's crash mask. ``draws`` is where those
+    draws come from (default: the engine's stream).
     """
-    check_sync_engine(engine)
     blocks = [v.float() for v in v_blocks]
+    kind = engine_kind(engine)
+    pad = {"faulty": faults_pad, "async": awake_pad}.get(kind)
+    if pad is not None and draws is None:
+        draws = GossipDraws.of(engine)
     for _ in range(passes):
         grams = torch.stack([b.mT @ b for b in blocks])          # (N, r, r)
-        gsum = engine.run_debiased(grams, t_c, ledger)           # approx sum
+        if pad is None:
+            gsum = engine.run_debiased(grams, t_c, ledger)       # approx sum
+        else:
+            drawn, engine._key = draws.take(engine._key, pad)
+            gsum = (engine.run_debiased(grams, t_c, ledger, faults=drawn,
+                                        node_up=node_up) if kind == "faulty"
+                    else engine.run_debiased(grams, t_c, ledger,
+                                             awake=drawn))
         blocks = [torch.linalg.solve_triangular(
             _cholesky_upper(gsum[i]), b, upper=True, left=False)
             for i, b in enumerate(blocks)]
@@ -150,7 +179,6 @@ def _prepare_fdot(*, data_blocks, engine, r, t_outer, t_c, t_c_qr, schedule,
                   q_init, q_true, generator, device) -> _FDOTRun:
     """Validate and normalise an F-DOT run's inputs (shared by both modes,
     so the fused and eager runs start from the same values)."""
-    check_sync_engine(engine)
     dev = resolve_device(device)
     if engine.device != dev:
         raise ValueError(f"engine lives on {engine.device}, run asked for "
@@ -184,6 +212,12 @@ def _prepare_fdot(*, data_blocks, engine, r, t_outer, t_c, t_c_qr, schedule,
         t_max=t_max, device=dev)
 
 
+def _cross(qtrue_pad: Optional[torch.Tensor], v: torch.Tensor):
+    """Q_true^T Q over the padded slabs (None without a ground truth)."""
+    return (None if qtrue_pad is None
+            else torch.einsum("idr,ids->rs", qtrue_pad, v))
+
+
 def _fdot_outer_body(x_pad, w, table: torch.Tensor,
                      qtrue_pad: Optional[torch.Tensor], *, t_max: int,
                      t_c_qr: int):
@@ -197,16 +231,87 @@ def _fdot_outer_body(x_pad, w, table: torch.Tensor,
         v = kops.batched_slab_apply(x_pad, s)                    # (N, d_max, r)
         for _ in range(QR_PASSES):
             v = _qr_pass(w, table, v, t_c_qr, t_max)
-        cross = (None if qtrue_pad is None
-                 else torch.einsum("idr,ids->rs", qtrue_pad, v))
-        return v, cross
+        return v, _cross(qtrue_pad, v)
 
     return outer
 
 
-def _fdot_build_body(operands, *, t_max: int, t_c_qr: int):
-    """The Program protocol's ``build_body`` for F-DOT (sync engines)."""
-    return _fdot_outer_body(*operands, t_max=t_max, t_c_qr=t_c_qr)
+def _fdot_async_outer_body(x_pad, w, adj, draws: GossipDraws,
+                           qtrue_pad: Optional[torch.Tensor], *, t_max: int,
+                           t_c_qr: int):
+    """Async twin of ``_fdot_outer_body`` in the unified signature: three
+    draws of the key a step (partial products, QR pass 1, QR pass 2)."""
+
+    def gossip(key, z, t_c):
+        awake, key = draws.take(key, t_max)
+        out, sends, counts = masked_async_rounds(w, adj, awake, t_c, z)
+        return key, out, sends, counts
+
+    def outer(carry_key, t_c):
+        q_pad, key = carry_key
+        z0 = kops.batched_slab_tq(x_pad, q_pad)                  # (N, n, r)
+        key, s, sd, cnt = gossip(key, z0, t_c)
+        v = kops.batched_slab_apply(x_pad, s)                    # (N, d_max, r)
+        sends, counts = [sd], [cnt]
+        for _ in range(QR_PASSES):
+            key, gsum, sd, cnt = gossip(key, kops.gram_qr(v), t_c_qr)
+            sends.append(sd)
+            counts.append(cnt)
+            v = _solve_from_gram_sum(gsum, v)
+        return (v, key), (_cross(qtrue_pad, v), torch.stack(sends),
+                          torch.stack(counts))
+
+    return outer
+
+
+def _fdot_faulty_outer_body(x_pad, w, adj, params, node_up_sched, table,
+                            draws: GossipDraws,
+                            qtrue_pad: Optional[torch.Tensor], *,
+                            t_max: int, t_c_qr: int, debias: str):
+    """Network-fault twin: the carry is ``(q_pad, ge, t)``. Three draws a
+    step, the burst state threaded through the three gossip calls, one
+    crash mask for all three, and crashed nodes' slabs frozen at the end of
+    the step."""
+
+    def gossip(key, ge, node_up, z, t_c):
+        blocks, key = draws.take(key, t_max)
+        out, p, ge, sends, counts = masked_faulty_rounds(
+            w, adj, params, node_up, ge, blocks, t_c, z)
+        out = (realized_debias(out, p) if debias == "realized"
+               else out / table[t_c].to(out.dtype)[:, None, None])
+        return key, ge, out, sends, counts
+
+    def outer(carry_key, t_c):
+        (q_pad, ge, t), key = carry_key
+        node_up = node_up_sched[int(t)]                          # (N,)
+        z0 = kops.batched_slab_tq(x_pad, q_pad)                  # (N, n, r)
+        key, ge, s, sd, cnt = gossip(key, ge, node_up, z0, t_c)
+        v = kops.batched_slab_apply(x_pad, s)                    # (N, d_max, r)
+        sends, counts = [sd], [cnt]
+        for _ in range(QR_PASSES):
+            key, ge, gsum, sd, cnt = gossip(key, ge, node_up,
+                                            kops.gram_qr(v), t_c_qr)
+            sends.append(sd)
+            counts.append(cnt)
+            v = _solve_from_gram_sum(gsum, v)
+        q_new = torch.where(node_up[:, None, None] > 0, v, q_pad)  # freeze
+        carry = (q_new, ge, torch.tensor(int(t) + 1, dtype=torch.int32))
+        return (carry, key), (_cross(qtrue_pad, q_new), torch.stack(sends),
+                              torch.stack(counts))
+
+    return outer
+
+
+def _fdot_build_body(operands, *, t_max: int, t_c_qr: int,
+                     kind: str = "sync", debias: str = "realized"):
+    """The Program protocol's ``build_body`` for F-DOT."""
+    if kind == "faulty":
+        return _fdot_faulty_outer_body(*operands, t_max=t_max,
+                                       t_c_qr=t_c_qr, debias=debias)
+    if kind == "async":
+        return _fdot_async_outer_body(*operands, t_max=t_max, t_c_qr=t_c_qr)
+    return runtime.sync_body(
+        _fdot_outer_body(*operands, t_max=t_max, t_c_qr=t_c_qr))
 
 
 def fdot_program(
@@ -222,6 +327,7 @@ def fdot_program(
     q_true: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     device: DeviceLike = None,
+    draws: Optional[Sequence] = None,
 ) -> runtime.Program:
     """Register an F-DOT run with the runtime: ``run_monolithic`` gives
     ``fdot(fused=True)``, ``run_chunked`` its restartable twin."""
@@ -229,31 +335,68 @@ def fdot_program(
                         t_outer=t_outer, t_c=t_c, t_c_qr=t_c_qr,
                         schedule=schedule, q_init=q_init, q_true=q_true,
                         generator=generator, device=device)
+    kind = engine_kind(engine)
+    check_draws(draws, kind)
+    debias = engine.debias if kind == "faulty" else "realized"
     x_pad = pad_feature_slabs([x.to(run.device, torch.float32)
                                for x in data_blocks])     # (N, d_max, n)
     qtrue_pad = (None if run.q_true is None
                  else split_pad_rows(run.q_true, run.dims))
+    q0_pad = pad_feature_slabs(run.q_blocks)
+    key0, tail, q0 = None, (), q0_pad
+    if kind == "faulty":
+        n = engine.graph.n_nodes
+        node_up_sched = torch.as_tensor(
+            engine.faults.validate(n, t_outer).node_up(t_outer, n),
+            device=run.device)
+        table = (debias_table(engine._w, run.t_max) if debias == "nominal"
+                 else None)
+        operands = (x_pad, engine._w, engine._adj, engine._params,
+                    node_up_sched, table, GossipDraws.of(engine, draws),
+                    qtrue_pad)
+        key0, tail = engine._key, (1 + QR_PASSES, run.t_max)
+        q0 = (q0_pad, engine._ge.clone(), torch.tensor(0, dtype=torch.int32))
+    elif kind == "async":
+        operands = (x_pad, engine._w, engine._adj,
+                    GossipDraws.of(engine, draws), qtrue_pad)
+        key0, tail = engine._key, (1 + QR_PASSES, run.t_max)
+    else:
+        operands = (x_pad, engine._w, engine.debias_table(run.t_max),
+                    qtrue_pad)
 
     def finalize(state: runtime.RunState, done: int) -> FDOTResult:
         adj, bpe = engine.graph.adjacency, engine.payload_bytes_per_elem
-        ledger = CommLedger()
-        ledger.log_gossip_rounds(run.schedule[:done], adj, run.n_samples * r,
-                                 bpe)
-        ledger.log_gossip_rounds(np.full(done, QR_PASSES * run.t_c_qr), adj,
-                                 r * r, bpe)
+        if kind == "sync":
+            ledger = CommLedger()
+            ledger.log_gossip_rounds(run.schedule[:done], adj,
+                                     run.n_samples * r, bpe)
+            ledger.log_gossip_rounds(np.full(done, QR_PASSES * run.t_c_qr),
+                                     adj, r * r, bpe)
+        else:
+            if done == t_outer:
+                engine._key = state.key.clone()
+                if kind == "faulty":
+                    engine._ge = state.q[1]
+            ledger = runtime.async_ledger(
+                run.schedule[:done], state.sends[:done], state.counts[:done],
+                lambda s: (float(s[:, 0].sum()) * run.n_samples * r
+                           + float(s[:, 1:].sum()) * r * r),
+                lambda t_c_t: [((0,), t_c_t)] + [((1 + k,), run.t_c_qr)
+                                                 for k in range(QR_PASSES)])
+            if kind == "faulty":
+                ledger.payload_bytes = ledger.scalars * bpe
+        q_pad = state.q[0] if kind == "faulty" else state.q
         return FDOTResult(
-            q_blocks=unpad_feature_slabs(state.q, run.dims),
+            q_blocks=unpad_feature_slabs(q_pad, run.dims),
             error_trace=(None if run.q_true is None
                          else state.errs[:done].cpu().numpy().copy()),
             ledger=ledger)
 
     return runtime.Program(
-        build_body=_fdot_build_body,
-        operands=(x_pad, engine._w, engine.debias_table(run.t_max),
-                  qtrue_pad),
-        statics=(("t_max", run.t_max), ("t_c_qr", run.t_c_qr)),
-        xs=run.schedule, q0=pad_feature_slabs(run.q_blocks),
-        finalize=finalize)
+        build_body=_fdot_build_body, operands=operands,
+        statics=(("t_max", run.t_max), ("t_c_qr", run.t_c_qr),
+                 ("kind", kind), ("debias", debias)),
+        xs=run.schedule, q0=q0, key0=key0, tail=tail, finalize=finalize)
 
 
 def fdot(
@@ -270,6 +413,7 @@ def fdot(
     generator: Optional[torch.Generator] = None,
     fused: bool = True,
     device: DeviceLike = None,
+    draws: Optional[Sequence] = None,
 ) -> FDOTResult:
     """Run F-DOT over a simulated network (Alg. 2).
 
@@ -277,27 +421,51 @@ def fdot(
     for the partial-product phase (the QR phase keeps the constant
     ``t_c_qr``, default ``t_c``). ``generator`` draws Q_init where
     ``q_init`` is not given. ``device`` defaults to CUDA and must be the
-    engine's device.
+    engine's device. ``draws`` (async and faulty engines): one injected
+    block per gossip call, three a step in the reference's order (the
+    partial products, QR pass 1, QR pass 2).
     """
     kw = dict(data_blocks=data_blocks, engine=engine, r=r, t_outer=t_outer,
               t_c=t_c, t_c_qr=t_c_qr, schedule=schedule, q_init=q_init,
               q_true=q_true, generator=generator, device=device)
     if fused:
-        return runtime.run_monolithic(fdot_program(**kw))
+        return runtime.run_monolithic(fdot_program(**kw, draws=draws))
     run = _prepare_fdot(**kw)
+    kind = engine_kind(engine)
+    check_draws(draws, kind)
     xs = [x.to(run.device, torch.float32) for x in data_blocks]
+    source = GossipDraws.of(engine, draws) if kind != "sync" else None
+    if kind == "faulty":
+        n = engine.graph.n_nodes
+        node_up_sched = engine.faults.validate(n, t_outer).node_up(t_outer, n)
 
     ledger = CommLedger()
     errs = []
     q_blocks = run.q_blocks
     for t in range(t_outer):
+        t_c_t = int(run.schedule[t])
+        node_up = node_up_sched[t] if kind == "faulty" else None
         # steps 1-2: consensus over the (n x r) partial products
         z0 = torch.stack([x.mT @ q for x, q in zip(xs, q_blocks)])
-        s = engine.run_debiased(z0, int(run.schedule[t]), ledger)
+        if kind == "sync":
+            s = engine.run_debiased(z0, t_c_t, ledger)
+        else:
+            drawn, engine._key = source.take(engine._key, run.t_max)
+            s = (engine.run_debiased(z0, t_c_t, ledger, faults=drawn,
+                                     node_up=node_up) if kind == "faulty"
+                 else engine.run_debiased(z0, t_c_t, ledger, awake=drawn))
         # step 3: local expansion; step 4: distributed orthonormalisation
         v_blocks = [x @ s[i] for i, x in enumerate(xs)]
-        q_blocks = distributed_cholesky_qr(v_blocks, engine, run.t_c_qr,
-                                           ledger)
+        pad = run.t_max if kind != "sync" else None
+        new_blocks = distributed_cholesky_qr(
+            v_blocks, engine, run.t_c_qr, ledger, awake_pad=pad,
+            faults_pad=pad, node_up=node_up, draws=source)
+        if kind == "faulty":
+            # crashed nodes freeze their slab for the iteration
+            new_blocks = [nb if node_up[i] > 0 else qb
+                          for i, (nb, qb) in enumerate(zip(new_blocks,
+                                                           q_blocks))]
+        q_blocks = new_blocks
         if run.q_true is not None:
             errs.append(float(subspace_error(run.q_true,
                                              torch.cat(q_blocks))))

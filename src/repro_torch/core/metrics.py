@@ -83,7 +83,8 @@ class CommLedger:
     p2p          : point-to-point messages, total over nodes
     matrices     : number of d-x-r matrix sends (the paper's 'unit' cost)
     scalars      : payload element count actually moved
-    awake_counts : per-round awake-node counts (empty for synchronous runs)
+    awake_counts : per-round awake-node counts logged by async and faulty
+                   engines (empty for synchronous runs)
     payload_bytes: ``scalars`` priced at the engine's payload element width
                    (4 for f32 gossip, 2 for bf16 payloads)
     """
@@ -93,6 +94,17 @@ class CommLedger:
     scalars: float = 0.0
     awake_counts: list = dataclasses.field(default_factory=list)
     payload_bytes: float = 0.0
+
+    def log_awake_rounds(self, counts) -> None:
+        """Record realized per-round awake-node counts (async gossip)."""
+        if isinstance(counts, torch.Tensor):
+            counts = counts.cpu().numpy()
+        self.awake_counts.extend(int(c) for c in np.asarray(counts).ravel())
+
+    def mean_awake(self) -> float:
+        """Mean awake nodes per round over the logged async rounds."""
+        return (float(np.mean(self.awake_counts)) if self.awake_counts
+                else float("nan"))
 
     def log_gossip_round(self, adjacency: np.ndarray, payload_elems: int,
                          bytes_per_elem: float = 4.0) -> None:

@@ -14,12 +14,18 @@ any Program:
 A Program is ``(build_body, operands, statics, xs, q0, ...)``:
 
 * ``build_body(operands, **statics) -> body`` is a module-level builder
-  returning one outer step ``body(carry, t_c) -> (carry', cross)``.
+  returning one outer step, the unified body
+  ``body((carry, key), t_c) -> ((carry', key'), (cross, sends, counts))``.
   ``carry`` is the family's iterate (an (N, d, r) stack for S-DOT, padded
-  slabs for F-DOT/B-DOT). ``cross`` is the step's Q_true^T Q cross
-  products (..., r, r), or None without a ground truth. Only synchronous
-  engines run here; the asynchronous RNG key and per-round sends/counts
-  come with the straggler slice (ROADMAP queue 1, item 8).
+  slabs for F-DOT/B-DOT, an (iterate, Gilbert-Elliott state, step) triple
+  for the net-fault programs). ``cross`` is the step's Q_true^T Q cross
+  products (..., r, r), or None without a ground truth. Synchronous
+  families lift a body ``(carry, t_c) -> (carry', cross)`` through
+  ``sync_body``: the key threads through untouched and sends/counts are
+  None. Asynchronous and faulty families take their draws from the key
+  (``async_gossip.GossipDraws``: the (2,) int64 ``[seed, counter]``) and
+  return their realized per-round sends and awake counts, each of shape
+  ``Program.tail``.
 * ``xs`` is the host-side schedule: step t runs exactly ``xs[t]`` gossip
   rounds, as the reference's masked scan does.
 
@@ -49,10 +55,23 @@ import torch
 from .. import _tree
 from ..checkpoint.manager import CheckpointManager
 from ..obs import get_journal
-from .metrics import subspace_error_from_cross
+from .metrics import CommLedger, subspace_error_from_cross
 
-__all__ = ["RunState", "Program", "run_monolithic", "run_chunked",
-           "run_sweep", "async_ledger"]
+__all__ = ["RunState", "Program", "sync_body", "step_errors",
+           "run_monolithic", "run_chunked", "run_sweep", "async_ledger"]
+
+
+def sync_body(inner: Callable) -> Callable:
+    """Lift a synchronous outer body ``(carry, t_c) -> (carry', cross)``
+    into the unified signature: the key threads through untouched and the
+    step has no sends or counts."""
+
+    def body(carry_key, t_c):
+        carry, key = carry_key
+        carry, cross = inner(carry, t_c)
+        return (carry, key), (cross, None, None)
+
+    return body
 
 
 @dataclasses.dataclass
@@ -61,16 +80,20 @@ class RunState:
 
     The leaves keep the reference's order and names (``0`` ... ``5`` in a
     checkpoint), so the port restores a step the reference wrote for a sync
-    run and the reverse. ``key``, ``sends`` and ``counts`` hold the zeros
-    the reference writes for a sync run; nothing here changes them.
+    run and the reverse. A sync run's ``key``, ``sends`` and ``counts`` are
+    the zeros the reference writes (() uint32, (T_o,), (T_o,)). An async
+    run's key is the port's own (2,) int64 ``[seed, counter]``, and its
+    sends and counts are (T_o, *tail): the realized ledger survives a
+    crash. A reference async checkpoint, whose key is a JAX key, is
+    refused.
     """
 
     q: Any                    # the family's carry (iterate, slabs, ...)
-    key: torch.Tensor         # () uint32 zeros on the host (async RNG slot)
+    key: torch.Tensor         # host: () uint32 zeros, or (2,) int64 key
     step: torch.Tensor        # () int32 on the host: outer steps completed
     errs: torch.Tensor        # (T_o,) f32 error trace
-    sends: torch.Tensor       # (T_o,) f32 zeros (async per-round sends)
-    counts: torch.Tensor      # (T_o,) f32 zeros (async awake counts)
+    sends: torch.Tensor       # (T_o, *tail) f32 per-round sends
+    counts: torch.Tensor      # (T_o, *tail) f32 per-round awake counts
 
 
 _tree.register_node(
@@ -93,6 +116,8 @@ class Program:
     statics: Tuple            # ((name, value), ...) for build_body
     xs: np.ndarray            # (T_o,) host-side schedule
     q0: Any                   # initial carry
+    key0: Optional[torch.Tensor] = None   # async key; None: a sync run
+    tail: Tuple[int, ...] = ()            # per-step sends/counts shape
     finalize: Optional[Callable] = None   # (state, done) -> family result
     restored_step: int = 0    # set by the driver: the step restored from
                               # the manager (0 = fresh start)
@@ -102,7 +127,7 @@ class Program:
         return int(self.xs.shape[-1])
 
 
-def _step_errors(crosses: List[torch.Tensor]) -> torch.Tensor:
+def step_errors(crosses: List[torch.Tensor]) -> torch.Tensor:
     """Each step's error: eq. (11) of its cross products, averaged over
     them (over the nodes for S-DOT; F-DOT/B-DOT have one). One SVD call for
     the chunk; the node mean adds the nodes' columns one at a time, element
@@ -119,29 +144,38 @@ def _step_errors(crosses: List[torch.Tensor]) -> torch.Tensor:
 
 def _chunk(state: RunState, body: Callable, xs: np.ndarray) -> RunState:
     """Advance ``state`` by ``len(xs)`` steps of ``body``."""
-    carry = state.q
-    crosses = []
+    carry, key = state.q, state.key
+    crosses, sends, counts = [], [], []
     for x in xs:
-        carry, cross = body(carry, int(x))
+        (carry, key), (cross, s, c) = body((carry, key), int(x))
         if cross is not None:
             crosses.append(cross)
+        if s is not None:
+            sends.append(s)
+            counts.append(c)
     begin = int(state.step)
     end = begin + len(xs)
     if crosses:
-        state.errs[begin:end] = _step_errors(crosses).to(state.errs.device)
-    return dataclasses.replace(state, q=carry,
+        state.errs[begin:end] = step_errors(crosses).to(state.errs.device)
+    if sends:
+        state.sends[begin:end] = torch.stack(sends)
+        state.counts[begin:end] = torch.stack(counts)
+    return dataclasses.replace(state, q=carry, key=key,
                                step=torch.tensor(end, dtype=torch.int32))
 
 
 def _init_state(program: Program) -> RunState:
     dev = _tree.tree_leaves(program.q0)[0].device
-    t_outer = program.t_outer
+    shape = (program.t_outer,) + tuple(program.tail)
     return RunState(
-        q=program.q0, key=torch.zeros((), dtype=torch.uint32),
+        q=program.q0,
+        key=(torch.zeros((), dtype=torch.uint32) if program.key0 is None
+             else program.key0.clone()),
         step=torch.zeros((), dtype=torch.int32),
-        errs=torch.zeros((t_outer,), dtype=torch.float32, device=dev),
-        sends=torch.zeros((t_outer,), dtype=torch.float32, device=dev),
-        counts=torch.zeros((t_outer,), dtype=torch.float32, device=dev))
+        errs=torch.zeros((program.t_outer,), dtype=torch.float32,
+                         device=dev),
+        sends=torch.zeros(shape, dtype=torch.float32, device=dev),
+        counts=torch.zeros(shape, dtype=torch.float32, device=dev))
 
 
 def _restore_any(manager: Optional[CheckpointManager], like: RunState):
@@ -161,6 +195,17 @@ def _restore_any(manager: Optional[CheckpointManager], like: RunState):
         # buffers of other shapes: never resume into those
         if all(a.shape == b.shape for a, b in zip(
                 _tree.tree_leaves(state), _tree.tree_leaves(like))):
+            if state.key.dtype != like.key.dtype:
+                # same shapes, another key: the reference's (2,) uint32
+                # JAX key, whose stream the port cannot continue
+                raise ValueError(
+                    f"checkpoint step {step} in {manager.root} holds a "
+                    f"{state.key.dtype} RNG key of shape "
+                    f"{tuple(state.key.shape)}, not the port's "
+                    f"{like.key.dtype} [seed, counter]: an async run of the "
+                    "JAX reference, whose jax.random stream the port cannot "
+                    "continue; resume it with the reference or start this "
+                    "run in a fresh directory")
             return state
     if steps:
         warnings.warn(
@@ -254,7 +299,25 @@ def run_sweep(*args, **kwargs):
         "queue 1, item 12)")
 
 
-def async_ledger(*args, **kwargs):
-    raise NotImplementedError(
-        "the realized ledger of asynchronous gossip comes with the "
-        "straggler/fault-gossip slice of the port (ROADMAP queue 1, item 8)")
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def async_ledger(sched_np, sends, counts, payload_fn, slices) -> CommLedger:
+    """Rebuild the realized async ledger from the RunState buffers.
+
+    ``payload_fn(sends)`` prices the (T, *tail) float64 sends in payload
+    elements; ``slices(t_c)`` lists the (index into a step's counts, live
+    rounds) pairs of a step that ran ``t_c`` rounds, in gossip-call order.
+    """
+    ledger = CommLedger()
+    sends_np = _host(sends).astype(np.float64)
+    counts_np = _host(counts)
+    total = float(sends_np.sum())
+    ledger.p2p += total
+    ledger.matrices += total
+    ledger.scalars += payload_fn(sends_np)
+    for t in range(len(sched_np)):
+        for sl, rounds in slices(int(sched_np[t])):
+            ledger.log_awake_rounds(counts_np[t][sl][:rounds])
+    return ledger

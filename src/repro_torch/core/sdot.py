@@ -1,6 +1,6 @@
 """S-DOT and SA-DOT: sample-wise distributed orthogonal iteration (Alg. 1).
 
-The twin of ``repro/core/sdot.py`` for the synchronous engines. The two
+The twin of ``repro/core/sdot.py``. The two
 algorithms share one implementation and differ only in the consensus budget
 ``schedule`` (constant for S-DOT, increasing for SA-DOT).
 
@@ -18,8 +18,21 @@ Execution modes (``fused`` flag):
     The schedule is host data, so each outer iteration runs exactly
     ``schedule[t]`` rounds. ``streaming/resume.sdot_chunked`` runs the same
     Program chunk by chunk with checkpoints.
+    With an ``AsyncConsensus`` engine each step draws its (t_max, N) awake
+    block from the run's key and runs realized-matrix gossip with the exact
+    realized debias; with a ``FaultyConsensus`` engine it draws its fault
+    blocks, reads its crash mask from the step counter in the carry, and
+    freezes crashed nodes' iterates. Their per-round sends and awake counts
+    stay on the device in the ``RunState`` until ``finalize`` prices the
+    realized ledger.
   * eager (``fused=False``): the reference's loop, with the host debias
-    weights and one host sync per iteration (the error value).
+    weights and one host sync per iteration (the error value). Async and
+    faulty engines draw with the fused run's padded shape, so a seeded
+    eager run gives the fused run's bits.
+
+``draws`` (async and faulty engines): one injected awake or fault block
+per outer step in place of the engine's stream (the parity tests pass the
+reference's own draws).
 """
 from __future__ import annotations
 
@@ -33,10 +46,13 @@ import torch.nn.functional as F
 from .._device import DeviceLike, resolve_device
 from ..kernels import ops as kops
 from . import runtime
-from .consensus import (DenseConsensus, check_sync_engine,
-                        consensus_schedule, debiased_gossip)
+from .async_gossip import (GossipDraws, check_draws, engine_kind,
+                           masked_async_rounds)
+from .consensus import (DenseConsensus, consensus_schedule, debias_table,
+                        debiased_gossip)
 from .linalg import cholesky_qr2, orthonormal_init
-from .metrics import CommLedger, subspace_error_from_cross
+from .metrics import CommLedger
+from .netfaults import masked_faulty_rounds, realized_debias
 
 __all__ = ["SDOTResult", "sdot", "sadot", "sdot_program", "local_cov_apply"]
 
@@ -85,7 +101,6 @@ def _apply_operand(operand, mode: str, q_nodes: torch.Tensor) -> torch.Tensor:
 def _prepare_sdot(*, covs, data, engine, r, t_outer, schedule, t_c, q_init,
                   q_true, generator, device):
     """Validate and normalise a run's inputs into device-ready pieces."""
-    check_sync_engine(engine)
     if (covs is None) == (data is None):
         raise ValueError("provide exactly one of covs / data")
     dev = resolve_device(device)
@@ -121,6 +136,10 @@ def _prepare_sdot(*, covs, data, engine, r, t_outer, schedule, t_c, q_init,
     return operand, mode, q_nodes, sched, q_true, d
 
 
+def _cross(q_true: Optional[torch.Tensor], q_new: torch.Tensor):
+    return None if q_true is None else q_true.mT @ q_new
+
+
 def _sync_outer_body(operand, w, table: torch.Tensor,
                      q_true: Optional[torch.Tensor], *, mode: str,
                      t_max: int):
@@ -132,14 +151,65 @@ def _sync_outer_body(operand, w, table: torch.Tensor,
         z0 = _apply_operand(operand, mode, q_nodes)              # (N, d, r)
         v = debiased_gossip(w, table, z0, t_c, t_max)
         q_new = cholesky_qr2(v)[0]                               # per node
-        return q_new, None if q_true is None else q_true.mT @ q_new
+        return q_new, _cross(q_true, q_new)
 
     return outer
 
 
-def _sdot_build_body(operands, *, mode: str, t_max: int):
+def _async_outer_body(operand, w, adj, draws: GossipDraws, q_true, *,
+                      mode: str, t_max: int):
+    """Async twin of ``_sync_outer_body`` in the unified signature: each
+    step takes its (t_max, N) awake block from the key and runs
+    realized-matrix gossip."""
+
+    def outer(carry_key, t_c):
+        q_nodes, key = carry_key
+        awake, key = draws.take(key, t_max)
+        z0 = _apply_operand(operand, mode, q_nodes)              # (N, d, r)
+        v, sends, counts = masked_async_rounds(w, adj, awake, t_c, z0)
+        q_new = cholesky_qr2(v)[0]
+        return (q_new, key), (_cross(q_true, q_new), sends, counts)
+
+    return outer
+
+
+def _faulty_outer_body(operand, w, adj, params, node_up_sched, table,
+                       draws: GossipDraws, q_true, *, mode: str, t_max: int,
+                       debias: str):
+    """Network-fault twin: the carry is ``(q_nodes, ge, t)`` (the iterate,
+    the Gilbert-Elliott state, the step counter that selects the crash
+    mask of ``node_up_sched``). Crashed nodes' iterates are frozen, so on
+    rejoin they re-sync through ordinary gossip. ``debias``: "realized"
+    divides by the carried realized product, "nominal" by the fault-free
+    table row."""
+
+    def outer(carry_key, t_c):
+        (q_nodes, ge, t), key = carry_key
+        blocks, key = draws.take(key, t_max)
+        node_up = node_up_sched[int(t)]                          # (N,)
+        z0 = _apply_operand(operand, mode, q_nodes)              # (N, d, r)
+        z, p, ge_new, sends, counts = masked_faulty_rounds(
+            w, adj, params, node_up, ge, blocks, t_c, z0)
+        v = (realized_debias(z, p) if debias == "realized"
+             else z / table[t_c].to(z.dtype)[:, None, None])
+        up = node_up[:, None, None] > 0
+        q_new = torch.where(up, cholesky_qr2(v)[0], q_nodes)     # freeze
+        carry = (q_new, ge_new, torch.tensor(int(t) + 1, dtype=torch.int32))
+        return (carry, key), (_cross(q_true, q_new), sends, counts)
+
+    return outer
+
+
+def _sdot_build_body(operands, *, mode: str, t_max: int, kind: str = "sync",
+                     debias: str = "realized"):
     """The Program protocol's ``build_body`` for S-DOT/SA-DOT."""
-    return _sync_outer_body(*operands, mode=mode, t_max=t_max)
+    if kind == "faulty":
+        return _faulty_outer_body(*operands, mode=mode, t_max=t_max,
+                                  debias=debias)
+    if kind == "async":
+        return _async_outer_body(*operands, mode=mode, t_max=t_max)
+    return runtime.sync_body(
+        _sync_outer_body(*operands, mode=mode, t_max=t_max))
 
 
 def sdot_program(
@@ -155,6 +225,7 @@ def sdot_program(
     q_true: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     device: DeviceLike = None,
+    draws: Optional[Sequence] = None,
 ) -> runtime.Program:
     """Register an S-DOT/SA-DOT run with the runtime: ``run_monolithic``
     gives ``sdot(fused=True)``, ``run_chunked`` its restartable twin. Built
@@ -164,22 +235,60 @@ def sdot_program(
         schedule=schedule, t_c=t_c, q_init=q_init, q_true=q_true,
         generator=generator, device=device)
     t_max = int(sched.max()) if t_outer else 0
+    kind = engine_kind(engine)
+    check_draws(draws, kind)
+    debias = engine.debias if kind == "faulty" else "realized"
+    payload = d * r
+    key0, tail, q0 = None, (), q_nodes
+    if kind == "faulty":
+        n = engine.graph.n_nodes
+        node_up_sched = torch.as_tensor(
+            engine.faults.validate(n, t_outer).node_up(t_outer, n),
+            device=q_nodes.device)
+        table = (debias_table(engine._w, t_max) if debias == "nominal"
+                 else None)
+        operands = (operand, engine._w, engine._adj, engine._params,
+                    node_up_sched, table, GossipDraws.of(engine, draws),
+                    q_true)
+        key0, tail = engine._key, (t_max,)
+        q0 = (q_nodes, engine._ge.clone(), torch.tensor(0, dtype=torch.int32))
+    elif kind == "async":
+        operands = (operand, engine._w, engine._adj,
+                    GossipDraws.of(engine, draws), q_true)
+        key0, tail = engine._key, (t_max,)
+    else:
+        operands = (operand, engine._w, engine.debias_table(t_max), q_true)
 
     def finalize(state: runtime.RunState, done: int) -> SDOTResult:
-        ledger = CommLedger()
-        ledger.log_gossip_rounds(sched[:done], engine.graph.adjacency, d * r,
-                                 engine.payload_bytes_per_elem)
+        if kind == "sync":
+            ledger = CommLedger()
+            ledger.log_gossip_rounds(sched[:done], engine.graph.adjacency,
+                                     payload, engine.payload_bytes_per_elem)
+        else:
+            if done == t_outer:
+                # the engine's stream (and burst state) where an eager run
+                # leaves them
+                engine._key = state.key.clone()
+                if kind == "faulty":
+                    engine._ge = state.q[1]
+            ledger = runtime.async_ledger(
+                sched[:done], state.sends[:done], state.counts[:done],
+                lambda s: float(s.sum()) * payload,
+                lambda t_c_t: [(slice(None), t_c_t)])
+            if kind == "faulty":
+                ledger.payload_bytes = (ledger.scalars
+                                        * engine.payload_bytes_per_elem)
         return SDOTResult(
-            q_nodes=state.q,
+            q_nodes=state.q[0] if kind == "faulty" else state.q,
             error_trace=(None if q_true is None
                          else state.errs[:done].cpu().numpy().copy()),
             consensus_trace=sched[:done], ledger=ledger)
 
     return runtime.Program(
-        build_body=_sdot_build_body,
-        operands=(operand, engine._w, engine.debias_table(t_max), q_true),
-        statics=(("mode", mode), ("t_max", t_max)),
-        xs=sched, q0=q_nodes, finalize=finalize)
+        build_body=_sdot_build_body, operands=operands,
+        statics=(("mode", mode), ("t_max", t_max), ("kind", kind),
+                 ("debias", debias)),
+        xs=sched, q0=q0, key0=key0, tail=tail, finalize=finalize)
 
 
 def sdot(
@@ -196,29 +305,55 @@ def sdot(
     generator: Optional[torch.Generator] = None,
     fused: bool = True,
     device: DeviceLike = None,
+    draws: Optional[Sequence] = None,
 ) -> SDOTResult:
     """Run S-DOT / SA-DOT over a simulated network.
 
     Exactly one of ``covs`` (N, d, d) or ``data`` (list of (d, n_i)) must be
     given. ``schedule`` overrides ``t_c`` (constant) and makes this SA-DOT.
     ``generator`` draws Q_init where ``q_init`` is not given. ``device``
-    defaults to CUDA and must be the engine's device.
+    defaults to CUDA and must be the engine's device. ``draws``: one
+    injected awake or fault block per outer step (async and faulty
+    engines).
     """
     kw = dict(covs=covs, data=data, engine=engine, r=r, t_outer=t_outer,
               schedule=schedule, t_c=t_c, q_init=q_init, q_true=q_true,
               generator=generator, device=device)
     if fused:
-        return runtime.run_monolithic(sdot_program(**kw))
+        return runtime.run_monolithic(sdot_program(**kw, draws=draws))
     operand, mode, q_nodes, sched, q_true, d = _prepare_sdot(**kw)
+    kind = engine_kind(engine)
+    check_draws(draws, kind)
+    t_max = int(sched.max()) if t_outer else 0
+    if kind != "sync":
+        source = GossipDraws.of(engine, draws)
+    if kind == "faulty":
+        n = engine.graph.n_nodes
+        node_up_sched = engine.faults.validate(n, t_outer).node_up(t_outer, n)
     ledger = CommLedger()
     errs = []
     for t in range(t_outer):
+        t_c_t = int(sched[t])
         z0 = _apply_operand(operand, mode, q_nodes)               # (N, d, r)
-        v = engine.run_debiased(z0, int(sched[t]), ledger)
-        q_nodes = cholesky_qr2(v)[0]                              # per node
+        if kind == "sync":
+            q_nodes = cholesky_qr2(engine.run_debiased(z0, t_c_t, ledger))[0]
+        else:
+            # the fused run's padded draw, so a seeded eager run gives its
+            # bits
+            blocks, engine._key = source.take(engine._key, t_max)
+            if kind == "async":
+                v = engine.run_debiased(z0, t_c_t, ledger, awake=blocks)
+                q_nodes = cholesky_qr2(v)[0]
+            else:
+                node_up = node_up_sched[t]
+                v = engine.run_debiased(z0, t_c_t, ledger, faults=blocks,
+                                        node_up=node_up)
+                up = torch.as_tensor(node_up > 0,
+                                     device=q_nodes.device)[:, None, None]
+                q_nodes = torch.where(up, cholesky_qr2(v)[0], q_nodes)
         if q_true is not None:
-            errs.append(float(subspace_error_from_cross(
-                q_true.mT @ q_nodes).mean()))
+            errs.append(float(runtime.step_errors(
+                [q_true.mT @ q_nodes])[0]))
     return SDOTResult(
         q_nodes=q_nodes,
         error_trace=None if q_true is None else np.asarray(errs, np.float64),

@@ -228,14 +228,34 @@ def test_fdot_rejects_short_schedule_and_async_engines(fprob):
             tfdot.fdot(engine=st["engine"], schedule=np.array([5, 5]),
                        fused=fused, **kw)
 
-    class Straggler:
-        graph, device = st["engine"].graph, st["engine"].device
-
-        def sample_awake(self, *a, **k):
-            raise AssertionError("never reached")
-
-    with pytest.raises(NotImplementedError, match="slice"):
-        tfdot.fdot(engine=Straggler(), **kw)
+    # async engines run now: fed the reference's own masks (three key
+    # splits a step), F-DOT gives the reference's run; draws are refused
+    # for a sync engine and when too few are given
+    from repro.core.async_gossip import AsyncConsensus as JAsync
+    from repro_torch.core.async_gossip import AsyncConsensus
+    p_awake = np.full(p["n_nodes"], 0.8)
+    ref = jfdot.fdot(data_blocks=p["blocks"], r=p["r"], t_outer=6, t_c=15,
+                     engine=JAsync(p["graph"], p_awake, seed=1),
+                     q_init=p["q_init"], q_true=p["q_true"])
+    key, draws = jax.random.PRNGKey(1), []
+    for _ in range(3 * 6):
+        key, sub = jax.random.split(key)
+        draws.append(np.asarray(jax.random.bernoulli(
+            sub, jnp.asarray(p_awake, jnp.float32), (15, p["n_nodes"]))))
+    st = _port(p["graph"], p["blocks"], p["q_init"], p["q_true"])
+    kw = dict(kw, t_outer=6, t_c=15, q_init=st["q_init"],
+              q_true=st["q_true"])
+    with pytest.raises(ValueError, match="synchronous"):
+        tfdot.fdot(engine=st["engine"], draws=draws, **kw)
+    with pytest.raises(ValueError, match="injected draw"):
+        tfdot.fdot(engine=AsyncConsensus(st["graph"], p_awake, seed=1,
+                                         device="cpu"), draws=draws[:5], **kw)
+    port = tfdot.fdot(engine=AsyncConsensus(st["graph"], p_awake, seed=1,
+                                            device="cpu"), draws=draws, **kw)
+    _assert_parity(port, ref)
+    for field in ("p2p", "matrices", "scalars"):
+        assert getattr(port.ledger, field) == getattr(ref.ledger, field)
+    assert port.ledger.awake_counts == ref.ledger.awake_counts
 
 
 def test_fdot_pad_helpers_match_reference(fprob):

@@ -1,8 +1,10 @@
 """The port's Hopper kernels on the card: each against its plain version;
 S-DOT, F-DOT, B-DOT and the LM prefill on the card against the same runs on
 the CPU; decode on the card against prefill on the card; a killed and
-resumed chunked S-DOT run against the uninterrupted one, bit for bit; and,
-last, the f32 forward repeated after all of that in the same process.
+resumed chunked S-DOT run against the uninterrupted one, bit for bit; the
+ELL kernel under a faulty round's operands, and async and faulty gossip and
+S-DOT on the card against the CPU on the same draws; and, last, the f32
+forward repeated after all of that in the same process.
 
 Every test here needs an NVIDIA H100 with nvcc and skips elsewhere. This
 file imports neither JAX nor the reference package, so it runs on a machine
@@ -894,6 +896,183 @@ def test_ell_bf16_round_is_one_launch(cuda_device):
     kernels = [e.key for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert kernels and all("ell_spmm" in k for k in kernels), kernels
+
+
+# ---------------------------------------------------------------------------
+# straggler and network-fault gossip on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("payload", [None, "bfloat16"])
+@pytest.mark.parametrize("kind", ["ws", "ring"])
+def test_ell_kernel_under_faulty_round_operands(cuda_device, kind, payload):
+    """A faulty round hands the ELL kernel per-round slot weights (masked
+    at random, every slot of some rows), a zero diagonal and messages with
+    rejected senders zeroed: within ELL's 1e-6 of the plain version, the
+    fully masked rows exactly 0, one launch a round."""
+    g = (topology.watts_strogatz(4096, k=6, p=0.1, seed=1) if kind == "ws"
+         else topology.ring(4096))
+    sw = SparseW.from_graph(g, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    zero = torch.zeros_like(sw.diag)
+    for _ in range(4):
+        z = torch.randn((4096, 3920), generator=gen, device=cuda_device)
+        z[torch.rand(4096, generator=gen, device=cuda_device) < 0.05] = 0.0
+        keep = torch.rand(sw.ell_val.shape, generator=gen,
+                          device=cuda_device) < 0.6
+        keep[:100] = False
+        val = torch.where(keep, sw.ell_val, 0.0)
+        before = ops.LAUNCHES["ell_spmm"]
+        got = ops.ell_spmm(sw.ell_idx, val, zero, z, payload_dtype=payload,
+                           window=sw.window)
+        assert ops.LAUNCHES["ell_spmm"] == before + 1
+        z_src = z if payload is None else z.to(torch.bfloat16)
+        want = ref.ell_spmm_ref(sw.ell_idx, val, zero, z, z_src)
+        assert float((got - want).abs().max()) <= 1e-6 * float(
+            want.abs().max()) + 1e-7
+        assert bool((got[:100] == 0).all())
+
+
+def _fault_inputs(n, t, seed):
+    from repro_torch.core.netfaults import sample_fault_blocks
+    return sample_fault_blocks(torch.Generator().manual_seed(seed), n, t)
+
+
+@pytest.mark.parametrize("mode", ["scale", "nan"])
+def test_faulty_dense_round_on_card_matches_cpu(cuda_device, mode):
+    """A dense faulty engine on the card and on the CPU, fed the same
+    draws: the same masks (burst state, sends, up counts) and the mixed
+    stack within 1e-5."""
+    from repro_torch.core.metrics import CommLedger
+    from repro_torch.core.netfaults import FaultyConsensus, NetFaultModel
+    g = topology.erdos_renyi(20, 0.25, seed=1)
+    model = NetFaultModel(p_drop=0.2, p_bad=0.05, p_good=0.5, p_corrupt=0.1,
+                          corrupt_mode=mode)
+    z = torch.randn((20, 1024, 7), generator=torch.Generator().manual_seed(1))
+    node_up = np.ones(20, np.float32)
+    node_up[0] = 0.0
+    out, ge, ledgers = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = FaultyConsensus(g, model, seed=7, device=dev)
+        ledgers[dev] = CommLedger()
+        for call in range(3):
+            out[dev] = eng.run_debiased(z.to(dev), 50, ledgers[dev],
+                                        faults=_fault_inputs(20, 50, call),
+                                        node_up=node_up)
+        ge[dev] = eng._ge.cpu()
+    assert torch.equal(ge["cpu"], ge["cuda"])
+    assert ledgers["cpu"] == ledgers["cuda"]
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_sparse_faulty_round_on_card_matches_cpu(cuda_device):
+    """The ELL faulty rounds (watts_strogatz(4096), one ELL launch a round)
+    on the card against the CPU on the same slot-form draws, f32 and bf16
+    messages: the same masks (burst state, sends, up counts) and the
+    realized column within 1e-5; the mixed stack within 1e-5 in f32. With
+    bf16 messages the two sides round the same f32 values alike, but those
+    differ in their last bits, so a message near a rounding boundary can
+    land one bf16 ulp (2^-8 of it) apart in a round: 20 rounds, at most
+    20 x 2^-8 of max |z|. (The debiased output is not compared: at the
+    edge of the realized product's reach, 20 rounds from node 0, it
+    divides by values near the 1e-6 clamp.)"""
+    from repro_torch.core.netfaults import (FaultyConsensus, NetFaultModel,
+                                            masked_faulty_rounds)
+    g = topology.watts_strogatz(4096, k=6, p=0.1, seed=1)
+    model = NetFaultModel(p_drop=0.2, p_bad=0.05, p_good=0.5)
+    z = torch.randn((4096, 784, 5), generator=torch.Generator().manual_seed(2))
+    node_up = torch.ones(4096)
+    node_up[7] = 0.0
+    for payload in (None, "bfloat16"):
+        draws = FaultyConsensus(g, model, seed=7, device="cpu")._draw(0, 20)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            eng = FaultyConsensus(g, model, seed=7, payload_dtype=payload,
+                                  device=dev)
+            assert eng.is_sparse
+            before = ops.LAUNCHES["ell_spmm"]
+            out[dev] = masked_faulty_rounds(
+                eng._w, eng._adj, eng._params, node_up.to(dev), eng._ge,
+                eng._prepare(draws), 20, z.to(dev))
+            if dev == "cuda":
+                assert ops.LAUNCHES["ell_spmm"] == before + 20
+        (z_c, p_c, ge_c, s_c, n_c), (z_g, p_g, ge_g, s_g, n_g) = (
+            out["cpu"], [t.cpu() for t in out["cuda"]])
+        assert torch.equal(ge_c, ge_g) and torch.equal(s_c, s_g)
+        assert torch.equal(n_c, n_g)
+        if payload is None:
+            torch.testing.assert_close(z_g, z_c, rtol=1e-5, atol=1e-5)
+        else:
+            assert float((z_g - z_c).abs().max()) <= 20 * 2.0 ** -8 * float(
+                z_c.abs().max())
+        torch.testing.assert_close(p_g, p_c, rtol=1e-5, atol=1e-7)
+
+
+def test_async_round_on_card_matches_cpu(cuda_device):
+    from repro_torch.core.async_gossip import AsyncConsensus
+    from repro_torch.core.metrics import CommLedger
+    g = topology.erdos_renyi(20, 0.25, seed=1)
+    p_awake = np.full(20, 0.8)
+    p_awake[0] = 1 / 11
+    awake = torch.rand((50, 20), generator=torch.Generator().manual_seed(4))
+    awake = awake < torch.as_tensor(p_awake, dtype=torch.float32)
+    z = torch.randn((20, 1024, 7), generator=torch.Generator().manual_seed(5))
+    out, ledgers = {}, {}
+    for dev in ("cpu", "cuda"):
+        ledgers[dev] = CommLedger()
+        out[dev] = AsyncConsensus(g, p_awake, device=dev).run_debiased(
+            z.to(dev), 50, ledgers[dev], awake=awake)
+    assert ledgers["cpu"] == ledgers["cuda"]
+    torch.testing.assert_close(out["cuda"].cpu(), out["cpu"], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["async", "faulty"])
+def test_async_and_faulty_sdot_on_card_match_cpu(cuda_device, kind):
+    """S-DOT over async and faulty engines on the card against the CPU on
+    the same injected draws; on the card the fused run equals the eager
+    one bit for bit, and its loop never waits for the device."""
+    from repro_torch.core.async_gossip import AsyncConsensus
+    from repro_torch.core.netfaults import FaultyConsensus, NetFaultModel
+    d, r, n, t_outer, t_c = 48, 4, 10, 12, 30
+    g = topology.erdos_renyi(n, 0.5, seed=1)
+    model = NetFaultModel(p_drop=0.2, p_bad=0.05, p_good=0.5, p_corrupt=0.05,
+                          corrupt_mode="nan", crash_windows=((0, 3, 3),))
+
+    def engine(dev):
+        return (AsyncConsensus(g, 0.7, seed=3, device=dev) if kind == "async"
+                else FaultyConsensus(g, model, seed=3, device=dev))
+
+    draws = [engine("cpu")._draw(k, t_c) for k in range(t_outer)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        x, _, _ = gaussian_eigengap_data(d, n * 300, r, 0.7, seed=0,
+                                         device=dev)
+        blocks = partition_samples(x, n)
+        m = sum(b @ b.T / b.shape[1] for b in blocks)
+        kw = dict(data=blocks, r=r, t_outer=t_outer, t_c=t_c,
+                  q_init=orthonormal_init(torch.Generator().manual_seed(0),
+                                          d, r, device=dev),
+                  q_true=torch.linalg.eigh(m)[1][:, -r:], device=dev,
+                  draws=draws)
+        runs[dev] = sdot(engine=engine(dev), **kw)
+        if dev == "cuda":
+            eager = sdot(engine=engine(dev), fused=False, **kw)
+            assert torch.equal(runs[dev].q_nodes, eager.q_nodes)
+            np.testing.assert_array_equal(runs[dev].error_trace,
+                                          eager.error_trace)
+            assert runs[dev].ledger == eager.ledger
+            # the engine's own draws, made on the card, and no error trace
+            # (its SVDs wait for the device): no host sync
+            from repro_torch.core import runtime
+            from repro_torch.core.sdot import sdot_program
+            prog = sdot_program(engine=engine(dev),
+                                **dict(kw, draws=None, q_true=None))
+            prog.finalize = None
+            with no_host_sync():
+                runtime.run_monolithic(prog)
+    np.testing.assert_allclose(runs["cuda"].error_trace,
+                               runs["cpu"].error_trace, rtol=0, atol=1e-5)
+    assert runs["cuda"].ledger == runs["cpu"].ledger
 
 
 def test_zz_forward_after_the_other_card_tests(cuda_device):

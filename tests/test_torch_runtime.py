@@ -153,12 +153,17 @@ def test_program_basics(sprob):
 
 
 def test_body_steps_carry_and_state_keeps_zero_async_leaves(sprob):
-    """A body is one outer step ``(carry, t_c) -> (carry', cross)``; a sync
-    run's key, sends and counts stay the reference's zeros."""
+    """A body is one outer step in the unified signature
+    ``((carry, key), t_c) -> ((carry', key'), (cross, sends, counts))``; a
+    sync body passes the key through and has no sends or counts, and a
+    sync run's key, sends and counts stay the reference's zeros."""
     prog = sdot_program(**sprob["port"])
     body = prog.build_body(prog.operands, **dict(prog.statics))
-    carry, cross = body(prog.q0, int(prog.xs[0]))
+    key = torch.zeros((), dtype=torch.uint32)
+    (carry, key_out), (cross, sends, counts) = body((prog.q0, key),
+                                                    int(prog.xs[0]))
     assert carry.shape == prog.q0.shape and cross.shape == (N, R, R)
+    assert key_out is key and sends is None and counts is None
     prog.finalize = None
     state = runtime.run_monolithic(prog)
     assert int(state.step) == T_OUTER
@@ -170,12 +175,28 @@ def test_body_steps_carry_and_state_keeps_zero_async_leaves(sprob):
 
 
 def test_sweeps_async_ledger_and_baselines_raise():
+    """Sweeps and the fused baselines still wait for their slices; the
+    realized async ledger is ported and equals the reference's on the same
+    buffers (F-DOT's layout: three gossip calls a step)."""
+    from repro.core import runtime as jruntime
     with pytest.raises(NotImplementedError, match="item 12"):
         runtime.run_sweep(None)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        runtime.async_ledger(None, None, None, None, None)
     with pytest.raises(NotImplementedError, match="item 11"):
         tresume.baseline_chunked("dsa")
+    rng = np.random.default_rng(4)
+    sched = np.array([6, 4, 6, 5])
+    sends = rng.integers(0, 30, size=(4, 3, 6)).astype(np.float32)
+    counts = rng.integers(0, N + 1, size=(4, 3, 6)).astype(np.float32)
+    args = (lambda s: float(s[:, 0].sum()) * 50 + float(s[:, 1:].sum()) * 9,
+            lambda t_c: [((0,), t_c)] + [((1 + k,), 6) for k in range(2)])
+    got = runtime.async_ledger(sched, torch.tensor(sends),
+                               torch.tensor(counts), *args)
+    want = jruntime.async_ledger(sched, jnp.asarray(sends),
+                                 jnp.asarray(counts), *args)
+    for f in LEDGER_FIELDS:
+        assert getattr(got, f) == getattr(want, f)
+    assert got.awake_counts == want.awake_counts
+    assert got.mean_awake() == want.mean_awake()
 
 
 def test_bdot_chunk_size_invariance(gprob):

@@ -149,20 +149,34 @@ def test_sdot_without_device_raises_where_no_card(psa_problem):
 
 
 def test_async_engine_is_left_to_a_later_slice(psa_problem):
+    """Async engines are no longer refused: S-DOT over an AsyncConsensus,
+    fed the reference's own awake masks, gives the reference's run."""
+    from repro.core.async_gossip import AsyncConsensus as JAsync
+    from repro_torch.core.async_gossip import AsyncConsensus
     p = psa_problem
-    st = from_reference_arrays(_arrays(_graph("ring", p["n_nodes"]),
-                                       np.eye(p["d"], p["r"]), p["q_true"],
-                                       covs=p["covs"]), device="cpu")
-
-    class Straggler:
-        graph, device = st["engine"].graph, st["engine"].device
-
-        def sample_awake(self, *a, **k):
-            raise AssertionError("never reached")
-
-    with pytest.raises(NotImplementedError, match="slice"):
-        tsdot.sdot(covs=st["covs"], engine=Straggler(), r=p["r"], t_outer=2,
-                   device="cpu")
+    g = _graph("ring", p["n_nodes"])
+    q0 = j_init(jax.random.PRNGKey(4), p["d"], p["r"])
+    p_awake = np.full(p["n_nodes"], 0.7)
+    ref = jsdot.sdot(covs=p["covs"], engine=JAsync(g, p_awake, seed=2),
+                     r=p["r"], t_outer=8, t_c=20, q_init=q0,
+                     q_true=p["q_true"])
+    key, draws = jax.random.PRNGKey(2), []
+    for _ in range(8):                    # one key split an outer step
+        key, sub = jax.random.split(key)
+        draws.append(np.asarray(jax.random.bernoulli(
+            sub, jnp.asarray(p_awake, jnp.float32), (20, p["n_nodes"]))))
+    st = from_reference_arrays(_arrays(g, q0, p["q_true"], covs=p["covs"]),
+                               device="cpu")
+    port = tsdot.sdot(covs=st["covs"], r=p["r"], t_outer=8, t_c=20,
+                      engine=AsyncConsensus(st["graph"], p_awake, seed=2,
+                                            device="cpu"),
+                      q_init=st["q_init"], q_true=st["q_true"], device="cpu",
+                      draws=draws)
+    np.testing.assert_allclose(port.error_trace, np.asarray(ref.error_trace),
+                               rtol=0, atol=TRACE_ATOL)
+    for field in ("p2p", "matrices", "scalars"):
+        assert getattr(port.ledger, field) == getattr(ref.ledger, field)
+    assert port.ledger.awake_counts == ref.ledger.awake_counts
 
 
 def test_data_generators_equal_reference():
