@@ -28,6 +28,7 @@ __all__ = [
     "debias_table",
     "debiased_gossip",
     "gossip_mix",
+    "lane_debiased_gossip",
     "masked_gossip",
     "realized_round_weights",
     "safe_debias_scale",
@@ -130,6 +131,32 @@ def debiased_gossip(w, table: torch.Tensor, z_stack: torch.Tensor,
     row = table[..., int(t_c), :]                          # (N,) or (B, N)
     bshape = row.shape + (1,) * (z_stack.dim() - row.dim())
     return out / row.to(out.dtype).reshape(bshape)
+
+
+def lane_debiased_gossip(ws: torch.Tensor, tables: torch.Tensor,
+                         z: torch.Tensor, t_cs) -> torch.Tensor:
+    """``debiased_gossip`` for a sweep's lanes, each case under its own
+    budget: the reference's vmapped masked scan.
+
+    ws: (C, N, N) case weights; tables: (C, t_max + 1, N) their debias
+    tables; z: (C, S, N, ...) lanes; t_cs: the (C,) host budgets of the
+    step. A round is one batched matmul over every lane; a case whose
+    budget is spent keeps its lanes fixed from then on, and each lane is
+    divided by its own case's table row.
+    """
+    c, s, n = z.shape[:3]
+    t_cs = [int(t) for t in t_cs]
+    wz = ws.to(z.dtype)[:, None]                             # (C, 1, N, N)
+    zf = z.reshape(c, s, n, -1)
+    for k in range(max(t_cs, default=0)):
+        mixed = wz @ zf
+        if min(t_cs) > k:
+            zf = mixed
+        else:                                    # some cases are done
+            zf = torch.cat([mixed[i:i + 1] if t_cs[i] > k else zf[i:i + 1]
+                            for i in range(c)])
+    rows = torch.stack([tables[i, t] for i, t in enumerate(t_cs)])
+    return (zf / rows.to(zf.dtype)[:, None, :, None]).reshape(z.shape)
 
 
 def debias_weights(w: np.ndarray, t_c: int) -> np.ndarray:

@@ -46,7 +46,7 @@ from . import runtime
 from .async_gossip import (GossipDraws, check_draws, engine_kind,
                            masked_async_rounds)
 from .consensus import (DenseConsensus, consensus_schedule, debias_table,
-                        debiased_gossip)
+                        debiased_gossip, lane_debiased_gossip)
 from .linalg import orthonormal_init
 from .metrics import CommLedger, subspace_error
 from .netfaults import masked_faulty_rounds, realized_debias
@@ -300,6 +300,47 @@ def _fdot_faulty_outer_body(x_pad, w, adj, params, node_up_sched, table,
                               torch.stack(counts))
 
     return outer
+
+
+def _lane_slab(kernel, x_pad: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """A lane slab kernel (``ops.lane_slab_tq`` / ``lane_slab_apply``) over
+    (C, S, N, k, r) lanes: slabs shared by every lane (N, d_max, n), or one
+    stack a case (C, N, d_max, n) over that case's S lanes."""
+    c, s = y.shape[:2]
+    if x_pad.dim() == 3:
+        out = kernel(x_pad, y.reshape(c * s, *y.shape[2:]))
+        return out.reshape(c, s, *out.shape[1:])
+    return torch.stack([kernel(x_pad[i], y[i]) for i in range(c)])
+
+
+def _fdot_lane_body(x_pad, ws, tables, qtrue_pad, *, t_c_qr: int):
+    """``_fdot_outer_body`` over a sweep's (C, S, N, d_max, r) lanes: the
+    slab kernels take the lanes through the ``ops`` lane dispatch, each
+    gossip runs every lane under its case's budget and table row, and each
+    CholeskyQR pass takes every lane's Grams in one launch. ``x_pad`` and
+    ``qtrue_pad`` are shared, or stacked by case (ragged sweeps: all-zero
+    padding slabs)."""
+    qt = qtrue_pad if qtrue_pad is None or qtrue_pad.dim() == 3 \
+        else qtrue_pad[:, None]
+
+    def outer(q, t_cs):
+        z0 = _lane_slab(kops.lane_slab_tq, x_pad, q)             # (.., n, r)
+        s = lane_debiased_gossip(ws, tables, z0, t_cs)
+        v = _lane_slab(kops.lane_slab_apply, x_pad, s)           # (.., d, r)
+        budgets = [t_c_qr] * len(t_cs)
+        for _ in range(QR_PASSES):
+            gsum = lane_debiased_gossip(ws, tables, kops.gram_qr(v), budgets)
+            v = _solve_from_gram_sum(gsum, v)
+        cross = (None if qt is None
+                 else torch.einsum("...idr,...ids->...rs", qt, v))
+        return v, cross
+
+    return outer
+
+
+def _fdot_lane_build_body(operands, *, t_c_qr: int):
+    """The Program protocol's ``build_body`` for a sweep's F-DOT lanes."""
+    return runtime.sync_body(_fdot_lane_body(*operands, t_c_qr=t_c_qr))
 
 
 def _fdot_build_body(operands, *, t_max: int, t_c_qr: int,

@@ -129,6 +129,24 @@ class CommLedger:
     def per_node_p2p(self, n_nodes: int) -> float:
         return self.p2p / n_nodes
 
+    def merged(self, other: "CommLedger") -> "CommLedger":
+        return CommLedger(
+            self.p2p + other.p2p,
+            self.matrices + other.matrices,
+            self.scalars + other.scalars,
+            self.awake_counts + other.awake_counts,
+            self.payload_bytes + other.payload_bytes,
+        )
+
+    def merge_from(self, other: "CommLedger") -> None:
+        """Accumulate ``other`` in place (a caller's running ledger takes a
+        finished run's accounting, e.g. a fused baseline's closed form)."""
+        self.p2p += other.p2p
+        self.matrices += other.matrices
+        self.scalars += other.scalars
+        self.awake_counts.extend(other.awake_counts)
+        self.payload_bytes += other.payload_bytes
+
 
 def _ledger_flatten(ledger: CommLedger):
     # awake_counts travels as one float64 leaf, as in the reference, so a

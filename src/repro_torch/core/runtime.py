@@ -9,7 +9,13 @@ any Program:
 * ``run_chunked``: ``chunk_size`` outer iterations at a time, with the
   ``RunState`` checkpointed through a ``CheckpointManager`` at every chunk
   boundary; a run killed at any boundary and resumed gives the same bits
-  as the uninterrupted run (the trace, the iterate and the ledger).
+  as the uninterrupted run (the trace, the iterate and the ledger);
+* ``run_sweep``: a case x seed grid (``core/sweep.py``), monolithic or
+  chunked like the two above. The reference vmaps one run's body over the
+  grid; the port's kernels are launched through ``ctypes``, which
+  ``torch.func.vmap`` cannot batch, so a sweep's body is the family's lane
+  body over an explicit (C, S, ...) carry, and every ``RunState`` buffer
+  carries the (C, S) lane axes in front (the reference's layout).
 
 A Program is ``(build_body, operands, statics, xs, q0, ...)``:
 
@@ -27,7 +33,9 @@ A Program is ``(build_body, operands, statics, xs, q0, ...)``:
   return their realized per-round sends and awake counts, each of shape
   ``Program.tail``.
 * ``xs`` is the host-side schedule: step t runs exactly ``xs[t]`` gossip
-  rounds, as the reference's masked scan does.
+  rounds, as the reference's masked scan does. A sweep's ``xs`` is (C, T):
+  its body gets the (C,) budgets of a step and holds each case's lanes
+  fixed past their own budget.
 
 A chunk is a Python loop over the body: the body launches work on the
 device and never waits for it. At the end of a chunk each step's error,
@@ -85,15 +93,17 @@ class RunState:
     run's key is the port's own (2,) int64 ``[seed, counter]``, and its
     sends and counts are (T_o, *tail): the realized ledger survives a
     crash. A reference async checkpoint, whose key is a JAX key, is
-    refused.
+    refused. A sweep's buffers carry the (C, S) lane axes in front, as the
+    reference's do: a sync sweep the reference checkpointed restores here.
     """
 
     q: Any                    # the family's carry (iterate, slabs, ...)
-    key: torch.Tensor         # host: () uint32 zeros, or (2,) int64 key
+    key: torch.Tensor         # host: (lanes...) uint32 zeros, or
+                              # (lanes..., 2) int64 keys
     step: torch.Tensor        # () int32 on the host: outer steps completed
-    errs: torch.Tensor        # (T_o,) f32 error trace
-    sends: torch.Tensor       # (T_o, *tail) f32 per-round sends
-    counts: torch.Tensor      # (T_o, *tail) f32 per-round awake counts
+    errs: torch.Tensor        # (lanes..., T_o) f32 error trace
+    sends: torch.Tensor       # (lanes..., T_o, *tail) f32 per-round sends
+    counts: torch.Tensor      # (lanes..., T_o, *tail) f32 awake counts
 
 
 _tree.register_node(
@@ -107,17 +117,28 @@ class Program:
     """One family's run, in the form every driver understands.
 
     Families build these with ``core/sdot.sdot_program``,
-    ``core/fdot.fdot_program`` and ``core/bdot.bdot_program``, from the same
-    prepared inputs as their eager oracles.
+    ``core/fdot.fdot_program``, ``core/bdot.bdot_program`` and
+    ``core/baselines.baseline_program``, from the same prepared inputs as
+    their eager oracles; ``core/sweep.py`` builds the sweeps'.
+
+    A sweep sets ``n_cases`` and ``n_seeds``: ``q0`` and ``key0`` then lead
+    with (C, S), ``xs`` is (C, T), and ``case_axes`` says, operand by
+    operand, whether it is stacked by case (0) or shared by every lane
+    (None). ``node_mask`` (C, S, N) keeps padded nodes out of a ragged
+    sweep's mean over the nodes.
     """
 
     build_body: Callable      # module-level: (operands, **statics) -> body
     operands: Tuple           # tensors the body closes over
     statics: Tuple            # ((name, value), ...) for build_body
-    xs: np.ndarray            # (T_o,) host-side schedule
-    q0: Any                   # initial carry
+    xs: np.ndarray            # (T_o,) or (C, T_o) host-side schedule
+    q0: Any                   # initial carry (lanes leading in sweeps)
     key0: Optional[torch.Tensor] = None   # async key; None: a sync run
     tail: Tuple[int, ...] = ()            # per-step sends/counts shape
+    case_axes: Optional[Tuple] = None     # per operand: 0 by case, None
+    n_cases: int = 0          # 0: no case axis; else leading C on q0/xs
+    n_seeds: int = 0          # 0: no seed axis; else next S axis on q0
+    node_mask: Optional[torch.Tensor] = None   # (C, S, N): ragged sweeps
     finalize: Optional[Callable] = None   # (state, done) -> family result
     restored_step: int = 0    # set by the driver: the step restored from
                               # the manager (0 = fresh start)
@@ -126,53 +147,78 @@ class Program:
     def t_outer(self) -> int:
         return int(self.xs.shape[-1])
 
+    @property
+    def lane_shape(self) -> Tuple[int, ...]:
+        return tuple(n for n in (self.n_cases, self.n_seeds) if n)
 
-def step_errors(crosses: List[torch.Tensor]) -> torch.Tensor:
-    """Each step's error: eq. (11) of its cross products, averaged over
-    them (over the nodes for S-DOT; F-DOT/B-DOT have one). One SVD call for
+
+def step_errors(crosses: List[torch.Tensor], lanes: int = 0,
+                node_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Each step's error: eq. (11) of its cross products, averaged over the
+    nodes where a step has one cross product a node (S-DOT; F-DOT, B-DOT
+    and the baselines have one). ``crosses``: one (lanes..., [N,] r, r)
+    tensor a step; ``lanes`` counts the leading lane axes. One SVD call for
     the chunk; the node mean adds the nodes' columns one at a time, element
     by element, so a step's sum is the same whatever else shares its chunk
-    and the chunk costs N launches, not one a step."""
-    errs = subspace_error_from_cross(torch.stack(crosses))  # (L,) | (L, N)
-    if errs.dim() == 1:
+    and the chunk costs N launches, not one a step. ``node_mask``
+    (lanes..., N) weights each node (a ragged sweep's padding gets 0); with
+    a mask of ones the sum and its divisor are those of the unmasked mean.
+    """
+    errs = subspace_error_from_cross(torch.stack(crosses))
+    if errs.dim() == 1 + lanes:                  # (L, lanes...)
         return errs
-    total = errs[:, 0]
-    for k in range(1, errs.shape[1]):
-        total = total + errs[:, k]
-    return total / errs.shape[1]
+    if node_mask is None:                        # (L, lanes..., N)
+        total = errs[..., 0]
+        for k in range(1, errs.shape[-1]):
+            total = total + errs[..., k]
+        return total / errs.shape[-1]
+    m = node_mask.to(errs.device, errs.dtype)
+    total = errs[..., 0] * m[..., 0]
+    for k in range(1, errs.shape[-1]):
+        total = total + errs[..., k] * m[..., k]
+    return total / m.sum(dim=-1)
 
 
-def _chunk(state: RunState, body: Callable, xs: np.ndarray) -> RunState:
-    """Advance ``state`` by ``len(xs)`` steps of ``body``."""
+def _chunk(state: RunState, body: Callable, xs: np.ndarray,
+           lanes: int = 0, node_mask: Optional[torch.Tensor] = None
+           ) -> RunState:
+    """Advance ``state`` by the ``xs.shape[-1]`` steps of ``xs`` (T,) or
+    (C, T): a sweep's body takes each step's (C,) budgets."""
     carry, key = state.q, state.key
     crosses, sends, counts = [], [], []
-    for x in xs:
-        (carry, key), (cross, s, c) = body((carry, key), int(x))
+    steps = xs.shape[-1]
+    for t in range(steps):
+        x = int(xs[t]) if xs.ndim == 1 else xs[:, t].astype(np.int64)
+        (carry, key), (cross, s, c) = body((carry, key), x)
         if cross is not None:
             crosses.append(cross)
         if s is not None:
             sends.append(s)
             counts.append(c)
     begin = int(state.step)
-    end = begin + len(xs)
+    end = begin + steps
+    # the step axis sits after the lane axes in every buffer
     if crosses:
-        state.errs[begin:end] = step_errors(crosses).to(state.errs.device)
+        errs = step_errors(crosses, lanes, node_mask).movedim(0, -1)
+        state.errs[..., begin:end] = errs.to(state.errs.device)
     if sends:
-        state.sends[begin:end] = torch.stack(sends)
-        state.counts[begin:end] = torch.stack(counts)
+        at = (slice(None),) * lanes + (slice(begin, end),)
+        state.sends[at] = torch.stack(sends).movedim(0, lanes)
+        state.counts[at] = torch.stack(counts).movedim(0, lanes)
     return dataclasses.replace(state, q=carry, key=key,
                                step=torch.tensor(end, dtype=torch.int32))
 
 
 def _init_state(program: Program) -> RunState:
     dev = _tree.tree_leaves(program.q0)[0].device
-    shape = (program.t_outer,) + tuple(program.tail)
+    lanes = program.lane_shape
+    shape = lanes + (program.t_outer,) + tuple(program.tail)
     return RunState(
         q=program.q0,
-        key=(torch.zeros((), dtype=torch.uint32) if program.key0 is None
+        key=(torch.zeros(lanes, dtype=torch.uint32) if program.key0 is None
              else program.key0.clone()),
         step=torch.zeros((), dtype=torch.int32),
-        errs=torch.zeros((program.t_outer,), dtype=torch.float32,
+        errs=torch.zeros(lanes + (program.t_outer,), dtype=torch.float32,
                          device=dev),
         sends=torch.zeros(shape, dtype=torch.float32, device=dev),
         counts=torch.zeros(shape, dtype=torch.float32, device=dev))
@@ -229,6 +275,7 @@ def _drive_chunks(state: RunState, program: Program, chunk_size: int,
     """
     t_outer = program.t_outer
     body = program.build_body(program.operands, **dict(program.statics))
+    lanes = len(program.lane_shape)
     step = int(state.step)
     done = 0
     j = get_journal()
@@ -242,7 +289,8 @@ def _drive_chunks(state: RunState, program: Program, chunk_size: int,
         if target_step is not None:
             length = min(length, target_step - step)
         t0 = time.monotonic()
-        state = _chunk(state, body, program.xs[step:step + length])
+        state = _chunk(state, body, program.xs[..., step:step + length],
+                       lanes, program.node_mask)
         step += length
         if j.enabled:
             j.event("chunk", "runtime", step=step, length=length,
@@ -293,10 +341,38 @@ def run_chunked(program: Program, manager: Optional[CheckpointManager],
     return _run(program, manager, chunk_size, max_chunks, target_step)
 
 
-def run_sweep(*args, **kwargs):
-    raise NotImplementedError(
-        "case x seed sweeps come with the sweep slice of the port (ROADMAP "
-        "queue 1, item 12)")
+def run_sweep(program: Program,
+              manager: Optional[CheckpointManager] = None,
+              chunk_size: Optional[int] = None,
+              max_chunks: Optional[int] = None):
+    """A case x seed sweep Program, by the same driver. Without ``manager``
+    and ``chunk_size`` it is one chunk (the monolithic sweep); with them the
+    sweep's RunState, lane axes on every buffer, is checkpointed at every
+    chunk boundary, and a sweep killed there resumes mid-grid with the bits
+    of the uninterrupted sweep."""
+    if not (program.n_cases and program.n_seeds):
+        raise ValueError("run_sweep needs a Program with case and seed axes"
+                         " (use run_monolithic/run_chunked for single runs)")
+    _check_case_axes(program)
+    size = chunk_size if chunk_size is not None else max(program.t_outer, 1)
+    return _run(program, manager, size, max_chunks)
+
+
+def _check_case_axes(program: Program) -> None:
+    """Every operand stacked by case leads with the case axis, and the
+    schedule has one row a case."""
+    axes = program.case_axes or (None,) * len(program.operands)
+    if len(axes) != len(program.operands):
+        raise ValueError(f"case_axes has {len(axes)} entries for "
+                         f"{len(program.operands)} operands")
+    for i, (op, ax) in enumerate(zip(program.operands, axes)):
+        if ax is not None and op.shape[ax] != program.n_cases:
+            raise ValueError(f"operand {i} is stacked by case on axis {ax} "
+                             f"but has {op.shape[ax]} entries there for "
+                             f"{program.n_cases} cases")
+    if program.xs.shape[0] != program.n_cases or program.xs.ndim != 2:
+        raise ValueError(f"a sweep's schedule is (C, T), got "
+                         f"{program.xs.shape} for {program.n_cases} cases")
 
 
 def _host(a) -> np.ndarray:

@@ -46,13 +46,14 @@ import torch.nn.functional as F
 from .._device import DeviceLike, resolve_device
 from ..kernels import ops as kops
 from . import runtime
-from .async_gossip import (GossipDraws, check_draws, engine_kind,
-                           masked_async_rounds)
+from .async_gossip import (GossipDraws, check_draws, draw_generator,
+                           engine_kind, masked_async_rounds)
 from .consensus import (DenseConsensus, consensus_schedule, debias_table,
-                        debiased_gossip)
+                        debiased_gossip, lane_debiased_gossip)
 from .linalg import cholesky_qr2, orthonormal_init
 from .metrics import CommLedger
-from .netfaults import masked_faulty_rounds, realized_debias
+from .netfaults import (masked_faulty_rounds, realized_debias,
+                        sample_fault_blocks)
 
 __all__ = ["SDOTResult", "sdot", "sadot", "sdot_program", "local_cov_apply"]
 
@@ -71,8 +72,19 @@ class SDOTResult:
 
 
 def local_cov_apply(covs: torch.Tensor, q_nodes: torch.Tensor) -> torch.Tensor:
-    """Step 5 of Alg. 1 at every node: Z_i = M_i Q_i. covs: (N, d, d)."""
-    return covs @ q_nodes
+    """Step 5 of Alg. 1 at every node: Z_i = M_i Q_i. covs: (N, d, d).
+
+    A sweep's lanes, q_nodes (lanes..., N, d, r) with covs broadcast
+    against them (shared (N, d, d), or one stack a case), take one product
+    a lane: a broadcast matmul would copy the covs once a lane and might
+    sum in another order, and one a lane keeps each lane's bits those of
+    its single run, whatever else shares the sweep."""
+    if q_nodes.dim() == 3:
+        return covs @ q_nodes
+    lanes = q_nodes.shape[:-3]
+    cov = covs.expand(*lanes, *covs.shape[-3:])
+    return torch.stack([cov[i] @ q_nodes[i] for i in np.ndindex(*lanes)]
+                       ).reshape(q_nodes.shape)
 
 
 def _stack_data(xs: Sequence[torch.Tensor], device: torch.device):
@@ -198,6 +210,99 @@ def _faulty_outer_body(operand, w, adj, params, node_up_sched, table,
         return (carry, key), (_cross(q_true, q_new), sends, counts)
 
     return outer
+
+
+def _lane_apply(operand, mode: str, q: torch.Tensor) -> torch.Tensor:
+    """Step 5 of Alg. 1 for (C, S, N, d, r) lanes: a cov stack shared by
+    every lane (N, d, d) or one a case (C, N, d, d), or raw data shared by
+    every lane through ``ops.lane_gram_apply``."""
+    if mode == "cov":
+        return local_cov_apply(operand if operand.dim() == 3
+                               else operand[:, None], q)
+    x_stack, n_true = operand
+    c, s = q.shape[:2]
+    v = kops.lane_gram_apply(x_stack, q.reshape(c * s, *q.shape[2:]),
+                             n_true)
+    return v.reshape(q.shape)
+
+
+def _lane_cross(q_true: Optional[torch.Tensor], q: torch.Tensor):
+    """Q_true^T Q_i of every (C, S, N, d, r) lane, one product a lane as a
+    single run takes it: a batched product's order may depend on its
+    batch count, and a lane's trace must not depend on the grid around it
+    (a shard of the seeds gives the grid's bits)."""
+    if q_true is None:
+        return None
+    c, s = q.shape[:2]
+    return torch.stack([q_true.mT @ q[i, j] for i in range(c)
+                        for j in range(s)]).reshape(*q.shape[:-2],
+                                                    q.shape[-1], q.shape[-1])
+
+
+def _sync_lane_body(operand, ws, tables, q_true, *, mode: str):
+    """``_sync_outer_body`` over a sweep's (C, S, N, d, r) lanes: step t
+    takes each case's budget from the (C,) ``t_cs``, and every lane is
+    debiased by its own case's table row. The QR's Grams of all lanes and
+    nodes are one launch a pass."""
+
+    def outer(q, t_cs):
+        z0 = _lane_apply(operand, mode, q)
+        v = lane_debiased_gossip(ws, tables, z0, t_cs)
+        q_new = cholesky_qr2(v)[0]
+        return q_new, _lane_cross(q_true, q_new)
+
+    return outer
+
+
+def _faulty_lane_body(covs, ws, adjs, params, node_up_sched, tables,
+                      q_true, *, t_max: int, debias: str):
+    """``_faulty_outer_body`` over a sweep's lanes: the carry is ``(q, ge,
+    t)`` with q (C, S, N, d, r), ge (C, S, N, N) and t (C, S), the key
+    (C, S, 2) ``[seed, counter]`` a lane. Each lane draws its own fault
+    blocks and runs the family's own faulty rounds under its case's
+    weights, knobs and crash mask; the cov apply and the QR run once for
+    every lane."""
+
+    def outer(carry_key, t_cs):
+        (q, ge, t), key = carry_key
+        c_n, s_n, n = q.shape[:3]
+        step = int(t.reshape(-1)[0])
+        z0 = _lane_apply(covs, "cov", q)
+        vs, ges, sends, counts = [], [], [], []
+        for c in range(c_n):
+            node_up, t_c = node_up_sched[c, step], int(t_cs[c])
+            for s in range(s_n):
+                gen = draw_generator(int(key[c, s, 0]), int(key[c, s, 1]),
+                                     q.device)
+                blocks = sample_fault_blocks(gen, n, t_max, None)
+                z, p, g, sd, ct = masked_faulty_rounds(
+                    ws[c], adjs[c], params[c], node_up, ge[c, s], blocks,
+                    t_c, z0[c, s])
+                vs.append(realized_debias(z, p) if debias == "realized"
+                          else z / tables[c, t_c].to(z.dtype)[:, None, None])
+                ges.append(g)
+                sends.append(sd)
+                counts.append(ct)
+        lanes = (c_n, s_n)
+        v = torch.stack(vs).reshape(q.shape)
+        up = node_up_sched[:, step][:, None, :, None, None] > 0
+        q_new = torch.where(up, cholesky_qr2(v)[0], q)           # freeze
+        key = key.clone()
+        key[..., 1] += 1
+        carry = (q_new, torch.stack(ges).reshape(ge.shape), t + 1)
+        return (carry, key), (_lane_cross(q_true, q_new),
+                              torch.stack(sends).reshape(*lanes, -1),
+                              torch.stack(counts).reshape(*lanes, -1))
+
+    return outer
+
+
+def _sdot_lane_build_body(operands, *, mode: str, t_max: int,
+                          kind: str = "sync", debias: str = "realized"):
+    """The Program protocol's ``build_body`` for a sweep's S-DOT lanes."""
+    if kind == "faulty":
+        return _faulty_lane_body(*operands, t_max=t_max, debias=debias)
+    return runtime.sync_body(_sync_lane_body(*operands, mode=mode))
 
 
 def _sdot_build_body(operands, *, mode: str, t_max: int, kind: str = "sync",

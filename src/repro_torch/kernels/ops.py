@@ -13,6 +13,18 @@ kernels mask their own ragged edges and take any size.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, so a run can show
 that its main path went through the kernels.
+
+Lanes. A sweep runs L = cases x seeds copies of one family over the same
+data. ``lane_slab_tq`` folds the lanes into the slab tq kernel's column
+axis: the product is linear in the columns of Q, so g lanes of r columns
+are one launch of g * r columns that reads X once, as many lanes a launch
+as the kernel takes (``lane_fold_width``). ``lane_gram_apply`` and
+``lane_slab_apply`` launch once a lane: on the H100 their folds lost (the
+gram-apply kernel's wider instantiation keeps 4 x 32 values of Q and V a
+thread; the slab-apply plan cuts X's rows into more chunks as the columns
+grow, and each chunk reads all of S; PERF.md, tools/psa_kernel_variants.py
+``--lane-fold``). The Gram kernel takes any leading batch, so
+(lanes, N, d, r) is already one launch of ``gram_qr``.
 """
 from __future__ import annotations
 
@@ -23,8 +35,10 @@ import torch
 
 from . import ref
 
-__all__ = ["LAUNCHES", "reset_launches", "on_gpu", "gram_apply",
-           "batched_gram_apply", "batched_slab_tq", "batched_slab_apply",
+__all__ = ["LAUNCHES", "reset_launches", "on_gpu",
+           "gram_apply", "batched_gram_apply", "batched_slab_tq",
+           "batched_slab_apply", "lane_fold_width", "lane_gram_apply",
+           "lane_slab_tq", "lane_slab_apply",
            "grid_block_tq", "grid_block_apply", "gram_qr", "ell_spmm",
            "ell_spmm_path", "ell_densify_wins", "flash_attention"]
 
@@ -110,6 +124,53 @@ def batched_slab_apply(x_stack: torch.Tensor,
     v = slab_apply_cuda(x_stack, s_stack.contiguous(), x_stack.shape[0])
     LAUNCHES["batched_slab_apply"] += 1
     return v
+
+
+def lane_fold_width(lanes: int, r: int) -> int:
+    """How many lanes of r columns one launch of the slab tq kernel takes:
+    the most, up to ``lanes``, whose g * r columns the kernel instantiates
+    (r = 7: 9 lanes). Pure: no card needed."""
+    from .slab_ops import MAX_R
+    if not 1 <= r <= MAX_R:
+        raise ValueError(f"slab-tq kernel takes 1 <= r <= {MAX_R}, got {r}")
+    return max(1, min(lanes, MAX_R // r))
+
+
+def lane_gram_apply(x_stack: torch.Tensor, q_lanes: torch.Tensor,
+                    n_true: torch.Tensor) -> torch.Tensor:
+    """``batched_gram_apply`` for L lanes over one X, one launch a lane:
+    x_stack (N, d, n), q_lanes (L, N, d, r) -> (L, N, d, r)."""
+    return torch.stack([batched_gram_apply(x_stack, q, n_true)
+                        for q in q_lanes])
+
+
+def lane_slab_tq(x_stack: torch.Tensor,
+                 q_lanes: torch.Tensor) -> torch.Tensor:
+    """``batched_slab_tq`` for L lanes over one X, ``lane_fold_width``
+    lanes a launch: x_stack (N, d_max, n), q_lanes (L, N, d_max, r)
+    -> (L, N, n, r)."""
+    if not x_stack.is_cuda:
+        return torch.stack([ref.batched_slab_tq_ref(x_stack, q)
+                            for q in q_lanes])
+    from .slab_ops import slab_tq_cuda
+    lanes, nodes, _, r = q_lanes.shape
+    g = lane_fold_width(lanes, r)
+    parts = []
+    for a in range(0, lanes, g):
+        y = q_lanes[a:a + g]                       # (g', N, d_max, r)
+        folded = y.permute(1, 2, 0, 3).reshape(nodes, y.shape[2], -1)
+        z = slab_tq_cuda(x_stack, folded.contiguous(), 1)   # (N, n, g' r)
+        LAUNCHES["batched_slab_tq"] += 1
+        parts.append(z.reshape(nodes, z.shape[1], y.shape[0], r)
+                     .permute(2, 0, 1, 3))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def lane_slab_apply(x_stack: torch.Tensor,
+                    s_lanes: torch.Tensor) -> torch.Tensor:
+    """``batched_slab_apply`` for L lanes over one X, one launch a lane:
+    x_stack (N, d_max, n), s_lanes (L, N, n, r) -> (L, N, d_max, r)."""
+    return torch.stack([batched_slab_apply(x_stack, s) for s in s_lanes])
 
 
 def grid_block_tq(x_grid: torch.Tensor, q_stack: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,7 @@
 Each entry point registers its family's ``Program`` and hands it to
 ``runtime.run_chunked``:
 
-    <family>_program (core/sdot | fdot | bdot)
+    <family>_program (core/sdot | fdot | bdot | baselines)
       -> runtime.run_chunked(program, manager, chunk_size)
          - restore the newest valid RunState (or start fresh)
          - per chunk: ``chunk_size`` steps of the same outer-iteration
@@ -37,6 +37,7 @@ import torch
 
 from .._device import DeviceLike
 from ..checkpoint.manager import CheckpointManager
+from ..core.baselines import BaselineResult, baseline_program
 from ..core.bdot import BDOTResult, bdot_program
 from ..core.consensus import DenseConsensus
 from ..core.fdot import FDOTResult, fdot_program
@@ -133,7 +134,40 @@ def bdot_chunked(
         manager, chunk_size=chunk_size, max_chunks=max_chunks)
 
 
-def baseline_chunked(*args, **kwargs):
-    raise NotImplementedError(
-        "the fused baselines come with the baselines slice of the port "
-        "(ROADMAP queue 1, item 11)")
+def baseline_chunked(
+    name: str,
+    *,
+    covs: Optional[torch.Tensor] = None,
+    data_blocks: Optional[Sequence[torch.Tensor]] = None,
+    engine: DenseConsensus,
+    r: int,
+    t_outer: Optional[int] = None,
+    iters_per_vec: Optional[int] = None,
+    lr: float = 0.1,
+    t_mix: int = 3,
+    t_c: int = 50,
+    q_true: Optional[torch.Tensor] = None,
+    seed: int = 0,
+    q_init: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    device: DeviceLike = None,
+    chunk_size: int = 10,
+    manager: Optional[CheckpointManager] = None,
+    max_chunks: Optional[int] = None,
+) -> BaselineResult:
+    """Chunked, restartable fused baseline (any of the five distributed
+    ones), with the resume contract of ``sdot_chunked``.
+
+    ``name``: dsa | dpgd | deepca | seq_dist_pm | d_pm, with the problem
+    arguments of ``core.baselines.baseline_program``. The
+    sequential-deflation methods chunk over the flattened (vector, inner
+    iteration) index, so a kill mid-deflation resumes where the
+    Gram-Schmidt order left off; DeEPCA's (q, s, mq_prev) tracking triple
+    is its carry. The ledger covers the completed prefix."""
+    return run_chunked(
+        baseline_program(name, covs=covs, data_blocks=data_blocks,
+                         engine=engine, r=r, t_outer=t_outer,
+                         iters_per_vec=iters_per_vec, lr=lr, t_mix=t_mix,
+                         t_c=t_c, q_true=q_true, seed=seed, q_init=q_init,
+                         generator=generator, device=device),
+        manager, chunk_size=chunk_size, max_chunks=max_chunks)

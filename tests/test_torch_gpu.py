@@ -3,8 +3,10 @@ S-DOT, F-DOT, B-DOT and the LM prefill on the card against the same runs on
 the CPU; decode on the card against prefill on the card; a killed and
 resumed chunked S-DOT run against the uninterrupted one, bit for bit; the
 ELL kernel under a faulty round's operands, and async and faulty gossip and
-S-DOT on the card against the CPU on the same draws; and, last, the f32
-forward repeated after all of that in the same process.
+S-DOT on the card against the CPU on the same draws; the sweeps' lane
+dispatch against one launch a lane and the plain version, and the
+baselines and a sweep at a small size; and, last, the f32 forward repeated
+after all of that in the same process.
 
 Every test here needs an NVIDIA H100 with nvcc and skips elsewhere. This
 file imports neither JAX nor the reference package, so it runs on a machine
@@ -1073,6 +1075,145 @@ def test_async_and_faulty_sdot_on_card_match_cpu(cuda_device, kind):
     np.testing.assert_allclose(runs["cuda"].error_trace,
                                runs["cpu"].error_trace, rtol=0, atol=1e-5)
     assert runs["cuda"].ledger == runs["cpu"].ledger
+
+
+@pytest.mark.parametrize("kind,lanes,nodes,d,n", [
+    ("gram_apply", 12, 20, 1024, 2500),     # sdot_dense's shape
+    ("slab_tq", 12, 4, 200, 300),            # 9 + 3: a ragged last group
+    ("slab_tq", 4, 20, 55, 50000),           # fdot_dense's shape
+    ("slab_apply", 4, 20, 55, 50000),
+    ("slab_apply", 3, 6, 17, 1001),          # n % 4 != 0: the cp.async route
+])
+def test_lane_dispatch_matches_one_launch_a_lane_and_plain(cuda_device,
+                                                           kind, lanes,
+                                                           nodes, d, n):
+    """Each lane dispatch at r = 7 against the batched wrapper over one
+    lane at a time and the plain version: the slab tq kernel folds
+    ``lane_fold_width`` lanes a launch, within 1e-5 of the plain version's
+    max of both (f32 sums in another order); gram-apply and slab apply
+    launch once a lane, with the batched wrapper's bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    r = 7
+    x = torch.randn((nodes, d, n), generator=gen, device=cuda_device)
+    if kind == "gram_apply":
+        n_true = torch.full((nodes,), float(n), device=cuda_device)
+        y = torch.randn((lanes, nodes, d, r), generator=gen,
+                        device=cuda_device)
+        run = lambda: ops.lane_gram_apply(x, y, n_true)  # noqa: E731
+        one = lambda q: ops.batched_gram_apply(x, q, n_true)  # noqa: E731
+        plain = torch.stack([ref.batched_gram_apply_ref(x, q, n_true)
+                             for q in y])
+        per_launch = 1
+    elif kind == "slab_tq":
+        y = torch.randn((lanes, nodes, d, r), generator=gen,
+                        device=cuda_device)
+        run = lambda: ops.lane_slab_tq(x, y)  # noqa: E731
+        one = lambda q: ops.batched_slab_tq(x, q)  # noqa: E731
+        plain = torch.stack([ref.batched_slab_tq_ref(x, q) for q in y])
+        per_launch = ops.lane_fold_width(lanes, r)
+    else:
+        y = torch.randn((lanes, nodes, n, r), generator=gen,
+                        device=cuda_device)
+        run = lambda: ops.lane_slab_apply(x, y)  # noqa: E731
+        one = lambda s: ops.batched_slab_apply(x, s)  # noqa: E731
+        plain = torch.stack([ref.batched_slab_apply_ref(x, s) for s in y])
+        per_launch = 1
+    counter = {"gram_apply": "batched_gram_apply",
+               "slab_tq": "batched_slab_tq",
+               "slab_apply": "batched_slab_apply"}[kind]
+    ops.reset_launches()
+    got = run()
+    assert ops.LAUNCHES[counter] == -(-lanes // per_launch)
+    each = torch.stack([one(lane) for lane in y])
+    if per_launch == 1:
+        assert torch.equal(got, each)
+    scale = float(plain.abs().max())
+    assert float((got - plain).abs().max()) <= 1e-5 * scale
+    assert float((each - plain).abs().max()) <= 1e-5 * scale
+
+
+def test_gram_qr_takes_every_lane_in_one_launch(cuda_device):
+    """(lanes, N, d, r) is one Gram launch, each matrix's bits those of a
+    launch over its own lane."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    v = torch.randn((3, 4, 20, 1024, 7), generator=gen, device=cuda_device)
+    ops.reset_launches()
+    g = ops.gram_qr(v)
+    assert ops.LAUNCHES["gram_qr"] == 1 and g.shape == (3, 4, 20, 7, 7)
+    assert torch.equal(g[1, 2], ops.gram_qr(v[1, 2]))
+    want = ref.gram_qr_ref(v)
+    assert float((g - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _small_psa(cuda_device, n_nodes=8, d=48, r=4):
+    x, _, _ = gaussian_eigengap_data(d, 200 * n_nodes, r, 0.7, seed=0,
+                                     device=cuda_device)
+    blocks = partition_samples(x, n_nodes)
+    covs = torch.stack([b @ b.T / b.shape[1] for b in blocks])
+    q_true = torch.linalg.eigh(covs.sum(0).double())[1][:, -r:].float()
+    eng = DenseConsensus(topology.erdos_renyi(n_nodes, 0.5, seed=1),
+                         device=cuda_device)
+    return x, blocks, covs, q_true, eng
+
+
+@pytest.mark.parametrize("name", ["seq_dist_pm", "dsa", "dpgd", "deepca",
+                                  "d_pm"])
+def test_baselines_smoke_on_card(cuda_device, name):
+    """Each distributed baseline fused on the card: finite, its ledger the
+    eager run's, its trace within 1e-4 of the eager run's (the fused run
+    debiases by the device table, the eager one by the host's matrix
+    power), DPGD and DeEPCA with two Gram launches a step, no host sync
+    inside the fused loop's steps."""
+    from repro_torch.core import baselines
+    from repro_torch.core.metrics import CommLedger
+    x, blocks, covs, q_true, eng = _small_psa(cuda_device)
+    data = partition_features(x, 8) if name == "d_pm" else covs
+    kw = (dict(iters_per_vec=5, t_c=20) if name in ("seq_dist_pm", "d_pm")
+          else dict(t_outer=12))
+    led_f, led_e = CommLedger(), CommLedger()
+    ops.reset_launches()
+    q_f, e_f = getattr(baselines, name)(data, eng, 4, q_true=q_true,
+                                        ledger=led_f, device=cuda_device,
+                                        **kw)
+    launches = ops.LAUNCHES["gram_qr"]
+    q_e, e_e = getattr(baselines, name)(data, eng, 4, q_true=q_true,
+                                        ledger=led_e, fused=False,
+                                        device=cuda_device, **kw)
+    assert np.isfinite(e_f).all() and bool(torch.isfinite(q_f).all())
+    assert float(np.abs(e_f - e_e).max()) <= 1e-4
+    assert led_f == led_e
+    if name in ("dpgd", "deepca"):
+        assert launches == 2 * len(e_f)
+
+
+def test_sweeps_smoke_on_card(cuda_device, tmp_path):
+    """An S-DOT sweep in data mode (two cases, const and lin2, x three
+    seeds): each lane within 1e-5 of its single run on the card, one
+    gram-apply launch a lane a step, two Gram launches a step for every
+    lane; killed after 2 chunks and resumed, bit for bit."""
+    from repro_torch.core import sweep
+    x, blocks, covs, q_true, eng = _small_psa(cuda_device)
+    scheds = [consensus_schedule("const", 8, t_max=20),
+              consensus_schedule("lin2", 8, cap=20)]
+    kw = dict(data=blocks, engines=eng, schedules=scheds, r=4, t_outer=8,
+              seeds=[0, 1, 2], q_true=q_true)
+    ops.reset_launches()
+    sw = sweep.sdot_sweep(**kw)
+    assert ops.LAUNCHES["batched_gram_apply"] == 8 * 6
+    assert ops.LAUNCHES["gram_qr"] == 2 * 8
+    for ci, sched in enumerate(scheds):
+        for si, s in enumerate([0, 1, 2]):
+            res = sdot(data=blocks, engine=eng, r=4, t_outer=8,
+                       schedule=sched, q_true=q_true, device=cuda_device,
+                       generator=torch.Generator().manual_seed(s))
+            assert float(np.abs(sw.error_traces[ci, si]
+                                - res.error_trace).max()) <= 1e-5
+    mgr = CheckpointManager(str(tmp_path))
+    sweep.sdot_sweep(manager=mgr, chunk_size=3, max_chunks=2, **kw)
+    res = sweep.sdot_sweep(manager=mgr, chunk_size=3, **kw)
+    assert res.resumed_step == 6
+    assert np.array_equal(res.error_traces, sw.error_traces)
+    assert torch.equal(res.q, sw.q)
 
 
 def test_zz_forward_after_the_other_card_tests(cuda_device):

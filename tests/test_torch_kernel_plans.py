@@ -413,3 +413,33 @@ def test_ell_plan_fits_the_kernel_at_every_width(width):
                 assert p.staged == (window + slots <= ell_spmm.SMEM_BUDGET)
                 assert p.smem == window + (slots if p.staged else 0)
                 assert p.smem <= ell_spmm.SMEM_LIMIT == 200 * 1024
+
+
+# ---------------------------------------------------------------------------
+# lane folds: how many sweep lanes of r columns one launch takes
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("lanes,r,want", [
+    (12, 7, 9),     # 63 of the kernel's 64 columns
+    (4, 7, 4),      # fdot_dense's sweep: every lane in one launch
+    (3, 7, 3),      # fewer lanes than it takes
+    (12, 3, 12),
+    (30, 3, 21),
+    (5, 64, 1),     # one lane fills the kernel
+    (12, 16, 4),
+])
+def test_lane_fold_width(lanes, r, want):
+    """The widest lane fold of the slab tq kernel: as many lanes as it
+    takes columns, and one lane more would pass the kernel's limit where
+    the lanes allow it."""
+    from repro_torch.kernels import ops
+    g = ops.lane_fold_width(lanes, r)
+    assert g == want and g * r <= slab_ops.MAX_R
+    if g < lanes:
+        assert (g + 1) * r > slab_ops.MAX_R
+
+
+@pytest.mark.parametrize("r", [0, 65])
+def test_lane_fold_width_refuses_what_the_kernel_does_not_take(r):
+    from repro_torch.kernels import ops
+    with pytest.raises(ValueError, match="slab-tq kernel takes"):
+        ops.lane_fold_width(4, r)

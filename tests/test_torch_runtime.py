@@ -174,15 +174,19 @@ def test_body_steps_carry_and_state_keeps_zero_async_leaves(sprob):
         assert not leaf.any()
 
 
-def test_sweeps_async_ledger_and_baselines_raise():
-    """Sweeps and the fused baselines still wait for their slices; the
-    realized async ledger is ported and equals the reference's on the same
-    buffers (F-DOT's layout: three gossip calls a step)."""
+def test_sweeps_async_ledger_and_baselines_raise(sprob):
+    """``run_sweep`` refuses a Program without case and seed axes, as the
+    reference does; ``baseline_chunked`` runs a fused baseline (it raised
+    before the baselines were ported); the realized async ledger equals
+    the reference's on the same buffers (F-DOT's layout: three gossip
+    calls a step)."""
     from repro.core import runtime as jruntime
-    with pytest.raises(NotImplementedError, match="item 12"):
-        runtime.run_sweep(None)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tresume.baseline_chunked("dsa")
+    with pytest.raises(ValueError, match="case and seed axes"):
+        runtime.run_sweep(sdot_program(**sprob["port"]))
+    res = tresume.baseline_chunked(
+        "dsa", covs=sprob["port"]["covs"], engine=sprob["port"]["engine"],
+        r=R, t_outer=4, q_true=sprob["port"]["q_true"], device="cpu")
+    assert res.error_trace.shape == (4,) and res.q.shape == (N, D, R)
     rng = np.random.default_rng(4)
     sched = np.array([6, 4, 6, 5])
     sends = rng.integers(0, 30, size=(4, 3, 6)).astype(np.float32)
@@ -415,3 +419,58 @@ def test_port_finishes_a_killed_reference_fdot_bdot_run(tmp_path, fprob,
                               chunk_size=chunk)
     assert prog.restored_step == chunk
     _assert_parity(res, ref_full, "q_full")
+
+
+def test_port_finishes_a_sweep_the_reference_checkpointed_mid_grid(
+        tmp_path, sprob):
+    """The reference's sync sdot_sweep (two cases x two seeds) is killed
+    after 2 chunks; the port restores its sweep-RunState, lane axes and
+    all, from the same directory and finishes the grid, which then matches
+    the reference's uninterrupted sweep within TRACE_ATOL. A reference
+    netfault_sweep checkpoint is refused: its (C, S, 2) keys are JAX keys
+    (uint32), not the port's int64 [seed, counter]."""
+    from repro.core import sweep as jsweep
+    from repro.core import netfaults as jnet
+    from repro_torch.core import sweep as tsweep
+    from repro_torch.core.consensus import consensus_schedule
+    from repro_torch.core.netfaults import FaultyConsensus, NetFaultModel
+
+    seeds = [0, 1]
+    sched = [consensus_schedule("const", T_OUTER, t_max=T_C),
+             consensus_schedule("lin2", T_OUTER, cap=T_C)]
+    q_inits = np.asarray(jsweep._seed_inits(seeds, D, R))
+    kw = dict(r=R, t_outer=T_OUTER, schedules=sched, seeds=seeds)
+    ref_kw = dict(covs=sprob["ref"]["covs"], q_true=sprob["ref"]["q_true"],
+                  **kw)
+    ref_full = jsweep.sdot_sweep(engines=sprob["ref_engine"](), **ref_kw)
+    jsweep.sdot_sweep(engines=sprob["ref_engine"](), chunk_size=CHUNK,
+                      manager=JManager(str(tmp_path / "sync")), max_chunks=2,
+                      **ref_kw)
+    port_kw = dict(covs=sprob["port"]["covs"],
+                   q_true=sprob["port"]["q_true"],
+                   q_inits=torch.tensor(q_inits), **kw)
+    res = tsweep.sdot_sweep(engines=sprob["port"]["engine"],
+                            manager=CheckpointManager(str(tmp_path / "sync")),
+                            chunk_size=CHUNK, **port_kw)
+    assert res.resumed_step == 2 * CHUNK
+    np.testing.assert_allclose(res.error_traces, ref_full.error_traces,
+                               rtol=0, atol=TRACE_ATOL)
+    for f in LEDGER_FIELDS:
+        assert getattr(res.ledger, f) == getattr(ref_full.ledger, f)
+
+    model = dict(p_drop=0.1, p_bad=0.05, p_good=0.5)
+    jsweep.netfault_sweep(
+        covs=sprob["ref"]["covs"], r=R, t_outer=4, t_c=5, seeds=seeds,
+        engines=[jnet.FaultyConsensus(jtopo.Graph(
+            sprob["port"]["engine"].graph.adjacency),
+            jnet.NetFaultModel(**model), seed=3)],
+        manager=JManager(str(tmp_path / "faulty")), chunk_size=2,
+        max_chunks=1)
+    with pytest.raises(ValueError, match="JAX reference"):
+        tsweep.netfault_sweep(
+            covs=sprob["port"]["covs"], r=R, t_outer=4, t_c=5, seeds=seeds,
+            engines=[FaultyConsensus(sprob["port"]["engine"].graph,
+                                     NetFaultModel(**model), seed=3,
+                                     device="cpu")],
+            manager=CheckpointManager(str(tmp_path / "faulty")),
+            chunk_size=2)

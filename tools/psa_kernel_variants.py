@@ -26,6 +26,14 @@ it (CUDA events around 20 launches behind a spin of the card, median of
 variant that leaves work out is wrong on purpose). Prints one
 JSON line a variant, shape and round, then a summary with the card's name
 and power limit.
+
+    python3 tools/psa_kernel_variants.py --lane-fold [--rounds 2]
+
+times a sweep's lanes instead: for the gram-apply kernel over 12 lanes at
+S-DOT's shape and the slab tq and apply kernels over 4 at F-DOT's (r = 7),
+the widest fold of the lanes into the kernel's columns that its planner
+admits, against one launch a lane (``ops.lane_gram_apply``,
+``lane_slab_tq``, ``lane_slab_apply``), each against the plain version.
 """
 from __future__ import annotations
 
@@ -190,18 +198,111 @@ def build(names, out: Path):
     return built, skipped
 
 
+def lane_fold_times(rounds: int) -> None:
+    """The ``--lane-fold`` timings: one JSON line a kernel and round, then
+    the medians with the card's name and power limit."""
+    import torch
+    from chip_smoke import nvidia_smi, time_ms
+    from repro_torch.core.fdot import pad_feature_slabs
+    from repro_torch.core.sdot import _stack_data
+    from repro_torch.data.pipeline import (gaussian_eigengap_data,
+                                           partition_features,
+                                           partition_samples)
+    from repro_torch.kernels import _launch, gram_update, ops, ref, slab_ops
+
+    dev = torch.device("cuda")
+    d, r, nodes, n_total = 1024, 7, 20, 50_000
+    x, _, _ = gaussian_eigengap_data(d, n_total, r, 0.7, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x_stack, n_true = _stack_data(partition_samples(x, nodes), dev)
+    x_pad = pad_feature_slabs(partition_features(x, nodes))
+    q_lanes = torch.randn((12, nodes, d, r), generator=gen, device=dev)
+    fq_lanes = torch.randn((4, nodes, x_pad.shape[1], r), generator=gen,
+                           device=dev)
+    s_lanes = torch.randn((4, nodes, n_total, r), generator=gen, device=dev)
+    card = _launch.card(torch.cuda.current_device())
+
+    def widest(planner, lanes, x_):
+        """The most lanes whose columns the kernel takes and ``planner``
+        (None: no planner) admits."""
+        for g in range(min(lanes, slab_ops.MAX_R // r), 0, -1):
+            try:
+                if planner is not None:
+                    planner(*x_.shape, g * r, *card)
+            except ValueError:
+                continue
+            return g
+        raise ValueError("no fold plans")
+
+    def folded(launch, y, g):
+        """``launch`` over groups of g lanes folded into the columns."""
+        parts = []
+        for a in range(0, y.shape[0], g):
+            part = y[a:a + g]
+            cols = part.permute(1, 2, 0, 3).reshape(nodes, part.shape[2], -1)
+            out = launch(cols.contiguous())
+            parts.append(out.reshape(nodes, out.shape[1], part.shape[0], r)
+                         .permute(2, 0, 1, 3))
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    cases = {
+        "gram_apply": (
+            gram_update.plan, x_stack, q_lanes,
+            lambda y: ops.batched_gram_apply(x_stack, y, n_true),
+            lambda: ops.lane_gram_apply(x_stack, q_lanes, n_true),
+            torch.stack([ref.batched_gram_apply_ref(x_stack, q, n_true)
+                         for q in q_lanes])),
+        "slab_tq": (
+            None, x_pad, fq_lanes, lambda y: ops.batched_slab_tq(x_pad, y),
+            lambda: torch.stack([ops.batched_slab_tq(x_pad, q)
+                                 for q in fq_lanes]),
+            torch.stack([ref.batched_slab_tq_ref(x_pad, q)
+                         for q in fq_lanes])),
+        "slab_apply": (
+            slab_ops.apply_plan, x_pad, s_lanes,
+            lambda y: ops.batched_slab_apply(x_pad, y),
+            lambda: ops.lane_slab_apply(x_pad, s_lanes),
+            torch.stack([ref.batched_slab_apply_ref(x_pad, s)
+                         for s in s_lanes]))}
+    runs = {}
+    for rnd in range(rounds):
+        for kind, (planner, x_, y, launch, one, want) in cases.items():
+            g = widest(planner, y.shape[0], x_)
+            fold = lambda: folded(launch, y, g)  # noqa: E731
+            for route, fn in (("fold", fold), ("one_a_lane", one)):
+                ms = time_ms(fn, reps=5)
+                got = fn()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max() / want.abs().max())
+                runs.setdefault(f"{kind}:{route}", []).append(ms)
+                print(json.dumps({"kernel": kind, "lanes": y.shape[0],
+                                  "route": route, "lanes_a_launch":
+                                  g if route == "fold" else 1,
+                                  "round": rnd, "ms": ms, "rel_err": err}),
+                      flush=True)
+    print(json.dumps({"card": nvidia_smi(), "median_ms": {
+        k: statistics.median(v) for k, v in runs.items()}}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append",
                     help="SOURCE:VARIANT to time beside the kernels "
                          "(default: all)")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--lane-fold", action="store_true",
+                    help="time a sweep's lanes folded into the kernels' "
+                         "columns against one launch a lane, and nothing "
+                         "else")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("psa_kernel_variants: no CUDA device", file=sys.stderr)
         sys.exit(2)
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
+    if args.lane_fold:
+        lane_fold_times(args.rounds)
+        return
     from chip_smoke import nvidia_smi, time_ms
     from repro_torch.core.bdot import pad_grid_blocks
     from repro_torch.core.fdot import pad_feature_slabs
