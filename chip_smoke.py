@@ -127,6 +127,38 @@ Phases, one JSON line each:
   and resumed bit for bit, a netfault shard of seed 1 bit for bit. It
   reports each sweep's wall beside the per-seed loop's, and
   ``profile_sweep`` profiles 10 steps of the S-DOT sweep.
+* ``streams_ingest``: the serving configuration's drifting stream
+  (tools/data/serving_reference.json: d = 1024, r = 7, N = 20, 2,000
+  samples a batch) on the card: a batch drawn twice at one (seed, step)
+  bit for bit; after 26 batches the exact sketch within SKETCH_TOL of a
+  float64 sum of the same batches; Frequent Directions at ell = 128 within
+  its bound ``||X X^T - B^T B||_2 <= shrink_loss`` on every node. It
+  reports ms a micro-batch (exact update with its bound, FD update, the
+  stream's draw), ms a Ritz step, and the ingest walls.
+* ``serving``: ``PSAService`` on that configuration, 26 ticks, fault-free:
+  swaps >= 2, no gate reject, max staleness <= its bound (20), every query
+  answered, the final served subspace's post-shift error within
+  SERVING_ERR_FACTOR of the JAX reference's after as many swaps
+  (tools/reference_service_trajectory.py on the CPU; the reference's last
+  drift trigger sits on its threshold, so on the port's stream the last
+  re-solve may still run at the end), and exactly two Gram-kernel launches
+  a re-solve step and two a candidate. It reports ticks/s, ms a tick of each
+  span (ingest, re-solve increment of 20 S-DOT steps, drift read, query
+  drain, checkpoint), the snapshot's bytes, query p50/p99 and swap ticks.
+* ``serving_chaos``: the same configuration under ``run_supervised`` with
+  ``smoke_plan`` (kill at tick 7, kill at re-solve step 30, hang at tick
+  12): exactly 3 relaunches, the ``serving`` phase's served bits and swap
+  ticks, every restore's ``pinned_match`` not false and one true; then
+  ``gate_plan`` in-process: 1 reject, 1 cold re-solve, swaps >= 2, nothing
+  non-finite served, post-shift error < 0.2, some queries expired.
+* ``warm_start``: tools/data/serving_reference.json's recipe on the port's
+  stream: iterations to 1e-3 against the post-shift covs' top 7 of a cold
+  start and of a warm start from an incumbent solved on the pre-shift
+  covs, beside the reference's counts. No order is asserted.
+* ``profile_serving``: a profile of 4 ticks with the initial re-solve
+  active: busy share, device launches a tick, device time of row 4, the
+  GEMMs, the sketch update (its ``record_function`` label), the
+  snapshots' device-to-host copies and the rest.
 * ``sdot_sparse``: watts_strogatz(4096, k=6, p=0.1, seed=1) at MNIST width
   (d = 784, r = 5, 60,000 samples, 14 a node), T_o = 5, t_c = 20. The
   default engine must pick ELL gossip; the per-node estimates must agree
@@ -177,6 +209,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -266,6 +299,14 @@ LOGITS_TOL = (0.01655 * 0.01984) ** 0.5
 # another order, so each op's bf16 rounding may differ; the reference's own
 # decode-vs-prefill test allows 5e-2.
 DECODE_TOL = 5e-2
+
+
+# the serving phases (tools/data/serving_reference.json's configuration)
+SERVING_REF = Path(__file__).resolve().parent / "tools" / "data" / \
+    "serving_reference.json"
+SKETCH_TOL = 1e-5             # f32 running sums against float64, rel. max
+SERVING_ERR_FACTOR = 2.0      # post-shift error <= 2x the reference's
+GATE_POST_ERR = 0.2           # run_smoke's recovery limit after a reject
 
 
 def ref_limit(name: str) -> float:
@@ -433,14 +474,18 @@ def sass_counts(tool: Path, lib: Path, fragment: str, opcode: str) -> dict:
 
 def profile_phase(run, phase: str = "profile",
                   what: str = "sdot_dense S-DOT, T_o = 20, t_c = 50",
-                  groups=None) -> dict:
+                  groups=None, warm: bool = True, labels=()) -> dict:
     """Device time by kernel over one short run, from torch.profiler.
 
     ``groups`` maps a label to name fragments: each kernel's time goes to
     the first label one of whose fragments its name holds, else to "rest".
+    ``warm=False`` profiles the first call (a stateful run, already warm);
+    ``labels`` names ``record_function`` ranges whose device time (ms) is
+    reported under "labels" (None where the profile gives none).
     """
     from torch.profiler import ProfilerActivity, profile
-    run()                                             # warm
+    if warm:
+        run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -450,12 +495,18 @@ def profile_phase(run, phase: str = "profile",
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}   # device kernels only: an aten op's device time repeats them
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA \
+                or evt.key in labels:          # a label's range, not a kernel
             continue
         dev_us = getattr(evt, "self_device_time_total", 0.0)
         if dev_us > 0:
             by_name[evt.key] = (dev_us / 1e3, evt.count)
     busy_ms = sum(ms for ms, _ in by_name.values())
+    label_ms = {}
+    for evt in prof.key_averages():
+        if evt.key in labels:
+            dev_us = getattr(evt, "device_time_total", 0.0)
+            label_ms[evt.key] = dev_us / 1e3 if dev_us > 0 else None
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     grouped = {}
     if groups:
@@ -468,15 +519,313 @@ def profile_phase(run, phase: str = "profile",
             grouped[label]["calls"] += calls
         for g in grouped.values():
             g["share_of_busy"] = g["ms"] / busy_ms if busy_ms else None
-    return {"phase": phase, "what": what, "groups": grouped or None,
-            "wall_ms": wall_ms,
-            "device_kernel_launches": (sum(c for _, c in by_name.values())
-                                       if by_name else "not measured"),
-            "device_busy_ms": busy_ms if by_name else "not measured",
-            "device_busy_share": busy_ms / wall_ms if by_name else
-            "not measured",
-            "top_kernels": [{"name": k[:80], "ms": v[0], "calls": v[1]}
-                            for k, v in top]}
+    out = {"phase": phase, "what": what, "groups": grouped or None,
+           "wall_ms": wall_ms,
+           "device_kernel_launches": (sum(c for _, c in by_name.values())
+                                      if by_name else "not measured"),
+           "device_busy_ms": busy_ms if by_name else "not measured",
+           "device_busy_share": busy_ms / wall_ms if by_name else
+           "not measured",
+           "top_kernels": [{"name": k[:80], "ms": v[0], "calls": v[1]}
+                           for k, v in top]}
+    if labels:
+        out["labels"] = {name: label_ms.get(name) for name in labels}
+    return out
+
+
+
+
+def wall_ms(fn, calls: int = 5) -> float:
+    """Host wall time of one call, the card synchronised at both ends (for
+    calls that wait for the card themselves: SVD, eigh)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def span_ms(registry, name: str) -> dict:
+    """Mean and count of a journal span's durations (host wall, ms)."""
+    h = registry.histogram(f"span_{name}_seconds")
+    return {"mean_ms": None if not h.count else h.sum / h.count * 1e3,
+            "count": h.count}
+
+
+def serving_phases(dev, rows: dict, work: Path) -> None:
+    """streams_ingest, serving, serving_chaos, warm_start, profile_serving:
+    the streaming and serving path at the CIFAR-10 width of
+    tools/data/serving_reference.json's configuration (module docstring)."""
+    from repro_torch.core.linalg import orthonormal_init
+    from repro_torch.core.metrics import subspace_error
+    from repro_torch.core.runtime import run_monolithic
+    from repro_torch.core.sdot import sdot_program
+    from repro_torch.data.pipeline import (drifting_eigengap_stream,
+                                           partition_samples)
+    from repro_torch.kernels import ops
+    from repro_torch.serving import service as svc_mod
+    from repro_torch.serving.service import (PSAService, ServiceConfig,
+                                             service_summary)
+    from repro_torch.streaming.chaos import ENV_PLAN
+    from repro_torch.streaming.ingest import StreamingIngestor, ritz_step
+    from repro_torch.streaming.launcher import build_engine
+
+    ref = json.loads(SERVING_REF.read_text())
+    cfg = ServiceConfig(**ref["config"])
+    d, r, n_nodes, m = cfg.d, cfg.r, cfg.n_nodes, cfg.batch_size
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    # -- streams_ingest -------------------------------------------------------
+    def stream():
+        return drifting_eigengap_stream(d, r, cfg.gap, cfg.shift_at,
+                                        seed=cfg.stream_seed, lead=cfg.lead,
+                                        shift_lead=cfg.shift_lead,
+                                        device=dev)[0]
+    fn, fn2 = stream(), stream()
+    same_bits = (torch.equal(fn(5, m), fn2(5, m))
+                 and torch.equal(fn(cfg.shift_at + 3, m), fn(
+                     cfg.shift_at + 3, m))
+                 and not torch.equal(fn(5, m), fn(6, m)))
+    n_batches, ell = cfg.total_ticks, 128
+    ing = StreamingIngestor(n_nodes=n_nodes, d=d, batch_fn=fn, batch_size=m,
+                            track_top=r, device=dev)
+    fd = StreamingIngestor(n_nodes=n_nodes, d=d, batch_fn=fn, batch_size=m,
+                           sketch="fd", ell=ell, device=dev)
+    sm64 = torch.zeros((n_nodes, d, d), dtype=torch.float64, device=dev)
+    t0 = time.perf_counter()
+    for t in range(n_batches):
+        ing.ingest(1)
+        blocks = torch.stack(partition_samples(fn(t, m), n_nodes)).double()
+        sm64 += blocks @ blocks.mT
+    torch.cuda.synchronize()
+    ing_wall = (time.perf_counter() - t0) / n_batches * 1e3
+    t0 = time.perf_counter()
+    fd.ingest(n_batches)
+    torch.cuda.synchronize()
+    fd_wall = (time.perf_counter() - t0) / n_batches * 1e3
+    sketch_err = float((ing.sketch.second_moment.double() - sm64).abs().max()
+                       / sm64.abs().max())
+    b = fd.sketch.sketch.double()
+    fd_gap = torch.linalg.eigvalsh(sm64 - b.mT @ b).abs().amax(-1)
+    fd_loss = fd.sketch.shrink_loss.double()
+    fd_ok = bool((fd_gap <= fd_loss * (1 + 1e-4) + 1e-4).all())
+    blocks = torch.stack(partition_samples(fn(0, m), n_nodes))
+    sk, basis = ing.sketch, ing._ritz_basis
+    upd_bytes = (2 * sk.second_moment.numel() + blocks.numel()) * 4
+    upd_flops = 2 * n_nodes * d * d * (m // n_nodes)
+    upd_bound, upd_by = bound(upd_bytes, upd_flops)
+    streams_ingest = {
+        "phase": "streams_ingest", "d": d, "nodes": n_nodes,
+        "batch": m, "batches": n_batches, "ell": ell,
+        "stream_same_bits": same_bits,
+        "sketch_max_rel_err_vs_f64": sketch_err, "sketch_tol": SKETCH_TOL,
+        "fd_bound_holds": fd_ok,
+        "fd_max_gap_over_loss": float((fd_gap / fd_loss).max()),
+        "ms_exact_update": time_ms(lambda: sk.update(blocks)),
+        "ms_exact_update_bound": upd_bound, "exact_update_bound_by": upd_by,
+        "ms_fd_update": wall_ms(lambda: fd.sketch.update(blocks), 3),
+        "ms_ritz_step": wall_ms(lambda: ritz_step(sk, basis), 10),
+        "ms_ingest_exact_with_ritz_wall": ing_wall,
+        "ms_ingest_fd_wall": fd_wall,
+        "stream_draw_ms": time_ms(lambda: fn(3, m)),
+    }
+    emit(streams_ingest)
+    check(same_bits, "streams_ingest: a stream batch is not a pure function "
+          "of (seed, step) on the card")
+    check(sketch_err <= SKETCH_TOL, f"streams_ingest: exact sketch "
+          f"{sketch_err} from the float64 sum")
+    check(fd_ok, f"streams_ingest: FD bound broken: {fd_gap} > {fd_loss}")
+    del ing, fd, sm64, b, sk, basis, blocks
+
+    # -- serving: the configuration fault-free --------------------------------
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    svc = PSAService(cfg, str(work / "serving"), device=dev)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    svc.finalize()
+    launches = ops.LAUNCHES["gram_qr"]
+    rows["gram_qr"]["launches"] += launches
+    served = service_summary(str(work / "serving"))
+    post_err = float(subspace_error(svc.q_post, svc.served.device))
+    # the reference's subspace after as many swaps: the last drift trigger
+    # sits at the threshold (tools/data/serving_reference.json's drift
+    # reads), so on another stream the last re-solve may still be running
+    # at the final tick
+    after = ref["post_shift_err_after_swap"]
+    err_limit = SERVING_ERR_FACTOR * after[min(svc.swaps, len(after)) - 1]
+    completed = svc.swaps + svc.gate_rejects
+    steps_run = cfg.t_outer * completed + (svc.resolve_done
+                                           if svc.resolve_active else 0)
+    reg = svc.registry
+    serving = {
+        "phase": "serving", "config": ref["config"],
+        "setup_s": setup_s, "run_s": run_s,
+        "ticks_per_s": cfg.total_ticks / run_s,
+        "ms_a_tick": {k: span_ms(reg, k) for k in (
+            "tick", "ingest", "resolve_increment", "drift_read",
+            "query_drain", "tick_checkpoint", "gate")},
+        "resolve_steps_a_tick": cfg.resolve_chunk * cfg.chunks_per_tick,
+        "snapshot_bytes": svc.snapshot_bytes(),
+        "queries": served["queries"],
+        "swaps": served["swaps"], "swap_ticks": served["swap_ticks"],
+        "gate_rejects": served["gate_rejects"],
+        "max_staleness": served["max_staleness"],
+        "staleness_bound": cfg.staleness_bound,
+        "served_sha256": served["served_sha256"],
+        "post_shift_err": post_err, "post_shift_err_limit": err_limit,
+        "resolve_active_at_end": svc.resolve_active,
+        "resolve_steps_run": steps_run,
+        "gram_qr_launches": launches,
+        "gram_qr_expected": 2 * steps_run + 2 * completed,
+        "reference_cpu": {k: ref[k] for k in (
+            "swap_ticks", "max_staleness", "post_shift_err",
+            "post_shift_err_after_swap")},
+    }
+    emit(serving)
+    q = served["queries"]
+    check(served["swaps"] >= 2 and served["gate_rejects"] == 0,
+          f"serving: swaps {served['swaps']}, rejects "
+          f"{served['gate_rejects']}")
+    check(served["max_staleness"] <= cfg.staleness_bound,
+          f"serving: staleness {served['max_staleness']}")
+    check(q["answered"] == q["submitted"] and q["submitted"] ==
+          cfg.total_ticks * cfg.queries_per_tick,
+          f"serving: queries {q}")
+    check(post_err <= err_limit, f"serving: post-shift error {post_err} > "
+          f"{err_limit} ({SERVING_ERR_FACTOR}x the reference's after "
+          f"{svc.swaps} swaps)")
+    check(launches == serving["gram_qr_expected"],
+          f"serving: {launches} Gram launches, expected "
+          f"{serving['gram_qr_expected']}")
+    del svc
+
+    # -- serving_chaos: kill / kill / hang under supervision, then the gate ---
+    # the reference's plan kills the re-solve at step 6, a chunk boundary at
+    # its resolve_chunk of 3; at resolve_chunk 10 the boundary is step 30,
+    # the first chunk of a tick's two
+    chaos_dir = work / "chaos"
+    chaos_dir.mkdir()
+    plan_path = svc_mod.smoke_plan(resolve_boundary=3 * cfg.resolve_chunk
+                                   ).dump(str(chaos_dir / "plan.json"))
+    env = {**os.environ, ENV_PLAN: plan_path}
+    t0 = time.perf_counter()
+    chaos = svc_mod.run_supervised(cfg, str(chaos_dir), env=env)
+    chaos_s = time.perf_counter() - t0
+    matches = [e["pinned_match"] for e in chaos["restores"]]
+    t0 = time.perf_counter()
+    gsvc = PSAService(cfg, str(work / "gate"), plan=svc_mod.gate_plan(),
+                      device=dev).run()
+    gate = gsvc.finalize()
+    gate_s = time.perf_counter() - t0
+    gate_err = float(subspace_error(gsvc.q_post, gsvc.served.device))
+    gate_events = service_summary(str(work / "gate"))
+    serving_chaos = {
+        "phase": "serving_chaos", "plan": json.loads(Path(
+            plan_path).read_text()),
+        "relaunches": chaos["relaunches"], "attempts": chaos["attempts"],
+        "wall_s": chaos_s,
+        "served_sha256_equal": chaos["served_sha256"] ==
+        serving["served_sha256"],
+        "swap_ticks": chaos["swap_ticks"],
+        "restores": chaos["restores"],
+        "gate": {"gate_rejects": gate["gate_rejects"],
+                 "cold_resolves": gate["cold_resolves"],
+                 "swaps": gate["swaps"],
+                 "reject_ticks": gate_events["reject_ticks"],
+                 "swap_ticks": gate_events["swap_ticks"],
+                 "served_finite": bool(np.all(np.isfinite(gsvc.served_q))),
+                 "post_shift_err": gate_err, "queries": gate["queries"],
+                 "wall_s": gate_s}}
+    emit(serving_chaos)
+    check(chaos["relaunches"] == 3, f"serving_chaos: {chaos['relaunches']} "
+          "relaunches, expected 3")
+    check(serving_chaos["served_sha256_equal"]
+          and chaos["swap_ticks"] == serving["swap_ticks"],
+          "serving_chaos: the supervised run's trajectory differs")
+    check(all(mt is not False for mt in matches) and any(
+        mt is True for mt in matches), f"serving_chaos: restores {matches}")
+    g = serving_chaos["gate"]
+    check(g["gate_rejects"] == 1 and g["cold_resolves"] == 1
+          and g["swaps"] >= 2 and g["served_finite"]
+          and gate_err < GATE_POST_ERR and g["queries"]["expired"] > 0,
+          f"serving_chaos: gate run {g}")
+    del gsvc
+
+    # -- warm_start: iterations to 1e-3 after the shift, warm against cold ----
+    wref = ref["warm_start"]
+    wfn = stream()
+    wing = StreamingIngestor(n_nodes=n_nodes, d=d, batch_fn=wfn,
+                             batch_size=m, device=dev)
+    wing.ingest(wref["pre_batches"])
+    covs_pre = wing.cov_stack()
+    wing.ingest(wref["post_batches"])
+    covs_post = wing.cov_stack()
+    engine = build_engine(cfg.topology, device=dev)
+    evecs = torch.linalg.eigh(covs_post.double().sum(0))[1]
+    q_true = evecs[:, -r:].flip(-1).float()
+
+    def solve(covs, seed_or_q, t_outer, q_true=None):
+        q_init = (orthonormal_init(torch.Generator().manual_seed(seed_or_q),
+                                   d, r, device=dev)
+                  if isinstance(seed_or_q, int) else seed_or_q)
+        return run_monolithic(sdot_program(
+            covs=covs, engine=engine, r=r, t_outer=t_outer, t_c=cfg.t_c,
+            q_init=q_init, q_true=q_true, device=dev))
+
+    def to_target(trace):
+        below = np.flatnonzero(np.asarray(trace) < wref["target"])
+        return int(below[0]) + 1 if below.size else None
+
+    incumbent = solve(covs_pre, 3, wref["incumbent_t_outer"]).q_nodes.mean(0)
+    cold = solve(covs_post, 4, wref["t_outer"], q_true).error_trace
+    warm = solve(covs_post, incumbent, wref["t_outer"], q_true).error_trace
+    warm_start = {
+        "phase": "warm_start", "target": wref["target"],
+        "t_outer": wref["t_outer"],
+        "incumbent_err": float(subspace_error(q_true, incumbent)),
+        "iterations_cold": to_target(cold),
+        "iterations_warm": to_target(warm),
+        "final_err_cold": float(cold[-1]), "final_err_warm": float(warm[-1]),
+        "reference_cpu": {k: wref[k] for k in (
+            "incumbent_err", "iterations_cold", "iterations_warm",
+            "final_err_cold", "final_err_warm")}}
+    emit(warm_start)
+    check(np.isfinite(cold).all() and np.isfinite(warm).all(),
+          "warm_start: non-finite traces")
+    del wing, covs_pre, covs_post, engine
+
+    # -- profile_serving: 4 ticks with the initial re-solve active ------------
+    psvc = PSAService(cfg, str(work / "profile"), device=dev)
+    psvc.run(until=cfg.warmup_ticks)
+    first = cfg.warmup_ticks
+    prof = profile_phase(
+        lambda: psvc.run(until=first + 4), "profile_serving",
+        f"serving, ticks {first}-{first + 3} with the initial re-solve "
+        "active", groups={"gram_qr": ("gram_qr_",),
+                          "gemm": ("gemm", "nvjet", "xmma", "cutlass",
+                                   "splitk", "gemv"),
+                          "snapshot_copy": ("memcpy dtoh",)},
+        warm=False, labels=("ingest_sketch_update",))
+    sketch_ms = prof.pop("labels").get("ingest_sketch_update")
+    if prof["groups"] and sketch_ms is not None:
+        prof["groups"]["sketch_update"] = {"ms": sketch_ms,
+                                           "of": "gemm (its own label)"}
+        prof["groups"]["gemm"]["ms_without_sketch_update"] = \
+            prof["groups"]["gemm"]["ms"] - sketch_ms
+    prof["device_kernel_launches_a_tick"] = (
+        prof["device_kernel_launches"] / 4
+        if isinstance(prof["device_kernel_launches"], (int, float))
+        else "not measured")
+    emit(prof)
+    del psvc
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> None:
@@ -1873,6 +2222,10 @@ def main() -> None:
     check(sweeps["netfault"]["shard_1_bitwise"],
           "sweeps netfault: the shard of seed 1 differs from the grid")
     del covs
+
+    # -- streams_ingest, serving, serving_chaos, warm_start, profile_serving --
+    serving_phases(dev, rows, Path(__file__).resolve().parent / "build"
+                   / "chip_smoke_serving")
 
     # -- sdot_sparse: the large-network path ----------------------------------
     q_init_sp = orthonormal_init(torch.Generator().manual_seed(1), ds, rs,

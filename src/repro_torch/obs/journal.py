@@ -19,7 +19,10 @@ process that dies inside a span leaves its ``span_start`` without a match.
 
 The journal only appends lines on the host, so it never changes what the
 device computes, and the disabled journal (``Journal.noop()``) costs one
-attribute check per call site.
+attribute check per call site. A journal opened with ``registry=`` (an
+``obs.registry.MetricsRegistry``) also observes every closed span's
+duration into that registry's ``span_<name>_seconds`` histogram, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -29,8 +32,10 @@ import re
 import time
 from typing import Any, Dict, List, Optional
 
-__all__ = ["Journal", "Span", "read_journal"]
+__all__ = ["Journal", "Span", "read_journal", "ENV_DIR", "ENV_OBS"]
 
+ENV_DIR = "REPRO_OBS_DIR"   # where journals go (overrides <workdir>/obs)
+ENV_OBS = "REPRO_OBS"       # "0"/"off" disables journaling entirely
 _FILE_RE = re.compile(r"^(?P<proc>.+)\.a(?P<attempt>\d+)\.jsonl$")
 _RESERVED = frozenset({"ts", "mono", "proc", "pid", "attempt", "kind",
                        "name"})
@@ -65,6 +70,12 @@ class Span:
         self._done = False
         self._t0 = time.monotonic()
 
+    def add(self, **fields) -> "Span":
+        """Attach fields to the closing record (a result computed
+        mid-span)."""
+        self._fields.update(fields)
+        return self
+
     def end(self, ok: bool = True, **fields) -> None:
         if self._done:
             return
@@ -85,6 +96,9 @@ class Span:
 class _NoopSpan:
     __slots__ = ()
 
+    def add(self, **fields):
+        return self
+
     def end(self, ok=True, **fields):
         pass
 
@@ -102,10 +116,11 @@ class Journal:
     """Append-only JSONL writer for one process attempt."""
 
     def __init__(self, path: Optional[str], proc: str, attempt: int = 0,
-                 **static):
+                 *, registry=None, **static):
         self.path = path
         self.proc = proc
         self.attempt = int(attempt)
+        self.registry = registry
         self.enabled = path is not None
         self._static = {k: v for k, v in static.items() if v is not None}
         self._pid = os.getpid()
@@ -122,7 +137,7 @@ class Journal:
 
     @classmethod
     def open(cls, obs_dir: str, proc: str, *, attempt: Optional[int] = None,
-             **static) -> "Journal":
+             registry=None, **static) -> "Journal":
         """Open the next attempt-scoped journal for ``proc`` in ``obs_dir``
         (``attempt=None`` takes one past the highest found there)."""
         os.makedirs(obs_dir, exist_ok=True)
@@ -134,7 +149,7 @@ class Journal:
                     prev.append(int(m.group("attempt")))
             attempt = max(prev) + 1
         path = os.path.join(obs_dir, f"{proc}.a{int(attempt)}.jsonl")
-        return cls(path, proc, attempt, **static)
+        return cls(path, proc, attempt, registry=registry, **static)
 
     def _write(self, kind: str, name: str, phase: Optional[str], /,
                **fields) -> None:
@@ -154,6 +169,9 @@ class Journal:
             os.write(self._fd, (_ENCODER.encode(rec) + "\n").encode())
         except (OSError, TypeError, ValueError):
             pass                                 # observability never raises
+        if kind == "span" and self.registry is not None:
+            self.registry.histogram(
+                f"span_{name}_seconds").observe(fields.get("dur_s", 0.0))
 
     def event(self, name: str, phase: Optional[str] = None, /,
               **fields) -> None:

@@ -1,1 +1,3 @@
-"""Long-running runs: chunked, checkpointed resume (``resume``)."""
+"""Long-running runs: chunked, checkpointed resume (``resume``); streaming
+ingest (``ingest``); the serving loop's fault injection (``chaos``) and its
+topology specs (``launcher``)."""
