@@ -23,7 +23,11 @@ Phases, one JSON line each:
   profile checks) carry the graph's shared-memory window (band, halo,
   in-window share) and ``l2_bytes``, the gathers that miss it; ``ell_checks`` times
   the same round on erdos_renyi(4096, 0.0015, seed 1), a graph without
-  locality. Flash
+  locality. The batched ELL rows (f32 and bf16) take bdot_sparse's row
+  stage: four watts_strogatz(4096, 6, 0.1) graphs (seeds 1-4, widened to
+  one L) stacked, K = 980 each, one launch; each member must equal a
+  single launch of it bit for bit, and the library's yardstick is one CSR
+  product over the block-diagonal matrix of the four. Flash
   attention has two rows: bf16 at qwen2-7b's prefill (the tensor-core
   kernel, checked for the same bits on a second launch, with its ptxas
   report and its count of HGMMA instructions from cuobjdump) and f32 at
@@ -170,6 +174,27 @@ Phases, one JSON line each:
   slot weights, a zero diagonal, zeroed messages), then one ELL launch a
   live round, the estimates within 1e-4 of a dense engine fed the same
   draws, bf16 finite and priced at 2 bytes an element.
+* ``bdot_sparse``: B-DOT on sdot_sparse's data over a 4 x 4096 grid
+  (slabs of 196 features by 4,096 sample columns of 14; on the card the
+  columns pad to 16), T_o = 5, t_c = 20: row engines watts_strogatz(4096, 6,
+  0.1, seeds 1-4), one stacked SparseW, so each row-stage round is one
+  batched ELL launch; column engine complete(4) repeated over the 4,096
+  columns. Checks: ELL launches = the rounds (batched) + the four debias
+  tables' rows (single), the grid kernels on the TMA route, q_full within
+  1e-4 by subspace error of the run with dense row engines and within 1e-5
+  of the eager sparse run, the closed-form ledger. It prints the three
+  walls, each row engine's smallest debias weight, and the grid kernels'
+  times and apply plan at this shape.
+* ``fleet`` (between ``sweeps`` and the serving phases): the sweeps'
+  S-DOT grid (3 cases x 4 seeds, T_o = 100, raw data) through
+  ``launch_sweep`` with 2 worker processes on this card: pinned over 2
+  shards; under ``chaos.smoke_plan`` (kill, corrupt-newest, slow, drop)
+  over 4 shards with sweep_chunk 20 (attempts 2, 2, 1, 2; shard 1 falls
+  back to step 20); elastic, a worker stealing shard 0's lease, left
+  expired by a departed worker, and resuming its step-20 checkpoint. Each
+  merge must equal the single-process sweep of each shard's seeds bit for
+  bit; it prints the walls, attempts and resumed steps. Workdirs under
+  ``build/chip_smoke_fleet/`` (removed after).
 * ``lm_setup``: frees the PSA phases' tensors and puts qwen2-7b (28 layers,
   d_model 3584, 28 / 4 heads, d_ff 18944, vocabulary 152,064; random
   weights from torch.Generator seed 0 at the reference's init scales) on the
@@ -855,14 +880,19 @@ def main() -> None:
                                            partition_samples)
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import make_lm_batch
-    from repro_torch.kernels import (_build, gram_qr, gram_update, ops, ref,
-                                     slab_ops)
+    from repro_torch.kernels import (_build, _launch, gram_qr, gram_update,
+                                     ops, ref, slab_ops)
+    from repro_torch.kernels import ell_spmm as ell_module
     from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES,
                                                      flash_attention_cuda,
                                                      tc_smem_bytes)
     from repro_torch.models.transformer import (decode_step, forward,
                                                 init_decode_state,
                                                 init_params, tree_leaves)
+    from repro_torch.streaming.chaos import smoke_plan
+    from repro_torch.streaming.fleet import LeaseStore
+    from repro_torch.streaming.launcher import (build_engine, build_schedule,
+                                                launch_sweep)
     from repro_torch.streaming.resume import (baseline_chunked, bdot_chunked,
                                               fdot_chunked, sdot_chunked)
 
@@ -1075,6 +1105,67 @@ def main() -> None:
             "bound_ms": b_ms, "bound_by": b_by}
         del got, again, want
     del z, w_csr, er_w, er_csr
+    # the batched form at bdot_sparse's row stage: four watts_strogatz(4096,
+    # 6, 0.1) graphs (seeds 1-4, ragged widths, widened to one L) stacked,
+    # B = 4 members over K = 196 x 5 = 980 columns each (B K = row 3's K)
+    bs_members = [SparseW.from_graph(topology.watts_strogatz(
+        n_sp, k=6, p=0.1, seed=s), device=dev) for s in (1, 2, 3, 4)]
+    bs = SparseW.stack(bs_members)
+    b_mem, k_b = len(bs_members), 196 * rs
+    zb = torch.randn((b_mem, n_sp, k_b), generator=gen, device=dev)
+    # the library's yardstick: one CSR product over the block-diagonal
+    # (B N, B N) matrix of the four graphs (diagonals included)
+    b_rows = (torch.arange(b_mem * n_sp, device=dev)[:, None]
+              .expand(-1, bs.ell_width).reshape(-1))
+    b_cols = (bs.ell_idx.long() + n_sp * torch.arange(
+        b_mem, device=dev)[:, None, None]).reshape(-1)
+    diag_ix = torch.arange(b_mem * n_sp, device=dev)
+    b_csr = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([b_rows, diag_ix]),
+                     torch.cat([b_cols, diag_ix])]),
+        torch.cat([bs.ell_val.reshape(-1), bs.diag.reshape(-1)]),
+        (b_mem * n_sp, b_mem * n_sp)).coalesce().to_sparse_csr()
+    zb_flat = zb.reshape(b_mem * n_sp, k_b)
+    b_edges = float(bs.row_nnz.sum())
+    b_bytes = (f32 * (2 * bs.ell_idx.numel() + bs.diag.numel())
+               + f32 * 2 * zb.numel())
+    for name, payload in (("ell_spmm_batched", None),
+                          ("ell_spmm_batched_bf16", "bfloat16")):
+        src = zb if payload is None else zb.to(torch.bfloat16)
+        record(name, "src/repro_torch/kernels/csrc/ell_spmm.cu",
+               "src/repro/kernels/ell_spmm.py:57",
+               lambda payload=payload: ops.ell_spmm(
+                   bs.ell_idx, bs.ell_val, bs.diag, zb,
+                   payload_dtype=payload, window=bs.window),
+               lambda src=src: ref.ell_spmm_ref(bs.ell_idx, bs.ell_val,
+                                                bs.diag, zb, src),
+               (lambda: torch.sparse.mm(b_csr, zb_flat)) if payload is None
+               else None, b_bytes, 2.0 * (b_edges + b_mem * n_sp) * k_b,
+               ELL_TOL, "f32 FMA chain against the plain gather; relative "
+               "to max |out|" if payload is None else "the same "
+               "bf16-quantised messages on both sides; relative to max "
+               "|out|", host=True)
+        got = ops.ell_spmm(bs.ell_idx, bs.ell_val, bs.diag, zb,
+                           payload_dtype=payload, window=bs.window)
+        members_equal = [bool(torch.equal(got[m], ops.ell_spmm(
+            bs.ell_idx[m], bs.ell_val[m], bs.diag[m], zb[m],
+            payload_dtype=payload, window=bs.member_windows[m])))
+            for m in range(b_mem)]
+        check(all(members_equal), f"{name}: a member differs from a single "
+              f"launch of it: {members_equal}")
+        rows[name].pop("tma_launches")           # no TMA route in this one
+        rows[name].update(
+            shape=[b_mem, n_sp, bs.ell_width, k_b],
+            member_widths=[m.ell_width for m in bs_members],
+            members_equal_single_launches=members_equal,
+            window=ell_window(bs.window),
+            member_windows=[ell_window(w) for w in bs.member_windows],
+            l2_bytes=bs.window.gathers * k_b * f32)
+        del got
+    rows["ell_spmm_batched_bf16"].update(
+        main_path=False, note="bf16 messages over a stack: no phase of the "
+        "main path runs it, so 0 launches there")
+    del zb, zb_flat, b_csr, b_rows, b_cols, diag_ix
 
     # the slab kernels at F-DOT's shapes, the grid kernels at B-DOT's
     x_pad = pad_feature_slabs(fslabs)                      # (20, 55, 50000)
@@ -1279,6 +1370,7 @@ def main() -> None:
           "shapes": {"batched_gram_apply": list(x_stack.shape) + [r],
                      "gram_apply": list(x_one.shape) + [r],
                      "ell_spmm": [n_sp, sw.ell_width, k_payload],
+                     "ell_spmm_batched": [b_mem, n_sp, bs.ell_width, k_b],
                      "batched_slab_tq": list(x_pad.shape) + [r],
                      "batched_slab_apply": list(x_pad.shape) + [r],
                      "grid_block_tq": list(x_grid.shape) + [r],
@@ -2223,6 +2315,91 @@ def main() -> None:
           "sweeps netfault: the shard of seed 1 differs from the grid")
     del covs
 
+    # -- fleet: the sweeps' S-DOT grid over worker processes on this card ----
+    # launch_sweep of 3 cases x 4 seeds (T_o = 100) on the raw data, each
+    # run's merge against the single-process sweep of each shard's seeds in
+    # this process: pinned (2 workers, 2 shards); under run_smoke's plan
+    # kinds (4 shards, sweep_chunk 20); elastic, a worker stealing a lease
+    # left expired by a departed one, whose checkpoint it resumes
+    fleet_root = Path(__file__).resolve().parent / "build" / \
+        "chip_smoke_fleet"
+    shutil.rmtree(fleet_root, ignore_errors=True)
+    fl_cases = [{"topology": {"kind": "er", "n": n_nodes, "p": 0.25,
+                              "seed": 1}},
+                {"topology": {"kind": "er", "n": n_nodes, "p": 0.25,
+                              "seed": 1},
+                 "schedule": {"kind": "lin2", "cap": 50}},
+                {"topology": {"kind": "ring", "n": n_nodes}}]
+    fl_engines = [build_engine(c["topology"], device=dev) for c in fl_cases]
+    fl_scheds = [build_schedule(c.get("schedule"), t_outer, 50)
+                 for c in fl_cases]
+    check([np.array_equal(a, b[2]) for a, b in zip(fl_scheds, cases)]
+          == [True] * 3, "fleet: the specs' schedules differ from sweeps'")
+    fl_kw = dict(data=blocks, cases=fl_cases, r=r, t_outer=t_outer, t_c=50,
+                 seeds=sw_seeds, q_true=q_true, n_workers=2, device=dev)
+
+    def shard_sweeps(n_shards):
+        """The single-process sweep of each shard's seeds: (traces, q)."""
+        parts = [sweep.sdot_sweep(data=blocks, engines=fl_engines,
+                                  schedules=fl_scheds, r=r, t_outer=t_outer,
+                                  t_c=50, seeds=s, q_true=q_true, device=dev)
+                 for s in sweep.slice_seed_shards(sw_seeds, n_shards)]
+        return (np.concatenate([p.error_traces for p in parts], axis=1),
+                torch.cat([p.q.cpu() for p in parts], dim=1))
+
+    def fleet_run(label, want, **kw):
+        t0 = time.perf_counter()
+        res = launch_sweep(workdir=str(fleet_root / label), **fl_kw, **kw)
+        wall = time.perf_counter() - t0
+        rep = res.resume_report
+        out = {"wall_s": wall, "attempts": rep["attempts"],
+               "worker_resumed_steps": rep["worker_resumed_steps"],
+               "bitwise": bool(np.array_equal(res.error_traces, want[0])
+                               and torch.equal(res.q, want[1])),
+               "final_err": res.error_traces[:, :, -1].tolist()}
+        for key in ("stolen_shards", "lease_owners"):
+            if key in rep:
+                out[key] = rep[key]
+        return out
+
+    fleet = {}
+    want2, want4 = shard_sweeps(2), shard_sweeps(4)
+    fleet["pinned"] = fleet_run("pinned", want2, n_shards=2)
+    fleet["chaos"] = fleet_run("chaos", want4, n_shards=4, sweep_chunk=20,
+                               retries=2, chaos_plan=smoke_plan(0))
+    fleet["chaos"]["faults"] = [f["kind"] for f in smoke_plan(0).faults]
+    # a worker that left shard 0 after its first chunk: its checkpoint at
+    # step 20 and its lease, stamped 100 s ago on both clocks
+    el_dir = fleet_root / "elastic"
+    shard0 = sweep.slice_seed_shards(sw_seeds, 2)[0]
+    sweep.sdot_sweep(data=blocks, engines=fl_engines, schedules=fl_scheds,
+                     r=r, t_outer=t_outer, t_c=50, seeds=shard0,
+                     q_true=q_true, device=dev, chunk_size=20, max_chunks=1,
+                     manager=CheckpointManager(str(el_dir / "worker_0"
+                                                   / "ckpt")))
+    store = LeaseStore(str(el_dir), ttl=5.0)
+    departed = store.try_acquire(0, "departed")
+    departed.update(renewed_at=time.time() - 100.0,
+                    renewed_mono=time.monotonic() - 100.0)
+    store._write(0, dict(departed))
+    fleet["elastic"] = fleet_run("elastic", want2, n_shards=2,
+                                 sweep_chunk=20, elastic=True, lease_ttl=5.0)
+    shutil.rmtree(fleet_root, ignore_errors=True)
+    emit({"phase": "fleet", "cases": [c[0] for c in cases],
+          "seeds": sw_seeds, "t_outer": t_outer, "workers": 2, **fleet})
+    for label, out in fleet.items():
+        check(out["bitwise"], f"fleet {label}: the merge differs from the "
+              "single-process sweep of each shard")
+    check(fleet["chaos"]["attempts"] == {0: 2, 1: 2, 2: 1, 3: 2},
+          f"fleet chaos: attempts {fleet['chaos']['attempts']}")
+    # shard 1's newest checkpoint (step 40) was torn at boundary 3
+    check(fleet["chaos"]["worker_resumed_steps"][1] == 20,
+          "fleet chaos: shard 1 did not fall back past its torn checkpoint")
+    check(0 in fleet["elastic"]["stolen_shards"]
+          and fleet["elastic"]["worker_resumed_steps"][0] == 20,
+          f"fleet elastic: no steal of shard 0 from its step-20 state "
+          f"{fleet['elastic']}")
+
     # -- streams_ingest, serving, serving_chaos, warm_start, profile_serving --
     serving_phases(dev, rows, Path(__file__).resolve().parent / "build"
                    / "chip_smoke_serving")
@@ -2377,6 +2554,133 @@ def main() -> None:
     check(res_sb.ledger.payload_bytes == 2 * res_sb.ledger.scalars,
           "sparse_faulty bf16: ledger does not price 2 bytes per element")
     del f_eng, bf_f_eng, sp_draws, res_sf, res_sd, res_sb
+
+    # -- bdot_sparse: B-DOT over a 4 x 4096 grid, stacked sparse row engines --
+    # sdot_sparse's MNIST-width data: 4 feature slabs of 196 by 4,096 sample
+    # columns of 14 (57,344 of the 60,000 samples, as partition_samples cuts
+    # them). Each row engine gossips over watts_strogatz(4096, 6, 0.1) of
+    # its own seed, so the stage is one stacked SparseW; the column engine
+    # is complete(4), repeated over the 4,096 columns
+    bs_i, bs_j, t_c_bs = 4, n_sp, 20
+    sp_grid = [partition_samples(sl, bs_j)
+               for sl in partition_features(xs, bs_i)]
+    x_used = torch.cat(sp_blocks, dim=1).double()
+    qs_true = torch.linalg.eigh(x_used @ x_used.T)[1][:, -rs:].flip(-1) \
+        .float().contiguous()
+    del x_used
+
+    def bs_rows(sparse=None):
+        return [DenseConsensus(topology.watts_strogatz(n_sp, k=6, p=0.1,
+                                                       seed=s),
+                               sparse=sparse, device=dev)
+                for s in (1, 2, 3, 4)]
+
+    def max_angle_f64(a, b):
+        qa, qb = (torch.linalg.qr(q.double())[0] for q in (a, b))
+        s = torch.linalg.svdvals(qa.T @ qb).clamp(-1.0, 1.0)
+        return float(torch.arccos(s).max())
+
+    col_bs = [DenseConsensus(topology.complete(bs_i), device=dev)] * bs_j
+    row_sp = bs_rows()
+    check(all(e.is_sparse for e in row_sp), "bdot_sparse: a row engine of "
+          "watts_strogatz(4096) did not pick the ELL path")
+    bs_kw = dict(blocks=sp_grid, col_engines=col_bs, r=rs, t_outer=t_sp,
+                 t_c=t_c_bs, q_init=q_init_sp, q_true=qs_true, device=dev)
+    res_bs, wall_bs, launches_bs = timed_run(lambda: bdot(
+        row_engines=row_sp, **bs_kw))
+    routes_bs = dict(ell_module.ROUTE_LAUNCHES)
+    rounds_bs = t_sp * t_c_bs
+    # one batched launch a round of the row stage; the four debias tables
+    # take t_c single launches each
+    count_path("bdot_sparse", launches_bs, {
+        "ell_spmm": rounds_bs + len(row_sp) * t_c_bs,
+        "grid_block_tq": t_sp, "grid_block_apply": t_sp,
+        "gram_qr": QR_PASSES * t_sp})
+    check(routes_bs == {"single": len(row_sp) * t_c_bs,
+                        "batched": rounds_bs},
+          f"bdot_sparse: ELL launches by form {routes_bs}, expected "
+          f"{len(row_sp) * t_c_bs} single and {rounds_bs} batched")
+    rows["ell_spmm"]["launches"] -= rounds_bs
+    rows["ell_spmm_batched"]["launches"] += rounds_bs
+    res_bd, wall_bd, _ = timed_run(lambda: bdot(
+        row_engines=bs_rows(sparse=False), **bs_kw))
+    res_be, wall_be, _ = timed_run(lambda: bdot(
+        row_engines=row_sp, fused=False, **bs_kw))
+    d_bs, n_bs = sp_grid[0][0].shape
+    ledger_bs = [res_bs.ledger.p2p, res_bs.ledger.matrices,
+                 res_bs.ledger.scalars, res_bs.ledger.payload_bytes]
+    want_bs = closed_form(
+        [(e.graph.adjacency, rounds_bs, n_bs * rs) for e in col_bs]
+        + [(e.graph.adjacency, rounds_bs, d_bs * rs) for e in row_sp]
+        + [(col_bs[0].graph.adjacency, QR_PASSES * t_c_bs * t_sp,
+            rs * rs)])
+    # the grid kernels at this launch (J = 4,096 blocks of 14 columns,
+    # padded to 16 on the card) against their plain versions
+    x_bs = pad_grid_blocks(sp_grid, 4)
+    q_bs = torch.randn((bs_i, x_bs.shape[2], rs), generator=gen, device=dev)
+    s_bs = torch.randn((bs_j, x_bs.shape[3], rs), generator=gen, device=dev)
+    grid_at_bs = {}
+    for name, kern, plain, nbytes in (
+            ("grid_block_tq", lambda: ops.grid_block_tq(x_bs, q_bs),
+             lambda: ref.grid_block_tq_ref(x_bs, q_bs),
+             f32 * (x_bs.numel() + q_bs.numel()
+                    + bs_i * bs_j * x_bs.shape[3] * rs)),
+            ("grid_block_apply", lambda: ops.grid_block_apply(x_bs, s_bs),
+             lambda: ref.grid_block_apply_ref(x_bs, s_bs),
+             f32 * (x_bs.numel() + s_bs.numel()
+                    + bs_i * bs_j * x_bs.shape[2] * rs))):
+        got, want = kern(), plain()
+        b_ms, b_by = bound(nbytes, 2.0 * x_bs.numel() * rs)
+        grid_at_bs[name] = {
+            "rel_err": float((got - want).abs().max() / want.abs().max()),
+            "ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "bound_ms": b_ms, "bound_by": b_by}
+        check(grid_at_bs[name]["rel_err"] <= SLAB_TOL,
+              f"bdot_sparse {name}: {grid_at_bs[name]}")
+        del got, want
+    ap_plan = slab_ops.apply_plan(bs_i * bs_j, x_bs.shape[2], x_bs.shape[3],
+                                  rs, *_launch.card(0))
+    grid_at_bs["grid_block_apply"]["plan"] = {
+        k: getattr(ap_plan, k) for k in ("chunks", "rows", "rpw", "cols",
+                                         "stages", "grid", "smem", "slots")}
+    del x_bs, q_bs, s_bs
+    bs_out = {
+        "grid": [bs_i, bs_j], "block": [int(d_bs), int(n_bs)],
+        "padded_cols": int(-(-n_bs // 4) * 4), "r": rs, "t_outer": t_sp,
+        "t_c": t_c_bs, "row_ell_widths": [e._w.ell_width for e in row_sp],
+        "stack_width": SparseW.stack([e._w for e in row_sp]).ell_width,
+        "debias_table_min": [float(e.debias_table(t_c_bs)[t_c_bs].min())
+                             for e in row_sp],
+        "wall_s": {"fused_sparse": wall_bs, "fused_dense_rows": wall_bd,
+                   "eager_sparse": wall_be},
+        "launches": launches_bs, "ell_routes": routes_bs,
+        "final_err": {"fused_sparse": float(res_bs.error_trace[-1]),
+                      "fused_dense_rows": float(res_bd.error_trace[-1]),
+                      "eager_sparse": float(res_be.error_trace[-1])},
+        "subspace_err_vs_dense_rows": float(subspace_error(res_bd.q_full,
+                                                           res_bs.q_full)),
+        "subspace_err_vs_eager": float(subspace_error(res_be.q_full,
+                                                      res_bs.q_full)),
+        # eq. (11) in f32 reads 0 once every singular value rounds to 1:
+        # the largest principal angle after a float64 QR says how far
+        "max_angle_f64_vs_dense_rows": max_angle_f64(res_bd.q_full,
+                                                     res_bs.q_full),
+        "max_angle_f64_vs_eager": max_angle_f64(res_be.q_full,
+                                                res_bs.q_full),
+        "ledger": ledger_bs, "ledger_closed_form": want_bs,
+        "grid_kernels_at_this_shape": grid_at_bs}
+    emit({"phase": "bdot_sparse", **bs_out})
+    check(bool(torch.isfinite(res_bs.q_full).all()), "bdot_sparse: "
+          "non-finite")
+    check(bs_out["subspace_err_vs_dense_rows"] <= SUBSPACE_TOL,
+          f"bdot_sparse: subspace error {bs_out['subspace_err_vs_dense_rows']}"
+          " against the dense row engines")
+    check(bs_out["subspace_err_vs_eager"] <= 1e-5,
+          f"bdot_sparse: subspace error {bs_out['subspace_err_vs_eager']} "
+          "against the eager sparse run")
+    check(ledger_bs == want_bs, f"bdot_sparse: ledger {ledger_bs}, closed "
+          f"form {want_bs}")
+    del sp_grid, row_sp, col_bs, res_bs, res_bd, res_be
 
     # -- lm_setup: qwen2-7b on the card, after the PSA phases' tensors ------
     del (x, blocks, fslabs, grid, xs, sp_blocks, sp_eng, sw, dense_eng,

@@ -11,15 +11,18 @@ V = X X^T Q block-wise:
 
 Execution modes (``fused`` flag, as in ``sdot.py`` / ``fdot.py``):
   * fused (default): ``runtime.run_monolithic`` over ``bdot_program``. The
-    ragged grid is zero-padded into one (I, J, d_max, n_max) stack and the
-    row iterates into (I, d_max, r). The padding is exact: padded feature
+    ragged grid is zero-padded into one (I, J, d_max, n_max) stack (n_max a
+    multiple of 4 on the card, for the grid apply kernel's TMA route) and
+    the row iterates into (I, d_max, r). The padding is exact: padded feature
     rows are zero in X_ij and Q_i; padded sample columns of X_ij give zero
     rows of Z_ij, which stay zero through gossip (a convex row mix) and
     debiasing, so stage 2 never reads anything but zeros there. Stages 1
     and 2 are one launch each of the Hopper grid kernels
     (``kernels/ops.grid_block_tq`` / ``grid_block_apply``); the J column
     (I row) gossips run as one batched matmul per round over the stacked
-    (J, I, I) ((I, J, J)) weights, each debiased by its own device table.
+    (J, I, I) ((I, J, J)) weights, or, over sparse engines, one batched ELL
+    launch per round over their ``SparseW.stack``, each sub-network
+    debiased by its own device table.
     Stage 3 is the in-loop distributed CholeskyQR over the column-0 engine,
     its I Grams one launch of the Gram kernel a pass. No host sync inside
     the loop; the ledger is priced in closed form.
@@ -53,9 +56,11 @@ from .sparse import SparseW
 __all__ = ["BDOTResult", "bdot", "bdot_program", "pad_grid_blocks"]
 
 
-def _stack_weights(engines: Sequence[DenseConsensus]) -> torch.Tensor:
-    """Stack per-sub-network mixing weights to (B, N, N) for the batched
-    gossip stages. Sparse engines wait for a batched ELL stack."""
+def _stack_weights(engines: Sequence[DenseConsensus]):
+    """Stack per-sub-network mixing weights for the batched gossip stages:
+    all-dense engines to a (B, N, N) tensor, all-sparse engines to one
+    stacked ``SparseW`` (one ELL launch a round for all B). A stage that
+    mixes the two has no batched form and is refused."""
     ws = [e._w for e in engines]
     n_sparse = sum(isinstance(w, SparseW) for w in ws)
     if n_sparse == 0:
@@ -64,10 +69,7 @@ def _stack_weights(engines: Sequence[DenseConsensus]) -> torch.Tensor:
         raise ValueError(
             "B-DOT stage mixes sparse and dense engines; pass sparse=True "
             "or sparse=False uniformly per stage")
-    raise NotImplementedError(
-        "fused B-DOT over sparse engines needs a batched ELL stack "
-        "(SparseW.stack), which comes with a later slice of the port; run "
-        "it with fused=False")
+    return SparseW.stack(ws)
 
 
 @dataclasses.dataclass
@@ -81,12 +83,15 @@ class BDOTResult:
         return torch.cat(self.q_rows, dim=0)
 
 
-def pad_grid_blocks(blocks: Sequence[Sequence[torch.Tensor]]) -> torch.Tensor:
+def pad_grid_blocks(blocks: Sequence[Sequence[torch.Tensor]],
+                    col_multiple: int = 1) -> torch.Tensor:
     """Zero-pad an I x J grid of ragged (d_i, n_j) blocks to one
-    (I, J, d_max, n_max) stack (the module docstring says why the padding
-    is exact through all three B-DOT stages)."""
+    (I, J, d_max, n_max) stack, n_max rounded up to ``col_multiple`` (the
+    module docstring says why the padding is exact through all three B-DOT
+    stages)."""
     d_max = max(int(row[0].shape[0]) for row in blocks)
     n_max = max(int(b.shape[1]) for b in blocks[0])
+    n_max = -(-n_max // col_multiple) * col_multiple
     return torch.stack([
         torch.stack([F.pad(b, (0, n_max - b.shape[1], 0, d_max - b.shape[0]))
                      for b in row])
@@ -223,7 +228,9 @@ def bdot_program(
     qtrue_pad = (None if run.q_true is None
                  else split_pad_rows(run.q_true, run.dims))
     operands = (
-        pad_grid_blocks(run.blocks),                       # (I, J, d, n)
+        # on the card, sample columns padded to a multiple of 4: the grid
+        # apply kernel's TMA route reads 16-byte rows
+        pad_grid_blocks(run.blocks, 4 if run.q_init.is_cuda else 1),
         _stack_weights(col_engines),                       # (J, I, I)
         torch.stack([e.debias_table(t_max) for e in col_engines]),
         _stack_weights(row_engines),                       # (I, J, J)

@@ -66,8 +66,9 @@ def gossip_mix(wz, z: torch.Tensor) -> torch.Tensor:
     mixing (``wz`` a ``SparseW``, the ELL kernel).
 
     A (B, N, N) ``wz`` is a stack of B sub-networks (B-DOT's grid columns
-    or rows) mixing z: (B, N, ...) in one batched matmul; it stands in for
-    the reference's ``jax.vmap`` over engines.
+    or rows) mixing z: (B, N, ...) in one batched matmul, and a stacked
+    ``SparseW`` (``SparseW.stack``) mixes it in one batched ELL launch;
+    both stand in for the reference's ``jax.vmap`` over engines.
     """
     if isinstance(wz, SparseW):
         return wz.mix(z)
@@ -123,9 +124,10 @@ def debiased_gossip(w, table: torch.Tensor, z_stack: torch.Tensor,
     """masked_gossip + debias by the table row ``t_c``: the fused
     executor's inner step (no host sync).
 
-    Batched form: ``w`` (B, N, N), ``table`` (B, t_max + 1, N) and
-    ``z_stack`` (B, N, ...) run all B sub-networks at once, one batched
-    matmul per round, each debiased by its own table's row ``t_c``.
+    Batched form: ``w`` (B, N, N) or a stacked ``SparseW``, ``table``
+    (B, t_max + 1, N) and ``z_stack`` (B, N, ...) run all B sub-networks at
+    once, one batched matmul or ELL launch per round, each debiased by its
+    own table's row ``t_c``.
     """
     out = masked_gossip(w, z_stack, t_c, t_max)
     row = table[..., int(t_c), :]                          # (N,) or (B, N)

@@ -2,7 +2,8 @@
 //   out[i, :] = diag[i] z[i, :] + sum_l val[i, l] q(z[idx[i, l], :])
 // q = identity, or round to bf16 and back (a bf16 payload's messages).
 //
-// Replaces: repro/kernels/ell_spmm.py  ell_spmm_pallas.
+// Replaces: repro/kernels/ell_spmm.py  ell_spmm_pallas (and its jax.vmap
+// over a stacked SparseW, repro/core/bdot.py's batched gossip stages).
 //
 // What bounds it on the H100: bytes. Each output element costs 2 (L + 1)
 // flops against 4 bytes of z read and 4 written, well below one flop per
@@ -46,7 +47,12 @@
 //    push z out of L2.
 //  * The sum is the same FMA chain in slot order for every row, whichever
 //    route a slot's message took: out = diag * own, then fma(val, msg, out)
-//    slot by slot, the bits of the kernel this replaces. The own term reads
+//    slot by slot over the first 32 slots, the bits of the kernel this
+//    replaces. A wider row (an Erdos-Renyi graph of 600 neighbours, a hub)
+//    sums each further 32 slots from 0 and adds that partial once, so its
+//    f32 rounding grows with 32 + L / 32 terms instead of L: a chain of 608
+//    read up to 1.76x the 1e-6 limit against a float64 sum on some
+//    payloads (tools/ell_error_sweep.py). The own term reads
 //    z in f32 (from device memory for a bf16 payload); for a bf16 payload
 //    each staged value is rounded once in shared memory with
 //    __float2bfloat16_rn and widened back (a message read from device
@@ -55,6 +61,12 @@
 //    reads the window.
 //  * K not a multiple of 4, or a base pointer not 16-byte aligned, takes
 //    the 4-byte route (W = 1): 4-byte copies and loads, the same layout.
+//  * A batch of B matrices (B-DOT's stacked sub-networks, each (n, width)
+//    over its own (n, k) payload) is one launch of B times the blocks:
+//    block b sums member b / (bands * tiles) with the block numbering of a
+//    launch of that member alone, under the one window planned for the
+//    whole batch. The window moves only which route a message takes, so
+//    each member's bits are those of its own launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,6 +79,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileCols = 256;   // widest column tile: 32 lanes x 8 columns
 constexpr int kSlots = 2;        // messages a warp loads before their FMAs
+constexpr int kChunk = 32;       // slots a partial sum takes (a multiple of
+                                 // kSlots)
 constexpr int kMaxSmem = 200 * 1024;   // dynamic shared memory a block
 
 struct EllArgs {
@@ -76,7 +90,7 @@ struct EllArgs {
   const float* z;                // (n, k)
   float* out;                    // (n, k)
   int n, k, width;
-  int band_rows, halo, tile_cols, bands;
+  int band_rows, halo, tile_cols, bands, tiles;
 };
 
 template <bool QUANT>
@@ -168,10 +182,20 @@ struct Slots {
 // slots and diagonal in shared memory.
 template <int W, bool QUANT, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
-ell_spmm_kernel(EllArgs a) {
+ell_spmm_kernel(EllArgs args) {
   constexpr int NV = kTileCols / (32 * W);   // vectors a lane
   extern __shared__ __align__(16) unsigned char smem[];
-  const int band = blockIdx.x % a.bands, tile = blockIdx.x / a.bands;
+  // this block's member of the batch: its own slots, diagonal and payload
+  const int per_member = args.bands * args.tiles;
+  const size_t member = blockIdx.x / per_member;
+  const int b = blockIdx.x - (int)member * per_member;
+  EllArgs a = args;
+  a.idx += member * a.n * a.width;
+  a.val += member * a.n * a.width;
+  a.diag += member * a.n;
+  a.z += member * a.n * a.k;
+  a.out += member * a.n * a.k;
+  const int band = b % a.bands, tile = b / a.bands;
   const int r0 = band * a.band_rows, r1 = min(a.n, r0 + a.band_rows);
   const int w0 = max(0, r0 - a.halo), w1 = min(a.n, r1 + a.halo);
   const int c0 = tile * a.tile_cols, cols = min(a.tile_cols, a.k - c0);
@@ -251,36 +275,53 @@ ell_spmm_kernel(EllArgs a) {
 #pragma unroll
       for (int v = 0; v < W; ++v) acc[j][v] = own[v] * dg;
     }
-    int l = 0;
-    for (; l + kSlots <= a.width; l += kSlots) {
-      float m[kSlots][NV][W];
-      int off[kSlots];
+    // slots [l, end) in order onto the sums s, kSlots loads in flight
+    auto sum_slots = [&](float (&s)[NV][W], int l, const int end) {
+      for (; l + kSlots <= end; l += kSlots) {
+        float m[kSlots][NV][W];
+        int off[kSlots];
 #pragma unroll
-      for (int u = 0; u < kSlots; ++u) {
-        off[u] = ro.place(l + u);
-        me.load(win, a.z, a.k, c0, off[u], m[u]);
+        for (int u = 0; u < kSlots; ++u) {
+          off[u] = ro.place(l + u);
+          me.load(win, a.z, a.k, c0, off[u], m[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kSlots; ++u) {
+          me.round(off[u], m[u]);
+          const float w = ro.weight(l + u);
+#pragma unroll
+          for (int j = 0; j < NV; ++j)
+#pragma unroll
+            for (int v = 0; v < W; ++v)
+              s[j][v] = fmaf(w, m[u][j][v], s[j][v]);
+        }
       }
-#pragma unroll
-      for (int u = 0; u < kSlots; ++u) {
-        me.round(off[u], m[u]);
-        const float w = ro.weight(l + u);
+      for (; l < end; ++l) {
+        float m[NV][W];
+        const int off = ro.place(l);
+        me.load(win, a.z, a.k, c0, off, m);
+        me.round(off, m);
+        const float w = ro.weight(l);
 #pragma unroll
         for (int j = 0; j < NV; ++j)
 #pragma unroll
-          for (int v = 0; v < W; ++v)
-            acc[j][v] = fmaf(w, m[u][j][v], acc[j][v]);
+          for (int v = 0; v < W; ++v) s[j][v] = fmaf(w, m[j][v], s[j][v]);
       }
-    }
-    for (; l < a.width; ++l) {
-      float m[NV][W];
-      const int off = ro.place(l);
-      me.load(win, a.z, a.k, c0, off, m);
-      me.round(off, m);
-      const float w = ro.weight(l);
+    };
+    // the first kChunk slots run on from the own term; each later chunk is
+    // summed from 0 and added once
+    sum_slots(acc, 0, min(a.width, kChunk));
+    for (int s0 = kChunk; s0 < a.width; s0 += kChunk) {
+      float part[NV][W];
 #pragma unroll
       for (int j = 0; j < NV; ++j)
 #pragma unroll
-        for (int v = 0; v < W; ++v) acc[j][v] = fmaf(w, m[j][v], acc[j][v]);
+        for (int v = 0; v < W; ++v) part[j][v] = 0.0f;
+      sum_slots(part, s0, min(a.width, s0 + kChunk));
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+#pragma unroll
+        for (int v = 0; v < W; ++v) acc[j][v] += part[j][v];
     }
     float* o = a.out + (size_t)row * a.k + c0;
 #pragma unroll
@@ -324,13 +365,15 @@ bool aligned16(const void* p) {
 
 extern "C" {
 
-// idx: (n, width) int32, val: (n, width) f32, diag: (n,) f32, z and out:
-// (n, k) f32. params (on the host, in this order): n, k, width, quantise
-// (round each gathered value to bf16), and the plan (ell_spmm.py):
-// band_rows, halo (rows either side of a band), tile_cols (a multiple of 4
-// where vec), vec (the 16-byte route), staged (the band's slots in shared
-// memory), smem (bytes of shared memory, at most 200 KB). Returns the CUDA
-// error code of the launch (0 on success).
+// idx: (batch, n, width) int32, val: (batch, n, width) f32, diag:
+// (batch, n) f32, z and out: (batch, n, k) f32, each member contiguous
+// after the last. params (on the host, in this order): n, k, width,
+// quantise (round each gathered value to bf16), and the plan
+// (ell_spmm.py): band_rows, halo (rows either side of a band), tile_cols
+// (a multiple of 4 where vec), vec (the 16-byte route), staged (the band's
+// slots in shared memory), smem (bytes of shared memory, at most 200 KB),
+// batch (members, >= 1). Returns the CUDA error code of the launch (0 on
+// success).
 int ell_spmm_launch(const int* idx, const float* val, const float* diag,
                     const float* z, float* out, const int* params,
                     void* stream_ptr) {
@@ -338,20 +381,23 @@ int ell_spmm_launch(const int* idx, const float* val, const float* diag,
   const int n = params[0], k = params[1], width = params[2],
             quantise = params[3], band_rows = params[4], halo = params[5],
             tile_cols = params[6], vec = params[7], staged = params[8],
-            smem = params[9];
+            smem = params[9], batch = params[10];
   const long long need =
       4LL * ((band_rows + 2LL * halo) * tile_cols +
              (staged ? band_rows * (2LL * width + 1) : 0));
   if (n < 1 || k < 1 || width < 0 || band_rows < 1 || halo < 0 ||
+      batch < 1 ||
       tile_cols < 1 || tile_cols > kTileCols || smem < need ||
       smem > kMaxSmem ||
       (vec && (tile_cols % 4 || k % 4 || !aligned16(z) || !aligned16(out))))
     return (int)cudaErrorInvalidValue;
   const int bands = (n + band_rows - 1) / band_rows;
   const int tiles = (k + tile_cols - 1) / tile_cols;
+  const long long all_blocks = (long long)batch * bands * tiles;
+  if (all_blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   EllArgs a{idx, val, diag, z, out, n, k, width, band_rows, halo, tile_cols,
-            bands};
-  const int blocks = bands * tiles;
+            bands, tiles};
+  const int blocks = (int)all_blocks;
   if (vec)
     return (int)(quantise ? launch<4, true>(a, staged, blocks, smem, s)
                           : launch<4, false>(a, staged, blocks, smem, s));

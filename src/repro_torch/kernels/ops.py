@@ -51,11 +51,12 @@ LAUNCHES: Dict[str, int] = {"gram_apply": 0, "batched_gram_apply": 0,
 
 def reset_launches() -> None:
     """Zero every wrapper's count, and the counts by route of the flash-
-    attention, gram-apply, slab-apply and Gram kernels."""
-    from . import flash_attention, gram_qr, gram_update, slab_ops
+    attention, gram-apply, slab-apply, Gram and ELL kernels."""
+    from . import ell_spmm, flash_attention, gram_qr, gram_update, slab_ops
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-    for module in (flash_attention, gram_update, slab_ops, gram_qr):
+    for module in (flash_attention, gram_update, slab_ops, gram_qr,
+                   ell_spmm):
         module.reset_route_launches()
 
 
@@ -273,6 +274,13 @@ def ell_spmm(ell_idx: torch.Tensor, ell_val: torch.Tensor,
     """One sparse gossip round: out[i] = diag[i] z[i] + sum_l val[i,l]
     z[idx[i,l]]. ell_idx/ell_val: (N, L), diag: (N,), z: (N, K) -> (N, K) f32.
 
+    A stack of B sub-networks (a stacked ``SparseW``: ell_idx / ell_val
+    (B, N, L), diag (B, N), z (B, N, K) -> (B, N, K)) mixes each member over
+    its own slots: on the card one launch for all B (one count in
+    ``LAUNCHES["ell_spmm"]``), on the CPU the plain forms with the same
+    batch axis, each chosen by one member's shapes as the reference's
+    vmapped round chooses it.
+
     ``payload_dtype`` (e.g. "bfloat16") quantises the gather source, the
     neighbour messages, before the f32 accumulation; each node's own
     diagonal term stays full precision. On the card the kernel rounds each
@@ -282,11 +290,11 @@ def ell_spmm(ell_idx: torch.Tensor, ell_val: torch.Tensor,
     planned once from the host indices), which moves the time and never
     the bits; the CPU ignores it.
     """
-    n, k = z.shape
+    n, k = z.shape[-2:]
     if not z.is_cuda:
         z_src = (z if payload_dtype is None
                  else z.to(getattr(torch, payload_dtype)))
-        path = ell_spmm_path(n, ell_idx.shape[1], k, use_kernel=False)
+        path = ell_spmm_path(n, ell_idx.shape[-1], k, use_kernel=False)
         return _CPU_PATHS[path](ell_idx, ell_val, diag, z, z_src)
     from .ell_spmm import ell_spmm_cuda
     if payload_dtype not in (None, "float32", "bfloat16"):

@@ -111,7 +111,16 @@ def gram_qr_ref(v: torch.Tensor) -> torch.Tensor:
 
 
 def _diag_term(diag: torch.Tensor, z_own: torch.Tensor) -> torch.Tensor:
-    return diag.float()[:, None] * z_own.float()
+    return diag.float()[..., None] * z_own.float()
+
+
+def _gather_rows(z_src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """z_src[idx] over rows, member by member for a batch: z_src ((B,) N,
+    K), idx ((B,) N, ...) -> ((B,) N, ..., K)."""
+    if z_src.dim() == 3:                              # (B, N, K) batch
+        b = torch.arange(idx.shape[0], device=idx.device)
+        return z_src[b.reshape(-1, *([1] * (idx.dim() - 1))), idx.long()]
+    return z_src[idx.long()]
 
 
 def ell_spmm_ref(ell_idx: torch.Tensor, ell_val: torch.Tensor,
@@ -120,22 +129,33 @@ def ell_spmm_ref(ell_idx: torch.Tensor, ell_val: torch.Tensor,
     """out[i] = diag[i] z_own[i] + sum_l val[i,l] z_src[idx[i,l]], f32.
 
     One (N, L, K) gather, then a slot contraction. Padded slots carry
-    weight 0 and self-point, so no masking is needed.
+    weight 0 and self-point, so no masking is needed. A leading batch axis
+    on every operand ((B, N, L) slots, (B, N) diagonal, (B, N, K) payload)
+    mixes each member over its own slots: the reference's ``jax.vmap`` over
+    a stacked ``SparseW``.
     """
-    msgs = z_src[ell_idx.long()].float()                     # (N, L, K)
+    msgs = _gather_rows(z_src, ell_idx).float()          # ((B,) N, L, K)
     return _diag_term(diag, z_own) + torch.einsum(
-        "nl,nlk->nk", ell_val.float(), msgs)
+        "...nl,...nlk->...nk", ell_val.float(), msgs)
 
 
 def ell_spmm_dense_ref(ell_idx: torch.Tensor, ell_val: torch.Tensor,
                        diag: torch.Tensor, z_own: torch.Tensor,
                        z_src: torch.Tensor) -> torch.Tensor:
-    """Densifying twin: scatter the ELL slots to an (N, N) off-diagonal
-    matrix and multiply. Padded slots add weight 0 on the diagonal."""
-    n = diag.shape[0]
-    rows = torch.arange(n, device=ell_idx.device)[:, None].expand_as(ell_idx)
-    w_off = torch.zeros((n, n), dtype=torch.float32, device=diag.device)
-    w_off.index_put_((rows, ell_idx.long()), ell_val.float(), accumulate=True)
+    """Densifying twin: scatter the ELL slots to an ((B,) N, N)
+    off-diagonal matrix and multiply. Padded slots add weight 0 on the
+    diagonal."""
+    n = diag.shape[-1]
+    lead = tuple(diag.shape[:-1])
+    rows = torch.arange(n, device=ell_idx.device)[:, None].expand(
+        *ell_idx.shape)
+    w_off = torch.zeros(lead + (n, n), dtype=torch.float32,
+                        device=diag.device)
+    index = (rows, ell_idx.long())
+    if lead:
+        index = (torch.arange(lead[0], device=ell_idx.device)[:, None, None]
+                 .expand(*ell_idx.shape),) + index
+    w_off.index_put_(index, ell_val.float(), accumulate=True)
     return _diag_term(diag, z_own) + w_off @ z_src.float()
 
 
@@ -144,9 +164,9 @@ def ell_spmm_scan_ref(ell_idx: torch.Tensor, ell_val: torch.Tensor,
                       z_src: torch.Tensor) -> torch.Tensor:
     """Slot-at-a-time twin: O(N K) peak memory instead of O(N L K)."""
     acc = _diag_term(diag, z_own)
-    idx = ell_idx.long()
-    for slot in range(ell_idx.shape[1]):
-        acc = acc + ell_val[:, slot].float()[:, None] * z_src[idx[:, slot]].float()
+    for slot in range(ell_idx.shape[-1]):
+        acc = acc + (ell_val[..., slot].float()[..., None]
+                     * _gather_rows(z_src, ell_idx[..., slot]).float())
     return acc
 
 

@@ -12,7 +12,8 @@ over: this stack serves (inference only; callers run it under
 Block kinds ``attn`` and ``swa`` with a dense SwiGLU FFN are built:
 qwen2-7b, internlm2-20b, h2o-danube-1.8b and command-r-35b. MoE FFNs, the
 mLSTM / sLSTM / RG-LRU blocks and the ``vlm_patches`` / ``audio_codec``
-frontends raise ``NotImplementedError`` (ROADMAP queue 1, item 16).
+frontends raise ``NotImplementedError`` (ROADMAP queue 1: the rest of the
+LM side).
 
 Three entry points:
   * forward(params, batch, cfg)              -- prefill logits
@@ -35,8 +36,8 @@ __all__ = ["init_params", "forward", "init_decode_state", "decode_step",
            "block_has_ffn", "embed_inputs", "tree_map", "tree_leaves"]
 
 ATTN_KINDS = ("attn", "swa")
-_TODO = ("is not ported yet (ROADMAP queue 1, item 16: MoE, recurrent "
-         "blocks and frontends wait for later slices)")
+_TODO = ("is not ported yet (ROADMAP queue 1: the rest of the LM side; "
+         "MoE, recurrent blocks and frontends wait for later slices)")
 
 
 def tree_map(fn: Callable, tree):
@@ -146,7 +147,8 @@ def _apply_block_full(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
 def embed_inputs(params, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig) -> torch.Tensor:
-    """Token embedding (the frontends' inputs wait for item 16)."""
+    """Token embedding (the frontends' inputs wait for ROADMAP queue 1:
+    the rest of the LM side)."""
     return embed_lookup(params["embed"], batch["tokens"])
 
 

@@ -1,14 +1,15 @@
 """Out-of-band observability: the span/event journal and the metrics
 registry.
 
-The port's copy of ``repro/obs/__init__.py`` without the CLI. Host-side
-file appends only, so device math gives the same bits with tracing on or
-off:
+The port's copy of ``repro/obs/__init__.py``. Host-side file appends
+only, so device math gives the same bits with tracing on or off:
 
 * ``journal``: crash-safe append-only JSONL span/event journals, one per
   process attempt, with a torn-tail-tolerant reader;
 * ``registry``: counters, gauges and bucketed histograms with p50/p99 and
-  a Prometheus-style exposition, dumped in the reference's format.
+  a Prometheus-style exposition, dumped in the reference's format;
+* ``cli`` (``python -m repro_torch.obs``): timeline, summary, exposition,
+  forensics and gantt over a directory of journals.
 
 Long-lived components (the serving loop) call ``install(workdir, proc)``
 once at startup: it opens an attempt-scoped journal under
@@ -24,10 +25,11 @@ from __future__ import annotations
 import os
 from typing import Optional
 
-from .journal import ENV_DIR, ENV_OBS, Journal, Span, read_journal
+from .journal import (ENV_DIR, ENV_OBS, Journal, Span, merge_journals,
+                      read_journal)
 from .registry import Counter, Gauge, Histogram, MetricsRegistry
 
-__all__ = ["Journal", "Span", "read_journal", "Counter", "Gauge",
+__all__ = ["Journal", "Span", "read_journal", "merge_journals", "Counter", "Gauge",
            "Histogram", "MetricsRegistry", "get_journal", "set_journal",
            "metrics", "install", "obs_dir_for", "ENV_DIR", "ENV_OBS"]
 

@@ -1,8 +1,8 @@
 """Crash-safe, append-only JSONL span/event journal.
 
-The port's copy of the part of ``repro/obs/journal.py`` that the runtime
-and the checkpoint manager write to; it writes the same record format, so
-one reader serves journals of both packages. One journal is one process
+The port's copy of ``repro/obs/journal.py``: it writes the same record
+format and names, so one reader serves journals of both packages
+(``read_journal``, and ``merge_journals`` for a directory of them). One journal is one process
 attempt: a ``<proc>.a<attempt>.jsonl`` file under an observability
 directory, so a relaunched process opens a new file instead of clobbering
 its predecessor's. Every record is one JSON object on one line, written
@@ -30,9 +30,10 @@ import json
 import os
 import re
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
-__all__ = ["Journal", "Span", "read_journal", "ENV_DIR", "ENV_OBS"]
+__all__ = ["Journal", "Span", "read_journal", "merge_journals",
+           "journal_files", "ENV_DIR", "ENV_OBS"]
 
 ENV_DIR = "REPRO_OBS_DIR"   # where journals go (overrides <workdir>/obs)
 ENV_OBS = "REPRO_OBS"       # "0"/"off" disables journaling entirely
@@ -219,3 +220,37 @@ def read_journal(path: str) -> List[dict]:
         if isinstance(rec, dict):
             out.append(rec)
     return out
+
+
+def journal_files(obs_dir: str) -> List[Tuple[str, str, int]]:
+    """(path, proc, attempt) for every journal in ``obs_dir``, sorted by
+    (proc, attempt)."""
+    out = []
+    try:
+        names = os.listdir(obs_dir)
+    except OSError:
+        return out
+    for name in names:
+        m = _FILE_RE.match(name)
+        if m:
+            out.append((os.path.join(obs_dir, name), m.group("proc"),
+                        int(m.group("attempt"))))
+    return sorted(out, key=lambda t: (t[1], t[2]))
+
+
+def merge_journals(obs_dir: str) -> List[dict]:
+    """Every record of every per-process journal in ``obs_dir``, merged
+    into ONE timeline ordered by wall clock (stable: ties keep per-file
+    write order, which monotonic stamps preserve within a process)."""
+    records: List[dict] = []
+    for path, proc, attempt in journal_files(obs_dir):
+        for i, rec in enumerate(read_journal(path)):
+            rec.setdefault("proc", proc)
+            rec.setdefault("attempt", attempt)
+            rec["_order"] = i
+            records.append(rec)
+    records.sort(key=lambda r: (r.get("ts", 0.0), r.get("proc", ""),
+                                r["_order"]))
+    for rec in records:
+        rec.pop("_order", None)
+    return records

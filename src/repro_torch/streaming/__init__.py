@@ -1,3 +1,5 @@
 """Long-running runs: chunked, checkpointed resume (``resume``); streaming
-ingest (``ingest``); the serving loop's fault injection (``chaos``) and its
-topology specs (``launcher``)."""
+ingest (``ingest``); the sweep fleet (``launcher``, ``worker``, ``fleet``:
+sharded sweeps over supervised worker processes with leases and
+heartbeats); seeded fault injection for the fleet and the serving loop
+(``chaos``)."""

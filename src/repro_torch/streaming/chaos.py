@@ -1,5 +1,5 @@
-"""Seeded fault injection: the part of ``repro/streaming/chaos.py`` the
-serving loop uses.
+"""Seeded fault injection for the sweep fleet and the serving loop: the
+twin of ``repro/streaming/chaos.py``.
 
 A ``FaultPlan`` is a small, seeded, declarative JSON document (the
 reference's format, so one plan file drives both packages):
@@ -17,22 +17,35 @@ reference's format, so one plan file drives both packages):
 ``ChaosHooks`` fires it: ``at_boundary(step)`` from a checkpoint manager's
 ``on_save`` (kill: a real SIGKILL; corrupt: tear the newest step, then
 SIGKILL; slow: sleep; hang: sleep without exiting, so the heartbeat goes
-stale), ``query_delay(req_id)`` (seeded added
-latency, accounted by the query path and never slept) and
-``mangle_candidate`` (NaN or blow-up of a re-solve's candidate before the
-serving gate). One-shot faults write a marker under the state directory
-and a ``chaos_fired`` journal record BEFORE they fire, so a relaunched
-process does not fire them again and the firing is attributable. Every
-draw is numpy's (``default_rng`` keyed by plan seed, fault index and
-request id), so the port's boundaries and delays are the reference's.
-``drop`` validates in a plan but fires only from the sweep fleet's
-``after_publish``, which is not ported yet, nor are ``hooks_from_env``,
-the net-fault document validators and the chaos smoke run.
+stale), ``after_publish(out_dir)`` from a sweep worker once its result is
+published (drop: delete it, so the launcher sees a worker that exited with
+no result), ``query_delay(req_id)`` (seeded added latency, accounted by the
+query path and never slept) and ``mangle_candidate`` (NaN or blow-up of a
+re-solve's candidate before the serving gate). One-shot faults write a
+marker under the state directory and a ``chaos_fired`` journal record
+BEFORE they fire, so a relaunched process does not fire them again and the
+firing is attributable. Every draw is numpy's (``default_rng`` keyed by
+plan seed, fault index and request id), so the port's boundaries and
+delays are the reference's. A sweep worker gets its hooks from
+``hooks_from_env``: inert unless ``REPRO_CHAOS_PLAN`` names a plan.
+
+Network faults have their own document (``validate_net_fault_doc``,
+``net_fault_model_from_dict``, ``REPRO_NET_FAULTS``): link drops, bursts,
+crash windows and payload corruption inside the gossip, through
+``core.netfaults.FaultyConsensus``.
+
+    python -m repro_torch.streaming.chaos --validate plan.json
+    python -m repro_torch.streaming.chaos --smoke [--device cpu]
+
+``--smoke`` runs ``run_smoke``: a small pinned grid under one fault of each
+sweep kind (kill, corrupt-newest, slow, drop) must merge bit for bit equal
+to the fault-free sweep, with the reference's attempt counts.
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import signal
 import time
 from typing import List, Optional
@@ -41,9 +54,14 @@ import numpy as np
 
 from ..obs import get_journal
 
-__all__ = ["FaultPlan", "ChaosHooks", "ENV_PLAN"]
+__all__ = ["FaultPlan", "ChaosHooks", "ENV_PLAN", "ENV_NET",
+           "hooks_from_env", "validate_net_fault_doc",
+           "net_fault_model_from_dict", "net_faults_from_env",
+           "validate_plan_file", "smoke_plan", "run_smoke", "main"]
 
 ENV_PLAN = "REPRO_CHAOS_PLAN"
+ENV_NET = "REPRO_NET_FAULTS"
+_STATE_DIR = "chaos_state"
 
 _KINDS = ("kill", "corrupt", "slow", "hang", "drop", "delay_query",
           "corrupt_candidate")
@@ -243,6 +261,19 @@ class ChaosHooks:
             elif kind == "kill":
                 os.kill(os.getpid(), signal.SIGKILL)
 
+    def after_publish(self, out_dir: str) -> None:
+        """Fire a ``drop`` fault: delete the result just published, once.
+        The worker still exits 0; the launcher retries the shard."""
+        if self.plan is None:
+            return
+        for idx, fault in enumerate(self.plan.faults):
+            if (fault["kind"] == "drop"
+                    and _matches(fault, self.shard, self.worker)
+                    and not self._fired(idx)):
+                self._mark(idx)
+                self._journal(idx, "drop", out_dir=out_dir)
+                shutil.rmtree(out_dir, ignore_errors=True)
+
     def query_delay(self, req_id: int) -> float:
         """Seconds of injected latency for request ``req_id`` (0.0 inert).
 
@@ -295,3 +326,309 @@ class ChaosHooks:
                 arr *= float(fault.get("scale", 1e9))
             q = arr
         return q
+
+
+def hooks_from_env(*, shard=None, worker=None, n_boundaries: int = 1,
+                   ckpt_root: Optional[str] = None,
+                   workdir: Optional[str] = None,
+                   step_boundaries: bool = False) -> ChaosHooks:
+    """The worker's one chaos entry point: inert hooks unless
+    ``REPRO_CHAOS_PLAN`` names a plan file, so the production path never
+    branches on chaos. One-shot markers go under ``<workdir>/chaos_state``
+    (default: beside the plan)."""
+    path = os.environ.get(ENV_PLAN)
+    if not path:
+        return ChaosHooks(None)
+    plan = FaultPlan.load(path)
+    state_dir = os.path.join(workdir or os.path.dirname(path), _STATE_DIR)
+    return ChaosHooks(plan, shard=shard, worker=worker,
+                      n_boundaries=n_boundaries, ckpt_root=ckpt_root,
+                      state_dir=state_dir, step_boundaries=step_boundaries)
+
+
+# ---------------------------------------------------------------------------
+# network-fault plans (the gossip's twin of FaultPlan)
+# ---------------------------------------------------------------------------
+# FaultPlan injects process faults; REPRO_NET_FAULTS injects network faults
+# into the gossip itself (link drops, Gilbert-Elliott bursts, node crash and
+# rejoin, payload corruption) through core.netfaults.FaultyConsensus. The
+# same conventions: a small seeded JSON document, through an env var:
+#
+#     {"seed": 0, "p_drop": 0.2,
+#      "burst": {"p_bad": 0.05, "p_good": 0.5},
+#      "corrupt": {"p": 0.01, "mode": "scale", "scale": 1e9, "guard": 1e6},
+#      "crash": [{"node": 0, "start": 2, "len": 3}],
+#      "debias": "realized"}
+#
+# Every field is optional (an empty document is the fault-free model).
+
+def _num_field(doc, key, lo=None, hi=None, path=""):
+    v = doc[key]
+    label = f"{path}{key}"
+    if not isinstance(v, (int, float)) or isinstance(v, bool):
+        raise ValueError(f"{label}: expected a number, got {v!r}")
+    v = float(v)
+    if lo is not None and v < lo or hi is not None and v > hi:
+        rng = (f"[{lo}, {hi}]" if hi is not None else f">= {lo}")
+        raise ValueError(f"{label}: must be in {rng}, got {v}")
+    return v
+
+
+def validate_net_fault_doc(doc: dict) -> dict:
+    """Validate a net-fault JSON document, raising ``ValueError`` with a
+    field-path diagnostic (``crash[1].len: must be a positive integer``)
+    on the first malformed field. Returns the parsed document unchanged."""
+    if not isinstance(doc, dict):
+        raise ValueError(f"net-fault plan: expected a JSON object, got "
+                         f"{type(doc).__name__}")
+    known = {"seed", "p_drop", "burst", "corrupt", "crash", "debias"}
+    for k in doc:
+        if k not in known:
+            raise ValueError(f"{k}: unknown field (expected one of "
+                             f"{sorted(known)})")
+    if "seed" in doc and not isinstance(doc["seed"], int):
+        raise ValueError(f"seed: expected an integer, got {doc['seed']!r}")
+    if "p_drop" in doc:
+        _num_field(doc, "p_drop", 0.0, 1.0)
+    if "burst" in doc:
+        burst = doc["burst"]
+        if not isinstance(burst, dict):
+            raise ValueError(f"burst: expected an object, got {burst!r}")
+        for k in burst:
+            if k not in ("p_bad", "p_good"):
+                raise ValueError(f"burst.{k}: unknown field")
+            _num_field(burst, k, 0.0, 1.0, path="burst.")
+        if burst.get("p_bad", 0.0) > 0.0 and burst.get("p_good", 1.0) <= 0.0:
+            raise ValueError("burst.p_good: must be > 0 when burst.p_bad "
+                             "> 0 (a burst must be able to end)")
+    if "corrupt" in doc:
+        cor = doc["corrupt"]
+        if not isinstance(cor, dict):
+            raise ValueError(f"corrupt: expected an object, got {cor!r}")
+        for k in cor:
+            if k not in ("p", "mode", "scale", "guard"):
+                raise ValueError(f"corrupt.{k}: unknown field")
+        if "p" in cor:
+            _num_field(cor, "p", 0.0, 1.0, path="corrupt.")
+        if cor.get("mode", "scale") not in ("scale", "nan"):
+            raise ValueError(f"corrupt.mode: expected 'scale' or 'nan', "
+                             f"got {cor.get('mode')!r}")
+        for k in ("scale", "guard"):
+            if k in cor and _num_field(cor, k, path="corrupt.") <= 0.0:
+                raise ValueError(f"corrupt.{k}: must be > 0")
+    if "crash" in doc:
+        crash = doc["crash"]
+        if not isinstance(crash, list):
+            raise ValueError(f"crash: expected a list, got {crash!r}")
+        for i, win in enumerate(crash):
+            if not isinstance(win, dict):
+                raise ValueError(f"crash[{i}]: expected an object")
+            for k in ("node", "start", "len"):
+                if k not in win:
+                    raise ValueError(f"crash[{i}].{k}: missing")
+                if not isinstance(win[k], int) or isinstance(win[k], bool):
+                    raise ValueError(f"crash[{i}].{k}: expected an integer,"
+                                     f" got {win[k]!r}")
+            if win["node"] < 0:
+                raise ValueError(f"crash[{i}].node: must be >= 0")
+            if win["start"] < 0:
+                raise ValueError(f"crash[{i}].start: must be >= 0")
+            if win["len"] <= 0:
+                raise ValueError(f"crash[{i}].len: must be a positive "
+                                 "integer")
+    if doc.get("debias", "realized") not in ("realized", "nominal"):
+        raise ValueError(f"debias: expected 'realized' or 'nominal', got "
+                         f"{doc.get('debias')!r}")
+    return doc
+
+
+def net_fault_model_from_dict(doc: dict):
+    """Build the ``core.netfaults.NetFaultModel`` a validated document
+    describes. Returns ``(model, seed, debias)``: what a worker needs to
+    wrap each case engine in a ``FaultyConsensus`` (the model is imported
+    here, so validating a document needs none of the gossip code)."""
+    from ..core.netfaults import NetFaultModel
+
+    validate_net_fault_doc(doc)
+    burst = doc.get("burst", {})
+    cor = doc.get("corrupt", {})
+    model = NetFaultModel(
+        p_drop=float(doc.get("p_drop", 0.0)),
+        p_bad=float(burst.get("p_bad", 0.0)),
+        p_good=float(burst.get("p_good", 1.0)),
+        p_corrupt=float(cor.get("p", 0.0)),
+        corrupt_mode=cor.get("mode", "scale"),
+        corrupt_scale=float(cor.get("scale", 1e9)),
+        guard_norm=float(cor.get("guard", 1e6)),
+        crash_windows=tuple((int(w["node"]), int(w["start"]), int(w["len"]))
+                            for w in doc.get("crash", ())),
+    )
+    return model, int(doc.get("seed", 0)), doc.get("debias", "realized")
+
+
+def net_faults_from_env() -> Optional[dict]:
+    """The launcher's net-fault entry point: ``REPRO_NET_FAULTS`` names a
+    plan file (or holds inline JSON, for one-liners); absent -> None and
+    the production path never branches on faults."""
+    spec = os.environ.get(ENV_NET)
+    if not spec:
+        return None
+    if spec.lstrip().startswith("{"):
+        doc = json.loads(spec)
+    else:
+        with open(spec) as f:
+            doc = json.load(f)
+    return validate_net_fault_doc(doc)
+
+
+def validate_plan_file(path: str, verbose: bool = True) -> int:
+    """``--validate`` mode: check a chaos/net-fault plan file, printing a
+    line/field diagnostic for malformed plans. Auto-detects the plan kind
+    (a ``"faults"`` key -> process FaultPlan, else net-fault document).
+    Returns a process exit code (0 valid, 1 invalid)."""
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except OSError as e:
+        print(f"{path}: unreadable: {e}")
+        return 1
+    except json.JSONDecodeError as e:
+        print(f"{path}:{e.lineno}:{e.colno}: invalid JSON: {e.msg}")
+        return 1
+    try:
+        if isinstance(doc, dict) and "faults" in doc:
+            FaultPlan(doc.get("faults", []), seed=doc.get("seed", 0))
+            kind = f"process fault plan ({len(doc.get('faults', []))} faults)"
+        else:
+            validate_net_fault_doc(doc)
+            kind = "net-fault plan"
+    except (ValueError, TypeError) as e:
+        print(f"{path}: invalid: {e}")
+        return 1
+    if verbose:
+        print(f"{path}: valid {kind}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# the seeded chaos-smoke scenario
+# ---------------------------------------------------------------------------
+def smoke_plan(seed: int = 0) -> FaultPlan:
+    """One fault of each sweep kind over four shards: a SIGKILL at a seeded
+    chunk boundary (shard 0), the newest checkpoint torn and a SIGKILL at
+    boundary 3 (shard 1: steps 2 and 4 are on disk, so the relaunch falls
+    back to step 2), a straggler (shard 2) and a dropped publish
+    (shard 3)."""
+    return FaultPlan(seed=seed, faults=[
+        {"kind": "kill", "shard": 0},
+        {"kind": "corrupt", "shard": 1, "mode": "truncate", "boundary": 3},
+        {"kind": "slow", "shard": 2, "sleep": 0.2},
+        {"kind": "drop", "shard": 3},
+    ])
+
+
+def run_smoke(workdir: str, *, seed: int = 0, verbose: bool = True,
+              n_workers: int = 4, device=None) -> dict:
+    """The chaos-equivalence scenario: a small pinned grid (d = 16, r = 3, 6
+    nodes, 4 seeds in 4 shards, T_o = 8 in chunks of 2) under
+    ``smoke_plan`` must complete through retries and merge bit for bit
+    equal to the fault-free sweep run shard by shard in this process, with
+    the reference's attempt counts (2, 2, 1, 2) and shard 1 resumed from
+    step 2. ``n_workers`` bounds the processes alive at once; ``device``
+    is the card unless it says ``cpu``. Returns a summary; raises on a
+    mismatch."""
+    import numpy as np
+    import torch
+
+    from .._device import resolve_device
+    from ..core.linalg import eigh_topr
+    from ..core.sweep import sdot_sweep, slice_seed_shards
+    from ..data.pipeline import eigengap_stream
+    from .ingest import StreamingIngestor
+    from .launcher import build_engine, build_schedule, launch_sweep
+
+    dev = resolve_device(device)
+    d, r, n_nodes, t_outer, t_c = 16, 3, 6, 8, 10
+    seeds = list(range(4))
+    batch_fn, _, _ = eigengap_stream(d, r, 0.7, seed=seed, device=dev)
+    ing = StreamingIngestor(n_nodes=n_nodes, d=d, batch_fn=batch_fn,
+                            batch_size=30, device=dev)
+    ing.ingest(10)
+    covs = ing.cov_stack()
+    _, q_true = eigh_topr(covs.sum(0), r)
+    cases = [{"topology": {"kind": "er", "n": n_nodes, "p": 0.5, "seed": 1},
+              "schedule": {"kind": "lin2", "cap": t_c}}]
+    plan = smoke_plan(seed)
+    t0 = time.perf_counter()
+    sw = launch_sweep(covs=covs, cases=cases, r=r, t_outer=t_outer, t_c=t_c,
+                      seeds=seeds, q_true=q_true, workdir=workdir,
+                      n_workers=n_workers, n_shards=4, sweep_chunk=2,
+                      retries=2, chaos_plan=plan, timeout=600.0, device=dev)
+    chaos_s = time.perf_counter() - t0
+
+    # the fault-free sweep at matching lane widths: each shard's seeds in
+    # this process, so equality is bitwise
+    engines = [build_engine(c["topology"], device=dev) for c in cases]
+    schedules = [build_schedule(c["schedule"], t_outer, t_c) for c in cases]
+    parts = [sdot_sweep(covs=covs, engines=engines, schedules=schedules,
+                        r=r, t_outer=t_outer, t_c=t_c, seeds=s,
+                        q_true=q_true, device=dev)
+             for s in slice_seed_shards(seeds, 4)]
+    np.testing.assert_array_equal(
+        np.asarray(sw.error_traces),
+        np.concatenate([p.error_traces for p in parts], axis=0))
+    assert torch.equal(sw.q, torch.cat([p.q.cpu() for p in parts]))
+    assert list(sw.seeds) == seeds
+    ref_ledger = parts[0].ledger
+    for p in parts[1:]:
+        ref_ledger = ref_ledger.merged(p.ledger)
+    assert sw.ledger.p2p == ref_ledger.p2p
+    assert sw.ledger.scalars == ref_ledger.scalars
+
+    rep = sw.resume_report or {}
+    # the recovery paths are part of the result: kill, corrupt and drop
+    # each took a retry, and the torn shard-1 checkpoint fell back to 2
+    assert rep["attempts"] == {0: 2, 1: 2, 2: 1, 3: 2}, rep
+    assert rep["worker_resumed_steps"][1] == 2, rep
+    summary = {
+        "chaos_sweep_s": round(chaos_s, 3),
+        "faults": [f["kind"] for f in plan.faults],
+        "attempts": rep.get("attempts"),
+        "worker_resumed_steps": rep.get("worker_resumed_steps"),
+        "device": dev.type,
+        "bitwise_equal": True,
+    }
+    if verbose:
+        print(json.dumps(summary, indent=2))
+    return summary
+
+
+def main(argv=None) -> int:
+    import argparse
+    import tempfile
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--smoke", action="store_true",
+                    help="run the seeded chaos-equivalence scenario")
+    ap.add_argument("--validate", metavar="PLAN",
+                    help="check a chaos / net-fault plan file and exit "
+                         "(prints a line / field diagnostic when malformed)")
+    ap.add_argument("--workdir", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--workers", type=int, default=4,
+                    help="worker processes alive at once (smoke)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu (smoke)")
+    args = ap.parse_args(argv)
+    if args.validate:
+        return validate_plan_file(args.validate)
+    if not args.smoke:
+        ap.error("nothing to do (pass --smoke or --validate)")
+    workdir = args.workdir or tempfile.mkdtemp(prefix="chaos_smoke_")
+    run_smoke(workdir, seed=args.seed, n_workers=args.workers,
+              device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

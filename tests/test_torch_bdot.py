@@ -221,9 +221,10 @@ def test_pad_grid_blocks_layout():
 
 
 def test_fused_bdot_rejects_sparse_stages():
-    """A stage of sparse engines needs a batched ELL stack (later work); a
-    stage that mixes sparse and dense engines has no batched form at all.
-    The eager oracle runs either."""
+    """A stage that mixes sparse and dense engines has no batched form and
+    is refused; a stage of sparse engines runs fused as one stacked SparseW
+    (one ELL round a launch for the whole stage), equal to the eager oracle
+    within Q_ATOL / TRACE_ATOL, its ledger exactly."""
     _, blocks, q_true = _grid_problem(I=3, J=2)
     cols, rows = _graphs(3, 2)
     st = from_reference_arrays(
@@ -234,12 +235,17 @@ def test_fused_bdot_rejects_sparse_stages():
     dense_rows = [DenseConsensus(Graph(g.adjacency), device="cpu")
                   for g in rows]
     kw = dict(blocks=st["blocks"], r=4, t_outer=3, t_c=20, device="cpu")
-    with pytest.raises(NotImplementedError, match="SparseW.stack"):
-        tbdot.bdot(col_engines=sparse_cols, row_engines=dense_rows, **kw)
     mixed = [sparse_cols[0]] + [
         DenseConsensus(Graph(g.adjacency), device="cpu") for g in cols[1:]]
     with pytest.raises(ValueError, match="mixes sparse and dense"):
         tbdot.bdot(col_engines=mixed, row_engines=dense_rows, **kw)
+    fused = tbdot.bdot(col_engines=sparse_cols, row_engines=dense_rows,
+                       q_true=st["q_true"], **kw)
     eager = tbdot.bdot(col_engines=sparse_cols, row_engines=dense_rows,
                        fused=False, q_true=st["q_true"], **kw)
-    assert np.isfinite(eager.error_trace).all()
+    np.testing.assert_allclose(fused.error_trace, eager.error_trace,
+                               atol=TRACE_ATOL)
+    np.testing.assert_allclose(fused.q_full.numpy(), eager.q_full.numpy(),
+                               atol=Q_ATOL)
+    for f in LEDGER_FIELDS:
+        assert getattr(fused.ledger, f) == getattr(eager.ledger, f), f

@@ -888,6 +888,28 @@ def test_ell_bits_do_not_depend_on_slot_staging(cuda_device):
             want.abs().max()) + 1e-7
 
 
+def test_ell_wide_rows_hold_the_limit_over_many_payloads(cuda_device):
+    """Rows of ~600 slots sum in partials of 32: against the float64 sum,
+    every one of 50 seeded payloads stays within 1e-6 of max |out| (+1e-7),
+    in f32 and bf16 and under both stagings. One chain of 608 FMAs broke
+    that limit on ~12% of such payloads (tools/ell_error_sweep.py)."""
+    sw = SparseW.from_graph(topology.erdos_renyi(1024, 0.55, seed=1),
+                            device=cuda_device)
+    args = (sw.ell_idx, sw.ell_val, sw.diag)
+    for seed in range(50):
+        gen = torch.Generator(device=cuda_device).manual_seed(seed)
+        z = torch.randn((1024, 256), generator=gen, device=cuda_device)
+        for quantise in (False, True):
+            z_src = z.to(torch.bfloat16) if quantise else z
+            want = _ell_plain_f64(*args, z, z_src)
+            for w in ((8, 0), (32, 0)):
+                got = ell_spmm.ell_spmm_cuda(
+                    *args, z, quantise=quantise,
+                    window=ell_spmm.WindowPlan(*w, 0, 1))
+                assert float((got.double() - want).abs().max()) <= 1e-6 * \
+                    float(want.abs().max()) + 1e-7, (seed, quantise, w)
+
+
 def _ell_plain_f64(ell_idx, ell_val, diag, z_own, z_src):
     """The ELL round's plain version in float64: the slots scattered to a
     dense (N, N) matrix (padded slots add 0 on the diagonal)."""
@@ -918,6 +940,110 @@ def test_ell_bf16_round_is_one_launch(cuda_device):
     kernels = [e.key for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert kernels and all("ell_spmm" in k for k in kernels), kernels
+
+
+def _ws_stack(n, device, seeds=(1, 2, 3, 4)):
+    """watts_strogatz(n, 6, 0.1) at several seeds, stacked: their ELL widths
+    differ, so the narrower members are widened."""
+    members = [SparseW.from_graph(topology.watts_strogatz(n, k=6, p=0.1,
+                                                          seed=s),
+                                  device=device) for s in seeds]
+    assert len({m.ell_width for m in members}) > 1
+    return members, SparseW.stack(members)
+
+
+@pytest.mark.parametrize("payload", [None, "bfloat16"])
+@pytest.mark.parametrize("k", [980, 35])
+def test_batched_ell_kernel_matches_plain_and_single_launches(cuda_device,
+                                                              k, payload):
+    """A stack of four graphs is one launch a round; member k of it equals a
+    single launch of ``st[k]`` (the widened member, its own window) bit for
+    bit, and the whole lies within ELL's 1e-6 of the batched plain version
+    on the same quantised source."""
+    members, st = _ws_stack(1024, cuda_device)
+    if payload is not None:
+        st = st.with_payload_dtype(payload)
+    z = torch.randn((len(members), 1024, k), device=cuda_device)
+    before = ops.LAUNCHES["ell_spmm"]
+    batched = ell_spmm.ROUTE_LAUNCHES["batched"]
+    with no_host_sync():
+        got = st.mix(z)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ell_spmm"] == before + 1
+    assert ell_spmm.ROUTE_LAUNCHES["batched"] == batched + 1
+    for m in range(len(members)):
+        one = ops.ell_spmm(st.ell_idx[m], st.ell_val[m], st.diag[m], z[m],
+                           payload_dtype=payload,
+                           window=st.member_windows[m])
+        assert torch.equal(got[m], one)
+        assert st[m].window is st.member_windows[m]
+    z_src = z if payload is None else z.to(torch.bfloat16)
+    want = ref.ell_spmm_ref(st.ell_idx, st.ell_val, st.diag, z, z_src)
+    assert float((got - want).abs().max()) <= 1e-6 * float(
+        want.abs().max()) + 1e-7
+
+
+def test_batched_ell_of_one_is_the_single_call(cuda_device):
+    """A stack of one graph keeps the bits of today's single-matrix call."""
+    sw = _ell_graph("ws", 1024, cuda_device)
+    st = SparseW.stack([sw])
+    z = torch.randn((1024, 3920), device=cuda_device)
+    for payload in (None, "bfloat16"):
+        one = ops.ell_spmm(sw.ell_idx, sw.ell_val, sw.diag, z,
+                           payload_dtype=payload, window=sw.window)
+        batched = ops.ell_spmm(st.ell_idx, st.ell_val, st.diag, z[None],
+                               payload_dtype=payload, window=st.window)
+        assert torch.equal(batched[0], one)
+
+
+def test_batched_ell_refuses_what_it_does_not_take(cuda_device):
+    """Mismatched batch or node axes, an f64 payload, int64 slots and a
+    payload type other than f32 / bf16 raise; nothing falls back."""
+    _, st = _ws_stack(256, cuda_device)
+    z = torch.randn((4, 256, 8), device=cuda_device)
+    args = (st.ell_idx, st.ell_val, st.diag)
+    with pytest.raises(ValueError, match="align"):
+        ell_spmm.ell_spmm_cuda(*args, z[:3], window=st.window)
+    with pytest.raises(ValueError, match="align"):
+        ell_spmm.ell_spmm_cuda(st.ell_idx[:, :128].contiguous(),
+                               st.ell_val[:, :128].contiguous(),
+                               st.diag[:, :128].contiguous(), z,
+                               window=st.window)
+    with pytest.raises(ValueError, match="dtype"):
+        ell_spmm.ell_spmm_cuda(*args, z.double(), window=st.window)
+    with pytest.raises(ValueError, match="dtype"):
+        ell_spmm.ell_spmm_cuda(st.ell_idx.long(), st.ell_val, st.diag, z,
+                               window=st.window)
+    with pytest.raises(ValueError, match="dims"):
+        ell_spmm.ell_spmm_cuda(*args, z[0], window=st.window)
+    with pytest.raises(ValueError, match="payloads"):
+        ops.ell_spmm(*args, z, payload_dtype="float16", window=st.window)
+
+
+def test_fused_sparse_bdot_on_card_matches_cpu(cuda_device):
+    """Fused B-DOT over stacked sparse row engines on the card: one ELL
+    launch a round for the whole row stage, the CPU's trace within 1e-5."""
+    x, _, _ = gaussian_eigengap_data(24, 2048, 3, 0.6, seed=0)
+    grid = [partition_samples(sl, 256) for sl in partition_features(x, 2)]
+    q_true = torch.linalg.eigh(x.double() @ x.double().T)[1][:, -3:].flip(
+        -1).float()
+    q_init = orthonormal_init(torch.Generator().manual_seed(0), 24, 3)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        rows = [DenseConsensus(topology.watts_strogatz(256, k=6, p=0.1,
+                                                       seed=s),
+                               sparse=True, device=dev) for s in (1, 2)]
+        cols = [DenseConsensus(topology.complete(2), device=dev)] * 256
+        ops.reset_launches()
+        runs[str(dev)] = bdot(
+            blocks=[[b.to(dev) for b in row] for row in grid],
+            col_engines=cols, row_engines=rows, r=3, t_outer=4, t_c=10,
+            q_init=q_init.to(dev), q_true=q_true.to(dev), device=dev)
+        launches = dict(ops.LAUNCHES)
+    # 4 outer steps x 10 rounds, plus the two row tables' 10 rows each
+    assert launches["ell_spmm"] == 4 * 10 + 2 * 10
+    np.testing.assert_allclose(runs["cuda"].error_trace,
+                               runs["cpu"].error_trace, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------

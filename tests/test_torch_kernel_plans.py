@@ -331,6 +331,30 @@ def test_ell_plan_covers_every_element_once(n, k, width, window, vec):
     assert p.smem <= 232_448
 
 
+@pytest.mark.parametrize("batch,n,k,width,window,vec", [
+    (4, 4096, 980, 9, (32, 2), True), (3, 300, 35, 5, (64, 8), False),
+    (2, 130, 257, 40, (16, 4), False), (1, 64, 512, 3, (32, 0), True),
+    (5, 33, 1, 2, (8, 16), False)])
+def test_ell_batched_plan_covers_every_member_element_once(batch, n, k, width,
+                                                           window, vec):
+    """A batch of B matrices: every (member, row, column) in exactly one
+    block, each member cut as a launch of it alone would cut it, within the
+    kernel's 200 KB of shared memory."""
+    p = ell_spmm.plan(n, k, width, window, vec, batch)
+    one = ell_spmm.plan(n, k, width, window, vec)
+    assert p.blocks == batch * one.blocks and p.smem == one.smem
+    hits = np.zeros((batch, n, k), np.int32)
+    for b in range(p.blocks):
+        m = p.member(b)
+        rows, cols, win = p.block(b, n, k)
+        assert (rows, cols, win) == one.block(b % one.blocks, n, k)
+        hits[m, rows.start:rows.stop, cols.start:cols.stop] += 1
+    assert (hits == 1).all()
+    assert p.smem <= ell_spmm.SMEM_LIMIT == 200 * 1024
+    with pytest.raises(ValueError):
+        ell_spmm.plan(n, k, width, window, vec, 0)
+
+
 def test_ell_plan_main_path_shape():
     """watts_strogatz(4096, 6, 0.1) at K = 3920: 128 bands of 32 rows by 16
     tiles of 248 columns; ~38 KB of shared memory, so four blocks an SM."""

@@ -95,9 +95,10 @@ def test_param_count_matches_reference(aid):
 @pytest.mark.parametrize("aid", UNPORTED)
 def test_unported_families_raise(aid):
     _, tc = _cfgs(aid)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 16"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1: the rest of the LM side"):
         tt.init_params(torch.Generator(), tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="the rest of the LM side"):
         tt.forward({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
                    tc)
 
