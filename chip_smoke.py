@@ -179,12 +179,18 @@ Phases, one JSON line each:
   columns pad to 16), T_o = 5, t_c = 20: row engines watts_strogatz(4096, 6,
   0.1, seeds 1-4), one stacked SparseW, so each row-stage round is one
   batched ELL launch; column engine complete(4) repeated over the 4,096
-  columns. Checks: ELL launches = the rounds (batched) + the four debias
-  tables' rows (single), the grid kernels on the TMA route, q_full within
-  1e-4 by subspace error of the run with dense row engines and within 1e-5
-  of the eager sparse run, the closed-form ledger. It prints the three
-  walls, each row engine's smallest debias weight, and the grid kernels'
-  times and apply plan at this shape.
+  columns. Before the run, the rows ``grid_block_tq_packed`` and
+  ``grid_block_apply_packed``: both grid kernels at this grid (16,384
+  blocks of 196 x 16) on their packed route, against the plain versions
+  (SLAB_TOL) and the library's ``torch.matmul`` over the grid, two
+  launches bit for bit, with the planner's packed plans. Checks: ELL
+  launches = the rounds (batched) + the four debias tables' rows (single),
+  one launch of each grid kernel a step, all on the packed route
+  (``slab_ops.TQ_ROUTE_LAUNCHES``, ``slab_ops.ROUTE_LAUNCHES``), q_full
+  within 1e-4 by subspace error of the run with dense row engines and
+  within 1e-5 of the eager sparse run, the closed-form ledger. It prints
+  the three walls, each row engine's smallest debias weight, the grid
+  kernels' routes and the packed plans.
 * ``fleet`` (between ``sweeps`` and the serving phases): the sweeps'
   S-DOT grid (3 cases x 4 seeds, T_o = 100, raw data) through
   ``launch_sweep`` with 2 worker processes on this card: pinned over 2
@@ -222,8 +228,13 @@ Phases, one JSON line each:
 Launch counts are set to 0 just before each phase of the main path and read
 just after it; launches made to compare or time a kernel do not count.
 Every gram-apply and slab-apply launch of the main path must have taken the
-TMA route (``gram_update.ROUTE_LAUNCHES``, ``slab_ops.ROUTE_LAUNCHES``): the
-rows count them as ``tma_launches``.
+TMA route (``gram_update.ROUTE_LAUNCHES``, ``slab_ops.ROUTE_LAUNCHES``) and
+every slab tq launch the tiled kernel (``slab_ops.TQ_ROUTE_LAUNCHES``), but
+bdot_sparse's grid launches, which must take the packed route: the rows
+count them as ``tma_launches`` and ``packed_launches``. Row 1 at
+sdot_sparse's own shape (4,096 nodes of 784 x 16, r = 5) has a row of its
+own, ``batched_gram_apply_sdot_sparse``, which takes the launches of
+sdot_sparse and sparse_faulty.
 Before the last line it prints ``{"kernels": [...]}`` and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``. Any failed
 build, launch or check exits nonzero. With no CUDA device it exits 2 and
@@ -974,19 +985,36 @@ def main() -> None:
                 host_us=host_us(kernel),
                 library_host_us=None if library is None else host_us(library))
 
-    def tma_only(where, launches):
+    def tma_only(where, launches, packed=False):
         """Every gram-apply and slab-apply launch since the last reset took
-        the TMA route: count them on the rows."""
-        for module, names in (
-                (gram_update, ("batched_gram_apply", "gram_apply")),
-                (slab_ops, ("batched_slab_apply", "grid_block_apply"))):
-            want = sum(launches.get(k, 0) for k in names)
-            got = dict(module.ROUTE_LAUNCHES)
-            check(got == {"tma": want, "cp_async": 0},
-                  f"{where}: {module.__name__} routes {got}, expected all "
-                  f"{want} launches on the TMA route")
-            for k in names:
-                rows[k]["tma_launches"] += launches.get(k, 0)
+        the TMA route and every slab tq launch the tiled kernel, but where
+        ``packed`` the grid kernels' launches, which took the packed route
+        (bulk copies): count them on the rows."""
+        n = {k: launches.get(k, 0) for k in (
+            "batched_gram_apply", "gram_apply", "batched_slab_apply",
+            "grid_block_apply", "batched_slab_tq", "grid_block_tq")}
+        pk_tq = n["grid_block_tq"] if packed else 0
+        pk_ap = n["grid_block_apply"] if packed else 0
+        for label, counts, want in (
+                ("gram-apply", gram_update.ROUTE_LAUNCHES,
+                 {"tma": n["batched_gram_apply"] + n["gram_apply"],
+                  "cp_async": 0}),
+                ("slab-apply", slab_ops.ROUTE_LAUNCHES,
+                 {"tma": n["batched_slab_apply"] + n["grid_block_apply"]
+                  - pk_ap, "cp_async": 0, "packed": pk_ap,
+                  "packed_cp_async": 0}),
+                ("slab-tq", slab_ops.TQ_ROUTE_LAUNCHES,
+                 {"tiled": n["batched_slab_tq"] + n["grid_block_tq"] - pk_tq,
+                  "packed": pk_tq, "packed_cp_async": 0})):
+            check(dict(counts) == want, f"{where}: {label} launches by "
+                  f"route {dict(counts)}, expected {want}")
+        for k in ("batched_gram_apply", "gram_apply", "batched_slab_apply"):
+            rows[k]["tma_launches"] += n[k]
+        rows["grid_block_apply"]["tma_launches"] += n["grid_block_apply"] \
+            - pk_ap
+        if packed:
+            rows["grid_block_tq_packed"]["packed_launches"] += pk_tq
+            rows["grid_block_apply_packed"]["packed_launches"] += pk_ap
 
     f32 = 4
     # the card's launch floor: the smallest kernel, timed as the rows are
@@ -1009,6 +1037,26 @@ def main() -> None:
            f32 * (x_one.numel() + 2 * q_one.numel()), 4.0 * x_one.numel() * r,
            GRAM_TOL, "f32 sums in another order than cuBLAS; relative to "
            "max |V|", host=True)
+    # row 1 at sdot_sparse's own shape: 4,096 nodes of 784 x 14-15 samples
+    # (16 on the card), many small blocks; measured, not redesigned
+    x_sp_stack, n_sp_true = _stack_data(sp_blocks, dev)
+    q_sp_stack = torch.linalg.qr(torch.randn((n_sp, ds, rs), generator=gen,
+                                             device=dev))[0].contiguous()
+    record("batched_gram_apply_sdot_sparse",
+           "src/repro_torch/kernels/csrc/gram_update.cu",
+           "src/repro/kernels/gram_update.py:102",
+           lambda: ops.batched_gram_apply(x_sp_stack, q_sp_stack, n_sp_true),
+           lambda: ref.batched_gram_apply_ref(x_sp_stack, q_sp_stack,
+                                              n_sp_true),
+           lambda: torch.bmm(x_sp_stack, torch.bmm(x_sp_stack.mT,
+                                                   q_sp_stack)),
+           f32 * (x_sp_stack.numel() + 2 * q_sp_stack.numel() + n_sp),
+           4.0 * x_sp_stack.numel() * rs, GRAM_TOL,
+           "f32 sums in another order than cuBLAS; relative to max |V|",
+           host=True)
+    rows["batched_gram_apply_sdot_sparse"]["shape"] = \
+        list(x_sp_stack.shape) + [rs]
+    del x_sp_stack, q_sp_stack, n_sp_true
     sw = sp_eng._w
     k_payload = ds * rs
     z = torch.randn((n_sp, k_payload), generator=gen, device=dev)
@@ -1047,9 +1095,11 @@ def main() -> None:
         rows[name].update(window=ell_window(sw.window),
                           l2_bytes=ell_l2_bytes(sw.window))
     # a bf16 round is one kernel on the card: the messages are rounded
-    # inside it, no cast of the payload runs beside it. The process's first
-    # profiler session once recorded no device event at all, so a first
-    # session starts the tracer and the second is read
+    # inside it, no cast of the payload runs beside it. A profiler session
+    # sometimes records no device event at all (the process's first, and
+    # on one card run the second too): such a session saw nothing, so the
+    # round is profiled again, up to five sessions, and the first session
+    # that recorded device events is the one held to one ELL kernel
     from torch.profiler import ProfilerActivity, profile
 
     def bf16_round_kernels():
@@ -1061,12 +1111,15 @@ def main() -> None:
         return [(e.key, e.count) for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
 
-    bf16_round_kernels()
-    bf16_kernels = bf16_round_kernels()
+    bf16_kernels, sessions = [], 0
+    while not bf16_kernels and sessions < 5:
+        bf16_kernels, sessions = bf16_round_kernels(), sessions + 1
     check(len(bf16_kernels) == 1 and bf16_kernels[0][1] == 1
           and "ell_spmm" in bf16_kernels[0][0],
-          f"ell_spmm_bf16: a round ran {bf16_kernels}, not one ELL kernel")
-    rows["ell_spmm_bf16"]["device_kernels_a_round"] = 1
+          f"ell_spmm_bf16: a round ran {bf16_kernels} (profiler session "
+          f"{sessions}), not one ELL kernel")
+    rows["ell_spmm_bf16"].update(device_kernels_a_round=1,
+                                 profiler_sessions=sessions)
     # the same round on a graph without locality: erdos_renyi(4096, 0.0015)
     # (its nodes average 6.1 neighbours, like the overlay's 6; at this p a
     # graph is almost never connected, so it is not resampled until it is)
@@ -1580,14 +1633,21 @@ def main() -> None:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0, dict(ops.LAUNCHES)
 
-    def count_path(where, launches, want):
+    def count_path(where, launches, want, packed=False):
         """Every kernel of ``want`` launched exactly so often; add the
         launches to the rows."""
-        tma_only(where, launches)
+        tma_only(where, launches, packed)
         for name, count in want.items():
             check(launches[name] == count, f"{where}: {launches[name]} "
                   f"{name} launches, expected {count}")
             rows[name]["launches"] += count
+
+    def to_small_n_gram(count):
+        """``count`` gram-apply launches of the last run were at
+        sdot_sparse's shape: move them to that row."""
+        for key in ("launches", "tma_launches"):
+            rows["batched_gram_apply"][key] -= count
+            rows["batched_gram_apply_sdot_sparse"][key] += count
 
     def with_state(program):
         """Run ``program`` whole; (its result, its final RunState)."""
@@ -2427,6 +2487,7 @@ def main() -> None:
           "sparse: Gram launches != 2 T_o")
     for name in ("ell_spmm", "batched_gram_apply", "gram_qr"):
         rows[name]["launches"] += launches_sparse[name]
+    to_small_n_gram(launches_sparse["batched_gram_apply"])
 
     dense_eng = DenseConsensus(sp_graph, sparse=False, device=dev)
     torch.cuda.synchronize()
@@ -2452,6 +2513,7 @@ def main() -> None:
     rows["ell_spmm_bf16"]["launches"] += launches_bf["ell_spmm"]
     rows["batched_gram_apply"]["launches"] += launches_bf["batched_gram_apply"]
     rows["gram_qr"]["launches"] += launches_bf["gram_qr"]
+    to_small_n_gram(launches_bf["batched_gram_apply"])
     check(bool(torch.isfinite(bf_res.q_nodes).all()), "bf16: non-finite")
     check(bf_res.ledger.payload_bytes == 2 * bf_res.ledger.scalars,
           "bf16: ledger does not price 2 bytes per element")
@@ -2515,6 +2577,7 @@ def main() -> None:
     count_path("sparse_faulty", launches,
                {"ell_spmm": live_rounds, "batched_gram_apply": t_sp,
                 "gram_qr": QR_PASSES * t_sp})
+    to_small_n_gram(t_sp)
     res_sd, wall_sd, _ = timed_run(lambda: sdot(
         engine=FaultyConsensus(sp_graph, sp_model, seed=7, sparse=False,
                                device=dev), draws=DenseDraws(), **sp_kw))
@@ -2529,6 +2592,7 @@ def main() -> None:
     rows["ell_spmm_bf16"]["launches"] += launches_b["ell_spmm"]
     for name in ("batched_gram_apply", "gram_qr"):
         rows[name]["launches"] += launches_b[name]
+    to_small_n_gram(launches_b["batched_gram_apply"])
     emit({"phase": "sparse_faulty", "nodes": n_sp, "d": ds, "r": rs,
           "t_outer": t_sp, "t_c": t_c_sp, "ell_width": sw.ell_width,
           "model": {"p_drop": 0.2, "p_bad": 0.05, "p_good": 0.5, "seed": 7},
@@ -2586,16 +2650,65 @@ def main() -> None:
           "watts_strogatz(4096) did not pick the ELL path")
     bs_kw = dict(blocks=sp_grid, col_engines=col_bs, r=rs, t_outer=t_sp,
                  t_c=t_c_bs, q_init=q_init_sp, q_true=qs_true, device=dev)
+    # the grid kernels at this launch (J = 4,096 blocks of 14 columns,
+    # padded to 16 on the card) take the packed route: their rows, against
+    # the plain versions and the library's batched matmul
+    x_bs = pad_grid_blocks(sp_grid, 4)
+    q_bs = torch.randn((bs_i, x_bs.shape[2], rs), generator=gen, device=dev)
+    s_bs = torch.randn((bs_j, x_bs.shape[3], rs), generator=gen, device=dev)
+    packed_plans = {k: slab_ops.packed_plan(k, bs_i * bs_j, bs_j,
+                                            x_bs.shape[2], x_bs.shape[3], rs,
+                                            *_launch.card(0))
+                    for k in ("tq", "apply")}
+    check(all(p.route == "packed" for p in packed_plans.values()),
+          f"bdot_sparse: the planner did not pick the packed route "
+          f"{packed_plans}")
+    record("grid_block_tq_packed", "src/repro_torch/kernels/csrc/slab_ops.cu",
+           "src/repro/kernels/slab_ops.py:148",
+           lambda: ops.grid_block_tq(x_bs, q_bs),
+           lambda: ref.grid_block_tq_ref(x_bs, q_bs),
+           lambda: torch.matmul(x_bs.mT, q_bs[:, None]),
+           f32 * (x_bs.numel() + q_bs.numel()
+                  + bs_i * bs_j * x_bs.shape[3] * rs),
+           2.0 * x_bs.numel() * rs, SLAB_TOL,
+           "f32 sums in another order than cuBLAS; relative to max |Z|",
+           host=True)
+    record("grid_block_apply_packed",
+           "src/repro_torch/kernels/csrc/slab_ops.cu",
+           "src/repro/kernels/slab_ops.py:198",
+           lambda: ops.grid_block_apply(x_bs, s_bs),
+           lambda: ref.grid_block_apply_ref(x_bs, s_bs),
+           lambda: torch.matmul(x_bs, s_bs[None]),
+           f32 * (x_bs.numel() + s_bs.numel()
+                  + bs_i * bs_j * x_bs.shape[2] * rs),
+           2.0 * x_bs.numel() * rs, SLAB_TOL,
+           "f32 sums in another order than cuBLAS; relative to max |V|",
+           host=True)
+    for name, k in (("grid_block_tq_packed", "tq"),
+                    ("grid_block_apply_packed", "apply")):
+        pl = packed_plans[k]
+        rows[name].update(
+            shape=list(x_bs.shape) + [rs], packed_launches=0,
+            plan={f: getattr(pl, f) for f in (
+                "vec", "upl", "unit_lanes", "blocks_per_stage", "row_slices",
+                "stages", "grid", "smem", "q_stagings")})
+    del x_bs, q_bs, s_bs
     res_bs, wall_bs, launches_bs = timed_run(lambda: bdot(
         row_engines=row_sp, **bs_kw))
     routes_bs = dict(ell_module.ROUTE_LAUNCHES)
+    grid_routes_bs = {"tq": dict(slab_ops.TQ_ROUTE_LAUNCHES),
+                      "apply": dict(slab_ops.ROUTE_LAUNCHES)}
     rounds_bs = t_sp * t_c_bs
     # one batched launch a round of the row stage; the four debias tables
-    # take t_c single launches each
+    # take t_c single launches each; each grid kernel one packed launch a
+    # step
     count_path("bdot_sparse", launches_bs, {
         "ell_spmm": rounds_bs + len(row_sp) * t_c_bs,
-        "grid_block_tq": t_sp, "grid_block_apply": t_sp,
-        "gram_qr": QR_PASSES * t_sp})
+        "gram_qr": QR_PASSES * t_sp}, packed=True)
+    for name in ("grid_block_tq", "grid_block_apply"):
+        check(launches_bs[name] == t_sp, f"bdot_sparse: {launches_bs[name]}"
+              f" {name} launches, expected {t_sp}")
+        rows[f"{name}_packed"]["launches"] += t_sp
     check(routes_bs == {"single": len(row_sp) * t_c_bs,
                         "batched": rounds_bs},
           f"bdot_sparse: ELL launches by form {routes_bs}, expected "
@@ -2614,36 +2727,6 @@ def main() -> None:
         + [(e.graph.adjacency, rounds_bs, d_bs * rs) for e in row_sp]
         + [(col_bs[0].graph.adjacency, QR_PASSES * t_c_bs * t_sp,
             rs * rs)])
-    # the grid kernels at this launch (J = 4,096 blocks of 14 columns,
-    # padded to 16 on the card) against their plain versions
-    x_bs = pad_grid_blocks(sp_grid, 4)
-    q_bs = torch.randn((bs_i, x_bs.shape[2], rs), generator=gen, device=dev)
-    s_bs = torch.randn((bs_j, x_bs.shape[3], rs), generator=gen, device=dev)
-    grid_at_bs = {}
-    for name, kern, plain, nbytes in (
-            ("grid_block_tq", lambda: ops.grid_block_tq(x_bs, q_bs),
-             lambda: ref.grid_block_tq_ref(x_bs, q_bs),
-             f32 * (x_bs.numel() + q_bs.numel()
-                    + bs_i * bs_j * x_bs.shape[3] * rs)),
-            ("grid_block_apply", lambda: ops.grid_block_apply(x_bs, s_bs),
-             lambda: ref.grid_block_apply_ref(x_bs, s_bs),
-             f32 * (x_bs.numel() + s_bs.numel()
-                    + bs_i * bs_j * x_bs.shape[2] * rs))):
-        got, want = kern(), plain()
-        b_ms, b_by = bound(nbytes, 2.0 * x_bs.numel() * rs)
-        grid_at_bs[name] = {
-            "rel_err": float((got - want).abs().max() / want.abs().max()),
-            "ms": time_ms(kern), "plain_ms": time_ms(plain),
-            "bound_ms": b_ms, "bound_by": b_by}
-        check(grid_at_bs[name]["rel_err"] <= SLAB_TOL,
-              f"bdot_sparse {name}: {grid_at_bs[name]}")
-        del got, want
-    ap_plan = slab_ops.apply_plan(bs_i * bs_j, x_bs.shape[2], x_bs.shape[3],
-                                  rs, *_launch.card(0))
-    grid_at_bs["grid_block_apply"]["plan"] = {
-        k: getattr(ap_plan, k) for k in ("chunks", "rows", "rpw", "cols",
-                                         "stages", "grid", "smem", "slots")}
-    del x_bs, q_bs, s_bs
     bs_out = {
         "grid": [bs_i, bs_j], "block": [int(d_bs), int(n_bs)],
         "padded_cols": int(-(-n_bs // 4) * 4), "r": rs, "t_outer": t_sp,
@@ -2668,7 +2751,9 @@ def main() -> None:
         "max_angle_f64_vs_eager": max_angle_f64(res_be.q_full,
                                                 res_bs.q_full),
         "ledger": ledger_bs, "ledger_closed_form": want_bs,
-        "grid_kernels_at_this_shape": grid_at_bs}
+        "grid_kernel_routes": grid_routes_bs,
+        "packed_plans": {k: rows[f"grid_block_{k}_packed"]["plan"]
+                         for k in ("tq", "apply")}}
     emit({"phase": "bdot_sparse", **bs_out})
     check(bool(torch.isfinite(res_bs.q_full).all()), "bdot_sparse: "
           "non-finite")

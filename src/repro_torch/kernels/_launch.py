@@ -45,7 +45,7 @@ def raise_on_error(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn} failed with CUDA error {err}")
 
 
-# CUDA's limit on gridDim.y, the block axis of the slab / grid tq kernel
+# CUDA's limit on gridDim.y, the block axis of the tiled slab / grid tq kernel
 MAX_GRID_Y = 65535
 
 # H100: shared memory a block can use, where the properties do not say

@@ -62,6 +62,39 @@
 // Ragged edges: a tile past n and rows past d are masked; any d, n >= 1 and
 // 1 <= r <= 64 are taken. The zero padding of the reference's stacks is data
 // like any other.
+//
+// The packed route (both products, for stacks of many small blocks: B-DOT's
+// 4 x 4,096 grid of 196 x 16 blocks). The kernels above are cut for a long
+// sample axis: at n = 16 the tq grid is one block of 256 threads for each
+// grid block, 16 of them holding a column, each staging Q anew; the apply
+// plan lands 49 x 256 tiles of which 16 columns are data. Both are bound by
+// latency there, not bytes. The packed kernel, one launch a call:
+//  * a persistent grid, at most one block an SM; block g walks the grid
+//    blocks [starts[g], starts[g + 1]) (the wrapper's ``packed_plan``, from
+//    the shapes alone). X_b is contiguous (d n floats), so a stage of G
+//    consecutive grid blocks is one contiguous run: one 1-D bulk copy under
+//    one mbarrier (apply: and S of the G blocks' grid columns, one or two
+//    bulk copies, since the columns wrap at J). A ring of 2-8 stages keeps
+//    ~100-200 KB in flight an SM. Where a run or its start is not a 16-byte
+//    multiple, every thread fills the same ring with 4-byte cp.async copies.
+//  * tq: a warp takes a grid block's group of U column units (U <= 32, the
+//    plan's, narrower where a stage holds fewer blocks than there are
+//    warps): its lanes are (column unit, row phase) pairs, a unit being
+//    a float4 of columns (n % 4 == 0, r <= 16) or one column; each lane sums
+//    its rows of d in order, the phases are added by xor shuffles in one
+//    fixed order. Q of a grid row is staged in shared memory once for each
+//    grid row a block's range meets (two slots, G <= J, so a stage meets at
+//    most two rows).
+//  * apply: a warp takes a grid block (or a slice of its rows where a stage
+//    holds fewer blocks than there are warps); its lanes are (row, column
+//    unit) pairs, each holding its unit's rows of S_j in registers, so a
+//    row of X is read once as float4s (consecutive lanes on consecutive 16
+//    bytes: no bank conflict) and the row's units are added by xor shuffles
+//    in one fixed order. Each output element is summed by one lane group:
+//    no partials, no tickets, no fold.
+// Still bytes: 2 r flops per element of X (2.5 flop a byte at r = 5), f32
+// FMAs on the CUDA cores; tensor cores would buy nothing. No atomics: the
+// same bits on every run.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -386,6 +419,304 @@ slab_apply_kernel(const __grid_constant__ CUtensorMap xmap, const ApplyArgs a) {
   }
 }
 
+// -- the packed route -------------------------------------------------------
+constexpr int kPackedAlign = 128;     // a stage's alignment in shared memory
+constexpr int kPackedMaxStages = 8;
+
+// A stage of the packed ring: G grid blocks of X (d x n each), then for
+// apply their G chunks of S (n x r each), padded to 128 bytes.
+__host__ __device__ inline size_t packed_stage_bytes(int apply, int G, int d,
+                                                     int n, int r) {
+  const size_t per = (size_t)d * n + (apply ? (size_t)n * r : 0);
+  return (4 * (size_t)G * per + kPackedAlign - 1) &
+         ~(size_t)(kPackedAlign - 1);
+}
+
+// tq's two Q slots: d rows of r floats padded to float4s.
+__host__ __device__ inline size_t packed_q_bytes(int apply, int d, int r) {
+  return apply ? 0 : 2 * (size_t)d * 16 * ((r + 3) / 4);
+}
+
+// Dynamic shared memory of a packed block: alignment slack, the ring, the
+// Q slots (tq), the mbarriers.
+__host__ __device__ inline size_t packed_smem_bytes(int apply, int G, int d,
+                                                    int n, int r,
+                                                    int stages) {
+  return kPackedAlign + stages * packed_stage_bytes(apply, G, d, n, r) +
+         packed_q_bytes(apply, d, r) + 8 * (size_t)stages;
+}
+
+struct PackedArgs {
+  const float* x;                   // (B, d, n)
+  const float* y;                   // tq: Q (B / J, d, r); apply: S (J, n, r)
+  float* out;                       // tq: Z (B, n, r); apply: V (B, d, r)
+  const int* starts;                // (grid + 1,): a block's first grid block
+  int J, d, n, r, G, H, U, stages, bulk;  // U: lanes a row / a row phase
+};
+
+// Put grid blocks [b0, b0 + cnt) into the stage at ``dst``: X, then (apply)
+// S of their grid columns b % J, which run from b0 % J and wrap at J once at
+// most (cnt <= G <= J).
+template <bool APPLY>
+__device__ __forceinline__ void packed_load(const PackedArgs& a, uint32_t dst,
+                                            uint32_t bar, int b0, int cnt,
+                                            int tid) {
+  const int xf = cnt * a.d * a.n;
+  const float* xsrc = a.x + (size_t)b0 * a.d * a.n;
+  const int per_s = a.n * a.r;
+  const int j0 = APPLY ? b0 % a.J : 0;
+  const int before = APPLY ? min(cnt, a.J - j0) : 0;   // blocks before the wrap
+  const uint32_t s_dst = dst + 4u * xf;
+  if (a.bulk) {
+    if (tid == 0) {
+      hopper::mbar_expect_tx(bar, 4u * (xf + (APPLY ? cnt * per_s : 0)));
+      hopper::bulk_load(dst, xsrc, 4u * xf, bar);
+      if constexpr (APPLY) {
+        hopper::bulk_load(s_dst, a.y + (size_t)j0 * per_s,
+                          4u * before * per_s, bar);
+        if (cnt > before)
+          hopper::bulk_load(s_dst + 4u * before * per_s, a.y,
+                            4u * (cnt - before) * per_s, bar);
+      }
+    }
+    return;
+  }
+  for (int i = tid; i < xf; i += kThreads)
+    hopper::cp_async_4(dst + 4u * i, xsrc + i, true);
+  if constexpr (APPLY) {
+    for (int i = tid; i < cnt * per_s; i += kThreads) {
+      const int g = i / per_s, j = j0 + g < a.J ? j0 + g : j0 + g - a.J;
+      hopper::cp_async_4(s_dst + 4u * i,
+                         a.y + (size_t)j * per_s + (i - g * per_s), true);
+    }
+  }
+  hopper::cp_async_arrive(bar);
+}
+
+// Q of grid row ``row`` into a slot: d rows padded to float4s with zeros.
+__device__ __forceinline__ void packed_stage_q(const PackedArgs& a,
+                                               float* slot, int row,
+                                               int tid) {
+  const int width = 4 * ((a.r + 3) / 4);
+  const float* src = a.y + (size_t)row * a.d * a.r;
+  for (int i = tid; i < a.d * width; i += kThreads) {
+    const int k = i / width, j = i - k * width;
+    slot[i] = j < a.r ? __ldg(src + k * a.r + j) : 0.f;
+  }
+}
+
+// x[k, cu VEC : cu VEC + VEC] from the stage (VEC = 4: a float4; n % 4 == 0).
+template <int VEC>
+__device__ __forceinline__ void packed_x(const float* row, int cu,
+                                         float (&xv)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 w = *reinterpret_cast<const float4*>(row + 4 * cu);
+    xv[0] = w.x;
+    xv[1] = w.y;
+    xv[2] = w.z;
+    xv[3] = w.w;
+  } else {
+    xv[0] = row[cu];
+  }
+}
+
+// tq on a landed stage: Z[b] = X_b^T Q[b / J] for its cnt grid blocks.
+template <int R, bool EXACT, int VEC>
+__device__ __forceinline__ void packed_tq_stage(const PackedArgs& a,
+                                                const float* xs,
+                                                const float4* qs, int b0,
+                                                int cnt, int lane, int warp) {
+  constexpr int R4 = (R + 3) / 4;
+  const int d = a.d, n = a.n, r = a.r, r4 = (r + 3) / 4;
+  const int units = (n + VEC - 1) / VEC, width = a.U;
+  const int phases = 32 / width, groups = (units + width - 1) / width;
+  const int p = lane / width, u = lane & (width - 1);
+  for (int task = warp; task < cnt * groups; task += kWarps) {
+    const int g = task / groups, b = b0 + g;
+    const int cu = (task - g * groups) * width + u;
+    const bool valid = cu < units;
+    const float* xb = xs + (size_t)g * d * n;
+    const float4* qb = qs + (size_t)((b / a.J) & 1) * d * r4;
+    float acc[VEC][R];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+#pragma unroll
+      for (int j = 0; j < R; ++j) acc[e][j] = 0.f;
+    if (valid) {
+#pragma unroll 4
+      for (int k = p; k < d; k += phases) {
+        float xv[VEC];
+        packed_x<VEC>(xb + k * n, cu, xv);
+        const float4* qrow = qb + k * r4;
+#pragma unroll
+        for (int j4 = 0; j4 < R4; ++j4) {
+          if (EXACT || j4 < r4) {
+            const float4 w = qrow[j4];
+            const float qv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              if (4 * j4 + t < R) {
+#pragma unroll
+                for (int e = 0; e < VEC; ++e)
+                  acc[e][4 * j4 + t] =
+                      fmaf(xv[e], qv[t], acc[e][4 * j4 + t]);
+              }
+            }
+          }
+        }
+      }
+    }
+    // the row phases, added in one fixed order (every lane of a unit ends
+    // with the same sums)
+    for (int off = width; off < 32; off <<= 1) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          acc[e][j] += __shfl_xor_sync(0xffffffffu, acc[e][j], off);
+    }
+    if (valid) {                        // the phases share the stores
+      float* zb = a.out + ((size_t)b * n + cu * VEC) * r;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          if ((EXACT || j < r) && (e * R + j) % phases == p)
+            zb[e * r + j] = acc[e][j];
+    }
+  }
+}
+
+// apply on a landed stage: V[b] = X_b S[b % J] for its cnt grid blocks, a
+// task being a grid block's slice of rows (H slices a block).
+template <int R, bool EXACT, int VEC, int UPL>
+__device__ __forceinline__ void packed_apply_stage(const PackedArgs& a,
+                                                   const float* xs, int b0,
+                                                   int cnt, int lane,
+                                                   int warp) {
+  const int d = a.d, n = a.n, r = a.r, H = a.H;
+  const float* ss = xs + (size_t)cnt * d * n;
+  const int units = (n + VEC - 1) / VEC, width = a.U;
+  const int rows = 32 / width, rs = lane / width, u = lane & (width - 1);
+  for (int task = warp; task < cnt * H; task += kWarps) {
+    const int g = task / H, h = task - g * H, b = b0 + g;
+    const int k_lo = h * d / H, k_hi = (h + 1) * d / H;
+    const float* xb = xs + (size_t)g * d * n;
+    const float* sb = ss + (size_t)g * n * r;
+    // this lane's units of S_j, in registers for the whole task
+    float sv[UPL][VEC][R];
+#pragma unroll
+    for (int s = 0; s < UPL; ++s)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int cu = u + s * width;
+          sv[s][e][j] = cu < units && (EXACT || j < r)
+                            ? sb[(cu * VEC + e) * r + j] : 0.f;
+        }
+#pragma unroll 2
+    for (int k0 = k_lo; k0 < k_hi; k0 += rows) {
+      const int k = k0 + rs;
+      const bool row_ok = k < k_hi;
+      float acc[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) acc[j] = 0.f;
+      if (row_ok) {
+#pragma unroll
+        for (int s = 0; s < UPL; ++s) {
+          const int cu = u + s * width;
+          if (cu < units) {
+            float xv[VEC];
+            packed_x<VEC>(xb + k * n, cu, xv);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+#pragma unroll
+              for (int j = 0; j < R; ++j)
+                acc[j] = fmaf(xv[e], sv[s][e][j], acc[j]);
+          }
+        }
+      }
+      // the row's column units, added in one fixed order
+      for (int off = 1; off < width; off <<= 1) {
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+      }
+      if (row_ok) {                     // the units share the stores
+        float* vb = a.out + ((size_t)b * d + k) * r;
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          if ((EXACT || j < r) && (j & (width - 1)) == u) vb[j] = acc[j];
+      }
+    }
+  }
+}
+
+template <bool APPLY, int R, bool EXACT, int VEC, int UPL>
+__global__ void __launch_bounds__(kThreads, 1)
+slab_packed_kernel(const PackedArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + kPackedAlign - 1) & ~(uint32_t)(kPackedAlign - 1);
+  unsigned char* basep = smem_raw + (base - raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = a.G, stages = a.stages;
+  const uint32_t stage_bytes =
+      (uint32_t)packed_stage_bytes(APPLY, G, a.d, a.n, a.r);
+  const uint32_t q_at = stages * stage_bytes;
+  const uint32_t bar0 = base + q_at + (uint32_t)packed_q_bytes(APPLY, a.d, a.r);
+  float* qsf = reinterpret_cast<float*>(basep + q_at);
+  const int q_slot = 4 * ((a.r + 3) / 4) * a.d;          // floats a Q slot
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s)
+      hopper::mbar_init(bar0 + 8 * s, a.bulk ? 1 : kThreads);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int first = a.starts[blockIdx.x], end = a.starts[blockIdx.x + 1];
+  const int n_seq = (end - first + G - 1) / G;
+  auto issue = [&](int seq) {
+    if (seq >= n_seq) return;
+    const int s = seq % stages, b0 = first + seq * G;
+    packed_load<APPLY>(a, base + s * stage_bytes, bar0 + 8 * s, b0,
+                       min(G, end - b0), tid);
+  };
+  for (int s = 0; s < stages; ++s) issue(s);
+
+  int staged0 = -1, staged1 = -1;       // the grid rows in the Q slots
+  for (int seq = 0; seq < n_seq; ++seq) {
+    const int s = seq % stages, b0 = first + seq * G;
+    const int cnt = min(G, end - b0);
+    if constexpr (!APPLY) {
+      // Q of the grid rows this stage meets, each once a range (slot row %
+      // 2); the slot's old row was last read before the previous stage's
+      // __syncthreads
+      const int lo = b0 / a.J, hi = (b0 + cnt - 1) / a.J;
+      bool fresh = false;
+      for (int row = lo; row <= hi; ++row) {
+        if ((row & 1) ? staged1 != row : staged0 != row) {
+          packed_stage_q(a, qsf + (row & 1) * q_slot, row, tid);
+          if (row & 1) staged1 = row; else staged0 = row;
+          fresh = true;
+        }
+      }
+      if (fresh) __syncthreads();
+    }
+    hopper::mbar_wait(bar0 + 8 * s, (seq / stages) & 1);
+    const float* xs = reinterpret_cast<const float*>(basep + s * stage_bytes);
+    if constexpr (APPLY)
+      packed_apply_stage<R, EXACT, VEC, UPL>(a, xs, b0, cnt, lane, warp);
+    else
+      packed_tq_stage<R, EXACT, VEC>(a, xs, reinterpret_cast<float4*>(qsf),
+                                     b0, cnt, lane, warp);
+    __syncthreads();                    // stage s consumed by every warp
+    issue(seq + stages);
+  }
+}
+
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -411,6 +742,49 @@ cudaError_t launch_apply(const CUtensorMap& map, const ApplyArgs& a, int grid,
   if (err != cudaSuccess) return err;
   slab_apply_kernel<R, EXACT><<<grid, kThreads, smem, stream>>>(map, a);
   return cudaGetLastError();
+}
+
+template <bool APPLY, int R, bool EXACT, int VEC, int UPL>
+cudaError_t launch_packed(const PackedArgs& a, int grid, size_t smem,
+                          cudaStream_t stream) {
+  cudaError_t err =
+      set_smem(slab_packed_kernel<APPLY, R, EXACT, VEC, UPL>, smem);
+  if (err != cudaSuccess) return err;
+  slab_packed_kernel<APPLY, R, EXACT, VEC, UPL>
+      <<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// float4 units, one a lane (UPL = 1): r exact up to 8, else 16 columns
+template <bool APPLY, int UPL>
+cudaError_t launch_packed_vec4(const PackedArgs& a, int grid, size_t smem,
+                               cudaStream_t s) {
+  if constexpr (UPL == 2)   // n up to 256: two units a lane, r <= 16
+    return a.r <= 8 ? launch_packed<APPLY, 8, false, 4, UPL>(a, grid, smem, s)
+                    : launch_packed<APPLY, 16, false, 4, UPL>(a, grid, smem, s);
+  switch (a.r) {
+    case 1: return launch_packed<APPLY, 1, true, 4, UPL>(a, grid, smem, s);
+    case 2: return launch_packed<APPLY, 2, true, 4, UPL>(a, grid, smem, s);
+    case 3: return launch_packed<APPLY, 3, true, 4, UPL>(a, grid, smem, s);
+    case 4: return launch_packed<APPLY, 4, true, 4, UPL>(a, grid, smem, s);
+    case 5: return launch_packed<APPLY, 5, true, 4, UPL>(a, grid, smem, s);
+    case 6: return launch_packed<APPLY, 6, true, 4, UPL>(a, grid, smem, s);
+    case 7: return launch_packed<APPLY, 7, true, 4, UPL>(a, grid, smem, s);
+    case 8: return launch_packed<APPLY, 8, true, 4, UPL>(a, grid, smem, s);
+    default: return launch_packed<APPLY, 16, false, 4, UPL>(a, grid, smem, s);
+  }
+}
+
+// one column a unit: any r up to 64
+template <bool APPLY>
+cudaError_t launch_packed_vec1(const PackedArgs& a, int grid, size_t smem,
+                               cudaStream_t s) {
+  if (a.r <= 8) return launch_packed<APPLY, 8, false, 1, 1>(a, grid, smem, s);
+  if (a.r <= 16)
+    return launch_packed<APPLY, 16, false, 1, 1>(a, grid, smem, s);
+  if (a.r <= 32)
+    return launch_packed<APPLY, 32, false, 1, 1>(a, grid, smem, s);
+  return launch_packed<APPLY, 64, false, 1, 1>(a, grid, smem, s);
 }
 
 }  // namespace
@@ -487,6 +861,55 @@ int slab_apply_launch(const float* x, const float* s, float* partial, float* v,
                 ? launch_apply<32, false>(map, a, grid, smem, stream)
                 : launch_apply<64, false>(map, a, grid, smem, stream);
   }
+  return (int)err;
+}
+
+// Bytes of dynamic shared memory a packed block needs (apply = 0: tq).
+size_t slab_packed_smem_bytes(int apply, int G, int d, int n, int r,
+                              int stages) {
+  return packed_smem_bytes(apply, G, d, n, r, stages);
+}
+
+// The packed route, one launch: apply = 0 computes Z[b] = X_b^T Q[b / J]
+// (y: Q (blocks / J, d, r), out: Z (blocks, n, r)), apply = 1 computes V[b]
+// = X_b S[b % J] (y: S (J, n, r), out: V (blocks, d, r)); x: (blocks, d, n),
+// all f32. starts: (grid + 1,) int32, block g's grid blocks; the wrapper's
+// plan: G grid blocks a stage (G <= J), H row slices a grid block (apply),
+// U lanes a row (apply: the units' power of two, at most 32) or a row phase
+// (tq: a power of two up to it), ``stages`` ring stages, units of vec = 4
+// or 1 columns, upl units a lane (apply). bulk = 1 copies by cp.async.bulk (d n % 4 == 0, for apply n r %
+// 4 == 0 too, x and y 16-byte aligned), else by 4-byte cp.async. Returns the
+// CUDA error code of the launch (0 on success).
+int slab_packed_launch(int apply, const float* x, const float* y, float* out,
+                       const int* starts, int blocks, int J, int d, int n,
+                       int r, int G, int H, int U, int stages, int grid,
+                       int smem, int bulk, int vec, int upl,
+                       void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int units = vec == 4 ? n / 4 : n;
+  const int upl_want = apply ? (units + 31) / 32 : 1;
+  int lanes = 1;                        // the units' power of two, <= 32
+  while (lanes < units && lanes < 32) lanes <<= 1;
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                       (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+  if (r < 1 || r > 64 || d < 1 || n < 1 || blocks < 1 || J < 1 ||
+      blocks % J || G < 1 || G > J || H < 1 || H > d || grid < 1 ||
+      grid > blocks || stages < 2 || stages > kPackedMaxStages ||
+      (vec != 1 && vec != 4) || (vec == 4 && (n % 4 || r > 16)) ||
+      upl != upl_want || upl > (vec == 4 ? 2 : 1) || U < 1 || U > lanes ||
+      (U & (U - 1)) || (apply && U != lanes) ||
+      (bulk && (!aligned || (d * n) % 4 || (apply && (n * r) % 4))) ||
+      (size_t)smem < packed_smem_bytes(apply, G, d, n, r, stages))
+    return (int)cudaErrorInvalidValue;
+  const PackedArgs a{x, y, out, starts, J, d, n, r, G, H, U, stages, bulk};
+  cudaError_t err;
+  if (apply)
+    err = vec == 1 ? launch_packed_vec1<true>(a, grid, smem, stream)
+          : upl == 2 ? launch_packed_vec4<true, 2>(a, grid, smem, stream)
+                     : launch_packed_vec4<true, 1>(a, grid, smem, stream);
+  else
+    err = vec == 1 ? launch_packed_vec1<false>(a, grid, smem, stream)
+                   : launch_packed_vec4<false, 1>(a, grid, smem, stream);
   return (int)err;
 }
 

@@ -37,7 +37,8 @@ from repro_torch.data.pipeline import (drifting_eigengap_stream,
                                        partition_samples)
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ell_spmm, gram_qr, gram_update, slab_ops
+from repro_torch.kernels import (_launch, ell_spmm, gram_qr, gram_update,
+                                 slab_ops)
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models.transformer import (decode_step, forward,
                                             init_decode_state, init_params,
@@ -159,7 +160,8 @@ def test_slab_apply_staging_routes(cuda_device, n, how):
         got = kernel()
         torch.cuda.synchronize()
         assert _routes_delta(slab_ops, before) == {
-            "tma": int(how == "tma"), "cp_async": int(how == "cp_async")}
+            "tma": int(how == "tma"), "cp_async": int(how == "cp_async"),
+            "packed": 0, "packed_cp_async": 0}
         assert _close(got, plain())
         with no_host_sync():
             again = kernel()
@@ -180,6 +182,14 @@ def test_kernel_plans_match_the_kernels_shared_memory(cuda_device):
                                         r)[0]
         assert slab_ops._lib().slab_apply_smem_bytes(
             p.rows, p.cols, r, p.stages) == p.smem
+    # the packed route at bdot_sparse's grid (4 x 4,096 blocks of 196 x 16)
+    card = _launch.card(cuda_device.index or 0)
+    for kernel in ("tq", "apply"):
+        p = slab_ops.packed_plan(kernel, 16_384, 4096, 196, 16, 5, *card)
+        assert p.route == "packed"
+        assert slab_ops._lib().slab_packed_smem_bytes(
+            int(kernel == "apply"), p.blocks_per_stage, 196, 16, 5,
+            p.stages) == p.smem
 
 
 @pytest.mark.parametrize("payload", [None, "bfloat16"])
@@ -332,6 +342,105 @@ def test_grid_kernels_keep_zero_padding_exact(cuda_device):
     want = ref.grid_block_tq_ref(x[1:, 1:, :4, :400].contiguous(),
                                  q[1:, :4].contiguous())
     assert _close(z[1, 1, :400], want[0, 0])
+
+
+# The packed route (many small blocks) against the plain versions: (I, J),
+# d, n, r. bdot_sparse's block (196 x 16) and its unpadded 14 columns, n = 1
+# and 3 at odd J, r = 1, r = 64 (single columns), d = 1, n = 32, and more
+# than 65,535 blocks (past the tiled tq kernel's grid).
+PACKED_CASES = [((4, 64), 196, 16, 5), ((4, 64), 196, 14, 5),
+                ((3, 33), 20, 1, 5), ((2, 17), 37, 3, 1),
+                ((2, 16), 50, 32, 64), ((4, 9), 1, 16, 5),
+                ((2, 8), 196, 32, 5), ((8, 8192), 196, 16, 5)]
+
+
+def _grid_route(kernel, blocks, j_cols, d, n, r, dev):
+    """The route a grid launch should count: the planner's, with the
+    staging the shapes allow (the tensors here are 16-byte aligned)."""
+    p = slab_ops.packed_plan(kernel, blocks, j_cols, d, n, r,
+                             *_launch.card(dev.index or 0))
+    if p.route == "packed":
+        bulk = (d * n) % 4 == 0 and (kernel == "tq" or (n * r) % 4 == 0)
+        return "packed" if bulk else "packed_cp_async"
+    if kernel == "tq":
+        return "tiled"
+    return "tma" if n % 4 == 0 else "cp_async"
+
+
+def _check_grid_kernels(dev, grid, d, n, r, seed=0):
+    """Both grid kernels against the plain versions (SLAB_TOL), on a grid
+    whose row 1 has a quarter of its feature rows and column 1 a quarter of
+    its sample columns zero-padded: the launch is counted on its route, the
+    padding comes out exactly zero, and a second launch without a host
+    wait repeats the bits."""
+    i_rows, j_cols = grid
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((i_rows, j_cols, d, n), generator=gen, device=dev)
+    q = torch.randn((i_rows, d, r), generator=gen, device=dev)
+    s = torch.randn((j_cols, n, r), generator=gen, device=dev)
+    d_true, n_true = d - d // 4, n - n // 4
+    x[1, :, d_true:] = 0.0
+    q[1, d_true:] = 0.0
+    x[:, 1, :, n_true:] = 0.0
+    s[1, n_true:] = 0.0
+    routes = {}
+    for kernel, counts, run, plain in (
+            ("tq", slab_ops.TQ_ROUTE_LAUNCHES,
+             lambda: ops.grid_block_tq(x, q),
+             lambda: ref.grid_block_tq_ref(x, q)),
+            ("apply", slab_ops.ROUTE_LAUNCHES,
+             lambda: ops.grid_block_apply(x, s),
+             lambda: ref.grid_block_apply_ref(x, s))):
+        route = _grid_route(kernel, i_rows * j_cols, j_cols, d, n, r, dev)
+        before = dict(counts)
+        got = run()
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in counts.items()} == {
+            k: int(k == route) for k in counts}, (kernel, route)
+        assert bool(torch.isfinite(got).all()), kernel
+        assert _close(got, plain()), kernel
+        with no_host_sync():
+            again = run()
+        assert torch.equal(got, again), kernel   # no atomics, fixed order
+        padded = got[:, 1, n_true:] if kernel == "tq" else got[1, :, d_true:]
+        assert torch.count_nonzero(padded) == 0, kernel
+        routes[kernel] = route
+    return routes
+
+
+@pytest.mark.parametrize("grid,d,n,r", PACKED_CASES)
+def test_packed_grid_kernels_match_plain(cuda_device, grid, d, n, r):
+    routes = _check_grid_kernels(cuda_device, grid, d, n, r)
+    assert routes["tq"].startswith("packed")
+    assert routes["apply"].startswith("packed")
+
+
+@pytest.mark.parametrize("past", [0, 1])
+@pytest.mark.parametrize("kernel", ["tq", "apply"])
+def test_packed_route_ends_at_the_crossover(cuda_device, kernel, past):
+    """At n = PACKED_MAX_N the planner takes the packed route, one column
+    past it the tiled kernel; both hold the plain version there."""
+    n = slab_ops.PACKED_MAX_N[kernel] + past
+    routes = _check_grid_kernels(cuda_device, (2, 8), 196, n, 5, seed=3)
+    assert routes[kernel].startswith("packed") == (past == 0)
+
+
+def test_packed_and_tiled_routes_agree(cuda_device):
+    """At bdot_sparse's block both routes, forced, hold the plain version
+    and each other within SLAB_TOL; forcing the packed route where the
+    packed kernel cannot take the shapes raises."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn((256, 196, 16), generator=gen, device=cuda_device)
+    q = torch.randn((4, 196, 5), generator=gen, device=cuda_device)
+    s = torch.randn((64, 16, 5), generator=gen, device=cuda_device)
+    for fn, y in ((slab_ops.slab_tq_cuda, q), (slab_ops.slab_apply_cuda, s)):
+        packed, tiled = (fn(x, y, 64, route=k) for k in ("packed", "tiled"))
+        assert _close(packed, tiled)
+    wide = torch.randn((8, 196, 257), generator=gen, device=cuda_device)
+    with pytest.raises(ValueError):
+        slab_ops.slab_apply_cuda(wide, torch.randn(
+            (4, 257, 5), generator=gen, device=cuda_device), 4,
+            route="packed")
 
 
 def test_slab_wrappers_raise_instead_of_falling_back(cuda_device):

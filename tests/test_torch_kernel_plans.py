@@ -1,5 +1,5 @@
 """The launch planners of the gram-apply, slab-apply, Gram and ELL kernels,
-on the CPU.
+and the packed route of the slab / grid kernels, on the CPU.
 
 All are pure functions of the shapes (the ELL kernel's also of the graph's
 window, planned from its host-side indices) and of the card's SM count and
@@ -207,6 +207,159 @@ def test_staging_route_follows_the_row_alignment(n, want):
     # a view that starts 4 bytes in is never 16-byte aligned
     assert gram_update.route(torch.zeros(2 * 8 * n + 1)[1:].view(2, 8, n)) \
         == "cp_async"
+
+
+
+# -- the packed route of the slab / grid kernels --------------------------------
+# (blocks, J, d, n, r): bdot_sparse's grid (4 x 4,096 blocks of 196 x 16),
+# 8 x 8,192 blocks (past the tiled tq kernel's 65,535), ragged ranges (J
+# not a multiple of a range's 30-31 blocks), the tiny-blocks case of
+# test_torch_slab_kernels.py (n = 14: single columns), d = 1, n = 1, r = 64,
+# and a slab stack (J = 1: a Q row a block)
+PACKED_SHAPES = [(16_384, 4096, 196, 16, 5), (65_536, 8192, 196, 16, 5),
+                 (4 * 1001, 1001, 196, 16, 5), (32, 16, 20, 14, 5),
+                 (10, 5, 1, 16, 5), (12, 4, 196, 1, 5),
+                 (16_384, 4096, 196, 16, 64), (300, 1, 30, 8, 3)]
+# the dense shapes, (blocks, J, d, n, r) for each kernel: F-DOT's slabs
+# (tq: J = 1, apply: J = N) and B-DOT's 4 x 5 grid; they keep the tiled
+# kernels
+DENSE_SHAPES = {"tq": [(20, 1, 55, 50_000, 7), (20, 5, 256, 10_000, 7)],
+                "apply": [(20, 20, 55, 50_000, 7), (20, 5, 256, 10_000, 7)]}
+
+
+def _packed(kernel, shape):
+    p = slab_ops.packed_plan(kernel, *shape, *H100)
+    assert p.route == "packed", (kernel, shape)
+    return p
+
+
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+@pytest.mark.parametrize("kernel", ["tq", "apply"])
+def test_packed_plan_covers_every_block_once(kernel, shape):
+    """Contiguous ranges in block order, one a persistent block, at most one
+    wave, none empty: every grid block in exactly one; a stage holds at
+    most J blocks, so it meets at most two grid rows (tq) or wraps the grid
+    columns once at most (apply)."""
+    blocks, J = shape[:2]
+    p = _packed(kernel, shape)
+    assert 1 <= p.grid <= min(H100[0], blocks)
+    assert len(p.starts) == p.grid + 1
+    assert p.starts[0] == 0 and p.starts[-1] == blocks
+    assert all(a < b for a, b in zip(p.starts, p.starts[1:]))
+    owner = [g for g in range(p.grid)
+             for _ in range(p.starts[g], p.starts[g + 1])]
+    assert owner == sorted(owner) and len(owner) == blocks
+    assert 1 <= p.blocks_per_stage <= J
+    for g in range(p.grid):
+        for b0 in range(p.starts[g], p.starts[g + 1], p.blocks_per_stage):
+            b1 = min(b0 + p.blocks_per_stage, p.starts[g + 1]) - 1
+            assert b1 // J - b0 // J <= 1
+
+
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+def test_packed_tq_stages_q_once_for_each_grid_row_a_range_meets(shape):
+    """The kernel's staging, stage by stage with two slots (row % 2): each
+    grid row a range meets is staged once, and the rows a stage reads are
+    in their slots; ``q_stagings`` counts them."""
+    blocks, J = shape[:2]
+    p = _packed("tq", shape)
+    stagings = 0
+    for g in range(p.grid):
+        slots, seen = [-1, -1], []
+        for b0 in range(p.starts[g], p.starts[g + 1], p.blocks_per_stage):
+            b1 = min(b0 + p.blocks_per_stage, p.starts[g + 1])
+            rows = range(b0 // J, (b1 - 1) // J + 1)
+            for row in rows:
+                if slots[row % 2] != row:
+                    slots[row % 2] = row
+                    seen.append(row)
+            assert all(slots[b // J % 2] == b // J for b in range(b0, b1))
+        want = list(range(p.starts[g] // J, (p.starts[g + 1] - 1) // J + 1))
+        assert seen == want
+        stagings += len(seen)
+    assert p.q_stagings == stagings
+    assert _packed("apply", shape).q_stagings == 0
+
+
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+@pytest.mark.parametrize("kernel", ["tq", "apply"])
+def test_packed_plan_fits_shared_memory(kernel, shape):
+    """The kernel's formula, a ring of 2-8 stages, within the H100's
+    232,448 bytes; the units a lane fit the kernels' instantiations."""
+    _, J, d, n, r = shape
+    p = _packed(kernel, shape)
+    assert p.smem == slab_ops.packed_smem_bytes(kernel, p.blocks_per_stage,
+                                                d, n, r, p.stages)
+    assert p.smem + slab_ops.STATIC_SMEM <= H100[1]
+    assert 2 <= p.stages <= slab_ops.PACKED_MAX_STAGES
+    assert p.vec == (4 if n % 4 == 0 and r <= 16 else 1)
+    units = -(-n // p.vec)
+    lanes = min(32, 1 << (units - 1).bit_length())
+    assert p.unit_lanes & (p.unit_lanes - 1) == 0
+    if kernel == "apply":
+        assert p.unit_lanes == lanes and p.upl == -(-units // 32)
+        assert p.upl <= (2 if p.vec == 4 else 1)
+        assert 1 <= p.row_slices <= d
+    else:
+        assert 1 <= p.unit_lanes <= lanes and p.upl == 1
+
+
+@pytest.mark.parametrize("kernel", ["tq", "apply"])
+def test_packed_route_follows_n(kernel):
+    """At d = 196, r = 5 and ~200 MB of X: packed up to the crossover n,
+    tiled beyond it, wherever the packed kernel takes the shapes."""
+    top = slab_ops.PACKED_MAX_N[kernel]
+    for n in (1, 2, 3, 4, 8, 14, 16, 32, 64, 100, 128, 129, 256, 257, 1000):
+        blocks = max(4, 50_000_000 // (196 * n) // 4 * 4)
+        p = slab_ops.packed_plan(kernel, blocks, blocks // 4, 196, n, 5,
+                                 *H100)
+        fits = slab_ops.packed_layout(kernel, blocks, blocks // 4, 196, n,
+                                      5, *H100) is not None
+        assert p.route == ("packed" if n <= top and fits else "tiled"), n
+        assert fits or n > 128
+    for shape in DENSE_SHAPES[kernel]:
+        assert slab_ops.packed_plan(kernel, *shape, *H100).route == "tiled"
+
+
+def test_packed_plan_main_path_shape():
+    """bdot_sparse's grid: float4 units, 8 grid blocks a stage (one a
+    warp) in a ring of two, 132 ranges of 124-125 blocks; tq's warps take a
+    block's four units over eight row phases, two grid rows staged by the
+    ranges that cross one."""
+    shape = (16_384, 4096, 196, 16, 5)
+    tq, ap = _packed("tq", shape), _packed("apply", shape)
+    for p in (tq, ap):
+        assert (p.vec, p.upl, p.unit_lanes, p.blocks_per_stage, p.stages,
+                p.grid) == (4, 1, 4, 8, 2, 132)
+        assert {b - a for a, b in zip(p.starts, p.starts[1:])} == {124, 125}
+    assert ap.row_slices == 1
+    assert tq.q_stagings == 132
+    assert all(s % 4096 == 0 for s in tq.starts[::33])
+    assert tq.smem == 213_392 and ap.smem == 205_968
+
+
+def test_packed_plan_is_a_function_of_the_shapes():
+    want = [slab_ops.packed_plan(k, *s, *H100)
+            for k in ("tq", "apply") for s in PACKED_SHAPES]
+    slab_ops.packed_layout.cache_clear()
+    assert [slab_ops.packed_plan(k, *s, *H100)
+            for k in ("tq", "apply") for s in PACKED_SHAPES] == want
+    # another card may cut other ranges
+    assert slab_ops.packed_plan("tq", *PACKED_SHAPES[0], 114,
+                                H100[1]).grid == 114
+
+
+def test_packed_plan_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError):
+        slab_ops.packed_plan("tq", 16, 4, 196, 16, 65, *H100)
+    with pytest.raises(ValueError):
+        slab_ops.packed_plan("apply", 10, 4, 196, 16, 5, *H100)  # 4 !| 10
+    with pytest.raises(ValueError):
+        slab_ops.packed_plan("gram", 16, 4, 196, 16, 5, *H100)
+    # a block too big for a ring of two stages, or S too wide for a lane's
+    # registers: no packed layout, and the planner keeps the tiled kernels
+    assert slab_ops.packed_layout("apply", 8, 4, 196, 256, 5, *H100) is None
+    assert slab_ops.packed_layout("apply", 8, 4, 20, 33, 5, *H100) is None
 
 
 # -- the CholeskyQR Gram kernel ------------------------------------------------

@@ -32,7 +32,10 @@ KERNELS = {
                          lambda g, d, n, r: (g[1], n, r)),
 }
 SHAPES = {"aligned": ((4, 2), 8, 512, 4), "ragged": ((3, 2), 7, 700, 5),
-          "one-column": ((2, 1), 5, 1, 3)}
+          "one-column": ((2, 1), 5, 1, 3),
+          # a grid of many small blocks, as bdot_sparse's (n = 14 samples a
+          # block): the shapes the kernels' packed route takes on the card
+          "tiny-blocks": ((2, 16), 20, 14, 5)}
 
 
 def _operands(name, shape, seed):

@@ -1,19 +1,22 @@
-"""Device time of the gram-apply, slab-apply, ELL and Gram kernels, at
+"""Device time of the gram-apply, slab / grid, ELL and Gram kernels, at
 chip_smoke.py's main-path shapes, for one or more checkouts of this
-repository, in turns.
+repository, in turns; and the crossover of the grid kernels' two routes.
 
     python3 tools/psa_kernel_times.py [--tree DIR ...] [--rounds 1]
         [--rows ROW,ROW]
+    python3 tools/psa_kernel_times.py --crossover
 
 Each ``--tree`` is the root of a checkout (default: this one). The trees run
 in the order given and then in reverse, ``--rounds`` times over (A B B A for
 two trees and one round), each in a fresh process that imports that tree's
 ``src/repro_torch`` and builds its kernels. The rows: ``batched_gram_apply``
 on S-DOT's stack (20 x 1024 x 2500, r = 7), ``gram_apply`` on one node's
-(1024, 2500) block, ``batched_slab_apply`` on F-DOT's (20, 55, 50000)
-slabs and ``grid_block_apply`` on B-DOT's (4, 5, 256, 10000) grid, on the
-data of
-chip_smoke.py; one ELL gossip round (``SparseW.mix``) over a (4096, 3920)
+(1024, 2500) block, ``batched_slab_tq`` and ``batched_slab_apply`` on
+F-DOT's (20, 55, 50000) slabs, ``grid_block_tq`` and ``grid_block_apply``
+on B-DOT's (4, 5, 256, 10000) grid, and both grid kernels on bdot_sparse's
+4 x 4,096 grid of 196 x 16 blocks (``grid_block_tq_bs``,
+``grid_block_apply_bs``: sdot_sparse's 784 x 60,000 data, cut as
+chip_smoke.py cuts it), on the data of chip_smoke.py; one ELL gossip round (``SparseW.mix``) over a (4096, 3920)
 payload on watts_strogatz(4096, 6, 0.1, seed 1) in f32 and with bf16
 messages, and on erdos_renyi(4096, 0.0015, seed 1, not resampled until
 connected) in f32 and bf16; and the CholeskyQR Gram (``ops.gram_qr``) at
@@ -26,6 +29,14 @@ host's time to issue one call, the largest error relative to the plain
 version's max |V| and whether a second launch repeats the bits. One JSON
 line a process, then a summary: each tree's median ms a row, and the card's
 name and power limit.
+
+``--crossover`` times the grid kernels of this tree alone, each route
+forced (``route="packed"`` / ``"tiled"``), beside the library call
+(``torch.matmul``), at n in 4, 8, ..., 256 samples a block with d = 196,
+r = 5 and X kept at about 200 MB (I = 4 grid rows, J = B / 4), as the
+kernel table times them; a route that cannot take a shape reads null. One
+JSON line an n, then the card. ``slab_ops.PACKED_MAX_N`` is set from these
+readings.
 """
 from __future__ import annotations
 
@@ -37,8 +48,9 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-ROWS = ("batched_gram_apply", "gram_apply", "batched_slab_apply",
-        "grid_block_apply", "ell_spmm_ws", "ell_spmm_ws_bf16", "ell_spmm_er",
+ROWS = ("batched_gram_apply", "gram_apply", "batched_slab_tq",
+        "batched_slab_apply", "grid_block_tq", "grid_block_apply", "grid_block_tq_bs",
+        "grid_block_apply_bs", "ell_spmm_ws", "ell_spmm_ws_bf16", "ell_spmm_er",
         "ell_spmm_er_bf16", "gram_qr_sdot", "gram_qr_fdot", "gram_qr_bdot",
         "gram_qr_bench_f32", "gram_qr_bench_bf16", "gram_qr_tall7")
 
@@ -70,21 +82,43 @@ def worker(tree: Path, only=None) -> dict:
     x_one, q_one = x_stack[0, :, :2500].contiguous(), q_stack[0]
     x_pad = pad_feature_slabs(partition_features(x, nodes))
     s_slab = torch.randn((nodes, n_total, r), generator=gen, device=dev)
+    q_pad = torch.randn((nodes, x_pad.shape[1], r), generator=gen,
+                        device=dev)
     x_grid = pad_grid_blocks([partition_samples(sl, 5)
                               for sl in partition_features(x, 4)])
     s_grid = torch.randn((5, x_grid.shape[3], r), generator=gen, device=dev)
+    q_grid = torch.randn((4, x_grid.shape[2], r), generator=gen, device=dev)
+    xs, _, _ = gaussian_eigengap_data(784, 60_000, 5, 0.7, seed=0,
+                                      device=dev)
+    x_bs = pad_grid_blocks([partition_samples(sl, 4096)
+                            for sl in partition_features(xs, 4)], 4)
+    del xs
+    q_bs = torch.randn((4, x_bs.shape[2], 5), generator=gen, device=dev)
+    s_bs = torch.randn((4096, x_bs.shape[3], 5), generator=gen, device=dev)
     cases = {
         "batched_gram_apply": (
             lambda: ops.batched_gram_apply(x_stack, q_stack, n_true),
             lambda: ref.batched_gram_apply_ref(x_stack, q_stack, n_true)),
         "gram_apply": (lambda: ops.gram_apply(x_one, q_one),
                        lambda: ref.gram_apply_ref(x_one, q_one)),
+        "batched_slab_tq": (
+            lambda: ops.batched_slab_tq(x_pad, q_pad),
+            lambda: ref.batched_slab_tq_ref(x_pad, q_pad)),
         "batched_slab_apply": (
             lambda: ops.batched_slab_apply(x_pad, s_slab),
             lambda: ref.batched_slab_apply_ref(x_pad, s_slab)),
+        "grid_block_tq": (
+            lambda: ops.grid_block_tq(x_grid, q_grid),
+            lambda: ref.grid_block_tq_ref(x_grid, q_grid)),
         "grid_block_apply": (
             lambda: ops.grid_block_apply(x_grid, s_grid),
-            lambda: ref.grid_block_apply_ref(x_grid, s_grid))}
+            lambda: ref.grid_block_apply_ref(x_grid, s_grid)),
+        "grid_block_tq_bs": (
+            lambda: ops.grid_block_tq(x_bs, q_bs),
+            lambda: ref.grid_block_tq_ref(x_bs, q_bs)),
+        "grid_block_apply_bs": (
+            lambda: ops.grid_block_apply(x_bs, s_bs),
+            lambda: ref.grid_block_apply_ref(x_bs, s_bs))}
     z = torch.randn((4096, 3920), generator=gen, device=dev)
     for name, graph in (
             ("ws", topology.watts_strogatz(4096, k=6, p=0.1, seed=1)),
@@ -122,12 +156,72 @@ def worker(tree: Path, only=None) -> dict:
     return out
 
 
+CROSSOVER_N = (4, 8, 16, 32, 64, 128, 256)
+
+
+def crossover() -> None:
+    """Both routes of the grid kernels, forced, and the library call at
+    each n of CROSSOVER_N (d = 196, r = 5, ~200 MB of X)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build, _launch, slab_ops
+
+    dev = torch.device("cuda")
+    _build.build_all()
+    card = _launch.card(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d, r, i_rows = 196, 5, 4
+    for n in CROSSOVER_N:
+        blocks = 200_000_000 // (4 * d * n) // i_rows * i_rows
+        j_cols = blocks // i_rows
+        x = torch.randn((blocks, d, n), generator=gen, device=dev)
+        q = torch.randn((i_rows, d, r), generator=gen, device=dev)
+        s = torch.randn((j_cols, n, r), generator=gen, device=dev)
+        xg = x.view(i_rows, j_cols, d, n)
+        line = {"n": n, "blocks": blocks, "x_bytes": 4 * x.numel()}
+        for kernel, fn, y, library, out in (
+                ("tq", slab_ops.slab_tq_cuda, q,
+                 lambda: torch.matmul(xg.mT, q[:, None]), blocks * n * r),
+                ("apply", slab_ops.slab_apply_cuda, s,
+                 lambda: torch.matmul(xg, s[None]), blocks * d * r)):
+            row = {"route": slab_ops.packed_plan(
+                       kernel, blocks, j_cols, d, n, r, *card).route,
+                   "bound_ms": cs.bound(4 * (x.numel() + y.numel() + out),
+                                        2.0 * x.numel() * r)[0],
+                   "library_ms": cs.time_ms(library)}
+            got = {}
+            for route in ("packed", "tiled"):
+                try:
+                    got[route] = fn(x, y, j_cols, route=route)
+                except ValueError as err:       # this route cannot take it
+                    row[f"{route}_ms"], row[f"{route}_refused"] = None, str(
+                        err)
+                    continue
+                row[f"{route}_ms"] = cs.time_ms(
+                    lambda route=route: fn(x, y, j_cols, route=route))
+            if len(got) == 2:
+                a, b = got["packed"], got["tiled"]
+                row["rel_diff"] = float((a - b).abs().max()
+                                        / b.abs().max())
+            line[kernel] = row
+            del got
+        print(json.dumps(line), flush=True)
+        del x, q, s, xg
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": cs.nvidia_smi()}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", action="append", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--rows", help="comma-separated rows to time (default: "
                     "all)")
+    ap.add_argument("--crossover", action="store_true",
+                    help="time the grid kernels' two routes against n")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     only = args.rows.split(",") if args.rows else None
@@ -137,6 +231,9 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         sys.exit("psa_kernel_times: no CUDA device")
+    if args.crossover:
+        crossover()
+        return
     trees = [t.resolve() for t in (args.tree or [ROOT])]
     ms = {str(t): {row: [] for row in only or ROWS} for t in trees}
     for _ in range(args.rounds):

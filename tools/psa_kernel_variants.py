@@ -34,6 +34,15 @@ S-DOT's shape and the slab tq and apply kernels over 4 at F-DOT's (r = 7),
 the widest fold of the lanes into the kernel's columns that its planner
 admits, against one launch a lane (``ops.lane_gram_apply``,
 ``lane_slab_tq``, ``lane_slab_apply``), each against the plain version.
+
+    python3 tools/psa_kernel_variants.py --packed-plans [--rounds 2]
+
+times the grid kernels' packed route at bdot_sparse's grid (16,384 blocks
+of 196 x 16, r = 5) under other plans than ``slab_ops.packed_plan``'s:
+each of ``PACKED_PLANS`` (grid blocks a stage, ring stages, row slices,
+lanes a unit group) in place of the planner's, in turns (forward, then
+backward), each against the plain version; a plan whose ring does not fit
+shared memory is skipped.
 """
 from __future__ import annotations
 
@@ -284,6 +293,68 @@ def lane_fold_times(rounds: int) -> None:
         k: statistics.median(v) for k, v in runs.items()}}), flush=True)
 
 
+# (grid blocks a stage, ring stages, row slices, lanes a unit group) of the
+# packed grid kernels at bdot_sparse's grid; the first is the planner's
+PACKED_PLANS = {
+    "apply": [(8, 2, 1, 4), (4, 4, 2, 4), (2, 8, 4, 4), (6, 2, 1, 4),
+              (4, 3, 2, 4), (3, 6, 2, 4)],
+    "tq": [(8, 2, 1, 4), (4, 4, 1, 2), (2, 8, 1, 1), (6, 2, 1, 4),
+           (4, 3, 1, 2)]}
+
+
+def packed_plan_times(rounds: int) -> None:
+    """The ``--packed-plans`` timings: one JSON line a kernel, plan and
+    round, then the medians with the card's name and power limit."""
+    import dataclasses
+
+    import torch
+    from chip_smoke import nvidia_smi, time_ms
+    from repro_torch.kernels import _launch, ref, slab_ops
+
+    dev = torch.device("cuda")
+    card = _launch.card(torch.cuda.current_device())
+    blocks, j_cols, d, n, r = 16_384, 4096, 196, 16, 5
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((blocks, d, n), generator=gen, device=dev)
+    q = torch.randn((4, d, r), generator=gen, device=dev)
+    s = torch.randn((j_cols, n, r), generator=gen, device=dev)
+    planner = slab_ops.packed_layout
+    runs = {}
+    try:
+        for kernel, fn, y, plain in (
+                ("apply", slab_ops.slab_apply_cuda, s,
+                 ref.grid_block_apply_ref),
+                ("tq", slab_ops.slab_tq_cuda, q, ref.grid_block_tq_ref)):
+            base = planner(kernel, blocks, j_cols, d, n, r, *card)
+            want = plain(x.view(4, j_cols, d, n), y).reshape(blocks, -1, r)
+            for rnd in range(rounds):
+                for v in PACKED_PLANS[kernel] + PACKED_PLANS[kernel][::-1]:
+                    g, stages, slices, lanes = v
+                    smem = slab_ops.packed_smem_bytes(kernel, g, d, n, r,
+                                                      stages)
+                    if smem + slab_ops.STATIC_SMEM > card[1]:
+                        continue
+                    p = dataclasses.replace(
+                        base, blocks_per_stage=g, stages=stages,
+                        row_slices=slices, unit_lanes=lanes, smem=smem)
+                    slab_ops.packed_layout = lambda *a, p=p: p
+                    slab_ops._device_packed_plan.cache_clear()
+                    got = fn(x, y, j_cols)
+                    err = float((got - want).abs().max()
+                                / want.abs().max())
+                    ms = time_ms(lambda: fn(x, y, j_cols))
+                    runs.setdefault(f"{kernel}:{v}", []).append(ms)
+                    print(json.dumps({"kernel": kernel, "plan": v,
+                                      "planner": v == PACKED_PLANS[kernel][0],
+                                      "round": rnd, "ms": ms,
+                                      "rel_err": err}), flush=True)
+    finally:
+        slab_ops.packed_layout = planner
+        slab_ops._device_packed_plan.cache_clear()
+    print(json.dumps({"card": nvidia_smi(), "median_ms": {
+        k: statistics.median(v) for k, v in runs.items()}}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--variant", action="append",
@@ -294,6 +365,9 @@ def main() -> None:
                     help="time a sweep's lanes folded into the kernels' "
                          "columns against one launch a lane, and nothing "
                          "else")
+    ap.add_argument("--packed-plans", action="store_true",
+                    help="time the grid kernels' packed route under other "
+                         "plans than the planner's, and nothing else")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -302,6 +376,9 @@ def main() -> None:
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     if args.lane_fold:
         lane_fold_times(args.rounds)
+        return
+    if args.packed_plans:
+        packed_plan_times(args.rounds)
         return
     from chip_smoke import nvidia_smi, time_ms
     from repro_torch.core.bdot import pad_grid_blocks
