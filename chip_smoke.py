@@ -225,6 +225,56 @@ Phases, one JSON line each:
   KV cache's bytes.
 * ``profile_decode``: the same profile over 8 decode steps.
 
+Then gossip across processes and the PSA-compressed trainer, after the LM
+phases have freed their tensors (``spmd_train_phases``). Every rank is a
+process started by ``launch/mesh.spawn_ranks``; the ranks share the one
+card and talk over gloo, each collective's payload staged through pinned
+host memory (``host_staged_bytes``, printed). A rank that fails fails its
+phase.
+
+* ``spmd_gossip``: 20 ranks, one node each, on sdot_dense's
+  erdos_renyi(20, 0.25, seed=1) and on ring(20): a (1024, 7) payload
+  debiased-summed at t_c = 1, 5, 20, 50 (``build_debiased_sum``), each node
+  within SPMD_GOSSIP_TOL of ``DenseConsensus.run_debiased`` on the card,
+  relative to its own max; then ``two_level_reduce`` on 8 ranks as 4 pods x
+  2, ring(4), t_c = 60: the exact sum within TWO_LEVEL_TOL.
+* ``sdot_spmd``: sdot_dense's cell with a node a process (d = 1024, r = 7,
+  2,500 samples a rank, each rank holding only its own covariance block),
+  T_o cut from 100 to SPMD_T_OUTER = 30 (a gossip round across 20
+  processes costs milliseconds of the host), S-DOT at t_c = 50 and SA-DOT
+  at 2t+1 capped at 50, on both
+  graphs, against the fused ``sdot`` over ``DenseConsensus`` on the same
+  covs and q_init: the trace within rtol 1e-4 / atol 1e-6, ``q_nodes``
+  within 1e-5, the ledgers equal, 2 T_o Gram launches a rank. It prints
+  each run's wall, the bytes staged a rank and the final error.
+* ``train_psa``: qwen2-7b at full width (d_model 3584, 28 / 4 heads, d_ff
+  18944, vocabulary 152,064, bf16, AdamW with bf16 moments) cut from 28
+  layers to 2 so that two ranks fit on the card; 2 pods, paper_psa (rank
+  64, 2 OI iterations, 4 gossip rounds) refreshed at steps 0 and 3, a
+  batch of 2 x 512 tokens a pod, 6 steps. Checks: finite losses, the
+  first pod-mean loss within TRAIN_LOSS_TOL of one rank's
+  ``make_train_step`` on the whole batch from the same weights; the first
+  PLAIN_STEPS steps against the same steps computed plainly in one
+  process from pod 0's first projectors (``train_psa_plain``: each pod's
+  gradients, P (P^T mean (G + e)) for a compressed leaf, the f32 mean for
+  any other, each pod's error, AdamW): the losses of those steps and the
+  next within TRAIN_LOSS_TOL, the grad norms within PLAIN_GNORM_TOL, the
+  PROBES' reduced gradients within PLAIN_GRAD_TOL and each pod's errors
+  within PLAIN_EF_TOL at step 0, both within PLAIN_AFTER_TOL at step 1
+  (its weights moved apart by AdamW's sign-like first step); every refreshed projector orthonormal within
+  ORTHO_TOL, three Gram launches a compressed leaf an OI iteration
+  (shifted CholeskyQR3), and the bytes staged a step twice those
+  all-reduced. It prints ms a step, tokens/s, the launches a refresh by
+  shape, the bytes all-reduced a step beside the dense
+  gradient's and ``compression_ratio``, and each rank's peak memory. The
+  kernel rows ``gram_qr_psa_refresh_*`` time row 4 at the refresh's shapes
+  and ``gram_qr_sdot_spmd`` at sdot_spmd's (1, 1024, 7).
+* ``train_example``: the example twin (``train_lm_psa_compress
+  --full-100m``: d_model 768, 12 layers, vocabulary 32,000, f32) for its
+  300 steps on 2 pod ranks, checkpoints under ``build/chip_smoke_train/``
+  (removed after): the last loss below the first, ms a step, tokens/s.
+
+Each phase's line carries ``at_s``, the script's seconds when it ended.
 Launch counts are set to 0 just before each phase of the main path and read
 just after it; launches made to compare or time a kernel do not count.
 Every gram-apply and slab-apply launch of the main path must have taken the
@@ -350,7 +400,13 @@ def ref_limit(name: str) -> float:
     return SUBSPACE_TOL if ref <= SUBSPACE_TOL else 10 * ref
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - _START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -862,6 +918,632 @@ def serving_phases(dev, rows: dict, work: Path) -> None:
     emit(prof)
     del psvc
     shutil.rmtree(work, ignore_errors=True)
+
+
+# -- gossip across processes (spawned ranks run these by name) -------------
+SPMD_NODES = 20               # sdot_dense's network, one process a node
+SPMD_SAMPLES = 50_000         # sdot_dense's data, 2,500 samples a rank
+# sdot_dense's T_o is 100; cut to 30 here: 20 gloo processes on the host's
+# 8 cores take 6-13 ms a gossip round; the four runs took 175 s at T_o =
+# 100, and at 50 the script took 972 s of its 1200 on a slow host (NVIDIA
+# H100 80GB HBM3, 700.00 W)
+SPMD_T_OUTER = 30
+SPMD_BUDGETS = (1, 5, 20, 50)
+SPMD_GOSSIP_TOL = 1e-5        # f32 rounds summed in another order, per node
+TWO_LEVEL_TOL = 1e-4          # tests/test_spmd.py's limit, relative
+TRAIN_LOSS_TOL = 1e-4         # pod-mean losses against one rank's, relative
+# train_psa's first PLAIN_STEPS steps against the same steps computed
+# plainly in one process; the probes' limits are relative to the plain
+# probe's max |x|. Step 0 starts from the same weights: its reduced
+# gradient is bf16, so an element may round one bf16 step (up to 2^-7 of
+# the max) the other way (read 4.0e-3), and its errors are the same f32
+# ops (read 0). Step 1 starts from weights that AdamW's first, sign-like
+# step moved by 2 lr wherever the two bf16 gradients rounded apart: its
+# probes read 1.4e-2 at worst, its grad norm 2.3e-5 (NVIDIA H100 80GB
+# HBM3, 700.00 W). With error feedback left out, step 1's errors were off
+# by ~0.6 (a CPU run of these phases at reduced width)
+PLAIN_STEPS = 2
+PLAIN_GNORM_TOL = 3e-4
+PLAIN_GRAD_TOL = 1e-2
+PLAIN_EF_TOL = 1e-6
+PLAIN_AFTER_TOL = 5e-2       # step 1's reduced gradients and errors
+PROBES = ("embed", "final_norm", "groups/blk0_attn/mixer/bq",
+          "groups/blk0_attn/mixer/wq", "groups/blk0_attn/ffn/w_down",
+          "lm_head")
+ORTHO_TOL = 1e-4              # refreshed projectors: |P^T P - I|_max
+
+
+def spmd_cases():
+    """(graphs, schedules) of spmd_gossip and sdot_spmd."""
+    from repro_torch.core import topology
+    from repro_torch.core.consensus import consensus_schedule
+    graphs = {"erdos_renyi": topology.erdos_renyi(SPMD_NODES, 0.25, seed=1),
+              "ring": topology.ring(SPMD_NODES)}
+    scheds = {"sdot": consensus_schedule("const", SPMD_T_OUTER, t_max=50),
+              "sadot": consensus_schedule("lin2", SPMD_T_OUTER, cap=50)}
+    return graphs, scheds
+
+
+def spmd_rank(rank, world, dev, work):
+    """One node of spmd_gossip and sdot_spmd. It reads its own payload row
+    and its own (d, d) covariance block, gossips at every budget on both
+    graphs, then runs S-DOT and SA-DOT; row 4's launches are counted from
+    0 over each run."""
+    from repro_torch.core.consensus import SpmdConsensus
+    from repro_torch.core.sdot import sdot_spmd
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+
+    work = Path(work)
+    common = torch.load(work / "common.pt")
+    mesh = make_test_mesh(device=dev)
+    graphs, scheds = spmd_cases()
+    z = common["z"][rank].to(dev)
+    out = {"gossip": {}, "sdot": {}, "backend": mesh.backend}
+    for name, graph in graphs.items():
+        eng = SpmdConsensus(mesh, "nodes", graph=graph)
+        for t_c in SPMD_BUDGETS:
+            staged = eng.host_staged_bytes
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = eng.build_debiased_sum(t_c)(z)
+            torch.cuda.synchronize()
+            out["gossip"][f"{name}/{t_c}"] = {
+                "z": got.cpu(), "wall_s": time.perf_counter() - t0,
+                "staged": eng.host_staged_bytes - staged}
+    cov = torch.load(work / f"cov{rank}.pt").to(dev)
+    for name, graph in graphs.items():
+        for kind, sched in scheds.items():
+            eng = SpmdConsensus(mesh, "nodes", graph=graph)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res = sdot_spmd(covs=cov, engine=eng,
+                            r=common["q_init"].shape[1], t_outer=len(sched),
+                            schedule=sched, q_init=common["q_init"],
+                            q_true=common["q_true"])
+            torch.cuda.synchronize()
+            led = res.ledger
+            out["sdot"][f"{name}/{kind}"] = {
+                "wall_s": time.perf_counter() - t0,
+                "launches": dict(ops.LAUNCHES),
+                "q": res.q_nodes.cpu() if rank == 0 else None,
+                "trace": res.error_trace,
+                "ledger": [led.p2p, led.matrices, led.scalars,
+                           led.payload_bytes],
+                "staged": eng.host_staged_bytes}
+    return out
+
+
+def two_level_rank(rank, world, dev, work):
+    """(4 pods x 2) ranks: exact sum in the pod, 60 rounds on ring(4)."""
+    from repro_torch.core import topology
+    from repro_torch.core.consensus import SpmdConsensus, two_level_reduce
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((("pod", 4), ("data", 2)), device=dev)
+    inter = SpmdConsensus(mesh, "pod", graph=topology.ring(4))
+    z = torch.load(Path(work) / "common.pt")["z"][rank].to(dev)
+    got = two_level_reduce(z, intra_axis="data", inter=inter, t_c=60)
+    return {"z": got.cpu(), "staged": mesh.host_staged_bytes}
+
+
+def train_psa_setup(layers: int):
+    """qwen2-7b at full width cut to ``layers`` layers, AdamW with bf16
+    moments, paper_psa refreshed every 3 steps."""
+    from repro_torch.configs import get_arch, get_psa_config
+    from repro_torch.optim.adamw import AdamWConfig
+    cfg = dataclasses.replace(get_arch("qwen2-7b"), n_layers=layers)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=10, moment_dtype="bfloat16")
+    return cfg, opt, dataclasses.replace(get_psa_config(), refresh_every=3)
+
+
+def train_psa_probes(tree, tokens) -> dict:
+    """f32 host copies of PROBES' slices of a tree of gradients (or errors):
+    the first 512 columns of a matrix, a vector whole, and the embedding's
+    rows of the first 256 distinct tokens of the global batch."""
+    flat = {k.lstrip("/"): v for k, v in _flat(tree)}
+    out = {}
+    for name in PROBES:
+        if name not in flat:
+            continue
+        leaf = flat[name]
+        if name == "embed":
+            leaf = leaf[torch.unique(tokens)[:256].to(leaf.device)]
+        elif leaf.dim() >= 2:
+            leaf = leaf[..., :512]
+        out[name] = leaf.to("cpu", torch.float32, copy=True)
+    return out
+
+
+def train_psa_rank(rank, world, dev, layers, steps, batch, seq):
+    """One pod of train_psa: its shard of each global batch, a refresh
+    every 3 steps (row 4's launches counted by shape), the step's walls,
+    the bytes it stages and all-reduces, and its peak memory. For the
+    first PLAIN_STEPS steps it keeps the probes of the reduced gradients
+    and of the new errors (``compress_grads``' results), and pod 0 returns
+    the projectors of the first refresh."""
+    from collections import Counter
+
+    import repro_torch.train.step as step_mod
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.psa_compress import compression_ratio, psa_init
+    from repro_torch.train.step import make_psa_train_step, shard_batch
+
+    cfg, opt, psa = train_psa_setup(layers)
+    pod = make_test_mesh(multi_pod=True, device=dev).axis("pod")
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    psa_state = psa_init(params, psa)
+    opt_state = adamw_init(params, opt)
+    step, refresh = make_psa_train_step(cfg, opt, psa, group=pod)
+    # the bytes a step all-reduces: U = P^T G for a compressed leaf, the
+    # f32 gradient for any other, and the loss; dense: every gradient
+    flat = dict(_flat(params))
+    projs = dict(_flat(psa_state["proj"]))
+    reduced = 4 + sum(4 * (v.numel() // v.shape[-2] * psa.rank
+                           if k in projs else v.numel())
+                      for k, v in flat.items())
+    dense = 4 + sum(4 * v.numel() for v in flat.values())
+    tally = Counter()
+    kernel = ops.gram_qr
+
+    def counted(v):
+        tally[tuple(v.shape)] += 1
+        return kernel(v)
+
+    ops.gram_qr = counted
+    probes = {"red": [], "ef": [], "tokens": None}
+    inner = step_mod.compress_grads
+
+    def probed(*a, **kw):
+        red, ef = inner(*a, **kw)
+        if len(probes["red"]) < PLAIN_STEPS:
+            probes["red"].append(train_psa_probes(red, probes["tokens"]))
+            probes["ef"].append(train_psa_probes(ef, probes["tokens"]))
+        return red, ef
+
+    step_mod.compress_grads = probed
+    out = {"losses": [], "grad_norms": [], "step_ms": [], "refreshes": [],
+           "staged_per_step": [], "reduced_bytes": reduced,
+           "dense_bytes": dense, "ratio": compression_ratio(params, psa),
+           "backend": pod.backend, "compressed_leaves": len(projs),
+           "probes": probes}
+    for t in range(steps):
+        whole = make_lm_batch(cfg, 0, t, batch, seq, device=dev)
+        probes["tokens"] = whole["tokens"]
+        local = shard_batch(whole, pod.index, pod.size)
+        if t % psa.refresh_every == 0:
+            ops.reset_launches()
+            tally.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            psa_state = refresh(params, psa_state, local)
+            torch.cuda.synchronize()
+            ortho = max(float((p.mT @ p - torch.eye(p.shape[-1], device=dev))
+                              .abs().max())
+                        for _, p in _flat(psa_state["proj"]))
+            out["refreshes"].append({
+                "step": t, "ms": (time.perf_counter() - t0) * 1e3,
+                "gram_qr": ops.LAUNCHES["gram_qr"],
+                "by_shape": {str(list(k)): n for k, n in tally.items()},
+                "ortho_err": ortho})
+            if t == 0 and pod.index == 0:
+                out["proj0"] = {k.lstrip("/"): v.cpu()
+                                for k, v in _flat(psa_state["proj"])}
+        staged = pod.host_staged_bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, psa_state, met = step(params, opt_state,
+                                                 psa_state, local)
+        out["losses"].append(float(met["loss"]))
+        out["grad_norms"].append(float(met["grad_norm"]))
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["staged_per_step"].append(pod.host_staged_bytes - staged)
+    ops.gram_qr = kernel
+    step_mod.compress_grads = inner
+    probes["tokens"] = None
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    # where a step's time goes: a seventh step, unchecked, its parts timed
+    # apart (each ends in a synchronise), and the embedding gradient's f32
+    # all-reduce alone
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.optim.psa_compress import compress_grads
+    from repro_torch.train.step import _value_and_grad
+
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        parts[name] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    loss, grads = timed("forward_backward",
+                        lambda: _value_and_grad(params, local, cfg))
+    timed("embedding_allreduce_alone",
+          lambda: pod.all_reduce_(grads["embed"].float()))
+    red, _ = timed("compress_and_allreduce", lambda: compress_grads(
+        grads, psa_state, psa, pod_axis=pod, donate=True))
+    timed("loss_allreduce", lambda: pod.all_reduce_(loss.reshape(1)))
+    timed("adamw", lambda: adamw_update(red, opt_state, params, opt,
+                                        donate=True))
+    out["step_parts_ms"] = parts
+    return out
+
+
+def train_psa_plain(dev, layers, batch, seq, proj) -> dict:
+    """train_psa's first PLAIN_STEPS steps for both pods in one process,
+    with the projectors of pod 0's first refresh: each pod's gradients by
+    one backward pass on its shard, a compressed leaf reduced as
+    P (P^T mean_p (G_p + e_p)) and an uncompressed one as mean_p G_p (f32),
+    each pod's error e_p <- G_p + e_p - P P^T (G_p + e_p), AdamW; then the
+    pod-mean loss of the step after. The pods' losses, grad norms and
+    probes are held against these."""
+    from repro_torch import _tree
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import adamw_init, adamw_update, global_norm
+    from repro_torch.train.step import _value_and_grad, loss_fn, shard_batch
+
+    cfg, opt, _ = train_psa_setup(layers)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    opt_state = adamw_init(params, opt)
+    names, _, structure = _tree.flatten_with_names(params)
+    proj = {k: v.to(dev) for k, v in proj.items()}
+    errs = [dict.fromkeys(proj) for _ in range(2)]
+    out = {"losses": [], "grad_norms": [], "red": [], "ef": []}
+
+    def projected(p, x):             # P P^T x, one P a group of a stack
+        if p.dim() == 3 and x.dim() > 3:
+            p = p.reshape(p.shape[:1] + (1,) * (x.dim() - 3) + p.shape[1:])
+        return p @ (p.mT @ x)
+
+    for t in range(PLAIN_STEPS + 1):
+        whole = make_lm_batch(cfg, 0, t, batch, seq, device=dev)
+        shards = [shard_batch(whole, i, 2) for i in range(2)]
+        if t == PLAIN_STEPS:
+            with torch.no_grad():
+                out["losses"].append(sum(float(loss_fn(params, b, cfg))
+                                         for b in shards) / 2)
+            break
+        pods = [_value_and_grad(params, b, cfg) for b in shards]
+        out["losses"].append(sum(float(lo) for lo, _ in pods) / 2)
+        grads = [_tree.flatten_with_names(g)[1] for _, g in pods]
+        del pods
+        red = []
+        for k, name in enumerate(names):
+            g = [gr[k].float() for gr in grads]
+            if name not in proj:
+                red.append(((g[0] + g[1]) / 2).to(grads[0][k].dtype))
+                continue
+            g = [gi if e[name] is None else gi + e[name]
+                 for gi, e in zip(g, errs)]
+            red.append(projected(proj[name], (g[0] + g[1]) / 2)
+                       .to(grads[0][k].dtype))
+            for gi, e in zip(g, errs):
+                e[name] = gi - projected(proj[name], gi)
+            del g
+        del grads
+        red = _tree.unflatten(structure, red)
+        out["red"].append(train_psa_probes(red, whole["tokens"]))
+        out["ef"].append([train_psa_probes(
+            _tree.unflatten(structure, [e.get(n) for n in names]),
+            whole["tokens"]) for e in errs])
+        out["grad_norms"].append(float(global_norm(red)))
+        params, opt_state, _ = adamw_update(red, opt_state, params, opt,
+                                            donate=True)
+        del red
+    return out
+
+
+def train_psa_vs_plain(pods, plain) -> dict:
+    """train_psa's pods against ``train_psa_plain``: the readings."""
+    vs_plain = {
+        "losses_rel_err": [abs(a - b) / abs(b) for a, b in
+                           zip(pods[0]["losses"], plain["losses"])],
+        "grad_norms_rel_err": [abs(a - b) / b for a, b in
+                               zip(pods[0]["grad_norms"],
+                                   plain["grad_norms"])],
+        "reduced_grad_max_rel_err": [
+            {k: _max_rel(v, want[k]) for k, v in got.items()}
+            for got, want in zip(pods[0]["probes"]["red"], plain["red"])],
+        "error_feedback_max_rel_err": [
+            [{k: _max_rel(v, want[i][k]) for k, v in
+              o["probes"]["ef"][t].items()} for i, o in enumerate(pods)]
+            for t, want in enumerate(plain["ef"])],
+        "tolerance": {"loss": TRAIN_LOSS_TOL, "grad_norm": PLAIN_GNORM_TOL,
+                      "reduced_grad": PLAIN_GRAD_TOL,
+                      "error_feedback": PLAIN_EF_TOL,
+                      "step_1_probes": PLAIN_AFTER_TOL}}
+    return vs_plain
+
+
+def check_vs_plain(pods, plain, vs_plain) -> None:
+    """Each of ``train_psa_vs_plain``'s readings within its limit."""
+    check(len(plain["losses"]) == PLAIN_STEPS + 1
+          and max(vs_plain["losses_rel_err"]) <= TRAIN_LOSS_TOL,
+          f"train_psa: losses {pods[0]['losses']} against the plain steps' "
+          f"{plain['losses']}")
+    check(max(vs_plain["grad_norms_rel_err"]) <= PLAIN_GNORM_TOL,
+          f"train_psa: grad norms {pods[0]['grad_norms']} against the plain "
+          f"steps' {plain['grad_norms']}")
+    for t, errs in enumerate(vs_plain["reduced_grad_max_rel_err"]):
+        check(len(errs) == len(PROBES) and max(errs.values())
+              <= (PLAIN_AFTER_TOL if t else PLAIN_GRAD_TOL), f"train_psa: "
+              f"step {t}'s reduced gradients off the plain step's: {errs}")
+    for t, by_pod in enumerate(vs_plain["error_feedback_max_rel_err"]):
+        for errs in by_pod:
+            check(len(errs) == len(plain["ef"][t][0]) >= 3
+                  and max(errs.values())
+                  <= (PLAIN_AFTER_TOL if t else PLAIN_EF_TOL),
+                  f"train_psa: step {t}'s errors off the plain step's: "
+                  f"{errs}")
+
+
+def _max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _flat(tree, prefix=""):
+    """(path, tensor) of every tensor leaf of nested dicts."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat(tree[k], f"{prefix}/{k}")
+    elif tree is not None:
+        yield prefix, tree
+
+
+def spmd_train_phases(dev, rows: dict, record, gram_qr_work, q_init,
+                      q_true) -> None:
+    """spmd_gossip, sdot_spmd, train_psa and train_example: gossip across
+    processes and the PSA-compressed trainer (module docstring). ``record``
+    and ``gram_qr_work`` are the kernels phase's row helpers; ``q_init`` and
+    ``q_true`` are sdot_dense's."""
+    from repro_torch import train_lm_psa_compress
+    from repro_torch.core.consensus import DenseConsensus
+    from repro_torch.core.sdot import sdot
+    from repro_torch.data.pipeline import (gaussian_eigengap_data,
+                                           make_lm_batch, partition_samples)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models.transformer import init_params as lm_init
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.optim.psa_compress import CQR_PASSES
+    from repro_torch.train.step import make_train_step
+
+    d, r = q_init.shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    # -- gossip across processes: 20 ranks, then 8 -------------------------
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_spmd"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    x, _, _ = gaussian_eigengap_data(d, SPMD_SAMPLES, r, 0.7, seed=0,
+                                     device=dev)
+    covs = torch.stack([b @ b.T / b.shape[1]
+                        for b in partition_samples(x, SPMD_NODES)])
+    del x
+    z_spmd = torch.randn((SPMD_NODES, d, r), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    torch.save({"z": z_spmd.cpu(), "q_init": q_init.cpu(),
+                "q_true": q_true.cpu()}, work / "common.pt")
+    for i in range(SPMD_NODES):
+        torch.save(covs[i].cpu().clone(), work / f"cov{i}.pt")
+    t0 = time.perf_counter()
+    spmd = spawn_ranks(spmd_rank, SPMD_NODES, backend="gloo", device="cuda",
+                       args=(str(work),))
+    spmd_wall = time.perf_counter() - t0
+    graphs, scheds = spmd_cases()
+    gossip_out = {}
+    for name, graph in graphs.items():
+        dense = DenseConsensus(graph, device=dev)
+        for t_c in SPMD_BUDGETS:
+            want = dense.run_debiased(z_spmd, t_c).cpu()
+            got = torch.stack([o["gossip"][f"{name}/{t_c}"]["z"]
+                               for o in spmd])
+            per_node = ((got - want).abs().amax((1, 2))
+                        / want.abs().amax((1, 2)))
+            gossip_out[f"{name}/{t_c}"] = {
+                "max_rel_err_per_node": float(per_node.max()),
+                "wall_s": max(o["gossip"][f"{name}/{t_c}"]["wall_s"]
+                              for o in spmd),
+                "host_staged_bytes_a_rank": spmd[0]["gossip"][
+                    f"{name}/{t_c}"]["staged"]}
+    z8 = z_spmd[:8].double().sum(0).cpu()
+    two = spawn_ranks(two_level_rank, 8, backend="gloo", device="cuda",
+                      args=(str(work),))
+    two_err = max(float((o["z"].double() - z8).abs().max()) for o in two) \
+        / float(z8.abs().max())
+    emit({"phase": "spmd_gossip", "ranks": SPMD_NODES, "backend":
+          spmd[0]["backend"], "payload": [d, r], "budgets": SPMD_BUDGETS,
+          "spawn_and_run_s": spmd_wall, "vs_dense_consensus": gossip_out,
+          "tolerance": SPMD_GOSSIP_TOL,
+          "two_level_reduce": {"mesh": [4, 2], "graph": "ring(4)",
+                               "t_c": 60, "max_rel_err_vs_exact": two_err,
+                               "tolerance": TWO_LEVEL_TOL,
+                               "host_staged_bytes_a_rank": two[0]["staged"]}})
+    for key, g in gossip_out.items():
+        check(g["max_rel_err_per_node"] <= SPMD_GOSSIP_TOL, f"spmd_gossip "
+              f"{key}: {g['max_rel_err_per_node']} from DenseConsensus")
+    check(two_err <= TWO_LEVEL_TOL, f"two_level_reduce: {two_err} from the "
+          "exact sum")
+
+    sdot_out = {}
+    rows_spmd = 0
+    for name, graph in graphs.items():
+        for kind, sched in scheds.items():
+            key = f"{name}/{kind}"
+            want = sdot(covs=covs, engine=DenseConsensus(graph, device=dev),
+                        r=r, t_outer=len(sched), schedule=sched,
+                        q_init=q_init, q_true=q_true, device=dev)
+            led = want.ledger
+            runs = [o["sdot"][key] for o in spmd]
+            trace_err = max(float(np.abs(o["trace"] - want.error_trace).max())
+                            for o in runs)
+            q_err = float((runs[0]["q"] - want.q_nodes.cpu()).abs().max())
+            qr = [o["launches"]["gram_qr"] for o in runs]
+            rows_spmd += sum(qr)
+            sdot_out[key] = {
+                "t_outer": len(sched), "rounds": int(sched.sum()),
+                "wall_s": max(o["wall_s"] for o in runs),
+                "gram_qr_launches_a_rank": sorted(set(qr)),
+                "host_staged_bytes_a_rank": runs[0]["staged"],
+                "final_err": float(runs[0]["trace"][-1]),
+                "dense_final_err": float(want.error_trace[-1]),
+                "max_trace_err": trace_err, "q_nodes_max_abs_err": q_err,
+                "ledger": runs[0]["ledger"],
+                "ledger_dense": [led.p2p, led.matrices, led.scalars,
+                                 led.payload_bytes]}
+            for o in runs:
+                check(np.allclose(o["trace"], want.error_trace, rtol=1e-4,
+                                  atol=1e-6), f"sdot_spmd {key}: trace off "
+                      f"the fused dense run by {trace_err}")
+                check(o["ledger"] == sdot_out[key]["ledger_dense"],
+                      f"sdot_spmd {key}: ledger {o['ledger']}")
+            check(q_err <= 1e-5, f"sdot_spmd {key}: q_nodes {q_err} from "
+                  "the fused dense run")
+            check(qr == [2 * len(sched)] * SPMD_NODES, f"sdot_spmd {key}: "
+                  f"Gram launches a rank {qr}, expected {2 * len(sched)}")
+    emit({"phase": "sdot_spmd", "ranks": SPMD_NODES, "backend": "gloo",
+          "d": d, "r": r, "samples_a_rank": SPMD_SAMPLES // SPMD_NODES,
+          "runs": sdot_out})
+    del covs, z_spmd, spmd, two
+    shutil.rmtree(work, ignore_errors=True)
+
+    # -- train_psa: qwen2-7b at full width, 2 pod ranks on the card --------
+    v_spmd = torch.randn((1, d, r), generator=gen, device=dev)
+    spmd_bytes, spmd_flops, _ = gram_qr_work(v_spmd)
+    record("gram_qr_sdot_spmd", "src/repro_torch/kernels/csrc/gram_qr.cu",
+           "src/repro/kernels/gram_qr.py:40",
+           lambda: ops.gram_qr(v_spmd), lambda: ref.gram_qr_ref(v_spmd),
+           lambda: torch.bmm(v_spmd.mT, v_spmd), spmd_bytes, spmd_flops,
+           GRAM_QR_TOL, "f32 sums in another order than cuBLAS; relative "
+           "to max |G|")
+    rows["gram_qr_sdot_spmd"]["launches"] = rows_spmd
+    del v_spmd
+    tp_layers, tp_steps, tp_batch, tp_seq = 2, 6, 4, 512
+    t0 = time.perf_counter()
+    pods = spawn_ranks(train_psa_rank, 2, backend="gloo", device="cuda",
+                       args=(tp_layers, tp_steps, tp_batch, tp_seq))
+    tp_wall = time.perf_counter() - t0
+    cfg_tp, opt_tp, psa_tp = train_psa_setup(tp_layers)
+    one = lm_init(torch.Generator(device=dev).manual_seed(0), cfg_tp,
+                  device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, one_met = make_train_step(cfg_tp, opt_tp)(
+        one, adamw_init(one, opt_tp),
+        make_lm_batch(cfg_tp, 0, 0, tp_batch, tp_seq, device=dev))
+    one_loss = float(one_met["loss"])
+    one_ms = (time.perf_counter() - t0) * 1e3
+    del one, one_met
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = train_psa_plain(dev, tp_layers, tp_batch, tp_seq,
+                            pods[0].pop("proj0"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    vs_plain = train_psa_vs_plain(pods, plain)
+    by_shape = {}
+    for o in pods:
+        for rf in o["refreshes"]:
+            for k, n in rf["by_shape"].items():
+                by_shape[k] = by_shape.get(k, 0) + n
+    steady = [ms for o in pods for ms in o["step_ms"][1:]]
+    step_ms = statistics.median(steady)
+    tp_out = {
+        "arch": cfg_tp.name, "layers": tp_layers, "d_model": cfg_tp.d_model,
+        "heads": [cfg_tp.n_heads, cfg_tp.n_kv_heads], "d_ff": cfg_tp.d_ff,
+        "vocab": cfg_tp.vocab_size, "dtype": cfg_tp.dtype,
+        "moment_dtype": opt_tp.moment_dtype, "pods": 2,
+        "backend": pods[0]["backend"], "psa": dataclasses.asdict(psa_tp),
+        "tokens_a_pod_a_step": tp_batch // 2 * tp_seq,
+        "losses": pods[0]["losses"], "grad_norms": pods[0]["grad_norms"],
+        "one_rank_first_loss": one_loss, "one_rank_step_ms": one_ms,
+        "plain_steps": PLAIN_STEPS, "plain_losses": plain["losses"],
+        "plain_grad_norms": plain["grad_norms"], "vs_plain": vs_plain,
+        "step_ms_by_rank": [o["step_ms"] for o in pods],
+        "step_ms_median_after_first": step_ms,
+        "tokens_per_s": tp_batch * tp_seq / (step_ms / 1e3),
+        "refreshes": pods[0]["refreshes"],
+        "refresh_ms_by_rank": [[rf["ms"] for rf in o["refreshes"]]
+                               for o in pods],
+        "gram_qr_launches_by_shape": by_shape,
+        "allreduced_bytes_a_step": pods[0]["reduced_bytes"],
+        "dense_gradient_bytes_a_step": pods[0]["dense_bytes"],
+        "compression_ratio_analytic": pods[0]["ratio"],
+        "host_staged_bytes_a_step": pods[0]["staged_per_step"],
+        "max_memory_allocated_by_rank": [o["max_memory_allocated"]
+                                         for o in pods],
+        "step_parts_ms_by_rank": [o["step_parts_ms"] for o in pods],
+        "spawn_and_run_s": tp_wall}
+    emit({"phase": "train_psa", **tp_out})
+    for o in pods:
+        check(all(np.isfinite(o["losses"])), f"train_psa: losses "
+              f"{o['losses']}")
+        check(o["losses"] == pods[0]["losses"], "train_psa: the pods' "
+              "pod-mean losses differ")
+        for rf in o["refreshes"]:
+            check(rf["ortho_err"] <= ORTHO_TOL, f"train_psa: projector "
+                  f"|P^T P - I| {rf['ortho_err']} at step {rf['step']}")
+            check(rf["gram_qr"] == CQR_PASSES * psa_tp.oi_iters
+                  * o["compressed_leaves"], f"train_psa: {rf['gram_qr']} "
+                  "Gram launches a refresh")
+        check(all(b == 2 * o["reduced_bytes"]
+                  for b in o["staged_per_step"]), "train_psa: staged bytes "
+              f"{o['staged_per_step']} != 2 x {o['reduced_bytes']}")
+    check(abs(pods[0]["losses"][0] - one_loss) <= TRAIN_LOSS_TOL
+          * abs(one_loss), f"train_psa: first pod-mean loss "
+          f"{pods[0]['losses'][0]} against one rank's {one_loss}")
+    check_vs_plain(pods, plain, vs_plain)
+    # row 4 at the refresh's shapes (f32): the shapes counted by the ranks
+    for label, shape in (("a3584", (2, cfg_tp.d_model, psa_tp.rank)),
+                         ("a18944", (2, cfg_tp.d_ff, psa_tp.rank)),
+                         ("head", (cfg_tp.d_model, psa_tp.rank))):
+        vq = torch.randn(shape, generator=gen, device=dev)
+        q_bytes, q_flops, _ = gram_qr_work(vq.reshape(-1, *shape[-2:]))
+        name = f"gram_qr_psa_refresh_{label}"
+        record(name, "src/repro_torch/kernels/csrc/gram_qr.cu",
+               "src/repro/kernels/gram_qr.py:40",
+               lambda: ops.gram_qr(vq), lambda: ref.gram_qr_ref(vq),
+               lambda: torch.matmul(vq.mT, vq), q_bytes, q_flops,
+               GRAM_QR_TOL, "f32 sums in another order than cuBLAS; "
+               "relative to max |G|")
+        rows[name]["launches"] = by_shape.get(str(list(shape)), 0)
+        rows[name]["shape"] = list(shape)
+        del vq
+    check(sum(rows[f"gram_qr_psa_refresh_{k}"]["launches"]
+              for k in ("a3584", "a18944", "head"))
+          == sum(rf["gram_qr"] for o in pods for rf in o["refreshes"]),
+          f"train_psa: Gram launches by shape {by_shape}")
+
+    # -- train_example: the example twin, --full-100m, 300 steps -----------
+    ex_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(ex_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ex = train_lm_psa_compress.main(["--full-100m", "--steps", "300",
+                                     "--ckpt-dir", str(ex_dir),
+                                     "--ckpt-every", "300",
+                                     "--device", "cuda"])
+    ex_total = time.perf_counter() - t0
+    shutil.rmtree(ex_dir, ignore_errors=True)
+    emit({"phase": "train_example", "steps": ex["steps_run"],
+          "first_loss": ex["first_loss"], "last_loss": ex["last_loss"],
+          "loop_s": ex["wall_s"], "ms_per_step": ex["wall_s"] / 300 * 1e3,
+          "tokens_per_s": 300 * 8 * 512 / ex["wall_s"],
+          "spawn_and_run_s": ex_total})
+    check(ex["steps_run"] == 300 and ex["last_loss"] < ex["first_loss"],
+          f"train_example: {ex}")
+
 
 
 def main() -> None:
@@ -3002,6 +3684,12 @@ def main() -> None:
     check(gen_ok, "lm_decode: non-finite logits or a token out of range")
     check(dec_rms <= DECODE_TOL, f"lm_decode: teacher-forced logits "
           f"{dec_rms} (relative RMS) from prefill > {DECODE_TOL}")
+
+    # -- gossip across processes and the PSA trainer ------------------------
+    del params, state, prof, toks, prompt, generated, lg, nxt
+    gc.collect()
+    torch.cuda.empty_cache()
+    spmd_train_phases(dev, rows, record, gram_qr_work, q_init, q_true)
 
     for name, row in rows.items():
         check(row["launches"] > 0 or not row.get("main_path", True),

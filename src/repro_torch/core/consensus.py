@@ -1,10 +1,11 @@
-"""Consensus-averaging engine: the dense and sparse halves of
-``repro/core/consensus.py``.
+"""Consensus-averaging engines: the twin of ``repro/core/consensus.py``.
 
 ``DenseConsensus`` holds all N node blocks on one device and computes the
 gossip recursion ``Z_i <- sum_j w_ij Z_j``: a matmul with the (N, N) weight
 matrix, or, for a large sparse network, an ELL round through the Hopper
-kernel (``SparseW.mix``). Both expose the paper's debias step
+kernel (``SparseW.mix``). ``SpmdConsensus`` runs the same recursion with one
+process a node, over a ``torch.distributed`` process group
+(``launch/mesh.py``). All expose the paper's debias step
 ``V_i = Z_i^{(Tc)} / [W^{Tc} e_1]_i`` (Alg. 1, step 11).
 """
 from __future__ import annotations
@@ -18,11 +19,13 @@ import torch
 from .._device import DeviceLike, resolve_device
 from .metrics import CommLedger
 from .sparse import SparseW, auto_sparse
-from .topology import Graph, local_degree_weights
+from .topology import Graph, local_degree_weights, ring
 
 __all__ = [
     "DenseConsensus",
     "SparseConsensus",
+    "SpmdConsensus",
+    "two_level_reduce",
     "consensus_schedule",
     "debias_weights",
     "debias_table",
@@ -302,3 +305,116 @@ class SparseConsensus(DenseConsensus):
                              " use DenseConsensus for dense mixing")
         self.sparse = True
         super().__post_init__()
+
+
+class SpmdConsensus:
+    """Gossip across processes: node i is rank i of ``mesh``'s axis
+    ``axis`` and holds only its own block.
+
+    A round exchanges this node's block with its neighbours in the graph,
+    in one ``batch_isend_irecv`` (``AxisGroup.exchange``): the sends the
+    ledger prices, no more. On a ring of n > 2 nodes W is circulant and a
+    round is ``w_self * z + w_prev * z_from(i - 1) + w_next * z_from(i + 1)``;
+    on any other graph (the 2-node ring included) it is ``w_ii * z`` plus
+    ``w_ij * z_from(j)`` over the neighbours j in ascending order, the row
+    of W that ``DenseConsensus`` applies as a matmul. The reference
+    all-gathers every block there instead; with 20 gloo ranks sharing one
+    card that took 63 ms a round against the exchange's 11
+    (tools/gossip_transport_times.py, PERF.md).
+
+    Under gloo a round on the card stages only its exchange: the block
+    goes down to a pinned host buffer, the neighbours' blocks come back,
+    and the weighted sum runs on the card. The bytes are counted in
+    ``host_staged_bytes`` (``launch/mesh.AxisGroup``).
+    """
+
+    def __init__(self, mesh, axis: str, graph: Optional[Graph] = None,
+                 weights: Optional[np.ndarray] = None):
+        self.mesh = mesh
+        self.axis = axis
+        self.group = mesh.axis(axis)
+        self.n = self.group.size
+        self.device = mesh.device
+        self.graph = graph if graph is not None else ring(self.n)
+        self.weights = (weights if weights is not None
+                        else local_degree_weights(self.graph))
+        if self.weights.shape != (self.n, self.n):
+            raise ValueError("weight matrix does not match mesh axis size")
+        i = self.index
+        if np.array_equal(self.graph.adjacency, ring(self.n).adjacency) \
+                and self.n > 2:
+            self._peers = [(i - 1) % self.n, (i + 1) % self.n]
+        else:
+            self._peers = [int(j) for j in
+                           np.flatnonzero(self.graph.adjacency[i]) if j != i]
+        self._w_self = float(self.weights[i, i])
+        self._w_peers = [float(self.weights[i, j]) for j in self._peers]
+        self._w = torch.as_tensor(np.asarray(self.weights, np.float32),
+                                  device=self.device)
+        self._debias_tables: Dict[int, torch.Tensor] = {}
+
+    @property
+    def index(self) -> int:
+        """This rank's node."""
+        return self.group.index
+
+    @property
+    def host_staged_bytes(self) -> int:
+        return self.group.host_staged_bytes
+
+    def _round(self, z: torch.Tensor) -> torch.Tensor:
+        recv = self.group.exchange(z, self._peers)
+        out = self._w_self * z
+        for w, zj in zip(self._w_peers, recv):
+            out = out + w * zj
+        return out
+
+    def gossip_rounds(self, z: torch.Tensor, t_c: int) -> torch.Tensor:
+        """t_c gossip rounds on this node's block."""
+        for _ in range(int(t_c)):
+            z = self._round(z)
+        return z
+
+    def gossip_rounds_masked(self, z: torch.Tensor, t_c: int,
+                             t_max: int) -> torch.Tensor:
+        """``t_c`` rounds out of a budget of ``t_max``. The reference masks
+        the rounds past t_c so that XLA compiles one program; here the
+        budget is host data and exactly t_c rounds run (same result)."""
+        if t_c > t_max:
+            raise ValueError(f"t_c={t_c} exceeds the budget t_max={t_max}")
+        return self.gossip_rounds(z, t_c)
+
+    def debias_table(self, t_max: int) -> torch.Tensor:
+        """Cached (t_max + 1, N) device table of [W^t e_1] rows."""
+        t_max = int(t_max)
+        if t_max not in self._debias_tables:
+            self._debias_tables[t_max] = debias_table(self._w, t_max)
+        return self._debias_tables[t_max]
+
+    def debias_by_table(self, z: torch.Tensor, table: torch.Tensor,
+                        t_c: int) -> torch.Tensor:
+        """Divide this node's block by table[t_c][node]."""
+        return z / table[int(t_c), self.index].to(z.dtype)
+
+    def debias(self, z: torch.Tensor, t_c: int) -> torch.Tensor:
+        """Divide this node's block by [W^{t_c} e_1]_node (host power)."""
+        scale = torch.as_tensor(debias_weights(self.weights, int(t_c)),
+                                device=z.device)
+        return z / scale.to(z.dtype)[self.index]
+
+    def build_debiased_sum(self, t_c: int):
+        """f(this node's block) -> this node's estimate of sum_j Z_j: the
+        twin of ``DenseConsensus.run_debiased`` for the same W."""
+        def debiased_sum(z: torch.Tensor) -> torch.Tensor:
+            return self.debias(self.gossip_rounds(z, t_c), t_c)
+        return debiased_sum
+
+
+def two_level_reduce(z: torch.Tensor, *, intra_axis: str,
+                     inter: SpmdConsensus, t_c: int) -> torch.Tensor:
+    """Exact sum over the fast intra-pod axis of ``inter.mesh``, then t_c
+    gossip rounds and the debias over the slow cross-pod axis (the
+    reference's psum + ``inter`` rounds)."""
+    z = inter.mesh.axis(intra_axis).all_reduce_(z.clone())
+    z = inter.gossip_rounds(z, t_c)
+    return inter.debias(z, t_c)

@@ -33,6 +33,9 @@ Execution modes (``fused`` flag):
 ``draws`` (async and faulty engines): one injected awake or fault block
 per outer step in place of the engine's stream (the parity tests pass the
 reference's own draws).
+
+``sdot_spmd`` is the node-a-process mode: each rank holds its own
+covariance block and gossips over an ``SpmdConsensus``.
 """
 from __future__ import annotations
 
@@ -51,11 +54,12 @@ from .async_gossip import (GossipDraws, check_draws, draw_generator,
 from .consensus import (DenseConsensus, consensus_schedule, debias_table,
                         debiased_gossip, lane_debiased_gossip)
 from .linalg import cholesky_qr2, orthonormal_init
-from .metrics import CommLedger
+from .metrics import CommLedger, subspace_error_from_cross
 from .netfaults import (masked_faulty_rounds, realized_debias,
                         sample_fault_blocks)
 
-__all__ = ["SDOTResult", "sdot", "sadot", "sdot_program", "local_cov_apply"]
+__all__ = ["SDOTResult", "sdot", "sadot", "sdot_program", "sdot_spmd",
+           "local_cov_apply"]
 
 
 @dataclasses.dataclass
@@ -470,3 +474,69 @@ def sadot(*, schedule_kind: str = "lin2", cap: Optional[int] = None,
     """SA-DOT convenience wrapper: increasing consensus schedule."""
     sched = consensus_schedule(schedule_kind, t_outer, cap=cap)
     return sdot(t_outer=t_outer, schedule=sched, **kw)
+
+
+def sdot_spmd(
+    *,
+    covs: torch.Tensor,
+    engine,                                   # consensus.SpmdConsensus
+    r: int,
+    t_outer: int,
+    schedule: Optional[np.ndarray] = None,
+    t_c: int = 50,
+    q_init: Optional[torch.Tensor] = None,
+    q_true: Optional[torch.Tensor] = None,
+    seed: int = 0,
+) -> SDOTResult:
+    """S-DOT / SA-DOT with one process a node: this rank's part of a run.
+
+    ``covs`` is this rank's own (d, d) block M_i; ``engine`` an
+    ``SpmdConsensus`` whose axis holds the N nodes. Every rank starts from
+    the same ``q_init``: the one given, or one drawn from a CPU generator
+    seeded by ``seed`` and moved to the engine's device (the same bits on
+    every rank). Each outer iteration is the local apply, ``schedule[t]``
+    gossip rounds, the debias by the device table's row and a CholeskyQR2
+    (the Gram kernel on the card). The error trace (with ``q_true``) is
+    the node mean of eq. (11), one all-reduce at the end; one all-gather
+    fills ``q_nodes`` (N, d, r), so every rank returns the whole result,
+    with the closed-form ledger.
+    """
+    dev = engine.device
+    if covs.dim() != 2 or covs.shape[0] != covs.shape[1]:
+        raise ValueError(f"covs must be this rank's (d, d) block, got "
+                         f"{tuple(covs.shape)}")
+    cov = covs.to(dev, torch.float32)
+    d = cov.shape[0]
+    if schedule is None:
+        schedule = consensus_schedule("const", t_outer, t_max=t_c)
+    elif len(schedule) < t_outer:
+        raise ValueError(f"schedule has {len(schedule)} entries but "
+                         f"t_outer={t_outer}")
+    sched = np.asarray(schedule[:t_outer])
+    t_max = int(sched.max()) if t_outer else 0
+    if q_init is None:
+        q_init = orthonormal_init(torch.Generator().manual_seed(seed), d, r,
+                                  device=dev)
+    q = q_init.to(dev, torch.float32)
+    qt = None if q_true is None else q_true.to(dev, torch.float32)
+    table = engine.debias_table(t_max)
+    crosses = []
+    for t_c_t in sched:
+        z = cov @ q
+        z = engine.gossip_rounds_masked(z, int(t_c_t), t_max)
+        z = engine.debias_by_table(z, table, int(t_c_t))
+        q = cholesky_qr2(z)[0]
+        if qt is not None:
+            crosses.append(qt.mT @ q)
+    error_trace = None
+    if qt is not None:
+        errs = torch.zeros(len(crosses), device=dev)
+        if crosses:
+            errs = subspace_error_from_cross(torch.stack(crosses))
+        errs = engine.group.all_reduce_(errs) / engine.n       # pmean
+        error_trace = errs.cpu().numpy().astype(np.float64)
+    ledger = CommLedger()
+    ledger.log_gossip_rounds(sched, engine.graph.adjacency, d * r)
+    return SDOTResult(q_nodes=engine.group.all_gather(q),
+                      error_trace=error_trace, consensus_trace=sched,
+                      ledger=ledger)

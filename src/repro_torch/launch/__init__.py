@@ -1,2 +1,3 @@
 """Operational entry points: ``psa_sweep`` (stream, then a sharded,
-supervised Monte-Carlo sweep)."""
+supervised Monte-Carlo sweep), ``train`` (the training driver) and
+``mesh`` (process groups and the rank spawner)."""

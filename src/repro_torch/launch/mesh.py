@@ -1,0 +1,248 @@
+"""Process groups: the torch meaning of ``repro/launch/mesh.py``.
+
+The reference lays JAX devices out as a named mesh and runs collectives
+over its axes inside ``shard_map``. Here every position of the mesh is one
+process, a rank of ``torch.distributed``, and a ``Mesh`` is one rank's view
+of the world laid out row-major over named axes: its coordinates and, for
+each axis, an ``AxisGroup``: the process group of the ranks that differ
+from it only along that axis, with the collectives the port runs over it.
+
+``make_test_mesh`` lays the world out as ``("pod", "data")`` (two pods,
+``multi_pod=True``) or as ``("nodes",)``. ``spawn_ranks`` starts N rank
+processes, each joining one process group through a fresh temporary file
+(no TCP port, so concurrent test workers never collide), runs a function in
+each and returns what each returned; a rank that raises fails the call.
+
+Transport. The backend is the caller's argument and nothing switches by
+itself. NCCL moves CUDA tensors, one card a rank. Gloo moves host tensors:
+ranks that share a card use it with their compute on the card, and every
+collective over a CUDA tensor then copies the payload into a pinned host
+buffer, runs there and copies the result back; the arithmetic around the
+collectives stays on the card. ``AxisGroup`` counts those bytes, both
+ways, in ``host_staged_bytes``.
+
+``make_production_mesh`` and ``HW`` (TPU v5e constants) have no meaning
+here; their H100 counterpart waits with ``roofline`` (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import tempfile
+from typing import Any, Callable, Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .._device import DeviceLike, resolve_device
+
+__all__ = ["AxisGroup", "Mesh", "make_mesh", "make_test_mesh", "rank_device",
+           "spawn_ranks"]
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class AxisGroup:
+    """The ranks along one mesh axis, seen from one of them.
+
+    ``ranks`` are the global ranks in axis order, ``index`` is this rank's
+    place among them, ``group`` their ``torch.distributed`` process group.
+    Under gloo a CUDA payload goes through a pinned host buffer (one cached
+    per shape, dtype and use), counted in ``host_staged_bytes``.
+    """
+
+    def __init__(self, name: str, ranks: Sequence[int], index: int, group,
+                 backend: str):
+        self.name = name
+        self.ranks = tuple(int(r) for r in ranks)
+        self.size = len(self.ranks)
+        self.index = index
+        self.group = group
+        self.backend = backend
+        self.host_staged_bytes = 0
+        self._pinned: Dict[tuple, torch.Tensor] = {}
+
+    def _staged(self, t: torch.Tensor) -> bool:
+        return self.backend == "gloo" and t.is_cuda
+
+    def _buffer(self, use: str, shape, dtype) -> torch.Tensor:
+        key = (use, tuple(shape), dtype)
+        if key not in self._pinned:
+            self._pinned[key] = torch.empty(shape, dtype=dtype,
+                                            pin_memory=True)
+        return self._pinned[key]
+
+    def _to_host(self, t: torch.Tensor, use: str) -> torch.Tensor:
+        buf = self._buffer(use, t.shape, t.dtype)
+        buf.copy_(t)                    # pinned destination, synchronous
+        self.host_staged_bytes += _nbytes(t)
+        return buf
+
+    def _from_host(self, buf: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        out.copy_(buf)                  # synchronous: the buffer is reused
+        self.host_staged_bytes += _nbytes(buf)
+        return out
+
+    def all_reduce_(self, t: torch.Tensor,
+                    op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """Reduce ``t`` (contiguous) over the axis in place; returns it."""
+        if not self._staged(t):
+            dist.all_reduce(t, op=op, group=self.group)
+            return t
+        buf = self._to_host(t, "reduce")
+        dist.all_reduce(buf, op=op, group=self.group)
+        return self._from_host(buf, t)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """(size, *t.shape): every rank's ``t`` in axis order."""
+        shape = (self.size,) + tuple(t.shape)
+        if not self._staged(t):
+            out = torch.empty(shape, dtype=t.dtype, device=t.device)
+            dist.all_gather(list(out.unbind(0)), t.contiguous(),
+                            group=self.group)
+            return out
+        src = self._to_host(t, "gather_in")
+        buf = self._buffer("gather_out", shape, t.dtype)
+        dist.all_gather(list(buf.unbind(0)), src, group=self.group)
+        return self._from_host(buf, torch.empty(shape, dtype=t.dtype,
+                                                device=t.device))
+
+    def exchange(self, t: torch.Tensor, peers: Sequence[int]
+                 ) -> torch.Tensor:
+        """Send ``t`` to every peer (axis indices) and receive one block
+        from each, all in one ``batch_isend_irecv``: (len(peers),
+        *t.shape), in the order of ``peers``. A ring's neighbours, a
+        graph's neighbours, or the reference's ``ppermute`` (peers i - s)."""
+        shape = (len(peers),) + tuple(t.shape)
+        if not peers:                   # a node with no neighbours
+            return torch.empty(shape, dtype=t.dtype, device=t.device)
+        staged = self._staged(t)
+        src = self._to_host(t, "send") if staged else t.contiguous()
+        recv = (self._buffer("recv", shape, t.dtype) if staged
+                else torch.empty(shape, dtype=t.dtype, device=t.device))
+        ops = [dist.P2POp(dist.isend, src, self.ranks[p], self.group)
+               for p in peers]
+        ops += [dist.P2POp(dist.irecv, recv[k], self.ranks[p], self.group)
+                for k, p in enumerate(peers)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        if not staged:
+            return recv
+        return self._from_host(recv, torch.empty(shape, dtype=t.dtype,
+                                                 device=t.device))
+
+
+@dataclasses.dataclass
+class Mesh:
+    """This rank's place in a world laid out row-major over named axes."""
+
+    axis_names: Tuple[str, ...]
+    shape: Dict[str, int]
+    coords: Dict[str, int]
+    groups: Dict[str, AxisGroup]
+    device: torch.device
+    backend: str
+
+    def axis(self, name: str) -> AxisGroup:
+        return self.groups[name]
+
+    @property
+    def host_staged_bytes(self) -> int:
+        return sum(g.host_staged_bytes for g in self.groups.values())
+
+
+def make_mesh(axes: Sequence[Tuple[str, int]], *,
+              device: DeviceLike = None) -> Mesh:
+    """Lay the initialised world out over ``axes`` ((name, size), ...),
+    row-major: the last axis varies fastest along the global ranks.
+
+    Every rank creates every axis group, in the same order (``new_group``
+    is collective over the whole world), and keeps the ones it belongs to.
+    """
+    names = tuple(a for a, _ in axes)
+    sizes = tuple(int(s) for _, s in axes)
+    world, me = dist.get_world_size(), dist.get_rank()
+    if int(np.prod(sizes)) != world:
+        raise ValueError(f"mesh {dict(axes)} needs {int(np.prod(sizes))} "
+                         f"ranks, the world has {world}")
+    grid = np.arange(world).reshape(sizes)
+    coords = dict(zip(names, (int(c) for c in np.unravel_index(me, sizes))))
+    backend = dist.get_backend()
+    groups = {}
+    for k, name in enumerate(names):
+        lines = np.moveaxis(grid, k, -1).reshape(-1, sizes[k])
+        for line in lines:
+            ranks = [int(r) for r in line]
+            group = dist.new_group(ranks)
+            if me in ranks:
+                groups[name] = AxisGroup(name, ranks, ranks.index(me),
+                                         group, backend)
+    return Mesh(names, dict(zip(names, sizes)), coords, groups,
+                resolve_device(device), backend)
+
+
+def make_test_mesh(*, multi_pod: bool = False,
+                   device: DeviceLike = None) -> Mesh:
+    """The whole world as ``("pod", "data")`` with 2 pods (``multi_pod``)
+    or as ``("nodes",)``."""
+    world = dist.get_world_size()
+    if multi_pod:
+        if world % 2:
+            raise ValueError(f"two pods need an even world, got {world}")
+        return make_mesh((("pod", 2), ("data", world // 2)), device=device)
+    return make_mesh((("nodes", world),), device=device)
+
+
+def rank_device(device: DeviceLike, rank: int) -> torch.device:
+    """A rank's device: ``device`` as given, or for a bare ``"cuda"`` the
+    card ``rank % device_count`` (one card: every rank shares it)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+    return dev
+
+
+def _rank_main(rank: int, fn: Callable, world_size: int, backend: str,
+               device: DeviceLike, init_file: str, out_dir: str,
+               args: tuple, timeout_s: float) -> None:
+    torch.set_num_threads(1)     # N ranks share the host's cores
+    dev = rank_device(device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=f"file://{init_file}", world_size=world_size,
+        rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        out = fn(rank, world_size, dev, *args)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn: Callable[..., Any], world_size: int, *,
+                backend: str = "gloo", device: DeviceLike = None,
+                args: tuple = (), timeout_s: float = 600.0) -> List[Any]:
+    """Run ``fn(rank, world_size, device, *args)`` in ``world_size`` new
+    processes, one process group over them, and return each rank's result.
+
+    ``fn`` must be importable by name (a module-level function: the ranks
+    start by ``spawn``); its result travels back through ``torch.save``,
+    tensors onto the CPU. Each rank calls ``torch.set_num_threads(1)``.
+    ``device`` defaults to CUDA (``rank_device``). A rank that raises or
+    dies fails the call: the others are stopped, and this raises with the
+    rank's traceback. ``timeout_s`` bounds every collective.
+    """
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ranks_") as tmp:
+        torch.multiprocessing.start_processes(
+            _rank_main,
+            args=(fn, world_size, backend, device, os.path.join(tmp, "init"),
+                  tmp, tuple(args), timeout_s),
+            nprocs=world_size, join=True, start_method="spawn")
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                           map_location="cpu", weights_only=False)
+                for r in range(world_size)]
+

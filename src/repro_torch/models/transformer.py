@@ -6,7 +6,10 @@ holds every block's leaves stacked over a leading ``n_groups`` axis, under
 keys ``blk{i}_{kind}``, so ``interop.params_from_reference`` maps leaves
 one to one. The reference's scan over groups is a Python loop over that
 axis here. Its ``remat``, ``unroll_layers`` and ``act_specs`` do not carry
-over: this stack serves (inference only; callers run it under
+over. The full-sequence path is differentiable: ``train/step.loss_fn`` runs
+it under autograd with ``use_kernel=False`` (plain attention, as the
+reference trains; the flash kernel has no backward in either package).
+Decoding is inference only (callers run it under
 ``torch.inference_mode()``).
 
 Block kinds ``attn`` and ``swa`` with a dense SwiGLU FFN are built:
@@ -16,7 +19,7 @@ frontends raise ``NotImplementedError`` (ROADMAP queue 1: the rest of the
 LM side).
 
 Three entry points:
-  * forward(params, batch, cfg)              -- prefill logits
+  * forward(params, batch, cfg)              -- training / prefill logits
   * init_decode_state(cfg, batch, max_len)   -- KV caches and step count
   * decode_step(params, state, tokens, cfg)  -- one-token serving step
 """

@@ -7,8 +7,11 @@ S-DOT on the card against the CPU on the same draws; the sweeps' lane
 dispatch against one launch a lane and the plain version, and the
 baselines and a sweep at a small size; the stream, the sketches and the
 serving loop at CIFAR-10 width (a stop-and-resume bit for bit, the card
-copy of the served subspace swapped whole); and, last, the f32 forward
-repeated after all of that in the same process.
+copy of the served subspace swapped whole); two gloo ranks sharing the
+card (S-DOT a node a process against the dense engine, with the exact
+bytes staged through host memory; a PSA refresh and train step against
+the same on CPU ranks); and, last, the f32 forward repeated after all of
+that in the same process.
 
 Every test here needs an NVIDIA H100 with nvcc and skips elsewhere. This
 file imports neither JAX nor the reference package, so it runs on a machine
@@ -1587,6 +1590,128 @@ def test_query_path_reads_the_card_copy_swapped_whole(cuda_device, tmp_path):
     got = qp.process(svc.served.device)[0][1]
     np.testing.assert_allclose(got, svc.served.host.T @ x, rtol=1e-5,
                                atol=1e-5)
+
+
+def _sdot_spmd_rank(rank, world, dev, covs, q_init, q_true, sched):
+    from repro_torch.core.consensus import SpmdConsensus
+    from repro_torch.core.sdot import sdot_spmd
+    from repro_torch.launch.mesh import make_test_mesh
+
+    mesh = make_test_mesh(device=dev)
+    engine = SpmdConsensus(mesh, "nodes", graph=topology.ring(world))
+    ops.reset_launches()
+    res = sdot_spmd(covs=covs[rank], engine=engine, r=q_init.shape[1],
+                    t_outer=len(sched), schedule=sched, q_init=q_init,
+                    q_true=q_true)
+    return {"q": res.q_nodes.cpu(), "trace": res.error_trace,
+            "gram_qr": ops.LAUNCHES["gram_qr"],
+            "staged": engine.host_staged_bytes}
+
+
+def test_sdot_spmd_two_ranks_on_card_match_dense_engine(cuda_device):
+    """Two gloo ranks sharing the card, each holding its own cov block,
+    against the fused S-DOT over a DenseConsensus on the card: trace, every
+    node's estimate, two Gram launches a step on each rank, and the exact
+    bytes staged through pinned host memory."""
+    from repro_torch.launch.mesh import spawn_ranks
+
+    d, r, n, t_outer = 64, 3, 2, 10
+    x, _, _ = gaussian_eigengap_data(d, n * 500, r, 0.7, seed=0,
+                                     device=cuda_device)
+    covs = torch.stack([b @ b.T / b.shape[1]
+                        for b in partition_samples(x, n)])
+    q_true = torch.linalg.eigh(covs.sum(0).double())[1][:, -r:].float()
+    q_init = orthonormal_init(torch.Generator().manual_seed(1), d, r)
+    sched = consensus_schedule("lin2", t_outer, cap=8)
+    want = sdot(covs=covs, engine=DenseConsensus(topology.ring(n),
+                                                 device=cuda_device),
+                r=r, t_outer=t_outer, schedule=sched, q_init=q_init,
+                q_true=q_true, device=cuda_device)
+    res = spawn_ranks(_sdot_spmd_rank, n, backend="gloo", device="cuda",
+                      args=(covs.cpu(), q_init, q_true.cpu(), sched))
+    # each round stages its exchange: z down, the one neighbour's block
+    # back; then the trace's all-reduce and the final gather
+    payload = d * r * 4
+    staged = (2 * payload * int(sched.sum()) + 2 * 4 * t_outer
+              + payload * (1 + n))
+    for out in res:
+        np.testing.assert_allclose(out["trace"], want.error_trace,
+                                   rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(out["q"].numpy(),
+                                   want.q_nodes.cpu().numpy(), rtol=0,
+                                   atol=1e-5)
+        assert out["gram_qr"] == 2 * t_outer
+        assert out["staged"] == staged
+
+
+def _psa_step_rank(rank, world, dev, batch):
+    from repro_torch.configs.base import PSAConfig
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.optim.psa_compress import psa_init
+    from repro_torch.train.step import make_psa_train_step, shard_batch
+
+    cfg = reduced_config(get_arch("qwen2-7b"))
+    pod = make_test_mesh(multi_pod=True, device=dev).axis("pod")
+    params = tree_map(lambda t: t.to(dev), init_params(
+        torch.Generator().manual_seed(0), cfg, device="cpu"))
+    psa = PSAConfig(rank=4, oi_iters=2, gossip_rounds=2)
+    opt = AdamWConfig(warmup_steps=1)
+    psa_state = psa_init(params, psa)
+    step, refresh = make_psa_train_step(cfg, opt, psa, group=pod)
+    local = shard_batch({k: v.to(dev) for k, v in batch.items()}, pod.index,
+                        pod.size)
+    ops.reset_launches()
+    psa_state = refresh(params, psa_state, local)
+    refresh_launches = ops.LAUNCHES["gram_qr"]
+    params, _, psa_state, met = step(params, adamw_init(params, opt),
+                                     psa_state, local)
+    return {"loss": float(met["loss"]), "gnorm": float(met["grad_norm"]),
+            "params": tree_map(lambda t: t.cpu(), params),
+            "proj": {k: v for k, v in
+                     _flat_leaves(psa_state["proj"]).items()},
+            "refresh_launches": refresh_launches}
+
+
+def _flat_leaves(tree, prefix=""):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flat_leaves(v, f"{prefix}/{k}"))
+    elif tree is not None:
+        out[prefix] = tree.cpu()
+    return out
+
+
+def test_psa_train_step_two_ranks_on_card_matches_cpu(cuda_device):
+    """A refresh and one PSA step on 2 pod ranks sharing the card, reduced
+    qwen2-7b (f32), against the same on 2 CPU ranks: the pod-mean loss, the
+    grad norm, the parameters (to 1e-4 of the largest), orthonormal
+    projectors, and three Gram launches (shifted CholeskyQR3) a compressed
+    leaf an OI iteration."""
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.optim.psa_compress import CQR_PASSES
+
+    cfg = reduced_config(get_arch("qwen2-7b"))
+    batch = make_lm_batch(cfg, 0, 0, 4, 8, device="cpu")
+    card = spawn_ranks(_psa_step_rank, 2, device="cuda", args=(batch,))
+    cpu = spawn_ranks(_psa_step_rank, 2, device="cpu", args=(batch,))
+    n_leaves = len(card[0]["proj"])
+    assert n_leaves >= 5
+    for got, want in zip(card, cpu):
+        assert np.isfinite(got["loss"])
+        np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+        np.testing.assert_allclose(got["gnorm"], want["gnorm"], rtol=1e-4)
+        a, b = _flat_leaves(got["params"]), _flat_leaves(want["params"])
+        top = max(float(v.abs().max()) for v in b.values())
+        for k in b:
+            assert float((a[k] - b[k]).abs().max()) <= 1e-4 * top, k
+        for p in got["proj"].values():
+            gram = p.mT @ p
+            torch.testing.assert_close(
+                gram, torch.eye(p.shape[-1]).expand_as(gram), atol=1e-4,
+                rtol=0)
+        assert got["refresh_launches"] == CQR_PASSES * 2 * n_leaves
 
 
 def test_zz_forward_after_the_other_card_tests(cuda_device):
