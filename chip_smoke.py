@@ -225,6 +225,52 @@ Phases, one JSON line each:
   KV cache's bytes.
 * ``profile_decode``: the same profile over 8 decode steps.
 
+Then the MoE, recurrent and frontend families (``lm_family_phases``), one
+model on the card at a time, each freed before the next; random bf16
+weights from torch.Generator seed 0 at the reference's init scales:
+
+* ``kernels_hd256``: row 9 at head dim 256 against its plain version
+  within the bf16 limits: recurrentgemma-2b's prefill (q 2 x 10 x 4096 x
+  256, k/v 2 x 1 heads, window 2048; its library yardstick is SDPA with
+  GQA and the band as an explicit mask, SDPA having no window argument)
+  and paligemma-3b's (q 4 x 8 x 2048 x 256, k/v 4 x 1 heads, causal; SDPA
+  causal, GQA); and the f32 kernel at (1, 10 / 1, 1024, 256), off the main
+  path; with ptxas's registers and spills and the HGMMA count of the hd-256
+  instantiations.
+* ``lm_hybrid``: recurrentgemma-2b (arXiv:2402.19427) at full width and
+  depth (26 layers, d_model 2560, 10 / 1 heads of 256, window 2048, d_ff
+  7680, vocabulary 256,000), a prefill of 2 x 4096 tokens (the window
+  masks).
+* ``lm_moe``: phi3.5-moe (hf:microsoft/Phi-3.5-MoE-instruct) at full width
+  (16 experts top-2, d_expert 6400) cut from 32 layers to 4, 4 x 2048
+  tokens; then kimi-k2-1t-a32b at full width (d_model 7168, 384 experts
+  top-8 + 1 shared, vocabulary 163,840) cut from 61 layers to 1, 1 x 2048:
+  each prints the share of (token, choice) pairs dropped at capacity
+  factor 1.25.
+* ``lm_xlstm``: xlstm-1.3b (arXiv:2405.04517) at full width and depth (48
+  layers, d_model 2048, mLSTM chunk 256), 2 x 1024 tokens, and the device
+  kernels one sLSTM layer launches a token.
+* ``lm_frontends``: paligemma-3b (arXiv:2407.07726) at full width and depth
+  (18 layers, 8 / 1 heads of 256, 256 patch positions spliced from
+  ``patch_embeds``), 4 x 2048; then musicgen-medium (arXiv:2306.05284) at
+  full width and depth (48 layers, 24 heads of 64, 4 codebooks, logits
+  (b, s, 4, 2048)), 4 x 2048.
+
+  Each of these prefills prints its wall, tokens/s, peak memory and share
+  of the bf16 peak (``launch/analytic_cost``'s FLOPs over the wall and 989
+  TFLOP/s), and must launch the flash kernel exactly once an attention
+  layer, all on the tensor-core route, each launch within the bf16 limits
+  of the plain version on that layer's own q, k, v. Then teacher-forced
+  ``decode_step`` over the first 64 tokens (a pure token stream; MoE at
+  capacity factor 64, so that nothing drops, and each step on the experts
+  prefill chose, the flipped near-ties counted; xlstm-1.3b, whose random
+  weights carry a perturbation ~94x, on the same weights in f32, its bf16
+  reading printed) within DECODE_TOL of ``forward`` over them, and 8
+  greedy steps: ms a step, finite logits, tokens in range.
+* ``serve_decode``: ``repro_torch.serve_decode.main(["--device", "cuda"])``
+  (reduced qwen2-7b and recurrentgemma-2b, streamed prompt, greedy), which
+  must end in ``OK``.
+
 Then gossip across processes and the PSA-compressed trainer, after the LM
 phases have freed their tensors (``spmd_train_phases``). Every rank is a
 process started by ``launch/mesh.spawn_ranks``; the ranks share the one
@@ -270,8 +316,9 @@ phase.
   kernel rows ``gram_qr_psa_refresh_*`` time row 4 at the refresh's shapes
   and ``gram_qr_sdot_spmd`` at sdot_spmd's (1, 1024, 7).
 * ``train_example``: the example twin (``train_lm_psa_compress
-  --full-100m``: d_model 768, 12 layers, vocabulary 32,000, f32) for its
-  300 steps on 2 pod ranks, checkpoints under ``build/chip_smoke_train/``
+  --full-100m``: d_model 768, 12 layers, vocabulary 32,000, f32) for 150
+  steps (cut from 300, TRAIN_EXAMPLE_STEPS) on 2 pod ranks,
+  checkpoints under ``build/chip_smoke_train/``
   (removed after): the last loss below the first, ms a step, tokens/s.
 
 Each phase's line carries ``at_s``, the script's seconds when it ended.
@@ -471,6 +518,70 @@ def attn_judge(dtype: torch.dtype):
     return judge
 
 
+def attn_plain(q, k, v, **kw):
+    """ops.flash_attention's CPU path, on the card."""
+    from repro_torch.kernels import ref
+    skv = k.shape[2]
+    return ref.flash_attention_plain(q, k, v, q_offset=skv - q.shape[2],
+                                     kv_valid=skv, **kw)
+
+
+def kernel_uncounted(drop=0):
+    """The kernel through its launcher, not counted, with its last ``drop``
+    keys masked: drop = 64 (one kv tile) is a faulty control, a fault
+    confined to the last 64 rows of each sequence."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    def attn(q, k, v, *, causal, window):
+        skv = k.shape[2]
+        return flash_attention_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window, scale=q.shape[-1] ** -0.5,
+            q_offset=skv - q.shape[2], kv_valid=skv - drop)
+    return attn
+
+
+def layer_check(attn, stats):
+    """An attention for ``with_patched`` that runs ``attn`` and the plain
+    version on the same q, k, v of every layer, appends attn_stats to
+    ``stats`` and passes the plain output on, so every layer sees the
+    activations of a forward through the plain version."""
+    def run(q, k, v, *, causal, window):
+        want = attn_plain(q, k, v, causal=causal, window=window)
+        stats.append(attn_stats(attn(q, k, v, causal=causal, window=window),
+                                want))
+        return want
+    return run
+
+
+def with_patched(module, name: str, value, fn):
+    """``fn()`` with ``module.name`` set to ``value``: for functions its
+    callers look up on every call (ops.flash_attention in
+    models/attention.py, route in models/moe.py)."""
+    kept = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        return fn()
+    finally:
+        setattr(module, name, kept)
+
+
+def compare(got, want):
+    """(relative RMS difference, max abs difference, top-1 agreement) of
+    two logits tensors, in f32, one sequence at a time."""
+    sq_diff = sq_want = max_abs = 0.0
+    agree = picks = 0
+    for i in range(got.shape[0]):
+        a, b = got[i].float(), want[i].float()
+        sq_diff += float((a - b).square().sum())
+        sq_want += float(b.square().sum())
+        max_abs = max(max_abs, float((a - b).abs().max()))
+        same = a.argmax(-1) == b.argmax(-1)
+        agree += int(same.sum())
+        picks += same.numel()
+    return (sq_diff / sq_want) ** 0.5, max_abs, agree / picks
+
+
 def time_ms(fn, reps: int = 20, batches: int = 5, warmup: int = 3) -> float:
     """Device time of one call: CUDA events around a batch of ``reps``
     back-to-back calls, divided by ``reps``, median of ``batches`` batches.
@@ -625,6 +736,40 @@ def profile_phase(run, phase: str = "profile",
     return out
 
 
+
+
+def make_record(rows: dict):
+    """``record(...)``: time and check one kernel row into ``rows``."""
+    def record(name, source, replaces, kernel, plain, library, nbytes, flops,
+               tol, note, flop_rate=F32_FLOP_PER_S, judge=None, host=False):
+        """One kernel row; ``host`` adds the host's time to issue a call
+        (the kernel's and the library call's) and a check that a second
+        launch repeats the bits."""
+        got = kernel().float()
+        again = kernel().float() if host else got
+        torch.cuda.synchronize()
+        want = plain().float()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(torch.equal(got, again), f"{name}: two launches differ")
+        errs = (judge or max_rel_judge(tol))(name, got, want)
+        del got, again, want
+        b_ms, b_by = bound(nbytes, flops, flop_rate)
+        rows[name] = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": errs.pop("max_abs_err"),
+            "ms": time_ms(kernel), "plain_ms": time_ms(plain),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None if library is None else time_ms(library),
+            **errs, "tolerance": tol, "tolerance_reason": note,
+        }
+        if host:
+            rows[name].update(
+                same_bits_twice=True, tma_launches=0,
+                host_us=host_us(kernel),
+                library_host_us=None if library is None else host_us(library))
+    return record
 
 
 def wall_ms(fn, calls: int = 5) -> float:
@@ -920,6 +1065,441 @@ def serving_phases(dev, rows: dict, work: Path) -> None:
     shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the rest of the LM side: MoE, recurrent and frontend families
+# ---------------------------------------------------------------------------
+LM_TF_TOKENS = 64             # teacher-forced decode against prefill
+LM_GEN_STEPS = 8              # greedy steps timed after it
+# test_models_smoke.py's MoE capacity for decode-vs-prefill: nothing drops
+# in the 64-token forward, so routing cannot depend on the co-batched tokens
+TF_CAPACITY_FACTOR = 64.0
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:86"
+ATTN_BF16_NOTE = ("bf16: each side rounds an f32 result once; one bf16 ulp "
+                  "(2^-7) of the largest |out| in the element's own row, and "
+                  "relative RMS within half an ulp (2^-8)")
+
+
+def hd256_rows(dev, rows: dict, record) -> None:
+    """kernels_hd256: row 9 at head dim 256, bf16 at recurrentgemma-2b's
+    and paligemma-3b's prefills, f32 off the main path, with ptxas's report
+    and the HGMMA count of the hd-256 instantiations."""
+    from repro_torch.kernels import _build, ops
+    gen = torch.Generator(device=dev).manual_seed(24)
+
+    def inputs(dtype, b, hq, hkv, s):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((b, hq, s, 256), (b, hkv, s, 256),
+                              (b, hkv, s, 256))]
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = {}
+    # recurrentgemma-2b: 10 / 1 heads, 2 x 4096 tokens, window 2048. SDPA
+    # has no window argument: its yardstick takes the band as a mask
+    q, k, v = inputs(torch.bfloat16, 2, 10, 1, 4096)
+    pos = torch.arange(4096, device=dev)
+    band = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - 2048)
+    pairs = int(band.sum())
+    record("flash_attention_hd256_recurrentgemma", FLASH_SOURCE,
+           FLASH_REPLACES,
+           lambda: ops.flash_attention(q, k, v, causal=True, window=2048),
+           lambda: attn_plain(q, k, v, causal=True, window=2048),
+           lambda: sdpa(q, k, v, attn_mask=band, enable_gqa=True),
+           2 * (2 * q.numel() + k.numel() + v.numel()),
+           4.0 * 2 * 10 * 256 * pairs, ATTN_BF16_TOL, ATTN_BF16_NOTE,
+           flop_rate=BF16_TC_FLOP_PER_S, judge=attn_judge(torch.bfloat16))
+    rows["flash_attention_hd256_recurrentgemma"].update(
+        kernel="flash_attention_wgmma_kernel<256>", visible_pairs=pairs,
+        library="scaled_dot_product_attention, GQA, explicit band mask")
+    shapes["recurrentgemma"] = [list(q.shape), list(k.shape), 2048]
+    del q, k, v, band
+    # paligemma-3b: 8 / 1 heads, 4 x 2048 tokens, causal
+    q, k, v = inputs(torch.bfloat16, 4, 8, 1, 2048)
+    record("flash_attention_hd256_paligemma", FLASH_SOURCE, FLASH_REPLACES,
+           lambda: ops.flash_attention(q, k, v, causal=True),
+           lambda: attn_plain(q, k, v, causal=True),
+           lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+           2 * (2 * q.numel() + k.numel() + v.numel()),
+           4.0 * 4 * 8 * 256 * 2048 * 2049 / 2, ATTN_BF16_TOL,
+           ATTN_BF16_NOTE, flop_rate=BF16_TC_FLOP_PER_S,
+           judge=attn_judge(torch.bfloat16))
+    rows["flash_attention_hd256_paligemma"].update(
+        kernel="flash_attention_wgmma_kernel<256>",
+        library="scaled_dot_product_attention, causal, GQA")
+    shapes["paligemma"] = [list(q.shape), list(k.shape), None]
+    del q, k, v
+    # the CUDA-core kernel at hd 256 (f32: off the bf16 main path)
+    q, k, v = inputs(torch.float32, 1, 10, 1, 1024)
+    record("flash_attention_hd256_f32", FLASH_SOURCE, FLASH_REPLACES,
+           lambda: ops.flash_attention(q, k, v, causal=True),
+           lambda: attn_plain(q, k, v, causal=True),
+           lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True),
+           4 * (2 * q.numel() + k.numel() + v.numel()),
+           4.0 * 10 * 256 * 1024 * 1025 / 2, ATTN_F32_TOL,
+           "f32 sums in another order; relative to max |out|",
+           judge=attn_judge(torch.float32))
+    rows["flash_attention_hd256_f32"].update(
+        kernel="flash_attention_simt_kernel<256>", main_path=False,
+        library="scaled_dot_product_attention, f32, causal, GQA",
+        note="the f32 route: not on the bf16 main path, so 0 launches there")
+    shapes["f32"] = [list(q.shape), list(k.shape), None]
+    del q, k, v
+    lib = _build.build_all()["flash_attention"]
+    report = lib.with_suffix(".ptxas.txt").read_text()
+    ptxas = {**ptxas_entries(report, "flash_attention_wgmma_kernelILi256E"),
+             **ptxas_entries(report, "flash_attention_simt_kernelILi256E")}
+    hgmma = sass_counts(Path(_build.nvcc_path()).with_name("cuobjdump"), lib,
+                        "flash_attention_wgmma_kernelILi256E", "HGMMA")
+    emit({"phase": "kernels_hd256", "shapes": shapes, "ptxas": ptxas,
+          "hgmma": hgmma,
+          "serialized": [ln.split(":", 1)[-1].strip()
+                         for ln in report.splitlines()
+                         if "C75" in ln and "ILi256E" in ln],
+          "kernels": [rows[name] for name in (
+              "flash_attention_hd256_recurrentgemma",
+              "flash_attention_hd256_paligemma",
+              "flash_attention_hd256_f32")]})
+    check(len(ptxas) == 2, f"kernels_hd256: ptxas report {list(ptxas)}")
+    for name, n in hgmma.items():
+        check(name == "not measured" or n > 0,
+              f"kernels_hd256: no HGMMA in {name}")
+
+
+def slstm_launches_a_token(params, cfg, dev) -> object:
+    """Device kernels one sLSTM layer launches a token: a profile of the
+    layer over 32 tokens less one over 16, over 16 (the input and FFN
+    GEMMs, launched once a call, cancel)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.recurrent import apply_slstm
+    from repro_torch.models.transformer import tree_map
+    p = tree_map(lambda leaf: leaf[0], params["groups"]["blk1_slstm"]["mixer"])
+    counts = {}
+    for s in (16, 32):
+        x = torch.randn((1, s, cfg.d_model), device=dev).to(cfg.torch_dtype)
+        apply_slstm(p, x, cfg)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            apply_slstm(p, x, cfg)
+            torch.cuda.synchronize()
+        counts[s] = sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and getattr(e, "self_device_time_total", 0.0) > 0)
+    if not counts[16]:
+        return "not measured"
+    return (counts[32] - counts[16]) / 16
+
+
+def recording_route(recorded: list):
+    """moe.route that appends each call's expert choices (t, k) to
+    ``recorded``: one entry an MoE layer, in the order the layers run."""
+    from repro_torch.models import moe
+
+    def route(xf, router, m, cap):
+        gates, eidx = torch.topk(moe.router_probs(xf, router), m.top_k, -1)
+        recorded.append(eidx)
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        return (gates, *moe.assign_slots(eidx, m.n_experts, cap))
+    return route
+
+
+def pinned_route(recorded: list, token_rows, flips: list):
+    """moe.route for one decode step that takes, at the i-th MoE layer of
+    the step, the experts ``recorded[i][token_rows]`` chose in prefill,
+    with gates from this step's own router softmax at them; appends to
+    ``flips`` how many of the step's tokens' own top-k sets differ from
+    them, and the widest own-minus-pinned probability gap among those."""
+    from repro_torch.models import moe
+    calls = iter(range(len(recorded)))
+
+    def route(xf, router, m, cap):
+        probs = moe.router_probs(xf, router)
+        eidx = recorded[next(calls)][token_rows]
+        own, own_idx = torch.topk(probs, m.top_k, -1)
+        differ = (own_idx.sort(-1).values != eidx.sort(-1).values).any(-1)
+        gap = own.sum(-1) - probs.gather(-1, eidx).sum(-1)
+        flips.append((differ.sum(), torch.where(differ, gap, 0.0).max()))
+        gates = probs.gather(-1, eidx)
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+        return (gates, *moe.assign_slots(eidx, m.n_experts, cap))
+    return route
+
+
+def teacher_forced(params, cfg, prompt, dev) -> dict:
+    """decode_step over ``prompt`` (b, LM_TF_TOKENS), one token a step,
+    against forward over it: ``vs_prefill`` (relative RMS, max abs, top-1
+    agreement), the wall, the state's bytes, and the state and greedy next
+    token to go on from. MoE steps take prefill's experts
+    (``pinned_route``); the routes that flipped are counted."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_decode_state,
+                                                tree_leaves)
+    lm_b = prompt.shape[0]
+    recorded, flips = [], []
+    prefilled = with_patched(moe, "route", recording_route(recorded),
+                             lambda: forward(params, {"tokens": prompt}, cfg))
+    state = init_decode_state(cfg, lm_b, LM_TF_TOKENS + LM_GEN_STEPS,
+                              device=dev)
+    out = {"state_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(state["caches"])),
+           "teacher_forced": LM_TF_TOKENS}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for t in range(LM_TF_TOKENS):
+        # prefill's token rows of this step: (b, s) flattened b-major
+        step_route = pinned_route(recorded, torch.arange(
+            lm_b, device=dev) * LM_TF_TOKENS + t, flips)
+        lg, state = with_patched(moe, "route", step_route, lambda: decode_step(
+            params, state, prompt[:, t:t + 1], cfg))
+        outs.append(lg)
+    decoded = torch.cat(outs, dim=1)
+    torch.cuda.synchronize()
+    out["teacher_forced_wall_s"] = time.perf_counter() - t0
+    rel_rms, max_abs, top1 = compare(decoded, prefilled)
+    out["vs_prefill"] = {"rel_rms": rel_rms, "max_abs": max_abs,
+                         "top1_agreement": top1, "tolerance": DECODE_TOL,
+                         "dtype": cfg.dtype}
+    if flips:
+        out["moe_teacher_forced_routes"] = {
+            "pinned_to_prefill": len(flips) * lm_b,
+            "flipped": int(sum(n for n, _ in flips)),
+            "widest_flip_gap": max(float(g) for _, g in flips)}
+    out["state"] = state
+    out["next"] = decoded[:, -1:].argmax(-1).to(torch.int32)
+    return out
+
+
+def chaos_gain(params, cfg, prompt) -> float:
+    """How far this model carries a perturbation: the logits' relative RMS
+    change over ``prompt`` when every embedding entry moves by 1e-3 of
+    itself (a fixed normal draw), over 1e-3."""
+    from repro_torch.models.transformer import embed_inputs, forward
+    x = embed_inputs(params, {"tokens": prompt}, cfg)
+    gen = torch.Generator(device=x.device).manual_seed(3)
+    noise = torch.randn(x.shape, generator=gen, device=x.device)
+    a = forward(params, {"inputs_embeds": x}, cfg)
+    b = forward(params, {"inputs_embeds": x * (1 + 1e-3 * noise)}, cfg)
+    return compare(b, a)[0] / 1e-3
+
+
+def lm_serve_phase(phase: str, cfg, dev, rows: dict, lm_b: int, lm_s: int,
+                   flash_row: str = "flash_attention", extra=None,
+                   tf_f32: bool = False) -> dict:
+    """One architecture on the card in bf16 from random weights
+    (torch.Generator seed 0): a timed prefill of make_lm_batch(seed 0),
+    lm_b x lm_s tokens (wall, tokens/s, peak memory, the share of the bf16
+    peak from analytic_cost's FLOPs); one flash launch an attention layer,
+    all on the tensor-core route, each layer's kernel output within the
+    bf16 limits of the plain version on its own q, k, v; MoE: the share
+    of (token, choice) pairs dropped at the config's capacity.
+    Teacher-forced decode_step over the first LM_TF_TOKENS tokens (a pure
+    token stream) within DECODE_TOL of forward over them, then
+    LM_GEN_STEPS greedy steps: ms a step, finite logits, tokens in range.
+    MoE: the reference's decode-vs-prefill test removes, not tolerates,
+    a legitimate divergence of routing, capacity drops (here
+    TF_CAPACITY_FACTOR, as there). bf16 brings another: top-k near-ties,
+    where a token's expert set flips between prefill and decode on one
+    rounding of its hidden state. So each decode step takes the experts
+    prefill chose for its tokens (``pinned_route``; gates from the step's
+    own router), and the line counts the routes that flipped and their
+    widest probability gap. ``tf_f32``: a model whose random weights
+    amplify a perturbation by ~100 (xlstm-1.3b: ``chaos_gain``) turns
+    bf16's roundings, which differ between the two paths, into
+    differences past DECODE_TOL; its check runs on the same weights in
+    f32 (the bf16 reading is printed beside it as ``vs_prefill_bf16``).
+    ``extra(params)`` adds readings to the line. Frees the model before
+    it returns the line (already emitted)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.launch.analytic_cost import analytic_cost
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_params, tree_leaves,
+                                                tree_map)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(leaf.numel() for leaf in leaves)
+    param_bytes = sum(leaf.numel() * leaf.element_size() for leaf in leaves)
+    del leaves
+    check(n_params == cfg.param_count(), f"{phase}: {n_params} params, "
+          f"param_count() says {cfg.param_count()}")
+    batch = make_lm_batch(cfg, 0, 0, lm_b, lm_s, device=dev)
+    batch.pop("labels")
+    kinds = cfg.pattern_for_layers()
+    n_attn = cfg.n_groups * sum(kind in ("attn", "swa") for kind in kinds)
+    vocab_shape = ([cfg.n_codebooks, cfg.vocab_size]
+                   if cfg.frontend == "audio_codec" else [cfg.vocab_size])
+    line = {"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "heads": [cfg.n_heads, cfg.n_kv_heads],
+            "head_dim": cfg.hd, "pattern": list(kinds),
+            "attention_layers": n_attn, "params": n_params,
+            "param_bytes": param_bytes, "setup_s": setup_s,
+            "allocated_before_bytes": held_before, "batch": lm_b,
+            "seq": lm_s}
+    with torch.inference_mode():
+        dropped = []
+        route = moe.route
+
+        def counted_route(xf, router, m, cap):
+            gates, keep, slot = route(xf, router, m, cap)
+            dropped.append((~keep).sum())
+            return gates, keep, slot
+
+        # the warm-up forward, counting its routing's drops
+        with_patched(moe, "route", counted_route,
+                     lambda: forward(params, batch, cfg))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits = forward(params, batch, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        flash = ops.LAUNCHES["flash_attention"]
+        routes = dict(ROUTE_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        finite = bool(torch.isfinite(logits).all())
+        shape = list(logits.shape)
+        del logits
+        if flash_row in rows and flash:
+            rows[flash_row]["launches"] += flash
+            rows[flash_row].setdefault("launches_by_phase", {})[
+                f"{phase}:{cfg.name}"] = flash
+        stats = []
+        if n_attn:
+            with_patched(ops, "flash_attention",
+                         layer_check(kernel_uncounted(), stats),
+                         lambda: forward(params, batch, cfg))
+        flops = analytic_cost(cfg, ShapeConfig(phase, lm_s, lm_b,
+                                               "prefill"))["flops"]
+        line.update(
+            wall_s=wall, prefill_tokens_per_s=lm_b * lm_s / wall,
+            peak_bytes=peak, logits_shape=shape,
+            flash_attention_launches=flash,
+            flash_attention_route_launches=routes,
+            analytic_flops=flops,
+            bf16_peak_share=flops / wall / BF16_TC_FLOP_PER_S,
+            attention_per_layer_vs_plain={
+                "layers": len(stats),
+                "max_row_rel_err": max((st["row_rel_err"] for st in stats),
+                                       default=None),
+                "max_rel_rms": max((st["rel_rms"] for st in stats),
+                                   default=None),
+                "outside": [i for i, st in enumerate(stats)
+                            if not attn_within(st)]})
+        if cfg.moe is not None:
+            pairs = len(dropped) * lm_b * lm_s * cfg.moe.top_k
+            line["moe_dropped_share"] = float(sum(dropped)) / pairs
+            line["moe_capacity_factor"] = cfg.moe.capacity_factor
+
+        # teacher-forced decode, then greedy
+        tf_cfg = cfg if cfg.moe is None else dataclasses.replace(
+            cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=TF_CAPACITY_FACTOR))
+        prompt = batch["tokens"][:, :LM_TF_TOKENS]
+        tf = teacher_forced(params, tf_cfg, prompt, dev)
+        state, nxt = tf.pop("state"), tf.pop("next")
+        if tf_f32:
+            # the same weights in f32: decode against prefill without
+            # bf16's roundings, which this model amplifies (chaos_gain)
+            line["vs_prefill_bf16"] = tf.pop("vs_prefill")
+            f32 = tree_map(lambda leaf: leaf.float(), params)
+            cfg32 = dataclasses.replace(tf_cfg, dtype="float32")
+            tf32 = teacher_forced(f32, cfg32, prompt, dev)
+            tf["vs_prefill"] = tf32["vs_prefill"]
+            line["chaos_gain"] = chaos_gain(f32, cfg32, prompt)
+            del f32, tf32
+        line.update(tf)
+        dec_rms = tf["vs_prefill"]["rel_rms"]
+        generated = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(LM_GEN_STEPS):
+            lg, state = decode_step(params, state, nxt, tf_cfg)
+            nxt = lg[:, -1:].argmax(-1).to(torch.int32)
+            generated.append(nxt)
+        torch.cuda.synchronize()
+        gen_wall = time.perf_counter() - t0
+        generated = torch.cat(generated, dim=1)
+        gen_ok = (bool(torch.isfinite(lg).all())
+                  and int(generated.min()) >= 0
+                  and int(generated.max()) < cfg.vocab_size)
+        line.update(
+            generated=LM_GEN_STEPS,
+            ms_per_step=gen_wall / LM_GEN_STEPS * 1e3,
+            decode_tokens_per_s=lm_b * LM_GEN_STEPS / gen_wall,
+            first_generated=generated[0].reshape(-1)[:8].tolist())
+        if extra is not None:
+            line.update(extra(params))
+    del params, batch, prompt, state, lg, nxt, generated
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(line)
+    check(finite, f"{phase} {cfg.name}: non-finite logits")
+    check(shape == [lm_b, lm_s] + vocab_shape,
+          f"{phase} {cfg.name}: logits {shape}")
+    check(flash == n_attn, f"{phase} {cfg.name}: {flash} flash-attention "
+          f"launches, expected {n_attn}")
+    check(routes == {"tc_bf16": n_attn, "simt_f32": 0},
+          f"{phase} {cfg.name}: flash-attention routes {routes}, expected "
+          f"all {n_attn} on the tensor-core kernel")
+    check(len(stats) == n_attn and not line[
+        "attention_per_layer_vs_plain"]["outside"],
+          f"{phase} {cfg.name}: the kernel against plain attention on the "
+          f"model's own activations: {line['attention_per_layer_vs_plain']}")
+    check(dec_rms <= DECODE_TOL, f"{phase} {cfg.name}: teacher-forced "
+          f"logits {dec_rms} (relative RMS) from prefill > {DECODE_TOL}")
+    check(gen_ok, f"{phase} {cfg.name}: non-finite logits or a token out "
+          "of range")
+    return line
+
+
+def lm_family_phases(dev, rows: dict, record) -> None:
+    """kernels_hd256, lm_hybrid, lm_moe, lm_xlstm, lm_frontends and
+    serve_decode: the MoE, recurrent and frontend families at full width,
+    one model on the card at a time."""
+    import contextlib
+    import io
+    from repro_torch import serve_decode
+    from repro_torch.configs import get_arch
+    hd256_rows(dev, rows, record)
+    lm_serve_phase("lm_hybrid", get_arch("recurrentgemma-2b"), dev, rows,
+                   2, 4096, flash_row="flash_attention_hd256_recurrentgemma")
+    lm_serve_phase("lm_moe", dataclasses.replace(
+        get_arch("phi3.5-moe-42b-a6.6b"), n_layers=4), dev, rows, 4, 2048)
+    lm_serve_phase("lm_moe", dataclasses.replace(
+        get_arch("kimi-k2-1t-a32b"), n_layers=1), dev, rows, 1, 2048)
+    xlstm = get_arch("xlstm-1.3b")
+    lm_serve_phase("lm_xlstm", xlstm, dev, rows, 2, 1024, tf_f32=True,
+                   extra=lambda params: {
+                       "slstm_launches_a_token": slstm_launches_a_token(
+                           params, xlstm, dev)})
+    lm_serve_phase("lm_frontends", get_arch("paligemma-3b"), dev, rows, 4,
+                   2048, flash_row="flash_attention_hd256_paligemma")
+    lm_serve_phase("lm_frontends", get_arch("musicgen-medium"), dev, rows, 4,
+                   2048)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        gens = serve_decode.main(["--device", "cuda"])
+    text = out.getvalue()
+    emit({"phase": "serve_decode", "seconds": time.perf_counter() - t0,
+          "output": text.splitlines(),
+          "generated_shapes": {aid: list(g.shape) for aid, g in gens.items()}})
+    check(text.rstrip().endswith("OK"), "serve_decode: does not end in OK")
+
+
 # -- gossip across processes (spawned ranks run these by name) -------------
 SPMD_NODES = 20               # sdot_dense's network, one process a node
 SPMD_SAMPLES = 50_000         # sdot_dense's data, 2,500 samples a rank
@@ -950,6 +1530,9 @@ PLAIN_AFTER_TOL = 5e-2       # step 1's reduced gradients and errors
 PROBES = ("embed", "final_norm", "groups/blk0_attn/mixer/bq",
           "groups/blk0_attn/mixer/wq", "groups/blk0_attn/ffn/w_down",
           "lm_head")
+# the example twin's steps, cut from its 300 to 150 (~0.43 s a step): the
+# script read 991 s of its 1200 with 300 (PR 24's LM phases added ~60 s)
+TRAIN_EXAMPLE_STEPS = 150
 ORTHO_TOL = 1e-4              # refreshed projectors: |P^T P - I|_max
 
 
@@ -1526,22 +2109,25 @@ def spmd_train_phases(dev, rows: dict, record, gram_qr_work, q_init,
           == sum(rf["gram_qr"] for o in pods for rf in o["refreshes"]),
           f"train_psa: Gram launches by shape {by_shape}")
 
-    # -- train_example: the example twin, --full-100m, 300 steps -----------
+    # -- train_example: the example twin, --full-100m ------------------------
     ex_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
     shutil.rmtree(ex_dir, ignore_errors=True)
     t0 = time.perf_counter()
-    ex = train_lm_psa_compress.main(["--full-100m", "--steps", "300",
+    steps = str(TRAIN_EXAMPLE_STEPS)
+    ex = train_lm_psa_compress.main(["--full-100m", "--steps", steps,
                                      "--ckpt-dir", str(ex_dir),
-                                     "--ckpt-every", "300",
+                                     "--ckpt-every", steps,
                                      "--device", "cuda"])
     ex_total = time.perf_counter() - t0
     shutil.rmtree(ex_dir, ignore_errors=True)
     emit({"phase": "train_example", "steps": ex["steps_run"],
           "first_loss": ex["first_loss"], "last_loss": ex["last_loss"],
-          "loop_s": ex["wall_s"], "ms_per_step": ex["wall_s"] / 300 * 1e3,
-          "tokens_per_s": 300 * 8 * 512 / ex["wall_s"],
+          "loop_s": ex["wall_s"],
+          "ms_per_step": ex["wall_s"] / TRAIN_EXAMPLE_STEPS * 1e3,
+          "tokens_per_s": TRAIN_EXAMPLE_STEPS * 8 * 512 / ex["wall_s"],
           "spawn_and_run_s": ex_total})
-    check(ex["steps_run"] == 300 and ex["last_loss"] < ex["first_loss"],
+    check(ex["steps_run"] == TRAIN_EXAMPLE_STEPS
+          and ex["last_loss"] < ex["first_loss"],
           f"train_example: {ex}")
 
 
@@ -1577,7 +2163,6 @@ def main() -> None:
                                      ops, ref, slab_ops)
     from repro_torch.kernels import ell_spmm as ell_module
     from repro_torch.kernels.flash_attention import (ROUTE_LAUNCHES,
-                                                     flash_attention_cuda,
                                                      tc_smem_bytes)
     from repro_torch.models.transformer import (decode_step, forward,
                                                 init_decode_state,
@@ -1636,36 +2221,7 @@ def main() -> None:
     q_stack = torch.linalg.qr(torch.randn((n_nodes, d, r), generator=gen,
                                           device=dev))[0].contiguous()
     rows = {}
-
-    def record(name, source, replaces, kernel, plain, library, nbytes, flops,
-               tol, note, flop_rate=F32_FLOP_PER_S, judge=None, host=False):
-        """One kernel row; ``host`` adds the host's time to issue a call
-        (the kernel's and the library call's) and a check that a second
-        launch repeats the bits."""
-        got = kernel().float()
-        again = kernel().float() if host else got
-        torch.cuda.synchronize()
-        want = plain().float()
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-        check(torch.equal(got, again), f"{name}: two launches differ")
-        errs = (judge or max_rel_judge(tol))(name, got, want)
-        del got, again, want
-        b_ms, b_by = bound(nbytes, flops, flop_rate)
-        rows[name] = {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": 0,
-            "max_abs_err": errs.pop("max_abs_err"),
-            "ms": time_ms(kernel), "plain_ms": time_ms(plain),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None if library is None else time_ms(library),
-            **errs, "tolerance": tol, "tolerance_reason": note,
-        }
-        if host:
-            rows[name].update(
-                same_bits_twice=True, tma_launches=0,
-                host_us=host_us(kernel),
-                library_host_us=None if library is None else host_us(library))
+    record = make_record(rows)
 
     def tma_only(where, launches, packed=False):
         """Every gram-apply and slab-apply launch since the last reset took
@@ -2008,12 +2564,6 @@ def main() -> None:
                 for shape in ((b, hq, sq, hd), (b, hkv, skv, hd),
                               (b, hkv, skv, hd))]
 
-    def attn_plain(q, k, v, **kw):
-        """ops.flash_attention's CPU path, on the card."""
-        skv = k.shape[2]
-        return ref.flash_attention_plain(q, k, v, q_offset=skv - q.shape[2],
-                                         kv_valid=skv, **kw)
-
     fq, fk, fv = attn_inputs(torch.bfloat16, fb, fhq, fhkv, fs, fs, fhd)
     bf16 = 2
     # bf16 runs on the tensor-core kernel, f32 on the CUDA-core kernel
@@ -2078,8 +2628,8 @@ def main() -> None:
     flash_report = flash_lib.with_suffix(".ptxas.txt").read_text()
     flash_ptxas = ptxas_entries(flash_report, "flash_attention_wgmma_kernel")
     for name, entry in flash_ptxas.items():
-        entry["dynamic_smem_bytes"] = tc_smem_bytes(64 if "ILi64E" in name
-                                                    else 128)
+        entry["dynamic_smem_bytes"] = tc_smem_bytes(
+            int(name.split("ILi", 1)[1].split("E", 1)[0]))
     flash_hgmma = sass_counts(Path(_build.nvcc_path()).with_name("cuobjdump"),
                               flash_lib, "flash_attention_wgmma_kernel",
                               "HGMMA")
@@ -3478,20 +4028,6 @@ def main() -> None:
     lm_b, lm_s = 4, 2048
     toks = make_lm_batch(cfg, 0, 0, lm_b, lm_s, device=dev)["tokens"]
 
-    def compare(got, want):
-        """(relative RMS difference, max abs difference, top-1 agreement),
-        in f32, one sequence at a time."""
-        sq_diff = sq_want = max_abs = 0.0
-        agree = 0
-        for i in range(got.shape[0]):
-            a, b = got[i].float(), want[i].float()
-            sq_diff += float((a - b).square().sum())
-            sq_want += float(b.square().sum())
-            max_abs = max(max_abs, float((a - b).abs().max()))
-            agree += int((a.argmax(-1) == b.argmax(-1)).sum())
-        return ((sq_diff / sq_want) ** 0.5, max_abs,
-                agree / (got.shape[0] * got.shape[1]))
-
     def attn_bf16_logits(q, k, v, *, causal, window):
         """Faulty control: the plain version with q k^T rounded to bf16
         before the f32 softmax, as a kernel that kept its logits in the
@@ -3508,38 +4044,9 @@ def main() -> None:
         probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), -1)
         return (probs @ v.float()).to(q.dtype)
 
-    def kernel_uncounted(drop=0):
-        """The kernel through its launcher, not counted, with its last
-        ``drop`` keys masked: drop = 64 (one kv tile) is a faulty control,
-        a fault confined to the last 64 rows of each sequence."""
-        def attn(q, k, v, *, causal, window):
-            skv = k.shape[2]
-            return flash_attention_cuda(
-                q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-                window=window, scale=q.shape[-1] ** -0.5,
-                q_offset=skv - q.shape[2], kv_valid=skv - drop)
-        return attn
-
-    def layer_check(attn, stats):
-        """An attention for forward_with that runs ``attn`` and the plain
-        version on the same q, k, v of every layer, appends attn_stats to
-        ``stats`` and passes the plain output on, so every layer sees the
-        activations of a forward through the plain version."""
-        def run(q, k, v, *, causal, window):
-            want = attn_plain(q, k, v, causal=causal, window=window)
-            stats.append(attn_stats(attn(q, k, v, causal=causal,
-                                         window=window), want))
-            return want
-        return run
-
     def forward_with(attn):
-        """The kernel forward with ``attn`` in place of ops.flash_attention
-        (which models/attention.py looks up on every call)."""
-        kernel_attn = ops.flash_attention
-        ops.flash_attention = attn
-        out = forward(params, {"tokens": toks}, cfg, use_kernel=True)
-        ops.flash_attention = kernel_attn
-        return out
+        return with_patched(ops, "flash_attention", attn, lambda: forward(
+            params, {"tokens": toks}, cfg, use_kernel=True))
 
     with torch.inference_mode():
         forward(params, {"tokens": toks}, cfg)     # warm: cuBLAS plans
@@ -3554,6 +4061,8 @@ def main() -> None:
         flash_routes = dict(ROUTE_LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         rows["flash_attention"]["launches"] += flash_launches
+        rows["flash_attention"]["launches_by_phase"] = {
+            f"lm_prefill:{cfg.name}": flash_launches}
         finite = bool(torch.isfinite(logits).all())
         t0 = time.perf_counter()
         plain_logits = forward(params, {"tokens": toks}, cfg,
@@ -3685,8 +4194,11 @@ def main() -> None:
     check(dec_rms <= DECODE_TOL, f"lm_decode: teacher-forced logits "
           f"{dec_rms} (relative RMS) from prefill > {DECODE_TOL}")
 
-    # -- gossip across processes and the PSA trainer ------------------------
+    # -- the MoE, recurrent and frontend families ----------------------------
     del params, state, prof, toks, prompt, generated, lg, nxt
+    lm_family_phases(dev, rows, record)
+
+    # -- gossip across processes and the PSA trainer ------------------------
     gc.collect()
     torch.cuda.empty_cache()
     spmd_train_phases(dev, rows, record, gram_qr_work, q_init, q_true)

@@ -1,8 +1,7 @@
 """Architecture registry: --arch <id> resolves here.
 
 The twin of ``repro/configs/__init__.py``, over the port's own copies of
-the config files. The registry is whole; ``models.transformer`` builds the
-dense-attention architectures of it so far.
+the config files. ``models.transformer`` builds every architecture of it.
 """
 from __future__ import annotations
 

@@ -81,10 +81,7 @@ class ModelConfig:
         return self.n_layers // len(self.block_pattern)
 
     def param_count(self) -> int:
-        """Exact parameter count (the real init on the meta device, cached).
-
-        Raises ``NotImplementedError`` for the block kinds and frontends the
-        port does not build yet (``models.transformer.init_params``)."""
+        """Exact parameter count (the real init on the meta device, cached)."""
         return _exact_param_count(self)
 
     def active_param_count(self) -> int:

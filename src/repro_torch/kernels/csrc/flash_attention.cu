@@ -29,6 +29,8 @@
 //    warpgroups of 64 rows each, each issuing wgmma.m64nNk16, so the block
 //    reads each K/V tile once for 128 rows. It walks kv tiles of 128 keys:
 //    S is then 64 f32 registers a thread, O 64 at hd 128, P's two parts 64.
+//    At hd 256 O takes 128 registers, so the tiles hold 64 keys (S 32, P's
+//    parts 32) and the ring two stages (TcTile).
 //  * Registers. 256 threads, so ptxas may give each 255 and the wgmmas run
 //    asynchronously. A producer warp on top would cost that: with 9 or 12
 //    warps one of the SM's four register files holds 3 warps, so ptxas caps
@@ -46,7 +48,7 @@
 //    measured no slower on the H100 at the prefill shape). q is loaded
 //    once.
 //    Shared memory at hd 128: q 32 KB + 3 x (32 + 32) KB = 224 KB, one
-//    block an SM.
+//    block an SM; at hd 256: q 64 KB + 2 x (32 + 32) KB = 192 KB.
 //  * Overlap comes from the two warpgroups: each waits for its own S before
 //    its softmax and for its P V before the next S, and the tensor cores run
 //    one warpgroup's products while the other computes. Making them take
@@ -74,8 +76,8 @@
 //  * Softmax in registers, in f32, in base 2: logits times scale * log2(e),
 //    ex2.approx; a row's max reduces over the 4 threads that share it in the
 //    accumulator layout; l stays per thread and meets once at the end.
-//  * Head dims 16, 32, 64 run at a padded 64, 80 and 128 at 128: the tensor
-//    maps' boxes are 64 columns (the 128-byte swizzle atom) and TMA
+//  * Head dims 16, 32, 64 run at a padded 64, 80 and 128 at 128, 256 at
+//    256: the tensor maps' boxes are 64 columns (the 128-byte swizzle atom) and TMA
 //    zero-fills the columns past hd, so S sums zeros there and P V computes
 //    columns that are not written.
 //  * Deterministic: one block owns each output tile, no atomics, no split
@@ -88,7 +90,8 @@
 // rows x hd/8 columns of the accumulator, with the q, K, V and p tiles in
 // shared memory (113 KB at hd = 128), q and K rows padded by one float so
 // the 8 keys a warp reads at once fall in 8 banks. Head dims are template
-// parameters: 16, 32, 64, 80 and 128.
+// parameters: 16, 32, 64, 80, 128 and 256 (there with 32-key tiles, 4 keys a
+// thread: 137 KB).
 #include <cuda.h>   // CUtensorMap; cuTensorMapEncodeTiled is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,25 +106,40 @@ namespace {
 // -- bf16: the tensor-core kernel ---------------------------------------------
 
 constexpr int kTcBlockM = 128;        // query rows a block
-constexpr int kTcBlockN = 128;        // keys a kv tile
-constexpr int kTcStages = 3;          // K/V ring depth
 constexpr int kTcWarps = 8;           // 2 warpgroups
 constexpr int kTcThreads = 32 * kTcWarps;
 constexpr int kRowBytes = 128;        // a swizzled row: 64 bf16
 
+// Keys a kv tile and the K/V ring's depth, by padded head dim: 128-key
+// tiles in 3 stages to hd 128; at hd 256, 64-key tiles in 2 stages, which
+// keeps a block's shared memory (q 64 KB + 2 x (32 + 32) KB) under the
+// SM's 227 KB and S at 32 registers a thread beside O's 128.
+template <int HDP>
+struct TcTile {
+  static constexpr int kBlockN = 128;
+  static constexpr int kStages = 3;
+};
+template <>
+struct TcTile<256> {
+  static constexpr int kBlockN = 64;
+  static constexpr int kStages = 2;
+};
+
 template <int HDP>
 struct TcLayout {
+  static constexpr int kBlockN = TcTile<HDP>::kBlockN;
+  static constexpr int kStages = TcTile<HDP>::kStages;
   static constexpr int kHalves = HDP / 64;             // 64-column boxes
   static constexpr int kQHalf = kTcBlockM * kRowBytes; // one box of q
-  static constexpr int kKVHalf = kTcBlockN * kRowBytes;
+  static constexpr int kKVHalf = kBlockN * kRowBytes;
   static constexpr int kQBytes = kHalves * kQHalf;
   static constexpr int kKVBytes = kHalves * kKVHalf;   // one K or V tile
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;              // + stage * kKVBytes
-  static constexpr int kV = kK + kTcStages * kKVBytes;
-  static constexpr int kBar = kV + kTcStages * kKVBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBar = kV + kStages * kKVBytes;
   // barriers: q, then full K, full V and empty of each stage
-  static constexpr int kBytes = kBar + 8 * (1 + 3 * kTcStages) + 1024;
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kStages) + 1024;
 };
 
 __device__ __forceinline__ float ex2(float x) {
@@ -140,7 +158,9 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// kv tiles [t_begin, t_end) hold every key some row of query tile q0 can see
+// kv tiles of BN keys [t_begin, t_end) hold every key some row of query tile
+// q0 can see
+template <int BN>
 __device__ __forceinline__ void tile_range(int q0, int sq, int q_offset,
                                            int kv_lim, int causal,
                                            int use_window, int window,
@@ -148,8 +168,8 @@ __device__ __forceinline__ void tile_range(int q0, int sq, int q_offset,
   int k_end = kv_lim;
   if (causal) k_end = min(k_end, min(q0 + kTcBlockM, sq) + q_offset);
   const int k_begin = use_window ? max(0, q0 + q_offset - window + 1) : 0;
-  *t_begin = k_begin / kTcBlockN;
-  *t_end = k_end > k_begin ? (k_end + kTcBlockN - 1) / kTcBlockN : *t_begin;
+  *t_begin = k_begin / BN;
+  *t_end = k_end > k_begin ? (k_end + BN - 1) / BN : *t_begin;
 }
 
 template <int HDP>
@@ -163,25 +183,27 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              float scale_log2) {
   using L = TcLayout<HDP>;
   using namespace hopper;
+  constexpr int BN = L::kBlockN;
+  constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq_tile = base + L::kQ;
   const uint32_t bar_q = base + L::kBar;
   auto full_k = [&](int s) { return bar_q + 8u * (1 + s); };
-  auto full_v = [&](int s) { return bar_q + 8u * (1 + kTcStages + s); };
-  auto empty = [&](int s) { return bar_q + 8u * (1 + 2 * kTcStages + s); };
+  auto full_v = [&](int s) { return bar_q + 8u * (1 + kStages + s); };
+  auto empty = [&](int s) { return bar_q + 8u * (1 + 2 * kStages + s); };
 
   const int bh = blockIdx.x;
   const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBlockM;
   int t_begin, t_end;
-  tile_range(q0, sq, q_offset, kv_lim, causal, use_window, window, &t_begin,
-             &t_end);
+  tile_range<BN>(q0, sq, q_offset, kv_lim, causal, use_window, window,
+                 &t_begin, &t_end);
   const int n_tiles = t_end - t_begin;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < kTcStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(full_k(s), 1);
       mbar_init(full_v(s), 1);
       mbar_init(empty(s), kTcWarps);
@@ -191,12 +213,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
 
   // Thread 0 feeds the ring, one tile ahead of its own warpgroup: at the
-  // start of tile it it loads tile it + 1 into the stage tile it - 2 used,
-  // which the other warpgroup has released unless it lags by a whole tile.
+  // start of tile it it loads tile it + 1 into the stage tile
+  // it + 1 - kStages used, which (3 stages) the other warpgroup has released
+  // unless it lags by a whole tile (2 stages: unless it lags at all).
   auto load_tile = [&](int it) {
-    const int s = it % kTcStages;
-    mbar_wait(empty(s), ((it / kTcStages) & 1) ^ 1);
-    const int k0 = (t_begin + it) * kTcBlockN;
+    const int s = it % kStages;
+    mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+    const int k0 = (t_begin + it) * BN;
     const uint32_t ks = base + L::kK + s * L::kKVBytes;
     const uint32_t vs = base + L::kV + s * L::kKVBytes;
     mbar_expect_tx(full_k(s), L::kKVBytes);
@@ -224,7 +247,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg_qpos_max = wg_qpos_min + 63;
   const uint32_t q_wg = sq_tile + 64 * cw * kRowBytes;
 
-  constexpr int kS = kTcBlockN / 2;   // S accumulator a thread
+  constexpr int kS = BN / 2;          // S accumulator a thread
   constexpr int kO = HDP / 2;         // O accumulator a thread
   float o[kO];
 #pragma unroll
@@ -236,9 +259,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int it = 0; it < n_tiles; ++it) {
     if (threadIdx.x == 0 && it + 1 < n_tiles) load_tile(it + 1);
     __syncwarp();
-    const int s = it % kTcStages;
-    const uint32_t phase = (it / kTcStages) & 1;
-    const int k0 = (t_begin + it) * kTcBlockN;
+    const int s = it % kStages;
+    const uint32_t phase = (it / kStages) & 1;
+    const int k0 = (t_begin + it) * BN;
     const uint32_t ks = base + L::kK + s * L::kKVBytes;
     const uint32_t vs = base + L::kV + s * L::kKVBytes;
 
@@ -249,7 +272,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < HDP / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;   // 32 bytes a k16 slice
-      wgmma_ss<kTcBlockN>(
+      wgmma_ss<BN>(
           sacc, sw128_desc(q_wg + (kk / 4) * L::kQHalf + off, 16),
           sw128_desc(ks + (kk / 4) * L::kKVHalf + off, 16), kk > 0);
     }
@@ -258,8 +281,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(sacc);
 
     // logits in the log2 domain; masked ones -inf, only on edge tiles
-    const bool edge = k0 + kTcBlockN > kv_lim ||
-                      (causal && k0 + kTcBlockN - 1 > wg_qpos_min) ||
+    const bool edge = k0 + BN > kv_lim ||
+                      (causal && k0 + BN - 1 > wg_qpos_min) ||
                       (use_window && k0 <= wg_qpos_max - window);
     if (edge) {
 #pragma unroll
@@ -310,9 +333,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
     // P = P_hi + P_lo, both bf16, in the register A fragments of each k16
     // slice of keys: p to ~16 bits, where one bf16 keeps 8
-    uint32_t p_hi[kTcBlockN / 16][4], p_lo[kTcBlockN / 16][4];
+    uint32_t p_hi[BN / 16][4], p_lo[BN / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kTcBlockN / 16; ++kk)
+    for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const float x0 = sacc[8 * kk + 2 * r], x1 = sacc[8 * kk + 2 * r + 1];
@@ -326,7 +349,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
     fence_regs(o);
 #pragma unroll
-    for (int kk = 0; kk < kTcBlockN / 16; ++kk) {
+    for (int kk = 0; kk < BN / 16; ++kk) {
       const uint64_t v_desc = sw128_desc(vs + kk * 16 * kRowBytes, L::kKVHalf);
       wgmma_rs_tb<HDP>(o, p_hi[kk], v_desc);
       wgmma_rs_tb<HDP>(o, p_lo[kk], v_desc);
@@ -380,10 +403,11 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       int window, float scale, cudaStream_t stream) {
   hopper::EncodeTiledFn encode = hopper::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
+  constexpr int kBlockN = TcTile<HDP>::kBlockN;
   CUtensorMap tq, tk, tv;
   if (!make_map(encode, &tq, q, hd, sq, batch * hq, kTcBlockM) ||
-      !make_map(encode, &tk, k, hd, skv, batch * hkv, kTcBlockN) ||
-      !make_map(encode, &tv, v, hd, skv, batch * hkv, kTcBlockN))
+      !make_map(encode, &tk, k, hd, skv, batch * hkv, kBlockN) ||
+      !make_map(encode, &tv, v, hd, skv, batch * hkv, kBlockN))
     return cudaErrorInvalidValue;
   auto kernel = flash_attention_wgmma_kernel<HDP>;
   const int smem = TcLayout<HDP>::kBytes;
@@ -401,17 +425,19 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
 // -- f32: the CUDA-core kernel --------------------------------------------------
 
 constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
 constexpr int kThreads = 128;
 constexpr int kLanesPerRow = 8;                    // tx = lane % 8
 constexpr int kRows = 4;                           // query rows a thread owns
-constexpr int kKeys = kBlockK / kLanesPerRow;      // keys a thread owns
 constexpr float kNeg = -1e30f;
 
 static_assert(kThreads / kLanesPerRow * kRows == kBlockQ, "row tiling");
 
+// Keys a tile: 64, but 32 at hd 256, where the accumulator alone takes 128
+// registers a thread and 64 keys would take 209 KB of shared memory
 template <int HD>
 struct Layout {
+  static constexpr int kBlockK = HD == 256 ? 32 : 64;
+  static constexpr int kKeys = kBlockK / kLanesPerRow;   // keys a thread owns
   static constexpr int kQK = HD + 1;               // padded row of q and K
   static constexpr int kP = kBlockK + 1;           // padded row of p
   static constexpr size_t kBytes =
@@ -442,6 +468,8 @@ flash_attention_simt_kernel(const float* __restrict__ q,
                             int skv, int q_offset, int kv_valid, int causal,
                             int use_window, int window, float scale) {
   using L = Layout<HD>;
+  constexpr int kBlockK = L::kBlockK;
+  constexpr int kKeys = L::kKeys;
   constexpr int kCols = HD / kLanesPerRow;         // accumulator columns
   static_assert(HD % kLanesPerRow == 0, "head dim tiling");
   extern __shared__ float smem[];
@@ -609,6 +637,7 @@ cudaError_t dispatch_simt(int hd, const void* q, const void* k,
     REPRO_FLASH_HD(64)
     REPRO_FLASH_HD(80)
     REPRO_FLASH_HD(128)
+    REPRO_FLASH_HD(256)
     default:
       return cudaErrorInvalidValue;
   }
@@ -616,7 +645,8 @@ cudaError_t dispatch_simt(int hd, const void* q, const void* k,
 }
 
 bool tc_head_dim(int hd) {
-  return hd == 16 || hd == 32 || hd == 64 || hd == 80 || hd == 128;
+  return hd == 16 || hd == 32 || hd == 64 || hd == 80 || hd == 128 ||
+         hd == 256;
 }
 
 }  // namespace
@@ -626,7 +656,7 @@ extern "C" {
 // q, out: (batch, hq, sq, hd); k, v: (batch, hkv, skv, hd); all contiguous,
 // all f32 (is_bf16 = 0: the CUDA-core kernel) or all bf16 (= 1: the
 // tensor-core kernel, whose inputs must be 16-byte aligned for TMA). hq % hkv
-// == 0, hd one of 16, 32, 64, 80, 128, batch * hq <= 65535. use_window = 0
+// == 0, hd one of 16, 32, 64, 80, 128, 256, batch * hq <= 65535. use_window = 0
 // ignores window. Returns the CUDA error code of the launch (0 on success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int batch, int hq, int hkv, int sq,
@@ -643,7 +673,11 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
     return (int)launch_tc<64>(q, k, v, out, batch, hq, hkv, sq, skv, hd,
                               q_offset, kv_valid, causal, use_window, window,
                               scale, stream);
-  return (int)launch_tc<128>(q, k, v, out, batch, hq, hkv, sq, skv, hd,
+  if (hd <= 128)
+    return (int)launch_tc<128>(q, k, v, out, batch, hq, hkv, sq, skv, hd,
+                               q_offset, kv_valid, causal, use_window, window,
+                               scale, stream);
+  return (int)launch_tc<256>(q, k, v, out, batch, hq, hkv, sq, skv, hd,
                              q_offset, kv_valid, causal, use_window, window,
                              scale, stream);
 }
@@ -651,7 +685,9 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
 // Dynamic shared memory of one block of the tensor-core kernel at head dim
 // hd (bytes), for reports.
 int flash_attention_tc_smem_bytes(int hd) {
-  return hd <= 64 ? TcLayout<64>::kBytes : TcLayout<128>::kBytes;
+  return hd <= 64    ? TcLayout<64>::kBytes
+         : hd <= 128 ? TcLayout<128>::kBytes
+                     : TcLayout<256>::kBytes;
 }
 
 }  // extern "C"

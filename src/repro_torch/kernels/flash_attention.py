@@ -7,8 +7,8 @@ one launch for all heads. Replaces ``flash_attention_pallas``
 ``ops.flash_attention``.
 
 The dtype picks the kernel, and nothing else does: bf16 goes to the
-tensor-core kernel (``tc_bf16``: wgmma, TMA, head dims padded to 64 or
-128), f32 to the CUDA-core kernel (``simt_f32``: exact f32). Each launch
+tensor-core kernel (``tc_bf16``: wgmma, TMA, head dims padded to 64, 128
+or 256), f32 to the CUDA-core kernel (``simt_f32``: exact f32). Each launch
 adds one to its route's count in ``ROUTE_LAUNCHES``.
 """
 from __future__ import annotations
@@ -23,7 +23,7 @@ from . import _launch
 __all__ = ["flash_attention_cuda", "HEAD_DIMS", "ROUTE_LAUNCHES", "route",
            "padded_head_dim", "reset_route_launches", "tc_smem_bytes"]
 
-HEAD_DIMS = (16, 32, 64, 80, 128)   # the head dims the kernels instantiate
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # the head dims the kernels take
 TMA_ALIGN = 16                      # bytes: a TMA tensor map's base address
 ROUTE_LAUNCHES: Dict[str, int] = {"tc_bf16": 0, "simt_f32": 0}
 
@@ -50,7 +50,7 @@ def padded_head_dim(hd: int) -> int:
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash-attention kernel takes head dims "
                          f"{HEAD_DIMS}, got {hd}")
-    return 64 if hd <= 64 else 128
+    return 64 if hd <= 64 else 128 if hd <= 128 else 256
 
 
 def _lib():

@@ -1,0 +1,331 @@
+"""Recurrent token mixers: xLSTM (mLSTM / sLSTM) and RG-LRU
+(RecurrentGemma). The twin of ``repro/models/recurrent.py``.
+
+Each has a full-sequence path and a one-token decode path over a fixed-size
+state, with the reference's dtype choices on each (but RG-LRU's full
+path, below):
+
+* mLSTM, matrix-memory LSTM (gated linear attention), chunked: a Python
+  loop over the ``s / mlstm_chunk`` chunks, within a chunk the
+  decay-weighted quadratic form, across chunks the (hd x hd) state, every
+  chunk's matrices in f32.
+* sLSTM, scalar-memory LSTM with exponential gating and head
+  block-diagonal recurrent weights: truly sequential, a Python loop over
+  time of ``_slstm_cell`` (the input projection of every token is one
+  matmul ahead of the loop; the recurrent one is a step's).
+* RG-LRU, the gated diagonal linear recurrence of Griffin. The full path
+  replaces the reference's ``lax.associative_scan`` with a Hillis-Steele
+  scan: log2(s) elementwise doubling steps of the same combine
+  (a1 a2, b1 a2 + b2). ``exp(cumsum(log a))`` is not used: log a reaches
+  -8 softplus(8) ~ -64 a step, and its running sum over- and underflows.
+  Both paths run the conv, the gates' products and the recurrence in f32
+  (decode reverses the conv kernel). Here the full path departs from the
+  reference, which convolves and takes the gates' products in the model
+  dtype: in bf16 that put prefill 5e-2 (relative RMS of the logits) from
+  the reference's own f32 decode at 26 layers, against 1.5e-2 with both in
+  f32 (tools/rglru_decode_drift.py). In f32 models the two are the same.
+
+No Pallas kernel of the reference is on these paths (XLA fuses them
+there): their products are torch matmuls.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from .layers import init_dense, normal
+
+__all__ = [
+    "init_mlstm", "apply_mlstm", "init_mlstm_state", "mlstm_heads",
+    "init_slstm", "apply_slstm", "init_slstm_state",
+    "init_rglru", "apply_rglru", "init_rglru_state", "linear_scan",
+]
+
+
+# ===========================================================================
+# mLSTM
+# ===========================================================================
+MLSTM_HEAD_DIM = 128
+
+
+def _mlstm_hd(cfg: ModelConfig) -> int:
+    return min(MLSTM_HEAD_DIM, 2 * cfg.d_model)
+
+
+def mlstm_heads(cfg: ModelConfig) -> int:
+    return (2 * cfg.d_model) // _mlstm_hd(cfg)
+
+
+def init_mlstm(gen: Optional[torch.Generator], cfg: ModelConfig,
+               device: torch.device) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    up = 2 * d
+    h = mlstm_heads(cfg)
+    hd = _mlstm_hd(cfg)
+    dt = cfg.torch_dtype
+    b_if = torch.cat([torch.zeros(h, device=device),
+                      3.0 * torch.ones(h, device=device)]).to(dt)
+    return {
+        "w_up": init_dense(gen, d, up, dt, device),
+        "w_gate": init_dense(gen, d, up, dt, device),
+        # per-head block-diagonal projections: (h, hd, hd)
+        "w_q": normal(gen, (h, hd, hd), hd ** -0.5, dt, device),
+        "w_k": normal(gen, (h, hd, hd), hd ** -0.5, dt, device),
+        "w_v": normal(gen, (h, hd, hd), hd ** -0.5, dt, device),
+        "w_if": init_dense(gen, up, 2 * h, dt, device, scale=0.01),
+        "b_if": b_if,
+        "w_down": init_dense(gen, up, d, dt, device),
+    }
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int, n_layers: int,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    h, hd = mlstm_heads(cfg), _mlstm_hd(cfg)
+    return {"c": torch.zeros((n_layers, batch, h, hd, hd), device=device),
+            "n": torch.zeros((n_layers, batch, h, hd), device=device)}
+
+
+def _mlstm_chunk_scan(q, k, v, li, lf, chunk: int):
+    """Chunked gated linear attention. q, k, v: (b, h, s, hd); li, lf: log
+    input / forget gates (b, h, s). Returns (out f32, final c, final n)."""
+    b, h, s, hd = q.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the mLSTM "
+                         f"chunk {chunk}")
+    scale = hd ** -0.5
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=q.device))
+    c_state = torch.zeros((b, h, hd, hd), device=q.device)
+    n_state = torch.zeros((b, h, hd), device=q.device)
+    outs = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        qb, kb, vb = (t[:, :, sl].float() for t in (q, k, v))
+        lib, lfb = li[:, :, sl].float(), lf[:, :, sl].float()
+        f_cum = torch.cumsum(lfb, dim=-1)        # log product of forgets
+        f_tot = f_cum[..., -1:]
+        # inter-chunk: q_t decayed by every forget up to t
+        q_dec = qb * torch.exp(f_cum)[..., None] * scale
+        inter = torch.einsum("bhld,bhde->bhle", q_dec, c_state)
+        n_inter = torch.einsum("bhld,bhd->bhl", q_dec, n_state)
+        # intra-chunk: A_ts = exp(F_t - F_s + i_s) (q_t . k_s), s <= t
+        w = f_cum[..., :, None] - f_cum[..., None, :] + lib[..., None, :]
+        w = w.masked_fill(~causal, float("-inf"))
+        a = torch.exp(w) * torch.einsum("bhld,bhmd->bhlm", qb * scale, kb)
+        a = a.masked_fill(~causal, 0.0)
+        intra = torch.einsum("bhlm,bhmd->bhld", a, vb)
+        # the normaliser: the signed row sums of a, as the decode path's q.n
+        denom = (n_inter + a.sum(-1)).abs().clamp_min(1.0)
+        outs.append((inter + intra) / denom[..., None])
+        # state: C' = exp(F_L) C + sum_s exp(F_L - F_s + i_s) k_s v_s^T
+        k_dec = kb * torch.exp(f_tot - f_cum + lib)[..., None]
+        c_state = torch.exp(f_tot)[..., None] * c_state + torch.einsum(
+            "bhld,bhle->bhde", k_dec, vb)
+        n_state = torch.exp(f_tot) * n_state + k_dec.sum(dim=2)
+    return torch.cat(outs, dim=2), c_state, n_state
+
+
+def apply_mlstm(p, x: torch.Tensor, cfg: ModelConfig, *,
+                state: Optional[Dict[str, torch.Tensor]] = None,
+                chunk: Optional[int] = None):
+    """Full sequence (state None) or one-token decode (state = {"c", "n"}).
+    Returns (out, new_state)."""
+    b, s, d = x.shape
+    h, hd = mlstm_heads(cfg), _mlstm_hd(cfg)
+    up = 2 * d
+    u = x @ p["w_up"]
+    g = F.silu(x @ p["w_gate"])
+    uh = u.reshape(b, s, h, hd)
+    q = torch.einsum("bshd,hde->bhse", uh, p["w_q"])
+    k = torch.einsum("bshd,hde->bhse", uh, p["w_k"])
+    v = torch.einsum("bshd,hde->bhse", uh, p["w_v"])
+    gates = u @ p["w_if"] + p["b_if"]                           # (b, s, 2h)
+    li = F.logsigmoid(gates[..., :h]).transpose(1, 2)           # (b, h, s)
+    lf = F.logsigmoid(gates[..., h:]).transpose(1, 2)
+
+    if state is None:
+        out, c_fin, n_fin = _mlstm_chunk_scan(q, k, v, li, lf,
+                                              chunk or cfg.mlstm_chunk)
+        new_state = {"c": c_fin, "n": n_fin}
+    else:
+        # one token: C' = f C + i k v^T; out = (q.C') / max(|q.n'|, 1)
+        fi = torch.exp(lf[..., 0].float())[..., None, None]     # (b, h, 1, 1)
+        ii = torch.exp(li[..., 0].float())[..., None, None]
+        k0, v0 = k[:, :, 0].float(), v[:, :, 0].float()
+        c_new = fi * state["c"] + ii * torch.einsum("bhd,bhe->bhde", k0, v0)
+        n_new = fi[..., 0] * state["n"] + ii[..., 0] * k0
+        qv = q[:, :, 0].float() * hd ** -0.5
+        num = torch.einsum("bhd,bhde->bhe", qv, c_new)
+        den = torch.einsum("bhd,bhd->bh", qv, n_new).abs().clamp_min(1.0)
+        out = (num / den[..., None])[:, :, None, :]            # (b, h, 1, hd)
+        new_state = {"c": c_new, "n": n_new}
+
+    out = out.transpose(1, 2).reshape(b, s, up).to(x.dtype)
+    return (out * g) @ p["w_down"], new_state
+
+
+# ===========================================================================
+# sLSTM
+# ===========================================================================
+SLSTM_HEAD_DIM = 128
+
+
+def _slstm_hd(d: int) -> int:
+    return min(SLSTM_HEAD_DIM, d)
+
+
+def init_slstm(gen: Optional[torch.Generator], cfg: ModelConfig,
+               device: torch.device) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    dt = cfg.torch_dtype
+    f_up = 4 * d // 3
+    hd = _slstm_hd(d)
+    nh = d // hd
+    return {
+        "w_gates": init_dense(gen, d, 4 * d, dt, device),      # i, f, z, o
+        # recurrent connections, head block-diagonal
+        "r_gates": normal(gen, (nh, hd, 4 * hd), 0.5 * hd ** -0.5, dt,
+                          device),
+        "b_gates": torch.zeros((4 * d,), dtype=dt, device=device),
+        "w_ffn_up": init_dense(gen, d, 2 * f_up, dt, device),  # gated FFN
+        "w_ffn_down": init_dense(gen, f_up, d, dt, device),
+    }
+
+
+def init_slstm_state(cfg: ModelConfig, batch: int, n_layers: int,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    shape = (n_layers, batch, cfg.d_model)
+    return {key: torch.zeros(shape, device=device) for key in ("c", "n", "h")}
+
+
+def _slstm_cell(p, d: int, carry, gx: torch.Tensor):
+    """One step. carry = (c, n, h) f32 (b, d); gx = x_t @ w_gates (b, 4d)
+    in the model dtype."""
+    c, n, hprev = carry
+    b = gx.shape[0]
+    hd = _slstm_hd(d)
+    nh = d // hd
+    # the recurrent term, per head, laid out as (b, 4, h, hd)
+    hh = hprev.to(gx.dtype).reshape(b, nh, hd)
+    gr = torch.einsum("bhd,hde->bhe", hh, p["r_gates"])       # (b, h, 4 hd)
+    gr = gr.reshape(b, nh, 4, hd).transpose(1, 2).reshape(b, 4 * d)
+    gates = (gx + gr + p["b_gates"]).float()
+    i = torch.exp(gates[..., :d].clamp_max(8.0))             # exp input gate
+    f = torch.sigmoid(gates[..., d:2 * d])
+    z = torch.tanh(gates[..., 2 * d:3 * d])
+    o = torch.sigmoid(gates[..., 3 * d:])
+    c_new = f * c + i * z
+    n_new = f * n + i
+    h_new = o * c_new / n_new.abs().clamp_min(1.0)
+    return c_new, n_new, h_new
+
+
+def apply_slstm(p, x: torch.Tensor, cfg: ModelConfig, *,
+                state: Optional[Dict[str, torch.Tensor]] = None):
+    b, s, d = x.shape
+    gx = x @ p["w_gates"]                                    # (b, s, 4d)
+    if state is None:
+        zeros = torch.zeros((b, d), device=x.device)
+        carry = (zeros, zeros, zeros)
+        hs = []
+        for t in range(s):
+            carry = _slstm_cell(p, d, carry, gx[:, t])
+            hs.append(carry[2])
+        h = torch.stack(hs, dim=1).to(x.dtype)
+    else:
+        carry = _slstm_cell(p, d, (state["c"], state["n"], state["h"]),
+                            gx[:, 0])
+        h = carry[2][:, None].to(x.dtype)
+    new_state = {"c": carry[0], "n": carry[1], "h": carry[2]}
+    # small gated FFN (xLSTM post-up/down, factor 4/3)
+    f_up = p["w_ffn_down"].shape[0]
+    u = h @ p["w_ffn_up"]
+    out = (F.silu(u[..., :f_up]) * u[..., f_up:]) @ p["w_ffn_down"]
+    return out, new_state
+
+
+# ===========================================================================
+# RG-LRU (Griffin recurrent block)
+# ===========================================================================
+_RGLRU_C = 8.0
+
+
+def init_rglru(gen: Optional[torch.Generator], cfg: ModelConfig,
+               device: torch.device) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    dt = cfg.torch_dtype
+    return {
+        "w_in": init_dense(gen, d, d, dt, device),        # recurrence branch
+        "w_gate_in": init_dense(gen, d, d, dt, device),   # multiplicative one
+        "conv_w": normal(gen, (4, d), 0.1, dt, device),
+        "w_rgate": init_dense(gen, d, d, dt, device, scale=0.01),
+        "w_igate": init_dense(gen, d, d, dt, device, scale=0.01),
+        "lam": torch.full((d,), 8.0, device=device),      # softplus param, f32
+        "w_out": init_dense(gen, d, d, dt, device),
+    }
+
+
+def init_rglru_state(cfg: ModelConfig, batch: int, n_layers: int,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    return {"h": torch.zeros((n_layers, batch, d), device=device),
+            "conv": torch.zeros((n_layers, batch, 3, d), device=device)}
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor,
+                dim: int = 1) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t from h_{-1} = 0 along ``dim``: the inclusive
+    scan of the combine (a1, b1), (a2, b2) -> (a1 a2, b1 a2 + b2) in
+    ceil(log2(s)) Hillis-Steele doubling steps, each elementwise over the
+    whole sequence."""
+    s = a.shape[dim]
+    shift = 1
+    while shift < s:
+        a_lo, a_hi = a.narrow(dim, 0, s - shift), a.narrow(dim, shift,
+                                                          s - shift)
+        b_lo, b_hi = b.narrow(dim, 0, s - shift), b.narrow(dim, shift,
+                                                          s - shift)
+        b = torch.cat([b.narrow(dim, 0, shift), b_lo * a_hi + b_hi], dim)
+        a = torch.cat([a.narrow(dim, 0, shift), a_lo * a_hi], dim)
+        shift *= 2
+    return b
+
+
+def apply_rglru(p, x: torch.Tensor, cfg: ModelConfig, *,
+                state: Optional[Dict[str, torch.Tensor]] = None):
+    b, s, d = x.shape
+    u = x @ p["w_in"]
+    gate = F.gelu(x @ p["w_gate_in"], approximate="tanh")   # jax.nn.gelu's
+
+    if state is None:
+        # causal temporal conv of width 4 as shifted adds, in f32 as decode
+        uf = u.float()
+        pads = F.pad(uf, (0, 0, 3, 0))
+        conv_w = p["conv_w"].float()
+        conv = sum(pads[:, 3 - i:s + 3 - i] * conv_w[i] for i in range(4))
+        r = torch.sigmoid(conv @ p["w_rgate"].float())
+        i_g = torch.sigmoid(conv @ p["w_igate"].float())
+        log_a = -_RGLRU_C * r * F.softplus(p["lam"])          # (b, s, d)
+        beta = torch.sqrt((1.0 - torch.exp(2.0 * log_a)).clamp_min(1e-6))
+        h = linear_scan(torch.exp(log_a), beta * (i_g * conv))
+        conv_state = uf[:, -3:] if s >= 3 else F.pad(uf, (0, 0, 3 - s, 0))
+        new_state = {"h": h[:, -1], "conv": conv_state}
+        out = h.to(x.dtype)
+    else:
+        conv_buf = torch.cat([state["conv"], u[:, 0:1].float()], dim=1)
+        # the buffer runs oldest to newest and conv_w[i] weights the token i
+        # steps back, so the newest entry takes conv_w[0]: reverse the kernel
+        conv = (conv_buf * p["conv_w"].flip(0).float()).sum(dim=1)
+        r = torch.sigmoid(conv @ p["w_rgate"].float())
+        i_g = torch.sigmoid(conv @ p["w_igate"].float())
+        log_a = -_RGLRU_C * r * F.softplus(p["lam"])
+        beta = torch.sqrt((1.0 - torch.exp(2.0 * log_a)).clamp_min(1e-6))
+        h_new = torch.exp(log_a) * state["h"] + beta * (i_g * conv)
+        new_state = {"h": h_new, "conv": conv_buf[:, 1:]}
+        out = h_new[:, None].to(x.dtype)
+
+    return (out * gate) @ p["w_out"], new_state

@@ -1,26 +1,29 @@
-"""Decoder stack for the dense-attention architectures: prefill and
-KV-cache decode. The twin of ``repro/models/transformer.py``.
+"""Decoder stack for every registered architecture: prefill and cached
+decode. The twin of ``repro/models/transformer.py``.
 
 Parameters keep the reference's layout: a plain dict whose ``groups`` entry
 holds every block's leaves stacked over a leading ``n_groups`` axis, under
-keys ``blk{i}_{kind}``, so ``interop.params_from_reference`` maps leaves
-one to one. The reference's scan over groups is a Python loop over that
-axis here. Its ``remat``, ``unroll_layers`` and ``act_specs`` do not carry
-over. The full-sequence path is differentiable: ``train/step.loss_fn`` runs
-it under autograd with ``use_kernel=False`` (plain attention, as the
-reference trains; the flash kernel has no backward in either package).
-Decoding is inference only (callers run it under
-``torch.inference_mode()``).
+keys ``blk{i}_{kind}``, each leaf in the reference's dtype (the MoE router
+and RG-LRU's ``lam`` stay f32 in a bf16 model), so
+``interop.params_from_reference`` maps leaves one to one. The reference's
+scan over groups is a Python loop over that axis here. Its ``remat``,
+``unroll_layers`` and ``act_specs`` do not carry over. The full-sequence
+path is differentiable: ``train/step.loss_fn`` runs it under autograd with
+``use_kernel=False`` (plain attention, as the reference trains; the flash
+kernel has no backward in either package). Decoding is inference only
+(callers run it under ``torch.inference_mode()``).
 
-Block kinds ``attn`` and ``swa`` with a dense SwiGLU FFN are built:
-qwen2-7b, internlm2-20b, h2o-danube-1.8b and command-r-35b. MoE FFNs, the
-mLSTM / sLSTM / RG-LRU blocks and the ``vlm_patches`` / ``audio_codec``
-frontends raise ``NotImplementedError`` (ROADMAP queue 1: the rest of the
-LM side).
+Block kinds: ``attn`` / ``swa`` (through the flash-attention kernel) with a
+dense SwiGLU FFN or, when ``cfg.moe`` is set, the MoE FFN
+(``models/moe.py``); ``rglru`` with a dense FFN when ``d_ff > 0``;
+``mlstm`` / ``slstm`` with none (``models/recurrent.py``). Frontends:
+``audio_codec`` sums K codebook embeddings of (b, s, K) tokens and emits
+(b, s, K, V) logits; ``vlm_patches`` splices the batch's ``patch_embeds``
+over the first ``n_prefix_tokens`` positions.
 
 Three entry points:
   * forward(params, batch, cfg)              -- training / prefill logits
-  * init_decode_state(cfg, batch, max_len)   -- KV caches and step count
+  * init_decode_state(cfg, batch, max_len)   -- caches, states, step count
   * decode_step(params, state, tokens, cfg)  -- one-token serving step
 """
 from __future__ import annotations
@@ -34,13 +37,18 @@ from ..configs.base import ModelConfig
 from .attention import apply_attn, init_attn, init_kv_cache
 from .layers import embed_lookup, init_dense, init_norm, normal, rms_norm, \
     swiglu_ffn
+from .moe import apply_moe, init_moe
+from .recurrent import (apply_mlstm, apply_rglru, apply_slstm, init_mlstm,
+                        init_mlstm_state, init_rglru, init_rglru_state,
+                        init_slstm, init_slstm_state)
 
 __all__ = ["init_params", "forward", "init_decode_state", "decode_step",
            "block_has_ffn", "embed_inputs", "tree_map", "tree_leaves"]
 
 ATTN_KINDS = ("attn", "swa")
-_TODO = ("is not ported yet (ROADMAP queue 1: the rest of the LM side; "
-         "MoE, recurrent blocks and frontends wait for later slices)")
+_MIXERS = {"mlstm": (init_mlstm, apply_mlstm, init_mlstm_state),
+           "slstm": (init_slstm, apply_slstm, init_slstm_state),
+           "rglru": (init_rglru, apply_rglru, init_rglru_state)}
 
 
 def tree_map(fn: Callable, tree):
@@ -56,18 +64,6 @@ def tree_leaves(tree) -> List[Any]:
     return [tree]
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: the MoE FFN {_TODO}")
-    for kind in cfg.pattern_for_layers():
-        if kind not in ATTN_KINDS:
-            raise NotImplementedError(f"{cfg.name}: block kind {kind!r} "
-                                      f"{_TODO}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend!r} "
-                                  f"frontend {_TODO}")
-
-
 def block_has_ffn(cfg: ModelConfig, kind: str) -> bool:
     if kind in ATTN_KINDS:
         return cfg.moe is not None or cfg.d_ff > 0
@@ -76,21 +72,34 @@ def block_has_ffn(cfg: ModelConfig, kind: str) -> bool:
     return False  # mlstm / slstm have internal FFN-equivalents
 
 
+def _is_moe(cfg: ModelConfig, kind: str) -> bool:
+    return cfg.moe is not None and kind in ATTN_KINDS
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 def _init_block(gen: Optional[torch.Generator], cfg: ModelConfig, kind: str,
                 device: torch.device) -> Dict[str, Any]:
     dt = cfg.torch_dtype
+    if kind in ATTN_KINDS:
+        mixer = init_attn(gen, cfg, device)
+    elif kind in _MIXERS:
+        mixer = _MIXERS[kind][0](gen, cfg, device)
+    else:
+        raise ValueError(f"unknown block kind {kind}")
     p: Dict[str, Any] = {"norm1": init_norm(cfg.d_model, dt, device),
-                         "mixer": init_attn(gen, cfg, device)}
+                         "mixer": mixer}
     if block_has_ffn(cfg, kind):
         p["norm2"] = init_norm(cfg.d_model, dt, device)
-        p["ffn"] = {
-            "w_gate": init_dense(gen, cfg.d_model, cfg.d_ff, dt, device),
-            "w_up": init_dense(gen, cfg.d_model, cfg.d_ff, dt, device),
-            "w_down": init_dense(gen, cfg.d_ff, cfg.d_model, dt, device),
-        }
+        if _is_moe(cfg, kind):
+            p["ffn"] = init_moe(gen, cfg, device)
+        else:
+            p["ffn"] = {
+                "w_gate": init_dense(gen, cfg.d_model, cfg.d_ff, dt, device),
+                "w_up": init_dense(gen, cfg.d_model, cfg.d_ff, dt, device),
+                "w_down": init_dense(gen, cfg.d_ff, cfg.d_model, dt, device),
+            }
     return p
 
 
@@ -100,9 +109,9 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, *,
     must live on ``device``; ``None`` only with ``device="meta"``).
 
     Each group is drawn in turn and copied into the stacked leaves, so the
-    peak is the model plus one group.
+    peak is the model plus one group; a single group is not copied at all
+    (kimi-k2 cut to one layer holds 39 GB).
     """
-    _check_supported(cfg)
     dev = resolve_device(device)
     dt = cfg.torch_dtype
     pattern = cfg.pattern_for_layers()
@@ -112,53 +121,88 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, *,
                 for i, kind in enumerate(pattern)}
 
     first = init_group()
-    groups = tree_map(lambda l: l.new_empty((cfg.n_groups,) + l.shape), first)
-    for g in range(cfg.n_groups):
-        block = first if g == 0 else init_group()
-        for dst, src in zip(tree_leaves(groups), tree_leaves(block)):
-            dst[g].copy_(src)
-        del block
+    if cfg.n_groups == 1:
+        groups = tree_map(lambda l: l[None], first)
+    else:
+        groups = tree_map(lambda l: l.new_empty((cfg.n_groups,) + l.shape),
+                          first)
+        for g in range(cfg.n_groups):
+            block = first if g == 0 else init_group()
+            for dst, src in zip(tree_leaves(groups), tree_leaves(block)):
+                dst[g].copy_(src)
+            del block
     del first
-    params = {"embed": normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt,
-                              dev),
-              "groups": groups,
+    if cfg.frontend == "audio_codec":
+        embed = normal(gen, (cfg.n_codebooks, cfg.vocab_size, cfg.d_model),
+                       0.02, dt, dev)
+        head = init_dense(gen, cfg.d_model, cfg.n_codebooks * cfg.vocab_size,
+                          dt, dev)
+    else:
+        embed = normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dt, dev)
+        head = None if cfg.tie_embeddings else init_dense(
+            gen, cfg.d_model, cfg.vocab_size, dt, dev)
+    params = {"embed": embed, "groups": groups,
               "final_norm": init_norm(cfg.d_model, dt, dev)}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = init_dense(gen, cfg.d_model, cfg.vocab_size, dt,
-                                       dev)
+    if head is not None:
+        params["lm_head"] = head
     return params
 
 
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
-def _ffn(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(p, x: torch.Tensor, cfg: ModelConfig, kind: str) -> torch.Tensor:
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
     f = p["ffn"]
+    if _is_moe(cfg, kind):
+        return x + apply_moe(f, h2, cfg)
     return x + swiglu_ffn(h2, f["w_gate"], f["w_up"], f["w_down"])
 
 
 def _apply_block_full(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                       use_kernel: bool) -> torch.Tensor:
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    out, _ = apply_attn(p["mixer"], h, cfg,
-                        window=cfg.window if kind == "swa" else None,
-                        use_kernel=use_kernel)
+    if kind in ATTN_KINDS:
+        out, _ = apply_attn(p["mixer"], h, cfg,
+                            window=cfg.window if kind == "swa" else None,
+                            use_kernel=use_kernel)
+    else:
+        out, _ = _MIXERS[kind][1](p["mixer"], h, cfg)
     x = x + out
-    return _ffn(p, x, cfg) if block_has_ffn(cfg, kind) else x
+    return _ffn(p, x, cfg, kind) if block_has_ffn(cfg, kind) else x
 
 
 def embed_inputs(params, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig) -> torch.Tensor:
-    """Token embedding (the frontends' inputs wait for ROADMAP queue 1:
-    the rest of the LM side)."""
-    return embed_lookup(params["embed"], batch["tokens"])
+    """Token embedding with the modality frontends. Their encoders are
+    stubs, as in the reference: ``audio_codec`` tokens arrive as (b, s, K)
+    codebook ids and their K embeddings are summed; ``vlm_patches`` takes
+    precomputed image-patch embeddings from ``batch["patch_embeds"]`` and
+    splices them over the first ``n_prefix_tokens`` positions.
+    ``inputs_embeds`` skips the lookup."""
+    if "inputs_embeds" in batch:
+        return batch["inputs_embeds"]
+    tokens = batch["tokens"]
+    if cfg.frontend == "audio_codec":
+        x = sum(embed_lookup(params["embed"][k], tokens[..., k])
+                for k in range(cfg.n_codebooks))
+    else:
+        x = embed_lookup(params["embed"], tokens)
+    if cfg.frontend == "vlm_patches" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x[:, cfg.n_prefix_tokens:]], dim=1)
+    return x
 
 
 def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Final norm and logits: (b, s, V), or (b, s, K, V) for audio."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params.get("lm_head")
-    return x @ (head if head is not None else params["embed"].T)
+    logits = x @ (head if head is not None else params["embed"].T)
+    if cfg.frontend == "audio_codec":
+        b, s, _ = x.shape
+        logits = logits.reshape(b, s, cfg.n_codebooks, cfg.vocab_size)
+    return logits
 
 
 def _group(tree, g: int):
@@ -167,9 +211,9 @@ def _group(tree, g: int):
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             use_kernel: bool = True) -> torch.Tensor:
-    """Returns logits (b, s, V). ``use_kernel=False`` runs the plain
-    ``blockwise_attention`` in place of the flash-attention kernel."""
-    _check_supported(cfg)
+    """Returns logits (b, s, V) (audio: (b, s, K, V)). ``use_kernel=False``
+    runs the plain ``blockwise_attention`` in place of the flash-attention
+    kernel."""
     x = embed_inputs(params, batch, cfg)
     pattern = cfg.pattern_for_layers()
     for g in range(cfg.n_groups):
@@ -185,40 +229,49 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device: DeviceLike = None) -> Dict[str, Any]:
-    """Per-pattern-position stacked caches + the step counter.
+    """Per-pattern-position stacked caches and states + the step counter.
 
-    The counter is a host integer: the slot and the mask of each step are
-    computed on the host, so no step waits on the device.
+    Attention blocks get a ring-buffer KV cache (``swa``: of the window),
+    recurrent ones their f32 state. The counter is a host integer: the slot
+    and the mask of each step are computed on the host, so no step waits on
+    the device.
     """
-    _check_supported(cfg)
     dev = resolve_device(device)
     caches = {}
     for i, kind in enumerate(cfg.pattern_for_layers()):
-        wlen = min(cfg.window or max_len, max_len) if kind == "swa" \
-            else max_len
-        caches[f"blk{i}_{kind}"] = init_kv_cache(cfg, batch, wlen,
-                                                 cfg.n_groups, dev)
+        name = f"blk{i}_{kind}"
+        if kind in ATTN_KINDS:
+            wlen = min(cfg.window or max_len, max_len) if kind == "swa" \
+                else max_len
+            caches[name] = init_kv_cache(cfg, batch, wlen, cfg.n_groups, dev)
+        else:
+            caches[name] = _MIXERS[kind][2](cfg, batch, cfg.n_groups, dev)
     return {"index": 0, "caches": caches}
 
 
 def _apply_block_decode(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                        cache, index: int):
+                        cache, index: int) -> torch.Tensor:
+    """One token through one block; ``cache`` (this layer's views into the
+    stacked caches) is written in place."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    out, cache = apply_attn(p["mixer"], h, cfg,
+    if kind in ATTN_KINDS:
+        out, _ = apply_attn(p["mixer"], h, cfg,
                             window=cfg.window if kind == "swa" else None,
                             cache=cache, cache_index=index)
+    else:
+        out, new_state = _MIXERS[kind][1](p["mixer"], h, cfg, state=cache)
+        for key, val in new_state.items():
+            cache[key].copy_(val)
     x = x + out
-    if block_has_ffn(cfg, kind):
-        x = _ffn(p, x, cfg)
-    return x, cache
+    return _ffn(p, x, cfg, kind) if block_has_ffn(cfg, kind) else x
 
 
 def decode_step(params, state: Dict[str, Any], tokens: torch.Tensor,
                 cfg: ModelConfig):
-    """One serving step. tokens: (b, 1).
+    """One serving step. tokens: (b, 1) (audio: (b, 1, K)).
 
-    Returns (logits, new_state). The KV caches advance by one, written in
-    place: ``new_state`` holds the same cache tensors as ``state``.
+    Returns (logits, new_state). The caches and states advance by one,
+    written in place: ``new_state`` holds the same tensors as ``state``.
     """
     index = state["index"]
     x = embed_inputs(params, {"tokens": tokens}, cfg)
@@ -228,7 +281,6 @@ def decode_step(params, state: Dict[str, Any], tokens: torch.Tensor,
         gc = _group(state["caches"], g)
         for i, kind in enumerate(pattern):
             name = f"blk{i}_{kind}"
-            x, _ = _apply_block_decode(gp[name], x, cfg, kind, gc[name],
-                                       index)
+            x = _apply_block_decode(gp[name], x, cfg, kind, gc[name], index)
     return _head(params, x, cfg), {"index": index + 1,
                                    "caches": state["caches"]}

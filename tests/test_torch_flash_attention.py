@@ -108,6 +108,16 @@ def test_gqa_and_ragged_match_reference_kernel(case, dtype):
     _assert_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 100])
+def test_head_dim_256_matches_reference_kernel(window, dtype):
+    """recurrentgemma-2b's and paligemma-3b's head dim, with their one kv
+    head: 2 query heads on 1, causal, with and without a window."""
+    arrays = _qkv(8, 1, 2, 1, 256, 256, 256)
+    got, want = _both(arrays, dtype, causal=True, window=window)
+    _assert_close(got, want, dtype)
+
+
 @pytest.mark.parametrize("window", [None, 48])
 def test_oracle_matches_reference_oracle(window):
     """The port's softmax oracle against the reference's, expanded heads."""
@@ -176,7 +186,7 @@ def test_route_is_chosen_by_dtype_alone():
 
 
 @pytest.mark.parametrize("hd,padded", [(16, 64), (32, 64), (64, 64),
-                                       (80, 128), (128, 128)])
+                                       (80, 128), (128, 128), (256, 256)])
 def test_tensor_core_kernel_pads_head_dims_to_its_boxes(hd, padded):
     """Every head dim the kernels take runs on the tensor cores, in tiles of
     64-column boxes: at most one box of zeros past hd."""
@@ -186,7 +196,7 @@ def test_tensor_core_kernel_pads_head_dims_to_its_boxes(hd, padded):
     assert padded % 64 == 0 and 0 <= padded - hd < 64
 
 
-@pytest.mark.parametrize("hd", [8, 48, 96, 256])
+@pytest.mark.parametrize("hd", [8, 48, 96, 512])
 def test_padded_head_dim_refuses_what_no_kernel_takes(hd):
     from repro_torch.kernels import flash_attention as tfa
     with pytest.raises(ValueError, match="head dims"):

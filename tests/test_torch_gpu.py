@@ -599,7 +599,7 @@ def test_flash_kernel_offsets_and_masked_rows(cuda_device, dtype):
     assert torch.equal(got, torch.zeros_like(got))          # kv_valid = 0
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128, 256])
 def test_flash_kernel_rows_sum_to_one(cuda_device, hd):
     q, k, _ = _attn_inputs(cuda_device, torch.float32, 1, 4, 2, 190, 190, hd)
     v = torch.ones_like(k)
@@ -611,7 +611,7 @@ def test_flash_kernel_raises_on_what_it_does_not_take(cuda_device):
     q, k, v = _attn_inputs(cuda_device, torch.float32, 1, 2, 2, 8, 8, 48)
     with pytest.raises(ValueError, match="head dims"):
         ops.flash_attention(q, k, v)
-    q, k, v = _attn_inputs(cuda_device, torch.float32, 1, 2, 2, 8, 8, 256)
+    q, k, v = _attn_inputs(cuda_device, torch.float32, 1, 2, 2, 8, 8, 512)
     with pytest.raises(ValueError, match="head dims"):
         ops.flash_attention(q, k, v)
     q, k, v = _attn_inputs(cuda_device, torch.float16, 1, 2, 2, 8, 8, 64)
@@ -622,8 +622,9 @@ def test_flash_kernel_raises_on_what_it_does_not_take(cuda_device):
         ops.flash_attention(q, k.bfloat16(), v)
 
 
-# bf16 goes to the tensor-core kernel (wgmma, TMA; head dims padded to 64 or
-# 128 in its tiles), f32 to the CUDA-core kernel; ROUTE_LAUNCHES shows which.
+# bf16 goes to the tensor-core kernel (wgmma, TMA; head dims padded to 64,
+# 128 or 256 in its tiles), f32 to the CUDA-core kernel; ROUTE_LAUNCHES
+# shows which.
 TILE_EDGES = (1, 63, 64, 65, 127, 128, 129, 2000)
 
 
@@ -631,7 +632,7 @@ def _routes_after(before, **added):
     return {name: before[name] + added.get(name, 0) for name in before}
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 128, 256])
 def test_flash_bf16_runs_on_the_tensor_core_route(cuda_device, hd):
     q, k, v = _attn_inputs(cuda_device, torch.bfloat16, 2, 6, 2, 300, 300,
                            hd, seed=hd)
@@ -646,7 +647,7 @@ def test_flash_bf16_runs_on_the_tensor_core_route(cuda_device, hd):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_flash_f32_runs_on_the_cuda_core_route(cuda_device, hd):
     q, k, v = _attn_inputs(cuda_device, torch.float32, 1, 4, 2, 130, 130, hd)
     before = dict(fa.ROUTE_LAUNCHES)
@@ -673,7 +674,7 @@ def test_flash_tensor_core_tile_edges(cuda_device, sq, skv):
     _assert_attn_close(got, want)
 
 
-@pytest.mark.parametrize("hd", [80, 128])
+@pytest.mark.parametrize("hd", [80, 128, 256])
 @pytest.mark.parametrize("kw", [
     dict(causal=True, window=None, q_offset=-20, kv_valid=260),
     dict(causal=True, window=None, q_offset=40, kv_valid=190),
@@ -699,6 +700,28 @@ def test_flash_tensor_core_masks(cuda_device, hd, kw):
     assert torch.equal(got, again)
     if kw["kv_valid"] == 0:
         assert torch.equal(got, torch.zeros_like(got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,skv,window", [
+    (600, 600, None),           # paligemma's 8 / 1 heads, causal
+    (600, 600, 100),            # recurrentgemma's window, shortened
+    (63, 65, None), (129, 129, 64), (1, 300, None),   # 64-key tile edges
+])
+def test_flash_head_dim_256_matches_plain(cuda_device, sq, skv, window,
+                                          dtype):
+    """Head dim 256 (recurrentgemma-2b, paligemma-3b): 64-key tiles in a
+    two-stage ring on the tensor cores, 32-key tiles on the CUDA cores;
+    10 query heads on one kv head; the same bits on a second launch."""
+    q, k, v = _attn_inputs(cuda_device, dtype, 1, 10, 1, sq, skv, 256,
+                           seed=sq + skv)
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention_plain(q, k, v, causal=True, window=window,
+                                     q_offset=skv - sq, kv_valid=skv)
+    assert bool(torch.isfinite(got).all())
+    _assert_attn_close(got, want)
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=True,
+                                                window=window))
 
 
 def test_flash_tensor_core_reads_unaligned_views(cuda_device):
@@ -735,6 +758,31 @@ def test_forward_on_card_matches_cpu(cuda_device):
         want = forward(cpu_params, {"tokens": cpu_toks}, cfg)
     assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
     assert fa.ROUTE_LAUNCHES == {"tc_bf16": 0, "simt_f32": cfg.n_layers}
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("aid", ["recurrentgemma-2b", "phi3.5-moe-42b-a6.6b",
+                                 "xlstm-1.3b", "paligemma-3b",
+                                 "musicgen-medium"])
+def test_family_forward_on_card_matches_cpu(cuda_device, aid):
+    """The MoE, recurrent and frontend families, reduced, f32, S = 256,
+    on the card (attention through the kernel, one launch an attention
+    layer, all on the CUDA-core route) against the CPU. Tolerance 1e-4 as
+    the qwen2-7b forward above: f32 summed in another order."""
+    cfg = reduced_config(get_arch(aid))
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = make_lm_batch(cfg, 0, 0, 2, 256, device="cpu")
+    batch.pop("labels")
+    n_attn = cfg.n_groups * sum(kind in ("attn", "swa")
+                                for kind in cfg.pattern_for_layers())
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = forward(tree_map(lambda t: t.to(cuda_device), params),
+                      tree_map(lambda t: t.to(cuda_device), batch), cfg)
+        want = forward(params, batch, cfg)
+    assert ops.LAUNCHES["flash_attention"] == n_attn
+    assert fa.ROUTE_LAUNCHES == {"tc_bf16": 0, "simt_f32": n_attn}
+    assert got.shape == want.shape
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 

@@ -1,6 +1,7 @@
-"""The port's LM serving stack against the reference's (CPU): configs,
-layers, attention (prefill and decode, bf16 and int8 caches), ``forward``
-and ``decode_step`` on reduced dense-attention configs.
+"""The port's LM serving stack against the reference's (CPU): configs and
+the parameter count of every architecture, layers, attention (prefill and
+decode, bf16 and int8 caches), ``forward`` and ``decode_step`` on reduced
+dense-attention configs (the other families: test_torch_lm_families.py).
 
 Parameters come from the reference's ``init_params`` and cross over with
 ``interop.params_from_reference``; tokens and activations are drawn with
@@ -35,8 +36,6 @@ F32_TOL = 2e-5
 BF16_TOL = 2.0 ** -7
 PARITY_TOL = 5e-2          # test_models_smoke.py's decode-vs-prefill tolerance
 DENSE = ("qwen2-7b", "internlm2-20b", "h2o-danube-1.8b", "command-r-35b")
-UNPORTED = ("kimi-k2-1t-a32b", "phi3.5-moe-42b-a6.6b", "xlstm-1.3b",
-            "recurrentgemma-2b", "paligemma-3b", "musicgen-medium")
 
 
 def _cfgs(aid, **overrides):
@@ -83,24 +82,14 @@ def test_configs_and_reduced_configs_match_reference(aid):
     assert tc.torch_dtype == torch.float32
 
 
-@pytest.mark.parametrize("aid", DENSE)
+@pytest.mark.parametrize("aid", jcfg.ARCH_IDS)
 def test_param_count_matches_reference(aid):
-    """Counted on the meta device; qwen2-7b is 7,615,616,512 parameters."""
+    """Counted on the meta device; qwen2-7b is 7,615,616,512 parameters,
+    kimi-k2-1t-a32b 1,044,860,859,392."""
     assert tcfg.get_arch(aid).param_count() == jcfg.get_arch(
         aid).param_count()
     jc, tc = _cfgs(aid)
     assert tc.param_count() == jc.param_count()
-
-
-@pytest.mark.parametrize("aid", UNPORTED)
-def test_unported_families_raise(aid):
-    _, tc = _cfgs(aid)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1: the rest of the LM side"):
-        tt.init_params(torch.Generator(), tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="the rest of the LM side"):
-        tt.forward({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                   tc)
 
 
 # ---------------------------------------------------------------------------
