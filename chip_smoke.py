@@ -316,10 +316,49 @@ phase.
   kernel rows ``gram_qr_psa_refresh_*`` time row 4 at the refresh's shapes
   and ``gram_qr_sdot_spmd`` at sdot_spmd's (1, 1024, 7).
 * ``train_example``: the example twin (``train_lm_psa_compress
-  --full-100m``: d_model 768, 12 layers, vocabulary 32,000, f32) for 150
+  --full-100m``: d_model 768, 12 layers, vocabulary 32,000, f32) for 75
   steps (cut from 300, TRAIN_EXAMPLE_STEPS) on 2 pod ranks,
   checkpoints under ``build/chip_smoke_train/``
   (removed after): the last loss below the first, ms a step, tokens/s.
+
+Then training every family, shard-local MoE routing, the sharded step and
+the roofline (``train_family_phases``), each line with the card's name and
+power limit and the memory it plans beside the peak it read:
+
+* ``train_families``: recurrentgemma-2b whole at 2 x 1024, phi3.5-moe cut
+  from 32 layers to 2 at 2 x 1024, xlstm-1.3b whole at 2 x 256 (sLSTM
+  loops over time), paligemma-3b and musicgen-medium whole at 2 x 1024,
+  one after another, each freed before the next: FAMILY_STEPS AdamW steps
+  (bf16 weights, f32 moments) on one fixed batch, finite losses that fall,
+  ms a step, tokens/s, peak memory; then the f32 directional check at the
+  initial weights (``directional_check``, DIR_* constants): the central
+  difference of the loss along a seeded direction against the gradient's
+  change, within DIR_TOL, MoE routes pinned to those the weights chose.
+* ``train_psa_moe``: phi3.5-moe at full width, 1 layer, on 2 pod ranks
+  (``train_psa_rank``), PSA refreshed at steps 0 and 3, 4 steps of 2 x 512
+  tokens a pod: finite losses equal on both pods, the first within
+  TRAIN_LOSS_TOL of one rank's loss on the whole batch (its MoE routed per
+  pod shard), projectors orthonormal within ORTHO_TOL, three Gram launches
+  a compressed leaf an OI iteration, staged bytes twice those reduced. The
+  rows ``gram_qr_psa_moe_*`` time row 4 at the expert stacks' (1, 4096,
+  64) and (1, 6400, 64) and the head's (4096, 64), with the refreshes'
+  launches at each.
+* ``moe_shards``: phi3.5-moe at 4 layers, a 4 x 2048 prefill with
+  ``act_specs["moe"]["n_dp"] = 4`` through row 9 (4 launches, all on the
+  tensor cores): each MoE layer against the same tokens as 4 quarters
+  each routed alone (routes and gates bit for bit, outputs within
+  MOE_SHARD_RMS_TOL), the share of pairs dropped by shard and by one
+  global routing, the logits against the global routing's.
+* ``sharded_step``: h2o-danube-1.8b at full width cut to 4 layers on a
+  (2, 2) ("data", "model") gloo mesh of 4 ranks sharing the card
+  (``make_sharded_train_step``, expandable segments): each rank's stored
+  bytes (``torch.cuda.memory_allocated``) equal to ``launch/dryrun``'s
+  plan exactly; its first loss, grad norm and gradient probes against the
+  same data shards' backward passes and f32 mean in one process (and the
+  loss against the whole batch's); its wire bytes a step equal to
+  ``launch/roofline.step_wire_bytes``.
+* ``roofline``: ``launch/roofline.run_cell``'s terms on one card beside
+  the measured lm_prefill, lm_decode and every new train step.
 
 Each phase's line carries ``at_s``, the script's seconds when it ended.
 Launch counts are set to 0 just before each phase of the main path and read
@@ -1530,9 +1569,10 @@ PLAIN_AFTER_TOL = 5e-2       # step 1's reduced gradients and errors
 PROBES = ("embed", "final_norm", "groups/blk0_attn/mixer/bq",
           "groups/blk0_attn/mixer/wq", "groups/blk0_attn/ffn/w_down",
           "lm_head")
-# the example twin's steps, cut from its 300 to 150 (~0.43 s a step): the
-# script read 991 s of its 1200 with 300 (PR 24's LM phases added ~60 s)
-TRAIN_EXAMPLE_STEPS = 150
+# the example twin's steps, cut from its 300 (~0.43 s a step) to 75: the
+# script read 991 s of its 1200 with 300 once the LM family phases were in,
+# and the training phases take ~125 s more
+TRAIN_EXAMPLE_STEPS = 75
 ORTHO_TOL = 1e-4              # refreshed projectors: |P^T P - I|_max
 
 
@@ -1611,12 +1651,12 @@ def two_level_rank(rank, world, dev, work):
     return {"z": got.cpu(), "staged": mesh.host_staged_bytes}
 
 
-def train_psa_setup(layers: int):
-    """qwen2-7b at full width cut to ``layers`` layers, AdamW with bf16
-    moments, paper_psa refreshed every 3 steps."""
+def train_psa_setup(layers: int, arch: str = "qwen2-7b"):
+    """``arch`` (qwen2-7b) at full width cut to ``layers`` layers, AdamW
+    with bf16 moments, paper_psa refreshed every 3 steps."""
     from repro_torch.configs import get_arch, get_psa_config
     from repro_torch.optim.adamw import AdamWConfig
-    cfg = dataclasses.replace(get_arch("qwen2-7b"), n_layers=layers)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
     opt = AdamWConfig(lr=1e-3, warmup_steps=10, moment_dtype="bfloat16")
     return cfg, opt, dataclasses.replace(get_psa_config(), refresh_every=3)
 
@@ -1639,7 +1679,8 @@ def train_psa_probes(tree, tokens) -> dict:
     return out
 
 
-def train_psa_rank(rank, world, dev, layers, steps, batch, seq):
+def train_psa_rank(rank, world, dev, layers, steps, batch, seq,
+                   arch="qwen2-7b"):
     """One pod of train_psa: its shard of each global batch, a refresh
     every 3 steps (row 4's launches counted by shape), the step's walls,
     the bytes it stages and all-reduces, and its peak memory. For the
@@ -1657,7 +1698,7 @@ def train_psa_rank(rank, world, dev, layers, steps, batch, seq):
     from repro_torch.optim.psa_compress import compression_ratio, psa_init
     from repro_torch.train.step import make_psa_train_step, shard_batch
 
-    cfg, opt, psa = train_psa_setup(layers)
+    cfg, opt, psa = train_psa_setup(layers, arch)
     pod = make_test_mesh(multi_pod=True, device=dev).axis("pod")
     torch.cuda.reset_peak_memory_stats(dev)
     params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
@@ -2132,6 +2173,654 @@ def spmd_train_phases(dev, rows: dict, record, gram_qr_work, q_init,
 
 
 
+# ---------------------------------------------------------------------------
+# training every family, shard-local MoE, the sharded step, the roofline
+# ---------------------------------------------------------------------------
+# (arch, layers or None for the whole depth, batch, seq): each trains alone
+# on the card, freed before the next. phi3.5-moe is cut from 32 layers to 2
+# (~34 GB at 12 bytes a parameter: bf16 weights and gradients, f32
+# moments); xlstm-1.3b at 2 x 256, since sLSTM loops over time
+TRAIN_FAMILIES = (("recurrentgemma-2b", None, 2, 1024),
+                  ("phi3.5-moe-42b-a6.6b", 2, 2, 1024),
+                  ("xlstm-1.3b", None, 2, 256),
+                  ("paligemma-3b", None, 2, 1024),
+                  ("musicgen-medium", None, 2, 1024))
+FAMILY_STEPS = 3              # AdamW steps on one fixed batch
+FAMILY_LR = 1e-4
+# The directional check, in f32 at the initial weights th (the training's
+# seed): (L(th + eps v) - L(th - eps v)) / 2 eps against the gradient g's
+# change over the two points, <g, th+ - th->, th+ and th- as f32 holds
+# them (an element whose eps v is under half its ulp does not move; <g, v>
+# is printed beside). v: a seeded normal draw a leaf, its magnitudes
+# scaled by the leaf's RMS (at least 1e-2) and its signs those of g (the
+# draw's where g is 0). A direction with the draw's own signs projects
+# onto g by ~1/sqrt(N) of its norm, and its first-order change drowns
+# under the third-order term: on the CPU at reduced width recurrentgemma
+# read 8.7% at eps 1.7e-3 and 2.5% (f32's rounding) at 1.7e-4; with g's
+# signs both terms read ~1e-4 at a loss change of 1e-2. eps moves the loss
+# by DIR_CHANGE (eps within DIR_EPS). The limit: DIR_TOL, relative, set
+# before the first card run. Checked at the trained weights instead, on
+# the H100 recurrentgemma-2b had learnt its batch (loss 0.0011), where a
+# loss change of 1e-2 is far from linear (read 64x), and xlstm-1.3b's
+# chaotic weights read 1.13% at eps 1e-6 (a change of 0.057, then the
+# floor); hence the initial weights, a change of 4e-3 and no floor
+DIR_TOL = 1e-2
+DIR_CHANGE = 4e-3
+DIR_EPS = (1e-9, 1e-2)
+DIR_SEED = 1000
+MOE_SHARDS = 4                # moe_shards: the prefill's data shards
+# moe_shards: the shard-local MoE against the same tokens as four
+# quarters routed alone: the routes equal bit for bit; the outputs run
+# the experts' bf16 GEMMs at another M (n_dp cap rows an expert against
+# cap), so they may round one bf16 step apart: relative RMS within half a
+# bf16 ulp (2^-8)
+MOE_SHARD_RMS_TOL = 2.0 ** -8
+SHARDED_ARCH, SHARDED_LAYERS = "h2o-danube-1.8b", 4
+SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS = 4, 1024, 2
+SHARDED_MESH = (("data", 2), ("model", 2))
+PSA_MOE_LAYERS, PSA_MOE_STEPS, PSA_MOE_BATCH, PSA_MOE_SEQ = 1, 4, 4, 512
+
+
+def directional_check(cfg, batch, dev) -> dict:
+    """The f32 directional check of ``loss_fn``'s gradient g at the
+    initial weights of ``cfg`` (an f32 config; torch.Generator seed 0):
+    the central difference against <g, th+ - th-> / 2 eps (module
+    constants DIR_*). MoE routes at both points are the ones th chose
+    (``pinned_route``), so the loss is smooth along v; the flips a free
+    routing would make there are counted."""
+    from repro_torch._tree import flatten_with_names, unflatten
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.step import _value_and_grad, loss_fn
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    _, leaves, structure = flatten_with_names(params)    # the grads' order
+    scales = [max(float(leaf.square().mean().sqrt()), 1e-2)
+              for leaf in leaves]
+    recorded = []
+    loss0, grads = with_patched(moe, "route", recording_route(recorded),
+                                lambda: _value_and_grad(params, batch, cfg))
+    grads = flatten_with_names(grads)[1]
+    signs = [torch.where(g == 0, 0, torch.sign(g)).to(torch.int8)
+             for g in grads]
+
+    def draws():
+        """v leaf by leaf, drawn anew each time (no copy of v is held)."""
+        for i, (scale, sign) in enumerate(zip(scales, signs)):
+            gen = torch.Generator(device=dev).manual_seed(DIR_SEED + i)
+            z = torch.randn(sign.shape, generator=gen, device=dev)
+            yield torch.where(sign == 0, z, z.abs() * sign).mul_(scale)
+
+    dot = sum(float(torch.sum(g * v, dtype=torch.float64))
+              for g, v in zip(grads, draws()))
+    eps = min(max(DIR_CHANGE / max(abs(dot), 1e-30), DIR_EPS[0]), DIR_EPS[1])
+    tokens = batch["labels"].shape[0] * batch["labels"].shape[1]
+    moved = [torch.empty_like(leaf) for leaf in leaves]
+
+    def at(alpha, flips):
+        """(loss, <g, th + alpha v - th>) with th + alpha v in ``moved``."""
+        change = 0.0
+        for buf, leaf, g, v in zip(moved, leaves, grads, draws()):
+            torch.add(leaf, v, alpha=alpha, out=buf)
+            change += float(torch.sum(g * (buf - leaf), dtype=torch.float64))
+        route = (pinned_route(recorded, torch.arange(tokens, device=dev),
+                              flips) if recorded else moe.route)
+        with torch.inference_mode():
+            loss = float(with_patched(moe, "route", route, lambda: loss_fn(
+                unflatten(structure, moved), batch, cfg)))
+        return loss, change
+
+    flips_p, flips_m = [], []
+    loss_p, change_p = at(eps, flips_p)
+    loss_m, change_m = at(-eps, flips_m)
+    del params, leaves, grads, signs, moved
+    fd = (loss_p - loss_m) / (2 * eps)
+    want = (change_p - change_m) / (2 * eps)
+    return {"loss": float(loss0), "eps": eps, "dot": dot,
+            "grad_change": want, "central": fd,
+            "rel_err": abs(fd - want) / max(abs(want), 1e-30),
+            "loss_plus": loss_p, "loss_minus": loss_m,
+            "tolerance": DIR_TOL,
+            "moe_routes_pinned": len(recorded),
+            "moe_free_flips": [int(sum(int(n) for n, _ in fl))
+                               for fl in (flips_p, flips_m)]}
+
+
+def train_family(cfg, lm_b: int, lm_s: int, dev, card: str) -> dict:
+    """FAMILY_STEPS AdamW steps of ``cfg`` in bf16 on one fixed batch
+    (random weights, torch.Generator seed 0; f32 moments), then the f32
+    directional check at the initial weights. Emits and returns the
+    line."""
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n = cfg.param_count()
+    line = {"phase": "train_families", "arch": cfg.name,
+            "layers": cfg.n_layers, "d_model": cfg.d_model, "params": n,
+            "batch": lm_b, "seq": lm_s, "dtype": cfg.dtype,
+            "moment_dtype": "float32", "card": card,
+            # bf16 weights and gradients, f32 moments; then the check's f32
+            # weights, gradients and moved weights, and the gradient's signs
+            "planned_state_bytes": 12 * n, "planned_check_bytes": 13 * n}
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    opt = AdamWConfig(lr=FAMILY_LR, warmup_steps=1)
+    opt_state = adamw_init(params, opt)
+    batch = make_lm_batch(cfg, 0, 0, lm_b, lm_s, device=dev)
+    step = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    line["setup_s"] = time.perf_counter() - t0
+    losses, norms, ms = [], [], []
+    for _ in range(FAMILY_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, met = step(params, opt_state, batch)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(ms[1:])
+    line.update(losses=losses, grad_norms=norms, step_ms=ms,
+                ms_per_step=step_ms,
+                tokens_per_s=lm_b * lm_s / (step_ms / 1e3),
+                peak_bytes=torch.cuda.max_memory_allocated())
+    del opt_state, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    t0 = time.perf_counter()
+    line["directional_f32"] = directional_check(cfg32, batch, dev)
+    line["directional_s"] = time.perf_counter() - t0
+    line["check_peak_bytes"] = torch.cuda.max_memory_allocated()
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(line)
+    check(all(np.isfinite(losses)), f"train_families {cfg.name}: losses "
+          f"{losses}")
+    check(losses[-1] < losses[0], f"train_families {cfg.name}: the loss "
+          f"did not fall: {losses}")
+    dcheck = line["directional_f32"]
+    check(dcheck["rel_err"] <= DIR_TOL, f"train_families {cfg.name}: "
+          f"central difference {dcheck['central']} against the gradient's "
+          f"{dcheck['grad_change']} (relative {dcheck['rel_err']} > "
+          f"{DIR_TOL})")
+    return line
+
+
+def moe_shards_phase(dev, rows: dict, card: str) -> None:
+    """moe_shards: phi3.5-moe at full width, 4 layers, a 4 x 2048 prefill
+    whose MoE routes MOE_SHARDS data shards on their own
+    (``act_specs["moe"]``), through row 9 (one flash launch a layer, on
+    the tensor cores). Each MoE layer's output against the same tokens as
+    MOE_SHARDS quarters each routed alone: the same routes bit for bit,
+    the outputs within MOE_SHARD_RMS_TOL; the share of (token, choice)
+    pairs dropped by shard and by one global routing."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.transformer import forward, init_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b"), n_layers=4)
+    lm_b, lm_s = 4, 2048
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    batch = make_lm_batch(cfg, 0, 0, lm_b, lm_s, device=dev)
+    batch.pop("labels")
+    spec = {"moe": {"dp": None, "e": None, "n_dp": MOE_SHARDS}}
+    m = cfg.moe
+    with torch.inference_mode():
+        forward(params, batch, cfg, act_specs=spec)          # warm
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits = forward(params, batch, cfg, act_specs=spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        flash = ops.LAUNCHES["flash_attention"]
+        routes = dict(ROUTE_LAUNCHES)
+        glob = forward(params, batch, cfg)
+        vs_global = compare(logits, glob)
+        del logits, glob
+        layers = []
+        real, route = transformer.apply_moe, moe.route
+
+        def checked(p, x, cfg_, act_specs=None):
+            plans = []
+
+            def recorded(xf, router, m_, cap):
+                out = route(xf, router, m_, cap)
+                plans.append(out)
+                return out
+
+            y = with_patched(moe, "route", recorded,
+                             lambda: real(p, x, cfg_, act_specs=act_specs))
+            b, s, d = x.shape
+            xs = x.reshape(MOE_SHARDS, b * s // MOE_SHARDS, d)
+            quarters = torch.cat([with_patched(
+                moe, "route", recorded, lambda: real(p, xs[i][None], cfg_))
+                for i in range(MOE_SHARDS)], dim=1).reshape(b, s, d)
+            shard, alone = plans[:MOE_SHARDS], plans[MOE_SHARDS:]
+            keep_all = route(x.reshape(b * s, d), p["router"], m,
+                             moe.moe_capacity(m, b * s))[1]
+            rms, max_abs, _ = compare(y.reshape(1, b * s, d),
+                                      quarters.reshape(1, b * s, d))
+            layers.append({
+                "routes_equal": all(
+                    torch.equal(u, w) for one, other in zip(shard, alone)
+                    for u, w in zip(one[1:], other[1:])),
+                "gates_equal": all(torch.equal(one[0], other[0])
+                                   for one, other in zip(shard, alone)),
+                "rel_rms": rms, "max_abs": max_abs,
+                "dropped_share_by_shard": [
+                    float((~pl[1]).sum()) / pl[1].numel() for pl in shard],
+                "dropped_share_global": float((~keep_all).sum())
+                / keep_all.numel()})
+            return y
+
+        with_patched(transformer, "apply_moe", checked,
+                     lambda: forward(params, batch, cfg, act_specs=spec))
+    rows["flash_attention"]["launches"] += flash
+    rows["flash_attention"].setdefault("launches_by_phase", {})[
+        f"moe_shards:{cfg.name}"] = flash
+    cap = moe.moe_capacity(m, lm_b * lm_s // MOE_SHARDS)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_shards", "arch": cfg.name, "layers": cfg.n_layers,
+          "batch": lm_b, "seq": lm_s, "n_dp": MOE_SHARDS,
+          "capacity_a_shard": cap,
+          "capacity_global": moe.moe_capacity(m, lm_b * lm_s),
+          "wall_s": wall, "prefill_tokens_per_s": lm_b * lm_s / wall,
+          "flash_attention_launches": flash,
+          "flash_attention_route_launches": routes,
+          "logits_vs_global_routing": {"rel_rms": vs_global[0],
+                                       "max_abs": vs_global[1],
+                                       "top1_agreement": vs_global[2]},
+          "layers_vs_quarters": layers, "tolerance": MOE_SHARD_RMS_TOL,
+          "card": card})
+    check(flash == cfg.n_layers and routes == {"tc_bf16": cfg.n_layers,
+                                               "simt_f32": 0},
+          f"moe_shards: flash launches {flash}, routes {routes}")
+    check(len(layers) == cfg.n_layers, f"moe_shards: {len(layers)} MoE "
+          "layers checked")
+    for i, lay in enumerate(layers):
+        check(lay["routes_equal"] and lay["gates_equal"], f"moe_shards: "
+              f"layer {i}'s shard routes differ from the quarters' own")
+        check(lay["rel_rms"] <= MOE_SHARD_RMS_TOL, f"moe_shards: layer {i} "
+              f"{lay['rel_rms']} (relative RMS) from the quarters")
+
+
+def sharded_cfg():
+    """sharded_step's model and optimiser: SHARDED_ARCH at full width cut
+    to SHARDED_LAYERS layers, AdamW with f32 moments."""
+    from repro_torch.configs import get_arch
+    from repro_torch.optim.adamw import AdamWConfig
+    return (dataclasses.replace(get_arch(SHARDED_ARCH),
+                                n_layers=SHARDED_LAYERS),
+            AdamWConfig(lr=FAMILY_LR, warmup_steps=1))
+
+
+def sharded_rank(rank, world, dev):
+    """One rank of sharded_step: its blocks of the parameters and AdamW
+    moments (their bytes by ``torch.cuda.memory_allocated``),
+    SHARDED_STEPS steps on its batch shard, the probes of the first
+    step's whole averaged gradient, the wire bytes a step by axis and
+    kind, the bytes staged through host memory."""
+    import repro_torch.train.step as step_mod
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import adamw_init
+    cfg, opt = sharded_cfg()
+    mesh = make_mesh(SHARDED_MESH, device=dev)
+    shape = shd.MeshShape.from_mesh(mesh)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    full = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                       device=dev)
+    pspecs = shd.param_specs(full, cfg, shape)
+    params = shd.shard_tree(full, pspecs, shape, mesh.coords)
+    del full
+    gc.collect()
+    opt_state = adamw_init(params, opt)
+    torch.cuda.synchronize(dev)
+    stored = torch.cuda.memory_allocated(dev) - base
+    step = step_mod.make_sharded_train_step(cfg, opt, mesh,
+                                            global_batch=SHARDED_BATCH)
+    bspecs = shd.batch_specs(cfg, shape, SHARDED_BATCH)
+    probes = []
+    inner = step_mod.global_norm
+    whole = make_lm_batch(cfg, 0, 0, SHARDED_BATCH, SHARDED_SEQ, device=dev)
+
+    def probed(tree):
+        if not probes:
+            probes.append(train_psa_probes(tree, whole["tokens"]))
+        return inner(tree)
+
+    step_mod.global_norm = probed
+    local = shd.shard_tree(whole, bspecs, shape, mesh.coords)
+    out = {"coords": mesh.coords, "stored_bytes": stored, "losses": [],
+           "grad_norms": [], "step_ms": [], "wire_a_step": [],
+           "staged_a_step": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(SHARDED_STEPS):
+        wire0 = mesh.wire_bytes()
+        staged = mesh.host_staged_bytes
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt_state, met = step(params, opt_state, local)
+        out["losses"].append(float(met["loss"]))
+        out["grad_norms"].append(float(met["grad_norm"]))
+        torch.cuda.synchronize(dev)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        wire1 = mesh.wire_bytes()
+        out["wire_a_step"].append({a: {k: wire1[a][k] - wire0[a][k]
+                                       for k in wire1[a]} for a in wire1})
+        out["staged_a_step"].append(mesh.host_staged_bytes - staged)
+    step_mod.global_norm = inner
+    out["probes"] = probes[0]
+    out["peak_bytes_in_steps"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def sharded_step_phase(dev, card: str) -> dict:
+    """sharded_step: SHARDED_ARCH at full width on a (2, 2) gloo mesh of
+    4 ranks sharing the card (module docstring). Returns the line."""
+    from repro_torch import _tree
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.step import _value_and_grad, loss_fn, shard_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, opt = sharded_cfg()
+    mesh = shd.MeshShape.of(*SHARDED_MESH)
+    shape = ShapeConfig("sharded_step", SHARDED_SEQ, SHARDED_BATCH, "train")
+    plan = dryrun.memory_plan(cfg, shape, mesh, opt)
+    want_stored = plan["params"]["alloc"] + plan["opt"]["alloc"]
+    want_wire = roofline.step_wire_bytes(cfg, shape, mesh)
+    # every allocation its own 512-byte-rounded block (no whole cached
+    # segment handed out), as the plan counts: expandable segments
+    kept = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(sharded_rank, mesh.size, backend="gloo",
+                            device="cuda")
+    finally:
+        if kept is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = kept
+    spawn_s = time.perf_counter() - t0
+    # one process: the loss on the whole batch, and the step's own math
+    # plainly, each data shard's gradient by its own backward pass and
+    # their f32 mean, from the same weights
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    whole = make_lm_batch(cfg, 0, 0, SHARDED_BATCH, SHARDED_SEQ, device=dev)
+    with torch.no_grad():
+        whole_loss = float(loss_fn(params, whole, cfg))
+    n_dp = mesh.shape["data"]
+    halves = [_value_and_grad(params, shard_batch(whole, i, n_dp), cfg)
+              for i in range(n_dp)]
+    _, first, structure = _tree.flatten_with_names(halves[0][1])
+    rest = [_tree.tree_leaves(g) for _, g in halves[1:]]
+    grads = _tree.unflatten(structure, [
+        (sum([g.float()] + [o[i].float() for o in rest]) / n_dp).to(g.dtype)
+        for i, g in enumerate(first)])
+    one = {"loss": sum(float(lo) for lo, _ in halves) / n_dp,
+           "whole_batch_loss": whole_loss,
+           "grad_norm": float(global_norm(grads)),
+           "probes": train_psa_probes(grads, whole["tokens"])}
+    del params, grads, halves, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    vs_one = [{"loss_rel_err": abs(r["losses"][0] - one["loss"])
+               / abs(one["loss"]),
+               "grad_norm_rel_err": abs(r["grad_norms"][0] - one["grad_norm"])
+               / one["grad_norm"],
+               "grad_max_rel_err": {k: _max_rel(v, one["probes"][k])
+                                    for k, v in r["probes"].items()}}
+              for r in ranks]
+    line = {"phase": "sharded_step", "arch": cfg.name,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "params": cfg.param_count(), "mesh": mesh.shape,
+            "backend": "gloo", "batch": SHARDED_BATCH, "seq": SHARDED_SEQ,
+            "stored_bytes_by_rank": [r["stored_bytes"] for r in ranks],
+            "planned_stored_bytes": want_stored,
+            "plan": {k: plan[k] for k in ("params", "opt", "inputs",
+                                          "total")},
+            "losses_by_rank": [r["losses"] for r in ranks],
+            "one_process": {k: one[k] for k in ("loss", "whole_batch_loss",
+                                                "grad_norm")},
+            "whole_batch_loss_rel_err": [
+                abs(r["losses"][0] - one["whole_batch_loss"])
+                / abs(one["whole_batch_loss"]) for r in ranks],
+            "vs_one_process": vs_one,
+            "tolerance": {"loss": TRAIN_LOSS_TOL,
+                          "grad_norm": PLAIN_GNORM_TOL,
+                          "grad": PLAIN_GRAD_TOL},
+            "step_ms_by_rank": [r["step_ms"] for r in ranks],
+            "wire_a_step_rank0": ranks[0]["wire_a_step"][0],
+            "planned_wire_a_step": want_wire,
+            "host_staged_bytes_a_step": [r["staged_a_step"] for r in ranks],
+            "peak_bytes_in_steps_by_rank": [r["peak_bytes_in_steps"]
+                                            for r in ranks],
+            "spawn_and_run_s": spawn_s, "card": card}
+    emit(line)
+    for r, vs in zip(ranks, vs_one):
+        check(r["stored_bytes"] == want_stored, f"sharded_step: rank "
+              f"{r['coords']} stores {r['stored_bytes']} bytes, the plan "
+              f"{want_stored}")
+        check(all(np.isfinite(r["losses"])), f"sharded_step: {r['losses']}")
+        check(vs["loss_rel_err"] <= TRAIN_LOSS_TOL, f"sharded_step: rank "
+              f"{r['coords']} loss {r['losses'][0]}, one process "
+              f"{one['loss']}")
+        check(abs(r["losses"][0] - one["whole_batch_loss"]) <= TRAIN_LOSS_TOL
+              * abs(one["whole_batch_loss"]), f"sharded_step: rank "
+              f"{r['coords']} loss {r['losses'][0]}, the whole batch's in one "
+              f"process {one['whole_batch_loss']}")
+        check(vs["grad_norm_rel_err"] <= PLAIN_GNORM_TOL, f"sharded_step: "
+              f"grad norm {r['grad_norms'][0]}, one process "
+              f"{one['grad_norm']}")
+        check(len(vs["grad_max_rel_err"]) >= 3 and max(
+            vs["grad_max_rel_err"].values()) <= PLAIN_GRAD_TOL,
+            f"sharded_step: gradients {vs['grad_max_rel_err']}")
+        for w in r["wire_a_step"]:
+            check(all(w[a][k] == want_wire[a][k] for a in want_wire
+                      for k in want_wire[a]), f"sharded_step: wire bytes "
+                  f"{w}, planned {want_wire}")
+    line["_step_s"] = statistics.median(
+        ms for r in ranks for ms in r["step_ms"][1:]) / 1e3
+    return line
+
+
+def train_psa_moe_phase(dev, rows: dict, record, gram_qr_work,
+                        card: str) -> dict:
+    """train_psa_moe: phi3.5-moe at full width, PSA_MOE_LAYERS layer, on 2
+    pod ranks sharing the card (``train_psa_rank``): PSA steps with a
+    refresh at steps 0 and 3, its Grams on row 4 at the expert stacks'
+    (1, 4096, 64) and (1, 6400, 64) and the head's (4096, 64). Checks what
+    train_psa checks but the plain two steps: finite losses, equal on both
+    pods, the first within TRAIN_LOSS_TOL of one rank's whole-batch step,
+    projectors orthonormal within ORTHO_TOL, three Gram launches a
+    compressed leaf an OI iteration, staged bytes twice those reduced.
+    The one rank routes its MoE per pod shard, as the pods do."""
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.psa_compress import CQR_PASSES
+    from repro_torch.train.step import loss_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    arch = "phi3.5-moe-42b-a6.6b"
+    cfg, opt, psa = train_psa_setup(PSA_MOE_LAYERS, arch)
+    t0 = time.perf_counter()
+    pods = spawn_ranks(train_psa_rank, 2, backend="gloo", device="cuda",
+                       args=(PSA_MOE_LAYERS, PSA_MOE_STEPS, PSA_MOE_BATCH,
+                             PSA_MOE_SEQ, arch))
+    wall = time.perf_counter() - t0
+    # one rank's loss on the whole batch, its MoE routing each pod's shard
+    # on its own as the reference's does over a mesh of 2 pods
+    one = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                      device=dev)
+    with torch.no_grad():
+        one_loss = float(loss_fn(
+            one, make_lm_batch(cfg, 0, 0, PSA_MOE_BATCH, PSA_MOE_SEQ,
+                               device=dev), cfg,
+            act_specs={"moe": {"dp": None, "e": None, "n_dp": 2}}))
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_shape = {}
+    for o in pods:
+        for rf in o["refreshes"]:
+            for k, n in rf["by_shape"].items():
+                by_shape[k] = by_shape.get(k, 0) + n
+    step_ms = statistics.median(ms for o in pods for ms in o["step_ms"][1:])
+    line = {"phase": "train_psa_moe", "arch": cfg.name,
+            "layers": cfg.n_layers, "experts": cfg.moe.n_experts,
+            "d_model": cfg.d_model, "d_expert": cfg.moe.d_expert,
+            "dtype": cfg.dtype, "moment_dtype": opt.moment_dtype, "pods": 2,
+            "psa": dataclasses.asdict(psa),
+            "tokens_a_pod_a_step": PSA_MOE_BATCH // 2 * PSA_MOE_SEQ,
+            "losses": pods[0]["losses"], "grad_norms": pods[0]["grad_norms"],
+            "one_rank_first_loss": one_loss,
+            "step_ms_by_rank": [o["step_ms"] for o in pods],
+            "step_ms_median_after_first": step_ms,
+            "tokens_per_s": PSA_MOE_BATCH * PSA_MOE_SEQ / (step_ms / 1e3),
+            "refreshes": pods[0]["refreshes"],
+            "gram_qr_launches_by_shape": by_shape,
+            "compressed_leaves": pods[0]["compressed_leaves"],
+            "allreduced_bytes_a_step": pods[0]["reduced_bytes"],
+            "dense_gradient_bytes_a_step": pods[0]["dense_bytes"],
+            "compression_ratio_analytic": pods[0]["ratio"],
+            "host_staged_bytes_a_step": pods[0]["staged_per_step"],
+            "max_memory_allocated_by_rank": [o["max_memory_allocated"]
+                                             for o in pods],
+            "step_parts_ms_by_rank": [o["step_parts_ms"] for o in pods],
+            "spawn_and_run_s": wall, "card": card}
+    emit(line)
+    for o in pods:
+        check(all(np.isfinite(o["losses"])) and o["losses"]
+              == pods[0]["losses"], f"train_psa_moe: losses {o['losses']}")
+        for rf in o["refreshes"]:
+            check(rf["ortho_err"] <= ORTHO_TOL, f"train_psa_moe: projector "
+                  f"|P^T P - I| {rf['ortho_err']} at step {rf['step']}")
+            check(rf["gram_qr"] == CQR_PASSES * psa.oi_iters
+                  * o["compressed_leaves"], f"train_psa_moe: "
+                  f"{rf['gram_qr']} Gram launches a refresh")
+        check(all(b == 2 * o["reduced_bytes"]
+                  for b in o["staged_per_step"]), "train_psa_moe: staged "
+              f"bytes {o['staged_per_step']} != 2 x {o['reduced_bytes']}")
+    check(abs(pods[0]["losses"][0] - one_loss) <= TRAIN_LOSS_TOL
+          * abs(one_loss), f"train_psa_moe: first pod-mean loss "
+          f"{pods[0]['losses'][0]} against one rank's {one_loss}")
+    # row 4 at the refresh's shapes, f32: the expert stacks' and the head's
+    gen = torch.Generator(device=dev).manual_seed(25)
+    shapes = (("a4096", (1, cfg.d_model, psa.rank)),
+              ("a6400", (1, cfg.moe.d_expert, psa.rank)),
+              ("head", (cfg.d_model, psa.rank)))
+    for label, shape in shapes:
+        vq = torch.randn(shape, generator=gen, device=dev)
+        q_bytes, q_flops, _ = gram_qr_work(vq.reshape(-1, *shape[-2:]))
+        name = f"gram_qr_psa_moe_{label}"
+        record(name, "src/repro_torch/kernels/csrc/gram_qr.cu",
+               "src/repro/kernels/gram_qr.py:40",
+               lambda: ops.gram_qr(vq), lambda: ref.gram_qr_ref(vq),
+               lambda: torch.matmul(vq.mT, vq), q_bytes, q_flops,
+               GRAM_QR_TOL, "f32 sums in another order than cuBLAS; "
+               "relative to max |G|")
+        rows[name]["launches"] = by_shape.get(str(list(shape)), 0)
+        rows[name]["shape"] = list(shape)
+        del vq
+    check(sum(rows[f"gram_qr_psa_moe_{k}"]["launches"] for k, _ in shapes)
+          == sum(rf["gram_qr"] for o in pods for rf in o["refreshes"]),
+          f"train_psa_moe: Gram launches by shape {by_shape}")
+    line["_step_s"] = step_ms / 1e3
+    return line
+
+
+def roofline_phase(measured: dict, card: str) -> None:
+    """roofline: ``launch/roofline.run_cell``'s terms on one card (a 1 x 1
+    mesh) beside the measured step of each cell measured above."""
+    from repro_torch.launch import roofline
+    from repro_torch.models.sharding import MeshShape
+    one = MeshShape.of(("data", 1), ("model", 1))
+    cells = []
+    for name, (cfg, shape, seconds) in measured.items():
+        res = roofline.run_cell(cfg.name, shape, mesh=one, cfg=cfg,
+                                measured_s=seconds)
+        cells.append({"cell": name, "layers": cfg.n_layers,
+                      "batch": shape.global_batch, "seq": shape.seq_len,
+                      "kind": shape.kind, "measured_s": seconds,
+                      "flops": res["flops_per_dev"],
+                      "hbm_bytes": res["bytes_per_dev"],
+                      **res["roofline"],
+                      "bound_share_of_measured":
+                          res["bound_share_of_measured"],
+                      "mfu_at_bound": res["mfu_at_bound"]})
+    emit({"phase": "roofline", "hw": {
+        "name": roofline.HW.NAME, "peak_flops_bf16": roofline.HW.PEAK_FLOPS_BF16,
+        "hbm_bw": roofline.HW.HBM_BW, "hbm_bytes": roofline.HW.HBM_BYTES,
+        "link_bw": roofline.HW.LINK_BW,
+        "device_total_memory": torch.cuda.get_device_properties(
+            0).total_memory}, "cells": cells, "card": card})
+    check(len(cells) == len(measured) and all(
+        c["bound_s"] > 0 for c in cells), "roofline: cells")
+
+
+def train_family_phases(dev, rows: dict, record, gram_qr_work,
+                        measured: dict) -> None:
+    """train_families, train_psa_moe, moe_shards, sharded_step and
+    roofline (module docstring), each with the card's name and power
+    limit; ``measured`` holds the earlier phases' (cfg, shape, seconds)
+    and gains each new train step's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    card = nvidia_smi()
+    for arch, layers, lm_b, lm_s in TRAIN_FAMILIES:
+        cfg = get_arch(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        line = train_family(cfg, lm_b, lm_s, dev, card)
+        measured[f"train_families:{arch}"] = (
+            cfg, ShapeConfig(f"train_{arch}", lm_s, lm_b, "train"),
+            line["ms_per_step"] / 1e3)
+    psa_line = train_psa_moe_phase(dev, rows, record, gram_qr_work, card)
+    cfg_psa = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b"),
+                                  n_layers=PSA_MOE_LAYERS)
+    measured["train_psa_moe:pod"] = (
+        cfg_psa, ShapeConfig("train_psa_moe_pod", PSA_MOE_SEQ,
+                             PSA_MOE_BATCH // 2, "train"),
+        psa_line["_step_s"])
+    moe_shards_phase(dev, rows, card)
+    sh = sharded_step_phase(dev, card)
+    cfg_sh, _ = sharded_cfg()
+    measured["sharded_step:rank"] = (
+        cfg_sh, ShapeConfig("sharded_step_rank", SHARDED_SEQ,
+                            SHARDED_BATCH // 2, "train"), sh["_step_s"])
+    roofline_phase(measured, card)
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2158,6 +2847,7 @@ def main() -> None:
                                            partition_features,
                                            partition_samples)
     from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import make_lm_batch
     from repro_torch.kernels import (_build, _launch, gram_qr, gram_update,
                                      ops, ref, slab_ops)
@@ -4057,6 +4747,8 @@ def main() -> None:
         logits = forward(params, {"tokens": toks}, cfg, use_kernel=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        measured = {"lm_prefill": (cfg, ShapeConfig("lm_prefill", lm_s, lm_b,
+                                                    "prefill"), wall)}
         flash_launches = ops.LAUNCHES["flash_attention"]
         flash_routes = dict(ROUTE_LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
@@ -4168,6 +4860,9 @@ def main() -> None:
                   and int(generated.min()) >= 0
                   and int(generated.max()) < cfg.vocab_size)
         del outs, decoded, prefilled
+    measured["lm_decode"] = (cfg, ShapeConfig("lm_decode", n_tf + n_gen,
+                                              lm_b, "decode"),
+                             gen_wall / n_gen)
     emit({"phase": "lm_decode", "batch": lm_b, "teacher_forced": n_tf,
           "generated": n_gen, "kv_cache_bytes": kv_bytes,
           "teacher_forced_wall_s": tf_wall, "generate_wall_s": gen_wall,
@@ -4202,6 +4897,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     spmd_train_phases(dev, rows, record, gram_qr_work, q_init, q_true)
+
+    # -- training every family, shard-local MoE, the sharded step ---------
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_family_phases(dev, rows, record, gram_qr_work, measured)
 
     for name, row in rows.items():
         check(row["launches"] > 0 or not row.get("main_path", True),

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import _tree
+from ..models.sharding import MeshShape, shard_tree
 from ..obs import get_journal
 
 __all__ = ["CheckpointManager", "save_tree", "restore_tree"]
@@ -117,10 +118,18 @@ def _like(saved, like):
     return saved
 
 
-def restore_tree(path: str, like: Any) -> Any:
+def restore_tree(path: str, like: Any, *, mesh=None, specs=None) -> Any:
     """Load the snapshot in ``path`` into the structure of ``like`` (its
     leaf values are ignored; a tensor leaf gives the restored leaf's
-    device). Raises ``ValueError`` if the leaf names differ."""
+    device). Raises ``ValueError`` if the leaf names differ.
+
+    With ``mesh`` and ``specs`` the whole leaves are re-cut for that mesh:
+    each tensor leaf becomes this rank's block under its spec
+    (``models/sharding.shard_tree``). ``mesh`` is a ``launch/mesh.Mesh``
+    (its shape and this rank's coordinates), or a pair (``MeshShape``,
+    coordinates); the snapshot may have been written from any other mesh,
+    as the reference's elastic restore re-shards a (4, 2) save onto (2, 4).
+    """
     with open(os.path.join(path, _MANIFEST)) as f:
         manifest = json.load(f)
     data = np.load(os.path.join(path, "shards.npz"))
@@ -131,7 +140,14 @@ def restore_tree(path: str, like: Any) -> Any:
     leaves = [_like(_from_saved(data[f"leaf_{i}"], manifest["dtypes"][i],
                                 manifest["shapes"][i]), like_leaves[i])
               for i in range(len(names))]
-    return _tree.unflatten(structure, leaves)
+    tree = _tree.unflatten(structure, leaves)
+    if mesh is None or specs is None:
+        return tree
+    if isinstance(mesh, tuple):
+        shape, coords = mesh
+    else:
+        shape, coords = MeshShape.from_mesh(mesh), mesh.coords
+    return shard_tree(tree, specs, shape, coords)
 
 
 class CheckpointManager:
@@ -236,15 +252,18 @@ class CheckpointManager:
             err, self._failed = self._failed, None
             raise err
 
-    def restore(self, like: Any, step: Optional[int] = None):
+    def restore(self, like: Any, step: Optional[int] = None, *, mesh=None,
+                specs=None):
         """(tree, step) of ``step`` (default: the latest), or (None, None)
-        where there is none."""
+        where there is none. ``mesh`` / ``specs``: re-cut for a mesh
+        (``restore_tree``)."""
         self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
             return None, None
         with get_journal().span("ckpt_restore", "checkpoint", step=step):
-            tree = restore_tree(self._step_dir(step), like)
+            tree = restore_tree(self._step_dir(step), like, mesh=mesh,
+                                specs=specs)
         return tree, step
 
     def _gc(self) -> None:

@@ -21,8 +21,20 @@ buffer, runs there and copies the result back; the arithmetic around the
 collectives stays on the card. ``AxisGroup`` counts those bytes, both
 ways, in ``host_staged_bytes``.
 
-``make_production_mesh`` and ``HW`` (TPU v5e constants) have no meaning
-here; their H100 counterpart waits with ``roofline`` (ROADMAP queue 1).
+Wire bytes. Each ``AxisGroup`` also counts, by kind, the bytes its
+collectives put on the wire as a ring implementation sends them, with the
+factors of the reference's HLO collective parser
+(``repro/launch/hlo_analysis.py``): an all-reduce 2 (n - 1) / n of its
+payload, an all-gather (n - 1) / n of its result, a point-to-point
+exchange its payload once a peer (the reference's collective-permute).
+Kept per axis, the "pod" axis's share is what crosses pods: the port's
+counterpart of the reference's ``cross_pod_bytes``.
+
+``make_production_mesh`` gives the reference's production mesh shapes,
+(16, 16) and (2, 16, 16), as a ``models/sharding.MeshShape``: names and
+sizes with no processes, which the sharding rules and the dry run
+(``launch/dryrun.py``) run over. The reference's ``HW`` (TPU v5e
+constants) becomes ``launch/roofline.HW``, the H100's.
 """
 from __future__ import annotations
 
@@ -37,9 +49,22 @@ import torch
 import torch.distributed as dist
 
 from .._device import DeviceLike, resolve_device
+from ..models.sharding import MeshShape
 
-__all__ = ["AxisGroup", "Mesh", "make_mesh", "make_test_mesh", "rank_device",
-           "spawn_ranks"]
+__all__ = ["AxisGroup", "Mesh", "make_mesh", "make_test_mesh",
+           "make_production_mesh", "rank_device", "spawn_ranks",
+           "WIRE_FACTOR"]
+
+# wire bytes of a ring collective over n ranks per byte of its payload
+# (all-reduce), its result (all-gather) or its message (collective-permute):
+# the factors of repro/launch/hlo_analysis.py
+WIRE_FACTOR = {
+    "all-reduce": lambda n: 2.0 * (n - 1) / max(n, 1),
+    "all-gather": lambda n: (n - 1) / max(n, 1),
+    "reduce-scatter": lambda n: (n - 1) / max(n, 1),
+    "all-to-all": lambda n: (n - 1) / max(n, 1),
+    "collective-permute": lambda n: 1.0,
+}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -53,6 +78,8 @@ class AxisGroup:
     place among them, ``group`` their ``torch.distributed`` process group.
     Under gloo a CUDA payload goes through a pinned host buffer (one cached
     per shape, dtype and use), counted in ``host_staged_bytes``.
+    ``wire_bytes`` counts by kind the bytes its collectives send
+    (``WIRE_FACTOR``).
     """
 
     def __init__(self, name: str, ranks: Sequence[int], index: int, group,
@@ -64,7 +91,12 @@ class AxisGroup:
         self.group = group
         self.backend = backend
         self.host_staged_bytes = 0
+        self.wire_bytes = {"all-reduce": 0.0, "all-gather": 0.0,
+                           "collective-permute": 0.0}
         self._pinned: Dict[tuple, torch.Tensor] = {}
+
+    def _wire(self, kind: str, nbytes: int) -> None:
+        self.wire_bytes[kind] += WIRE_FACTOR[kind](self.size) * nbytes
 
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.is_cuda
@@ -90,6 +122,7 @@ class AxisGroup:
     def all_reduce_(self, t: torch.Tensor,
                     op=dist.ReduceOp.SUM) -> torch.Tensor:
         """Reduce ``t`` (contiguous) over the axis in place; returns it."""
+        self._wire("all-reduce", _nbytes(t))
         if not self._staged(t):
             dist.all_reduce(t, op=op, group=self.group)
             return t
@@ -100,6 +133,7 @@ class AxisGroup:
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """(size, *t.shape): every rank's ``t`` in axis order."""
         shape = (self.size,) + tuple(t.shape)
+        self._wire("all-gather", self.size * _nbytes(t))
         if not self._staged(t):
             out = torch.empty(shape, dtype=t.dtype, device=t.device)
             dist.all_gather(list(out.unbind(0)), t.contiguous(),
@@ -120,6 +154,7 @@ class AxisGroup:
         shape = (len(peers),) + tuple(t.shape)
         if not peers:                   # a node with no neighbours
             return torch.empty(shape, dtype=t.dtype, device=t.device)
+        self._wire("collective-permute", len(peers) * _nbytes(t))
         staged = self._staged(t)
         src = self._to_host(t, "send") if staged else t.contiguous()
         recv = (self._buffer("recv", shape, t.dtype) if staged
@@ -153,6 +188,10 @@ class Mesh:
     @property
     def host_staged_bytes(self) -> int:
         return sum(g.host_staged_bytes for g in self.groups.values())
+
+    def wire_bytes(self) -> Dict[str, Dict[str, float]]:
+        """axis -> kind -> the bytes this rank's collectives sent."""
+        return {a: dict(g.wire_bytes) for a, g in self.groups.items()}
 
 
 def make_mesh(axes: Sequence[Tuple[str, int]], *,
@@ -195,6 +234,14 @@ def make_test_mesh(*, multi_pod: bool = False,
             raise ValueError(f"two pods need an even world, got {world}")
         return make_mesh((("pod", 2), ("data", world // 2)), device=device)
     return make_mesh((("nodes", world),), device=device)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """(16, 16) over ("data", "model"), or (2, 16, 16) over ("pod",
+    "data", "model"): the reference's production meshes, as shapes."""
+    if multi_pod:
+        return MeshShape.of(("pod", 2), ("data", 16), ("model", 16))
+    return MeshShape.of(("data", 16), ("model", 16))
 
 
 def rank_device(device: DeviceLike, rank: int) -> torch.device:

@@ -1,0 +1,178 @@
+"""Roofline terms of a cell on the H100: the twin of
+``repro/launch/roofline.py`` and of ``hlo_analysis.roofline_terms``.
+
+The reference compiles each cell for 512 TPU placeholder devices and reads
+XLA's ``cost_analysis`` and the collectives of the partitioned HLO. Neither
+has a torch meaning. Here the FLOPs and HBM bytes come from
+``launch/analytic_cost.py`` (the reference's analytic model, global per
+step), divided per rank as the port's step divides them, and the wire bytes
+are those the port's step would send, counted with the factors
+``launch/mesh.AxisGroup`` counts its collectives by:
+
+  * a rank computes the whole model on its batch shard: FLOPs / the number
+    of batch shards (``models/sharding.dp_shards``);
+  * it reads every weight (gathered whole) and its shard of the rest:
+    weight bytes + the other bytes / the batch shards;
+  * it gathers each stored parameter block over the axes its spec names
+    (``sharding.gather``), and a train step averages the f32 gradients and
+    the loss over the data axes the batch is cut over
+    (``train/step.make_sharded_train_step``).
+
+Per axis, the "pod" axis's bytes are those that cross pods.
+
+Usage:
+  python -m repro_torch.launch.roofline --arch qwen2-7b --shape train_4k
+  python -m repro_torch.launch.roofline --arch qwen2-7b --shape train_4k \\
+      --multipod --measured-s 12.5
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+
+from .. import _tree
+from ..configs import SHAPES, get_arch
+from ..configs.base import ModelConfig, ShapeConfig
+from ..models import sharding as shd
+from ..models.transformer import init_params
+from .analytic_cost import analytic_cost
+from .mesh import WIRE_FACTOR, make_production_mesh
+
+__all__ = ["HW", "roofline_terms", "model_flops", "step_wire_bytes",
+           "run_cell"]
+
+
+class HW:
+    """NVIDIA H100 SXM5 80 GB, one card: datasheet figures of that card.
+
+    The link figure is NVLink 4's 900 GB/s a card, both directions
+    together, so 450 GB/s each way. A machine with one card has no link to
+    measure it on; it stays the datasheet's.
+    """
+    NAME = "NVIDIA H100 SXM5 80GB"
+    PEAK_FLOPS_BF16 = 989e12       # FLOP/s, dense bf16 on the tensor cores
+    PEAK_FLOPS_F32 = 67e12         # FLOP/s, f32 on the CUDA cores
+    HBM_BW = 3.35e12               # B/s, HBM3
+    HBM_BYTES = 80e9               # 80 GB of HBM3
+    LINK_BW = 450e9                # B/s each way, NVLink 4
+
+
+def roofline_terms(*, flops_per_dev: float, bytes_per_dev: float,
+                   wire_bytes_per_dev: float, hw=HW) -> Dict[str, Any]:
+    """The three per-step time lower bounds (seconds), per device."""
+    t_compute = flops_per_dev / hw.PEAK_FLOPS_BF16
+    t_memory = bytes_per_dev / hw.HBM_BW
+    t_collective = wire_bytes_per_dev / hw.LINK_BW
+    dominant = max(
+        ("compute", t_compute), ("memory", t_memory),
+        ("collective", t_collective), key=lambda kv: kv[1])[0]
+    return {
+        "t_compute_s": t_compute,
+        "t_memory_s": t_memory,
+        "t_collective_s": t_collective,
+        "dominant": dominant,
+        "bound_s": max(t_compute, t_memory, t_collective),
+    }
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """6 N D (train) / 2 N D (prefill and decode), N = active params."""
+    n = cfg.active_param_count()
+    if shape.kind == "train":
+        return 6.0 * n * shape.tokens
+    if shape.kind == "prefill":
+        return 2.0 * n * shape.tokens
+    return 2.0 * n * shape.global_batch     # one token per sequence
+
+
+def _axes(entry):
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
+                    mesh: shd.MeshShape) -> Dict[str, Dict[str, float]]:
+    """axis -> kind -> the bytes one rank's step sends: the all-gathers of
+    its parameter blocks (in ``sharding.gather``'s order) and, for a train
+    step, the f32 all-reduces of the gradients and the loss over the data
+    axes the batch is cut over."""
+    sizes = mesh.shape
+    out = {a: {"all-reduce": 0.0, "all-gather": 0.0} for a in sizes}
+    params = init_params(None, cfg, device="meta")
+    specs = shd.param_specs(params, cfg, mesh)
+    leaves = _tree.tree_leaves(params)
+    for leaf, spec in zip(leaves, shd.spec_leaves(specs)):
+        nbytes = float(np.prod(shd.local_shape(leaf.shape, spec, mesh))) \
+            * leaf.element_size()
+        for entry in spec:
+            for a in reversed(_axes(entry)):
+                n = sizes[a]
+                out[a]["all-gather"] += WIRE_FACTOR["all-gather"](n) \
+                    * n * nbytes
+                nbytes *= n
+    if shape.kind == "train" and shd.dp_shards(cfg, mesh,
+                                               shape.global_batch) > 1:
+        grad_bytes = 4.0 * sum(leaf.numel() for leaf in leaves)
+        for a in shd.dp_axes(mesh):
+            out[a]["all-reduce"] += WIRE_FACTOR["all-reduce"](sizes[a]) \
+                * (grad_bytes + 4)
+    return out
+
+
+def run_cell(arch: str, shape: Union[str, ShapeConfig], *,
+             mesh: Optional[shd.MeshShape] = None,
+             cfg: Optional[ModelConfig] = None,
+             measured_s: Optional[float] = None) -> Dict[str, Any]:
+    """The three roofline terms of one step of ``arch`` (or ``cfg``, a cut
+    of it) at ``shape`` on ``mesh`` (default: the single-pod production
+    mesh), per rank, the dominant one, ``bound_s`` and ``mfu_at_bound``;
+    with ``measured_s``, the bound's share of that measured step."""
+    cfg = get_arch(arch) if cfg is None else cfg
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    mesh = make_production_mesh() if mesh is None else mesh
+    cost = analytic_cost(cfg, shape)
+    dp = shd.dp_shards(cfg, mesh, shape.global_batch)
+    flops_dev = cost["flops"] / dp
+    bytes_dev = cost["weight_bytes"] + (cost["hbm_bytes"]
+                                        - cost["weight_bytes"]) / dp
+    wire = step_wire_bytes(cfg, shape, mesh)
+    wire_dev = sum(sum(kinds.values()) for kinds in wire.values())
+    terms = roofline_terms(flops_per_dev=flops_dev, bytes_per_dev=bytes_dev,
+                           wire_bytes_per_dev=wire_dev)
+    mf = model_flops(cfg, shape)
+    res = {
+        "arch": cfg.name, "shape": shape.name, "kind": shape.kind,
+        "mesh": mesh.shape, "n_devices": mesh.size, "batch_shards": dp,
+        "flops_per_dev": flops_dev, "bytes_per_dev": bytes_dev,
+        "wire_bytes_per_dev": wire_dev, "wire_by_axis": wire,
+        "cross_pod_bytes": sum(wire.get("pod", {}).values()),
+        "model_flops": mf, "roofline": terms,
+        "mfu_at_bound": ((mf / mesh.size / HW.PEAK_FLOPS_BF16)
+                         / terms["bound_s"] if terms["bound_s"] else None),
+        "hw": HW.NAME,
+    }
+    if measured_s is not None:
+        res["measured_s"] = measured_s
+        res["bound_share_of_measured"] = terms["bound_s"] / measured_s
+    return res
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", required=True, choices=list(SHAPES))
+    ap.add_argument("--multipod", action="store_true")
+    ap.add_argument("--measured-s", type=float, default=None)
+    args = ap.parse_args(argv)
+    res = run_cell(args.arch, args.shape,
+                   mesh=make_production_mesh(multi_pod=args.multipod),
+                   measured_s=args.measured_s)
+    print(json.dumps(res, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,2 @@
-"""The LM serving stack: layers, GQA attention and the decoder."""
+"""The LM stack: layers, GQA attention, MoE, the recurrent mixers, the
+decoder, and the sharding rules over a mesh."""

@@ -9,11 +9,11 @@ buffer whose last row is that spare slot, the experts' SwiGLU FFNs run as
 ``torch.bmm`` over the expert axis, and combine gathers each kept pair's
 output back, weighted by its gate (kimi adds a dense shared expert).
 
-The reference routes per data shard when ``act_specs["moe"]`` gives a
-shard count; without it (one shard) it routes over all the tokens, which
-is what this module does. The reference leaves these products to XLA, so
-they stay ``torch.bmm`` / ``torch.matmul`` here: no Pallas kernel is on
-this path.
+Routing runs per data shard when ``act_specs["moe"]`` gives a shard
+count, as the reference's does: each shard's tokens are sorted, and capped
+at a capacity, on their own; with one shard that is global routing. The
+reference leaves these products to XLA, so they stay ``torch.bmm`` /
+``torch.matmul`` here: no Pallas kernel is on this path.
 """
 from __future__ import annotations
 
@@ -103,36 +103,58 @@ def route(xf: torch.Tensor, router: torch.Tensor, m: MoEConfig, cap: int):
 
 def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
               act_specs=None) -> torch.Tensor:
-    """x: (b, s, d) -> (b, s, d), every token routed together (the
-    reference's one-shard behaviour)."""
-    if act_specs and act_specs.get("moe"):
-        raise NotImplementedError(
-            "apply_moe: shard-local routing (act_specs['moe']) waits for "
-            "models/sharding.py (ROADMAP queue 1)")
+    """x: (b, s, d) -> (b, s, d).
+
+    ``act_specs["moe"]`` (``models/sharding.activation_specs``) gives the
+    number of data shards ``n_dp``: the t = b s tokens, in order, split
+    into that many shards (one when t does not divide), each routed on its
+    own with the capacity ``moe_capacity(m, t / n_dp)`` for each (shard,
+    expert) pair, as the reference routes them. The shards' buffers go shard-major to
+    expert-major for one batched FFN over the experts and back. Its mesh
+    axes (``dp``, ``e``) change nothing here. Without it every token is
+    routed together."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
     k, e = m.top_k, m.n_experts
-    cap = moe_capacity(m, t)
-    xf = x.reshape(t, d)
-    gates, keep, slot = route(xf, p["router"], m, cap)
-    tok_of = torch.arange(t, device=x.device).repeat_interleave(k)
+    spec = (act_specs or {}).get("moe") or {}
+    n = spec.get("n_dp", 1) or 1
+    if t % n:
+        n = 1
+    t_loc = t // n
+    cap = moe_capacity(m, t_loc)
+    xs = x.reshape(n, t_loc, d)
+    plans = [route(xs[i], p["router"], m, cap) for i in range(n)]
+    gates, keep, slot = (torch.stack(part) for part in zip(*plans))
+    tok_of = torch.arange(t_loc, device=x.device).repeat_interleave(k)
 
-    # dispatch: kept pairs to their slots, dropped ones (zeros) to the spare
-    contrib = torch.where(keep[:, None], xf[tok_of], 0.0)
-    buf = xf.new_zeros((e * cap + 1, d)).index_copy_(0, slot, contrib)
-    buf = buf[:-1].reshape(e, cap, d)
+    # dispatch: kept pairs to their slots, dropped ones (zeros) to their
+    # shard's spare slot, each shard's (e cap + 1)-row buffer in one tensor
+    contrib = torch.where(keep[..., None], xs[:, tok_of], 0.0)
+    rows = e * cap + 1
+    base = torch.arange(n, device=x.device)[:, None] * rows
+    buf = xs.new_zeros((n * rows, d)).index_copy_(
+        0, (slot + base).reshape(-1), contrib.reshape(-1, d))
+    # shard-major -> expert-major: (e, n cap, d)
+    buf = buf.reshape(n, rows, d)[:, :-1].reshape(n, e, cap, d)
+    buf = buf.transpose(0, 1).reshape(e, n * cap, d)
 
     # the experts' FFNs, batched over the expert axis
     g = torch.bmm(buf, p["w_gate"])
     u = torch.bmm(buf, p["w_up"])
-    yb = torch.bmm(F.silu(g) * u, p["w_down"]).reshape(e * cap, d)
+    yb = torch.bmm(F.silu(g) * u, p["w_down"])
+    # expert-major -> shard-major: (n, e cap, d)
+    yb = yb.reshape(e, n, cap, d).transpose(0, 1).reshape(n, e * cap, d)
 
-    # combine: a token's k choices are rows k i .. k i + k - 1
-    ytk = torch.where(keep[:, None], yb[slot.clamp_max(e * cap - 1)], 0.0)
-    y = (ytk * gates.reshape(-1, 1).to(ytk.dtype)).reshape(t, k, d).sum(1)
+    # combine: a token's k choices are rows k i .. k i + k - 1 of its shard
+    picked = yb[torch.arange(n, device=x.device)[:, None],
+                slot.clamp_max(e * cap - 1)]
+    ytk = torch.where(keep[..., None], picked, 0.0)
+    y = (ytk * gates.reshape(n, -1, 1).to(ytk.dtype)).reshape(
+        t, k, d).sum(1)
 
     if m.n_shared_experts:
         sp = p["shared"]
+        xf = x.reshape(t, d)
         y = y + (F.silu(xf @ sp["w_gate"]) * (xf @ sp["w_up"])) @ sp["w_down"]
     return y.reshape(b, s, d)

@@ -1,0 +1,337 @@
+"""Logical -> mesh sharding rules: the twin of ``repro/models/sharding.py``.
+
+Axis conventions, as in the reference:
+  * batch                               -> the data-parallel axes
+                                           ("pod", "data") / ("data",)
+  * TP (heads / ffn / vocab / experts)  -> "model"
+  * FSDP (ZeRO-3 weight shard)          -> "data"
+
+A mesh axis is assigned to a tensor dim only when the dim divides evenly
+over it; otherwise the dim is replicated.
+
+The rules run over a ``MeshShape``: axis names and sizes, no processes. A
+spec is a tuple with one entry per dimension of its tensor: ``None``
+(replicated), an axis name, or a tuple of axis names (the dim split over
+their product, the first name major), the reference's ``PartitionSpec``
+entries one for one. ``activation_specs`` gives the same dict as the
+reference; in the port only its ``"moe"`` entry changes what is computed
+(``models/moe.apply_moe`` routes per data shard). The layout entries
+(``act``, ``logits``, ``attn_q``, ``attn_kv``) pin XLA's partitioner in the
+reference and have no counterpart here.
+
+Sharded storage. ``shard_tree`` cuts a tree into one rank's blocks by its
+coordinates; ``gather_tree`` puts the blocks of a tree back together over a
+``launch/mesh.Mesh`` with ``AxisGroup.all_gather``, axis by axis. A train
+step over such a mesh (``train/step.make_sharded_train_step``) keeps only
+the rank's blocks of the parameters and AdamW moments, which is the
+reference's memory plan for stored state. It does not split the compute
+over "model" as XLA's partitioner does: every rank gathers each whole leaf
+and runs the whole model on its batch shard.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from .. import _tree
+from ..configs.base import ModelConfig
+
+__all__ = ["MeshShape", "dp_axes", "param_specs", "batch_specs",
+           "constraint_spec", "activation_specs", "decode_state_specs",
+           "local_shape", "shard", "shard_tree", "gather", "gather_tree",
+           "spec_leaves", "dp_shards"]
+
+Axes = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[Axes, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """Axis names and sizes of a mesh laid out row-major over its ranks
+    (the last axis varies fastest), as ``launch/mesh.make_mesh`` lays a
+    world out."""
+
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @classmethod
+    def of(cls, *axes: Tuple[str, int]) -> "MeshShape":
+        return cls(tuple(a for a, _ in axes), tuple(int(s) for _, s in axes))
+
+    @classmethod
+    def from_mesh(cls, mesh) -> "MeshShape":
+        """The shape of a ``launch/mesh.Mesh``."""
+        return cls(tuple(mesh.axis_names),
+                   tuple(mesh.shape[a] for a in mesh.axis_names))
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.sizes))
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """The coordinates of global rank ``rank``."""
+        return dict(zip(self.axis_names, (int(c) for c in np.unravel_index(
+            rank, self.sizes))))
+
+
+def _P(*entries) -> Spec:
+    """A spec from its entries; a one-name tuple becomes the name, as a
+    ``PartitionSpec`` normalises it."""
+    return tuple(e[0] if isinstance(e, tuple) and len(e) == 1 else e
+                 for e in entries)
+
+
+def _shape_of(mesh) -> MeshShape:
+    return mesh if isinstance(mesh, MeshShape) else MeshShape.from_mesh(mesh)
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in _shape_of(mesh).axis_names if a in ("pod", "data"))
+
+
+def _axsize(mesh, axes: Axes) -> int:
+    if axes is None:
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    shape = _shape_of(mesh).shape
+    return int(np.prod([shape[a] for a in axes]))
+
+
+def _maybe(mesh, dim: int, axes: Axes) -> Axes:
+    """axes if dim divides evenly over them, else replicate."""
+    return axes if dim % _axsize(mesh, axes) == 0 else None
+
+
+def _leaf_spec(names: Sequence[str], shape, mesh, fsdp: str = "data",
+               tp: str = "model") -> Spec:
+    name = names[-1]
+    in_groups = "groups" in names
+    nd = len(shape)
+    dims = list(shape)
+
+    def spec(*entries) -> Spec:
+        full = ([None] + list(entries)) if in_groups else list(entries)
+        assert len(full) == nd, (names, shape, full)
+        return _P(*full)
+
+    body = dims[1:] if in_groups else dims
+
+    if name == "embed":
+        # the model dim, not vocab: the token gather stays whole
+        if nd == 3:  # audio: (K, V, D)
+            return _P(None, None, _maybe(mesh, dims[2], (fsdp, tp)))
+        return _P(None, _maybe(mesh, dims[1], (fsdp, tp)))
+    if name == "lm_head":
+        return _P(_maybe(mesh, dims[0], fsdp), _maybe(mesh, dims[1], tp))
+    if name in ("final_norm", "norm1", "norm2", "b_gates", "b_if", "lam",
+                "bq", "bk", "bv", "conv_w"):
+        return spec(*([None] * len(body)))
+    if name == "router":  # (D, E)
+        return spec(_maybe(mesh, body[0], fsdp), None)
+    if name in ("w_q", "w_k", "w_v", "r_gates") and len(body) == 3:
+        # block-diagonal per-head projections (h, hd, x): heads over TP
+        return spec(_maybe(mesh, body[0], tp), None, None)
+    if name in ("w_gate", "w_up") and len(body) == 3:     # experts (E, D, F)
+        return spec(_maybe(mesh, body[0], tp), _maybe(mesh, body[1], fsdp),
+                    None)
+    if name == "w_down" and len(body) == 3:               # experts (E, F, D)
+        return spec(_maybe(mesh, body[0], tp), None,
+                    _maybe(mesh, body[2], fsdp))
+    if name in ("wq", "wk", "wv", "w_up", "w_gate", "w_ffn_up", "w_gates",
+                "r_gates", "w_in", "w_gate_in", "w_q", "w_k", "w_v",
+                "w_rgate", "w_igate", "w_if"):            # (D_in, F_out)
+        return spec(_maybe(mesh, body[0], fsdp), _maybe(mesh, body[1], tp))
+    if name in ("wo", "w_down", "w_ffn_down", "w_out"):   # (F_in, D_out)
+        return spec(_maybe(mesh, body[0], tp), _maybe(mesh, body[1], fsdp))
+    return spec(*([None] * len(body)))
+
+
+def _map_named(fn, tree):
+    """``fn(names, leaf)`` over a tree's leaves, ``names`` its path."""
+    names, leaves, structure = _tree.flatten_with_names(tree)
+    return _tree.unflatten(structure, [fn(n.split("/"), leaf)
+                                       for n, leaf in zip(names, leaves)])
+
+
+def param_specs(params, cfg: ModelConfig, mesh):
+    """A spec tree matching the parameter tree (leaves: anything with a
+    ``shape``: tensors, meta tensors)."""
+    return _map_named(lambda names, leaf: _leaf_spec(names, leaf.shape, mesh),
+                      params)
+
+
+def batch_specs(cfg: ModelConfig, mesh, global_batch: int) -> Dict[str, Spec]:
+    """Specs of the input batch dict (tokens / labels / patch_embeds)."""
+    dp = dp_axes(mesh)
+    bax = dp if global_batch % _axsize(mesh, dp) == 0 else None
+    toks = _P(bax, None, None) if cfg.frontend == "audio_codec" \
+        else _P(bax, None)
+    out = {"tokens": toks, "labels": toks}
+    if cfg.frontend == "vlm_patches":
+        out["patch_embeds"] = _P(bax, None, None)
+    return out
+
+
+def constraint_spec(cfg: ModelConfig, mesh, global_batch: int) -> Spec:
+    """The residual stream's (b, s, d) spec at block boundaries."""
+    dp = dp_axes(mesh)
+    bax = dp if global_batch % _axsize(mesh, dp) == 0 else None
+    return _P(bax, None, None)
+
+
+def activation_specs(cfg: ModelConfig, mesh, global_batch: int,
+                     seq_len: Optional[int] = None, dp=None) -> Dict[str, Any]:
+    """The reference's activation specs: ``act`` (b, s, d), ``logits``,
+    ``attn_q`` / ``attn_kv`` (b, h, s, hd) where the head count divides the
+    model axis, and ``moe``: the data-shard axes, the expert axis and the
+    number of data shards ``n_dp`` that ``apply_moe`` routes over. Only
+    ``moe`` changes what the port computes."""
+    dp = dp_axes(mesh) if dp is None else dp
+    bax = dp if global_batch % _axsize(mesh, dp) == 0 else None
+    act = _P(bax, None, None)
+    if bax is None and seq_len is not None and \
+            seq_len % _axsize(mesh, dp) == 0:
+        act = _P(None, dp, None)           # sequence-parallel fallback
+    vax = "model" if cfg.vocab_size % _axsize(mesh, "model") == 0 else None
+    logits = (_P(bax, None, None, vax) if cfg.frontend == "audio_codec"
+              else _P(bax, None, vax))
+    tp = _axsize(mesh, "model")
+    if cfg.n_heads % tp == 0:
+        attn_q = attn_kv = _P(bax, "model", None, None)
+    else:
+        attn_q = attn_kv = None
+    moe = None
+    if cfg.moe is not None:
+        eax = "model" if cfg.moe.n_experts % tp == 0 else None
+        moe = {"dp": bax, "e": eax, "n_dp": _axsize(mesh, dp) if bax else 1}
+    return {"act": act, "logits": logits, "attn_q": attn_q,
+            "attn_kv": attn_kv, "moe": moe}
+
+
+def decode_state_specs(state, cfg: ModelConfig, mesh, global_batch: int):
+    """Specs of the KV caches and recurrent states. Large batches shard
+    over the data axes; batch-1 long-context decode shards the cache
+    length instead. The step counter (a host integer) gets ``()``."""
+    dp = dp_axes(mesh)
+    big_batch = global_batch % _axsize(mesh, dp) == 0
+
+    def leaf(names, x) -> Spec:
+        name = names[-1]
+        if name == "index":
+            return ()
+        nd = len(x.shape)
+        if name in ("k", "v", "k_scale", "v_scale"):   # (g, b, kv, S, hd|1)
+            kv_ax = _maybe(mesh, x.shape[2], "model")
+            s_model = (_maybe(mesh, x.shape[3], "model") if kv_ax is None
+                       else None)
+            if big_batch:
+                return _P(None, dp, kv_ax, s_model, None)
+            s_axes = tuple(a for a in (list(dp) + ["model"])
+                           if kv_ax is None or a != "model")
+            return _P(None, None, kv_ax, _maybe(mesh, x.shape[3], s_axes),
+                      None)
+        if name == "c" and nd == 5:     # mlstm (g, b, h, hdk, hdv)
+            return _P(None, dp if big_batch else None,
+                    _maybe(mesh, x.shape[2], "model"), None, None)
+        if name == "n" and nd == 4:     # mlstm (g, b, h, hd)
+            return _P(None, dp if big_batch else None,
+                    _maybe(mesh, x.shape[2], "model"), None)
+        if nd == 3 and name in ("c", "n", "h"):   # slstm / rglru (g, b, d)
+            return _P(None, dp if big_batch else None,
+                    _maybe(mesh, x.shape[2], "model"))
+        if name == "conv":              # (g, b, 3, d)
+            return _P(None, dp if big_batch else None, None,
+                    _maybe(mesh, x.shape[3], "model"))
+        return (None,) * nd
+
+    return _map_named(leaf, state)
+
+
+# ---------------------------------------------------------------------------
+# sharded storage
+# ---------------------------------------------------------------------------
+def _entry_axes(entry: Axes) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """A rank's block shape of a tensor of ``shape`` under ``spec``."""
+    return tuple(int(n) // _axsize(mesh, e) for n, e in
+                 zip(shape, spec))
+
+
+def dp_shards(cfg: ModelConfig, mesh, global_batch: int) -> int:
+    """How many batch shards ``batch_specs`` cuts: the data-parallel size,
+    or 1 where the batch does not divide over it."""
+    lead = batch_specs(cfg, mesh, global_batch)["labels"][0]
+    return _axsize(mesh, lead)
+
+
+def shard(x: torch.Tensor, spec: Spec, mesh,
+          coords: Dict[str, int]) -> torch.Tensor:
+    """The block of ``x`` at ``coords`` under ``spec``: a fresh contiguous
+    tensor (the whole of ``x`` may be freed after)."""
+    shape = _shape_of(mesh).shape
+    index = []
+    for n, entry in zip(x.shape, spec):
+        axes = _entry_axes(entry)
+        parts, pos = 1, 0
+        for a in axes:                       # the first axis is major
+            pos = pos * shape[a] + coords[a]
+            parts *= shape[a]
+        size = n // parts
+        index.append(slice(pos * size, (pos + 1) * size))
+    return x[tuple(index)].clone(memory_format=torch.contiguous_format)
+
+
+def spec_leaves(specs) -> list:
+    """A spec tree's specs in the leaf order of ``_tree`` (dict keys
+    sorted): the tuples are the leaves; ``None`` holds none, as in
+    ``_tree``."""
+    if isinstance(specs, dict):
+        return [s for k in sorted(specs) for s in spec_leaves(specs[k])]
+    return [] if specs is None else [specs]
+
+
+def shard_tree(tree, specs, mesh_shape, coords: Dict[str, int]):
+    """Each tensor leaf of ``tree`` cut to its block at ``coords``;
+    leaves that are not tensors pass through."""
+    _, leaves, structure = _tree.flatten_with_names(tree)
+    specs = spec_leaves(specs)
+    if len(specs) != len(leaves):
+        raise ValueError("the spec tree does not match the tree")
+    return _tree.unflatten(structure, [
+        shard(x, s, mesh_shape, coords) if isinstance(x, torch.Tensor) else x
+        for x, s in zip(leaves, specs)])
+
+
+def gather(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The whole tensor from this rank's block ``x`` over a
+    ``launch/mesh.Mesh``: for each sharded dim, ``all_gather`` over its
+    axes, the last (minor) first."""
+    for dim, entry in enumerate(spec):
+        for a in reversed(_entry_axes(entry)):
+            g = mesh.axis(a).all_gather(x)              # (n, *x.shape)
+            x = g.movedim(0, dim).flatten(dim, dim + 1)
+    return x
+
+
+def gather_tree(tree, specs, mesh):
+    """The whole tree from this rank's blocks (``shard_tree``'s inverse)."""
+    _, leaves, structure = _tree.flatten_with_names(tree)
+    specs = spec_leaves(specs)
+    if len(specs) != len(leaves):
+        raise ValueError("the spec tree does not match the tree")
+    return _tree.unflatten(structure, [
+        gather(x, s, mesh) if isinstance(x, torch.Tensor) else x
+        for x, s in zip(leaves, specs)])

@@ -6,8 +6,12 @@ holds every block's leaves stacked over a leading ``n_groups`` axis, under
 keys ``blk{i}_{kind}``, each leaf in the reference's dtype (the MoE router
 and RG-LRU's ``lam`` stay f32 in a bf16 model), so
 ``interop.params_from_reference`` maps leaves one to one. The reference's
-scan over groups is a Python loop over that axis here. Its ``remat``,
-``unroll_layers`` and ``act_specs`` do not carry over. The full-sequence
+scan over groups is a Python loop over that axis here. Its ``remat`` and
+``unroll_layers`` do not carry over. ``act_specs``
+(``models/sharding.activation_specs``) is taken for its ``"moe"`` entry
+only, which makes ``apply_moe`` route per data shard; its layout entries
+(``act``, ``logits``, ``attn_*``) pin XLA's partitioner in the reference
+and change no arithmetic here. The full-sequence
 path is differentiable: ``train/step.loss_fn`` runs it under autograd with
 ``use_kernel=False`` (plain attention, as the reference trains; the flash
 kernel has no backward in either package). Decoding is inference only
@@ -151,16 +155,17 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
-def _ffn(p, x: torch.Tensor, cfg: ModelConfig, kind: str) -> torch.Tensor:
+def _ffn(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
+         act_specs=None) -> torch.Tensor:
     h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
     f = p["ffn"]
     if _is_moe(cfg, kind):
-        return x + apply_moe(f, h2, cfg)
+        return x + apply_moe(f, h2, cfg, act_specs=act_specs)
     return x + swiglu_ffn(h2, f["w_gate"], f["w_up"], f["w_down"])
 
 
 def _apply_block_full(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                      use_kernel: bool) -> torch.Tensor:
+                      use_kernel: bool, act_specs=None) -> torch.Tensor:
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if kind in ATTN_KINDS:
         out, _ = apply_attn(p["mixer"], h, cfg,
@@ -169,7 +174,8 @@ def _apply_block_full(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     else:
         out, _ = _MIXERS[kind][1](p["mixer"], h, cfg)
     x = x + out
-    return _ffn(p, x, cfg, kind) if block_has_ffn(cfg, kind) else x
+    return (_ffn(p, x, cfg, kind, act_specs) if block_has_ffn(cfg, kind)
+            else x)
 
 
 def embed_inputs(params, batch: Dict[str, torch.Tensor],
@@ -210,17 +216,18 @@ def _group(tree, g: int):
 
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-            use_kernel: bool = True) -> torch.Tensor:
+            use_kernel: bool = True, act_specs=None) -> torch.Tensor:
     """Returns logits (b, s, V) (audio: (b, s, K, V)). ``use_kernel=False``
     runs the plain ``blockwise_attention`` in place of the flash-attention
-    kernel."""
+    kernel. ``act_specs``: see the module docstring (only ``"moe"``
+    acts)."""
     x = embed_inputs(params, batch, cfg)
     pattern = cfg.pattern_for_layers()
     for g in range(cfg.n_groups):
         gp = _group(params["groups"], g)
         for i, kind in enumerate(pattern):
             x = _apply_block_full(gp[f"blk{i}_{kind}"], x, cfg, kind,
-                                  use_kernel)
+                                  use_kernel, act_specs)
     return _head(params, x, cfg)
 
 
@@ -250,7 +257,7 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def _apply_block_decode(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                        cache, index: int) -> torch.Tensor:
+                        cache, index: int, act_specs=None) -> torch.Tensor:
     """One token through one block; ``cache`` (this layer's views into the
     stacked caches) is written in place."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
@@ -263,12 +270,14 @@ def _apply_block_decode(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
         for key, val in new_state.items():
             cache[key].copy_(val)
     x = x + out
-    return _ffn(p, x, cfg, kind) if block_has_ffn(cfg, kind) else x
+    return (_ffn(p, x, cfg, kind, act_specs) if block_has_ffn(cfg, kind)
+            else x)
 
 
 def decode_step(params, state: Dict[str, Any], tokens: torch.Tensor,
-                cfg: ModelConfig):
-    """One serving step. tokens: (b, 1) (audio: (b, 1, K)).
+                cfg: ModelConfig, *, act_specs=None):
+    """One serving step. tokens: (b, 1) (audio: (b, 1, K)). ``act_specs``
+    as in ``forward``.
 
     Returns (logits, new_state). The caches and states advance by one,
     written in place: ``new_state`` holds the same tensors as ``state``.
@@ -281,6 +290,7 @@ def decode_step(params, state: Dict[str, Any], tokens: torch.Tensor,
         gc = _group(state["caches"], g)
         for i, kind in enumerate(pattern):
             name = f"blk{i}_{kind}"
-            x = _apply_block_decode(gp[name], x, cfg, kind, gc[name], index)
+            x = _apply_block_decode(gp[name], x, cfg, kind, gc[name], index,
+                                    act_specs)
     return _head(params, x, cfg), {"index": index + 1,
                                    "caches": state["caches"]}

@@ -78,13 +78,15 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def adamw_update(grads, state, params, cfg: AdamWConfig, *,
-                 donate: bool = False):
+                 donate: bool = False, gnorm=None):
     """(new_params, new_state, grad_norm): one AdamW step. ``grad_norm`` is
     the global norm before clipping. ``donate=True`` updates ``params`` and
-    the moments in place and returns them."""
+    the moments in place and returns them. ``gnorm``: the global norm to
+    clip by, where ``grads`` is one rank's block of a sharded gradient
+    (the norm of the whole one)."""
     step = state["step"] + 1
     lr = _lr_at(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     b1, b2 = cfg.b1, cfg.b2

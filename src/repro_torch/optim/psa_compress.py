@@ -66,7 +66,8 @@ def psa_init(params, cfg: PSAConfig, seed: int = 0,
     ``None`` where nothing is compressed) replaces the draw: the parity
     tests pass the reference's own projectors. A leaf whose path has a
     component ``embed`` is not compressed: its gradient is reduced densely
-    (train/step.py).
+    (train/step.py). Meta-device parameters give meta state and draw
+    nothing (``launch/dryrun.py``).
     """
     names, leaves, structure = _tree.flatten_with_names(params)
     gen = torch.Generator().manual_seed(seed)
@@ -81,6 +82,11 @@ def psa_init(params, cfg: PSAConfig, seed: int = 0,
         if not eligible(name, leaf):
             projs.append(None)
             efs.append(None)
+            continue
+        if leaf.device.type == "meta":  # shapes only (launch/dryrun.py)
+            projs.append(torch.empty(_proj_shape(leaf, cfg.rank),
+                                     device="meta"))
+            efs.append(torch.empty(leaf.shape, device="meta"))
             continue
         if given is None:
             q = torch.randn(_proj_shape(leaf, cfg.rank), generator=gen,

@@ -6,6 +6,11 @@
                          gradient reduction goes through PSA subspace
                          compression (optim/psa_compress.py), whose
                          projector S-DOT keeps over the pod ring.
+``make_sharded_train_step``  one rank of a (pod?, data, model) mesh that
+                         stores only its blocks of the parameters and AdamW
+                         moments (models/sharding.py's rules), gathers
+                         each leaf for the step and keeps its own block of
+                         the update.
 ``make_serve_step``      one-token decode with the KV caches.
 
 The reference trains through plain attention (``use_pallas=False``): the
@@ -21,20 +26,23 @@ import torch
 
 from .. import _tree
 from ..configs.base import ModelConfig, PSAConfig
-from ..models.transformer import decode_step, forward, tree_map
-from ..optim.adamw import AdamWConfig, adamw_update
+from ..models import sharding as shd
+from ..models.transformer import decode_step, forward, init_params, tree_map
+from ..optim.adamw import AdamWConfig, adamw_update, global_norm
 from ..optim.psa_compress import compress_grads, group_mean, psa_refresh
 
 __all__ = ["loss_fn", "make_train_step", "make_psa_train_step",
-           "make_serve_step", "shard_batch"]
+           "make_sharded_train_step", "make_serve_step", "shard_batch"]
 
 
-def loss_fn(params, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            act_specs=None) -> torch.Tensor:
     """Mean next-token cross entropy from float32 logits. The gold logit is
     read by index: the reference's masked sum over the vocabulary adds one
-    logit to zeros, the same value."""
-    logits = forward(params, batch, cfg, use_kernel=False).to(torch.float32)
+    logit to zeros, the same value. ``act_specs`` as ``forward`` takes it
+    (only its ``"moe"`` entry acts)."""
+    logits = forward(params, batch, cfg, use_kernel=False,
+                     act_specs=act_specs).to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
     return torch.mean(logz - gold)
@@ -127,6 +135,47 @@ def make_psa_train_step(cfg: ModelConfig, opt: AdamWConfig, psa: PSAConfig,
         return psa_refresh(grads, psa_state, psa, pod_axis=group)
 
     return step, refresh
+
+
+def make_sharded_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh, *,
+                            global_batch: int):
+    """(params, opt_state, batch) -> (params, opt_state, metrics) on one
+    rank of ``mesh`` (a ``launch/mesh.Mesh`` over ("pod"?, "data",
+    "model")), whose state holds only this rank's blocks
+    (``models/sharding.shard_tree`` by ``param_specs``; the moments by the
+    same specs, the step counter whole) and whose ``batch`` is its shard of
+    the global batch (``shard_tree`` by ``batch_specs``).
+
+    A step gathers each leaf whole (``gather_tree``), runs ``loss_fn`` on
+    the batch shard, averages the loss and the gradients (f32) over the
+    data axes the batch is cut over, clips by the whole gradient's norm and
+    updates only this rank's blocks. The math is the reference's step on
+    the global batch: its MoE routes each data shard's tokens on their own
+    (``activation_specs``' ``n_dp``), and a rank's batch shard is exactly
+    such a shard, so it routes its tokens together. The compute is not
+    split over "model" (every rank of a data shard repeats it)."""
+    shape = shd.MeshShape.from_mesh(mesh)
+    pspecs = shd.param_specs(init_params(None, cfg, device="meta"), cfg,
+                             shape)
+    lead = shd.batch_specs(cfg, shape, global_batch)["labels"][0]
+    cut_over = shd.dp_axes(shape) if lead is not None else ()
+
+    def step(params, opt_state, batch):
+        full = shd.gather_tree(params, pspecs, mesh)
+        loss, grads = _value_and_grad(full, batch, cfg)
+        del full
+        for a in cut_over:
+            group = mesh.axis(a)
+            grads = tree_map(lambda g: group_mean(g, group, donate=True),
+                             grads)
+            loss = group.all_reduce_(loss.reshape(1))[0] / group.size
+        gnorm = global_norm(grads)
+        grads = shd.shard_tree(grads, pspecs, shape, mesh.coords)
+        new_params, new_opt, gnorm = adamw_update(
+            grads, opt_state, params, opt, donate=True, gnorm=gnorm)
+        return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
+
+    return step
 
 
 def make_serve_step(cfg: ModelConfig):

@@ -2,8 +2,10 @@
 (CPU): kimi-k2-1t-a32b and phi3.5-moe (MoE FFN), xlstm-1.3b (mLSTM /
 sLSTM), recurrentgemma-2b (RG-LRU + sliding-window attention), paligemma-3b
 (image patches spliced over the prefix) and musicgen-medium (four summed
-codebooks, a (b, s, K, V) head); the flash kernel's plain version at their
-head dim 256 is in test_torch_flash_attention.py.
+codebooks, a (b, s, K, V) head), and the MoE's routing per data shard
+(``act_specs["moe"]``); the flash kernel's plain version at their head dim
+256 is in test_torch_flash_attention.py, their training in
+test_torch_train_families.py.
 
 Reduced configs in f32; parameters from the reference's ``init_params``,
 carried across by ``interop.params_from_reference``; tokens and
@@ -244,13 +246,44 @@ def test_apply_moe_with_drops_matches_reference(aid, family):
            jax.jit(lambda pp, xx: jmoe.apply_moe(pp, xx, jc))(p, x))
 
 
-def test_sharded_moe_waits_for_the_sharding_module(family):
+# (tokens (b, s), capacity factor): 64 tokens at the config's 1.25, the
+# same at 0.5 where per-shard capacities drop other pairs than one global
+# routing, and 15 tokens that divide over no shard count here (routed as one
+# shard, tests/test_perf_features.py's fallback)
+SHARD_CASES = {"even": ((4, 16), None), "tight": ((4, 16), 0.5),
+               "indivisible": ((3, 5), None)}
+
+
+@pytest.mark.parametrize("case", list(SHARD_CASES))
+@pytest.mark.parametrize("n_dp", [2, 4])
+def test_shard_local_moe_matches_reference(n_dp, case, family):
+    """``act_specs["moe"]`` routes each data shard's tokens on their own,
+    with a capacity a (shard, expert): the output equals the reference's
+    ``apply_moe`` with the same spec within F32_TOL; at the tight
+    capacity it differs from global routing."""
     f = family("phi3.5-moe-42b-a6.6b")
+    (b, s), cf = SHARD_CASES[case]
+    jc, tc = f["jc"], f["tc"]
+    if cf is not None:
+        jc = dataclasses.replace(jc, moe=dataclasses.replace(
+            jc.moe, capacity_factor=cf))
+        tc = dataclasses.replace(tc, moe=dataclasses.replace(
+            tc.moe, capacity_factor=cf))
+    p = jax.tree.map(lambda l: l[0], f["params"]["groups"]["blk0_attn"]["ffn"])
     tp = tt.tree_map(lambda l: l[0], f["tparams"]["groups"]["blk0_attn"]
                      ["ffn"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        tmoe.apply_moe(tp, torch.zeros((1, 8, f["tc"].d_model)), f["tc"],
-                       act_specs={"moe": {"n_dp": 2}})
+    x = np.random.default_rng(7).standard_normal((b, s, jc.d_model)).astype(
+        np.float32)
+    spec = {"moe": {"dp": None, "e": None, "n_dp": n_dp}}
+    want = jax.jit(lambda pp, xx: jmoe.apply_moe(pp, xx, jc,
+                                                 act_specs=spec))(p, x)
+    got = tmoe.apply_moe(tp, torch.from_numpy(x), tc, act_specs=spec)
+    _close(got, want)
+    glob = tmoe.apply_moe(tp, torch.from_numpy(x), tc)
+    if case == "tight":
+        assert float((got - glob).abs().max()) > 1e-2
+    else:
+        _close(got, glob.numpy())
 
 
 # ---------------------------------------------------------------------------
