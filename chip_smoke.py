@@ -87,10 +87,10 @@ Phases, one JSON line each:
   chunk_size 10 and a ``CheckpointManager`` under ``build/``; (iii) the
   same, killed after 4 chunks and resumed by a second call on the same
   directory; (iv) chunk_size 7; and chunk_size 10 with no checkpoints
-  ((i), (ii) and the last timed twice each, in turns). The iterate, error
+  ((i), (ii) and the last timed once each). The iterate, error
   trace and ledger of every run must equal (i)'s bit for bit, and the
-  launch counts show that (iii) restored step 40. It reports the mean
-  wall times, the cost of chunking and of a checkpoint per chunk, the
+  launch counts show that (iii) restored step 40. It reports the wall
+  times, the cost of chunking and of a checkpoint per chunk, the
   RunState's bytes, and the cost of the error trace's SVDs in one batched
   call against one call a step. It fails if a matrix's batched singular
   values on this card depend on the batch it is in: the runtime's one SVD
@@ -166,14 +166,16 @@ Phases, one JSON line each:
 * ``sdot_sparse``: watts_strogatz(4096, k=6, p=0.1, seed=1) at MNIST width
   (d = 784, r = 5, 60,000 samples, 14 a node), T_o = 5, t_c = 20. The
   default engine must pick ELL gossip; the per-node estimates must agree
-  with the dense matmul engine; a bf16-payload run must be finite and
-  priced at 2 bytes per element.
+  with the dense matmul engine; an SA-DOT lin2 run with bf16 messages must
+  be finite, priced at 2 bytes per element and within BF16_PAYLOAD_TOL
+  (per node) of the same SA-DOT run with f32 messages.
 * ``sparse_faulty``: that overlay under drops and bursts (p_drop 0.2,
   p_bad 0.05, p_good 0.5, seed 7), f32 and bf16 messages: the ELL kernel
   first against its plain version on a faulty round's operands (masked
   slot weights, a zero diagonal, zeroed messages), then one ELL launch a
   live round, the estimates within 1e-4 of a dense engine fed the same
-  draws, bf16 finite and priced at 2 bytes an element.
+  draws, bf16 finite, priced at 2 bytes an element and within
+  BF16_PAYLOAD_TOL of the f32 run.
 * ``bdot_sparse``: B-DOT on sdot_sparse's data over a 4 x 4096 grid
   (slabs of 196 features by 4,096 sample columns of 14; on the card the
   columns pad to 16), T_o = 5, t_c = 20: row engines watts_strogatz(4096, 6,
@@ -223,7 +225,7 @@ Phases, one JSON line each:
   each sequence against ``forward`` of those 64 tokens (the kernel below one
   tile), within DECODE_TOL; then 32 greedy tokens: decode tokens/s and the
   KV cache's bytes.
-* ``profile_decode``: the same profile over 8 decode steps.
+* ``profile_decode``: the same profile over 4 decode steps.
 
 Then the MoE, recurrent and frontend families (``lm_family_phases``), one
 model on the card at a time, each freed before the next; random bf16
@@ -247,8 +249,8 @@ weights from torch.Generator seed 0 at the reference's init scales:
   top-8 + 1 shared, vocabulary 163,840) cut from 61 layers to 1, 1 x 2048:
   each prints the share of (token, choice) pairs dropped at capacity
   factor 1.25.
-* ``lm_xlstm``: xlstm-1.3b (arXiv:2405.04517) at full width and depth (48
-  layers, d_model 2048, mLSTM chunk 256), 2 x 1024 tokens, and the device
+* ``lm_xlstm``: xlstm-1.3b (arXiv:2405.04517) at full width, 24 of its 48
+  layers (d_model 2048, mLSTM chunk 256), 2 x 1024 tokens, and the device
   kernels one sLSTM layer launches a token.
 * ``lm_frontends``: paligemma-3b (arXiv:2407.07726) at full width and depth
   (18 layers, 8 / 1 heads of 256, 256 patch positions spliced from
@@ -286,7 +288,7 @@ phase.
   2, ring(4), t_c = 60: the exact sum within TWO_LEVEL_TOL.
 * ``sdot_spmd``: sdot_dense's cell with a node a process (d = 1024, r = 7,
   2,500 samples a rank, each rank holding only its own covariance block),
-  T_o cut from 100 to SPMD_T_OUTER = 30 (a gossip round across 20
+  T_o cut from 100 to SPMD_T_OUTER = 12 (a gossip round across 20
   processes costs milliseconds of the host), S-DOT at t_c = 50 and SA-DOT
   at 2t+1 capped at 50, on both
   graphs, against the fused ``sdot`` over ``DenseConsensus`` on the same
@@ -297,7 +299,8 @@ phase.
   18944, vocabulary 152,064, bf16, AdamW with bf16 moments) cut from 28
   layers to 2 so that two ranks fit on the card; 2 pods, paper_psa (rank
   64, 2 OI iterations, 4 gossip rounds) refreshed at steps 0 and 3, a
-  batch of 2 x 512 tokens a pod, 6 steps. Checks: finite losses, the
+  batch of 2 x 512 tokens a pod, 6 steps, without remat (TRAIN_PSA_REMAT:
+  its time is the embedding's all-reduce). Checks: finite losses, the
   first pod-mean loss within TRAIN_LOSS_TOL of one rank's
   ``make_train_step`` on the whole batch from the same weights; the first
   PLAIN_STEPS steps against the same steps computed plainly in one
@@ -316,7 +319,7 @@ phase.
   kernel rows ``gram_qr_psa_refresh_*`` time row 4 at the refresh's shapes
   and ``gram_qr_sdot_spmd`` at sdot_spmd's (1, 1024, 7).
 * ``train_example``: the example twin (``train_lm_psa_compress
-  --full-100m``: d_model 768, 12 layers, vocabulary 32,000, f32) for 75
+  --full-100m``: d_model 768, 12 layers, vocabulary 32,000, f32) for 25
   steps (cut from 300, TRAIN_EXAMPLE_STEPS) on 2 pod ranks,
   checkpoints under ``build/chip_smoke_train/``
   (removed after): the last loss below the first, ms a step, tokens/s.
@@ -326,8 +329,9 @@ the roofline (``train_family_phases``), each line with the card's name and
 power limit and the memory it plans beside the peak it read:
 
 * ``train_families``: recurrentgemma-2b whole at 2 x 1024, phi3.5-moe cut
-  from 32 layers to 2 at 2 x 1024, xlstm-1.3b whole at 2 x 256 (sLSTM
-  loops over time), paligemma-3b and musicgen-medium whole at 2 x 1024,
+  from 32 layers to 2 at 2 x 1024, xlstm-1.3b at 24 of 48 layers, 2 x
+  256, without remat (sLSTM loops over time on the host), paligemma-3b
+  and musicgen-medium whole at 2 x 1024,
   one after another, each freed before the next: FAMILY_STEPS AdamW steps
   (bf16 weights, f32 moments) on one fixed batch, finite losses that fall,
   ms a step, tokens/s, peak memory; then the f32 directional check at the
@@ -356,7 +360,29 @@ power limit and the memory it plans beside the peak it read:
   plan exactly; its first loss, grad norm and gradient probes against the
   same data shards' backward passes and f32 mean in one process (and the
   loss against the whole batch's); its wire bytes a step equal to
-  ``launch/roofline.step_wire_bytes``.
+  ``launch/roofline.step_wire_bytes``. It is the unsplit route
+  (``split_model=False``), the one tp_step is held against; its ranks
+  then run tp_step's steps (one spawn for both).
+* ``tp_step``: sharded_step's model, mesh and batch with the compute split
+  over "model" (``make_sharded_train_step(split_model=True)``, remat on):
+  stored bytes equal to the plan, wire bytes a step equal to
+  ``step_wire_bytes(split_model=True)``, the first loss and grad norm
+  within TP_LOSS_TOL / TP_GNORM_TOL of sharded_step's; ms and bytes staged
+  through host memory a step, beside sharded_step's.
+* ``remat``: recurrentgemma-2b at 2 x 1024, REMAT_STEPS steps at each of
+  ``remat=False`` / ``"names"`` / ``True`` from the same weights: the first
+  loss bit for bit, the grad norm within REMAT_GNORM_TOL, peak memory
+  below remat off; ms a step. (train_families runs xlstm-1.3b and
+  train_psa runs with ``remat=False`` for their time budgets, each line
+  saying so; every other train step at the default ``True``.)
+* ``tp_serve``: qwen2-7b at full width cut to 4 layers on a model axis of
+  2 (``make_sharded_serve_step``, 2 gloo ranks sharing the card): a 2 x
+  2048 prefill through row 9 on 14 query / 2 kv heads a rank, then 16
+  teacher-forced decode steps, the logits against one process within
+  LOGITS_TOL, 4 flash launches a rank on the tensor cores, the prefill's
+  wire bytes equal to the plan. The row ``flash_attention_tp_shard`` times
+  row 9 at that shape against plain and SDPA and takes the ranks'
+  launches.
 * ``roofline``: ``launch/roofline.run_cell``'s terms on one card beside
   the measured lm_prefill, lm_decode and every new train step.
 
@@ -402,6 +428,10 @@ ELL_TOL = 1e-6                # same (quantised) source both sides, rel. |out|
 GRAM_QR_TOL = 1e-5            # f32 sums in another order, relative to |G|
 SPIN_CYCLES = 10_000_000      # ~5 ms of the card's clock ahead of a timed batch
 SUBSPACE_TOL = 1e-4
+# one run with bf16 gossip messages against the same run in f32 (the same
+# algorithm, engine, graph and data): the payload's rounding may move a
+# node's subspace by no more than the port's agreement limit
+BF16_PAYLOAD_TOL = SUBSPACE_TOL
 # the JAX reference's final errors on the CPU at the configurations of
 # sdot_async, sdot_faulty, fdot_faulty and resume's async F-DOT
 # (tools/reference_fault_errors.py); each phase's limit is SUBSPACE_TOL
@@ -1519,7 +1549,9 @@ def lm_family_phases(dev, rows: dict, record) -> None:
         get_arch("phi3.5-moe-42b-a6.6b"), n_layers=4), dev, rows, 4, 2048)
     lm_serve_phase("lm_moe", dataclasses.replace(
         get_arch("kimi-k2-1t-a32b"), n_layers=1), dev, rows, 1, 2048)
-    xlstm = get_arch("xlstm-1.3b")
+    # xlstm-1.3b at 24 of its 48 layers (PR 26, for the script's time: sLSTM
+    # loops over time on the host)
+    xlstm = dataclasses.replace(get_arch("xlstm-1.3b"), n_layers=24)
     lm_serve_phase("lm_xlstm", xlstm, dev, rows, 2, 1024, tf_f32=True,
                    extra=lambda params: {
                        "slstm_launches_a_token": slstm_launches_a_token(
@@ -1542,11 +1574,11 @@ def lm_family_phases(dev, rows: dict, record) -> None:
 # -- gossip across processes (spawned ranks run these by name) -------------
 SPMD_NODES = 20               # sdot_dense's network, one process a node
 SPMD_SAMPLES = 50_000         # sdot_dense's data, 2,500 samples a rank
-# sdot_dense's T_o is 100; cut to 30 here: 20 gloo processes on the host's
-# 8 cores take 6-13 ms a gossip round; the four runs took 175 s at T_o =
-# 100, and at 50 the script took 972 s of its 1200 on a slow host (NVIDIA
-# H100 80GB HBM3, 700.00 W)
-SPMD_T_OUTER = 30
+# sdot_dense's T_o is 100; cut to 30, then to 12 (PR 26): 20 gloo
+# processes on the host's 8 cores take 6-13 ms a gossip round; the four
+# runs took 175 s at T_o = 100, 58 s at 30 on a slow host, where the whole
+# script read 1,276 s of its 1200 at 30 (NVIDIA H100 80GB HBM3, 700.00 W)
+SPMD_T_OUTER = 12
 SPMD_BUDGETS = (1, 5, 20, 50)
 SPMD_GOSSIP_TOL = 1e-5        # f32 rounds summed in another order, per node
 TWO_LEVEL_TOL = 1e-4          # tests/test_spmd.py's limit, relative
@@ -1569,10 +1601,17 @@ PLAIN_AFTER_TOL = 5e-2       # step 1's reduced gradients and errors
 PROBES = ("embed", "final_norm", "groups/blk0_attn/mixer/bq",
           "groups/blk0_attn/mixer/wq", "groups/blk0_attn/ffn/w_down",
           "lm_head")
-# the example twin's steps, cut from its 300 (~0.43 s a step) to 75: the
-# script read 991 s of its 1200 with 300 once the LM family phases were in,
-# and the training phases take ~125 s more
-TRAIN_EXAMPLE_STEPS = 75
+# the example twin's steps, cut from its 300 (~0.43 s a step) to 75 (the
+# script read 991 s of its 1200 with 300 once the LM family phases were
+# in), then to 25 with remat on by default (0.52 s a step) and PR 26's
+# phases: the whole script read 1,192 and 1,276 s on two slow hosts and
+# ~950 on another; the run ends in its one checkpoint, past the example's
+# 10 warm-up steps
+TRAIN_EXAMPLE_STEPS = 25
+# train_psa's steps run without remat: recomputing the forward added ~9 s
+# to the phase (39 -> 48 s, PR 26 call 3) for 6 steps whose time is the
+# embedding's all-reduce through host memory
+TRAIN_PSA_REMAT = False
 ORTHO_TOL = 1e-4              # refreshed projectors: |P^T P - I|_max
 
 
@@ -1680,7 +1719,7 @@ def train_psa_probes(tree, tokens) -> dict:
 
 
 def train_psa_rank(rank, world, dev, layers, steps, batch, seq,
-                   arch="qwen2-7b"):
+                   arch="qwen2-7b", remat=True):
     """One pod of train_psa: its shard of each global batch, a refresh
     every 3 steps (row 4's launches counted by shape), the step's walls,
     the bytes it stages and all-reduces, and its peak memory. For the
@@ -1705,7 +1744,8 @@ def train_psa_rank(rank, world, dev, layers, steps, batch, seq,
                          device=dev)
     psa_state = psa_init(params, psa)
     opt_state = adamw_init(params, opt)
-    step, refresh = make_psa_train_step(cfg, opt, psa, group=pod)
+    step, refresh = make_psa_train_step(cfg, opt, psa, group=pod,
+                                        remat=remat)
     # the bytes a step all-reduces: U = P^T G for a compressed leaf, the
     # f32 gradient for any other, and the loss; dense: every gradient
     flat = dict(_flat(params))
@@ -2057,7 +2097,8 @@ def spmd_train_phases(dev, rows: dict, record, gram_qr_work, q_init,
     tp_layers, tp_steps, tp_batch, tp_seq = 2, 6, 4, 512
     t0 = time.perf_counter()
     pods = spawn_ranks(train_psa_rank, 2, backend="gloo", device="cuda",
-                       args=(tp_layers, tp_steps, tp_batch, tp_seq))
+                       args=(tp_layers, tp_steps, tp_batch, tp_seq,
+                             "qwen2-7b", TRAIN_PSA_REMAT))
     tp_wall = time.perf_counter() - t0
     cfg_tp, opt_tp, psa_tp = train_psa_setup(tp_layers)
     one = lm_init(torch.Generator(device=dev).manual_seed(0), cfg_tp,
@@ -2089,6 +2130,7 @@ def spmd_train_phases(dev, rows: dict, record, gram_qr_work, q_init,
         "heads": [cfg_tp.n_heads, cfg_tp.n_kv_heads], "d_ff": cfg_tp.d_ff,
         "vocab": cfg_tp.vocab_size, "dtype": cfg_tp.dtype,
         "moment_dtype": opt_tp.moment_dtype, "pods": 2,
+        "remat": TRAIN_PSA_REMAT,
         "backend": pods[0]["backend"], "psa": dataclasses.asdict(psa_tp),
         "tokens_a_pod_a_step": tp_batch // 2 * tp_seq,
         "losses": pods[0]["losses"], "grad_norms": pods[0]["grad_norms"],
@@ -2176,15 +2218,18 @@ def spmd_train_phases(dev, rows: dict, record, gram_qr_work, q_init,
 # ---------------------------------------------------------------------------
 # training every family, shard-local MoE, the sharded step, the roofline
 # ---------------------------------------------------------------------------
-# (arch, layers or None for the whole depth, batch, seq): each trains alone
-# on the card, freed before the next. phi3.5-moe is cut from 32 layers to 2
-# (~34 GB at 12 bytes a parameter: bf16 weights and gradients, f32
-# moments); xlstm-1.3b at 2 x 256, since sLSTM loops over time
-TRAIN_FAMILIES = (("recurrentgemma-2b", None, 2, 1024),
-                  ("phi3.5-moe-42b-a6.6b", 2, 2, 1024),
-                  ("xlstm-1.3b", None, 2, 256),
-                  ("paligemma-3b", None, 2, 1024),
-                  ("musicgen-medium", None, 2, 1024))
+# (arch, layers or None for the whole depth, batch, seq, remat): each
+# trains alone on the card, freed before the next. phi3.5-moe is cut from
+# 32 layers to 2 (~34 GB at 12 bytes a parameter: bf16 weights and
+# gradients, f32 moments). xlstm-1.3b at 2 x 256 and, since PR 26, 24 of
+# its 48 layers, without remat: its step is sLSTM's Python loop over time
+# on the host (11.9 s whole), which remat=True would run again in the
+# backward. The others take the reference's default, remat=True
+TRAIN_FAMILIES = (("recurrentgemma-2b", None, 2, 1024, True),
+                  ("phi3.5-moe-42b-a6.6b", 2, 2, 1024, True),
+                  ("xlstm-1.3b", 24, 2, 256, False),
+                  ("paligemma-3b", None, 2, 1024, True),
+                  ("musicgen-medium", None, 2, 1024, True))
 FAMILY_STEPS = 3              # AdamW steps on one fixed batch
 FAMILY_LR = 1e-4
 # The directional check, in f32 at the initial weights th (the training's
@@ -2219,9 +2264,36 @@ SHARDED_ARCH, SHARDED_LAYERS = "h2o-danube-1.8b", 4
 SHARDED_BATCH, SHARDED_SEQ, SHARDED_STEPS = 4, 1024, 2
 SHARDED_MESH = (("data", 2), ("model", 2))
 PSA_MOE_LAYERS, PSA_MOE_STEPS, PSA_MOE_BATCH, PSA_MOE_SEQ = 1, 4, 4, 512
+# remat: REMAT_ARCH at train_family's 2 x 1024, REMAT_STEPS steps at each
+# remat from the same weights. The first loss runs the same forward under
+# each: equal bit for bit. The backward runs on recomputed values that are
+# the same bits, but the embedding's and the MoE scatter's backward sum
+# with atomics on the card: the norm within REMAT_GNORM_TOL, relative
+REMAT_ARCH, REMAT_BATCH, REMAT_SEQ, REMAT_STEPS = \
+    "recurrentgemma-2b", 2, 1024, 2
+REMAT_GNORM_TOL = 1e-5
+# tp_step: sharded_step's model, mesh and batch with the compute split over
+# "model", against sharded_step's first step (the same weights and batch).
+# Both are bf16 (2^-8 relative a rounding): the split rounds each rank's
+# partial mixer and FFN output to bf16 before the sum, the unsplit route
+# the whole once, and sums the partial products in another order. On the
+# CPU, h2o-danube at width 512, 4 layers, 4 x 256 tokens on (2, 2) read
+# 1.5e-5 (loss) and 1.3e-4 (norm) apart (a probe of
+# make_sharded_value_and_grad, both routes). Limits, set before the first
+# card run: a quarter of a bf16 rounding on the loss (a mean over 4,096
+# tokens) and two on the norm (its gradients go through as many roundings
+# again in the backward)
+TP_LOSS_TOL = 2.0 ** -10
+TP_GNORM_TOL = 2.0 ** -7
+# tp_serve: qwen2-7b at full width cut to 4 layers on a model axis of 2
+# (14 query / 2 kv heads a rank): a 2 x 2048 prefill through row 9, then
+# TP_DECODE_STEPS teacher-forced decode steps, against one process
+TP_SERVE_ARCH, TP_SERVE_LAYERS = "qwen2-7b", 4
+TP_SERVE_BATCH, TP_SERVE_SEQ, TP_DECODE_STEPS = 2, 2048, 16
+TP_SERVE_MESH = (("data", 1), ("model", 2))
 
 
-def directional_check(cfg, batch, dev) -> dict:
+def directional_check(cfg, batch, dev, remat=True) -> dict:
     """The f32 directional check of ``loss_fn``'s gradient g at the
     initial weights of ``cfg`` (an f32 config; torch.Generator seed 0):
     the central difference against <g, th+ - th-> / 2 eps (module
@@ -2239,7 +2311,8 @@ def directional_check(cfg, batch, dev) -> dict:
               for leaf in leaves]
     recorded = []
     loss0, grads = with_patched(moe, "route", recording_route(recorded),
-                                lambda: _value_and_grad(params, batch, cfg))
+                                lambda: _value_and_grad(params, batch, cfg,
+                                                        remat=remat))
     grads = flatten_with_names(grads)[1]
     signs = [torch.where(g == 0, 0, torch.sign(g)).to(torch.int8)
              for g in grads]
@@ -2286,11 +2359,12 @@ def directional_check(cfg, batch, dev) -> dict:
                                for fl in (flips_p, flips_m)]}
 
 
-def train_family(cfg, lm_b: int, lm_s: int, dev, card: str) -> dict:
+def train_family(cfg, lm_b: int, lm_s: int, dev, card: str,
+                 remat=True) -> dict:
     """FAMILY_STEPS AdamW steps of ``cfg`` in bf16 on one fixed batch
     (random weights, torch.Generator seed 0; f32 moments), then the f32
-    directional check at the initial weights. Emits and returns the
-    line."""
+    directional check at the initial weights, both at ``remat``. Emits
+    and returns the line."""
     from repro_torch.data.pipeline import make_lm_batch
     from repro_torch.models.transformer import init_params
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
@@ -2301,7 +2375,7 @@ def train_family(cfg, lm_b: int, lm_s: int, dev, card: str) -> dict:
     n = cfg.param_count()
     line = {"phase": "train_families", "arch": cfg.name,
             "layers": cfg.n_layers, "d_model": cfg.d_model, "params": n,
-            "batch": lm_b, "seq": lm_s, "dtype": cfg.dtype,
+            "batch": lm_b, "seq": lm_s, "dtype": cfg.dtype, "remat": remat,
             "moment_dtype": "float32", "card": card,
             # bf16 weights and gradients, f32 moments; then the check's f32
             # weights, gradients and moved weights, and the gradient's signs
@@ -2312,7 +2386,7 @@ def train_family(cfg, lm_b: int, lm_s: int, dev, card: str) -> dict:
     opt = AdamWConfig(lr=FAMILY_LR, warmup_steps=1)
     opt_state = adamw_init(params, opt)
     batch = make_lm_batch(cfg, 0, 0, lm_b, lm_s, device=dev)
-    step = make_train_step(cfg, opt)
+    step = make_train_step(cfg, opt, remat=remat)
     torch.cuda.synchronize()
     line["setup_s"] = time.perf_counter() - t0
     losses, norms, ms = [], [], []
@@ -2335,7 +2409,7 @@ def train_family(cfg, lm_b: int, lm_s: int, dev, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     t0 = time.perf_counter()
-    line["directional_f32"] = directional_check(cfg32, batch, dev)
+    line["directional_f32"] = directional_check(cfg32, batch, dev, remat)
     line["directional_s"] = time.perf_counter() - t0
     line["check_peak_bytes"] = torch.cuda.max_memory_allocated()
     del batch
@@ -2394,7 +2468,7 @@ def moe_shards_phase(dev, rows: dict, card: str) -> None:
         layers = []
         real, route = transformer.apply_moe, moe.route
 
-        def checked(p, x, cfg_, act_specs=None):
+        def checked(p, x, cfg_, act_specs=None, model=None):
             plans = []
 
             def recorded(xf, router, m_, cap):
@@ -2403,7 +2477,8 @@ def moe_shards_phase(dev, rows: dict, card: str) -> None:
                 return out
 
             y = with_patched(moe, "route", recorded,
-                             lambda: real(p, x, cfg_, act_specs=act_specs))
+                             lambda: real(p, x, cfg_, act_specs=act_specs,
+                                          model=model))
             b, s, d = x.shape
             xs = x.reshape(MOE_SHARDS, b * s // MOE_SHARDS, d)
             quarters = torch.cat([with_patched(
@@ -2531,6 +2606,10 @@ def sharded_rank(rank, world, dev):
     step_mod.global_norm = inner
     out["probes"] = probes[0]
     out["peak_bytes_in_steps"] = torch.cuda.max_memory_allocated(dev)
+    del params, opt_state, step, met
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["split"] = tp_steps(mesh, dev)
     return out
 
 
@@ -2648,7 +2727,368 @@ def sharded_step_phase(dev, card: str) -> dict:
                   f"{w}, planned {want_wire}")
     line["_step_s"] = statistics.median(
         ms for r in ranks for ms in r["step_ms"][1:]) / 1e3
+    line["_grad_norms"] = [r["grad_norms"] for r in ranks]
+    line["coords_by_rank"] = [r["coords"] for r in ranks]
+    line["_split_ranks"] = [r["split"] for r in ranks]
     return line
+
+
+def remat_phase(dev, card: str) -> None:
+    """remat: REMAT_STEPS AdamW steps of REMAT_ARCH at each remat, from the
+    same weights (torch.Generator seed 0) and batch: the first loss bit for
+    bit, the grad norm within REMAT_GNORM_TOL, peak memory (module
+    constants); ms a step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+    cfg = get_arch(REMAT_ARCH)
+    opt = AdamWConfig(lr=FAMILY_LR, warmup_steps=1)
+    batch = make_lm_batch(cfg, 0, 0, REMAT_BATCH, REMAT_SEQ, device=dev)
+    runs = {}
+    for remat in (False, "names", True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = init_params(torch.Generator(device=dev).manual_seed(0),
+                             cfg, device=dev)
+        opt_state = adamw_init(params, opt)
+        step = make_train_step(cfg, opt, remat=remat)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run = {"losses": [], "grad_norms": [], "step_ms": []}
+        for _ in range(REMAT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, met = step(params, opt_state, batch)
+            run["losses"].append(float(met["loss"]))
+            run["grad_norms"].append(float(met["grad_norm"]))
+            torch.cuda.synchronize()
+            run["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        run.update(state_bytes=held,
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        runs[str(remat)] = run
+        del params, opt_state, step, met
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = runs["False"]
+    line = {"phase": "remat", "arch": cfg.name, "layers": cfg.n_layers,
+            "batch": REMAT_BATCH, "seq": REMAT_SEQ, "dtype": cfg.dtype,
+            "runs": runs,
+            "first_loss_equal": {k: r["losses"][0] == base["losses"][0]
+                                 for k, r in runs.items()},
+            "grad_norm_rel_err": {
+                k: abs(r["grad_norms"][0] - base["grad_norms"][0])
+                / base["grad_norms"][0] for k, r in runs.items()},
+            "tolerance": {"grad_norm": REMAT_GNORM_TOL}, "card": card}
+    emit(line)
+    for k, r in runs.items():
+        check(all(np.isfinite(r["losses"])), f"remat {k}: {r['losses']}")
+        check(line["first_loss_equal"][k], f"remat {k}: first loss "
+              f"{r['losses'][0]}, without remat {base['losses'][0]}")
+        check(line["grad_norm_rel_err"][k] <= REMAT_GNORM_TOL, f"remat {k}: "
+              f"grad norm {r['grad_norms'][0]}, without remat "
+              f"{base['grad_norms'][0]}")
+    for k in ("names", "True"):
+        check(runs[k]["peak_bytes"] < base["peak_bytes"], f"remat {k}: "
+              f"peak {runs[k]['peak_bytes']} bytes, without remat "
+              f"{base['peak_bytes']}")
+
+
+def tp_steps(mesh, dev) -> dict:
+    """tp_step's part of a sharded_step rank (the same processes, once the
+    unsplit route's state is freed): fresh blocks from the same seed, the
+    same batch shard, SHARDED_STEPS steps with ``split_model=True``."""
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import make_sharded_train_step
+    cfg, opt = sharded_cfg()
+    shape = shd.MeshShape.from_mesh(mesh)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    full = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                       device=dev)
+    params = shd.shard_tree(full, shd.param_specs(full, cfg, shape), shape,
+                            mesh.coords)
+    del full
+    gc.collect()
+    opt_state = adamw_init(params, opt)
+    torch.cuda.synchronize(dev)
+    stored = torch.cuda.memory_allocated(dev) - base
+    step = make_sharded_train_step(cfg, opt, mesh,
+                                   global_batch=SHARDED_BATCH,
+                                   split_model=True)
+    whole = make_lm_batch(cfg, 0, 0, SHARDED_BATCH, SHARDED_SEQ, device=dev)
+    local = shd.shard_tree(whole, shd.batch_specs(cfg, shape, SHARDED_BATCH),
+                           shape, mesh.coords)
+    out = {"coords": mesh.coords, "stored_bytes": stored, "losses": [],
+           "grad_norms": [], "step_ms": [], "wire_a_step": [],
+           "staged_a_step": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(SHARDED_STEPS):
+        wire0 = mesh.wire_bytes()
+        staged = mesh.host_staged_bytes
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt_state, met = step(params, opt_state, local)
+        out["losses"].append(float(met["loss"]))
+        out["grad_norms"].append(float(met["grad_norm"]))
+        torch.cuda.synchronize(dev)
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        wire1 = mesh.wire_bytes()
+        out["wire_a_step"].append({a: {k: wire1[a][k] - wire0[a][k]
+                                       for k in wire1[a]} for a in wire1})
+        out["staged_a_step"].append(mesh.host_staged_bytes - staged)
+    out["peak_bytes_in_steps"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def tp_step_phase(dev, card: str, sharded: dict) -> dict:
+    """tp_step: sharded_step with the compute split over "model"
+    (``make_sharded_train_step(split_model=True)``, remat=True), run by
+    sharded_step's 4 ranks after their unsplit steps (``tp_steps``) and
+    held to ``sharded``, sharded_step's line (the unsplit route on the same
+    weights and batch). Returns the line."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import sharding as shd
+    cfg, opt = sharded_cfg()
+    mesh = shd.MeshShape.of(*SHARDED_MESH)
+    shape = ShapeConfig("tp_step", SHARDED_SEQ, SHARDED_BATCH, "train")
+    plan = dryrun.memory_plan(cfg, shape, mesh, opt)
+    want_stored = plan["params"]["alloc"] + plan["opt"]["alloc"]
+    want_wire = roofline.step_wire_bytes(cfg, shape, mesh, split_model=True)
+    ranks = sharded["_split_ranks"]
+    by_coords = {tuple(c.values()): i for i, c in
+                 enumerate(sharded["coords_by_rank"])}
+    vs = []
+    for r in ranks:
+        i = by_coords[tuple(r["coords"].values())]
+        loss, norm = sharded["losses_by_rank"][i][0], \
+            sharded["_grad_norms"][i][0]
+        vs.append({"loss_rel_err": abs(r["losses"][0] - loss) / abs(loss),
+                   "grad_norm_rel_err": abs(r["grad_norms"][0] - norm)
+                   / norm})
+    line = {"phase": "tp_step", "arch": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "mesh": mesh.shape, "backend": "gloo",
+            "batch": SHARDED_BATCH, "seq": SHARDED_SEQ, "remat": True,
+            "stored_bytes_by_rank": [r["stored_bytes"] for r in ranks],
+            "planned_stored_bytes": want_stored,
+            "losses_by_rank": [r["losses"] for r in ranks],
+            "grad_norms_by_rank": [r["grad_norms"] for r in ranks],
+            "vs_sharded_step": vs,
+            "tolerance": {"loss": TP_LOSS_TOL, "grad_norm": TP_GNORM_TOL},
+            "step_ms_by_rank": [r["step_ms"] for r in ranks],
+            "sharded_step_ms_by_rank": sharded["step_ms_by_rank"],
+            "wire_a_step_rank0": ranks[0]["wire_a_step"][0],
+            "planned_wire_a_step": want_wire,
+            "host_staged_bytes_a_step": [r["staged_a_step"] for r in ranks],
+            "sharded_step_host_staged_bytes_a_step":
+                sharded["host_staged_bytes_a_step"],
+            "peak_bytes_in_steps_by_rank": [r["peak_bytes_in_steps"]
+                                            for r in ranks],
+            "card": card}
+    emit(line)
+    for r, v in zip(ranks, vs):
+        check(r["stored_bytes"] == want_stored, f"tp_step: rank "
+              f"{r['coords']} stores {r['stored_bytes']} bytes, the plan "
+              f"{want_stored}")
+        check(all(np.isfinite(r["losses"])), f"tp_step: {r['losses']}")
+        check(v["loss_rel_err"] <= TP_LOSS_TOL, f"tp_step: rank "
+              f"{r['coords']} loss {r['losses'][0]}: {v['loss_rel_err']} "
+              f"from sharded_step's")
+        check(v["grad_norm_rel_err"] <= TP_GNORM_TOL, f"tp_step: rank "
+              f"{r['coords']} grad norm {r['grad_norms'][0]}: "
+              f"{v['grad_norm_rel_err']} from sharded_step's")
+        for w in r["wire_a_step"]:
+            check(all(w[a][k] == want_wire[a][k] for a in want_wire
+                      for k in want_wire[a]), f"tp_step: wire bytes "
+                  f"{w}, planned {want_wire}")
+    line["_step_s"] = statistics.median(
+        ms for r in ranks for ms in r["step_ms"][1:]) / 1e3
+    return line
+
+
+def tp_serve_cfg():
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(TP_SERVE_ARCH),
+                               n_layers=TP_SERVE_LAYERS)
+
+
+def tp_serve_rank(rank, world, dev):
+    """One rank of tp_serve: its blocks, the prefill of its batch shard
+    (this rank's vocabulary rows of the logits, on the host) with the flash
+    launches it made, then TP_DECODE_STEPS decode steps."""
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import init_decode_state, init_params
+    from repro_torch.train.step import make_sharded_serve_step
+    cfg = tp_serve_cfg()
+    mesh = make_mesh(TP_SERVE_MESH, device=dev)
+    shape = shd.MeshShape.from_mesh(mesh)
+    full = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                       device=dev)
+    params = shd.shard_tree(full, shd.param_specs(full, cfg, shape), shape,
+                            mesh.coords)
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    toks = make_lm_batch(cfg, 0, 0, TP_SERVE_BATCH, TP_SERVE_SEQ,
+                         device=dev)["tokens"]
+    local = shd.shard_tree({"tokens": toks}, {"tokens": shd.batch_specs(
+        cfg, shape, TP_SERVE_BATCH)["tokens"]}, shape, mesh.coords)
+    prefill, decode = make_sharded_serve_step(cfg, mesh, TP_SERVE_BATCH)
+    prefill(params, local)                         # warm: cuBLAS plans
+    torch.cuda.synchronize(dev)
+    wire0, staged = mesh.wire_bytes(), mesh.host_staged_bytes
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill(params, local)
+    torch.cuda.synchronize(dev)
+    out = {"coords": mesh.coords, "prefill_ms": (time.perf_counter() - t0)
+           * 1e3, "flash_launches": ops.LAUNCHES["flash_attention"],
+           "flash_routes": dict(ROUTE_LAUNCHES),
+           "prefill_staged_bytes": mesh.host_staged_bytes - staged,
+           "prefill_wire": {a: {k: v - wire0[a][k] for k, v in w.items()}
+                            for a, w in mesh.wire_bytes().items()},
+           "prefill": logits.cpu()}
+    del logits
+    b_loc = local["tokens"].shape[0]
+    state = init_decode_state(cfg, b_loc, TP_SERVE_SEQ, device=dev,
+                              model=mesh.axis("model"))
+    steps = []
+    staged = mesh.host_staged_bytes
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for t in range(TP_DECODE_STEPS):
+        lg, state = decode(params, state, local["tokens"][:, t:t + 1])
+        steps.append(lg)
+    torch.cuda.synchronize(dev)
+    out.update(decode_ms_a_step=(time.perf_counter() - t0) * 1e3
+               / TP_DECODE_STEPS,
+               decode_staged_bytes_a_step=(mesh.host_staged_bytes - staged)
+               / TP_DECODE_STEPS,
+               decode=torch.cat(steps, dim=1).cpu())
+    return out
+
+
+def tp_serve_phase(dev, rows: dict, record, card: str) -> None:
+    """tp_serve: TP_SERVE_ARCH at full width cut to TP_SERVE_LAYERS
+    layers, ``make_sharded_serve_step`` on 2 gloo ranks sharing the card
+    (a model axis of 2): the prefill through row 9 on each rank's 14 query
+    / 2 kv heads, then teacher-forced decode, against one process at
+    LOGITS_TOL. Row 9 is timed and held to its plain version at the
+    shard's shape first (row ``flash_attention_tp_shard``), and takes the
+    ranks' prefill launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_decode_state,
+                                                init_params)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = tp_serve_cfg()
+    tp = dict(TP_SERVE_MESH)["model"]
+    hq, hkv = cfg.n_heads // tp, cfg.n_kv_heads // tp
+    b, s, hd = TP_SERVE_BATCH, TP_SERVE_SEQ, cfg.hd
+    gen = torch.Generator(device=dev).manual_seed(26)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for shape in ((b, hq, s, hd), (b, hkv, s, hd),
+                                      (b, hkv, s, hd)))
+    record("flash_attention_tp_shard", FLASH_SOURCE, FLASH_REPLACES,
+           lambda: ops.flash_attention(q, k, v, causal=True),
+           lambda: attn_plain(q, k, v, causal=True),
+           lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=True),
+           2 * (2 * q.numel() + k.numel() + v.numel()),
+           4.0 * b * hq * hd * s * (s + 1) / 2, ATTN_BF16_TOL,
+           ATTN_BF16_NOTE, flop_rate=BF16_TC_FLOP_PER_S,
+           judge=attn_judge(torch.bfloat16))
+    rows["flash_attention_tp_shard"].update(
+        kernel="flash_attention_wgmma_kernel",
+        library="scaled_dot_product_attention, causal, GQA",
+        shape=[list(q.shape), list(k.shape)])
+    del q, k, v
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(tp_serve_rank, tp, backend="gloo", device="cuda")
+    spawn_s = time.perf_counter() - t0
+    ranks.sort(key=lambda r: r["coords"]["model"])
+    launches = sum(r["flash_launches"] for r in ranks)
+    rows["flash_attention_tp_shard"]["launches"] += launches
+    rows["flash_attention_tp_shard"].setdefault("launches_by_phase", {})[
+        f"tp_serve:{cfg.name}"] = launches
+    # one process on the same weights and tokens
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    toks = make_lm_batch(cfg, 0, 0, b, s, device=dev)["tokens"]
+    with torch.inference_mode():
+        want = forward(params, {"tokens": toks}, cfg)
+        got = torch.cat([r["prefill"].to(dev) for r in ranks], dim=-1)
+        pre = compare(got, want)
+        del got, want
+        state = init_decode_state(cfg, b, s, device=dev)
+        steps = []
+        for t in range(TP_DECODE_STEPS):
+            lg, state = decode_step(params, state, toks[:, t:t + 1], cfg)
+            steps.append(lg)
+        want = torch.cat(steps, dim=1)
+        got = torch.cat([r["decode"].to(dev) for r in ranks], dim=-1)
+        dec = compare(got, want)
+    del params, state, steps, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = shd.MeshShape.of(*TP_SERVE_MESH)
+    want_wire = roofline.step_wire_bytes(
+        cfg, ShapeConfig("tp_serve", s, b, "prefill"), mesh,
+        split_model=True)
+    line = {"phase": "tp_serve", "arch": cfg.name, "layers": cfg.n_layers,
+            "mesh": mesh.shape, "backend": "gloo", "batch": b, "seq": s,
+            "heads_a_rank": [hq, hkv], "decode_steps": TP_DECODE_STEPS,
+            "prefill_vs_one_process": dict(zip(
+                ("rel_rms", "max_abs", "top1_agreement"), pre)),
+            "decode_vs_one_process": dict(zip(
+                ("rel_rms", "max_abs", "top1_agreement"), dec)),
+            "tolerance": LOGITS_TOL,
+            "flash_launches_by_rank": [r["flash_launches"] for r in ranks],
+            "flash_routes_by_rank": [r["flash_routes"] for r in ranks],
+            "prefill_ms_by_rank": [r["prefill_ms"] for r in ranks],
+            "prefill_tokens_per_s": b * s / (max(
+                r["prefill_ms"] for r in ranks) / 1e3),
+            "decode_ms_a_step_by_rank": [r["decode_ms_a_step"]
+                                         for r in ranks],
+            "prefill_staged_bytes_by_rank": [r["prefill_staged_bytes"]
+                                             for r in ranks],
+            "decode_staged_bytes_a_step_by_rank": [
+                r["decode_staged_bytes_a_step"] for r in ranks],
+            "prefill_wire_rank0": ranks[0]["prefill_wire"],
+            "planned_prefill_wire": want_wire,
+            "spawn_and_run_s": spawn_s, "card": card}
+    emit(line)
+    check(pre[0] <= LOGITS_TOL, f"tp_serve: prefill logits {pre[0]} "
+          f"(relative RMS) from one process > {LOGITS_TOL}")
+    check(dec[0] <= LOGITS_TOL, f"tp_serve: decode logits {dec[0]} "
+          f"(relative RMS) from one process > {LOGITS_TOL}")
+    for r in ranks:
+        check(r["flash_launches"] == cfg.n_layers
+              and r["flash_routes"].get("tc_bf16") == cfg.n_layers,
+              f"tp_serve: rank {r['coords']} flash launches "
+              f"{r['flash_launches']}, routes {r['flash_routes']}, expected "
+              f"{cfg.n_layers} on tc_bf16")
+        check(all(r["prefill_wire"][a][k] == want_wire[a][k]
+                  for a in want_wire for k in want_wire[a]),
+              f"tp_serve: prefill wire bytes {r['prefill_wire']}, planned "
+              f"{want_wire}")
 
 
 def train_psa_moe_phase(dev, rows: dict, record, gram_qr_work,
@@ -2760,15 +3200,18 @@ def train_psa_moe_phase(dev, rows: dict, record, gram_qr_work,
 
 def roofline_phase(measured: dict, card: str) -> None:
     """roofline: ``launch/roofline.run_cell``'s terms on one card (a 1 x 1
-    mesh) beside the measured step of each cell measured above."""
+    mesh) beside the measured step of each cell measured above, a train
+    step's at the remat it ran (``measured``: (cfg, shape, seconds[,
+    remat]))."""
     from repro_torch.launch import roofline
     from repro_torch.models.sharding import MeshShape
     one = MeshShape.of(("data", 1), ("model", 1))
     cells = []
-    for name, (cfg, shape, seconds) in measured.items():
+    for name, (cfg, shape, seconds, *remat) in measured.items():
+        remat = remat[0] if remat else True
         res = roofline.run_cell(cfg.name, shape, mesh=one, cfg=cfg,
-                                measured_s=seconds)
-        cells.append({"cell": name, "layers": cfg.n_layers,
+                                measured_s=seconds, remat=remat)
+        cells.append({"cell": name, "layers": cfg.n_layers, "remat": remat,
                       "batch": shape.global_batch, "seq": shape.seq_len,
                       "kind": shape.kind, "measured_s": seconds,
                       "flops": res["flops_per_dev"],
@@ -2789,21 +3232,21 @@ def roofline_phase(measured: dict, card: str) -> None:
 
 def train_family_phases(dev, rows: dict, record, gram_qr_work,
                         measured: dict) -> None:
-    """train_families, train_psa_moe, moe_shards, sharded_step and
-    roofline (module docstring), each with the card's name and power
-    limit; ``measured`` holds the earlier phases' (cfg, shape, seconds)
-    and gains each new train step's."""
+    """train_families, train_psa_moe, moe_shards, sharded_step, tp_step,
+    remat, tp_serve and roofline (module docstring), each with the card's
+    name and power limit; ``measured`` holds the earlier phases' (cfg,
+    shape, seconds) and gains each new train step's."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import ShapeConfig
     card = nvidia_smi()
-    for arch, layers, lm_b, lm_s in TRAIN_FAMILIES:
+    for arch, layers, lm_b, lm_s, remat in TRAIN_FAMILIES:
         cfg = get_arch(arch)
         if layers is not None:
             cfg = dataclasses.replace(cfg, n_layers=layers)
-        line = train_family(cfg, lm_b, lm_s, dev, card)
+        line = train_family(cfg, lm_b, lm_s, dev, card, remat)
         measured[f"train_families:{arch}"] = (
             cfg, ShapeConfig(f"train_{arch}", lm_s, lm_b, "train"),
-            line["ms_per_step"] / 1e3)
+            line["ms_per_step"] / 1e3, remat)
     psa_line = train_psa_moe_phase(dev, rows, record, gram_qr_work, card)
     cfg_psa = dataclasses.replace(get_arch("phi3.5-moe-42b-a6.6b"),
                                   n_layers=PSA_MOE_LAYERS)
@@ -2817,6 +3260,9 @@ def train_family_phases(dev, rows: dict, record, gram_qr_work,
     measured["sharded_step:rank"] = (
         cfg_sh, ShapeConfig("sharded_step_rank", SHARDED_SEQ,
                             SHARDED_BATCH // 2, "train"), sh["_step_s"])
+    tp_step_phase(dev, card, sh)
+    remat_phase(dev, card)
+    tp_serve_phase(dev, rows, record, card)
     roofline_phase(measured, card)
 
 
@@ -3747,10 +4193,12 @@ def main() -> None:
         check(sdot_faulty[key], f"sdot_faulty: {key} is false")
     check(sdot_faulty["fault_free_max_trace_diff_vs_sync"] <= FAULT_FREE_TOL,
           "sdot_faulty: a fault-free run strays from sync S-DOT's trace")
+    # T_o cut from 5 to 4 (PR 26, the script's time): the plan's crash
+    # window starts at step 3
     emit(profile_phase(lambda: sdot(engine=faulty(),
-                                    **dict(sdot_kw, t_outer=5)),
+                                    **dict(sdot_kw, t_outer=4)),
                        "profile_sdot_faulty",
-                       "sdot_faulty S-DOT, T_o = 5, t_c = 50",
+                       "sdot_faulty S-DOT, T_o = 4, t_c = 50",
                        groups=psa_groups))
 
     # -- fdot_faulty: the fault layer under F-DOT ----------------------------
@@ -3784,9 +4232,9 @@ def main() -> None:
     check(fdot_faulty["orthonormality_err"] <= 1e-5, "fdot_faulty: q_full "
           f"off orthonormal by {fdot_faulty['orthonormality_err']}")
     emit(profile_phase(lambda: fdot(engine=faulty(),
-                                    **dict(fdot_kw, t_outer=5)),
+                                    **dict(fdot_kw, t_outer=4)),
                        "profile_fdot_faulty",
-                       "fdot_faulty F-DOT, T_o = 5, t_c = t_c_qr = 50",
+                       "fdot_faulty F-DOT, T_o = 4, t_c = t_c_qr = 50",
                        groups=psa_groups))
     del (res_a, state_a, res_ref, res_awake, at3, at6, fused20, eager20,
          clean, res_ff)
@@ -3816,9 +4264,9 @@ def main() -> None:
                                     engine=AsyncConsensus(
                                         graph, p_awake, seed=0, device=dev)))}
     # (i), (ii) and a run chunked by 10 with no checkpoints, each timed
-    # twice in the order i, bare, ii, ii, bare, i; then (iii) and (iv):
-    # 8 whole runs
-    chunk, kill_after, steps_run = 10, 4, 8 * t_outer
+    # once in the order i, bare, ii (twice, in turns, until PR 26 cut the
+    # script's time); then (iii) and (iv): 5 whole runs
+    chunk, kill_after, steps_run = 10, 4, 5 * t_outer
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -3860,7 +4308,7 @@ def main() -> None:
         runs_, walls = {}, {"monolithic": [], "chunked_10": [],
                             "chunked_10_checkpointed": []}
         order = ("monolithic", "chunked_10", "chunked_10_checkpointed")
-        for i, how in enumerate(order + order[::-1]):
+        for i, how in enumerate(order):
             if how == "monolithic":
                 fn = lambda: with_engine(  # noqa: E731
                     lambda **a: runtime.run_monolithic(program(**a)), kw())
@@ -4440,15 +4888,37 @@ def main() -> None:
     check(bf_res.ledger.payload_bytes == 2 * bf_res.ledger.scalars,
           "bf16: ledger does not price 2 bytes per element")
     check(launches_bf["ell_spmm"] > 0, "bf16: ELL kernel not launched")
+    # the same SA-DOT lin2 run with f32 messages on the f32 engine: what
+    # the bf16 payload alone moves
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    sa_res = sadot(engine=sp_eng, schedule_kind="lin2", cap=20,
+                   **{k: v for k, v in common.items() if k != "t_c"})
+    torch.cuda.synchronize()
+    wall_sa = time.perf_counter() - t0
+    launches_sa = dict(ops.LAUNCHES)
+    tma_only("sdot_sparse sadot f32", launches_sa)
+    for name in ("ell_spmm", "batched_gram_apply", "gram_qr"):
+        rows[name]["launches"] += launches_sa[name]
+    to_small_n_gram(launches_sa["batched_gram_apply"])
+    bf_err = float(subspace_error(sa_res.q_nodes, bf_res.q_nodes).max())
     emit({"phase": "sdot_sparse", "nodes": n_sp, "d": ds, "r": rs,
           "samples_per_node": sp_blocks[0].shape[1], "t_outer": t_sp,
           "ell_width": sw.ell_width, "rounds": rounds,
           "wall_s": {"sparse_ell": wall_sparse, "dense_matmul": wall_dense,
-                     "sadot_bf16": wall_bf},
-          "launches": {"f32": launches_sparse, "bf16": launches_bf},
+                     "sadot_bf16": wall_bf, "sadot_f32": wall_sa},
+          "launches": {"f32": launches_sparse, "bf16": launches_bf,
+                       "sadot_f32": launches_sa},
           "max_node_subspace_err_vs_dense": float(per_node.max()),
-          "bf16_vs_f32_max_node_err": float(
-              subspace_error(sparse_res.q_nodes, bf_res.q_nodes).max())})
+          "bf16_vs_f32_runs": "SA-DOT lin2 cap 20, bf16 against f32 "
+                              "messages, the same ELL graph and data",
+          "bf16_vs_f32_max_node_err": bf_err,
+          "bf16_vs_f32_tolerance": BF16_PAYLOAD_TOL})
+    check(bool(torch.isfinite(sa_res.q_nodes).all()), "sadot f32: non-finite")
+    check(bf_err <= BF16_PAYLOAD_TOL, f"sdot_sparse: SA-DOT with bf16 "
+          f"messages {bf_err} from the f32 run (max per node) > "
+          f"{BF16_PAYLOAD_TOL}")
+    del sa_res
 
     # -- sparse_faulty: drops and bursts on the 4096-node overlay, ELL -------
     sp_model = NetFaultModel(p_drop=0.2, p_bad=0.05, p_good=0.5)
@@ -4539,6 +5009,9 @@ def main() -> None:
           "sparse_faulty bf16: non-finite")
     check(res_sb.ledger.payload_bytes == 2 * res_sb.ledger.scalars,
           "sparse_faulty bf16: ledger does not price 2 bytes per element")
+    bf_err = float(subspace_error(res_sf.q_nodes, res_sb.q_nodes).max())
+    check(bf_err <= BF16_PAYLOAD_TOL, f"sparse_faulty: bf16 messages "
+          f"{bf_err} from the f32 run (max per node) > {BF16_PAYLOAD_TOL}")
     del f_eng, bf_f_eng, sp_draws, res_sf, res_sd, res_sb
 
     # -- bdot_sparse: B-DOT over a 4 x 4096 grid, stacked sparse row engines --
@@ -4875,13 +5348,13 @@ def main() -> None:
 
     def decode_steps():
         with torch.inference_mode():
-            for t in range(8):
+            for t in range(4):
                 _, prof["state"] = decode_step(params, prof["state"],
                                                prompt[:, t:t + 1], cfg)
 
     emit(profile_phase(
         decode_steps, "profile_decode",
-        "lm_decode qwen2-7b, 8 steps at batch 4, bf16",
+        "lm_decode qwen2-7b, 4 steps at batch 4, bf16",
         groups={"gemm": ("gemm", "nvjet", "xmma", "cutlass", "splitk",
                          "gemv")}))
     check(state["index"] == n_tf + n_gen, "lm_decode: step count")

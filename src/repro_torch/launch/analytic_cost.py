@@ -9,6 +9,13 @@ It walks the block structure of models/transformer.py and counts:
   * HBM bytes: weights traffic (streamed once per pass), activations r/w,
     optimizer state update traffic, KV/state cache traffic for decode.
 
+A train step follows its ``remat``: ``True`` (the reference's model, the
+default) counts 4x the forward's FLOPs and three weight reads, ``False``
+3x and two. ``"names"`` counts as ``True``: it keeps only the mixer's and
+the FFN's outputs, so the backward recomputes the projections, the
+attention and the FFN's GEMMs inside them as well as the elementwise work
+(the reference's ``save_only_these_names`` policy recomputes them too).
+
 All numbers are GLOBAL per step. ``chip_smoke.py`` divides a prefill's
 FLOPs by its wall time and the H100's bf16 peak.
 """
@@ -105,7 +112,8 @@ def _head_embed_flops(cfg: ModelConfig, t: int):
     return 2 * t * cfg.d_model * v                   # lm head (embed is gather)
 
 
-def analytic_cost(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, float]:
+def analytic_cost(cfg: ModelConfig, shape: ShapeConfig, *,
+                  remat=True) -> Dict[str, float]:
     kind = shape.kind
     decode = kind == "decode"
     t = shape.global_batch if decode else shape.tokens
@@ -127,8 +135,9 @@ def analytic_cost(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, float]:
                 per_layer += _ffn_flops(cfg, t)
     fwd = per_layer * cfg.n_groups + _head_embed_flops(cfg, t)
 
+    passes = 2.0 if remat is False else 3.0  # fwd, bwd (+ fwd remat)
     if kind == "train":
-        flops = fwd * (3.0 + 1.0)        # bwd = 2x fwd, +1 fwd remat
+        flops = fwd * (passes + 1.0)     # bwd = 2x fwd
     else:
         flops = fwd
 
@@ -142,7 +151,7 @@ def analytic_cost(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, float]:
     if kind == "train":
         # weights: fwd + bwd + remat reads, wgrad writes; adam: read m,v,p,g
         # write m,v,p (fp32 moments => x2 factor on moment traffic)
-        wbytes = n_params * pbytes * 3 + n_params * 4 * 6
+        wbytes = n_params * pbytes * passes + n_params * 4 * 6
         abytes = act_unit * n_blocks * 8         # saved + recomputed + grads
         cbytes = 0.0
     elif kind == "prefill":

@@ -19,7 +19,7 @@ port's step would send (``launch/roofline.py``).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-7b --shape train_4k --multipod
-  python -m repro_torch.launch.dryrun --all [--out DIR]
+  python -m repro_torch.launch.dryrun --all [--out DIR] [--no-remat]
 """
 from __future__ import annotations
 
@@ -147,10 +147,11 @@ def _moment_dtype(cfg: ModelConfig) -> str:
 
 
 def run_cell(arch: str, shape_id: str, *, multi_pod: bool,
-             psa: bool = False) -> Dict[str, Any]:
+             psa: bool = False, remat=True) -> Dict[str, Any]:
     """One cell's per-rank plan, roofline terms and wire bytes on the
     production mesh (16, 16), or (2, 16, 16) with ``multi_pod``. ``psa``:
-    add the PSA state of a train cell (the multi-pod path)."""
+    add the PSA state of a train cell (the multi-pod path). ``remat``: the
+    train step's (``--no-remat``: ``False``)."""
     t0 = time.perf_counter()
     cfg = get_arch(arch)
     shape = SHAPES[shape_id]
@@ -163,10 +164,11 @@ def run_cell(arch: str, shape_id: str, *, multi_pod: bool,
     use_psa = psa and shape.kind == "train"
     plan = memory_plan(cfg, shape, mesh, opt,
                        psa=get_psa_config() if use_psa else None)
-    roof = roofline_cell(arch, shape, mesh=mesh, cfg=cfg)
+    roof = roofline_cell(arch, shape, mesh=mesh, cfg=cfg, remat=remat)
     return {
         "arch": arch, "shape": shape_id, "multi_pod": multi_pod,
-        "psa": use_psa, "status": "ok", "n_devices": mesh.size,
+        "psa": use_psa, "remat": remat, "status": "ok",
+        "n_devices": mesh.size,
         "mesh": mesh.shape, "moment_dtype": opt.moment_dtype,
         "per_rank": plan, "fits": plan["fits"],
         "model_flops": model_flops(cfg, shape),
@@ -180,14 +182,14 @@ def run_cell(arch: str, shape_id: str, *, multi_pod: bool,
     }
 
 
-def run_all(out_dir: Optional[str] = None):
+def run_all(out_dir: Optional[str] = None, remat=True):
     """Every cell of ``valid_cells()`` on both production meshes (PSA
     state on the multi-pod train cells): one result a cell."""
     results = []
     for cell in valid_cells():
         for mp in (False, True):
             res = run_cell(cell["arch"], cell["shape"], multi_pod=mp,
-                           psa=mp)
+                           psa=mp, remat=remat)
             results.append(res)
             if out_dir:
                 os.makedirs(out_dir, exist_ok=True)
@@ -221,10 +223,13 @@ def main(argv=None) -> None:
                     help="add the PSA state of a train cell")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", help="with --all: one JSON file a cell here")
+    ap.add_argument("--no-remat", action="store_true",
+                    help="train steps without remat (the reference's flag)")
     args = ap.parse_args(argv)
+    remat = not args.no_remat
     if args.all:
         t0 = time.perf_counter()
-        results = run_all(args.out)
+        results = run_all(args.out, remat=remat)
         for res in results:
             print(json.dumps(_summary(res)))
         ok = sum(r["status"] == "ok" for r in results)
@@ -236,8 +241,8 @@ def main(argv=None) -> None:
     if not (args.arch and args.shape):
         ap.error("--arch and --shape, or --all")
     print(json.dumps(run_cell(args.arch, args.shape,
-                              multi_pod=args.multipod, psa=args.psa),
-                     indent=1))
+                              multi_pod=args.multipod, psa=args.psa,
+                              remat=remat), indent=1))
 
 
 if __name__ == "__main__":

@@ -30,6 +30,16 @@ exchange its payload once a peer (the reference's collective-permute).
 Kept per axis, the "pod" axis's share is what crosses pods: the port's
 counterpart of the reference's ``cross_pod_bytes``.
 
+Tensor parallelism. ``copy_to_model``, ``reduce_from_model`` and
+``gather_from_model`` are the autograd-aware collectives of a compute
+split over the "model" axis (Megatron's f / g pair and its gather), built
+on ``AxisGroup.all_reduce_`` / ``all_gather`` so their bytes are counted:
+copy is the identity forward and an all-reduce of the gradient backward,
+reduce an all-reduce forward and the identity backward, gather a
+concatenation of every rank's block forward and this rank's slice of the
+gradient backward. Given ``None`` (one rank) or a one-rank axis, each
+returns its input.
+
 ``make_production_mesh`` gives the reference's production mesh shapes,
 (16, 16) and (2, 16, 16), as a ``models/sharding.MeshShape``: names and
 sizes with no processes, which the sharding rules and the dry run
@@ -53,7 +63,8 @@ from ..models.sharding import MeshShape
 
 __all__ = ["AxisGroup", "Mesh", "make_mesh", "make_test_mesh",
            "make_production_mesh", "rank_device", "spawn_ranks",
-           "WIRE_FACTOR"]
+           "WIRE_FACTOR", "copy_to_model", "reduce_from_model",
+           "gather_from_model", "split_axis"]
 
 # wire bytes of a ring collective over n ranks per byte of its payload
 # (all-reduce), its result (all-gather) or its message (collective-permute):
@@ -79,7 +90,7 @@ class AxisGroup:
     Under gloo a CUDA payload goes through a pinned host buffer (one cached
     per shape, dtype and use), counted in ``host_staged_bytes``.
     ``wire_bytes`` counts by kind the bytes its collectives send
-    (``WIRE_FACTOR``).
+    (``WIRE_FACTOR``), ``calls`` how many of each it ran.
     """
 
     def __init__(self, name: str, ranks: Sequence[int], index: int, group,
@@ -93,10 +104,12 @@ class AxisGroup:
         self.host_staged_bytes = 0
         self.wire_bytes = {"all-reduce": 0.0, "all-gather": 0.0,
                            "collective-permute": 0.0}
+        self.calls = dict.fromkeys(self.wire_bytes, 0)
         self._pinned: Dict[tuple, torch.Tensor] = {}
 
     def _wire(self, kind: str, nbytes: int) -> None:
         self.wire_bytes[kind] += WIRE_FACTOR[kind](self.size) * nbytes
+        self.calls[kind] += 1
 
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.is_cuda
@@ -169,6 +182,68 @@ class AxisGroup:
             return recv
         return self._from_host(recv, torch.empty(shape, dtype=t.dtype,
                                                  device=t.device))
+
+
+def split_axis(group) -> bool:
+    """Whether ``group`` (an ``AxisGroup`` or ``None``) spans more than one
+    rank, so that a compute split over it runs collectives."""
+    return group is not None and group.size > 1
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce_(
+            grad.clone(memory_format=torch.contiguous_format)), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce_(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        return torch.cat(group.all_gather(x).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        part = grad.narrow(ctx.dim, ctx.group.index * ctx.size, ctx.size)
+        return part.contiguous(), None, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` into a column-parallel span: the identity, and the gradient
+    summed over ``group`` on the way back (each rank's span sees only its
+    share of the columns)."""
+    return _CopyToModel.apply(x, group) if split_axis(group) else x
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of each rank's partial ``x`` (a row-parallel
+    product's output); the gradient passes through unchanged."""
+    return _ReduceFromModel.apply(x, group) if split_axis(group) else x
+
+
+def gather_from_model(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """Every rank's block ``x`` concatenated along ``dim`` in axis order;
+    the gradient comes back as this rank's slice (the consumer runs the
+    same on every rank, so the slices make up the whole)."""
+    if not split_axis(group):
+        return x
+    return _GatherFromModel.apply(x, group, dim % x.dim())
 
 
 @dataclasses.dataclass

@@ -18,12 +18,20 @@ are those the port's step would send, counted with the factors
     the loss over the data axes the batch is cut over
     (``train/step.make_sharded_train_step``).
 
+``step_wire_bytes(..., split_model=True)`` counts instead what the step
+split over "model" sends: the data-axis gathers of a rank's model blocks
+and the split's model-axis collectives.
+
+The train FLOPs and weight reads follow the step's ``remat``
+(``analytic_cost``): ``True``, the reference's default, recomputes the
+forward once.
+
 Per axis, the "pod" axis's bytes are those that cross pods.
 
 Usage:
   python -m repro_torch.launch.roofline --arch qwen2-7b --shape train_4k
   python -m repro_torch.launch.roofline --arch qwen2-7b --shape train_4k \\
-      --multipod --measured-s 12.5
+      --multipod --measured-s 12.5 [--remat full|names|none]
 """
 from __future__ import annotations
 
@@ -37,7 +45,7 @@ from .. import _tree
 from ..configs import SHAPES, get_arch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import sharding as shd
-from ..models.transformer import init_params
+from ..models.transformer import block_has_ffn, init_params
 from .analytic_cost import analytic_cost
 from .mesh import WIRE_FACTOR, make_production_mesh
 
@@ -95,46 +103,84 @@ def _axes(entry):
 
 
 def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
-                    mesh: shd.MeshShape) -> Dict[str, Dict[str, float]]:
+                    mesh: shd.MeshShape, *, split_model: bool = False,
+                    remat=True) -> Dict[str, Dict[str, float]]:
     """axis -> kind -> the bytes one rank's step sends: the all-gathers of
     its parameter blocks (in ``sharding.gather``'s order) and, for a train
     step, the f32 all-reduces of the gradients and the loss over the data
-    axes the batch is cut over."""
+    axes the batch is cut over.
+
+    ``split_model``: the compute split over "model"
+    (``make_sharded_train_step(split_model=True)`` and
+    ``make_sharded_serve_step``). The blocks are gathered over the data
+    axes only and the data-axis gradient is a rank's model blocks. On
+    "model", with a = b s D bytes of the rank's activations (b its batch
+    shard, the model's dtype): the embedding's all-gather of a; a forward
+    all-reduce of a after each mixer and each FFN, as many in the backward
+    (the gradients into the column-parallel spans), one more into the
+    head's, and under ``remat=True`` the forward's again (``"names"``
+    re-runs none); the loss's three f32 all-reduces of b s (max, sum of
+    exponentials, gold logit); the f32 sum of the ``PARTIAL_OVER_MODEL``
+    leaves' gradients and of the norm's 4 bytes."""
     sizes = mesh.shape
     out = {a: {"all-reduce": 0.0, "all-gather": 0.0} for a in sizes}
     params = init_params(None, cfg, device="meta")
     specs = shd.param_specs(params, cfg, mesh)
-    leaves = _tree.tree_leaves(params)
-    for leaf, spec in zip(leaves, shd.spec_leaves(specs)):
+    names, leaves, _ = _tree.flatten_with_names(params)
+    specs = shd.spec_leaves(specs)
+    ar, ag = WIRE_FACTOR["all-reduce"], WIRE_FACTOR["all-gather"]
+    for leaf, spec in zip(leaves, specs):
         nbytes = float(np.prod(shd.local_shape(leaf.shape, spec, mesh))) \
             * leaf.element_size()
         for entry in spec:
             for a in reversed(_axes(entry)):
+                if split_model and a == "model":
+                    continue
                 n = sizes[a]
-                out[a]["all-gather"] += WIRE_FACTOR["all-gather"](n) \
-                    * n * nbytes
+                out[a]["all-gather"] += ag(n) * n * nbytes
                 nbytes *= n
-    if shape.kind == "train" and shd.dp_shards(cfg, mesh,
-                                               shape.global_batch) > 1:
-        grad_bytes = 4.0 * sum(leaf.numel() for leaf in leaves)
+    train = shape.kind == "train"
+    dp = shd.dp_shards(cfg, mesh, shape.global_batch)
+    tp = sizes.get("model", 1) if split_model else 1
+    if train and dp > 1:
+        elems = sum(leaf.numel() // (tp if shd.has_model(spec) else 1)
+                    for leaf, spec in zip(leaves, specs))
         for a in shd.dp_axes(mesh):
-            out[a]["all-reduce"] += WIRE_FACTOR["all-reduce"](sizes[a]) \
-                * (grad_bytes + 4)
+            out[a]["all-reduce"] += ar(sizes[a]) * (4.0 * elems + 4)
+    if tp > 1:
+        rows = shape.global_batch // dp
+        rows *= 1 if shape.kind == "decode" else shape.seq_len
+        act = float(rows * cfg.d_model * cfg.torch_dtype.itemsize)
+        fwd = sum(1 + int(block_has_ffn(cfg, kind))
+                  for kind in cfg.pattern_for_layers()) * cfg.n_groups
+        reduces = fwd
+        if train:
+            reduces += fwd + 1 + (fwd if remat is True else 0)
+        model = out["model"]
+        model["all-gather"] += ag(tp) * act
+        model["all-reduce"] += ar(tp) * reduces * act
+        if train:
+            partial = sum(leaf.numel() for n, leaf in zip(names, leaves)
+                          if n.split("/")[-1] in shd.PARTIAL_OVER_MODEL)
+            model["all-reduce"] += ar(tp) * (3 * 4.0 * rows
+                                             + 4.0 * partial + 4)
     return out
 
 
 def run_cell(arch: str, shape: Union[str, ShapeConfig], *,
              mesh: Optional[shd.MeshShape] = None,
              cfg: Optional[ModelConfig] = None,
-             measured_s: Optional[float] = None) -> Dict[str, Any]:
+             measured_s: Optional[float] = None,
+             remat=True) -> Dict[str, Any]:
     """The three roofline terms of one step of ``arch`` (or ``cfg``, a cut
     of it) at ``shape`` on ``mesh`` (default: the single-pod production
     mesh), per rank, the dominant one, ``bound_s`` and ``mfu_at_bound``;
-    with ``measured_s``, the bound's share of that measured step."""
+    with ``measured_s``, the bound's share of that measured step.
+    ``remat``: the train step's (``analytic_cost``)."""
     cfg = get_arch(arch) if cfg is None else cfg
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     mesh = make_production_mesh() if mesh is None else mesh
-    cost = analytic_cost(cfg, shape)
+    cost = analytic_cost(cfg, shape, remat=remat)
     dp = shd.dp_shards(cfg, mesh, shape.global_batch)
     flops_dev = cost["flops"] / dp
     bytes_dev = cost["weight_bytes"] + (cost["hbm_bytes"]
@@ -147,6 +193,7 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], *,
     res = {
         "arch": cfg.name, "shape": shape.name, "kind": shape.kind,
         "mesh": mesh.shape, "n_devices": mesh.size, "batch_shards": dp,
+        "remat": remat,
         "flops_per_dev": flops_dev, "bytes_per_dev": bytes_dev,
         "wire_bytes_per_dev": wire_dev, "wire_by_axis": wire,
         "cross_pod_bytes": sum(wire.get("pod", {}).values()),
@@ -161,16 +208,21 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], *,
     return res
 
 
+REMAT_FLAG = {"full": True, "names": "names", "none": False}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True, choices=list(SHAPES))
     ap.add_argument("--multipod", action="store_true")
     ap.add_argument("--measured-s", type=float, default=None)
+    ap.add_argument("--remat", default="full", choices=list(REMAT_FLAG))
     args = ap.parse_args(argv)
     res = run_cell(args.arch, args.shape,
                    mesh=make_production_mesh(multi_pod=args.multipod),
-                   measured_s=args.measured_s)
+                   measured_s=args.measured_s,
+                   remat=REMAT_FLAG[args.remat])
     print(json.dumps(res, indent=1))
 
 

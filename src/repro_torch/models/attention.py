@@ -11,6 +11,14 @@ Decode: one token against a ring-buffer cache, f32 softmax over the filled
 slots, as in the reference. The cache is written in place (the reference
 returns an updated copy): ``apply_attn`` returns the same dict it was given.
 The reference's SPMD sharding constraints (``act_specs``) do not carry over.
+
+Split over "model" (``model=``, an ``AxisGroup``): the weights are a
+rank's blocks, so the head counts come from their shapes: n_heads / tp
+query heads and n_kv_heads / tp kv heads, a contiguous block each (the
+GQA repeat unchanged); the replicated qkv biases are sliced to them, the
+kernel and the cache see only them, and ``wo`` is row-parallel: the
+output is this rank's part of the sum, which the caller reduces over
+"model".
 """
 from __future__ import annotations
 
@@ -99,13 +107,16 @@ def init_attn(gen: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, n_layers: int,
-                  device: torch.device) -> Dict[str, torch.Tensor]:
-    """Stacked-over-layers ring-buffer KV cache for attention layers.
+                  device: torch.device, n_kv_heads: Optional[int] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Stacked-over-layers ring-buffer KV cache for attention layers, of
+    ``n_kv_heads`` heads (default all; a model rank's share when split).
 
     With ``cfg.kv_quant`` entries are int8 with a per-(token, head) absmax
     scale: half the capacity and read traffic of bf16.
     """
-    shape = (n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
+    nkv = cfg.n_kv_heads if n_kv_heads is None else n_kv_heads
+    shape = (n_layers, batch, nkv, max_len, cfg.hd)
     if cfg.kv_quant:
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -128,17 +139,25 @@ def _quantize_kv(x: torch.Tensor):
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, rank: int = 0):
+    """q (b, nq, s, hd), k/v (b, nkv, s, hd) with RoPE, for the heads of
+    model rank ``rank`` (all of them unsplit)."""
     b, s, _ = x.shape
     hd = cfg.hd
+    nq, nkv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+        bq, bk, bv = p["bq"], p["bk"], p["bv"]
+        if nq != cfg.n_heads:
+            bq = bq[rank * nq * hd:(rank + 1) * nq * hd]
+            bk = bk[rank * nkv * hd:(rank + 1) * nkv * hd]
+            bv = bv[rank * nkv * hd:(rank + 1) * nkv * hd]
+        q, k, v = q + bq, k + bk, v + bv
+    q = q.reshape(b, s, nq, hd).transpose(1, 2)
+    k = k.reshape(b, s, nkv, hd).transpose(1, 2)
+    v = v.reshape(b, s, nkv, hd).transpose(1, 2)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -147,13 +166,16 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
 def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, *,
                window: Optional[int] = None,
                cache: Optional[Dict[str, torch.Tensor]] = None,
-               cache_index: Optional[int] = None, use_kernel: bool = True):
+               cache_index: Optional[int] = None, use_kernel: bool = True,
+               model=None):
     """Full-sequence path (cache is None) or single-step decode path.
 
     Decode: x is (b, 1, d); cache = {"k", "v"} slabs (b, nkv, S, hd) of THIS
     layer (views into the stacked cache), written in place at slot
     ``cache_index % S``; ``cache_index`` is the host's step count, so no
-    step waits on the device. Returns (out, cache).
+    step waits on the device. ``model``: the "model" ``AxisGroup`` when
+    ``p`` holds a rank's heads (module docstring); the output is then that
+    rank's partial sum. Returns (out, cache).
     """
     b, s, _ = x.shape
     if cache is None:
@@ -161,8 +183,14 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         positions = torch.full((b, 1), cache_index, dtype=torch.int32,
                                device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions)
-    rep = cfg.n_heads // cfg.n_kv_heads
+    q, k, v = _project_qkv(p, x, cfg, positions,
+                           model.index if model is not None else 0)
+    nq, nkv, hd = q.shape[1], k.shape[1], cfg.hd
+    rep = nq // nkv
+    if rep != cfg.n_heads // cfg.n_kv_heads:
+        raise ValueError(f"{nq} query heads over {nkv} kv heads: the GQA "
+                         f"repeat of {cfg.name} is "
+                         f"{cfg.n_heads // cfg.n_kv_heads}")
 
     if cache is None:
         if use_kernel:
@@ -189,14 +217,14 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, *,
             kd, vd = cache["k"].float(), cache["v"].float()
         # each query head's group of kv heads, without expanding the cache:
         # q (b, nkv, rep, 1, hd) against k (b, nkv, S, hd)
-        qg = q.float().reshape(b, cfg.n_kv_heads, rep, s, cfg.hd)
-        logits = torch.einsum("bgrqd,bgkd->bgrqk", qg, kd) * (cfg.hd ** -0.5)
+        qg = q.float().reshape(b, nkv, rep, s, hd)
+        logits = torch.einsum("bgrqd,bgkd->bgrqk", qg, kd) * (hd ** -0.5)
         # valid = filled slots only (ring: all slots < min(idx + 1, S))
         filled = min(cache_index + 1, max_len)
         logits[..., filled:] = _NEG
         probs = torch.softmax(logits, dim=-1)
         out = torch.einsum("bgrqk,bgkd->bgrqd", probs, vd)
-        out = out.reshape(b, cfg.n_heads, s, cfg.hd).to(x.dtype)
+        out = out.reshape(b, nq, s, hd).to(x.dtype)
 
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
+    out = out.transpose(1, 2).reshape(b, s, nq * hd)
     return out @ p["wo"], cache

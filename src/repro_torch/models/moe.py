@@ -14,6 +14,13 @@ count, as the reference's does: each shard's tokens are sorted, and capped
 at a capacity, on their own; with one shard that is global routing. The
 reference leaves these products to XLA, so they stay ``torch.bmm`` /
 ``torch.matmul`` here: no Pallas kernel is on this path.
+
+Split over "model" (``model=``): the expert stacks hold a rank's E / tp
+experts, a contiguous block, and the shared expert's columns are cut as
+the dense FFN's. Every model rank routes the same tokens with the same
+replicated router, so the slots are the global ones; a rank keeps the
+pairs its experts own (the rest go to its spare slot) and returns its
+part of the combine, which the caller reduces over "model".
 """
 from __future__ import annotations
 
@@ -102,7 +109,7 @@ def route(xf: torch.Tensor, router: torch.Tensor, m: MoEConfig, cap: int):
 
 
 def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
-              act_specs=None) -> torch.Tensor:
+              act_specs=None, model=None) -> torch.Tensor:
     """x: (b, s, d) -> (b, s, d).
 
     ``act_specs["moe"]`` (``models/sharding.activation_specs``) gives the
@@ -126,6 +133,13 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
     xs = x.reshape(n, t_loc, d)
     plans = [route(xs[i], p["router"], m, cap) for i in range(n)]
     gates, keep, slot = (torch.stack(part) for part in zip(*plans))
+    e_loc = p["w_gate"].shape[0]
+    if e_loc != e:
+        # this rank's experts [e0, e0 + e_loc): their slots, shifted to 0
+        lo = (model.index if model is not None else 0) * e_loc * cap
+        keep = keep & (slot >= lo) & (slot < lo + e_loc * cap)
+        slot = torch.where(keep, slot - lo, e_loc * cap)
+        e = e_loc
     tok_of = torch.arange(t_loc, device=x.device).repeat_interleave(k)
 
     # dispatch: kept pairs to their slots, dropped ones (zeros) to their

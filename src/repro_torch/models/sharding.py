@@ -24,9 +24,19 @@ coordinates; ``gather_tree`` puts the blocks of a tree back together over a
 ``launch/mesh.Mesh`` with ``AxisGroup.all_gather``, axis by axis. A train
 step over such a mesh (``train/step.make_sharded_train_step``) keeps only
 the rank's blocks of the parameters and AdamW moments, which is the
-reference's memory plan for stored state. It does not split the compute
-over "model" as XLA's partitioner does: every rank gathers each whole leaf
-and runs the whole model on its batch shard.
+reference's memory plan for stored state. By default every rank gathers
+each whole leaf and runs the whole model on its batch shard.
+
+The compute split over "model" (``split_model=True``), for the families
+whose mixers are all attention: ``model_view`` says which heads, kv heads,
+FFN columns, experts and vocabulary rows a model rank holds, read off
+``param_specs``, and raises ``NotImplementedError`` where the split is not
+ported. ``data_specs`` drops "model" from every spec: gathering by it
+(ZeRO-3 over the data axes) leaves each rank its model blocks, with which
+``models/transformer.forward(..., model=)`` runs Megatron's tensor
+parallelism, as XLA partitions the reference under these specs.
+``PARTIAL_OVER_MODEL`` names the replicated leaves whose gradient each
+model rank holds a part of.
 """
 from __future__ import annotations
 
@@ -42,7 +52,9 @@ from ..configs.base import ModelConfig
 __all__ = ["MeshShape", "dp_axes", "param_specs", "batch_specs",
            "constraint_spec", "activation_specs", "decode_state_specs",
            "local_shape", "shard", "shard_tree", "gather", "gather_tree",
-           "spec_leaves", "dp_shards"]
+           "spec_leaves", "dp_shards", "ModelView", "model_view",
+           "data_specs", "has_model", "PARTIAL_OVER_MODEL",
+           "SPLIT_ROADMAP"]
 
 Axes = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Axes, ...]
@@ -335,3 +347,114 @@ def gather_tree(tree, specs, mesh):
     return _tree.unflatten(structure, [
         gather(x, s, mesh) if isinstance(x, torch.Tensor) else x
         for x, s in zip(leaves, specs)])
+
+
+# ---------------------------------------------------------------------------
+# the compute split over "model"
+# ---------------------------------------------------------------------------
+# replicated leaves used per head (the qkv biases, sliced to a rank's heads)
+# or feeding only a rank's experts (the router): each model rank's gradient
+# is a part of the whole, summed over "model" before the update
+PARTIAL_OVER_MODEL = ("bq", "bk", "bv", "router")
+SPLIT_ROADMAP = ('ROADMAP.md, "Configurations the port does not yet run": '
+                 'the compute split over "model"')
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelView:
+    """What model rank ``index`` of ``tp`` computes: [start, stop) of the
+    query heads, kv heads, FFN columns (the dense and shared-expert FFN),
+    experts and vocabulary rows of the head (``None`` where the model has
+    none). ``embed_pieces``: the embedding's model dim is cut over
+    (data axes..., "model"), so after the data-axis gather a rank holds
+    ``embed_pieces`` strided pieces of it."""
+
+    tp: int
+    index: int
+    heads: Tuple[int, int]
+    kv_heads: Tuple[int, int]
+    ffn_cols: Optional[Tuple[int, int]]
+    experts: Optional[Tuple[int, int]]
+    vocab: Tuple[int, int]
+    embed_pieces: int
+
+
+def has_model(spec: Spec) -> bool:
+    """Whether ``spec`` cuts a dim over "model"."""
+    return any("model" in _entry_axes(e) for e in spec)
+
+
+def data_specs(specs, mesh):
+    """``specs`` with "model" and every one-rank axis taken out of each
+    entry: gathering by them brings a rank's blocks whole over the data
+    axes and leaves the model cut in place."""
+    sizes = _shape_of(mesh).shape
+
+    def strip(spec):
+        return _P(*[tuple(a for a in _entry_axes(e)
+                          if a != "model" and sizes[a] > 1) or None
+                    for e in spec])
+
+    if isinstance(specs, dict):
+        return {k: data_specs(v, mesh) for k, v in specs.items()}
+    return None if specs is None else strip(specs)
+
+
+def _block(n: int, tp: int, index: int) -> Tuple[int, int]:
+    per = n // tp
+    return (index * per, (index + 1) * per)
+
+
+def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
+    """Model rank ``index``'s share of ``cfg`` under ``param_specs`` on
+    ``mesh``. Raises ``NotImplementedError`` (naming the ROADMAP item)
+    where the split is not ported: a mixer that is not attention, a
+    frontend, a tied head, kv heads (or any leaf the split cuts) that do
+    not divide over "model". Nothing falls back to another route."""
+    # transformer imports launch/mesh, which imports this module
+    from .transformer import init_params
+    shape = _shape_of(mesh)
+    tp = shape.shape.get("model", 1)
+    kinds = set(cfg.pattern_for_layers())
+    why = None
+    if not kinds <= {"attn", "swa"}:
+        why = f"mixers {sorted(kinds - {'attn', 'swa'})}"
+    elif cfg.frontend is not None:
+        why = f"the {cfg.frontend} frontend"
+    elif cfg.tie_embeddings:
+        why = "a tied head"
+    elif cfg.n_kv_heads % tp or cfg.n_heads % tp:
+        why = (f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads over a "
+               f"model axis of {tp} (the cache cut by length instead)")
+    if why is None:
+        specs = param_specs(init_params(None, cfg, device="meta"), cfg,
+                            shape)
+        blk = specs["groups"][f"blk0_{cfg.pattern_for_layers()[0]}"]
+        need = [("embed", specs["embed"]), ("lm_head", specs["lm_head"]),
+                *[(k, blk["mixer"][k]) for k in ("wq", "wk", "wv", "wo")],
+                *[("ffn/" + k, blk["ffn"][k])
+                  for k in ("w_gate", "w_up", "w_down")]]
+        if "shared" in blk["ffn"]:
+            need += [("shared/" + k, blk["ffn"]["shared"][k])
+                     for k in ("w_gate", "w_up", "w_down")]
+        cut = [name for name, spec in need if not has_model(spec)]
+        if tp > 1 and cut:
+            why = f"leaves not cut over 'model': {cut}"
+    if why is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the compute split over 'model' is not ported for "
+            f"{why}; see {SPLIT_ROADMAP}")
+    emb = specs["embed"][-1]
+    pieces = _axsize(shape, tuple(a for a in _entry_axes(emb)
+                                  if a != "model"))
+    m = cfg.moe
+    return ModelView(
+        tp=tp, index=index,
+        heads=_block(cfg.n_heads, tp, index),
+        kv_heads=_block(cfg.n_kv_heads, tp, index),
+        ffn_cols=(_block(m.d_expert * m.n_shared_experts, tp, index)
+                  if m is not None and m.n_shared_experts else
+                  _block(cfg.d_ff, tp, index) if m is None else None),
+        experts=_block(m.n_experts, tp, index) if m is not None else None,
+        vocab=_block(cfg.vocab_size, tp, index),
+        embed_pieces=pieces)

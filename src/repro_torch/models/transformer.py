@@ -6,8 +6,8 @@ holds every block's leaves stacked over a leading ``n_groups`` axis, under
 keys ``blk{i}_{kind}``, each leaf in the reference's dtype (the MoE router
 and RG-LRU's ``lam`` stay f32 in a bf16 model), so
 ``interop.params_from_reference`` maps leaves one to one. The reference's
-scan over groups is a Python loop over that axis here. Its ``remat`` and
-``unroll_layers`` do not carry over. ``act_specs``
+scan over groups is a Python loop over that axis here; its
+``unroll_layers`` does not carry over. ``act_specs``
 (``models/sharding.activation_specs``) is taken for its ``"moe"`` entry
 only, which makes ``apply_moe`` route per data shard; its layout entries
 (``act``, ``logits``, ``attn_*``) pin XLA's partitioner in the reference
@@ -16,6 +16,30 @@ path is differentiable: ``train/step.loss_fn`` runs it under autograd with
 ``use_kernel=False`` (plain attention, as the reference trains; the flash
 kernel has no backward in either package). Decoding is inference only
 (callers run it under ``torch.inference_mode()``).
+
+Remat (``forward(..., remat=)``, as the reference's): ``True`` runs each
+group's body (one pass of the pattern) under
+``torch.utils.checkpoint.checkpoint``, so backward recomputes it whole;
+``"names"`` checkpoints the spans between the reference's save points
+``mixer_out`` and ``ffn_out`` (a block's norm and mixer, its norm and FFN),
+so what is kept is a block's input and its residual after the mixer, and
+everything inside the spans (norms, projections, attention, gates, the FFN
+intermediate) is recomputed; ``False`` keeps everything. The spans end before the model-axis reduce, so ``"names"``
+re-runs no collective and ``True`` re-runs the forward's. Recomputation
+never stops early (the collectives it re-runs are the same on every
+rank). The values are the same bits under all three.
+
+Split over "model" (``model=``, the "model" ``AxisGroup`` of
+``launch/mesh``, for the attention families of
+``models/sharding.model_view``): ``params`` hold a rank's model blocks
+(each leaf gathered over the data axes only). The embedding's block of
+the model dim, laid out (V, pieces, D / (pieces tp)) (its spec cuts the
+dim over (data, model)), is looked up and the activations gathered over
+"model"; each norm's output enters the column-parallel span through
+``copy_to_model``; the mixer's and the FFN's partial outputs are summed
+by ``reduce_from_model``; the head gives this rank's vocabulary rows of
+the logits. ``None`` (or a one-rank axis) keeps the unsplit arithmetic
+bit for bit.
 
 Block kinds: ``attn`` / ``swa`` (through the flash-attention kernel) with a
 dense SwiGLU FFN or, when ``cfg.moe`` is set, the MoE FFN
@@ -35,9 +59,12 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch.utils import checkpoint as torch_checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ModelConfig
+from ..launch.mesh import (copy_to_model, gather_from_model,
+                           reduce_from_model, split_axis)
 from .attention import apply_attn, init_attn, init_kv_cache
 from .layers import embed_lookup, init_dense, init_norm, normal, rms_norm, \
     swiglu_ffn
@@ -47,9 +74,11 @@ from .recurrent import (apply_mlstm, apply_rglru, apply_slstm, init_mlstm,
                         init_slstm, init_slstm_state)
 
 __all__ = ["init_params", "forward", "init_decode_state", "decode_step",
-           "block_has_ffn", "embed_inputs", "tree_map", "tree_leaves"]
+           "block_has_ffn", "embed_inputs", "tree_map", "tree_leaves",
+           "REMAT_MODES"]
 
 ATTN_KINDS = ("attn", "swa")
+REMAT_MODES = (False, True, "names")
 _MIXERS = {"mlstm": (init_mlstm, apply_mlstm, init_mlstm_state),
            "slstm": (init_slstm, apply_slstm, init_slstm_state),
            "rglru": (init_rglru, apply_rglru, init_rglru_state)}
@@ -155,40 +184,72 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 # forward (prefill)
 # ---------------------------------------------------------------------------
-def _ffn(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
-         act_specs=None) -> torch.Tensor:
-    h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
-    f = p["ffn"]
-    if _is_moe(cfg, kind):
-        return x + apply_moe(f, h2, cfg, act_specs=act_specs)
-    return x + swiglu_ffn(h2, f["w_gate"], f["w_up"], f["w_down"])
+def _recompute(fn, *args):
+    """``fn(*args)`` under non-reentrant checkpointing, recomputed whole in
+    backward (no early stop: its collectives run again on every rank)."""
+    with torch_checkpoint.set_checkpoint_early_stop(False):
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                           preserve_rng_state=False)
 
 
-def _apply_block_full(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                      use_kernel: bool, act_specs=None) -> torch.Tensor:
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _mixer(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
+           use_kernel: bool, model) -> torch.Tensor:
+    """Norm and mixer: the span before the save point ``mixer_out`` (a
+    rank's partial sum when split)."""
+    h = copy_to_model(rms_norm(x, p["norm1"], cfg.norm_eps), model)
     if kind in ATTN_KINDS:
         out, _ = apply_attn(p["mixer"], h, cfg,
                             window=cfg.window if kind == "swa" else None,
-                            use_kernel=use_kernel)
+                            use_kernel=use_kernel, model=model)
     else:
         out, _ = _MIXERS[kind][1](p["mixer"], h, cfg)
-    x = x + out
-    return (_ffn(p, x, cfg, kind, act_specs) if block_has_ffn(cfg, kind)
-            else x)
+    return out
+
+
+def _ffn(p, x: torch.Tensor, cfg: ModelConfig, kind: str, act_specs,
+         model) -> torch.Tensor:
+    """Norm and FFN: the span before ``ffn_out`` (partial when split)."""
+    h2 = copy_to_model(rms_norm(x, p["norm2"], cfg.norm_eps), model)
+    f = p["ffn"]
+    if _is_moe(cfg, kind):
+        return apply_moe(f, h2, cfg, act_specs=act_specs, model=model)
+    return swiglu_ffn(h2, f["w_gate"], f["w_up"], f["w_down"])
+
+
+def _apply_block_full(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                      use_kernel: bool, act_specs=None, model=None,
+                      span=_call) -> torch.Tensor:
+    """One block; ``span`` runs the mixer's and the FFN's spans
+    (``_recompute`` under ``remat="names"``)."""
+    x = x + reduce_from_model(
+        span(_mixer, p, x, cfg, kind, use_kernel, model), model)
+    if block_has_ffn(cfg, kind):
+        x = x + reduce_from_model(
+            span(_ffn, p, x, cfg, kind, act_specs, model), model)
+    return x
 
 
 def embed_inputs(params, batch: Dict[str, torch.Tensor],
-                 cfg: ModelConfig) -> torch.Tensor:
+                 cfg: ModelConfig, *, model=None) -> torch.Tensor:
     """Token embedding with the modality frontends. Their encoders are
     stubs, as in the reference: ``audio_codec`` tokens arrive as (b, s, K)
     codebook ids and their K embeddings are summed; ``vlm_patches`` takes
     precomputed image-patch embeddings from ``batch["patch_embeds"]`` and
     splices them over the first ``n_prefix_tokens`` positions.
-    ``inputs_embeds`` skips the lookup."""
+    ``inputs_embeds`` skips the lookup. ``model``: the embedding is this
+    rank's (V, pieces, c) block (module docstring); the looked-up pieces
+    are gathered over "model" into (b, s, D)."""
     if "inputs_embeds" in batch:
         return batch["inputs_embeds"]
     tokens = batch["tokens"]
+    if split_axis(model):
+        emb = params["embed"]
+        x = embed_lookup(emb.flatten(1), tokens).unflatten(-1, emb.shape[1:])
+        return gather_from_model(x, model, dim=-1).flatten(-2)
     if cfg.frontend == "audio_codec":
         x = sum(embed_lookup(params["embed"][k], tokens[..., k])
                 for k in range(cfg.n_codebooks))
@@ -200,9 +261,12 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor],
     return x
 
 
-def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Final norm and logits: (b, s, V), or (b, s, K, V) for audio."""
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+def _head(params, x: torch.Tensor, cfg: ModelConfig, *,
+          model=None) -> torch.Tensor:
+    """Final norm and logits: (b, s, V), or (b, s, K, V) for audio; split
+    over ``model``, this rank's vocabulary rows (b, s, V / tp) of an
+    untied head (``sharding.model_view`` refuses a tied one)."""
+    x = copy_to_model(rms_norm(x, params["final_norm"], cfg.norm_eps), model)
     head = params.get("lm_head")
     logits = x @ (head if head is not None else params["embed"].T)
     if cfg.frontend == "audio_codec":
@@ -216,74 +280,94 @@ def _group(tree, g: int):
 
 
 def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-            use_kernel: bool = True, act_specs=None) -> torch.Tensor:
+            use_kernel: bool = True, act_specs=None, remat=False,
+            model=None) -> torch.Tensor:
     """Returns logits (b, s, V) (audio: (b, s, K, V)). ``use_kernel=False``
     runs the plain ``blockwise_attention`` in place of the flash-attention
     kernel. ``act_specs``: see the module docstring (only ``"moe"``
-    acts)."""
-    x = embed_inputs(params, batch, cfg)
+    acts). ``remat``: ``False`` (prefill), ``True`` or ``"names"`` (module
+    docstring; it acts only under autograd). ``model``: the "model" axis
+    of a split (module docstring)."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat={remat!r}: one of {REMAT_MODES}")
+    span = _recompute if remat == "names" else _call
+    x = embed_inputs(params, batch, cfg, model=model)
     pattern = cfg.pattern_for_layers()
     for g in range(cfg.n_groups):
         gp = _group(params["groups"], g)
-        for i, kind in enumerate(pattern):
-            x = _apply_block_full(gp[f"blk{i}_{kind}"], x, cfg, kind,
-                                  use_kernel, act_specs)
-    return _head(params, x, cfg)
+
+        def body(x, gp=gp):
+            for i, kind in enumerate(pattern):
+                x = _apply_block_full(gp[f"blk{i}_{kind}"], x, cfg, kind,
+                                      use_kernel, act_specs, model, span)
+            return x
+
+        x = _recompute(body, x) if remat is True else body(x)
+    return _head(params, x, cfg, model=model)
 
 
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
-                      device: DeviceLike = None) -> Dict[str, Any]:
+                      device: DeviceLike = None,
+                      model=None) -> Dict[str, Any]:
     """Per-pattern-position stacked caches and states + the step counter.
 
     Attention blocks get a ring-buffer KV cache (``swa``: of the window),
     recurrent ones their f32 state. The counter is a host integer: the slot
     and the mask of each step are computed on the host, so no step waits on
-    the device.
+    the device. ``model``: the cache holds this rank's n_kv_heads / tp kv
+    heads (``decode_state_specs``' kv-head cut).
     """
     dev = resolve_device(device)
+    nkv = cfg.n_kv_heads // (model.size if split_axis(model) else 1)
     caches = {}
     for i, kind in enumerate(cfg.pattern_for_layers()):
         name = f"blk{i}_{kind}"
         if kind in ATTN_KINDS:
             wlen = min(cfg.window or max_len, max_len) if kind == "swa" \
                 else max_len
-            caches[name] = init_kv_cache(cfg, batch, wlen, cfg.n_groups, dev)
+            caches[name] = init_kv_cache(cfg, batch, wlen, cfg.n_groups, dev,
+                                         n_kv_heads=nkv)
         else:
             caches[name] = _MIXERS[kind][2](cfg, batch, cfg.n_groups, dev)
     return {"index": 0, "caches": caches}
 
 
 def _apply_block_decode(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                        cache, index: int, act_specs=None) -> torch.Tensor:
+                        cache, index: int, act_specs=None,
+                        model=None) -> torch.Tensor:
     """One token through one block; ``cache`` (this layer's views into the
     stacked caches) is written in place."""
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    h = copy_to_model(rms_norm(x, p["norm1"], cfg.norm_eps), model)
     if kind in ATTN_KINDS:
         out, _ = apply_attn(p["mixer"], h, cfg,
                             window=cfg.window if kind == "swa" else None,
-                            cache=cache, cache_index=index)
+                            cache=cache, cache_index=index, model=model)
     else:
         out, new_state = _MIXERS[kind][1](p["mixer"], h, cfg, state=cache)
         for key, val in new_state.items():
             cache[key].copy_(val)
-    x = x + out
-    return (_ffn(p, x, cfg, kind, act_specs) if block_has_ffn(cfg, kind)
-            else x)
+    x = x + reduce_from_model(out, model)
+    if block_has_ffn(cfg, kind):
+        x = x + reduce_from_model(_ffn(p, x, cfg, kind, act_specs, model),
+                                  model)
+    return x
 
 
 def decode_step(params, state: Dict[str, Any], tokens: torch.Tensor,
-                cfg: ModelConfig, *, act_specs=None):
+                cfg: ModelConfig, *, act_specs=None, model=None):
     """One serving step. tokens: (b, 1) (audio: (b, 1, K)). ``act_specs``
-    as in ``forward``.
+    and ``model`` as in ``forward`` (split: ``state`` from
+    ``init_decode_state(..., model=)``, the logits this rank's vocabulary
+    rows).
 
     Returns (logits, new_state). The caches and states advance by one,
     written in place: ``new_state`` holds the same tensors as ``state``.
     """
     index = state["index"]
-    x = embed_inputs(params, {"tokens": tokens}, cfg)
+    x = embed_inputs(params, {"tokens": tokens}, cfg, model=model)
     pattern = cfg.pattern_for_layers()
     for g in range(cfg.n_groups):
         gp = _group(params["groups"], g)
@@ -291,6 +375,6 @@ def decode_step(params, state: Dict[str, Any], tokens: torch.Tensor,
         for i, kind in enumerate(pattern):
             name = f"blk{i}_{kind}"
             x = _apply_block_decode(gp[name], x, cfg, kind, gc[name], index,
-                                    act_specs)
-    return _head(params, x, cfg), {"index": index + 1,
-                                   "caches": state["caches"]}
+                                    act_specs, model)
+    return _head(params, x, cfg, model=model), {"index": index + 1,
+                                                "caches": state["caches"]}

@@ -23,7 +23,8 @@ import torch
 
 from .. import _tree
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm",
+           "sum_squares"]
 
 _CHUNK = 1 << 24
 
@@ -65,16 +66,21 @@ def _slices(n: int):
     return [slice(i, min(i + _CHUNK, n)) for i in range(0, n, _CHUNK)]
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves (in the reference's leaf order) of each
-    leaf's float32 sum of squares."""
+def sum_squares(tree) -> torch.Tensor:
+    """The sum over leaves (in the reference's leaf order) of each leaf's
+    float32 sum of squares, a chunk at a time."""
     total = None
     for x in _tree.tree_leaves(tree):
         flat = x.reshape(-1)
         sq = sum(torch.sum(torch.square(flat[sl].to(torch.float32)))
                  for sl in _slices(flat.numel()))
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return total
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of ``sum_squares``."""
+    return torch.sqrt(sum_squares(tree))
 
 
 def adamw_update(grads, state, params, cfg: AdamWConfig, *,

@@ -8,53 +8,89 @@
                          projector S-DOT keeps over the pod ring.
 ``make_sharded_train_step``  one rank of a (pod?, data, model) mesh that
                          stores only its blocks of the parameters and AdamW
-                         moments (models/sharding.py's rules), gathers
-                         each leaf for the step and keeps its own block of
-                         the update.
+                         moments (models/sharding.py's rules) and keeps its
+                         own block of the update. ``split_model=True``
+                         splits the compute over "model" (tensor
+                         parallelism, the attention families): it gathers
+                         over the data axes only. ``split_model=False``
+                         gathers each leaf whole and repeats the model on
+                         every rank of a data shard: the plain route the
+                         split is held against, and the route of the
+                         families the split does not cover.
+``make_sharded_serve_step``  (prefill, decode) over the same mesh, split
+                         over "model": the twin of the programs the
+                         reference's dry run lowers.
 ``make_serve_step``      one-token decode with the KV caches.
 
 The reference trains through plain attention (``use_pallas=False``): the
 flash kernel has no backward in either package, so ``loss_fn`` runs
-``forward(..., use_kernel=False)``. The reference's remat is left out (it
-only trades memory for recomputation).
+``forward(..., use_kernel=False)``. Every train step takes the reference's
+``remat`` (default ``True``; ``models/transformer.py``); the values are the
+same bits under each.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
+import torch.distributed as dist
 
 from .. import _tree
 from ..configs.base import ModelConfig, PSAConfig
+from ..launch.mesh import reduce_from_model, split_axis
 from ..models import sharding as shd
 from ..models.transformer import decode_step, forward, init_params, tree_map
-from ..optim.adamw import AdamWConfig, adamw_update, global_norm
+from ..optim.adamw import AdamWConfig, adamw_update, global_norm, \
+    sum_squares
 from ..optim.psa_compress import compress_grads, group_mean, psa_refresh
 
 __all__ = ["loss_fn", "make_train_step", "make_psa_train_step",
-           "make_sharded_train_step", "make_serve_step", "shard_batch"]
+           "make_sharded_train_step", "make_sharded_value_and_grad",
+           "make_sharded_serve_step", "make_serve_step", "shard_batch"]
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-            act_specs=None) -> torch.Tensor:
+            act_specs=None, remat=True, model=None) -> torch.Tensor:
     """Mean next-token cross entropy from float32 logits. The gold logit is
     read by index: the reference's masked sum over the vocabulary adds one
     logit to zeros, the same value. ``act_specs`` as ``forward`` takes it
-    (only its ``"moe"`` entry acts)."""
+    (only its ``"moe"`` entry acts); ``remat`` as ``forward``'s.
+
+    ``model``: the "model" axis of a split (``forward``'s), whose logits
+    are each rank's vocabulary rows: a vocabulary-parallel cross entropy in
+    f32. The max and the sum of exponentials are reduced over "model"
+    (the max outside autograd: the log-sum-exp's gradient does not depend
+    on it), and the gold logit comes from the rank that holds it, zeros
+    from the others, summed."""
     logits = forward(params, batch, cfg, use_kernel=False,
-                     act_specs=act_specs).to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, batch["labels"].long()[..., None])[..., 0]
-    return torch.mean(logz - gold)
+                     act_specs=act_specs, remat=remat,
+                     model=model).to(torch.float32)
+    labels = batch["labels"].long()
+    if not split_axis(model):
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None])[..., 0]
+        return torch.mean(logz - gold)
+    v_loc = logits.shape[-1]
+    top = model.all_reduce_(logits.detach().amax(-1).contiguous(),
+                            op=dist.ReduceOp.MAX)
+    sumexp = reduce_from_model(
+        torch.exp(logits - top[..., None]).sum(-1), model)
+    local = labels - model.index * v_loc
+    mine = (local >= 0) & (local < v_loc)
+    gold = logits.gather(-1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+    gold = reduce_from_model(torch.where(mine, gold, 0.0), model)
+    return torch.mean(torch.log(sumexp) + top - gold)
 
 
-def _value_and_grad(params, batch, cfg: ModelConfig):
+def _value_and_grad(params, batch, cfg: ModelConfig, **loss_kw):
     """(loss, grads): one backward pass, grads in the parameters' dtypes
-    and tree."""
+    and tree. ``loss_kw``: ``loss_fn``'s keywords."""
     _, leaves, structure = _tree.flatten_with_names(params)
     live = [leaf.detach().requires_grad_() for leaf in leaves]
     with torch.enable_grad():
-        loss = loss_fn(_tree.unflatten(structure, live), batch, cfg)
+        loss = loss_fn(_tree.unflatten(structure, live), batch, cfg,
+                       **loss_kw)
         grads = torch.autograd.grad(loss, live, allow_unused=True,
                                     materialize_grads=True)
     return loss.detach(), _tree.unflatten(structure, list(grads))
@@ -72,16 +108,17 @@ def shard_batch(batch: Dict[str, torch.Tensor], index: int,
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *, group=None,
-                    donate: bool = True):
+                    donate: bool = True, remat=True):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``group``: a data-parallel axis (``AxisGroup``) whose ranks each take a
     shard of the batch: the gradient and the loss are their f32 means, as
     the reference's XLA all-reduce over its data axes. ``None``: one rank.
-    ``donate``: AdamW writes into the given parameters and moments."""
+    ``donate``: AdamW writes into the given parameters and moments.
+    ``remat``: ``forward``'s."""
 
     def step(params, opt_state, batch):
-        loss, grads = _value_and_grad(params, batch, cfg)
+        loss, grads = _value_and_grad(params, batch, cfg, remat=remat)
         if group is not None:
             grads = tree_map(
                 lambda g: group_mean(g, group, donate=donate), grads)
@@ -94,7 +131,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *, group=None,
 
 
 def make_psa_train_step(cfg: ModelConfig, opt: AdamWConfig, psa: PSAConfig,
-                        *, group, donate: bool = True):
+                        *, group, donate: bool = True, remat=True):
     """(step, refresh) with PSA-compressed cross-pod gradient reduction.
 
     ``group``: the pod axis (``launch/mesh.AxisGroup``); this rank is one
@@ -112,14 +149,15 @@ def make_psa_train_step(cfg: ModelConfig, opt: AdamWConfig, psa: PSAConfig,
     one backward pass gives the pod's whole gradient, the embedding's
     included, and the embedding's gradient (excluded from compression by
     name) is reduced as a dense f32 pod mean. With ``tie_embeddings`` the
-    same holds: the head's contribution is in the same leaf.
+    same holds: the head's contribution is in the same leaf. ``remat``:
+    ``forward``'s.
     """
     if group is None or group.size < 2:
         raise ValueError("PSA train step needs a pod axis of >= 2 pods")
     npods = group.size
 
     def step(params, opt_state, psa_state, batch):
-        loss, grads = _value_and_grad(params, batch, cfg)
+        loss, grads = _value_and_grad(params, batch, cfg, remat=remat)
         red, new_ef = compress_grads(grads, psa_state, psa, pod_axis=group,
                                      donate=donate)
         del grads
@@ -131,14 +169,94 @@ def make_psa_train_step(cfg: ModelConfig, opt: AdamWConfig, psa: PSAConfig,
                                               "grad_norm": gnorm}
 
     def refresh(params, psa_state, batch):
-        _, grads = _value_and_grad(params, batch, cfg)
+        _, grads = _value_and_grad(params, batch, cfg, remat=remat)
         return psa_refresh(grads, psa_state, psa, pod_axis=group)
 
     return step, refresh
 
 
+def _model_blocks(params, specs, mesh, view: shd.ModelView):
+    """A rank's stored blocks gathered over the data axes only
+    (``sharding.data_specs``): its model blocks, the embedding's laid out
+    (V, pieces, c) for ``forward(..., model=)``."""
+    local = shd.gather_tree(params, shd.data_specs(specs, mesh), mesh)
+    emb = local["embed"]
+    local["embed"] = emb.unflatten(1, (view.embed_pieces, -1))
+    return local
+
+
+def _split_norm(grads, specs, model) -> torch.Tensor:
+    """The global norm of a gradient whose leaves cut over "model" are a
+    rank's blocks and the rest whole on every rank: each element counted
+    once (the blocks' f32 sum of squares summed over "model")."""
+    leaves = _tree.tree_leaves(grads)
+    cut = [shd.has_model(s) for s in shd.spec_leaves(specs)]
+    part = sum_squares([g for g, c in zip(leaves, cut) if c]).reshape(1)
+    rest = sum_squares([g for g, c in zip(leaves, cut) if not c])
+    return torch.sqrt(model.all_reduce_(part)[0] + rest)
+
+
+def make_sharded_value_and_grad(cfg: ModelConfig, mesh, *,
+                                global_batch: int, remat=True,
+                                split_model: bool = False):
+    """(params, batch) -> (loss, grads, grad_norm) on one rank of
+    ``mesh``: the loss and the gradient averaged over the data axes the
+    batch is cut over, ``grads`` this rank's blocks of it (``params``'
+    layout), ``grad_norm`` the whole gradient's. ``make_sharded_train_step``
+    adds the AdamW update; see there."""
+    shape = shd.MeshShape.from_mesh(mesh)
+    pspecs = shd.param_specs(init_params(None, cfg, device="meta"), cfg,
+                             shape)
+    lead = shd.batch_specs(cfg, shape, global_batch)["labels"][0]
+    cut_over = shd.dp_axes(shape) if lead is not None else ()
+
+    def data_mean(loss, grads):
+        for a in cut_over:
+            group = mesh.axis(a)
+            grads = tree_map(lambda g: group_mean(g, group, donate=True),
+                             grads)
+            loss = group.all_reduce_(loss.reshape(1))[0] / group.size
+        return loss, grads
+
+    if not split_model:
+        def plain(params, batch):
+            full = shd.gather_tree(params, pspecs, mesh)
+            loss, grads = _value_and_grad(full, batch, cfg, remat=remat)
+            del full
+            loss, grads = data_mean(loss, grads)
+            gnorm = global_norm(grads)
+            return (loss, shd.shard_tree(grads, pspecs, shape, mesh.coords),
+                    gnorm)
+        return plain
+
+    view = shd.model_view(cfg, shape, mesh.coords.get("model", 0))
+    model = mesh.axis("model") if "model" in mesh.groups else None
+    dspecs = shd.data_specs(pspecs, shape)
+
+    def split(params, batch):
+        local = _model_blocks(params, pspecs, mesh, view)
+        loss, grads = _value_and_grad(local, batch, cfg, remat=remat,
+                                      model=model)
+        del local
+        grads["embed"] = grads["embed"].flatten(1)
+        if split_axis(model):
+            names, leaves, structure = _tree.flatten_with_names(grads)
+            leaves = [model.all_reduce_(g.to(torch.float32, copy=True))
+                      .to(g.dtype)
+                      if n.split("/")[-1] in shd.PARTIAL_OVER_MODEL else g
+                      for n, g in zip(names, leaves)]
+            grads = _tree.unflatten(structure, leaves)
+        loss, grads = data_mean(loss, grads)
+        gnorm = (_split_norm(grads, pspecs, model) if split_axis(model)
+                 else global_norm(grads))
+        return loss, shd.shard_tree(grads, dspecs, shape, mesh.coords), gnorm
+
+    return split
+
+
 def make_sharded_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh, *,
-                            global_batch: int):
+                            global_batch: int, remat=True,
+                            split_model: bool = False):
     """(params, opt_state, batch) -> (params, opt_state, metrics) on one
     rank of ``mesh`` (a ``launch/mesh.Mesh`` over ("pod"?, "data",
     "model")), whose state holds only this rank's blocks
@@ -146,36 +264,75 @@ def make_sharded_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh, *,
     same specs, the step counter whole) and whose ``batch`` is its shard of
     the global batch (``shard_tree`` by ``batch_specs``).
 
-    A step gathers each leaf whole (``gather_tree``), runs ``loss_fn`` on
-    the batch shard, averages the loss and the gradients (f32) over the
-    data axes the batch is cut over, clips by the whole gradient's norm and
-    updates only this rank's blocks. The math is the reference's step on
-    the global batch: its MoE routes each data shard's tokens on their own
-    (``activation_specs``' ``n_dp``), and a rank's batch shard is exactly
-    such a shard, so it routes its tokens together. The compute is not
-    split over "model" (every rank of a data shard repeats it)."""
-    shape = shd.MeshShape.from_mesh(mesh)
-    pspecs = shd.param_specs(init_params(None, cfg, device="meta"), cfg,
-                             shape)
-    lead = shd.batch_specs(cfg, shape, global_batch)["labels"][0]
-    cut_over = shd.dp_axes(shape) if lead is not None else ()
+    ``split_model=False``: a step gathers each leaf whole
+    (``gather_tree``), runs ``loss_fn`` on the batch shard, averages the
+    loss and the gradients (f32) over the data axes the batch is cut over,
+    clips by the whole gradient's norm and updates only this rank's
+    blocks. Every rank of a data shard repeats the compute.
+
+    ``split_model=True`` (the families ``sharding.model_view`` admits; the
+    others raise ``NotImplementedError``): a step gathers over the data
+    axes only, so each rank keeps its model blocks (the reference's ZeRO-3
+    over "data"), and runs the forward and backward split over "model"
+    (``forward(..., model=)``, the vocabulary-parallel ``loss_fn``). The
+    gradients of ``sharding.PARTIAL_OVER_MODEL`` are summed over "model"
+    (f32), every gradient averaged over the data axes, and the global norm
+    counts each element once.
+
+    Either way the math is the reference's step on the global batch: its
+    MoE routes each data shard's tokens on their own (``activation_specs``'
+    ``n_dp``), and a rank's batch shard is exactly such a shard, so it
+    routes its tokens together. ``remat``: ``forward``'s."""
+    vg = make_sharded_value_and_grad(cfg, mesh, global_batch=global_batch,
+                                     remat=remat, split_model=split_model)
 
     def step(params, opt_state, batch):
-        full = shd.gather_tree(params, pspecs, mesh)
-        loss, grads = _value_and_grad(full, batch, cfg)
-        del full
-        for a in cut_over:
-            group = mesh.axis(a)
-            grads = tree_map(lambda g: group_mean(g, group, donate=True),
-                             grads)
-            loss = group.all_reduce_(loss.reshape(1))[0] / group.size
-        gnorm = global_norm(grads)
-        grads = shd.shard_tree(grads, pspecs, shape, mesh.coords)
+        loss, grads, gnorm = vg(params, batch)
         new_params, new_opt, gnorm = adamw_update(
             grads, opt_state, params, opt, donate=True, gnorm=gnorm)
         return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
 
     return step
+
+
+def make_sharded_serve_step(cfg: ModelConfig, mesh, global_batch: int):
+    """(prefill, decode) on one rank of ``mesh``, the compute split over
+    "model": the twin of the prefill and decode programs the reference's
+    dry run lowers on its mesh (``repro/launch/dryrun.py``).
+
+    Both take the rank's stored blocks (``param_specs``) and gather them
+    over the data axes. ``prefill(params, batch)`` -> this rank's
+    vocabulary rows of the logits (b / dp, s, V / tp), its batch shard's
+    (``batch_specs``), through the flash kernel on the rank's heads.
+    ``decode(params, state, tokens)`` -> (logits, state):
+    one token against ``state`` from ``init_decode_state(cfg, b / dp,
+    max_len, model=mesh.axis("model"))``, its kv heads cut over "model"
+    (``decode_state_specs``). A batch that does not divide over the data
+    axes (``decode_state_specs`` cuts the cache by length then) raises
+    ``NotImplementedError``, as the families ``model_view`` refuses do."""
+    shape = shd.MeshShape.from_mesh(mesh)
+    if shd.dp_shards(cfg, shape, global_batch) != math.prod(
+            shape.shape[a] for a in shd.dp_axes(shape)):
+        raise NotImplementedError(
+            f"a batch of {global_batch} over the data axes "
+            f"{shd.dp_axes(shape)}: the cache cut by length is not ported; "
+            f"see {shd.SPLIT_ROADMAP}")
+    view = shd.model_view(cfg, shape, mesh.coords.get("model", 0))
+    model = mesh.axis("model") if "model" in mesh.groups else None
+    pspecs = shd.param_specs(init_params(None, cfg, device="meta"), cfg,
+                             shape)
+
+    def prefill(params, batch):
+        with torch.inference_mode():
+            local = _model_blocks(params, pspecs, mesh, view)
+            return forward(local, batch, cfg, model=model)
+
+    def decode(params, state, tokens):
+        with torch.inference_mode():
+            local = _model_blocks(params, pspecs, mesh, view)
+            return decode_step(local, state, tokens, cfg, model=model)
+
+    return prefill, decode
 
 
 def make_serve_step(cfg: ModelConfig):

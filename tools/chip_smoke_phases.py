@@ -1,0 +1,72 @@
+"""Run some of chip_smoke.py's training phases alone on the card.
+
+    python3 tools/chip_smoke_phases.py [tp_step] [remat] [tp_serve]
+
+Builds the kernels, then runs the named phases (default: all three) with
+chip_smoke.py's own functions and prints their JSON lines: ``tp_step``
+runs ``sharded_step`` first (its ranks run both routes), ``tp_serve``
+ends with the ``kernels`` line of the rows it timed. A failed check is
+printed and the next phase still runs; the exit code is 1 if any check or
+phase failed, 2 where there is no card.
+"""
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PHASES = ("tp_step", "remat", "tp_serve")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        print("chip_smoke_phases: no CUDA device", file=sys.stderr)
+        sys.exit(2)
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+
+    failed = []
+
+    def soft_fail(msg):
+        failed.append(msg)
+        print("CHECK FAILED:", msg, flush=True)
+
+    cs.fail = soft_fail
+    which = sys.argv[1:] or list(PHASES)
+    unknown = set(which) - set(PHASES)
+    if unknown:
+        sys.exit(f"chip_smoke_phases: unknown phases {sorted(unknown)}")
+    dev = torch.device("cuda")
+    card = cs.nvidia_smi()
+    t0 = time.perf_counter()
+    _build.build_all()
+    cs.emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    rows = {}
+    record = cs.make_record(rows)
+    for name in which:
+        t0 = time.perf_counter()
+        try:
+            if name == "tp_step":
+                cs.tp_step_phase(dev, card, cs.sharded_step_phase(dev, card))
+            elif name == "remat":
+                cs.remat_phase(dev, card)
+            else:
+                cs.tp_serve_phase(dev, rows, record, card)
+        except Exception as e:      # the next phase still runs
+            traceback.print_exc()
+            failed.append(f"{name}: {e!r}")
+        cs.emit({"phase": f"driver:{name}",
+                 "seconds": time.perf_counter() - t0})
+    if rows:
+        cs.emit({"kernels": list(rows.values())})
+    print(card)
+    print({"failed": failed})
+    sys.exit(1 if failed else 0)
+
+
+if __name__ == "__main__":
+    main()
