@@ -249,7 +249,7 @@ weights from torch.Generator seed 0 at the reference's init scales:
   top-8 + 1 shared, vocabulary 163,840) cut from 61 layers to 1, 1 x 2048:
   each prints the share of (token, choice) pairs dropped at capacity
   factor 1.25.
-* ``lm_xlstm``: xlstm-1.3b (arXiv:2405.04517) at full width, 24 of its 48
+* ``lm_xlstm``: xlstm-1.3b (arXiv:2405.04517) at full width, 8 of its 48
   layers (d_model 2048, mLSTM chunk 256), 2 x 1024 tokens, and the device
   kernels one sLSTM layer launches a token.
 * ``lm_frontends``: paligemma-3b (arXiv:2407.07726) at full width and depth
@@ -284,11 +284,13 @@ phase.
   erdos_renyi(20, 0.25, seed=1) and on ring(20): a (1024, 7) payload
   debiased-summed at t_c = 1, 5, 20, 50 (``build_debiased_sum``), each node
   within SPMD_GOSSIP_TOL of ``DenseConsensus.run_debiased`` on the card,
-  relative to its own max; then ``two_level_reduce`` on 8 ranks as 4 pods x
-  2, ring(4), t_c = 60: the exact sum within TWO_LEVEL_TOL.
+  relative to its own max; then ``two_level_reduce`` on ranks 0-7 of the
+  same spawn laid out as 4 pods x 2 (``make_mesh(..., ranks=)``; a spawn of
+  its own until PR 27), ring(4), t_c = 60: the exact sum within
+  TWO_LEVEL_TOL.
 * ``sdot_spmd``: sdot_dense's cell with a node a process (d = 1024, r = 7,
   2,500 samples a rank, each rank holding only its own covariance block),
-  T_o cut from 100 to SPMD_T_OUTER = 12 (a gossip round across 20
+  T_o cut from 100 to SPMD_T_OUTER = 4 (a gossip round across 20
   processes costs milliseconds of the host), S-DOT at t_c = 50 and SA-DOT
   at 2t+1 capped at 50, on both
   graphs, against the fused ``sdot`` over ``DenseConsensus`` on the same
@@ -299,9 +301,10 @@ phase.
   18944, vocabulary 152,064, bf16, AdamW with bf16 moments) cut from 28
   layers to 2 so that two ranks fit on the card; 2 pods, paper_psa (rank
   64, 2 OI iterations, 4 gossip rounds) refreshed at steps 0 and 3, a
-  batch of 2 x 512 tokens a pod, 6 steps, without remat (TRAIN_PSA_REMAT:
-  its time is the embedding's all-reduce). Checks: finite losses, the
-  first pod-mean loss within TRAIN_LOSS_TOL of one rank's
+  batch of 2 x 512 tokens a pod, TRAIN_PSA_STEPS = 4 steps, without
+  remat (TRAIN_PSA_REMAT: its time is the embedding's all-reduce).
+  Checks: finite losses, the first pod-mean loss within TRAIN_LOSS_TOL of
+  one rank's
   ``make_train_step`` on the whole batch from the same weights; the first
   PLAIN_STEPS steps against the same steps computed plainly in one
   process from pod 0's first projectors (``train_psa_plain``: each pod's
@@ -319,7 +322,7 @@ phase.
   kernel rows ``gram_qr_psa_refresh_*`` time row 4 at the refresh's shapes
   and ``gram_qr_sdot_spmd`` at sdot_spmd's (1, 1024, 7).
 * ``train_example``: the example twin (``train_lm_psa_compress
-  --full-100m``: d_model 768, 12 layers, vocabulary 32,000, f32) for 25
+  --full-100m``: d_model 768, 12 layers, vocabulary 32,000, f32) for 15
   steps (cut from 300, TRAIN_EXAMPLE_STEPS) on 2 pod ranks,
   checkpoints under ``build/chip_smoke_train/``
   (removed after): the last loss below the first, ms a step, tokens/s.
@@ -329,7 +332,7 @@ the roofline (``train_family_phases``), each line with the card's name and
 power limit and the memory it plans beside the peak it read:
 
 * ``train_families``: recurrentgemma-2b whole at 2 x 1024, phi3.5-moe cut
-  from 32 layers to 2 at 2 x 1024, xlstm-1.3b at 24 of 48 layers, 2 x
+  from 32 layers to 2 at 2 x 1024, xlstm-1.3b at 8 of 48 layers, 2 x
   256, without remat (sLSTM loops over time on the host), paligemma-3b
   and musicgen-medium whole at 2 x 1024,
   one after another, each freed before the next: FAMILY_STEPS AdamW steps
@@ -383,6 +386,25 @@ power limit and the memory it plans beside the peak it read:
   wire bytes equal to the plan. The row ``flash_attention_tp_shard`` times
   row 9 at that shape against plain and SDPA and takes the ranks'
   launches.
+* ``tp_recurrent``: the split over "model" for the recurrent families,
+  run by sharded_step's 4 ranks after tp_step (``tp_recurrent_steps``):
+  recurrentgemma-2b at one 13-layer group of its pattern (9 RG-LRU, 4
+  windowed attention layers with the one kv head gathered) at 4 x 1024
+  and xlstm-1.3b at 4 of 48 layers (2 mLSTM + sLSTM pairs) at 4 x 256,
+  TP_REC_STEPS steps each: stored bytes equal to the plan, wire bytes
+  equal to ``step_wire_bytes(split_model=True)`` (the gathers and their
+  reduce-scatters), the first loss and grad norm within TP_LOSS_TOL /
+  TP_GNORM_TOL of one process's (``one_process``); ms, staged bytes and
+  peak memory.
+* ``tp_recurrent_serve``: the same cuts on tp_serve's model axis of 2, run
+  by its ranks after qwen2-7b: recurrentgemma-2b's 2 x 4096 prefill
+  through row 9 on 5 of 10 query heads a rank against the gathered kv head
+  (row ``flash_attention_tp_window``, 4 launches a rank on the tensor
+  cores), 40 decode steps on a 32-slot ring cut by length (16 slots a
+  rank, wrapped); the same in f32 at 2 x 512 and xlstm-1.3b in f32 at 2 x
+  1024 with 16 steps; logits against one process (TP_REC_SERVE's
+  limits), the decode state's bytes equal to the plan, the wire bytes of
+  the prefill and each decode step equal to the plan.
 * ``roofline``: ``launch/roofline.run_cell``'s terms on one card beside
   the measured lm_prefill, lm_decode and every new train step.
 
@@ -508,6 +530,11 @@ SERVING_REF = Path(__file__).resolve().parent / "tools" / "data" / \
     "serving_reference.json"
 SKETCH_TOL = 1e-5             # f32 running sums against float64, rel. max
 SERVING_ERR_FACTOR = 2.0      # post-shift error <= 2x the reference's
+# serving_chaos's stall timeout: the wedged tick is killed after it. 8 s
+# (run_supervised's default) until PR 27, 3 s since: the card beats every
+# tick (2.3-3.0 ticks/s) and re-solve chunk, and a finished child is not
+# judged by it (run_supervised)
+CHAOS_STALL_S = 3.0
 GATE_POST_ERR = 0.2           # run_smoke's recovery limit after a reject
 
 
@@ -1022,7 +1049,8 @@ def serving_phases(dev, rows: dict, work: Path) -> None:
                                    ).dump(str(chaos_dir / "plan.json"))
     env = {**os.environ, ENV_PLAN: plan_path}
     t0 = time.perf_counter()
-    chaos = svc_mod.run_supervised(cfg, str(chaos_dir), env=env)
+    chaos = svc_mod.run_supervised(cfg, str(chaos_dir), env=env,
+                                   stall_timeout=CHAOS_STALL_S)
     chaos_s = time.perf_counter() - t0
     matches = [e["pinned_match"] for e in chaos["restores"]]
     t0 = time.perf_counter()
@@ -1549,9 +1577,10 @@ def lm_family_phases(dev, rows: dict, record) -> None:
         get_arch("phi3.5-moe-42b-a6.6b"), n_layers=4), dev, rows, 4, 2048)
     lm_serve_phase("lm_moe", dataclasses.replace(
         get_arch("kimi-k2-1t-a32b"), n_layers=1), dev, rows, 1, 2048)
-    # xlstm-1.3b at 24 of its 48 layers (PR 26, for the script's time: sLSTM
-    # loops over time on the host)
-    xlstm = dataclasses.replace(get_arch("xlstm-1.3b"), n_layers=24)
+    # xlstm-1.3b at 24 of its 48 layers (PR 26), 8 since PR 27, for the
+    # script's time: sLSTM loops over time on the host (15.6 s at 24, PR 26
+    # call 8; 7.2 s at 12, PR 27 call 4)
+    xlstm = dataclasses.replace(get_arch("xlstm-1.3b"), n_layers=8)
     lm_serve_phase("lm_xlstm", xlstm, dev, rows, 2, 1024, tf_f32=True,
                    extra=lambda params: {
                        "slstm_launches_a_token": slstm_launches_a_token(
@@ -1574,11 +1603,13 @@ def lm_family_phases(dev, rows: dict, record) -> None:
 # -- gossip across processes (spawned ranks run these by name) -------------
 SPMD_NODES = 20               # sdot_dense's network, one process a node
 SPMD_SAMPLES = 50_000         # sdot_dense's data, 2,500 samples a rank
-# sdot_dense's T_o is 100; cut to 30, then to 12 (PR 26): 20 gloo
-# processes on the host's 8 cores take 6-13 ms a gossip round; the four
-# runs took 175 s at T_o = 100, 58 s at 30 on a slow host, where the whole
-# script read 1,276 s of its 1200 at 30 (NVIDIA H100 80GB HBM3, 700.00 W)
-SPMD_T_OUTER = 12
+# sdot_dense's T_o is 100; cut to 30, then to 12 (PR 26), then to 6 and
+# 4 (PR 27): 20 gloo processes on the host's 8 cores take 6-13 ms a
+# gossip round; the four runs took 175 s at T_o = 100, 58 s at 30 on a
+# slow host, where the whole script read 1,276 s of its 1200 at 30, 16.6 s
+# at 12 (PR 26 call 8) and 10.3 s at 6 (PR 27 call 3; NVIDIA H100 80GB
+# HBM3, 700.00 W)
+SPMD_T_OUTER = 4
 SPMD_BUDGETS = (1, 5, 20, 50)
 SPMD_GOSSIP_TOL = 1e-5        # f32 rounds summed in another order, per node
 TWO_LEVEL_TOL = 1e-4          # tests/test_spmd.py's limit, relative
@@ -1605,13 +1636,16 @@ PROBES = ("embed", "final_norm", "groups/blk0_attn/mixer/bq",
 # script read 991 s of its 1200 with 300 once the LM family phases were
 # in), then to 25 with remat on by default (0.52 s a step) and PR 26's
 # phases: the whole script read 1,192 and 1,276 s on two slow hosts and
-# ~950 on another; the run ends in its one checkpoint, past the example's
-# 10 warm-up steps
-TRAIN_EXAMPLE_STEPS = 25
+# ~950 on another; then to 15 (PR 27: 33.4 s with 25, PR 26 call 8); the
+# run ends in its one checkpoint, past the example's 10 warm-up steps
+TRAIN_EXAMPLE_STEPS = 15
 # train_psa's steps run without remat: recomputing the forward added ~9 s
 # to the phase (39 -> 48 s, PR 26 call 3) for 6 steps whose time is the
 # embedding's all-reduce through host memory
 TRAIN_PSA_REMAT = False
+# train_psa's steps: cut from 6 to 4 (PR 27), which still refreshes at
+# steps 0 and 3; its spawn and run read 56.3 s with 6 (PR 26 call 8)
+TRAIN_PSA_STEPS = 4
 ORTHO_TOL = 1e-4              # refreshed projectors: |P^T P - I|_max
 
 
@@ -1674,16 +1708,21 @@ def spmd_rank(rank, world, dev, work):
                 "ledger": [led.p2p, led.matrices, led.scalars,
                            led.payload_bytes],
                 "staged": eng.host_staged_bytes}
+    out["two_level"] = two_level_part(rank, dev, work)
     return out
 
 
-def two_level_rank(rank, world, dev, work):
-    """(4 pods x 2) ranks: exact sum in the pod, 60 rounds on ring(4)."""
+def two_level_part(rank, dev, work):
+    """spmd_rank's ``two_level_reduce``: global ranks 0-7 laid out as 4
+    pods x 2, an exact sum in the pod, 60 rounds on ring(4); every rank
+    takes part in making the mesh's groups, the others get ``None``."""
     from repro_torch.core import topology
     from repro_torch.core.consensus import SpmdConsensus, two_level_reduce
     from repro_torch.launch.mesh import make_mesh
 
-    mesh = make_mesh((("pod", 4), ("data", 2)), device=dev)
+    mesh = make_mesh((("pod", 4), ("data", 2)), device=dev, ranks=range(8))
+    if mesh is None:
+        return None
     inter = SpmdConsensus(mesh, "pod", graph=topology.ring(4))
     z = torch.load(Path(work) / "common.pt")["z"][rank].to(dev)
     got = two_level_reduce(z, intra_axis="data", inter=inter, t_c=60)
@@ -1832,7 +1871,8 @@ def train_psa_rank(rank, world, dev, layers, steps, batch, seq,
         return res
 
     loss, grads = timed("forward_backward",
-                        lambda: _value_and_grad(params, local, cfg))
+                        lambda: _value_and_grad(params, local, cfg,
+                                                remat=remat))
     timed("embedding_allreduce_alone",
           lambda: pod.all_reduce_(grads["embed"].float()))
     red, _ = timed("compress_and_allreduce", lambda: compress_grads(
@@ -1987,7 +2027,7 @@ def spmd_train_phases(dev, rows: dict, record, gram_qr_work, q_init,
 
     d, r = q_init.shape
     gen = torch.Generator(device=dev).manual_seed(4)
-    # -- gossip across processes: 20 ranks, then 8 -------------------------
+    # -- gossip across processes: 20 ranks, 8 of them also as 4 x 2 --------
     work = Path(__file__).resolve().parent / "build" / "chip_smoke_spmd"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -2023,8 +2063,7 @@ def spmd_train_phases(dev, rows: dict, record, gram_qr_work, q_init,
                 "host_staged_bytes_a_rank": spmd[0]["gossip"][
                     f"{name}/{t_c}"]["staged"]}
     z8 = z_spmd[:8].double().sum(0).cpu()
-    two = spawn_ranks(two_level_rank, 8, backend="gloo", device="cuda",
-                      args=(str(work),))
+    two = [o["two_level"] for o in spmd[:8]]   # the same spawn's ranks 0-7
     two_err = max(float((o["z"].double() - z8).abs().max()) for o in two) \
         / float(z8.abs().max())
     emit({"phase": "spmd_gossip", "ranks": SPMD_NODES, "backend":
@@ -2094,7 +2133,7 @@ def spmd_train_phases(dev, rows: dict, record, gram_qr_work, q_init,
            "to max |G|")
     rows["gram_qr_sdot_spmd"]["launches"] = rows_spmd
     del v_spmd
-    tp_layers, tp_steps, tp_batch, tp_seq = 2, 6, 4, 512
+    tp_layers, tp_steps, tp_batch, tp_seq = 2, TRAIN_PSA_STEPS, 4, 512
     t0 = time.perf_counter()
     pods = spawn_ranks(train_psa_rank, 2, backend="gloo", device="cuda",
                        args=(tp_layers, tp_steps, tp_batch, tp_seq,
@@ -2221,13 +2260,14 @@ def spmd_train_phases(dev, rows: dict, record, gram_qr_work, q_init,
 # (arch, layers or None for the whole depth, batch, seq, remat): each
 # trains alone on the card, freed before the next. phi3.5-moe is cut from
 # 32 layers to 2 (~34 GB at 12 bytes a parameter: bf16 weights and
-# gradients, f32 moments). xlstm-1.3b at 2 x 256 and, since PR 26, 24 of
-# its 48 layers, without remat: its step is sLSTM's Python loop over time
-# on the host (11.9 s whole), which remat=True would run again in the
-# backward. The others take the reference's default, remat=True
+# gradients, f32 moments). xlstm-1.3b at 2 x 256 and 24 of its 48 layers
+# since PR 26, 8 since PR 27 (31.7 s at 24, PR 26 call 8), without remat:
+# its step is sLSTM's Python loop over time on the host (11.9 s whole),
+# which remat=True would run again in the backward. The others take the
+# reference's default, remat=True
 TRAIN_FAMILIES = (("recurrentgemma-2b", None, 2, 1024, True),
                   ("phi3.5-moe-42b-a6.6b", 2, 2, 1024, True),
-                  ("xlstm-1.3b", 24, 2, 256, False),
+                  ("xlstm-1.3b", 8, 2, 256, False),
                   ("paligemma-3b", None, 2, 1024, True),
                   ("musicgen-medium", None, 2, 1024, True))
 FAMILY_STEPS = 3              # AdamW steps on one fixed batch
@@ -2291,6 +2331,37 @@ TP_GNORM_TOL = 2.0 ** -7
 TP_SERVE_ARCH, TP_SERVE_LAYERS = "qwen2-7b", 4
 TP_SERVE_BATCH, TP_SERVE_SEQ, TP_DECODE_STEPS = 2, 2048, 16
 TP_SERVE_MESH = (("data", 1), ("model", 2))
+# tp_recurrent: the split over "model" for the recurrent families at full
+# width, cut in depth: recurrentgemma-2b at one group of its 13-entry
+# pattern (9 RG-LRU and 4 windowed attention layers, whose one kv head
+# every rank gathers) at 4 x 1024, xlstm-1.3b at 4 of 48 layers (2 mLSTM +
+# sLSTM pairs) at 4 x 256: TP_REC_STEPS steps each in sharded_step's ranks
+# on (2, 2), held to one process at TP_LOSS_TOL / TP_GNORM_TOL. One step
+# each: recurrentgemma's second step read 8.2 s on one host and 19.4 s on
+# another, its first 11.9 / 23.6 s (PR 27 calls 1-2)
+TP_REC_TRAIN = (("recurrentgemma-2b", 13, 4, 1024), ("xlstm-1.3b", 4, 4, 256))
+TP_REC_STEPS = 1
+# tp_recurrent_serve: the same cuts on tp_serve's model axis of 2 (name,
+# arch, layers, batch, prefill length, decode steps, decode max_len, dtype):
+# a prefill, then teacher-forced decode steps from a fresh state, against
+# one process. recurrentgemma's windowed ring is max_len = 32 slots, 16 a
+# rank: 40 steps fill both ranks' ranges and wrap it. The f32 runs are
+# held at LOGITS_TOL, the bf16 run at DECODE_TOL (module docstring,
+# tp_recurrent_serve): the split sums its row-parallel parts in f32 and
+# rounds once, as one process does (which took recurrentgemma's bf16 split
+# from 0.030 to 0.0205 relative RMS, PR 27 calls 1-2); what is left are
+# one-ulp flips of products cut another way (a column block of x @ w, a
+# vocabulary block of the head), which random weights carry far: 2.1% at
+# 13 layers here, as they carry decode against prefill to 3.0% (lm_hybrid).
+# So recurrentgemma's check at LOGITS_TOL runs in f32 on the same weights
+# (the bf16 run's, in f32), as xlstm's does (lm_xlstm: its weights carry a
+# perturbation ~100-fold; xlstm is drawn in f32 here)
+TP_REC_SERVE = (
+    ("recurrentgemma-2b", "recurrentgemma-2b", 13, 2, 4096, 40, 32,
+     "bfloat16"),
+    ("recurrentgemma-2b:f32", "recurrentgemma-2b", 13, 2, 512, 40, 32,
+     "float32"),
+    ("xlstm-1.3b", "xlstm-1.3b", 4, 2, 1024, 16, 16, "float32"))
 
 
 def directional_check(cfg, batch, dev, remat=True) -> dict:
@@ -2585,11 +2656,28 @@ def sharded_rank(rank, world, dev):
 
     step_mod.global_norm = probed
     local = shd.shard_tree(whole, bspecs, shape, mesh.coords)
-    out = {"coords": mesh.coords, "stored_bytes": stored, "losses": [],
-           "grad_norms": [], "step_ms": [], "wire_a_step": [],
+    out = {"coords": mesh.coords, "stored_bytes": stored,
+           **timed_steps(step, params, opt_state, local, mesh, dev,
+                         SHARDED_STEPS)}
+    step_mod.global_norm = inner
+    out["probes"] = probes[0]
+    del params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["split"] = tp_steps(mesh, dev)
+    out["recurrent"] = tp_recurrent_steps(mesh, dev)
+    return out
+
+
+def timed_steps(step, params, opt_state, local, mesh, dev, n: int) -> dict:
+    """``n`` train steps of ``step`` on a rank's batch shard ``local``
+    (AdamW writes into ``params`` and ``opt_state``): the loss, grad norm,
+    ms, wire bytes by axis and kind and bytes staged through host memory
+    of each, and the peak of device memory over them."""
+    out = {"losses": [], "grad_norms": [], "step_ms": [], "wire_a_step": [],
            "staged_a_step": []}
     torch.cuda.reset_peak_memory_stats(dev)
-    for _ in range(SHARDED_STEPS):
+    for _ in range(n):
         wire0 = mesh.wire_bytes()
         staged = mesh.host_staged_bytes
         torch.cuda.synchronize(dev)
@@ -2603,28 +2691,68 @@ def sharded_rank(rank, world, dev):
         out["wire_a_step"].append({a: {k: wire1[a][k] - wire0[a][k]
                                        for k in wire1[a]} for a in wire1})
         out["staged_a_step"].append(mesh.host_staged_bytes - staged)
-    step_mod.global_norm = inner
-    out["probes"] = probes[0]
     out["peak_bytes_in_steps"] = torch.cuda.max_memory_allocated(dev)
-    del params, opt_state, step, met
+    return out
+
+
+class expandable_segments:
+    """Spawned ranks allocate each tensor its own 512-byte-rounded block
+    (no whole cached segment handed out), as the dry run's plan counts."""
+
+    def __enter__(self):
+        self.kept = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+
+    def __exit__(self, *exc):
+        if self.kept is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = self.kept
+
+
+def one_process(cfg, batch: int, seq: int, n_dp: int, dev,
+                probes: bool = False) -> dict:
+    """One process, from the weights of seed 0: the loss on the whole
+    batch, and a sharded step's own math plainly, each of ``n_dp`` data
+    shards' gradients by its own backward pass and their f32 mean (its
+    loss, its norm and, with ``probes``, ``train_psa_probes`` of it)."""
+    from repro_torch import _tree
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train.step import _value_and_grad, loss_fn, shard_batch
     gc.collect()
     torch.cuda.empty_cache()
-    out["split"] = tp_steps(mesh, dev)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    whole = make_lm_batch(cfg, 0, 0, batch, seq, device=dev)
+    with torch.no_grad():
+        whole_loss = float(loss_fn(params, whole, cfg))
+    halves = [_value_and_grad(params, shard_batch(whole, i, n_dp), cfg)
+              for i in range(n_dp)]
+    _, first, structure = _tree.flatten_with_names(halves[0][1])
+    rest = [_tree.tree_leaves(g) for _, g in halves[1:]]
+    grads = _tree.unflatten(structure, [
+        (sum([g.float()] + [o[i].float() for o in rest]) / n_dp).to(g.dtype)
+        for i, g in enumerate(first)])
+    out = {"loss": sum(float(lo) for lo, _ in halves) / n_dp,
+           "whole_batch_loss": whole_loss,
+           "grad_norm": float(global_norm(grads))}
+    if probes:
+        out["probes"] = train_psa_probes(grads, whole["tokens"])
+    del params, grads, halves, whole
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
 def sharded_step_phase(dev, card: str) -> dict:
     """sharded_step: SHARDED_ARCH at full width on a (2, 2) gloo mesh of
     4 ranks sharing the card (module docstring). Returns the line."""
-    from repro_torch import _tree
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.pipeline import make_lm_batch
     from repro_torch.launch import dryrun, roofline
     from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.models import sharding as shd
-    from repro_torch.models.transformer import init_params
-    from repro_torch.optim.adamw import global_norm
-    from repro_torch.train.step import _value_and_grad, loss_fn, shard_batch
     gc.collect()
     torch.cuda.empty_cache()
     cfg, opt = sharded_cfg()
@@ -2633,43 +2761,13 @@ def sharded_step_phase(dev, card: str) -> dict:
     plan = dryrun.memory_plan(cfg, shape, mesh, opt)
     want_stored = plan["params"]["alloc"] + plan["opt"]["alloc"]
     want_wire = roofline.step_wire_bytes(cfg, shape, mesh)
-    # every allocation its own 512-byte-rounded block (no whole cached
-    # segment handed out), as the plan counts: expandable segments
-    kept = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     t0 = time.perf_counter()
-    try:
+    with expandable_segments():
         ranks = spawn_ranks(sharded_rank, mesh.size, backend="gloo",
                             device="cuda")
-    finally:
-        if kept is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = kept
     spawn_s = time.perf_counter() - t0
-    # one process: the loss on the whole batch, and the step's own math
-    # plainly, each data shard's gradient by its own backward pass and
-    # their f32 mean, from the same weights
-    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
-                         device=dev)
-    whole = make_lm_batch(cfg, 0, 0, SHARDED_BATCH, SHARDED_SEQ, device=dev)
-    with torch.no_grad():
-        whole_loss = float(loss_fn(params, whole, cfg))
-    n_dp = mesh.shape["data"]
-    halves = [_value_and_grad(params, shard_batch(whole, i, n_dp), cfg)
-              for i in range(n_dp)]
-    _, first, structure = _tree.flatten_with_names(halves[0][1])
-    rest = [_tree.tree_leaves(g) for _, g in halves[1:]]
-    grads = _tree.unflatten(structure, [
-        (sum([g.float()] + [o[i].float() for o in rest]) / n_dp).to(g.dtype)
-        for i, g in enumerate(first)])
-    one = {"loss": sum(float(lo) for lo, _ in halves) / n_dp,
-           "whole_batch_loss": whole_loss,
-           "grad_norm": float(global_norm(grads)),
-           "probes": train_psa_probes(grads, whole["tokens"])}
-    del params, grads, halves, whole
-    gc.collect()
-    torch.cuda.empty_cache()
+    one = one_process(cfg, SHARDED_BATCH, SHARDED_SEQ, mesh.shape["data"],
+                      dev, probes=True)
     vs_one = [{"loss_rel_err": abs(r["losses"][0] - one["loss"])
                / abs(one["loss"]),
                "grad_norm_rel_err": abs(r["grad_norms"][0] - one["grad_norm"])
@@ -2730,6 +2828,7 @@ def sharded_step_phase(dev, card: str) -> dict:
     line["_grad_norms"] = [r["grad_norms"] for r in ranks]
     line["coords_by_rank"] = [r["coords"] for r in ranks]
     line["_split_ranks"] = [r["split"] for r in ranks]
+    line["_recurrent_ranks"] = [r["recurrent"] for r in ranks]
     return line
 
 
@@ -2825,25 +2924,58 @@ def tp_steps(mesh, dev) -> dict:
     whole = make_lm_batch(cfg, 0, 0, SHARDED_BATCH, SHARDED_SEQ, device=dev)
     local = shd.shard_tree(whole, shd.batch_specs(cfg, shape, SHARDED_BATCH),
                            shape, mesh.coords)
-    out = {"coords": mesh.coords, "stored_bytes": stored, "losses": [],
-           "grad_norms": [], "step_ms": [], "wire_a_step": [],
-           "staged_a_step": []}
-    torch.cuda.reset_peak_memory_stats(dev)
-    for _ in range(SHARDED_STEPS):
-        wire0 = mesh.wire_bytes()
-        staged = mesh.host_staged_bytes
+    out = {"coords": mesh.coords, "stored_bytes": stored,
+           **timed_steps(step, params, opt_state, local, mesh, dev,
+                         SHARDED_STEPS)}
+    del params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rec_cfg(arch: str, layers: int, dtype=None):
+    """``arch`` at full width cut to ``layers`` layers (in ``dtype``)."""
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def tp_recurrent_steps(mesh, dev) -> dict:
+    """tp_recurrent's part of a sharded_step rank (after tp_steps): for
+    each TP_REC_TRAIN family, its blocks from seed 0 (their bytes), its
+    batch shard, TP_REC_STEPS steps with ``split_model=True``."""
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import make_sharded_train_step
+    _, opt = sharded_cfg()
+    shape = shd.MeshShape.from_mesh(mesh)
+    out = {}
+    for arch, layers, batch, seq in TP_REC_TRAIN:
+        cfg = tp_rec_cfg(arch, layers)
         torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        params, opt_state, met = step(params, opt_state, local)
-        out["losses"].append(float(met["loss"]))
-        out["grad_norms"].append(float(met["grad_norm"]))
+        base = torch.cuda.memory_allocated(dev)
+        full = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+        params = shd.shard_tree(full, shd.param_specs(full, cfg, shape),
+                                shape, mesh.coords)
+        del full
+        gc.collect()
+        opt_state = adamw_init(params, opt)
         torch.cuda.synchronize(dev)
-        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
-        wire1 = mesh.wire_bytes()
-        out["wire_a_step"].append({a: {k: wire1[a][k] - wire0[a][k]
-                                       for k in wire1[a]} for a in wire1})
-        out["staged_a_step"].append(mesh.host_staged_bytes - staged)
-    out["peak_bytes_in_steps"] = torch.cuda.max_memory_allocated(dev)
+        stored = torch.cuda.memory_allocated(dev) - base
+        step = make_sharded_train_step(cfg, opt, mesh, global_batch=batch,
+                                       split_model=True)
+        whole = make_lm_batch(cfg, 0, 0, batch, seq, device=dev)
+        local = shd.shard_tree(whole, shd.batch_specs(cfg, shape, batch),
+                               shape, mesh.coords)
+        out[arch] = {"stored_bytes": stored,
+                     **timed_steps(step, params, opt_state, local, mesh, dev,
+                                   TP_REC_STEPS)}
+        del params, opt_state, step, whole, local
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2913,6 +3045,82 @@ def tp_step_phase(dev, card: str, sharded: dict) -> dict:
     return line
 
 
+def tp_recurrent_phase(dev, card: str, sharded: dict) -> dict:
+    """tp_recurrent: each TP_REC_TRAIN family split over "model" on
+    sharded_step's (2, 2) mesh, run by its 4 ranks after tp_step
+    (``tp_recurrent_steps``): stored bytes equal to the dry run's plan,
+    wire bytes a step equal to ``step_wire_bytes(split_model=True)``, the
+    first loss and grad norm within TP_LOSS_TOL / TP_GNORM_TOL of one
+    process's (``one_process``); ms, staged bytes and peak memory a
+    step. A line a family. Returns ``roofline_phase``'s entries: (cfg,
+    shape, the median step's seconds, remat, mesh, split)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import sharding as shd
+    _, opt = sharded_cfg()
+    mesh = shd.MeshShape.of(*SHARDED_MESH)
+    measured = {}
+    for arch, layers, batch, seq in TP_REC_TRAIN:
+        cfg = tp_rec_cfg(arch, layers)
+        shape = ShapeConfig("tp_recurrent", seq, batch, "train")
+        plan = dryrun.memory_plan(cfg, shape, mesh, opt)
+        want_stored = plan["params"]["alloc"] + plan["opt"]["alloc"]
+        want_wire = roofline.step_wire_bytes(cfg, shape, mesh,
+                                             split_model=True)
+        one = one_process(cfg, batch, seq, mesh.shape["data"], dev)
+        ranks = [r[arch] for r in sharded["_recurrent_ranks"]]
+        vs = [{"loss_rel_err": abs(r["losses"][0] - one["loss"])
+               / abs(one["loss"]),
+               "grad_norm_rel_err": abs(r["grad_norms"][0]
+                                        - one["grad_norm"])
+               / one["grad_norm"]} for r in ranks]
+        line = {"phase": "tp_recurrent", "arch": cfg.name,
+                "layers": cfg.n_layers, "pattern": list(
+                    cfg.pattern_for_layers()), "d_model": cfg.d_model,
+                "params": cfg.param_count(), "mesh": mesh.shape,
+                "backend": "gloo", "batch": batch, "seq": seq, "remat": True,
+                "coords_by_rank": sharded["coords_by_rank"],
+                "stored_bytes_by_rank": [r["stored_bytes"] for r in ranks],
+                "planned_stored_bytes": want_stored,
+                "losses_by_rank": [r["losses"] for r in ranks],
+                "grad_norms_by_rank": [r["grad_norms"] for r in ranks],
+                "one_process": one, "vs_one_process": vs,
+                "tolerance": {"loss": TP_LOSS_TOL,
+                              "grad_norm": TP_GNORM_TOL},
+                "step_ms_by_rank": [r["step_ms"] for r in ranks],
+                "wire_a_step_rank0": ranks[0]["wire_a_step"][0],
+                "planned_wire_a_step": want_wire,
+                "host_staged_bytes_a_step": [r["staged_a_step"]
+                                             for r in ranks],
+                "peak_bytes_in_steps_by_rank": [r["peak_bytes_in_steps"]
+                                                for r in ranks],
+                "card": card}
+        emit(line)
+        for r, v, c in zip(ranks, vs, sharded["coords_by_rank"]):
+            check(r["stored_bytes"] == want_stored, f"tp_recurrent {arch}: "
+                  f"rank {c} stores {r['stored_bytes']} bytes, the plan "
+                  f"{want_stored}")
+            check(all(np.isfinite(r["losses"])),
+                  f"tp_recurrent {arch}: {r['losses']}")
+            check(v["loss_rel_err"] <= TP_LOSS_TOL, f"tp_recurrent {arch}: "
+                  f"rank {c} loss {r['losses'][0]}: {v['loss_rel_err']} "
+                  f"from one process's")
+            check(v["grad_norm_rel_err"] <= TP_GNORM_TOL,
+                  f"tp_recurrent {arch}: rank {c} grad norm "
+                  f"{r['grad_norms'][0]}: {v['grad_norm_rel_err']} from one "
+                  f"process's")
+            for w in r["wire_a_step"]:
+                check(all(w[a][k] == want_wire[a][k] for a in want_wire
+                          for k in want_wire[a]),
+                      f"tp_recurrent {arch}: wire bytes {w}, planned "
+                      f"{want_wire}")
+        measured[f"tp_recurrent:{arch}"] = (
+            cfg, shape, statistics.median(
+                ms for r in ranks for ms in r["step_ms"]) / 1e3, True, mesh,
+            True)
+    return measured
+
+
 def tp_serve_cfg():
     from repro_torch.configs import get_arch
     return dataclasses.replace(get_arch(TP_SERVE_ARCH),
@@ -2976,7 +3184,89 @@ def tp_serve_rank(rank, world, dev):
                decode_staged_bytes_a_step=(mesh.host_staged_bytes - staged)
                / TP_DECODE_STEPS,
                decode=torch.cat(steps, dim=1).cpu())
+    del params, state, steps, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["recurrent"] = tp_recurrent_serve_rank(mesh, dev)
     return out
+
+
+def tp_recurrent_serve_rank(mesh, dev) -> dict:
+    """tp_recurrent_serve's part of a tp_serve rank: for each
+    TP_REC_SERVE run, its blocks from seed 0 (an f32 run after a bf16 one
+    of the same model: those blocks in f32), a prefill, timed from its
+    first call (the logits on the host, the flash launches and routes, the
+    wire and staged bytes), the decode state's bytes, then the
+    teacher-forced decode steps (their logits and wire bytes)."""
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import (init_decode_state,
+                                                init_params, tree_map)
+    from repro_torch.train.step import make_sharded_serve_step
+    shape = shd.MeshShape.from_mesh(mesh)
+    res, bf16 = {}, {}
+    for name, arch, layers, b, s, steps, max_len, dtype in TP_REC_SERVE:
+        cfg = tp_rec_cfg(arch, layers, dtype)
+        if arch in bf16:            # the bf16 run's weights, in f32
+            params = tree_map(lambda leaf: leaf.float(), bf16.pop(arch))
+        else:
+            full = init_params(torch.Generator(device=dev).manual_seed(0),
+                               cfg, device=dev)
+            params = shd.shard_tree(full, shd.param_specs(full, cfg, shape),
+                                    shape, mesh.coords)
+            del full
+            if dtype == "bfloat16":
+                bf16[arch] = params
+        gc.collect()
+        torch.cuda.empty_cache()
+        toks = make_lm_batch(cfg, 0, 0, b, s, device=dev)["tokens"]
+        local = shd.shard_tree({"tokens": toks}, {"tokens": shd.batch_specs(
+            cfg, shape, b)["tokens"]}, shape, mesh.coords)
+        prefill, decode = make_sharded_serve_step(cfg, mesh, b)
+        torch.cuda.synchronize(dev)     # no warm call: the first is timed
+        wire0, staged = mesh.wire_bytes(), mesh.host_staged_bytes
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits = prefill(params, local)
+        torch.cuda.synchronize(dev)
+        out = {"prefill_ms": (time.perf_counter() - t0) * 1e3,
+               "flash_launches": ops.LAUNCHES["flash_attention"],
+               "flash_routes": dict(ROUTE_LAUNCHES),
+               "prefill_staged_bytes": mesh.host_staged_bytes - staged,
+               "prefill_wire": {a: {k: v - wire0[a][k] for k, v in w.items()}
+                                for a, w in mesh.wire_bytes().items()},
+               "prefill": logits.cpu()}
+        del logits
+        b_loc = local["tokens"].shape[0]
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        state = init_decode_state(cfg, b_loc, max_len, device=dev,
+                                  model=mesh.axis("model"))
+        torch.cuda.synchronize(dev)
+        out["state_bytes"] = torch.cuda.memory_allocated(dev) - base
+        decoded, wires = [], []
+        staged = mesh.host_staged_bytes
+        t0 = time.perf_counter()
+        for t in range(steps):
+            wire0 = mesh.wire_bytes()
+            lg, state = decode(params, state, local["tokens"][:, t:t + 1])
+            wire1 = mesh.wire_bytes()
+            wires.append({a: {k: v - wire0[a][k] for k, v in w.items()}
+                          for a, w in wire1.items()})
+            decoded.append(lg)
+        torch.cuda.synchronize(dev)
+        out.update(decode_ms_a_step=(time.perf_counter() - t0) * 1e3 / steps,
+                   decode_staged_bytes_a_step=(mesh.host_staged_bytes
+                                               - staged) / steps,
+                   decode_wires=wires,
+                   decode=torch.cat(decoded, dim=1).cpu())
+        res[name] = out
+        del params, state, decoded, lg
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
 
 
 def tp_serve_phase(dev, rows: dict, record, card: str) -> None:
@@ -3020,8 +3310,37 @@ def tp_serve_phase(dev, rows: dict, record, card: str) -> None:
         library="scaled_dot_product_attention, causal, GQA",
         shape=[list(q.shape), list(k.shape)])
     del q, k, v
+    # row 9 at recurrentgemma-2b's shard: 5 of 10 query heads against the
+    # one kv head each rank gathers, window 2048; SDPA takes the band as a
+    # mask (no window argument)
+    rg = tp_rec_cfg(*TP_REC_SERVE[0][1:3])
+    rb, rs = TP_REC_SERVE[0][3:5]
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for shape in ((rb, rg.n_heads // tp, rs, rg.hd),
+                                      (rb, 1, rs, rg.hd), (rb, 1, rs, rg.hd)))
+    pos = torch.arange(rs, device=dev)
+    band = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None]
+                                          - rg.window)
+    pairs = int(band.sum())
+    record("flash_attention_tp_window", FLASH_SOURCE, FLASH_REPLACES,
+           lambda: ops.flash_attention(q, k, v, causal=True,
+                                       window=rg.window),
+           lambda: attn_plain(q, k, v, causal=True, window=rg.window),
+           lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, k, v, attn_mask=band, enable_gqa=True),
+           2 * (2 * q.numel() + k.numel() + v.numel()),
+           4.0 * rb * q.shape[1] * rg.hd * pairs, ATTN_BF16_TOL,
+           ATTN_BF16_NOTE, flop_rate=BF16_TC_FLOP_PER_S,
+           judge=attn_judge(torch.bfloat16))
+    rows["flash_attention_tp_window"].update(
+        kernel="flash_attention_wgmma_kernel<256>", visible_pairs=pairs,
+        library="scaled_dot_product_attention, GQA, explicit band mask",
+        shape=[list(q.shape), list(k.shape), rg.window])
+    del q, k, v, band
     t0 = time.perf_counter()
-    ranks = spawn_ranks(tp_serve_rank, tp, backend="gloo", device="cuda")
+    with expandable_segments():     # the decode states' bytes, as planned
+        ranks = spawn_ranks(tp_serve_rank, tp, backend="gloo",
+                            device="cuda")
     spawn_s = time.perf_counter() - t0
     ranks.sort(key=lambda r: r["coords"]["model"])
     launches = sum(r["flash_launches"] for r in ranks)
@@ -3089,6 +3408,124 @@ def tp_serve_phase(dev, rows: dict, record, card: str) -> None:
                   for a in want_wire for k in want_wire[a]),
               f"tp_serve: prefill wire bytes {r['prefill_wire']}, planned "
               f"{want_wire}")
+    tp_recurrent_serve_phase(dev, rows, card, ranks)
+
+
+def tp_recurrent_serve_phase(dev, rows: dict, card: str, ranks) -> None:
+    """tp_recurrent_serve: each TP_REC_SERVE run through
+    ``make_sharded_serve_step`` on tp_serve's model axis of 2, by its
+    ranks after qwen2-7b (``tp_recurrent_serve_rank``): the prefill and
+    the teacher-forced decode against one process, f32 at LOGITS_TOL and
+    bf16 at DECODE_TOL (TP_REC_SERVE's comment), the decode state's bytes
+    equal to the dry run's plan, the wire bytes of the prefill and of each
+    decode step equal to the plan; recurrentgemma's 4 windowed layers
+    through row 9 on the tensor cores in bf16 (4 launches a rank, taken by
+    the row ``flash_attention_tp_window``), on the CUDA cores in f32. The
+    f32 recurrentgemma line carries ``chaos_gain``. A line a run."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_decode_state,
+                                                init_params, tree_map)
+    from repro_torch.optim.adamw import AdamWConfig
+    mesh = shd.MeshShape.of(*TP_SERVE_MESH)
+    bf16 = {}
+    for name, arch, layers, b, s, steps, max_len, dtype in TP_REC_SERVE:
+        cfg = tp_rec_cfg(arch, layers, dtype)
+        got = [r["recurrent"][name] for r in ranks]
+        route = "tc_bf16" if dtype == "bfloat16" else "simt_f32"
+        tol = DECODE_TOL if dtype == "bfloat16" else LOGITS_TOL
+        n_attn = sum(k in ("attn", "swa") for k in cfg.pattern_for_layers()
+                     ) * cfg.n_groups
+        if n_attn and route == "tc_bf16":
+            launches = sum(r["flash_launches"] for r in got)
+            rows["flash_attention_tp_window"]["launches"] += launches
+            rows["flash_attention_tp_window"].setdefault(
+                "launches_by_phase", {})[f"tp_recurrent_serve:{name}"] = \
+                launches
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch in bf16:            # the bf16 run's weights, in f32
+            params = tree_map(lambda leaf: leaf.float(), bf16.pop(arch))
+        else:
+            params = init_params(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, device=dev)
+            if dtype == "bfloat16":
+                bf16[arch] = params
+        toks = make_lm_batch(cfg, 0, 0, b, s, device=dev)["tokens"]
+        with torch.inference_mode():
+            want = forward(params, {"tokens": toks}, cfg)
+            pre = compare(torch.cat([r["prefill"].to(dev) for r in got],
+                                    dim=-1), want)
+            del want
+            state = init_decode_state(cfg, b, max_len, device=dev)
+            outs = []
+            for t in range(steps):
+                lg, state = decode_step(params, state, toks[:, t:t + 1], cfg)
+                outs.append(lg)
+            dec = compare(torch.cat([r["decode"].to(dev) for r in got],
+                                    dim=-1), torch.cat(outs, dim=1))
+            gain = (chaos_gain(params, cfg, toks[:, :LM_TF_TOKENS])
+                    if arch == "recurrentgemma-2b" and n_attn
+                    and route == "simt_f32" else None)
+        del params, state, outs, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+        plan = dryrun.memory_plan(
+            cfg, ShapeConfig("tp_recurrent_serve", max_len, b, "decode"),
+            mesh, AdamWConfig())["decode_state"]
+        wire = {kind: roofline.step_wire_bytes(
+            cfg, ShapeConfig(kind, s, b, kind), mesh, split_model=True)
+            for kind in ("prefill", "decode")}
+        line = {"phase": "tp_recurrent_serve", "run": name,
+                "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+                "mesh": mesh.shape, "backend": "gloo", "batch": b, "seq": s,
+                "decode_steps": steps, "max_len": max_len,
+                "prefill_vs_one_process": dict(zip(
+                    ("rel_rms", "max_abs", "top1_agreement"), pre)),
+                "decode_vs_one_process": dict(zip(
+                    ("rel_rms", "max_abs", "top1_agreement"), dec)),
+                "tolerance": tol, "chaos_gain": gain,
+                "flash_launches_by_rank": [r["flash_launches"] for r in got],
+                "flash_routes_by_rank": [r["flash_routes"] for r in got],
+                "prefill_ms_by_rank": [r["prefill_ms"] for r in got],
+                "prefill_timed": "its first call",
+                "prefill_tokens_per_s": b * s / (max(
+                    r["prefill_ms"] for r in got) / 1e3),
+                "decode_ms_a_step_by_rank": [r["decode_ms_a_step"]
+                                             for r in got],
+                "prefill_staged_bytes_by_rank": [r["prefill_staged_bytes"]
+                                                 for r in got],
+                "decode_staged_bytes_a_step_by_rank": [
+                    r["decode_staged_bytes_a_step"] for r in got],
+                "state_bytes_by_rank": [r["state_bytes"] for r in got],
+                "planned_state_bytes": plan["alloc"],
+                "prefill_wire_rank0": got[0]["prefill_wire"],
+                "decode_wire_a_step_rank0": got[0]["decode_wires"][0],
+                "planned_wire": wire, "card": card}
+        emit(line)
+        check(pre[0] <= tol, f"tp_recurrent_serve {name}: prefill logits "
+              f"{pre[0]} (relative RMS) from one process > {tol}")
+        check(dec[0] <= tol, f"tp_recurrent_serve {name}: decode logits "
+              f"{dec[0]} (relative RMS) from one process > {tol}")
+        for r in got:
+            check(r["state_bytes"] == plan["alloc"], f"tp_recurrent_serve "
+                  f"{name}: decode state {r['state_bytes']} bytes, the plan "
+                  f"{plan['alloc']}")
+            check(r["flash_launches"] == n_attn
+                  and r["flash_routes"].get(route, 0) == n_attn,
+                  f"tp_recurrent_serve {name}: flash launches "
+                  f"{r['flash_launches']}, routes {r['flash_routes']}, "
+                  f"expected {n_attn} on {route}")
+            for kind, ws in (("prefill", [r["prefill_wire"]]),
+                             ("decode", r["decode_wires"])):
+                for w in ws:
+                    check(all(w[a][k] == wire[kind][a][k]
+                              for a in wire[kind] for k in wire[kind][a]),
+                          f"tp_recurrent_serve {name}: {kind} wire bytes "
+                          f"{w}, planned {wire[kind]}")
 
 
 def train_psa_moe_phase(dev, rows: dict, record, gram_qr_work,
@@ -3201,17 +3638,20 @@ def train_psa_moe_phase(dev, rows: dict, record, gram_qr_work,
 def roofline_phase(measured: dict, card: str) -> None:
     """roofline: ``launch/roofline.run_cell``'s terms on one card (a 1 x 1
     mesh) beside the measured step of each cell measured above, a train
-    step's at the remat it ran (``measured``: (cfg, shape, seconds[,
-    remat]))."""
+    step's at the remat it ran, a split step's per rank of its mesh
+    (``measured``: (cfg, shape, seconds[, remat[, mesh, split]]))."""
     from repro_torch.launch import roofline
     from repro_torch.models.sharding import MeshShape
     one = MeshShape.of(("data", 1), ("model", 1))
     cells = []
-    for name, (cfg, shape, seconds, *remat) in measured.items():
-        remat = remat[0] if remat else True
-        res = roofline.run_cell(cfg.name, shape, mesh=one, cfg=cfg,
-                                measured_s=seconds, remat=remat)
+    for name, (cfg, shape, seconds, *rest) in measured.items():
+        remat = rest[0] if rest else True
+        mesh, split = rest[1:] if len(rest) > 1 else (one, False)
+        res = roofline.run_cell(cfg.name, shape, mesh=mesh, cfg=cfg,
+                                measured_s=seconds, remat=remat,
+                                split_model=split)
         cells.append({"cell": name, "layers": cfg.n_layers, "remat": remat,
+                      "mesh": mesh.shape, "split_model": split,
                       "batch": shape.global_batch, "seq": shape.seq_len,
                       "kind": shape.kind, "measured_s": seconds,
                       "flops": res["flops_per_dev"],
@@ -3261,6 +3701,7 @@ def train_family_phases(dev, rows: dict, record, gram_qr_work,
         cfg_sh, ShapeConfig("sharded_step_rank", SHARDED_SEQ,
                             SHARDED_BATCH // 2, "train"), sh["_step_s"])
     tp_step_phase(dev, card, sh)
+    measured.update(tp_recurrent_phase(dev, card, sh))
     remat_phase(dev, card)
     tp_serve_phase(dev, rows, record, card)
     roofline_phase(measured, card)

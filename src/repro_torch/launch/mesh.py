@@ -25,20 +25,26 @@ Wire bytes. Each ``AxisGroup`` also counts, by kind, the bytes its
 collectives put on the wire as a ring implementation sends them, with the
 factors of the reference's HLO collective parser
 (``repro/launch/hlo_analysis.py``): an all-reduce 2 (n - 1) / n of its
-payload, an all-gather (n - 1) / n of its result, a point-to-point
-exchange its payload once a peer (the reference's collective-permute).
+payload, an all-gather (n - 1) / n of its result, a reduce-scatter
+(n - 1) / n of its input, a point-to-point exchange its payload once a
+peer (the reference's collective-permute).
 Kept per axis, the "pod" axis's share is what crosses pods: the port's
 counterpart of the reference's ``cross_pod_bytes``.
 
-Tensor parallelism. ``copy_to_model``, ``reduce_from_model`` and
-``gather_from_model`` are the autograd-aware collectives of a compute
-split over the "model" axis (Megatron's f / g pair and its gather), built
-on ``AxisGroup.all_reduce_`` / ``all_gather`` so their bytes are counted:
-copy is the identity forward and an all-reduce of the gradient backward,
-reduce an all-reduce forward and the identity backward, gather a
-concatenation of every rank's block forward and this rank's slice of the
-gradient backward. Given ``None`` (one rank) or a one-rank axis, each
-returns its input.
+Tensor parallelism. ``copy_to_model``, ``reduce_from_model``,
+``gather_from_model`` and ``gather_summed_from_model`` are the autograd-aware
+collectives of a compute split over the "model" axis (Megatron's f / g pair and
+its two gathers), built on ``AxisGroup``'s collectives so their bytes are
+counted: copy is the identity forward and an all-reduce of the gradient
+backward, reduce an all-reduce forward (in f32, of ``partial_product``'s f32
+parts) and the identity backward. Both gathers concatenate every rank's block
+forward. Backward, ``gather_from_model`` takes this rank's slice of the
+gradient, right where every rank's consumer of the whole is the same (the
+residual stream); ``gather_summed_from_model`` reduce-scatters it (sums it over
+the ranks, then takes the slice), right where each rank consumes the whole
+differently (a kv head read by each rank's query heads, a recurrent state
+feeding each rank's gate columns). Given ``None`` (one rank) or a one-rank
+axis, each returns its input.
 
 ``make_production_mesh`` gives the reference's production mesh shapes,
 (16, 16) and (2, 16, 16), as a ``models/sharding.MeshShape``: names and
@@ -50,9 +56,10 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import tempfile
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,7 +71,8 @@ from ..models.sharding import MeshShape
 __all__ = ["AxisGroup", "Mesh", "make_mesh", "make_test_mesh",
            "make_production_mesh", "rank_device", "spawn_ranks",
            "WIRE_FACTOR", "copy_to_model", "reduce_from_model",
-           "gather_from_model", "split_axis"]
+           "gather_from_model", "gather_summed_from_model",
+           "partial_product", "split_axis"]
 
 # wire bytes of a ring collective over n ranks per byte of its payload
 # (all-reduce), its result (all-gather) or its message (collective-permute):
@@ -88,7 +96,8 @@ class AxisGroup:
     ``ranks`` are the global ranks in axis order, ``index`` is this rank's
     place among them, ``group`` their ``torch.distributed`` process group.
     Under gloo a CUDA payload goes through a pinned host buffer (one cached
-    per shape, dtype and use), counted in ``host_staged_bytes``.
+    per use and dtype, grown to the largest payload), counted in
+    ``host_staged_bytes``.
     ``wire_bytes`` counts by kind the bytes its collectives send
     (``WIRE_FACTOR``), ``calls`` how many of each it ran.
     """
@@ -103,6 +112,7 @@ class AxisGroup:
         self.backend = backend
         self.host_staged_bytes = 0
         self.wire_bytes = {"all-reduce": 0.0, "all-gather": 0.0,
+                           "reduce-scatter": 0.0,
                            "collective-permute": 0.0}
         self.calls = dict.fromkeys(self.wire_bytes, 0)
         self._pinned: Dict[tuple, torch.Tensor] = {}
@@ -115,11 +125,16 @@ class AxisGroup:
         return self.backend == "gloo" and t.is_cuda
 
     def _buffer(self, use: str, shape, dtype) -> torch.Tensor:
-        key = (use, tuple(shape), dtype)
-        if key not in self._pinned:
-            self._pinned[key] = torch.empty(shape, dtype=dtype,
-                                            pin_memory=True)
-        return self._pinned[key]
+        """A pinned buffer of ``shape``: a view of one flat buffer a (use,
+        dtype), grown to the largest payload yet (a collective copies in,
+        runs and copies out before it returns, so one buffer a use
+        serves every call)."""
+        key = (use, dtype)
+        n = math.prod(shape)
+        if key not in self._pinned or self._pinned[key].numel() < n:
+            self._pinned.pop(key, None)
+            self._pinned[key] = torch.empty(n, dtype=dtype, pin_memory=True)
+        return self._pinned[key][:n].view(tuple(shape))
 
     def _to_host(self, t: torch.Tensor, use: str) -> torch.Tensor:
         buf = self._buffer(use, t.shape, t.dtype)
@@ -157,6 +172,24 @@ class AxisGroup:
         dist.all_gather(list(buf.unbind(0)), src, group=self.group)
         return self._from_host(buf, torch.empty(shape, dtype=t.dtype,
                                                 device=t.device))
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's slice along ``dim`` (``size`` equal slices in axis
+        order) of the sum of every rank's ``t``."""
+        self._wire("reduce-scatter", _nbytes(t))
+        dim %= t.dim()
+        parts = t.movedim(dim, 0).unflatten(0, (self.size, -1)).contiguous()
+        shape = tuple(parts.shape[1:])
+        if not self._staged(t):
+            out = torch.empty(shape, dtype=t.dtype, device=t.device)
+            dist.reduce_scatter(out, list(parts.unbind(0)), group=self.group)
+        else:
+            src = self._to_host(parts, "scatter_in")
+            buf = self._buffer("scatter_out", shape, t.dtype)
+            dist.reduce_scatter(buf, list(src.unbind(0)), group=self.group)
+            out = self._from_host(buf, torch.empty(shape, dtype=t.dtype,
+                                                   device=t.device))
+        return out.movedim(0, dim)
 
     def exchange(self, t: torch.Tensor, peers: Sequence[int]
                  ) -> torch.Tensor:
@@ -205,11 +238,34 @@ class _CopyToModel(torch.autograd.Function):
 class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        return group.all_reduce_(x.clone(memory_format=torch.contiguous_format))
+        ctx.dtype = x.dtype
+        return group.all_reduce_(x.to(torch.float32,
+                                      memory_format=torch.contiguous_format,
+                                      copy=True))
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad.to(ctx.dtype), None
+
+
+class _PartialProduct(torch.autograd.Function):
+    """a @ w as f32: on the card cuBLAS's f32 accumulator is returned,
+    not rounded to a's dtype. The gradients are a's dtype's, as of a @ w."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        a2 = a.reshape(-1, a.shape[-1])
+        out = (torch.mm(a2, w, out_dtype=torch.float32) if a.is_cuda
+               else a2.float() @ w.float())
+        return out.reshape(*a.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, w = ctx.saved_tensors
+        g = grad.to(a.dtype)
+        gw = a.reshape(-1, a.shape[-1]).mT @ g.reshape(-1, g.shape[-1])
+        return g @ w.mT, gw
 
 
 class _GatherFromModel(torch.autograd.Function):
@@ -224,6 +280,17 @@ class _GatherFromModel(torch.autograd.Function):
         return part.contiguous(), None, None
 
 
+class _GatherSummedFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return torch.cat(group.all_gather(x).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.reduce_scatter(grad, ctx.dim), None, None
+
+
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` into a column-parallel span: the identity, and the gradient
     summed over ``group`` on the way back (each rank's span sees only its
@@ -233,8 +300,22 @@ def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
 
 def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over ``group`` of each rank's partial ``x`` (a row-parallel
-    product's output); the gradient passes through unchanged."""
+    product's output), in f32 (the caller rounds it once to its dtype);
+    the gradient passes through unchanged, in ``x``'s dtype."""
     return _ReduceFromModel.apply(x, group) if split_axis(group) else x
+
+
+def partial_product(a: torch.Tensor, w: torch.Tensor,
+                    group) -> torch.Tensor:
+    """``a @ w`` where it is this rank's part of a sum over ``group`` (a
+    row-parallel weight block): under a split of a model in bf16, the f32
+    product, so that ``reduce_from_model`` sums the parts unrounded and
+    the whole is rounded once, as one process rounds its whole product
+    (each part rounded to bf16 first put recurrentgemma-2b's logits 0.030
+    relative RMS from one process's). Otherwise ``a @ w``."""
+    if not split_axis(group) or a.dtype == torch.float32:
+        return a @ w
+    return _PartialProduct.apply(a, w)
 
 
 def gather_from_model(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
@@ -244,6 +325,17 @@ def gather_from_model(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     if not split_axis(group):
         return x
     return _GatherFromModel.apply(x, group, dim % x.dim())
+
+
+def gather_summed_from_model(x: torch.Tensor, group,
+                             dim: int = -1) -> torch.Tensor:
+    """Every rank's block ``x`` concatenated along ``dim`` in axis order;
+    the gradient comes back summed over ``group`` and sliced to this rank's
+    block (a reduce-scatter), as it must where each rank's consumer of the
+    whole differs."""
+    if not split_axis(group):
+        return x
+    return _GatherSummedFromModel.apply(x, group, dim % x.dim())
 
 
 @dataclasses.dataclass
@@ -270,31 +362,38 @@ class Mesh:
 
 
 def make_mesh(axes: Sequence[Tuple[str, int]], *,
-              device: DeviceLike = None) -> Mesh:
-    """Lay the initialised world out over ``axes`` ((name, size), ...),
-    row-major: the last axis varies fastest along the global ranks.
+              device: DeviceLike = None,
+              ranks: Optional[Sequence[int]] = None) -> Optional[Mesh]:
+    """Lay the initialised world, or its global ranks ``ranks``, out over
+    ``axes`` ((name, size), ...), row-major: the last axis varies fastest
+    along the ranks.
 
-    Every rank creates every axis group, in the same order (``new_group``
-    is collective over the whole world), and keeps the ones it belongs to.
+    Every rank of the world creates every axis group, in the same order
+    (``new_group`` is collective over the whole world), and keeps the ones
+    it belongs to; a rank outside ``ranks`` gets ``None``.
     """
     names = tuple(a for a, _ in axes)
     sizes = tuple(int(s) for _, s in axes)
     world, me = dist.get_world_size(), dist.get_rank()
-    if int(np.prod(sizes)) != world:
+    members = list(range(world)) if ranks is None else [int(r) for r in ranks]
+    if int(np.prod(sizes)) != len(members):
         raise ValueError(f"mesh {dict(axes)} needs {int(np.prod(sizes))} "
-                         f"ranks, the world has {world}")
-    grid = np.arange(world).reshape(sizes)
-    coords = dict(zip(names, (int(c) for c in np.unravel_index(me, sizes))))
+                         f"ranks, it is given {len(members)}")
+    grid = np.asarray(members).reshape(sizes)
     backend = dist.get_backend()
     groups = {}
     for k, name in enumerate(names):
         lines = np.moveaxis(grid, k, -1).reshape(-1, sizes[k])
         for line in lines:
-            ranks = [int(r) for r in line]
-            group = dist.new_group(ranks)
-            if me in ranks:
-                groups[name] = AxisGroup(name, ranks, ranks.index(me),
+            line = [int(r) for r in line]
+            group = dist.new_group(line)
+            if me in line:
+                groups[name] = AxisGroup(name, line, line.index(me),
                                          group, backend)
+    if me not in members:
+        return None
+    coords = dict(zip(names, (int(c) for c in np.unravel_index(
+        members.index(me), sizes))))
     return Mesh(names, dict(zip(names, sizes)), coords, groups,
                 resolve_device(device), backend)
 

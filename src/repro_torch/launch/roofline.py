@@ -45,6 +45,7 @@ from .. import _tree
 from ..configs import SHAPES, get_arch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import sharding as shd
+from ..models.recurrent import mlstm_heads
 from ..models.transformer import block_has_ffn, init_params
 from .analytic_cost import analytic_cost
 from .mesh import WIRE_FACTOR, make_production_mesh
@@ -102,6 +103,42 @@ def _axes(entry):
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def _mixer_collectives(cfg: ModelConfig, kind: str, mixer_specs,
+                       rows: int, tp: int, decode: bool):
+    """The model-axis collectives inside one split block's mixer span, a
+    forward's: (all-gather result bytes, all-reduce payload elements),
+    each a list. In a train step's backward each gather's gradient is
+    reduce-scattered (the same bytes) and each all-reduce's all-reduced
+    (f32 forward, the model's dtype backward); a prefill's and a decode's
+    run forward only. ``rows``: the rank's b s (b at decode)."""
+    dt = cfg.torch_dtype.itemsize
+    d = cfg.d_model
+    cut = {k: shd.has_model(v) for k, v in mixer_specs.items()}
+    gathers, reduces = [], []
+    if kind in ("attn", "swa") and cfg.n_kv_heads % tp:
+        kv = cfg.n_kv_heads * cfg.hd
+        if cut["wk"]:                   # k and v projections gathered whole
+            gathers += [rows * kv * dt] * 2
+        if decode:      # the query heads; every rank's partials of all
+            gathers += [rows * cfg.n_heads * cfg.hd * dt,
+                        tp * rows * cfg.n_heads * (cfg.hd + 2) * 4]
+    elif kind == "rglru":
+        gathers.append(rows * d * 4)                   # the f32 conv
+    elif kind == "mlstm":
+        h = mlstm_heads(cfg)
+        if cut["w_if"]:
+            gathers.append(2 * d * 2 * h * dt)          # w_if, whole
+        reduces.append(rows * 2 * h)                    # the gates
+    elif kind == "slstm":
+        f_up = 4 * d // 3
+        if cut["w_gates"]:
+            gathers.append(rows * 4 * d * dt)
+        gathers.append(rows * d * dt)                   # h into the FFN
+        if cut["w_ffn_up"]:
+            gathers.append(rows * 2 * f_up * dt)
+    return gathers, reduces
+
+
 def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
                     mesh: shd.MeshShape, *, split_model: bool = False,
                     remat=True) -> Dict[str, Dict[str, float]]:
@@ -112,23 +149,35 @@ def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
 
     ``split_model``: the compute split over "model"
     (``make_sharded_train_step(split_model=True)`` and
-    ``make_sharded_serve_step``). The blocks are gathered over the data
-    axes only and the data-axis gradient is a rank's model blocks. On
+    ``make_sharded_serve_step``), for the families
+    ``sharding.model_view`` admits (the attention families, recurrentgemma,
+    xLSTM; it raises for the others). The blocks are gathered over the
+    data axes only and the data-axis gradient is a rank's model blocks. On
     "model", with a = b s D bytes of the rank's activations (b its batch
     shard, the model's dtype): the embedding's all-gather of a; a forward
-    all-reduce of a after each mixer and each FFN, as many in the backward
-    (the gradients into the column-parallel spans), one more into the
-    head's, and under ``remat=True`` the forward's again (``"names"``
-    re-runs none); the loss's three f32 all-reduces of b s (max, sum of
-    exponentials, gold logit); the f32 sum of the ``PARTIAL_OVER_MODEL``
-    leaves' gradients and of the norm's 4 bytes."""
+    all-reduce after each mixer and each FFN, in f32 (b s D 4 bytes: the
+    parts of ``launch/mesh.partial_product``), under ``remat=True`` again;
+    in the backward one of a for each (the gradients into the
+    column-parallel spans) and one more into the head's; the loss's three
+    f32 all-reduces of b s (max, sum of exponentials, gold logit); the f32
+    sum of the gradients each rank holds a part of
+    (``sharding.partial_over_model``) and of the norm's 4 bytes. Inside the
+    mixers (``_mixer_collectives``): RG-LRU's f32 conv gather, mLSTM's
+    ``w_if`` gather and gate all-reduce, sLSTM's gate, ``h`` and FFN
+    gathers, and where the kv heads do not divide, the k and v gathers
+    and, at decode, the query heads' and the partial softmax's; a train
+    step reduce-scatters each gather's gradient and all-reduces the gate
+    sum's, and recomputes them under both ``remat=True`` and
+    ``"names"`` (they lie inside the ``"names"`` spans)."""
     sizes = mesh.shape
-    out = {a: {"all-reduce": 0.0, "all-gather": 0.0} for a in sizes}
+    out = {a: {"all-reduce": 0.0, "all-gather": 0.0, "reduce-scatter": 0.0}
+           for a in sizes}
     params = init_params(None, cfg, device="meta")
-    specs = shd.param_specs(params, cfg, mesh)
+    spec_tree = shd.param_specs(params, cfg, mesh)
     names, leaves, _ = _tree.flatten_with_names(params)
-    specs = shd.spec_leaves(specs)
+    specs = shd.spec_leaves(spec_tree)
     ar, ag = WIRE_FACTOR["all-reduce"], WIRE_FACTOR["all-gather"]
+    rs = WIRE_FACTOR["reduce-scatter"]
     for leaf, spec in zip(leaves, specs):
         nbytes = float(np.prod(shd.local_shape(leaf.shape, spec, mesh))) \
             * leaf.element_size()
@@ -148,20 +197,38 @@ def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
         for a in shd.dp_axes(mesh):
             out[a]["all-reduce"] += ar(sizes[a]) * (4.0 * elems + 4)
     if tp > 1:
+        decode = shape.kind == "decode"
         rows = shape.global_batch // dp
-        rows *= 1 if shape.kind == "decode" else shape.seq_len
-        act = float(rows * cfg.d_model * cfg.torch_dtype.itemsize)
+        rows *= 1 if decode else shape.seq_len
+        dt = cfg.torch_dtype.itemsize
+        act = float(rows * cfg.d_model * dt)
+        pattern = cfg.pattern_for_layers()
         fwd = sum(1 + int(block_has_ffn(cfg, kind))
-                  for kind in cfg.pattern_for_layers()) * cfg.n_groups
-        reduces = fwd
-        if train:
-            reduces += fwd + 1 + (fwd if remat is True else 0)
+                  for kind in pattern) * cfg.n_groups
         model = out["model"]
         model["all-gather"] += ag(tp) * act
-        model["all-reduce"] += ar(tp) * reduces * act
+        model["all-reduce"] += ar(tp) * fwd * rows * cfg.d_model * 4.0 * (
+            2 if train and remat is True else 1)
         if train:
-            partial = sum(leaf.numel() for n, leaf in zip(names, leaves)
-                          if n.split("/")[-1] in shd.PARTIAL_OVER_MODEL)
+            model["all-reduce"] += ar(tp) * (fwd + 1) * act
+        # a span's collectives: forward, again under either remat, and
+        # their gradients' in a train step
+        runs = 1 + (int(remat is True or remat == "names") if train else 0)
+        for i, kind in enumerate(pattern):
+            gathers, sums = _mixer_collectives(
+                cfg, kind, spec_tree["groups"][f"blk{i}_{kind}"]["mixer"],
+                rows, tp, decode)
+            for nbytes in gathers:
+                model["all-gather"] += ag(tp) * nbytes * runs * cfg.n_groups
+                if train:
+                    model["reduce-scatter"] += rs(tp) * nbytes * cfg.n_groups
+            for elems in sums:
+                model["all-reduce"] += ar(tp) * elems * cfg.n_groups * (
+                    4.0 * runs + dt * int(train))
+        if train:
+            partial = sum(leaf.numel() for n, leaf, spec in
+                          zip(names, leaves, specs)
+                          if shd.partial_over_model(n, spec))
             model["all-reduce"] += ar(tp) * (3 * 4.0 * rows
                                              + 4.0 * partial + 4)
     return out
@@ -171,21 +238,31 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], *,
              mesh: Optional[shd.MeshShape] = None,
              cfg: Optional[ModelConfig] = None,
              measured_s: Optional[float] = None,
-             remat=True) -> Dict[str, Any]:
+             remat=True, split_model: bool = False) -> Dict[str, Any]:
     """The three roofline terms of one step of ``arch`` (or ``cfg``, a cut
     of it) at ``shape`` on ``mesh`` (default: the single-pod production
     mesh), per rank, the dominant one, ``bound_s`` and ``mfu_at_bound``;
     with ``measured_s``, the bound's share of that measured step.
-    ``remat``: the train step's (``analytic_cost``)."""
+    ``remat``: the train step's (``analytic_cost``). ``split_model``: the
+    step split over "model" (``step_wire_bytes``'): a rank computes its
+    batch shard's FLOPs over its model blocks, FLOPs / (shards x tp), and
+    reads its blocks of the weights. It repeats no product: where the kv
+    heads do not divide, each rank projects its columns of k and v and
+    gathers them; every mixer's gathered input meets only the rank's
+    columns. What it repeats is elementwise (norms, the residual stream,
+    RoPE on the gathered k, a recurrent gate's slice), which the analytic
+    model does not count."""
     cfg = get_arch(arch) if cfg is None else cfg
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     mesh = make_production_mesh() if mesh is None else mesh
     cost = analytic_cost(cfg, shape, remat=remat)
     dp = shd.dp_shards(cfg, mesh, shape.global_batch)
-    flops_dev = cost["flops"] / dp
-    bytes_dev = cost["weight_bytes"] + (cost["hbm_bytes"]
-                                        - cost["weight_bytes"]) / dp
-    wire = step_wire_bytes(cfg, shape, mesh)
+    tp = mesh.shape.get("model", 1) if split_model else 1
+    flops_dev = cost["flops"] / (dp * tp)
+    bytes_dev = cost["weight_bytes"] / tp + (cost["hbm_bytes"]
+                                             - cost["weight_bytes"]) / dp
+    wire = step_wire_bytes(cfg, shape, mesh, split_model=split_model,
+                           remat=remat)
     wire_dev = sum(sum(kinds.values()) for kinds in wire.values())
     terms = roofline_terms(flops_per_dev=flops_dev, bytes_per_dev=bytes_dev,
                            wire_bytes_per_dev=wire_dev)
@@ -193,7 +270,7 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], *,
     res = {
         "arch": cfg.name, "shape": shape.name, "kind": shape.kind,
         "mesh": mesh.shape, "n_devices": mesh.size, "batch_shards": dp,
-        "remat": remat,
+        "remat": remat, "split_model": split_model,
         "flops_per_dev": flops_dev, "bytes_per_dev": bytes_dev,
         "wire_bytes_per_dev": wire_dev, "wire_by_axis": wire,
         "cross_pod_bytes": sum(wire.get("pod", {}).values()),

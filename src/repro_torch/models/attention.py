@@ -14,11 +14,24 @@ The reference's SPMD sharding constraints (``act_specs``) do not carry over.
 
 Split over "model" (``model=``, an ``AxisGroup``): the weights are a
 rank's blocks, so the head counts come from their shapes: n_heads / tp
-query heads and n_kv_heads / tp kv heads, a contiguous block each (the
-GQA repeat unchanged); the replicated qkv biases are sliced to them, the
-kernel and the cache see only them, and ``wo`` is row-parallel: the
-output is this rank's part of the sum, which the caller reduces over
-"model".
+query heads, a contiguous block, and ``wo`` is row-parallel: the output is
+this rank's part of the sum, which the caller reduces over "model". Where
+the kv heads divide over "model", a rank holds n_kv_heads / tp of them
+(the GQA repeat unchanged); the replicated qkv biases are sliced to them,
+the kernel and the cache see only them. Where they do not (recurrentgemma's
+one kv head), ``wk`` / ``wv`` hold a block of the kv heads' columns: each
+rank projects its columns and gathers the whole k and v
+(``gather_summed_from_model``, the gradient summed over "model": each
+rank's query heads read them), before RoPE, which pairs columns across the
+block's edge. The full path runs the kernel on the rank's query heads
+against the one kv head they read (``sharding.kv_read``; ``model_view``
+refuses query heads that would read parts of two). Decode cuts the
+cache by its length (``decode_state_specs``): rank r holds ring slots
+[r S / tp, (r + 1) S / tp) of every kv head; the rank that owns the step's
+slot writes it; the query heads are gathered; each rank takes a partial
+softmax of every head over its filled slots, as (max, sum, weighted v);
+the partials are gathered and combined, and each rank keeps its heads'
+rows. A rank with no filled slot weighs 0.
 """
 from __future__ import annotations
 
@@ -28,9 +41,13 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
+from ..launch.mesh import (gather_summed_from_model, partial_product,
+                           split_axis)
 from .layers import init_dense, rope
+from .sharding import kv_read
 
-__all__ = ["init_attn", "apply_attn", "init_kv_cache", "blockwise_attention"]
+__all__ = ["init_attn", "apply_attn", "init_kv_cache", "blockwise_attention",
+           "kv_cut_by_length"]
 
 _NEG = -1e30
 
@@ -138,22 +155,41 @@ def _quantize_kv(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
+def kv_cut_by_length(cfg: ModelConfig, model) -> bool:
+    """Whether a split over ``model`` leaves the kv heads undivided (the
+    cache then cut by length, module docstring)."""
+    return split_axis(model) and cfg.n_kv_heads % model.size != 0
+
+
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor, rank: int = 0):
+                 positions: torch.Tensor, rank: int = 0, model=None,
+                 kv=None):
     """q (b, nq, s, hd), k/v (b, nkv, s, hd) with RoPE, for the heads of
-    model rank ``rank`` (all of them unsplit)."""
+    model rank ``rank`` (all of them unsplit). ``kv``: where the kv heads
+    do not divide over ``model``, the kv heads [start, stop) to return,
+    gathered whole (module docstring)."""
     b, s, _ = x.shape
     hd = cfg.hd
-    nq, nkv = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    nq = p["wq"].shape[-1] // hd
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
+    if kv is None:
+        nkv = p["wk"].shape[-1] // hd
+        cols = slice(rank * nkv * hd, (rank + 1) * nkv * hd)
+    else:
+        if k.shape[-1] != cfg.n_kv_heads * hd:     # a block of the columns
+            k = gather_summed_from_model(k, model, dim=-1)
+            v = gather_summed_from_model(v, model, dim=-1)
+        nkv = kv[1] - kv[0]
+        cols = slice(kv[0] * hd, kv[1] * hd)
+        k, v = k[..., cols], v[..., cols]
     if cfg.qkv_bias:
         bq, bk, bv = p["bq"], p["bk"], p["bv"]
         if nq != cfg.n_heads:
             bq = bq[rank * nq * hd:(rank + 1) * nq * hd]
-            bk = bk[rank * nkv * hd:(rank + 1) * nkv * hd]
-            bv = bv[rank * nkv * hd:(rank + 1) * nkv * hd]
+        if nkv != cfg.n_kv_heads:
+            bk, bv = bk[cols], bv[cols]
         q, k, v = q + bq, k + bk, v + bv
     q = q.reshape(b, s, nq, hd).transpose(1, 2)
     k = k.reshape(b, s, nkv, hd).transpose(1, 2)
@@ -161,6 +197,63 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _write_slot(cache, k: torch.Tensor, v: torch.Tensor, slot: int,
+                quant: bool) -> None:
+    """k, v (b, nkv, 1, hd) into ring slot ``slot`` of this layer's cache."""
+    if quant:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+        cache["k"][:, :, slot:slot + 1] = kq
+        cache["v"][:, :, slot:slot + 1] = vq
+        cache["k_scale"][:, :, slot:slot + 1] = ks
+        cache["v_scale"][:, :, slot:slot + 1] = vs
+    else:
+        cache["k"][:, :, slot:slot + 1] = k
+        cache["v"][:, :, slot:slot + 1] = v
+
+
+def _read_cache(cache, quant: bool):
+    """This layer's cache as f32 (b, nkv, S, hd) k and v."""
+    if quant:
+        return (cache["k"].float() * cache["k_scale"] / 127.0,
+                cache["v"].float() * cache["v_scale"] / 127.0)
+    return cache["k"].float(), cache["v"].float()
+
+
+def _decode_by_length(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      cache, index: int, cfg: ModelConfig, model):
+    """One token against a cache cut by length over ``model`` (module
+    docstring). q: this rank's (b, nq, 1, hd); k, v: every kv head's
+    (b, n_kv_heads, 1, hd). Returns this rank's heads' (b, nq, 1, hd)."""
+    b, nq, _, hd = q.shape
+    s_loc = cache["k"].shape[2]
+    owner, local = divmod(index % (s_loc * model.size), s_loc)
+    if owner == model.index:
+        _write_slot(cache, k, v, local, cfg.kv_quant)
+    kd, vd = _read_cache(cache, cfg.kv_quant)
+    nkv = cfg.n_kv_heads
+    rep = cfg.n_heads // nkv
+    qa = torch.cat(model.all_gather(q).unbind(0), dim=1)   # every head
+    qg = qa.float().reshape(b, nkv, rep, 1, hd)
+    logits = torch.einsum("bgrqd,bgkd->bgrqk", qg, kd) * (hd ** -0.5)
+    # this rank's filled slots: the ring's [0, min(index + 1, S)) in its range
+    n_valid = max(0, min(s_loc, min(index + 1, s_loc * model.size)
+                         - model.index * s_loc))
+    logits[..., n_valid:] = _NEG
+    m = logits.amax(-1, keepdim=True)
+    probs = torch.exp(logits - m)
+    probs[..., n_valid:] = 0.0          # an empty rank: weight 0, not NaN
+    part = torch.cat([m, probs.sum(-1, keepdim=True),
+                      torch.einsum("bgrqk,bgkd->bgrqd", probs, vd)], dim=-1)
+    h0 = model.index * nq
+    parts = model.all_gather(part.reshape(b, nkv * rep, hd + 2))
+    parts = parts[:, :, h0:h0 + nq]                 # (tp, b, nq, hd + 2)
+    m_r, l_r, acc_r = parts[..., :1], parts[..., 1:2], parts[..., 2:]
+    w = torch.exp(m_r - m_r.amax(0))
+    out = (w * acc_r).sum(0) / (w * l_r).sum(0)
+    return out[:, :, None].to(q.dtype)
 
 
 def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, *,
@@ -175,7 +268,8 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, *,
     ``cache_index % S``; ``cache_index`` is the host's step count, so no
     step waits on the device. ``model``: the "model" ``AxisGroup`` when
     ``p`` holds a rank's heads (module docstring); the output is then that
-    rank's partial sum. Returns (out, cache).
+    rank's partial sum, in f32 (``partial_product``). Returns (out,
+    cache).
     """
     b, s, _ = x.shape
     if cache is None:
@@ -183,9 +277,22 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         positions = torch.full((b, 1), cache_index, dtype=torch.int32,
                                device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions,
-                           model.index if model is not None else 0)
-    nq, nkv, hd = q.shape[1], k.shape[1], cfg.hd
+    rank = model.index if model is not None else 0
+    hd = cfg.hd
+    if kv_cut_by_length(cfg, model):
+        nq = p["wq"].shape[-1] // hd
+        heads = (rank * nq, (rank + 1) * nq)
+        kv = (kv_read(cfg.n_heads, cfg.n_kv_heads, heads) if cache is None
+              else (0, cfg.n_kv_heads))
+        q, k, v = _project_qkv(p, x, cfg, positions, rank, model, kv)
+        if cache is None:               # one kv head (model_view)
+            out = _attend(q, k, v, window, use_kernel)
+        else:
+            out = _decode_by_length(q, k, v, cache, cache_index, cfg, model)
+        out = out.transpose(1, 2).reshape(b, s, nq * hd)
+        return partial_product(out, p["wo"], model), cache
+    q, k, v = _project_qkv(p, x, cfg, positions, rank)
+    nq, nkv = q.shape[1], k.shape[1]
     rep = nq // nkv
     if rep != cfg.n_heads // cfg.n_kv_heads:
         raise ValueError(f"{nq} query heads over {nkv} kv heads: the GQA "
@@ -193,28 +300,12 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, *,
                          f"{cfg.n_heads // cfg.n_kv_heads}")
 
     if cache is None:
-        if use_kernel:
-            out = kops.flash_attention(q, k, v, causal=True, window=window)
-        else:
-            out = blockwise_attention(
-                q, k.repeat_interleave(rep, dim=1),
-                v.repeat_interleave(rep, dim=1), causal=True, window=window)
+        out = _attend(q, k, v, window, use_kernel)
     else:
         max_len = cache["k"].shape[2]
         slot = cache_index % max_len    # ring buffer (SWA: max_len == window)
-        if cfg.kv_quant:
-            kq, ks = _quantize_kv(k)
-            vq, vs = _quantize_kv(v)
-            cache["k"][:, :, slot:slot + 1] = kq
-            cache["v"][:, :, slot:slot + 1] = vq
-            cache["k_scale"][:, :, slot:slot + 1] = ks
-            cache["v_scale"][:, :, slot:slot + 1] = vs
-            kd = cache["k"].float() * cache["k_scale"] / 127.0
-            vd = cache["v"].float() * cache["v_scale"] / 127.0
-        else:
-            cache["k"][:, :, slot:slot + 1] = k
-            cache["v"][:, :, slot:slot + 1] = v
-            kd, vd = cache["k"].float(), cache["v"].float()
+        _write_slot(cache, k, v, slot, cfg.kv_quant)
+        kd, vd = _read_cache(cache, cfg.kv_quant)
         # each query head's group of kv heads, without expanding the cache:
         # q (b, nkv, rep, 1, hd) against k (b, nkv, S, hd)
         qg = q.float().reshape(b, nkv, rep, s, hd)
@@ -227,4 +318,16 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, *,
         out = out.reshape(b, nq, s, hd).to(x.dtype)
 
     out = out.transpose(1, 2).reshape(b, s, nq * hd)
-    return out @ p["wo"], cache
+    return partial_product(out, p["wo"], model), cache
+
+
+def _attend(q, k, v, window, use_kernel: bool) -> torch.Tensor:
+    """Causal (windowed) attention of q (b, nq, s, hd) against the GQA
+    groups k / v (b, nkv, s, hd): the flash kernel, or the plain
+    ``blockwise_attention`` on the expanded kv heads."""
+    if use_kernel:
+        return kops.flash_attention(q, k, v, causal=True, window=window)
+    rep = q.shape[1] // k.shape[1]
+    return blockwise_attention(
+        q, k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1),
+        causal=True, window=window)

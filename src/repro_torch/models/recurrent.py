@@ -27,6 +27,34 @@ path, below):
 
 No Pallas kernel of the reference is on these paths (XLA fuses them
 there): their products are torch matmuls.
+
+Split over "model" (``model=``, the "model" ``AxisGroup``): the weights are a
+rank's blocks under ``models/sharding.param_specs``, the input the whole
+(replicated) residual stream, the output this rank's partial sum of the
+row-parallel output projection (f32, ``partial_product``), which the caller
+reduces over "model"; the decode state holds the rank's channels or heads
+(``decode_state_specs``). Where a stored column block does not line up with the
+rank's channels or heads, the whole is gathered with
+``gather_summed_from_model`` (its gradient summed over "model"):
+
+* RG-LRU: ``w_in`` / ``w_gate_in`` / ``w_out`` and the gates' columns
+  are the rank's channels, ``conv_w`` and ``lam`` sliced to them; the
+  gates read the whole conv output, gathered in f32 (b, s, d) a layer.
+* mLSTM: ``w_up`` / ``w_gate`` / ``w_down`` and ``w_q`` / ``w_k`` /
+  ``w_v`` are the rank's heads. ``w_if``'s columns are cut [i | f], so
+  the (up, 2h) weight is gathered, each rank contracts its own ``up``
+  rows and the partial gates are all-reduced (both ways: each rank reads
+  its heads' columns of the sum).
+* sLSTM: ``w_gates``' columns are cut gate-major (i, f | z, o at tp 2):
+  each rank computes its stored columns and the (b, s, 4d) result is
+  gathered; ``r_gates`` and the time loop are head-local (no collective a
+  token); the FFN gathers ``h`` (b, s, d), then its ``[gate | up]``
+  product likewise, and takes columns [r f / tp, (r + 1) f / tp) of
+  both; ``w_ffn_down`` is row-parallel (or, where f does not divide, whole
+  and read in part).
+
+Each gathers activations, not weights, but for ``w_if``: at the card's
+shapes a gathered activation is the smaller there (``PERF.md``).
 """
 from __future__ import annotations
 
@@ -36,6 +64,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..launch.mesh import (copy_to_model, gather_summed_from_model,
+                           partial_product, reduce_from_model, split_axis)
 from .layers import init_dense, normal
 
 __all__ = [
@@ -82,8 +112,10 @@ def init_mlstm(gen: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, n_layers: int,
-                     device: torch.device) -> Dict[str, torch.Tensor]:
-    h, hd = mlstm_heads(cfg), _mlstm_hd(cfg)
+                     device: torch.device,
+                     tp: int = 1) -> Dict[str, torch.Tensor]:
+    """The (c, n) state; ``tp``: a model rank's heads of ``tp``."""
+    h, hd = mlstm_heads(cfg) // tp, _mlstm_hd(cfg)
     return {"c": torch.zeros((n_layers, batch, h, hd, hd), device=device),
             "n": torch.zeros((n_layers, batch, h, hd), device=device)}
 
@@ -129,21 +161,44 @@ def _mlstm_chunk_scan(q, k, v, li, lf, chunk: int):
     return torch.cat(outs, dim=2), c_state, n_state
 
 
+def _mlstm_gates(p, u: torch.Tensor, h: int, n_heads: int, model):
+    """(b, s, 2h) input and forget gate pre-activations of the ``h`` heads
+    in ``u`` (of ``n_heads``); split (``model``), the sum over "model" of
+    each rank's ``up`` rows of the gathered ``w_if`` (module docstring),
+    its heads' columns and ``b_if``'s."""
+    if not split_axis(model):
+        return u @ p["w_if"] + p["b_if"]
+    w_if = p["w_if"]
+    if w_if.shape[-1] != 2 * n_heads:
+        w_if = gather_summed_from_model(w_if, model, dim=-1)
+    up_loc = u.shape[-1]
+    rows = w_if[model.index * up_loc:(model.index + 1) * up_loc]
+    whole = copy_to_model(reduce_from_model(
+        partial_product(u, rows, model), model).to(u.dtype), model)
+    h0 = model.index * h
+    cols = torch.cat([torch.arange(h0, h0 + h),
+                      torch.arange(n_heads + h0, n_heads + h0 + h)]
+                     ).to(u.device)
+    return whole.index_select(-1, cols) + p["b_if"].index_select(0, cols)
+
+
 def apply_mlstm(p, x: torch.Tensor, cfg: ModelConfig, *,
                 state: Optional[Dict[str, torch.Tensor]] = None,
-                chunk: Optional[int] = None):
+                chunk: Optional[int] = None, model=None):
     """Full sequence (state None) or one-token decode (state = {"c", "n"}).
-    Returns (out, new_state)."""
+    ``model``: split over "model" (module docstring); the state holds the
+    rank's heads. Returns (out, new_state)."""
     b, s, d = x.shape
-    h, hd = mlstm_heads(cfg), _mlstm_hd(cfg)
-    up = 2 * d
+    hd = _mlstm_hd(cfg)
     u = x @ p["w_up"]
+    up = u.shape[-1]                    # the rank's channels when split
+    h = up // hd
     g = F.silu(x @ p["w_gate"])
     uh = u.reshape(b, s, h, hd)
     q = torch.einsum("bshd,hde->bhse", uh, p["w_q"])
     k = torch.einsum("bshd,hde->bhse", uh, p["w_k"])
     v = torch.einsum("bshd,hde->bhse", uh, p["w_v"])
-    gates = u @ p["w_if"] + p["b_if"]                           # (b, s, 2h)
+    gates = _mlstm_gates(p, u, h, mlstm_heads(cfg), model)      # (b, s, 2h)
     li = F.logsigmoid(gates[..., :h]).transpose(1, 2)           # (b, h, s)
     lf = F.logsigmoid(gates[..., h:]).transpose(1, 2)
 
@@ -165,7 +220,7 @@ def apply_mlstm(p, x: torch.Tensor, cfg: ModelConfig, *,
         new_state = {"c": c_new, "n": n_new}
 
     out = out.transpose(1, 2).reshape(b, s, up).to(x.dtype)
-    return (out * g) @ p["w_down"], new_state
+    return partial_product(out * g, p["w_down"], model), new_state
 
 
 # ===========================================================================
@@ -197,23 +252,25 @@ def init_slstm(gen: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, n_layers: int,
-                     device: torch.device) -> Dict[str, torch.Tensor]:
-    shape = (n_layers, batch, cfg.d_model)
+                     device: torch.device,
+                     tp: int = 1) -> Dict[str, torch.Tensor]:
+    """The (c, n, h) state; ``tp``: a model rank's heads of ``tp``."""
+    shape = (n_layers, batch, cfg.d_model // tp)
     return {key: torch.zeros(shape, device=device) for key in ("c", "n", "h")}
 
 
-def _slstm_cell(p, d: int, carry, gx: torch.Tensor):
-    """One step. carry = (c, n, h) f32 (b, d); gx = x_t @ w_gates (b, 4d)
-    in the model dtype."""
+def _slstm_cell(p, d: int, carry, gx: torch.Tensor, bias: torch.Tensor):
+    """One step over ``d`` channels (the rank's heads when split).
+    carry = (c, n, h) f32 (b, d); gx = x_t @ w_gates (b, 4d) in the model
+    dtype, laid out (4, heads, hd); ``bias`` the same layout."""
     c, n, hprev = carry
     b = gx.shape[0]
-    hd = _slstm_hd(d)
-    nh = d // hd
+    nh, hd = p["r_gates"].shape[0], p["r_gates"].shape[1]
     # the recurrent term, per head, laid out as (b, 4, h, hd)
     hh = hprev.to(gx.dtype).reshape(b, nh, hd)
     gr = torch.einsum("bhd,hde->bhe", hh, p["r_gates"])       # (b, h, 4 hd)
     gr = gr.reshape(b, nh, 4, hd).transpose(1, 2).reshape(b, 4 * d)
-    gates = (gx + gr + p["b_gates"]).float()
+    gates = (gx + gr + bias).float()
     i = torch.exp(gates[..., :d].clamp_max(8.0))             # exp input gate
     f = torch.sigmoid(gates[..., d:2 * d])
     z = torch.tanh(gates[..., 2 * d:3 * d])
@@ -225,26 +282,50 @@ def _slstm_cell(p, d: int, carry, gx: torch.Tensor):
 
 
 def apply_slstm(p, x: torch.Tensor, cfg: ModelConfig, *,
-                state: Optional[Dict[str, torch.Tensor]] = None):
+                state: Optional[Dict[str, torch.Tensor]] = None, model=None):
+    """Full sequence (state None) or one-token decode (state = {"c", "n",
+    "h"}). ``model``: split over "model" (module docstring); the state holds
+    the rank's heads. Returns (out, new_state)."""
     b, s, d = x.shape
+    nh_loc, hd = p["r_gates"].shape[0], p["r_gates"].shape[1]
+    d_loc = nh_loc * hd                  # the rank's channels when split
     gx = x @ p["w_gates"]                                    # (b, s, 4d)
+    bias = p["b_gates"]
+    f_up = 4 * d // 3
+    split = split_axis(model)
+    if split:
+        if gx.shape[-1] != 4 * d:
+            gx = gather_summed_from_model(gx, model, dim=-1)
+        c0 = model.index * d_loc
+        gx = gx.unflatten(-1, (4, d))[..., c0:c0 + d_loc].flatten(-2)
+        bias = bias.unflatten(-1, (4, d))[..., c0:c0 + d_loc].flatten(-2)
     if state is None:
-        zeros = torch.zeros((b, d), device=x.device)
+        zeros = torch.zeros((b, d_loc), device=x.device)
         carry = (zeros, zeros, zeros)
         hs = []
         for t in range(s):
-            carry = _slstm_cell(p, d, carry, gx[:, t])
+            carry = _slstm_cell(p, d_loc, carry, gx[:, t], bias)
             hs.append(carry[2])
         h = torch.stack(hs, dim=1).to(x.dtype)
     else:
-        carry = _slstm_cell(p, d, (state["c"], state["n"], state["h"]),
-                            gx[:, 0])
+        carry = _slstm_cell(p, d_loc, (state["c"], state["n"], state["h"]),
+                            gx[:, 0], bias)
         h = carry[2][:, None].to(x.dtype)
     new_state = {"c": carry[0], "n": carry[1], "h": carry[2]}
     # small gated FFN (xLSTM post-up/down, factor 4/3)
-    f_up = p["w_ffn_down"].shape[0]
-    u = h @ p["w_ffn_up"]
-    out = (F.silu(u[..., :f_up]) * u[..., f_up:]) @ p["w_ffn_down"]
+    w_down = p["w_ffn_down"]
+    if not split:
+        u = h @ p["w_ffn_up"]
+        return (F.silu(u[..., :f_up]) * u[..., f_up:]) @ w_down, new_state
+    u = gather_summed_from_model(h, model, dim=-1) @ p["w_ffn_up"]
+    if u.shape[-1] != 2 * f_up:
+        u = gather_summed_from_model(u, model, dim=-1)
+    lo = model.index * f_up // model.size
+    hi = (model.index + 1) * f_up // model.size
+    if w_down.shape[0] == f_up:          # whole: this rank's rows of it
+        w_down = w_down[lo:hi]
+    out = partial_product(F.silu(u[..., lo:hi]) * u[..., f_up + lo:f_up + hi],
+                          w_down, model)
     return out, new_state
 
 
@@ -270,8 +351,10 @@ def init_rglru(gen: Optional[torch.Generator], cfg: ModelConfig,
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, n_layers: int,
-                     device: torch.device) -> Dict[str, torch.Tensor]:
-    d = cfg.d_model
+                     device: torch.device,
+                     tp: int = 1) -> Dict[str, torch.Tensor]:
+    """The (h, conv) state; ``tp``: a model rank's channels of ``tp``."""
+    d = cfg.d_model // tp
     return {"h": torch.zeros((n_layers, batch, d), device=device),
             "conv": torch.zeros((n_layers, batch, 3, d), device=device)}
 
@@ -296,20 +379,30 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
 
 
 def apply_rglru(p, x: torch.Tensor, cfg: ModelConfig, *,
-                state: Optional[Dict[str, torch.Tensor]] = None):
+                state: Optional[Dict[str, torch.Tensor]] = None, model=None):
+    """Full sequence (state None) or one-token decode (state = {"h",
+    "conv"}). ``model``: split over "model" (module docstring); the state
+    holds the rank's channels. Returns (out, new_state)."""
     b, s, d = x.shape
     u = x @ p["w_in"]
     gate = F.gelu(x @ p["w_gate_in"], approximate="tanh")   # jax.nn.gelu's
+    conv_w, lam = p["conv_w"], p["lam"]
+    if split_axis(model):               # the rank's channels
+        c0 = model.index * u.shape[-1]
+        conv_w = conv_w[:, c0:c0 + u.shape[-1]]
+        lam = lam[c0:c0 + u.shape[-1]]
 
     if state is None:
         # causal temporal conv of width 4 as shifted adds, in f32 as decode
         uf = u.float()
         pads = F.pad(uf, (0, 0, 3, 0))
-        conv_w = p["conv_w"].float()
+        conv_w = conv_w.float()
         conv = sum(pads[:, 3 - i:s + 3 - i] * conv_w[i] for i in range(4))
-        r = torch.sigmoid(conv @ p["w_rgate"].float())
-        i_g = torch.sigmoid(conv @ p["w_igate"].float())
-        log_a = -_RGLRU_C * r * F.softplus(p["lam"])          # (b, s, d)
+        # the gates read every channel: the whole conv when split
+        whole = gather_summed_from_model(conv, model, dim=-1)
+        r = torch.sigmoid(whole @ p["w_rgate"].float())
+        i_g = torch.sigmoid(whole @ p["w_igate"].float())
+        log_a = -_RGLRU_C * r * F.softplus(lam)               # (b, s, d)
         beta = torch.sqrt((1.0 - torch.exp(2.0 * log_a)).clamp_min(1e-6))
         h = linear_scan(torch.exp(log_a), beta * (i_g * conv))
         conv_state = uf[:, -3:] if s >= 3 else F.pad(uf, (0, 0, 3 - s, 0))
@@ -319,13 +412,14 @@ def apply_rglru(p, x: torch.Tensor, cfg: ModelConfig, *,
         conv_buf = torch.cat([state["conv"], u[:, 0:1].float()], dim=1)
         # the buffer runs oldest to newest and conv_w[i] weights the token i
         # steps back, so the newest entry takes conv_w[0]: reverse the kernel
-        conv = (conv_buf * p["conv_w"].flip(0).float()).sum(dim=1)
-        r = torch.sigmoid(conv @ p["w_rgate"].float())
-        i_g = torch.sigmoid(conv @ p["w_igate"].float())
-        log_a = -_RGLRU_C * r * F.softplus(p["lam"])
+        conv = (conv_buf * conv_w.flip(0).float()).sum(dim=1)
+        whole = gather_summed_from_model(conv, model, dim=-1)
+        r = torch.sigmoid(whole @ p["w_rgate"].float())
+        i_g = torch.sigmoid(whole @ p["w_igate"].float())
+        log_a = -_RGLRU_C * r * F.softplus(lam)
         beta = torch.sqrt((1.0 - torch.exp(2.0 * log_a)).clamp_min(1e-6))
         h_new = torch.exp(log_a) * state["h"] + beta * (i_g * conv)
         new_state = {"h": h_new, "conv": conv_buf[:, 1:]}
         out = h_new[:, None].to(x.dtype)
 
-    return (out * gate) @ p["w_out"], new_state
+    return partial_product(out * gate, p["w_out"], model), new_state

@@ -27,16 +27,20 @@ the rank's blocks of the parameters and AdamW moments, which is the
 reference's memory plan for stored state. By default every rank gathers
 each whole leaf and runs the whole model on its batch shard.
 
-The compute split over "model" (``split_model=True``), for the families
-whose mixers are all attention: ``model_view`` says which heads, kv heads,
-FFN columns, experts and vocabulary rows a model rank holds, read off
-``param_specs``, and raises ``NotImplementedError`` where the split is not
-ported. ``data_specs`` drops "model" from every spec: gathering by it
-(ZeRO-3 over the data axes) leaves each rank its model blocks, with which
-``models/transformer.forward(..., model=)`` runs Megatron's tensor
-parallelism, as XLA partitions the reference under these specs.
-``PARTIAL_OVER_MODEL`` names the replicated leaves whose gradient each
-model rank holds a part of.
+The compute split over "model" (``split_model=True``), for the attention
+families, RG-LRU (recurrentgemma) and xLSTM (mLSTM, sLSTM): ``model_view``
+says which heads, kv heads, FFN columns, experts, recurrent channels and
+heads and vocabulary rows a model rank computes, read off ``param_specs``,
+and raises ``NotImplementedError`` where the split is not ported. kv heads
+that do not divide over "model" are admitted: each rank reads the kv heads
+its query heads need, and the decode cache is cut by its length
+(``decode_state_specs``). ``data_specs`` drops "model" from every spec:
+gathering by it (ZeRO-3 over the data axes) leaves each rank its model
+blocks, with which ``models/transformer.forward(..., model=)`` runs
+Megatron's tensor parallelism, as XLA partitions the reference under these
+specs. ``partial_over_model`` says which leaves' gradient each model rank
+holds a part of: ``PARTIAL_OVER_MODEL`` (replicated leaves read in part),
+and ``PARTIAL_WHEN_WHOLE`` where the dim the split cuts does not divide.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ __all__ = ["MeshShape", "dp_axes", "param_specs", "batch_specs",
            "local_shape", "shard", "shard_tree", "gather", "gather_tree",
            "spec_leaves", "dp_shards", "ModelView", "model_view",
            "data_specs", "has_model", "PARTIAL_OVER_MODEL",
+           "PARTIAL_WHEN_WHOLE", "partial_over_model", "kv_read",
            "SPLIT_ROADMAP"]
 
 Axes = Union[None, str, Tuple[str, ...]]
@@ -352,29 +357,50 @@ def gather_tree(tree, specs, mesh):
 # ---------------------------------------------------------------------------
 # the compute split over "model"
 # ---------------------------------------------------------------------------
-# replicated leaves used per head (the qkv biases, sliced to a rank's heads)
-# or feeding only a rank's experts (the router): each model rank's gradient
-# is a part of the whole, summed over "model" before the update
-PARTIAL_OVER_MODEL = ("bq", "bk", "bv", "router")
+# replicated leaves used per head (the qkv biases, sliced to a rank's heads),
+# per channel or head (RG-LRU's conv kernel and decay, the xLSTM gate
+# biases) or feeding only a rank's experts (the router): each model rank's
+# gradient is a part of the whole, summed over "model" before the update
+PARTIAL_OVER_MODEL = ("bq", "bk", "bv", "router", "conv_w", "lam", "b_if",
+                      "b_gates")
+# leaves the split cuts over "model" but whose dim may not divide (then
+# ``param_specs`` keeps them whole): each rank reads its part of a whole one
+PARTIAL_WHEN_WHOLE = ("wk", "wv", "w_ffn_up", "w_ffn_down")
 SPLIT_ROADMAP = ('ROADMAP.md, "Configurations the port does not yet run": '
                  'the compute split over "model"')
+_SPLIT_KINDS = ("attn", "swa", "rglru", "mlstm", "slstm")
+
+
+def partial_over_model(name: str, spec: Spec) -> bool:
+    """Whether the gradient of the leaf at path ``name`` (its last part
+    counts) stored under ``spec`` is each model rank's part of the whole."""
+    leaf = name.split("/")[-1]
+    return leaf in PARTIAL_OVER_MODEL or (leaf in PARTIAL_WHEN_WHOLE
+                                          and not has_model(spec))
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelView:
     """What model rank ``index`` of ``tp`` computes: [start, stop) of the
-    query heads, kv heads, FFN columns (the dense and shared-expert FFN),
-    experts and vocabulary rows of the head (``None`` where the model has
-    none). ``embed_pieces``: the embedding's model dim is cut over
-    (data axes..., "model"), so after the data-axis gather a rank holds
-    ``embed_pieces`` strided pieces of it."""
+    query heads, the kv heads they read (``kv_cut``: the kv heads divide
+    over "model" and are this rank's own; else the rank reads them whole
+    and the decode cache is cut by length), FFN columns (the dense and
+    shared-expert FFN), experts, RG-LRU channels, mLSTM and sLSTM heads and
+    vocabulary rows of the head (``None`` where the model has none).
+    ``embed_pieces``: the embedding's model dim is cut over (data axes...,
+    "model"), so after the data-axis gather a rank holds ``embed_pieces``
+    strided pieces of it."""
 
     tp: int
     index: int
-    heads: Tuple[int, int]
-    kv_heads: Tuple[int, int]
+    heads: Optional[Tuple[int, int]]
+    kv_heads: Optional[Tuple[int, int]]
+    kv_cut: bool
     ffn_cols: Optional[Tuple[int, int]]
     experts: Optional[Tuple[int, int]]
+    channels: Optional[Tuple[int, int]]
+    mlstm_heads: Optional[Tuple[int, int]]
+    slstm_heads: Optional[Tuple[int, int]]
     vocab: Tuple[int, int]
     embed_pieces: int
 
@@ -405,39 +431,79 @@ def _block(n: int, tp: int, index: int) -> Tuple[int, int]:
     return (index * per, (index + 1) * per)
 
 
+def kv_read(n_heads: int, n_kv_heads: int,
+            heads: Tuple[int, int]) -> Tuple[int, int]:
+    """[start, stop) of the kv heads the query heads ``heads`` read (GQA:
+    query head h reads kv head h // (n_heads / n_kv_heads))."""
+    rep = n_heads // n_kv_heads
+    return (heads[0] // rep, (heads[1] - 1) // rep + 1)
+
+
+# the leaves of each block kind that a split rank must hold a model block of
+_CUT_LEAVES = {
+    "attn": ("wq", "wo"), "swa": ("wq", "wo"),
+    "rglru": ("w_in", "w_gate_in", "w_rgate", "w_igate", "w_out"),
+    "mlstm": ("w_up", "w_gate", "w_q", "w_k", "w_v", "w_if", "w_down"),
+    "slstm": ("w_gates", "r_gates"),
+}
+
+
 def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
     """Model rank ``index``'s share of ``cfg`` under ``param_specs`` on
     ``mesh``. Raises ``NotImplementedError`` (naming the ROADMAP item)
-    where the split is not ported: a mixer that is not attention, a
-    frontend, a tied head, kv heads (or any leaf the split cuts) that do
-    not divide over "model". Nothing falls back to another route."""
+    where the split is not ported: a frontend, a tied head, query heads,
+    mLSTM heads or sLSTM heads (or any leaf the split cuts) that do not
+    divide over "model", kv heads that do not where a rank's query heads
+    would read parts of two. Nothing falls back to another route."""
     # transformer imports launch/mesh, which imports this module
-    from .transformer import init_params
+    from .recurrent import _slstm_hd, mlstm_heads
+    from .transformer import block_has_ffn, init_params
     shape = _shape_of(mesh)
     tp = shape.shape.get("model", 1)
-    kinds = set(cfg.pattern_for_layers())
+    pattern = cfg.pattern_for_layers()
+    kinds = set(pattern)
+    attn = bool(kinds & {"attn", "swa"})
+    d = cfg.d_model
+    n_mlstm = mlstm_heads(cfg) if "mlstm" in kinds else None
+    n_slstm = d // _slstm_hd(d) if "slstm" in kinds else None
     why = None
-    if not kinds <= {"attn", "swa"}:
-        why = f"mixers {sorted(kinds - {'attn', 'swa'})}"
+    if not kinds <= set(_SPLIT_KINDS):
+        why = f"mixers {sorted(kinds - set(_SPLIT_KINDS))}"
     elif cfg.frontend is not None:
         why = f"the {cfg.frontend} frontend"
     elif cfg.tie_embeddings:
         why = "a tied head"
-    elif cfg.n_kv_heads % tp or cfg.n_heads % tp:
-        why = (f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads over a "
-               f"model axis of {tp} (the cache cut by length instead)")
+    elif attn and cfg.n_heads % tp:
+        why = (f"{cfg.n_heads} query heads over a model axis of {tp} (a "
+               f"head cut mid-way)")
+    elif attn and cfg.n_kv_heads % tp and (
+            cfg.n_heads // cfg.n_kv_heads) % (cfg.n_heads // tp):
+        why = (f"{cfg.n_heads} query heads / {cfg.n_kv_heads} kv heads over "
+               f"a model axis of {tp} (a rank's query heads reading parts "
+               f"of two kv heads)")
+    elif n_mlstm is not None and n_mlstm % tp:
+        why = f"{n_mlstm} mLSTM heads over a model axis of {tp}"
+    elif n_slstm is not None and n_slstm % tp:
+        why = f"{n_slstm} sLSTM heads over a model axis of {tp}"
+    elif "rglru" in kinds and d % tp:
+        why = f"{d} RG-LRU channels over a model axis of {tp}"
+    kv_cut = attn and cfg.n_kv_heads % tp == 0
     if why is None:
         specs = param_specs(init_params(None, cfg, device="meta"), cfg,
                             shape)
-        blk = specs["groups"][f"blk0_{cfg.pattern_for_layers()[0]}"]
-        need = [("embed", specs["embed"]), ("lm_head", specs["lm_head"]),
-                *[(k, blk["mixer"][k]) for k in ("wq", "wk", "wv", "wo")],
-                *[("ffn/" + k, blk["ffn"][k])
-                  for k in ("w_gate", "w_up", "w_down")]]
-        if "shared" in blk["ffn"]:
-            need += [("shared/" + k, blk["ffn"]["shared"][k])
-                     for k in ("w_gate", "w_up", "w_down")]
-        cut = [name for name, spec in need if not has_model(spec)]
+        need = [("embed", specs["embed"]), ("lm_head", specs["lm_head"])]
+        for i, kind in enumerate(pattern):
+            blk = specs["groups"][f"blk{i}_{kind}"]
+            leaves = _CUT_LEAVES[kind] + (("wk", "wv") if kv_cut and kind
+                                          in ("attn", "swa") else ())
+            need += [(f"{kind}/{k}", blk["mixer"][k]) for k in leaves]
+            if block_has_ffn(cfg, kind):
+                need += [("ffn/" + k, blk["ffn"][k])
+                         for k in ("w_gate", "w_up", "w_down")]
+                if "shared" in blk["ffn"]:
+                    need += [("shared/" + k, blk["ffn"]["shared"][k])
+                             for k in ("w_gate", "w_up", "w_down")]
+        cut = sorted({name for name, spec in need if not has_model(spec)})
         if tp > 1 and cut:
             why = f"leaves not cut over 'model': {cut}"
     if why is not None:
@@ -448,13 +514,21 @@ def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
     pieces = _axsize(shape, tuple(a for a in _entry_axes(emb)
                                   if a != "model"))
     m = cfg.moe
+    heads = _block(cfg.n_heads, tp, index) if attn else None
+    dense_ffn = any(block_has_ffn(cfg, k) for k in kinds) and m is None
     return ModelView(
-        tp=tp, index=index,
-        heads=_block(cfg.n_heads, tp, index),
-        kv_heads=_block(cfg.n_kv_heads, tp, index),
+        tp=tp, index=index, heads=heads,
+        kv_heads=(None if not attn else _block(cfg.n_kv_heads, tp, index)
+                  if kv_cut else kv_read(cfg.n_heads, cfg.n_kv_heads, heads)),
+        kv_cut=kv_cut,
         ffn_cols=(_block(m.d_expert * m.n_shared_experts, tp, index)
                   if m is not None and m.n_shared_experts else
-                  _block(cfg.d_ff, tp, index) if m is None else None),
+                  _block(cfg.d_ff, tp, index) if dense_ffn else None),
         experts=_block(m.n_experts, tp, index) if m is not None else None,
+        channels=_block(d, tp, index) if "rglru" in kinds else None,
+        mlstm_heads=(_block(n_mlstm, tp, index) if n_mlstm is not None
+                     else None),
+        slstm_heads=(_block(n_slstm, tp, index) if n_slstm is not None
+                     else None),
         vocab=_block(cfg.vocab_size, tp, index),
         embed_pieces=pieces)

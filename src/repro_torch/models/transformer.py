@@ -25,21 +25,27 @@ group's body (one pass of the pattern) under
 so what is kept is a block's input and its residual after the mixer, and
 everything inside the spans (norms, projections, attention, gates, the FFN
 intermediate) is recomputed; ``False`` keeps everything. The spans end before the model-axis reduce, so ``"names"``
-re-runs no collective and ``True`` re-runs the forward's. Recomputation
+re-runs only the collectives inside a mixer (below) and ``True`` all of
+the forward's. Recomputation
 never stops early (the collectives it re-runs are the same on every
 rank). The values are the same bits under all three.
 
-Split over "model" (``model=``, the "model" ``AxisGroup`` of
-``launch/mesh``, for the attention families of
-``models/sharding.model_view``): ``params`` hold a rank's model blocks
-(each leaf gathered over the data axes only). The embedding's block of
-the model dim, laid out (V, pieces, D / (pieces tp)) (its spec cuts the
-dim over (data, model)), is looked up and the activations gathered over
-"model"; each norm's output enters the column-parallel span through
-``copy_to_model``; the mixer's and the FFN's partial outputs are summed
-by ``reduce_from_model``; the head gives this rank's vocabulary rows of
-the logits. ``None`` (or a one-rank axis) keeps the unsplit arithmetic
-bit for bit.
+Split over "model" (``model=``, the "model" ``AxisGroup`` of ``launch/mesh``,
+for the families ``models/sharding.model_view`` admits: the attention families,
+recurrentgemma's RG-LRU and windowed attention, xLSTM's mLSTM and sLSTM):
+``params`` hold a rank's model blocks (each leaf gathered over the data axes
+only). The embedding's block of the model dim, laid out (V, pieces, D / (pieces
+tp)) (its spec cuts the dim over (data, model)), is looked up and the
+activations gathered over "model"; each norm's output enters the
+column-parallel span through ``copy_to_model``; the mixer's and the FFN's
+partial outputs are summed by ``reduce_from_model``; the head gives this rank's
+vocabulary rows of the logits. Each row-parallel product is an f32 part
+(``partial_product``), summed in f32 and rounded once to the model's dtype, as
+one process rounds the whole product. The mixers split themselves
+(``attention.py``, ``recurrent.py``), some with collectives inside the
+``"names"`` span (gathers of a recurrent state or a kv head, mLSTM's gate sum),
+which its recomputation runs again. ``None`` (or a one-rank axis) keeps the
+unsplit arithmetic bit for bit.
 
 Block kinds: ``attn`` / ``swa`` (through the flash-attention kernel) with a
 dense SwiGLU FFN or, when ``cfg.moe`` is set, the MoE FFN
@@ -59,16 +65,19 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as torch_checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ModelConfig
 from ..launch.mesh import (copy_to_model, gather_from_model,
-                           reduce_from_model, split_axis)
-from .attention import apply_attn, init_attn, init_kv_cache
+                           partial_product, reduce_from_model, split_axis)
+from .attention import apply_attn, init_attn, init_kv_cache, \
+    kv_cut_by_length
 from .layers import embed_lookup, init_dense, init_norm, normal, rms_norm, \
     swiglu_ffn
 from .moe import apply_moe, init_moe
+from .sharding import SPLIT_ROADMAP
 from .recurrent import (apply_mlstm, apply_rglru, apply_slstm, init_mlstm,
                         init_mlstm_state, init_rglru, init_rglru_state,
                         init_slstm, init_slstm_state)
@@ -206,7 +215,7 @@ def _mixer(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                             window=cfg.window if kind == "swa" else None,
                             use_kernel=use_kernel, model=model)
     else:
-        out, _ = _MIXERS[kind][1](p["mixer"], h, cfg)
+        out, _ = _MIXERS[kind][1](p["mixer"], h, cfg, model=model)
     return out
 
 
@@ -217,7 +226,10 @@ def _ffn(p, x: torch.Tensor, cfg: ModelConfig, kind: str, act_specs,
     f = p["ffn"]
     if _is_moe(cfg, kind):
         return apply_moe(f, h2, cfg, act_specs=act_specs, model=model)
-    return swiglu_ffn(h2, f["w_gate"], f["w_up"], f["w_down"])
+    if not split_axis(model):
+        return swiglu_ffn(h2, f["w_gate"], f["w_up"], f["w_down"])
+    return partial_product(F.silu(h2 @ f["w_gate"]) * (h2 @ f["w_up"]),
+                           f["w_down"], model)
 
 
 def _apply_block_full(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
@@ -226,10 +238,10 @@ def _apply_block_full(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     """One block; ``span`` runs the mixer's and the FFN's spans
     (``_recompute`` under ``remat="names"``)."""
     x = x + reduce_from_model(
-        span(_mixer, p, x, cfg, kind, use_kernel, model), model)
+        span(_mixer, p, x, cfg, kind, use_kernel, model), model).to(x.dtype)
     if block_has_ffn(cfg, kind):
         x = x + reduce_from_model(
-            span(_ffn, p, x, cfg, kind, act_specs, model), model)
+            span(_ffn, p, x, cfg, kind, act_specs, model), model).to(x.dtype)
     return x
 
 
@@ -317,21 +329,32 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     Attention blocks get a ring-buffer KV cache (``swa``: of the window),
     recurrent ones their f32 state. The counter is a host integer: the slot
     and the mask of each step are computed on the host, so no step waits on
-    the device. ``model``: the cache holds this rank's n_kv_heads / tp kv
-    heads (``decode_state_specs``' kv-head cut).
+    the device. ``model``: a model rank's share, as ``decode_state_specs``
+    cuts it: n_kv_heads / tp kv heads where they divide, else every kv head
+    over S / tp ring slots (the cache cut by length; a ring that does not
+    divide raises ``NotImplementedError``); RG-LRU's channels, mLSTM's and
+    sLSTM's heads, d / tp of them. ``batch`` is the rank's rows.
     """
     dev = resolve_device(device)
-    nkv = cfg.n_kv_heads // (model.size if split_axis(model) else 1)
+    tp = model.size if split_axis(model) else 1
+    by_length = kv_cut_by_length(cfg, model)
     caches = {}
     for i, kind in enumerate(cfg.pattern_for_layers()):
         name = f"blk{i}_{kind}"
         if kind in ATTN_KINDS:
             wlen = min(cfg.window or max_len, max_len) if kind == "swa" \
                 else max_len
-            caches[name] = init_kv_cache(cfg, batch, wlen, cfg.n_groups, dev,
-                                         n_kv_heads=nkv)
+            if by_length and wlen % tp:
+                raise NotImplementedError(
+                    f"{cfg.name}: a ring of {wlen} slots over a model axis "
+                    f"of {tp} (the cache whole on every rank) is not "
+                    f"ported; see {SPLIT_ROADMAP}")
+            caches[name] = init_kv_cache(
+                cfg, batch, wlen // tp if by_length else wlen, cfg.n_groups,
+                dev, n_kv_heads=None if by_length else cfg.n_kv_heads // tp)
         else:
-            caches[name] = _MIXERS[kind][2](cfg, batch, cfg.n_groups, dev)
+            caches[name] = _MIXERS[kind][2](cfg, batch, cfg.n_groups, dev,
+                                            tp=tp)
     return {"index": 0, "caches": caches}
 
 
@@ -346,13 +369,14 @@ def _apply_block_decode(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                             window=cfg.window if kind == "swa" else None,
                             cache=cache, cache_index=index, model=model)
     else:
-        out, new_state = _MIXERS[kind][1](p["mixer"], h, cfg, state=cache)
+        out, new_state = _MIXERS[kind][1](p["mixer"], h, cfg, state=cache,
+                                          model=model)
         for key, val in new_state.items():
             cache[key].copy_(val)
-    x = x + reduce_from_model(out, model)
+    x = x + reduce_from_model(out, model).to(x.dtype)
     if block_has_ffn(cfg, kind):
         x = x + reduce_from_model(_ffn(p, x, cfg, kind, act_specs, model),
-                                  model)
+                                  model).to(x.dtype)
     return x
 
 

@@ -610,6 +610,7 @@ class PSAService:
     def finalize(self) -> dict:
         """Publish the completion marker the supervisor looks for, and the
         registry's dump beside the journal."""
+        _touch(os.path.join(self.workdir, _HEARTBEAT))   # alive till marked
         doc = self.summary()
         with open(os.path.join(self.workdir, _FINAL), "w") as f:
             json.dump(doc, f, indent=2)
@@ -670,14 +671,18 @@ def run_supervised(cfg: ServiceConfig, workdir: str, *,
                    verbose: bool = False) -> dict:
     """Run the service to completion in a supervised subprocess.
 
-    The child heartbeats at every tick and re-solve-chunk save; the
-    supervisor kills it when the beat goes stale (a wedged process stops
-    beating but never exits) and relaunches with linear backoff. A beat
-    older than this attempt's spawn counts as "not yet started", judged
-    against ``startup_timeout`` (the first tick pays the CUDA context and
-    the load of the kernel libraries). ``device`` is passed to the child as
-    ``--device``; without it the child runs on CUDA, and raises where there
-    is no card."""
+    The child heartbeats at every tick and re-solve-chunk save and before
+    its completion marker; the supervisor kills it when the beat goes
+    stale (a wedged process stops beating but never exits) and relaunches
+    with linear backoff. A beat older than this attempt's spawn counts as
+    "not yet started", judged against ``startup_timeout`` (the first tick
+    pays the CUDA context and the load of the kernel libraries). A child
+    whose completion marker is newer than its spawn has done its work and
+    only exits (its summary, the interpreter's and CUDA's teardown, which
+    beat nothing and on a loaded host can outlast a short
+    ``stall_timeout``): it is given ``startup_timeout`` for that. ``device`` is
+    passed to the child as ``--device``; without it the child runs on
+    CUDA, and raises where there is no card."""
     os.makedirs(workdir, exist_ok=True)
     spec = os.path.join(workdir, "service.json")
     cfg.to_json(spec)
@@ -700,7 +705,11 @@ def run_supervised(cfg: ServiceConfig, workdir: str, *,
             now = time.time()
             beat = os.path.getmtime(beat_path) \
                 if os.path.exists(beat_path) else 0.0
-            if beat > spawn_t:
+            done = os.path.getmtime(final_path) \
+                if os.path.exists(final_path) else 0.0
+            if done >= spawn_t:         # finished: only its exit is left
+                stale = now - done > startup_timeout
+            elif beat > spawn_t:
                 stale = now - beat > stall_timeout
             else:
                 stale = now - spawn_t > startup_timeout

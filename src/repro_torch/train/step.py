@@ -11,8 +11,9 @@
                          moments (models/sharding.py's rules) and keeps its
                          own block of the update. ``split_model=True``
                          splits the compute over "model" (tensor
-                         parallelism, the attention families): it gathers
-                         over the data axes only. ``split_model=False``
+                         parallelism: the attention families,
+                         recurrentgemma and xLSTM): it gathers over the
+                         data axes only. ``split_model=False``
                          gathers each leaf whole and repeats the model on
                          every rank of a data shard: the plain route the
                          split is held against, and the route of the
@@ -232,6 +233,7 @@ def make_sharded_value_and_grad(cfg: ModelConfig, mesh, *,
     view = shd.model_view(cfg, shape, mesh.coords.get("model", 0))
     model = mesh.axis("model") if "model" in mesh.groups else None
     dspecs = shd.data_specs(pspecs, shape)
+    spec_list = shd.spec_leaves(pspecs)
 
     def split(params, batch):
         local = _model_blocks(params, pspecs, mesh, view)
@@ -242,9 +244,8 @@ def make_sharded_value_and_grad(cfg: ModelConfig, mesh, *,
         if split_axis(model):
             names, leaves, structure = _tree.flatten_with_names(grads)
             leaves = [model.all_reduce_(g.to(torch.float32, copy=True))
-                      .to(g.dtype)
-                      if n.split("/")[-1] in shd.PARTIAL_OVER_MODEL else g
-                      for n, g in zip(names, leaves)]
+                      .to(g.dtype) if shd.partial_over_model(n, spec) else g
+                      for n, g, spec in zip(names, leaves, spec_list)]
             grads = _tree.unflatten(structure, leaves)
         loss, grads = data_mean(loss, grads)
         gnorm = (_split_norm(grads, pspecs, model) if split_axis(model)
@@ -275,9 +276,9 @@ def make_sharded_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh, *,
     axes only, so each rank keeps its model blocks (the reference's ZeRO-3
     over "data"), and runs the forward and backward split over "model"
     (``forward(..., model=)``, the vocabulary-parallel ``loss_fn``). The
-    gradients of ``sharding.PARTIAL_OVER_MODEL`` are summed over "model"
-    (f32), every gradient averaged over the data axes, and the global norm
-    counts each element once.
+    gradients each rank holds a part of (``sharding.partial_over_model``)
+    are summed over "model" (f32), every gradient averaged over the data
+    axes, and the global norm counts each element once.
 
     Either way the math is the reference's step on the global batch: its
     MoE routes each data shard's tokens on their own (``activation_specs``'
@@ -300,16 +301,23 @@ def make_sharded_serve_step(cfg: ModelConfig, mesh, global_batch: int):
     "model": the twin of the prefill and decode programs the reference's
     dry run lowers on its mesh (``repro/launch/dryrun.py``).
 
-    Both take the rank's stored blocks (``param_specs``) and gather them
-    over the data axes. ``prefill(params, batch)`` -> this rank's
-    vocabulary rows of the logits (b / dp, s, V / tp), its batch shard's
-    (``batch_specs``), through the flash kernel on the rank's heads.
-    ``decode(params, state, tokens)`` -> (logits, state):
-    one token against ``state`` from ``init_decode_state(cfg, b / dp,
-    max_len, model=mesh.axis("model"))``, its kv heads cut over "model"
-    (``decode_state_specs``). A batch that does not divide over the data
-    axes (``decode_state_specs`` cuts the cache by length then) raises
-    ``NotImplementedError``, as the families ``model_view`` refuses do."""
+    The families are those ``sharding.model_view`` admits: the attention
+    families, recurrentgemma-2b (RG-LRU, and windowed attention whose one
+    kv head does not divide) and xlstm-1.3b (mLSTM, sLSTM). Both take the
+    rank's stored blocks (``param_specs``) and gather them over the data
+    axes. ``prefill(params, batch)`` -> this rank's vocabulary rows of the
+    logits (b / dp, s, V / tp), its batch shard's (``batch_specs``),
+    through the flash kernel on the rank's query heads.
+    ``decode(params, state, tokens)`` -> (logits, state): one token against
+    ``state`` from ``init_decode_state(cfg, b / dp, max_len,
+    model=mesh.axis("model"))``, cut as ``decode_state_specs`` cuts it:
+    the kv heads over "model" where they divide, else the cache's length;
+    the recurrent states' channels and heads. ``model_view``'s refusals
+    raise ``NotImplementedError`` (a frontend, a tied head, query, mLSTM
+    or sLSTM heads that do not divide), as does a batch that does not
+    divide over the data axes (``decode_state_specs`` then cuts the cache
+    by length over the data axes too) and a ring that does not divide over
+    "model" (``init_decode_state``)."""
     shape = shd.MeshShape.from_mesh(mesh)
     if shd.dp_shards(cfg, shape, global_batch) != math.prod(
             shape.shape[a] for a in shd.dp_axes(shape)):

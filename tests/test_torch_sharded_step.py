@@ -72,6 +72,8 @@ def _rank(rank, world, dev, work):
     ax.all_reduce_(torch.ones(10))
     ax.all_gather(torch.ones(6))
     ax.exchange(torch.ones(3), [1 - ax.index])
+    out["scattered"] = ax.reduce_scatter(torch.arange(8.0).reshape(2, 4),
+                                         dim=1)
     out["counter"] = dict(ax.wire_bytes)
     ax.wire_bytes = {k: 0.0 for k in ax.wire_bytes}
     opt = AdamWConfig(warmup_steps=1)
@@ -219,7 +221,12 @@ def test_wire_counter_uses_the_reference_factors(sharded):
     for r in ranks:
         assert r["counter"] == {"all-reduce": 2 * 1 / 2 * 40,
                                 "all-gather": 1 / 2 * 2 * 24,
+                                "reduce-scatter": 1 / 2 * 32,
                                 "collective-permute": 12.0}
+        # the sum over both data ranks, this rank's half of the columns
+        half = 2 * torch.arange(8.0).reshape(2, 4)
+        col = r["coords"]["data"] * 2
+        assert torch.equal(r["scattered"], half[:, col:col + 2])
 
 
 def test_restore_recuts_the_2x2_save_onto_4x1(sharded):

@@ -4,11 +4,17 @@
 One spawn of 4 gloo ranks lays a (2, 2) ("data", "model") mesh out. Each
 rank holds its blocks of the parameters (``models/sharding.shard_tree`` by
 ``param_specs``) and, for reduced h2o-danube-1.8b (sliding window),
-qwen2-7b (qkv bias, GQA) and phi3.5-moe (experts over "model", capacity
-MOE_CF so that routing drops pairs), runs
-``make_sharded_value_and_grad(split_model=True)`` at each remat, the
-unsplit route (``split_model=False``), one split AdamW step, and
-``make_sharded_serve_step``'s prefill and DECODE_STEPS decode steps.
+qwen2-7b (qkv bias, GQA), phi3.5-moe (experts over "model", capacity
+MOE_CF so that routing drops pairs), recurrentgemma-2b (RG-LRU, and a
+windowed attention whose one kv head does not divide: window RING, so that
+decode wraps the ring and a rank's slots start empty) and xlstm-1.3b
+(mLSTM, sLSTM; widened to XLSTM_D so that 4 mLSTM and 2 sLSTM heads
+divide), runs ``make_sharded_value_and_grad(split_model=True)`` at each
+remat, the unsplit route (``split_model=False``), one split AdamW step, and
+``make_sharded_serve_step``'s prefill and ``DECODE_STEPS`` decode steps.
+The same ranks then lay (1, 4) out for the QUAD cases (qwen2-7b's 2 kv
+heads, xlstm's whole sLSTM FFN leaves), check the new collective's
+gradient and lay a mesh over two of them.
 
 Held: the loss against one process's ``loss_fn`` on the global batch (its
 MoE routed per data shard, ``act_specs["moe"]["n_dp"]`` = 2, as the split
@@ -18,9 +24,10 @@ the three remats' gradients bit for bit; the norms' gradients and the MoE
 routes equal on the model ranks of a data shard; the prefill's and
 decode's logits against one process's ``forward`` / ``decode_step``; the
 wire bytes a rank counted equal to ``roofline.step_wire_bytes`` exactly,
-and the model axis's all-reduces: as many under ``"names"`` as under
-``False``, more under ``True``. The families and meshes the split does not
-cover raise.
+and the model axis's all-reduces: as many more under ``"names"`` than
+under ``False`` as the mixers run inside their spans (mLSTM's gate sum),
+and under ``True`` the forward's again. The families and meshes the split
+does not cover raise.
 
 The ranks start by ``spawn`` and import this module: it imports no JAX at
 module level. Tolerances: F32_TOL relative (f32 sums in another order:
@@ -32,6 +39,7 @@ gradient, so elements whose gradient is ~0 flip with the summation order.
 """
 import dataclasses
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -49,22 +57,37 @@ from repro_torch.optim.adamw import AdamWConfig
 
 F32_TOL = 2e-5
 SERVE_TOL = 1e-5
-SPLIT = ("h2o-danube-1.8b", "qwen2-7b", "phi3.5-moe-42b-a6.6b")
-UNSPLIT = ("recurrentgemma-2b", "xlstm-1.3b", "paligemma-3b",
-           "musicgen-medium")
+SPLIT = ("h2o-danube-1.8b", "qwen2-7b", "phi3.5-moe-42b-a6.6b",
+         "recurrentgemma-2b", "xlstm-1.3b")
+UNSPLIT = ("paligemma-3b", "musicgen-medium")
 REMATS = (False, True, "names")
 MESH = (("data", 2), ("model", 2))
-SB, SS, DECODE_STEPS = 4, 16, 4
+KV_MESH = (("data", 1), ("model", 4))
+# on KV_MESH: qwen2's 2 kv heads over 4 (the cache cut by length), and
+# xlstm at width 1024, whose sLSTM FFN (f = 1365) keeps w_ffn_up and
+# w_ffn_down whole over 4: each rank reads its part of them
+QUAD = {"kv_heads": ("qwen2-7b", {}),
+        "whole_ffn": ("xlstm-1.3b", {"d_model": 1024})}
+SB, SS = 4, 16
+DECODE_STEPS = {"recurrentgemma-2b": 12}      # past the ring's wrap
 MOE_CF = 0.5
+RING = 8                        # recurrentgemma's window: a ring of 8 slots
+XLSTM_D = 256                   # 4 mLSTM heads, 2 sLSTM heads of 128
 N_DP = {"moe": {"n_dp": 2}}     # one process routing as the data shards do
 
 
-def _cfg(configs, aid):
-    cfg = configs.reduced_config(configs.get_arch(aid))
+def _cfg(configs, aid, **over):
+    over = over or {"recurrentgemma-2b": {"window": RING},
+                    "xlstm-1.3b": {"d_model": XLSTM_D}}.get(aid, {})
+    cfg = configs.reduced_config(configs.get_arch(aid), **over)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=MOE_CF))
     return cfg
+
+
+def _steps(aid) -> int:
+    return DECODE_STEPS.get(aid, 4)
 
 
 def _counters(mesh):
@@ -146,7 +169,7 @@ def _rank(rank, world, dev, work):
         state = tt.init_decode_state(cfg, SB // 2, SS, device=dev,
                                      model=mesh.axis("model"))
         res["decode"], res["decode_wire"] = [], []
-        for t in range(DECODE_STEPS):
+        for t in range(_steps(aid)):
             before = _counters(mesh)
             logits, state = decode(params, state,
                                    local["tokens"][:, t:t + 1])
@@ -154,6 +177,87 @@ def _rank(rank, world, dev, work):
             res["decode"].append(logits)
         out[aid] = res
     moe.route = inner
+    out["quad"] = _quad_ranks(dev, work)
+    out["collective"] = _collective_grads(mesh)
+    out["sub"] = _sub_mesh(rank, dev)
+    return out
+
+
+def _sub_mesh(rank, dev):
+    """Global ranks 1 and 3 laid out as a model axis of 2 (every rank
+    makes the groups): the sum over it of each member's rank, reduced and
+    reduce-scattered; ``None`` on the others."""
+    from repro_torch.launch.mesh import make_mesh
+    sub = make_mesh((("data", 1), ("model", 2)), device=dev, ranks=[1, 3])
+    if sub is None:
+        return None
+    ax = sub.axis("model")
+    return {"coords": sub.coords, "ranks": ax.ranks,
+            "sum": float(ax.all_reduce_(torch.tensor([float(rank)]))[0]),
+            "scattered": ax.reduce_scatter(torch.full((4,), float(rank)))}
+
+
+def _quad_ranks(dev, work):
+    """Each QUAD case on KV_MESH: a train value and gradient, the prefill
+    and decode, with the wire bytes of each."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.step import (make_sharded_serve_step,
+                                        make_sharded_value_and_grad)
+    mesh = make_mesh(KV_MESH, device=dev)
+    shape = shd.MeshShape.from_mesh(mesh)
+    out = {}
+    for case, (aid, over) in QUAD.items():
+        cfg = _cfg(tcfg, aid, **over)
+        full = torch.load(os.path.join(work, f"{case}.pt"))
+        batch = torch.load(os.path.join(work, f"{case}_batch.pt"))
+        pspecs = shd.param_specs(full, cfg, shape)
+        params = shd.shard_tree(full, pspecs, shape, mesh.coords)
+        before = _counters(mesh)
+        loss, grads, gnorm = make_sharded_value_and_grad(
+            cfg, mesh, global_batch=SB, split_model=True)(params, batch)
+        res = {"coords": mesh.coords, "loss": float(loss),
+               "grad_norm": float(gnorm), "wire": _since(mesh, before),
+               "grads": shd.gather_tree(grads, pspecs, mesh)}
+        prefill, decode = make_sharded_serve_step(cfg, mesh, SB)
+        before = _counters(mesh)
+        res["prefill"] = prefill(params, {"tokens": batch["tokens"]})
+        res["prefill_wire"] = _since(mesh, before)
+        state = tt.init_decode_state(cfg, SB, SS, device=dev,
+                                     model=mesh.axis("model"))
+        names, leaves, _ = _tree.flatten_with_names(state["caches"])
+        res["cache_shapes"] = {n.lstrip("/"): tuple(x.shape)
+                               for n, x in zip(names, leaves)}
+        res["decode"], res["decode_wire"] = [], []
+        for t in range(_steps(aid)):
+            before = _counters(mesh)
+            logits, state = decode(params, state,
+                                   batch["tokens"][:, t:t + 1])
+            res["decode_wire"].append(_since(mesh, before))
+            res["decode"].append(logits)
+        out[case] = res
+    return out
+
+
+def _collective_grads(mesh):
+    """The gradient a model rank gets for its block x of X (4, 6) through
+    ``gather_summed_from_model`` and through ``gather_from_model``, where
+    each rank's consumer of the whole differs: loss_r = sum(whole * (r +
+    1) W). The whole loss sums both ranks', so X's gradient is 3 W."""
+    from repro_torch.launch.mesh import (gather_from_model,
+                                         gather_summed_from_model)
+    ax = mesh.axis("model")
+    gen = torch.Generator().manual_seed(7)
+    big_x, w = torch.randn(4, 6, generator=gen), torch.randn(4, 6,
+                                                             generator=gen)
+    out = {"index": ax.index}
+    for name, fn in (("summed", gather_summed_from_model),
+                     ("plain", gather_from_model)):
+        x = big_x[:, 3 * ax.index:3 * ax.index + 3].clone().requires_grad_()
+        whole = fn(x, ax, dim=-1)
+        (whole * (ax.index + 1) * w).sum().backward()
+        out[name] = x.grad
+    out["want"] = (3 * w)[:, 3 * ax.index:3 * ax.index + 3]
+    out["whole_equal"] = torch.equal(whole.detach(), big_x)
     return out
 
 
@@ -198,13 +302,37 @@ def split(tmp_path_factory):
                                 act_specs=N_DP)
             state = tt.init_decode_state(tc, SB, SS, device="cpu")
             steps = []
-            for t in range(DECODE_STEPS):
+            for t in range(_steps(aid)):
                 lg, state = tt.decode_step(
                     params, state, batch["tokens"][:, t:t + 1], tc,
                     act_specs=N_DP)
                 steps.append(lg)
         one[aid] = {"cfg": tc, "ref_loss": ref_loss, "loss": float(loss),
                     "grads": grads, "prefill": logits, "decode": steps}
+    for case, (aid, over) in QUAD.items():
+        tc = _cfg(tcfg, aid, **over)
+        if not over:                # the (2, 2) run's model and batch
+            for end in (".pt", "_batch.pt"):
+                shutil.copy(os.path.join(work, aid + end),
+                            os.path.join(work, case + end))
+            one[case] = one[aid]
+            continue
+        params = tt.init_params(torch.Generator().manual_seed(0), tc,
+                                device="cpu")
+        batch = make_lm_batch(tc, 0, 0, SB, SS, device="cpu")
+        torch.save(params, os.path.join(work, f"{case}.pt"))
+        torch.save(batch, os.path.join(work, f"{case}_batch.pt"))
+        loss, grads = _value_and_grad(params, batch, tc)
+        with torch.inference_mode():
+            logits = tt.forward(params, {"tokens": batch["tokens"]}, tc)
+            state = tt.init_decode_state(tc, SB, SS, device="cpu")
+            steps = []
+            for t in range(_steps(aid)):
+                lg, state = tt.decode_step(
+                    params, state, batch["tokens"][:, t:t + 1], tc)
+                steps.append(lg)
+        one[case] = {"cfg": tc, "ref_loss": None, "loss": float(loss),
+                     "grads": grads, "prefill": logits, "decode": steps}
     ranks = spawn_ranks(_rank, 4, backend="gloo", device="cpu",
                         args=(work,))
     return ranks, one
@@ -316,7 +444,8 @@ def test_serve_prefill_and_decode_match_one_process(split, aid):
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= SERVE_TOL * float(
         want.abs().max())
-    for t in range(DECODE_STEPS):
+    assert len(o["decode"]) == _steps(aid)
+    for t in range(_steps(aid)):
         got = _assemble(ranks, lambda r: r[aid]["decode"][t])
         want = o["decode"][t]
         assert float((got - want).abs().max()) <= SERVE_TOL * float(
@@ -326,8 +455,9 @@ def test_serve_prefill_and_decode_match_one_process(split, aid):
 @pytest.mark.parametrize("aid", SPLIT)
 def test_split_wire_bytes_equal_step_wire_bytes(split, aid):
     """Each rank's counted bytes equal the plan exactly, at each remat;
-    the model axis runs as many all-reduces under "names" as under False,
-    and more under True (the forward's again)."""
+    the model axis runs as many more all-reduces under "names" than under
+    False as its mixers run inside their spans (mLSTM's gate sum), and
+    under True the forward's again."""
     ranks, one = split
     cfg = one[aid]["cfg"]
     mesh = shd.MeshShape.of(*MESH)
@@ -343,12 +473,15 @@ def test_split_wire_bytes_equal_step_wire_bytes(split, aid):
                     assert wire[a][0][kind] == want[a][kind], (remat, a, kind)
                 assert wire[a][0]["collective-permute"] == 0.0
             calls[remat] = wire["model"][1]["all-reduce"]
-        assert calls["names"] == calls[False] < calls[True]
-    blocks = cfg.n_layers
+        assert calls[False] < calls[True]
+    pattern = cfg.pattern_for_layers() * cfg.n_groups
+    spans = pattern.count("mlstm")
+    fwd = sum(1 + int(tt.block_has_ffn(cfg, kind)) for kind in pattern)
     plain = roofline.step_wire_bytes(cfg, shape, mesh)
     split_ = roofline.step_wire_bytes(cfg, shape, mesh, split_model=True)
     assert split_["data"]["all-gather"] < plain["data"]["all-gather"]
-    assert calls[True] - calls[False] == 2 * blocks
+    assert calls["names"] - calls[False] == spans
+    assert calls[True] - calls[False] == fwd + spans
 
 
 @pytest.mark.parametrize("aid", SPLIT)
@@ -372,16 +505,163 @@ def test_serve_wire_bytes_equal_step_wire_bytes(split, aid):
                         assert wire[a][0][k] == want[k], (kind, a, k)
 
 
+@pytest.mark.parametrize("case", QUAD)
+def test_split_on_a_model_axis_of_4(split, case):
+    """QUAD on (1, 4). kv_heads: qwen2-7b's 2 kv heads over 4, each rank's
+    query head reading its kv head gathered whole, the decode cache cut by
+    length (4 of 16 slots a rank, three ranks empty at the first step).
+    whole_ffn: xlstm's sLSTM FFN leaves stored whole over "model", each
+    rank reading its part (their gradients summed). The loss (and the
+    reference's), the gradients, the prefill and the decode against one
+    process, the wire bytes against the plan."""
+    ranks, one = split
+    o = one[case]
+    cfg = o["cfg"]
+    mesh = shd.MeshShape.of(*KV_MESH)
+    specs = shd.param_specs(tt.init_params(None, cfg, device="meta"), cfg,
+                            mesh)
+    plans = {kind: roofline.step_wire_bytes(
+        cfg, ShapeConfig(kind, SS, SB, kind), mesh, split_model=True)
+        for kind in ("train", "prefill", "decode")}
+    if case == "kv_heads":
+        assert plans["decode"]["model"]["all-gather"] > plans["decode"][
+            "data"]["all-gather"] == 0
+    else:
+        blk = specs["groups"]["blk1_slstm"]["mixer"]
+        assert not shd.has_model(blk["w_ffn_up"])
+        assert not shd.has_model(blk["w_ffn_down"])
+    want_norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in
+                                     _tree.tree_leaves(o["grads"]))))
+    res = [r["quad"][case] for r in ranks]
+    assert sorted(r["coords"]["model"] for r in res) == [0, 1, 2, 3]
+    for r in res:
+        if case == "kv_heads":
+            assert r["cache_shapes"]["blk0_attn/k"] == (
+                cfg.n_groups, SB, cfg.n_kv_heads, SS // 4, cfg.hd)
+            np.testing.assert_allclose(r["loss"], o["ref_loss"],
+                                       rtol=F32_TOL)
+        np.testing.assert_allclose(r["loss"], o["loss"], rtol=F32_TOL)
+        np.testing.assert_allclose(r["grad_norm"], want_norm, rtol=F32_TOL)
+        errs = _leaf_errs(r["grads"], o["grads"])
+        assert max(errs.values()) <= F32_TOL, sorted(
+            errs.items(), key=lambda kv: -kv[1])[:3]
+        for kind, wires in (("train", [r["wire"]]),
+                            ("prefill", [r["prefill_wire"]]),
+                            ("decode", r["decode_wire"])):
+            for wire in wires:
+                for a, want in plans[kind].items():
+                    for k in want:
+                        assert wire[a][0][k] == want[k], (kind, a, k)
+    by_model = sorted(res, key=lambda r: r["coords"]["model"])
+    got = torch.cat([r["prefill"] for r in by_model], -1)
+    assert float((got - o["prefill"]).abs().max()) <= SERVE_TOL * float(
+        o["prefill"].abs().max())
+    assert len(o["decode"]) == len(res[0]["decode"])
+    for t in range(len(o["decode"])):
+        got = torch.cat([r["decode"][t] for r in by_model], -1)
+        want = o["decode"][t]
+        assert float((got - want).abs().max()) <= SERVE_TOL * float(
+            want.abs().max())
+
+
+@pytest.mark.parametrize("route", ["summed", "plain"])
+def test_gather_summed_gradient_is_the_unsplit_gradient(split, route):
+    """``gather_summed_from_model``'s gradient is the unsplit one (each
+    rank's consumer of the gathered whole differs); ``gather_from_model``
+    in its place gives each rank only its own consumer's share, off by
+    about half: the check that would catch it."""
+    ranks, _ = split
+    for r in ranks:
+        c = r["collective"]
+        assert c["whole_equal"]
+        err = float((c[route] - c["want"]).abs().max())
+        if route == "summed":
+            assert err <= F32_TOL * float(c["want"].abs().max())
+        else:
+            assert err > 0.3 * float(c["want"].abs().max())
+
+
+def test_partial_product_is_the_f32_product_of_bf16_parts():
+    """``partial_product`` of bf16 blocks under a split: the f32 product
+    of the bf16 values (unrounded, for the f32 sum over "model"), with the
+    gradients of the bf16 ``a @ w``; unsplit or in f32, ``a @ w`` itself."""
+    from repro_torch.launch.mesh import partial_product
+    gen = torch.Generator().manual_seed(5)
+    a32, w32 = torch.randn(3, 5, 16, generator=gen), torch.randn(
+        16, 8, generator=gen)
+    a, w = a32.bfloat16().requires_grad_(), w32.bfloat16().requires_grad_()
+    got = partial_product(a, w, _Axis(2))
+    assert got.dtype == torch.float32
+    assert torch.equal(got, a.detach().float() @ w.detach().float())
+    g = torch.randn(got.shape, generator=gen)
+    ga, gw = torch.autograd.grad(got, (a, w), g)
+    a2, w2 = a.detach().requires_grad_(), w.detach().requires_grad_()
+    wa, ww = torch.autograd.grad(a2 @ w2, (a2, w2), g.bfloat16())
+    assert ga.dtype == torch.bfloat16 and torch.equal(ga, wa)
+    assert torch.equal(gw, ww)
+    assert partial_product(a, w, None).dtype == torch.bfloat16
+    assert torch.equal(partial_product(a32, w32, _Axis(2)), a32 @ w32)
+
+
+def test_make_mesh_over_some_ranks(split):
+    """``make_mesh(..., ranks=)`` lays out only the given global ranks
+    (the others get ``None``), and its collectives run over them alone."""
+    ranks, _ = split
+    subs = {r["coords"]["data"] * 2 + r["coords"]["model"]: r["sub"]
+            for r in ranks}
+    assert subs[0] is None and subs[2] is None
+    for g, m in ((1, 0), (3, 1)):
+        assert subs[g]["coords"] == {"data": 0, "model": m}
+        assert subs[g]["ranks"] == (1, 3) and subs[g]["sum"] == 4.0
+        assert torch.equal(subs[g]["scattered"], torch.full((2,), 4.0))
+
+
+class _Axis:
+    """A model axis's size and this rank's index, for planning."""
+
+    def __init__(self, size, index=0):
+        self.size, self.index = size, index
+
+
+@pytest.mark.parametrize("aid", SPLIT + tuple(QUAD))
+def test_decode_state_is_the_dry_run_plan(aid):
+    """``init_decode_state(model=)`` allocates exactly the dry run's
+    per-rank decode-state plan (``decode_state_specs``) on each model
+    rank: the kv heads, or the cache's length where they do not divide,
+    and the recurrent states' channels and heads."""
+    from repro_torch.launch import dryrun
+    if aid in QUAD:
+        cfg, sizes = _cfg(tcfg, QUAD[aid][0], **QUAD[aid][1]), KV_MESH
+    else:
+        cfg, sizes = _cfg(tcfg, aid), MESH
+    mesh = shd.MeshShape.of(*sizes)
+    tp, dp = mesh.shape["model"], mesh.shape["data"]
+    plan = dryrun.memory_plan(cfg, ShapeConfig("decode", SS, SB, "decode"),
+                              mesh, AdamWConfig())["decode_state"]
+    for m in range(tp):
+        state = tt.init_decode_state(cfg, SB // dp, SS, device="meta",
+                                     model=_Axis(tp, m))
+        leaves = [x for x in _tree.tree_leaves(state)
+                  if isinstance(x, torch.Tensor)]
+        got = sum(x.numel() * x.element_size() for x in leaves)
+        assert got == plan["bytes"], (m, got, plan)
+        assert sum(dryrun._alloc(x.numel() * x.element_size())
+                   for x in leaves) == plan["alloc"]
+
+
 @pytest.mark.parametrize("aid", SPLIT)
 def test_model_view_blocks_are_the_sharded_leaves(aid):
-    """The view's head, kv head, FFN, expert and vocabulary blocks are
-    the rank's blocks of the leaves after the data-axis gather."""
+    """The view's head, kv head, FFN, expert, channel, recurrent head and
+    vocabulary blocks are the rank's blocks of the leaves after the
+    data-axis gather (the kv heads a rank reads, where they do not
+    divide)."""
+    from repro_torch.models.recurrent import MLSTM_HEAD_DIM
     cfg = _cfg(tcfg, aid)
     mesh = shd.MeshShape.of(*MESH)
     params = tt.init_params(None, cfg, device="meta")
     specs = shd.param_specs(params, cfg, mesh)
     dspecs = shd.data_specs(specs, mesh)
-    blk = f"blk0_{cfg.pattern_for_layers()[0]}"
+    pattern = cfg.pattern_for_layers()
 
     def model_block(*path):
         """A leaf's shape after the data-axis gather: cut by "model"."""
@@ -391,26 +671,61 @@ def test_model_view_blocks_are_the_sharded_leaves(aid):
         return shd.local_shape(leaf.shape, tuple(
             "model" if shd.has_model((e,)) else None for e in spec), mesh)
 
-    mixer, ffn = ("groups", blk, "mixer"), ("groups", blk, "ffn")
+    def width(r):
+        return r[1] - r[0]
+
     for m in range(2):
         view = shd.model_view(cfg, mesh, m)
         assert view.tp == 2 and view.embed_pieces == 2
-        width = lambda r: r[1] - r[0]
-        assert view.heads == (m * cfg.n_heads // 2,
-                              (m + 1) * cfg.n_heads // 2)
-        assert model_block(*mixer, "wq")[-1] == width(view.heads) * cfg.hd
-        assert model_block(*mixer, "wk")[-1] == width(view.kv_heads) * cfg.hd
-        assert model_block(*mixer, "wo")[1] == width(view.heads) * cfg.hd
         assert view.vocab == (m * cfg.vocab_size // 2,
                               (m + 1) * cfg.vocab_size // 2)
         assert model_block("lm_head")[-1] == width(view.vocab)
-        if cfg.moe is None:
-            assert model_block(*ffn, "w_up")[-1] == width(view.ffn_cols)
-            assert view.experts is None
-        else:
-            assert view.experts == (m * cfg.moe.n_experts // 2,
-                                    (m + 1) * cfg.moe.n_experts // 2)
-            assert model_block(*ffn, "w_up")[1] == width(view.experts)
+        for i, kind in enumerate(pattern):
+            mixer = ("groups", f"blk{i}_{kind}", "mixer")
+            ffn = ("groups", f"blk{i}_{kind}", "ffn")
+            if kind in ("attn", "swa"):
+                assert view.heads == (m * cfg.n_heads // 2,
+                                      (m + 1) * cfg.n_heads // 2)
+                assert model_block(*mixer, "wq")[-1] == \
+                    width(view.heads) * cfg.hd
+                assert model_block(*mixer, "wo")[1] == \
+                    width(view.heads) * cfg.hd
+                if view.kv_cut:
+                    assert model_block(*mixer, "wk")[-1] == \
+                        width(view.kv_heads) * cfg.hd
+                else:           # a column block of every kv head
+                    assert view.kv_heads == shd.kv_read(
+                        cfg.n_heads, cfg.n_kv_heads, view.heads)
+                    assert model_block(*mixer, "wk")[-1] == \
+                        cfg.n_kv_heads * cfg.hd // 2
+            elif kind == "rglru":
+                assert view.channels == (m * cfg.d_model // 2,
+                                         (m + 1) * cfg.d_model // 2)
+                for k in ("w_in", "w_gate_in", "w_rgate", "w_igate"):
+                    assert model_block(*mixer, k)[-1] == width(view.channels)
+                assert model_block(*mixer, "w_out")[1] == \
+                    width(view.channels)
+            elif kind == "mlstm":
+                assert width(view.mlstm_heads) == 2
+                for k in ("w_up", "w_gate"):
+                    assert model_block(*mixer, k)[-1] == \
+                        width(view.mlstm_heads) * MLSTM_HEAD_DIM
+                assert model_block(*mixer, "w_q")[1] == \
+                    width(view.mlstm_heads)
+            elif kind == "slstm":
+                assert width(view.slstm_heads) == 1
+                assert model_block(*mixer, "r_gates")[1] == 1
+                # gate-major: a rank stores two of the four gates
+                assert model_block(*mixer, "w_gates")[-1] == 2 * cfg.d_model
+            if not tt.block_has_ffn(cfg, kind):
+                continue
+            if cfg.moe is None:
+                assert model_block(*ffn, "w_up")[-1] == width(view.ffn_cols)
+                assert view.experts is None
+            else:
+                assert view.experts == (m * cfg.moe.n_experts // 2,
+                                        (m + 1) * cfg.moe.n_experts // 2)
+                assert model_block(*ffn, "w_up")[1] == width(view.experts)
     assert dspecs["embed"] == (None, "data")
     assert dspecs["lm_head"] == ("data", None)
 
@@ -423,8 +738,9 @@ def _fake_mesh(sizes):
 
 @pytest.mark.parametrize("aid", UNSPLIT)
 def test_split_refused_for_the_unsplit_families(aid):
-    """The four families the split does not cover raise when it is asked
-    for, naming the ROADMAP item; none takes another route."""
+    """The two families the split does not cover (their frontends) raise
+    when it is asked for, naming the ROADMAP item; none takes another
+    route."""
     from repro_torch.train.step import (make_sharded_serve_step,
                                         make_sharded_train_step)
     cfg = tcfg.reduced_config(tcfg.get_arch(aid))
@@ -437,21 +753,38 @@ def test_split_refused_for_the_unsplit_families(aid):
         make_sharded_serve_step(cfg, _fake_mesh(MESH), SB)
 
 
-@pytest.mark.parametrize("case", ["kv_heads", "tied", "batch"])
+@pytest.mark.parametrize("case", ["q_heads", "kv_groups", "mlstm_heads",
+                                  "slstm_heads", "tied", "batch", "ring"])
 def test_split_refused_where_it_does_not_divide(case):
-    """kv heads that do not divide over "model" (2 over 4), a tied head,
-    and a serving batch that does not divide over "data" raise."""
+    """Query heads that do not divide over "model" (6 over 4), a rank's
+    query heads that would read parts of two kv heads (6 / 3 over 2),
+    mLSTM heads (xlstm at width 64: one head) or sLSTM heads (width 384: 3
+    over 2) that do not divide, a tied head, a serving batch that does not
+    divide over "data", and a ring cut by length that does not divide over
+    "model" raise."""
     from repro_torch.train.step import (make_sharded_serve_step,
                                         make_sharded_train_step)
     cfg = _cfg(tcfg, "qwen2-7b")
     sizes = MESH
-    if case == "kv_heads":
-        sizes = (("data", 1), ("model", 4))
+    if case == "q_heads":
+        cfg = dataclasses.replace(cfg, n_heads=6, n_kv_heads=2)
+        sizes = KV_MESH
+    elif case == "kv_groups":
+        cfg = dataclasses.replace(cfg, n_heads=6, n_kv_heads=3)
+    elif case in ("mlstm_heads", "slstm_heads"):
+        cfg = tcfg.reduced_config(tcfg.get_arch("xlstm-1.3b"), d_model={
+            "mlstm_heads": 64, "slstm_heads": 384}[case])
     elif case == "tied":
         cfg = dataclasses.replace(cfg, tie_embeddings=True)
+    elif case == "ring":
+        cfg = _cfg(tcfg, "recurrentgemma-2b")
+        cfg = dataclasses.replace(cfg, window=RING - 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if case == "batch":
             make_sharded_serve_step(cfg, _fake_mesh(sizes), SB + 1)
+        elif case == "ring":
+            tt.init_decode_state(cfg, SB // 2, SS, device="meta",
+                                 model=_Axis(2))
         else:
             make_sharded_train_step(cfg, AdamWConfig(), _fake_mesh(sizes),
                                     global_batch=SB, split_model=True)

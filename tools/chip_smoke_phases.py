@@ -1,13 +1,16 @@
 """Run some of chip_smoke.py's training phases alone on the card.
 
     python3 tools/chip_smoke_phases.py [tp_step] [remat] [tp_serve]
+        [tp_recurrent] [tp_recurrent_serve]
 
-Builds the kernels, then runs the named phases (default: all three) with
+Builds the kernels, then runs the named phases (default: all five) with
 chip_smoke.py's own functions and prints their JSON lines: ``tp_step``
-runs ``sharded_step`` first (its ranks run both routes), ``tp_serve``
-ends with the ``kernels`` line of the rows it timed. A failed check is
-printed and the next phase still runs; the exit code is 1 if any check or
-phase failed, 2 where there is no card.
+and ``tp_recurrent`` run ``sharded_step`` first (its ranks run both
+routes and the recurrent families' split, one spawn for all three),
+``tp_serve`` and ``tp_recurrent_serve`` run tp_serve's ranks (one spawn
+for both); the ``kernels`` line of the rows they timed comes last. A
+failed check is printed and the next phase still runs; the exit code is 1
+if any check or phase failed, 2 where there is no card.
 """
 import sys
 import time
@@ -17,7 +20,8 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PHASES = ("tp_step", "remat", "tp_serve")
+PHASES = ("tp_step", "remat", "tp_serve", "tp_recurrent",
+          "tp_recurrent_serve")
 
 
 def main() -> None:
@@ -47,14 +51,21 @@ def main() -> None:
     cs.emit({"phase": "build", "seconds": time.perf_counter() - t0})
     rows = {}
     record = cs.make_record(rows)
+    sharded, served = None, False
     for name in which:
         t0 = time.perf_counter()
         try:
-            if name == "tp_step":
-                cs.tp_step_phase(dev, card, cs.sharded_step_phase(dev, card))
+            if name in ("tp_step", "tp_recurrent"):
+                if sharded is None:
+                    sharded = cs.sharded_step_phase(dev, card)
+                if name == "tp_step":
+                    cs.tp_step_phase(dev, card, sharded)
+                else:
+                    cs.tp_recurrent_phase(dev, card, sharded)
             elif name == "remat":
                 cs.remat_phase(dev, card)
-            else:
+            elif not served:        # tp_serve runs tp_recurrent_serve too
+                served = True
                 cs.tp_serve_phase(dev, rows, record, card)
         except Exception as e:      # the next phase still runs
             traceback.print_exc()
