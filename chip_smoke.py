@@ -236,9 +236,11 @@ weights from torch.Generator seed 0 at the reference's init scales:
   256, k/v 2 x 1 heads, window 2048; its library yardstick is SDPA with
   GQA and the band as an explicit mask, SDPA having no window argument)
   and paligemma-3b's (q 4 x 8 x 2048 x 256, k/v 4 x 1 heads, causal; SDPA
-  causal, GQA); and the f32 kernel at (1, 10 / 1, 1024, 256), off the main
-  path; with ptxas's registers and spills and the HGMMA count of the hd-256
-  instantiations.
+  causal, GQA); at head dim 64, musicgen-medium's (q, k, v 4 x 24 x 2048
+  x 64, causal; row ``flash_attention_hd64_musicgen``, which takes
+  lm_frontends' 48 musicgen launches); and the f32 kernel at (1, 10 / 1,
+  1024, 256), off the main path; with ptxas's registers and spills and the
+  HGMMA count of the hd-256 instantiations.
 * ``lm_hybrid``: recurrentgemma-2b (arXiv:2402.19427) at full width and
   depth (26 layers, d_model 2560, 10 / 1 heads of 256, window 2048, d_ff
   7680, vocabulary 256,000), a prefill of 2 x 4096 tokens (the window
@@ -396,15 +398,50 @@ power limit and the memory it plans beside the peak it read:
   reduce-scatters), the first loss and grad norm within TP_LOSS_TOL /
   TP_GNORM_TOL of one process's (``one_process``); ms, staged bytes and
   peak memory.
+* ``tp_frontends``: the same for the VLM and audio frontends, run by
+  sharded_step's ranks after tp_recurrent: paligemma-3b at 6 of 18 layers
+  (its 256 patch positions from make_lm_batch's seed 0, spliced over the
+  activations gathered over "model"; its one kv head gathered) and
+  musicgen-medium at 8 of 48 layers (4 codebook tables summed on a rank's
+  pieces and gathered once; a head of 4 x 2048 columns, 2 codebooks a
+  rank; the loss reduced a codebook at a time over "model"), 4 x 1024
+  each, one step: stored bytes and wire bytes equal to the plan, the first
+  loss and grad norm within TP_LOSS_TOL / TP_GNORM_TOL of one process's;
+  ms, staged bytes and peak memory.
+* ``tp_long_decode``: a batch of 1, which does not divide over "data",
+  decoded teacher-forced from a fresh state by sharded_step's ranks after
+  tp_frontends (``tp_long_rank``), each data rank the whole batch:
+  h2o-danube-1.8b at 4 layers (its 8 kv heads over "model", its 8-slot
+  ring cut by length over "data", 4 slots a rank, 6 steps),
+  recurrentgemma-2b at one 13-layer group with a 4-slot window cut over
+  ("data", "model"), a slot a rank, 5 steps past the wrap (held at
+  DECODE_TOL, TP_LONG's comment), xlstm-1.3b in f32 at 4 layers, 2 steps
+  (its states whole over "data"):
+  each rank's logits against one process's, the decode state's bytes equal
+  to the dry run's plan (the reference's long_500k specs), the wire bytes
+  of each step (the partials' gather over the length group, "data" or
+  "data+model") equal to the plan; ms and staged bytes a step.
 * ``tp_recurrent_serve``: the same cuts on tp_serve's model axis of 2, run
   by its ranks after qwen2-7b: recurrentgemma-2b's 2 x 4096 prefill
   through row 9 on 5 of 10 query heads a rank against the gathered kv head
   (row ``flash_attention_tp_window``, 4 launches a rank on the tensor
-  cores), 40 decode steps on a 32-slot ring cut by length (16 slots a
+  cores), 20 decode steps on a 16-slot ring cut by length (8 slots a
   rank, wrapped); the same in f32 at 2 x 512 and xlstm-1.3b in f32 at 2 x
   1024 with 16 steps; logits against one process (TP_REC_SERVE's
   limits), the decode state's bytes equal to the plan, the wire bytes of
   the prefill and each decode step equal to the plan.
+* ``tp_frontends_serve``: tp_frontends' cuts on tp_serve's model axis of
+  2, run by its ranks after tp_recurrent_serve: a 2 x 2048 prefill
+  (paligemma with its patch embeddings) through row 9 on 4 of paligemma's
+  8 query heads against its one gathered kv head at hd 256 (row
+  ``flash_attention_tp_vlm``) and on 12 of musicgen's 24 heads at hd 64
+  (row ``flash_attention_tp_audio``), every launch on the tensor cores,
+  then 16 teacher-forced decode steps (paligemma's 16-slot ring cut by
+  length over "model", musicgen's kv heads over "model"): the logits
+  against one process within LOGITS_TOL in bf16, the decode state's and
+  the wire bytes equal to the plan. The two rows time row 9 at those
+  shards against plain and SDPA before the spawn and take the ranks'
+  launches.
 * ``roofline``: ``launch/roofline.run_cell``'s terms on one card beside
   the measured lm_prefill, lm_decode and every new train step.
 
@@ -1180,7 +1217,8 @@ ATTN_BF16_NOTE = ("bf16: each side rounds an f32 result once; one bf16 ulp "
 def hd256_rows(dev, rows: dict, record) -> None:
     """kernels_hd256: row 9 at head dim 256, bf16 at recurrentgemma-2b's
     and paligemma-3b's prefills, f32 off the main path, with ptxas's report
-    and the HGMMA count of the hd-256 instantiations."""
+    and the HGMMA count of the hd-256 instantiations; and at head dim 64,
+    musicgen-medium's prefill."""
     from repro_torch.kernels import _build, ops
     gen = torch.Generator(device=dev).manual_seed(24)
 
@@ -1225,6 +1263,23 @@ def hd256_rows(dev, rows: dict, record) -> None:
         library="scaled_dot_product_attention, causal, GQA")
     shapes["paligemma"] = [list(q.shape), list(k.shape), None]
     del q, k, v
+    # musicgen-medium at hd 64: 24 / 24 heads, 4 x 2048 tokens, causal
+    # (lm_frontends' 48 launches)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for shape in [(4, 24, 2048, 64)] * 3)
+    record("flash_attention_hd64_musicgen", FLASH_SOURCE, FLASH_REPLACES,
+           lambda: ops.flash_attention(q, k, v, causal=True),
+           lambda: attn_plain(q, k, v, causal=True),
+           lambda: sdpa(q, k, v, is_causal=True),
+           2 * (2 * q.numel() + k.numel() + v.numel()),
+           4.0 * 4 * 24 * 64 * 2048 * 2049 / 2, ATTN_BF16_TOL,
+           ATTN_BF16_NOTE, flop_rate=BF16_TC_FLOP_PER_S,
+           judge=attn_judge(torch.bfloat16))
+    rows["flash_attention_hd64_musicgen"].update(
+        kernel="flash_attention_wgmma_kernel",
+        library="scaled_dot_product_attention, causal")
+    shapes["musicgen"] = [list(q.shape), list(k.shape), None]
+    del q, k, v
     # the CUDA-core kernel at hd 256 (f32: off the bf16 main path)
     q, k, v = inputs(torch.float32, 1, 10, 1, 1024)
     record("flash_attention_hd256_f32", FLASH_SOURCE, FLASH_REPLACES,
@@ -1255,6 +1310,7 @@ def hd256_rows(dev, rows: dict, record) -> None:
           "kernels": [rows[name] for name in (
               "flash_attention_hd256_recurrentgemma",
               "flash_attention_hd256_paligemma",
+              "flash_attention_hd64_musicgen",
               "flash_attention_hd256_f32")]})
     check(len(ptxas) == 2, f"kernels_hd256: ptxas report {list(ptxas)}")
     for name, n in hgmma.items():
@@ -1588,7 +1644,7 @@ def lm_family_phases(dev, rows: dict, record) -> None:
     lm_serve_phase("lm_frontends", get_arch("paligemma-3b"), dev, rows, 4,
                    2048, flash_row="flash_attention_hd256_paligemma")
     lm_serve_phase("lm_frontends", get_arch("musicgen-medium"), dev, rows, 4,
-                   2048)
+                   2048, flash_row="flash_attention_hd64_musicgen")
     out = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -2344,8 +2400,10 @@ TP_REC_STEPS = 1
 # tp_recurrent_serve: the same cuts on tp_serve's model axis of 2 (name,
 # arch, layers, batch, prefill length, decode steps, decode max_len, dtype):
 # a prefill, then teacher-forced decode steps from a fresh state, against
-# one process. recurrentgemma's windowed ring is max_len = 32 slots, 16 a
-# rank: 40 steps fill both ranks' ranges and wrap it. The f32 runs are
+# one process. recurrentgemma's windowed ring is max_len = 16 slots, 8 a
+# rank: 20 steps fill both ranks' ranges and wrap it (32 slots and 40
+# steps took 18.1 s of decode on an NVIDIA H100 80GB HBM3 at 700 W, where
+# the bf16 step read 305 ms and the f32 one 147 ms). The f32 runs are
 # held at LOGITS_TOL, the bf16 run at DECODE_TOL (module docstring,
 # tp_recurrent_serve): the split sums its row-parallel parts in f32 and
 # rounds once, as one process does (which took recurrentgemma's bf16 split
@@ -2357,11 +2415,54 @@ TP_REC_STEPS = 1
 # (the bf16 run's, in f32), as xlstm's does (lm_xlstm: its weights carry a
 # perturbation ~100-fold; xlstm is drawn in f32 here)
 TP_REC_SERVE = (
-    ("recurrentgemma-2b", "recurrentgemma-2b", 13, 2, 4096, 40, 32,
+    ("recurrentgemma-2b", "recurrentgemma-2b", 13, 2, 4096, 20, 16,
      "bfloat16"),
-    ("recurrentgemma-2b:f32", "recurrentgemma-2b", 13, 2, 512, 40, 32,
+    ("recurrentgemma-2b:f32", "recurrentgemma-2b", 13, 2, 512, 20, 16,
      "float32"),
     ("xlstm-1.3b", "xlstm-1.3b", 4, 2, 1024, 16, 16, "float32"))
+# tp_frontends: the split over "model" for the VLM and audio frontends at
+# full width, cut in depth: paligemma-3b at 6 of 18 layers (its 256 patch
+# positions drawn by make_lm_batch from seed 0, spliced over the gathered
+# activations), musicgen-medium at 8 of 48 layers (4 codebooks, a head of 4
+# x 2048 columns, 2 codebooks a rank): TP_REC_STEPS steps each in
+# sharded_step's ranks on (2, 2) at 4 x 1024, held to one process at
+# TP_LOSS_TOL / TP_GNORM_TOL
+TP_FRONT_TRAIN = (("paligemma-3b", 6, 4, 1024),
+                  ("musicgen-medium", 8, 4, 1024))
+# tp_frontends_serve: the same cuts on tp_serve's model axis of 2, in
+# TP_REC_SERVE's layout and its row 9 row last: a 2 x 2048 prefill (row 9
+# on 4 of paligemma's 8 query heads against its one gathered kv head, on
+# 12 of musicgen's 24 heads, hd 64), 16 teacher-forced decode steps on a
+# 16-slot ring (paligemma's cut by length over "model", musicgen's heads
+# over "model"), against one process at LOGITS_TOL in bf16
+TP_FRONT_SERVE = (
+    ("paligemma-3b", "paligemma-3b", 6, 2, 2048, 16, 16, "bfloat16",
+     "flash_attention_tp_vlm"),
+    ("musicgen-medium", "musicgen-medium", 8, 2, 2048, 16, 16, "bfloat16",
+     "flash_attention_tp_audio"))
+# tp_long_decode: a batch of 1 on sharded_step's (2, 2) (name, arch,
+# layers, window, decode max_len, steps, dtype, limit), decoded
+# teacher-forced from a fresh state through make_sharded_serve_step, each
+# data rank the whole batch: h2o-danube-1.8b at sharded_step's 4 layers
+# (its 8 kv heads over "model": an 8-slot ring cut by length over "data",
+# 4 slots a data rank, both ranks' filled in 6 steps), recurrentgemma-2b at
+# one 13-layer group (its one kv head: a 4-slot window cut over ("data",
+# "model"), a slot a rank, 5 steps wrap it), xlstm-1.3b in f32 at 4 layers,
+# 2 steps (its states whole over "data"). Every step gathers a rank's
+# blocks over "data" (the plan's ZeRO-3 decode) through host memory:
+# recurrentgemma's step read 3.21-4.00 s and h2o's 0.53-0.68 s (NVIDIA H100
+# 80GB HBM3, 700 W), so a 32-slot window and 40 steps (h2o a 64-slot ring)
+# took 164 s and an 8-slot window and 10 steps 51 s, cut to these.
+# recurrentgemma in bf16 is held at DECODE_TOL, as in
+# tp_recurrent_serve (its random weights carry one-ulp flips of products
+# cut another way past LOGITS_TOL: 0.0216 at 40 steps; the split is exact
+# in f32 on the CPU and xlstm's here reads 8.9e-7)
+TP_LONG = (
+    ("h2o-danube-1.8b", "h2o-danube-1.8b", 4, None, 8, 6, "bfloat16",
+     LOGITS_TOL),
+    ("recurrentgemma-2b", "recurrentgemma-2b", 13, 4, 8, 5, "bfloat16",
+     DECODE_TOL),
+    ("xlstm-1.3b", "xlstm-1.3b", 4, None, 8, 2, "float32", LOGITS_TOL))
 
 
 def directional_check(cfg, batch, dev, remat=True) -> dict:
@@ -2666,6 +2767,8 @@ def sharded_rank(rank, world, dev):
     torch.cuda.empty_cache()
     out["split"] = tp_steps(mesh, dev)
     out["recurrent"] = tp_recurrent_steps(mesh, dev)
+    out["frontends"] = tp_recurrent_steps(mesh, dev, TP_FRONT_TRAIN)
+    out["long"] = tp_long_rank(mesh, dev)
     return out
 
 
@@ -2829,6 +2932,8 @@ def sharded_step_phase(dev, card: str) -> dict:
     line["coords_by_rank"] = [r["coords"] for r in ranks]
     line["_split_ranks"] = [r["split"] for r in ranks]
     line["_recurrent_ranks"] = [r["recurrent"] for r in ranks]
+    line["_frontends_ranks"] = [r["frontends"] for r in ranks]
+    line["_long_ranks"] = [r["long"] for r in ranks]
     return line
 
 
@@ -2940,10 +3045,11 @@ def tp_rec_cfg(arch: str, layers: int, dtype=None):
     return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
 
 
-def tp_recurrent_steps(mesh, dev) -> dict:
-    """tp_recurrent's part of a sharded_step rank (after tp_steps): for
-    each TP_REC_TRAIN family, its blocks from seed 0 (their bytes), its
-    batch shard, TP_REC_STEPS steps with ``split_model=True``."""
+def tp_recurrent_steps(mesh, dev, cells=TP_REC_TRAIN) -> dict:
+    """tp_recurrent's part of a sharded_step rank (after tp_steps), and
+    tp_frontends' (``cells`` TP_FRONT_TRAIN): for each of ``cells``, its
+    blocks from seed 0 (their bytes), its batch shard, TP_REC_STEPS steps
+    with ``split_model=True``."""
     from repro_torch.data.pipeline import make_lm_batch
     from repro_torch.models import sharding as shd
     from repro_torch.models.transformer import init_params
@@ -2952,7 +3058,7 @@ def tp_recurrent_steps(mesh, dev) -> dict:
     _, opt = sharded_cfg()
     shape = shd.MeshShape.from_mesh(mesh)
     out = {}
-    for arch, layers, batch, seq in TP_REC_TRAIN:
+    for arch, layers, batch, seq in cells:
         cfg = tp_rec_cfg(arch, layers)
         torch.cuda.synchronize(dev)
         base = torch.cuda.memory_allocated(dev)
@@ -2977,6 +3083,66 @@ def tp_recurrent_steps(mesh, dev) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def tp_long_cfg(arch: str, layers: int, window, dtype):
+    """A TP_LONG run's model: ``arch`` at full width cut to ``layers``
+    layers in ``dtype``, its window ``window`` where given."""
+    cfg = tp_rec_cfg(arch, layers, dtype)
+    return cfg if window is None else dataclasses.replace(cfg, window=window)
+
+
+def tp_long_rank(mesh, dev) -> dict:
+    """tp_long_decode's part of a sharded_step rank (after tp_frontends):
+    for each TP_LONG run, its blocks from seed 0, the decode state of a
+    batch of 1 (``sharded_decode_state``, its bytes by
+    ``torch.cuda.memory_allocated``), then the teacher-forced steps of
+    ``make_sharded_serve_step``'s decode: their logits on the host, the
+    wire bytes of each, ms a step and the bytes staged a step."""
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.step import (make_sharded_serve_step,
+                                        sharded_decode_state)
+    shape = shd.MeshShape.from_mesh(mesh)
+    res = {}
+    for name, arch, layers, window, max_len, steps, dtype, _ in TP_LONG:
+        cfg = tp_long_cfg(arch, layers, window, dtype)
+        full = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                           device=dev)
+        params = shd.shard_tree(full, shd.param_specs(full, cfg, shape),
+                                shape, mesh.coords)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+        toks = make_lm_batch(cfg, 0, 0, 1, steps, device=dev)["tokens"]
+        _, decode = make_sharded_serve_step(cfg, mesh, 1)
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        state = sharded_decode_state(cfg, mesh, 1, max_len)
+        torch.cuda.synchronize(dev)
+        out = {"state_bytes": torch.cuda.memory_allocated(dev) - base}
+        decoded, wires = [], []
+        staged = mesh.host_staged_bytes
+        t0 = time.perf_counter()
+        for t in range(steps):
+            wire0 = mesh.wire_bytes()
+            lg, state = decode(params, state, toks[:, t:t + 1])
+            wire1 = mesh.wire_bytes()
+            wires.append({a: {k: v - wire0[a][k] for k, v in w.items()}
+                          for a, w in wire1.items()})
+            decoded.append(lg)
+        torch.cuda.synchronize(dev)
+        out.update(decode_ms_a_step=(time.perf_counter() - t0) * 1e3 / steps,
+                   decode_staged_bytes_a_step=(mesh.host_staged_bytes
+                                               - staged) / steps,
+                   decode_wires=wires,
+                   decode=torch.cat(decoded, dim=1).cpu())
+        res[name] = out
+        del params, state, decoded, lg
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
 
 
 def tp_step_phase(dev, card: str, sharded: dict) -> dict:
@@ -3045,36 +3211,40 @@ def tp_step_phase(dev, card: str, sharded: dict) -> dict:
     return line
 
 
-def tp_recurrent_phase(dev, card: str, sharded: dict) -> dict:
+def tp_recurrent_phase(dev, card: str, sharded: dict,
+                       phase: str = "tp_recurrent", cells=TP_REC_TRAIN,
+                       key: str = "_recurrent_ranks") -> dict:
     """tp_recurrent: each TP_REC_TRAIN family split over "model" on
     sharded_step's (2, 2) mesh, run by its 4 ranks after tp_step
     (``tp_recurrent_steps``): stored bytes equal to the dry run's plan,
     wire bytes a step equal to ``step_wire_bytes(split_model=True)``, the
     first loss and grad norm within TP_LOSS_TOL / TP_GNORM_TOL of one
     process's (``one_process``); ms, staged bytes and peak memory a
-    step. A line a family. Returns ``roofline_phase``'s entries: (cfg,
-    shape, the median step's seconds, remat, mesh, split)."""
+    step. A line a family. tp_frontends is the same for ``cells``
+    TP_FRONT_TRAIN, the ranks' results under ``sharded[key]``. Returns
+    ``roofline_phase``'s entries: (cfg, shape, the median step's seconds,
+    remat, mesh, split)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun, roofline
     from repro_torch.models import sharding as shd
     _, opt = sharded_cfg()
     mesh = shd.MeshShape.of(*SHARDED_MESH)
     measured = {}
-    for arch, layers, batch, seq in TP_REC_TRAIN:
+    for arch, layers, batch, seq in cells:
         cfg = tp_rec_cfg(arch, layers)
-        shape = ShapeConfig("tp_recurrent", seq, batch, "train")
+        shape = ShapeConfig(phase, seq, batch, "train")
         plan = dryrun.memory_plan(cfg, shape, mesh, opt)
         want_stored = plan["params"]["alloc"] + plan["opt"]["alloc"]
         want_wire = roofline.step_wire_bytes(cfg, shape, mesh,
                                              split_model=True)
         one = one_process(cfg, batch, seq, mesh.shape["data"], dev)
-        ranks = [r[arch] for r in sharded["_recurrent_ranks"]]
+        ranks = [r[arch] for r in sharded[key]]
         vs = [{"loss_rel_err": abs(r["losses"][0] - one["loss"])
                / abs(one["loss"]),
                "grad_norm_rel_err": abs(r["grad_norms"][0]
                                         - one["grad_norm"])
                / one["grad_norm"]} for r in ranks]
-        line = {"phase": "tp_recurrent", "arch": cfg.name,
+        line = {"phase": phase, "arch": cfg.name,
                 "layers": cfg.n_layers, "pattern": list(
                     cfg.pattern_for_layers()), "d_model": cfg.d_model,
                 "params": cfg.param_count(), "mesh": mesh.shape,
@@ -3097,28 +3267,108 @@ def tp_recurrent_phase(dev, card: str, sharded: dict) -> dict:
                 "card": card}
         emit(line)
         for r, v, c in zip(ranks, vs, sharded["coords_by_rank"]):
-            check(r["stored_bytes"] == want_stored, f"tp_recurrent {arch}: "
+            check(r["stored_bytes"] == want_stored, f"{phase} {arch}: "
                   f"rank {c} stores {r['stored_bytes']} bytes, the plan "
                   f"{want_stored}")
             check(all(np.isfinite(r["losses"])),
-                  f"tp_recurrent {arch}: {r['losses']}")
-            check(v["loss_rel_err"] <= TP_LOSS_TOL, f"tp_recurrent {arch}: "
+                  f"{phase} {arch}: {r['losses']}")
+            check(v["loss_rel_err"] <= TP_LOSS_TOL, f"{phase} {arch}: "
                   f"rank {c} loss {r['losses'][0]}: {v['loss_rel_err']} "
                   f"from one process's")
             check(v["grad_norm_rel_err"] <= TP_GNORM_TOL,
-                  f"tp_recurrent {arch}: rank {c} grad norm "
+                  f"{phase} {arch}: rank {c} grad norm "
                   f"{r['grad_norms'][0]}: {v['grad_norm_rel_err']} from one "
                   f"process's")
             for w in r["wire_a_step"]:
                 check(all(w[a][k] == want_wire[a][k] for a in want_wire
                           for k in want_wire[a]),
-                      f"tp_recurrent {arch}: wire bytes {w}, planned "
+                      f"{phase} {arch}: wire bytes {w}, planned "
                       f"{want_wire}")
-        measured[f"tp_recurrent:{arch}"] = (
+        measured[f"{phase}:{arch}"] = (
             cfg, shape, statistics.median(
                 ms for r in ranks for ms in r["step_ms"]) / 1e3, True, mesh,
             True)
     return measured
+
+
+def tp_long_decode_phase(dev, card: str, sharded: dict) -> None:
+    """tp_long_decode: each TP_LONG run, a batch of 1 on sharded_step's
+    (2, 2), decoded by its 4 ranks after tp_frontends (``tp_long_rank``):
+    each rank's logits (its vocabulary rows, the whole batch) against one
+    process's teacher-forced decode at the run's limit, the decode state's
+    bytes equal to the dry run's plan (``decode_state_specs``' batch-1
+    specs, the reference's long_500k case) and the wire bytes of each step
+    equal to ``step_wire_bytes(split_model=True)``; ms and staged bytes a
+    step. A line a run."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import (decode_step,
+                                                init_decode_state,
+                                                init_params)
+    from repro_torch.optim.adamw import AdamWConfig
+    mesh = shd.MeshShape.of(*SHARDED_MESH)
+    coords = sharded["coords_by_rank"]
+    for name, arch, layers, window, max_len, steps, dtype, tol in TP_LONG:
+        cfg = tp_long_cfg(arch, layers, window, dtype)
+        got = [r[name] for r in sharded["_long_ranks"]]
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             device=dev)
+        toks = make_lm_batch(cfg, 0, 0, 1, steps, device=dev)["tokens"]
+        with torch.inference_mode():
+            state = init_decode_state(cfg, 1, max_len, device=dev)
+            outs = []
+            for t in range(steps):
+                lg, state = decode_step(params, state, toks[:, t:t + 1], cfg)
+                outs.append(lg)
+            want = torch.cat(outs, dim=1)
+            by_data = {}
+            for r, c in zip(got, coords):
+                by_data.setdefault(c["data"], {})[c["model"]] = r["decode"]
+            vs = [compare(torch.cat([row[m].to(dev) for m in sorted(row)],
+                                    dim=-1), want)
+                  for _, row in sorted(by_data.items())]
+        del params, state, outs, want
+        gc.collect()
+        torch.cuda.empty_cache()
+        shape = ShapeConfig("tp_long_decode", max_len, 1, "decode")
+        plan = dryrun.memory_plan(cfg, shape, mesh, AdamWConfig())[
+            "decode_state"]
+        wire = roofline.step_wire_bytes(cfg, shape, mesh, split_model=True)
+        axes = shd.length_axes(cfg, mesh, 1)
+        line = {"phase": "tp_long_decode", "run": name, "arch": cfg.name,
+                "layers": cfg.n_layers, "dtype": cfg.dtype,
+                "window": cfg.window, "mesh": mesh.shape, "backend": "gloo",
+                "batch": 1, "max_len": max_len, "decode_steps": steps,
+                "length_axes": list(axes),
+                "decode_vs_one_process_by_data_rank": [dict(zip(
+                    ("rel_rms", "max_abs", "top1_agreement"), v))
+                    for v in vs],
+                "tolerance": tol,
+                "decode_ms_a_step_by_rank": [r["decode_ms_a_step"]
+                                             for r in got],
+                "decode_staged_bytes_a_step_by_rank": [
+                    r["decode_staged_bytes_a_step"] for r in got],
+                "state_bytes_by_rank": [r["state_bytes"] for r in got],
+                "planned_state_bytes": plan["alloc"],
+                "decode_wire_a_step_rank0": got[0]["decode_wires"][0],
+                "planned_wire": wire, "card": card}
+        emit(line)
+        for v in vs:
+            check(v[0] <= tol, f"tp_long_decode {name}: decode logits "
+                  f"{v[0]} (relative RMS) from one process > {tol}")
+        for r, c in zip(got, coords):
+            check(r["state_bytes"] == plan["alloc"], f"tp_long_decode "
+                  f"{name}: rank {c} decode state {r['state_bytes']} bytes, "
+                  f"the plan {plan['alloc']}")
+            for w in r["decode_wires"]:
+                check(all(w[a][k] == wire[a][k] for a in wire
+                          for k in wire[a]),
+                      f"tp_long_decode {name}: wire bytes {w}, planned "
+                      f"{wire}")
 
 
 def tp_serve_cfg():
@@ -3188,26 +3438,36 @@ def tp_serve_rank(rank, world, dev):
     gc.collect()
     torch.cuda.empty_cache()
     out["recurrent"] = tp_recurrent_serve_rank(mesh, dev)
+    out["frontends"] = tp_recurrent_serve_rank(mesh, dev, TP_FRONT_SERVE)
     return out
 
 
-def tp_recurrent_serve_rank(mesh, dev) -> dict:
-    """tp_recurrent_serve's part of a tp_serve rank: for each
-    TP_REC_SERVE run, its blocks from seed 0 (an f32 run after a bf16 one
-    of the same model: those blocks in f32), a prefill, timed from its
-    first call (the logits on the host, the flash launches and routes, the
-    wire and staged bytes), the decode state's bytes, then the
-    teacher-forced decode steps (their logits and wire bytes)."""
+def serve_inputs(cfg, b: int, s: int, dev) -> dict:
+    """make_lm_batch's model inputs from seed 0: the tokens, and the VLM's
+    patch embeddings."""
     from repro_torch.data.pipeline import make_lm_batch
+    batch = make_lm_batch(cfg, 0, 0, b, s, device=dev)
+    return {k: v for k, v in batch.items() if k != "labels"}
+
+
+def tp_recurrent_serve_rank(mesh, dev, runs=TP_REC_SERVE) -> dict:
+    """tp_recurrent_serve's part of a tp_serve rank, and
+    tp_frontends_serve's (``runs`` TP_FRONT_SERVE): for each run, its
+    blocks from seed 0 (an f32 run after a bf16 one of the same model:
+    those blocks in f32), a prefill of its shard of the inputs, timed from
+    its first call (the logits on the host, the flash launches and routes,
+    the wire and staged bytes), the decode state's bytes
+    (``sharded_decode_state``), then the teacher-forced decode steps
+    (their logits and wire bytes)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES
     from repro_torch.models import sharding as shd
-    from repro_torch.models.transformer import (init_decode_state,
-                                                init_params, tree_map)
-    from repro_torch.train.step import make_sharded_serve_step
+    from repro_torch.models.transformer import init_params, tree_map
+    from repro_torch.train.step import (make_sharded_serve_step,
+                                        sharded_decode_state)
     shape = shd.MeshShape.from_mesh(mesh)
     res, bf16 = {}, {}
-    for name, arch, layers, b, s, steps, max_len, dtype in TP_REC_SERVE:
+    for name, arch, layers, b, s, steps, max_len, dtype, *_ in runs:
         cfg = tp_rec_cfg(arch, layers, dtype)
         if arch in bf16:            # the bf16 run's weights, in f32
             params = tree_map(lambda leaf: leaf.float(), bf16.pop(arch))
@@ -3221,9 +3481,10 @@ def tp_recurrent_serve_rank(mesh, dev) -> dict:
                 bf16[arch] = params
         gc.collect()
         torch.cuda.empty_cache()
-        toks = make_lm_batch(cfg, 0, 0, b, s, device=dev)["tokens"]
-        local = shd.shard_tree({"tokens": toks}, {"tokens": shd.batch_specs(
-            cfg, shape, b)["tokens"]}, shape, mesh.coords)
+        inputs = serve_inputs(cfg, b, s, dev)
+        specs = shd.batch_specs(cfg, shape, b)
+        local = shd.shard_tree(inputs, {k: specs[k] for k in inputs}, shape,
+                               mesh.coords)
         prefill, decode = make_sharded_serve_step(cfg, mesh, b)
         torch.cuda.synchronize(dev)     # no warm call: the first is timed
         wire0, staged = mesh.wire_bytes(), mesh.host_staged_bytes
@@ -3239,11 +3500,9 @@ def tp_recurrent_serve_rank(mesh, dev) -> dict:
                                 for a, w in mesh.wire_bytes().items()},
                "prefill": logits.cpu()}
         del logits
-        b_loc = local["tokens"].shape[0]
         torch.cuda.synchronize(dev)
         base = torch.cuda.memory_allocated(dev)
-        state = init_decode_state(cfg, b_loc, max_len, device=dev,
-                                  model=mesh.axis("model"))
+        state = sharded_decode_state(cfg, mesh, b, max_len)
         torch.cuda.synchronize(dev)
         out["state_bytes"] = torch.cuda.memory_allocated(dev) - base
         decoded, wires = [], []
@@ -3337,6 +3596,32 @@ def tp_serve_phase(dev, rows: dict, record, card: str) -> None:
         library="scaled_dot_product_attention, GQA, explicit band mask",
         shape=[list(q.shape), list(k.shape), rg.window])
     del q, k, v, band
+    # row 9 at the frontends' shards (tp_frontends_serve): paligemma-3b's 4
+    # of 8 query heads against its one gathered kv head at hd 256, and
+    # musicgen-medium's 12 of 24 heads at hd 64, both causal
+    for run in TP_FRONT_SERVE:
+        fc = tp_rec_cfg(*run[1:3])
+        fb, fs, row = run[3], run[4], run[8]
+        hkv_f = fc.n_kv_heads // tp if fc.n_kv_heads % tp == 0 else 1
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in ((fb, fc.n_heads // tp, fs, fc.hd),
+                                          (fb, hkv_f, fs, fc.hd),
+                                          (fb, hkv_f, fs, fc.hd)))
+        record(row, FLASH_SOURCE, FLASH_REPLACES,
+               lambda: ops.flash_attention(q, k, v, causal=True),
+               lambda: attn_plain(q, k, v, causal=True),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=True),
+               2 * (2 * q.numel() + k.numel() + v.numel()),
+               4.0 * fb * q.shape[1] * fc.hd * fs * (fs + 1) / 2,
+               ATTN_BF16_TOL, ATTN_BF16_NOTE, flop_rate=BF16_TC_FLOP_PER_S,
+               judge=attn_judge(torch.bfloat16))
+        rows[row].update(
+            kernel=("flash_attention_wgmma_kernel<256>" if fc.hd == 256
+                    else "flash_attention_wgmma_kernel"),
+            library="scaled_dot_product_attention, causal, GQA",
+            shape=[list(q.shape), list(k.shape)])
+        del q, k, v
     t0 = time.perf_counter()
     with expandable_segments():     # the decode states' bytes, as planned
         ranks = spawn_ranks(tp_serve_rank, tp, backend="gloo",
@@ -3409,9 +3694,14 @@ def tp_serve_phase(dev, rows: dict, record, card: str) -> None:
               f"tp_serve: prefill wire bytes {r['prefill_wire']}, planned "
               f"{want_wire}")
     tp_recurrent_serve_phase(dev, rows, card, ranks)
+    tp_recurrent_serve_phase(dev, rows, card, ranks, "tp_frontends_serve",
+                             TP_FRONT_SERVE, "frontends")
 
 
-def tp_recurrent_serve_phase(dev, rows: dict, card: str, ranks) -> None:
+def tp_recurrent_serve_phase(dev, rows: dict, card: str, ranks,
+                             phase: str = "tp_recurrent_serve",
+                             runs=TP_REC_SERVE, key: str = "recurrent"
+                             ) -> None:
     """tp_recurrent_serve: each TP_REC_SERVE run through
     ``make_sharded_serve_step`` on tp_serve's model axis of 2, by its
     ranks after qwen2-7b (``tp_recurrent_serve_rank``): the prefill and
@@ -3421,9 +3711,11 @@ def tp_recurrent_serve_phase(dev, rows: dict, card: str, ranks) -> None:
     decode step equal to the plan; recurrentgemma's 4 windowed layers
     through row 9 on the tensor cores in bf16 (4 launches a rank, taken by
     the row ``flash_attention_tp_window``), on the CUDA cores in f32. The
-    f32 recurrentgemma line carries ``chaos_gain``. A line a run."""
+    f32 recurrentgemma line carries ``chaos_gain``. A line a run.
+    tp_frontends_serve is the same for ``runs`` TP_FRONT_SERVE (the ranks'
+    results under ``key``), bf16 held at LOGITS_TOL, each run's row 9
+    launches taken by its own row (TP_FRONT_SERVE's last entry)."""
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.pipeline import make_lm_batch
     from repro_torch.launch import dryrun, roofline
     from repro_torch.models import sharding as shd
     from repro_torch.models.transformer import (decode_step, forward,
@@ -3432,19 +3724,19 @@ def tp_recurrent_serve_phase(dev, rows: dict, card: str, ranks) -> None:
     from repro_torch.optim.adamw import AdamWConfig
     mesh = shd.MeshShape.of(*TP_SERVE_MESH)
     bf16 = {}
-    for name, arch, layers, b, s, steps, max_len, dtype in TP_REC_SERVE:
+    for name, arch, layers, b, s, steps, max_len, dtype, *row in runs:
         cfg = tp_rec_cfg(arch, layers, dtype)
-        got = [r["recurrent"][name] for r in ranks]
+        got = [r[key][name] for r in ranks]
         route = "tc_bf16" if dtype == "bfloat16" else "simt_f32"
-        tol = DECODE_TOL if dtype == "bfloat16" else LOGITS_TOL
+        tol = DECODE_TOL if dtype == "bfloat16" and not row else LOGITS_TOL
+        row = row[0] if row else "flash_attention_tp_window"
         n_attn = sum(k in ("attn", "swa") for k in cfg.pattern_for_layers()
                      ) * cfg.n_groups
         if n_attn and route == "tc_bf16":
             launches = sum(r["flash_launches"] for r in got)
-            rows["flash_attention_tp_window"]["launches"] += launches
-            rows["flash_attention_tp_window"].setdefault(
-                "launches_by_phase", {})[f"tp_recurrent_serve:{name}"] = \
-                launches
+            rows[row]["launches"] += launches
+            rows[row].setdefault("launches_by_phase", {})[
+                f"{phase}:{name}"] = launches
         gc.collect()
         torch.cuda.empty_cache()
         if arch in bf16:            # the bf16 run's weights, in f32
@@ -3454,19 +3746,24 @@ def tp_recurrent_serve_phase(dev, rows: dict, card: str, ranks) -> None:
                                  cfg, device=dev)
             if dtype == "bfloat16":
                 bf16[arch] = params
-        toks = make_lm_batch(cfg, 0, 0, b, s, device=dev)["tokens"]
+        inputs = serve_inputs(cfg, b, s, dev)
+        toks = inputs["tokens"]
         with torch.inference_mode():
-            want = forward(params, {"tokens": toks}, cfg)
-            pre = compare(torch.cat([r["prefill"].to(dev) for r in got],
-                                    dim=-1), want)
-            del want
+            want = forward(params, inputs, cfg)
+            pre = compare(torch.cat([r["prefill"].to(dev).flatten(2)
+                                     for r in got], dim=-1).reshape(
+                                         want.shape), want)
+            del want, inputs
             state = init_decode_state(cfg, b, max_len, device=dev)
             outs = []
             for t in range(steps):
                 lg, state = decode_step(params, state, toks[:, t:t + 1], cfg)
                 outs.append(lg)
-            dec = compare(torch.cat([r["decode"].to(dev) for r in got],
-                                    dim=-1), torch.cat(outs, dim=1))
+            want = torch.cat(outs, dim=1)
+            dec = compare(torch.cat([r["decode"].to(dev).flatten(2)
+                                     for r in got], dim=-1).reshape(
+                                         want.shape), want)
+            del want
             gain = (chaos_gain(params, cfg, toks[:, :LM_TF_TOKENS])
                     if arch == "recurrentgemma-2b" and n_attn
                     and route == "simt_f32" else None)
@@ -3474,12 +3771,12 @@ def tp_recurrent_serve_phase(dev, rows: dict, card: str, ranks) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         plan = dryrun.memory_plan(
-            cfg, ShapeConfig("tp_recurrent_serve", max_len, b, "decode"),
+            cfg, ShapeConfig(phase, max_len, b, "decode"),
             mesh, AdamWConfig())["decode_state"]
         wire = {kind: roofline.step_wire_bytes(
             cfg, ShapeConfig(kind, s, b, kind), mesh, split_model=True)
             for kind in ("prefill", "decode")}
-        line = {"phase": "tp_recurrent_serve", "run": name,
+        line = {"phase": phase, "run": name,
                 "arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
                 "mesh": mesh.shape, "backend": "gloo", "batch": b, "seq": s,
                 "decode_steps": steps, "max_len": max_len,
@@ -3506,17 +3803,17 @@ def tp_recurrent_serve_phase(dev, rows: dict, card: str, ranks) -> None:
                 "decode_wire_a_step_rank0": got[0]["decode_wires"][0],
                 "planned_wire": wire, "card": card}
         emit(line)
-        check(pre[0] <= tol, f"tp_recurrent_serve {name}: prefill logits "
+        check(pre[0] <= tol, f"{phase} {name}: prefill logits "
               f"{pre[0]} (relative RMS) from one process > {tol}")
-        check(dec[0] <= tol, f"tp_recurrent_serve {name}: decode logits "
+        check(dec[0] <= tol, f"{phase} {name}: decode logits "
               f"{dec[0]} (relative RMS) from one process > {tol}")
         for r in got:
-            check(r["state_bytes"] == plan["alloc"], f"tp_recurrent_serve "
+            check(r["state_bytes"] == plan["alloc"], f"{phase} "
                   f"{name}: decode state {r['state_bytes']} bytes, the plan "
                   f"{plan['alloc']}")
             check(r["flash_launches"] == n_attn
                   and r["flash_routes"].get(route, 0) == n_attn,
-                  f"tp_recurrent_serve {name}: flash launches "
+                  f"{phase} {name}: flash launches "
                   f"{r['flash_launches']}, routes {r['flash_routes']}, "
                   f"expected {n_attn} on {route}")
             for kind, ws in (("prefill", [r["prefill_wire"]]),
@@ -3524,7 +3821,7 @@ def tp_recurrent_serve_phase(dev, rows: dict, card: str, ranks) -> None:
                 for w in ws:
                     check(all(w[a][k] == wire[kind][a][k]
                               for a in wire[kind] for k in wire[kind][a]),
-                          f"tp_recurrent_serve {name}: {kind} wire bytes "
+                          f"{phase} {name}: {kind} wire bytes "
                           f"{w}, planned {wire[kind]}")
 
 
@@ -3673,7 +3970,9 @@ def roofline_phase(measured: dict, card: str) -> None:
 def train_family_phases(dev, rows: dict, record, gram_qr_work,
                         measured: dict) -> None:
     """train_families, train_psa_moe, moe_shards, sharded_step, tp_step,
-    remat, tp_serve and roofline (module docstring), each with the card's
+    tp_recurrent, tp_frontends, tp_long_decode, remat, tp_serve (with
+    tp_recurrent_serve and tp_frontends_serve) and roofline (module
+    docstring), each with the card's
     name and power limit; ``measured`` holds the earlier phases' (cfg,
     shape, seconds) and gains each new train step's."""
     from repro_torch.configs import get_arch
@@ -3702,6 +4001,9 @@ def train_family_phases(dev, rows: dict, record, gram_qr_work,
                             SHARDED_BATCH // 2, "train"), sh["_step_s"])
     tp_step_phase(dev, card, sh)
     measured.update(tp_recurrent_phase(dev, card, sh))
+    measured.update(tp_recurrent_phase(dev, card, sh, "tp_frontends",
+                                       TP_FRONT_TRAIN, "_frontends_ranks"))
+    tp_long_decode_phase(dev, card, sh)
     remat_phase(dev, card)
     tp_serve_phase(dev, rows, record, card)
     roofline_phase(measured, card)

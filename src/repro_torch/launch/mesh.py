@@ -29,7 +29,8 @@ payload, an all-gather (n - 1) / n of its result, a reduce-scatter
 (n - 1) / n of its input, a point-to-point exchange its payload once a
 peer (the reference's collective-permute).
 Kept per axis, the "pod" axis's share is what crosses pods: the port's
-counterpart of the reference's ``cross_pod_bytes``.
+counterpart of the reference's ``cross_pod_bytes``. A group over a tuple
+of axes (``Mesh.group``) keeps its own count.
 
 Tensor parallelism. ``copy_to_model``, ``reduce_from_model``,
 ``gather_from_model`` and ``gather_summed_from_model`` are the autograd-aware
@@ -66,7 +67,7 @@ import torch
 import torch.distributed as dist
 
 from .._device import DeviceLike, resolve_device
-from ..models.sharding import MeshShape
+from ..models.sharding import MeshShape, axes_name, group_axes
 
 __all__ = ["AxisGroup", "Mesh", "make_mesh", "make_test_mesh",
            "make_production_mesh", "rank_device", "spawn_ranks",
@@ -352,6 +353,15 @@ class Mesh:
     def axis(self, name: str) -> AxisGroup:
         return self.groups[name]
 
+    def group(self, axes) -> AxisGroup:
+        """The group over an axis or a tuple of axes (the first major),
+        as ``make_mesh`` laid it out (``sharding.group_axes``)."""
+        name = axes_name(axes)
+        if name not in self.groups:
+            raise KeyError(f"no process group over {name}: the mesh lays "
+                           f"out {sorted(self.groups)}")
+        return self.groups[name]
+
     @property
     def host_staged_bytes(self) -> int:
         return sum(g.host_staged_bytes for g in self.groups.values())
@@ -368,9 +378,13 @@ def make_mesh(axes: Sequence[Tuple[str, int]], *,
     ``axes`` ((name, size), ...), row-major: the last axis varies fastest
     along the ranks.
 
-    Every rank of the world creates every axis group, in the same order
-    (``new_group`` is collective over the whole world), and keeps the ones
-    it belongs to; a rank outside ``ranks`` gets ``None``.
+    Every rank of the world creates every axis group, then a group over
+    each tuple of ``sharding.group_axes`` (its ranks row-major over the
+    tuple, the first axis major, keyed by ``sharding.axes_name``: the
+    groups a decode cache's length is cut over), in the same order
+    (``new_group`` is collective over the whole world, so none may be made
+    later by some ranks only), and keeps the ones it belongs to; a rank
+    outside ``ranks`` gets ``None``.
     """
     names = tuple(a for a, _ in axes)
     sizes = tuple(int(s) for _, s in axes)
@@ -382,9 +396,11 @@ def make_mesh(axes: Sequence[Tuple[str, int]], *,
     grid = np.asarray(members).reshape(sizes)
     backend = dist.get_backend()
     groups = {}
-    for k, name in enumerate(names):
-        lines = np.moveaxis(grid, k, -1).reshape(-1, sizes[k])
-        for line in lines:
+    for tup in [(n,) for n in names] + group_axes(MeshShape(names, sizes)):
+        ks = [names.index(a) for a in tup]
+        moved = np.moveaxis(grid, ks, list(range(-len(ks), 0)))
+        name = axes_name(tup)
+        for line in moved.reshape(-1, math.prod(sizes[k] for k in ks)):
             line = [int(r) for r in line]
             group = dist.new_group(line)
             if me in line:

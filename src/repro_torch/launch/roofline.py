@@ -104,24 +104,21 @@ def _axes(entry):
 
 
 def _mixer_collectives(cfg: ModelConfig, kind: str, mixer_specs,
-                       rows: int, tp: int, decode: bool):
+                       rows: int, tp: int):
     """The model-axis collectives inside one split block's mixer span, a
     forward's: (all-gather result bytes, all-reduce payload elements),
     each a list. In a train step's backward each gather's gradient is
     reduce-scattered (the same bytes) and each all-reduce's all-reduced
     (f32 forward, the model's dtype backward); a prefill's and a decode's
-    run forward only. ``rows``: the rank's b s (b at decode)."""
+    run forward only. ``rows``: the rank's b s (b at decode). Decode by
+    length's collectives are ``_decode_collectives``'."""
     dt = cfg.torch_dtype.itemsize
     d = cfg.d_model
     cut = {k: shd.has_model(v) for k, v in mixer_specs.items()}
     gathers, reduces = [], []
     if kind in ("attn", "swa") and cfg.n_kv_heads % tp:
-        kv = cfg.n_kv_heads * cfg.hd
         if cut["wk"]:                   # k and v projections gathered whole
-            gathers += [rows * kv * dt] * 2
-        if decode:      # the query heads; every rank's partials of all
-            gathers += [rows * cfg.n_heads * cfg.hd * dt,
-                        tp * rows * cfg.n_heads * (cfg.hd + 2) * 4]
+            gathers += [rows * cfg.n_kv_heads * cfg.hd * dt] * 2
     elif kind == "rglru":
         gathers.append(rows * d * 4)                   # the f32 conv
     elif kind == "mlstm":
@@ -139,6 +136,37 @@ def _mixer_collectives(cfg: ModelConfig, kind: str, mixer_specs,
     return gathers, reduces
 
 
+def _decode_collectives(cfg: ModelConfig, shape: ShapeConfig,
+                        mesh: shd.MeshShape, rows: int):
+    """A decode step's all-gathers of attention by length, a group's
+    (``models/attention.py``; ``decode_state_specs`` cuts the caches over
+    ``sharding.length_axes``), as (group name, its ranks, result bytes),
+    for each block whose ring divides over the group (a whole ring has
+    none): every rank's partials (max, sum, weighted v: hd + 2 f32 a query
+    head) over the group, of every head where the kv heads do not divide
+    over "model" (the query heads gathered over it first), else of the
+    rank's."""
+    axes = shd.length_axes(cfg, mesh, shape.global_batch)
+    n = int(np.prod([mesh.shape[a] for a in axes]))
+    tp = mesh.shape.get("model", 1)
+    whole = cfg.n_kv_heads % tp != 0
+    heads = cfg.n_heads if whole else cfg.n_heads // tp
+    out = []
+    for kind in cfg.pattern_for_layers():
+        if kind not in ("attn", "swa") or n == 1:
+            continue
+        ring = (min(cfg.window or shape.seq_len, shape.seq_len)
+                if kind == "swa" else shape.seq_len)
+        if ring % n:
+            continue
+        if whole:
+            out.append(("model", tp, rows * cfg.n_heads * cfg.hd
+                        * cfg.torch_dtype.itemsize))
+        out.append((shd.axes_name(axes), n,
+                    n * rows * heads * (cfg.hd + 2) * 4))
+    return out
+
+
 def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
                     mesh: shd.MeshShape, *, split_model: bool = False,
                     remat=True) -> Dict[str, Dict[str, float]]:
@@ -149,29 +177,35 @@ def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
 
     ``split_model``: the compute split over "model"
     (``make_sharded_train_step(split_model=True)`` and
-    ``make_sharded_serve_step``), for the families
-    ``sharding.model_view`` admits (the attention families, recurrentgemma,
-    xLSTM; it raises for the others). The blocks are gathered over the
-    data axes only and the data-axis gradient is a rank's model blocks. On
-    "model", with a = b s D bytes of the rank's activations (b its batch
-    shard, the model's dtype): the embedding's all-gather of a; a forward
+    ``make_sharded_serve_step``), for the configurations
+    ``sharding.model_view`` admits (it raises for the others). The blocks
+    are gathered over the data axes only and the data-axis gradient is a
+    rank's model blocks. On "model", with a = b s D bytes of the rank's
+    activations (b its batch shard, the model's dtype): the embedding's
+    one all-gather of a (audio: of the K lookups' sum); a forward
     all-reduce after each mixer and each FFN, in f32 (b s D 4 bytes: the
     parts of ``launch/mesh.partial_product``), under ``remat=True`` again;
     in the backward one of a for each (the gradients into the
     column-parallel spans) and one more into the head's; the loss's three
-    f32 all-reduces of b s (max, sum of exponentials, gold logit); the f32
-    sum of the gradients each rank holds a part of
-    (``sharding.partial_over_model``) and of the norm's 4 bytes. Inside the
-    mixers (``_mixer_collectives``): RG-LRU's f32 conv gather, mLSTM's
-    ``w_if`` gather and gate all-reduce, sLSTM's gate, ``h`` and FFN
-    gathers, and where the kv heads do not divide, the k and v gathers
-    and, at decode, the query heads' and the partial softmax's; a train
-    step reduce-scatters each gather's gradient and all-reduces the gate
-    sum's, and recomputes them under both ``remat=True`` and
-    ``"names"`` (they lie inside the ``"names"`` spans)."""
+    f32 all-reduces of b s K (max, sum of exponentials, gold logit; K
+    codebooks for audio, else 1); the f32 sum of the gradients each rank
+    holds a part of (``sharding.partial_over_model``) and of the norm's 4
+    bytes. Inside the mixers (``_mixer_collectives``): RG-LRU's f32 conv
+    gather, mLSTM's ``w_if`` gather and gate all-reduce, sLSTM's gate,
+    ``h`` and FFN gathers, and where the kv heads do not divide, the k and
+    v gathers; a train step reduce-scatters each gather's gradient and
+    all-reduces the gate sum's, and recomputes them under both
+    ``remat=True`` and ``"names"`` (they lie inside the ``"names"``
+    spans). At decode, attention by length's gathers
+    (``_decode_collectives``), on the group of ``sharding.length_axes``.
+
+    The result has an entry for each axis and for each group over a tuple
+    of axes (``sharding.group_axes``), as ``launch/mesh.Mesh.wire_bytes``
+    counts them."""
     sizes = mesh.shape
     out = {a: {"all-reduce": 0.0, "all-gather": 0.0, "reduce-scatter": 0.0}
-           for a in sizes}
+           for a in list(sizes) + [shd.axes_name(t)
+                                   for t in shd.group_axes(mesh)]}
     params = init_params(None, cfg, device="meta")
     spec_tree = shd.param_specs(params, cfg, mesh)
     names, leaves, _ = _tree.flatten_with_names(params)
@@ -196,10 +230,12 @@ def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
                     for leaf, spec in zip(leaves, specs))
         for a in shd.dp_axes(mesh):
             out[a]["all-reduce"] += ar(sizes[a]) * (4.0 * elems + 4)
+    rows = shape.global_batch // dp
+    rows *= 1 if shape.kind == "decode" else shape.seq_len
+    if split_model and shape.kind == "decode":
+        for name, n, nbytes in _decode_collectives(cfg, shape, mesh, rows):
+            out[name]["all-gather"] += ag(n) * nbytes * cfg.n_groups
     if tp > 1:
-        decode = shape.kind == "decode"
-        rows = shape.global_batch // dp
-        rows *= 1 if decode else shape.seq_len
         dt = cfg.torch_dtype.itemsize
         act = float(rows * cfg.d_model * dt)
         pattern = cfg.pattern_for_layers()
@@ -217,7 +253,7 @@ def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
         for i, kind in enumerate(pattern):
             gathers, sums = _mixer_collectives(
                 cfg, kind, spec_tree["groups"][f"blk{i}_{kind}"]["mixer"],
-                rows, tp, decode)
+                rows, tp)
             for nbytes in gathers:
                 model["all-gather"] += ag(tp) * nbytes * runs * cfg.n_groups
                 if train:
@@ -229,7 +265,8 @@ def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
             partial = sum(leaf.numel() for n, leaf, spec in
                           zip(names, leaves, specs)
                           if shd.partial_over_model(n, spec))
-            model["all-reduce"] += ar(tp) * (3 * 4.0 * rows
+            n_k = cfg.n_codebooks if cfg.frontend == "audio_codec" else 1
+            model["all-reduce"] += ar(tp) * (3 * 4.0 * rows * n_k
                                              + 4.0 * partial + 4)
     return out
 

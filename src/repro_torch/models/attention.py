@@ -25,13 +25,21 @@ rank projects its columns and gathers the whole k and v
 rank's query heads read them), before RoPE, which pairs columns across the
 block's edge. The full path runs the kernel on the rank's query heads
 against the one kv head they read (``sharding.kv_read``; ``model_view``
-refuses query heads that would read parts of two). Decode cuts the
-cache by its length (``decode_state_specs``): rank r holds ring slots
-[r S / tp, (r + 1) S / tp) of every kv head; the rank that owns the step's
-slot writes it; the query heads are gathered; each rank takes a partial
-softmax of every head over its filled slots, as (max, sum, weighted v);
-the partials are gathered and combined, and each rank keeps its heads'
-rows. A rank with no filled slot weighs 0.
+refuses query heads that would read parts of two).
+
+Decode by length (``length=``, the group ``sharding.length_axes`` names:
+"model" where the kv heads do not divide over it; where the batch does not
+divide over the data axes, the data axes first): rank r of the n in the
+group holds ring slots [r S / n, (r + 1) S / n) of its kv heads (its own
+where they divide over "model", else every one); the rank that owns the
+step's slot writes it; each rank takes a partial softmax of its query
+heads over its filled slots, as (max, sum, weighted v), the partials are
+gathered over the group and combined. Where the kv heads do not divide,
+the query heads are gathered over "model" first, every head's partials
+travel in the one gather, and each rank keeps its heads' rows. A rank
+with no filled slot weighs 0. A ring that does not divide over the group
+is whole on every rank (``length=None``): every rank writes the slot of
+every kv head and reads those its query heads need, with no combine.
 """
 from __future__ import annotations
 
@@ -47,7 +55,7 @@ from .layers import init_dense, rope
 from .sharding import kv_read
 
 __all__ = ["init_attn", "apply_attn", "init_kv_cache", "blockwise_attention",
-           "kv_cut_by_length"]
+           "kv_whole"]
 
 _NEG = -1e30
 
@@ -155,9 +163,10 @@ def _quantize_kv(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
-def kv_cut_by_length(cfg: ModelConfig, model) -> bool:
-    """Whether a split over ``model`` leaves the kv heads undivided (the
-    cache then cut by length, module docstring)."""
+def kv_whole(cfg: ModelConfig, model) -> bool:
+    """Whether a split over ``model`` leaves the kv heads undivided: each
+    rank reads those its query heads need, and its cache holds all of them
+    (module docstring)."""
     return split_axis(model) and cfg.n_kv_heads % model.size != 0
 
 
@@ -214,42 +223,70 @@ def _write_slot(cache, k: torch.Tensor, v: torch.Tensor, slot: int,
         cache["v"][:, :, slot:slot + 1] = v
 
 
-def _read_cache(cache, quant: bool):
-    """This layer's cache as f32 (b, nkv, S, hd) k and v."""
+def _read_cache(cache, quant: bool, heads=None):
+    """This layer's cache as f32 (b, nkv, S, hd) k and v, of the kv heads
+    [start, stop) ``heads`` (default all)."""
+    sel = slice(None) if heads is None else slice(*heads)
+    k, v = cache["k"][:, sel].float(), cache["v"][:, sel].float()
     if quant:
-        return (cache["k"].float() * cache["k_scale"] / 127.0,
-                cache["v"].float() * cache["v_scale"] / 127.0)
-    return cache["k"].float(), cache["v"].float()
+        return (k * cache["k_scale"][:, sel] / 127.0,
+                v * cache["v_scale"][:, sel] / 127.0)
+    return k, v
+
+
+def _decode_ring(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache,
+                 index: int, cfg: ModelConfig, read=None) -> torch.Tensor:
+    """One token against a whole ring: ``k`` / ``v`` into slot ``index %
+    S``, then q (b, nq, 1, hd) against the kv heads ``read`` of the cache
+    (default all), each query head's group of them without expanding the
+    cache. Returns (b, nq, 1, hd)."""
+    b, nq, s, hd = q.shape
+    max_len = cache["k"].shape[2]
+    _write_slot(cache, k, v, index % max_len, cfg.kv_quant)  # SWA: S = window
+    kd, vd = _read_cache(cache, cfg.kv_quant, read)
+    nkv = kd.shape[1]
+    qg = q.float().reshape(b, nkv, nq // nkv, s, hd)
+    logits = torch.einsum("bgrqd,bgkd->bgrqk", qg, kd) * (hd ** -0.5)
+    # valid = filled slots only (ring: all slots < min(idx + 1, S))
+    logits[..., min(index + 1, max_len):] = _NEG
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bgrqk,bgkd->bgrqd", probs, vd)
+    return out.reshape(b, nq, s, hd).to(q.dtype)
 
 
 def _decode_by_length(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      cache, index: int, cfg: ModelConfig, model):
-    """One token against a cache cut by length over ``model`` (module
-    docstring). q: this rank's (b, nq, 1, hd); k, v: every kv head's
-    (b, n_kv_heads, 1, hd). Returns this rank's heads' (b, nq, 1, hd)."""
+                      cache, index: int, cfg: ModelConfig, length,
+                      model=None) -> torch.Tensor:
+    """One token against a cache cut by length over ``length`` (module
+    docstring). q: this rank's (b, nq, 1, hd); k, v: the kv heads the
+    cache holds, (b, nkv, 1, hd). ``model``: where the kv heads do not
+    divide over it, the axis to gather every query head over. Returns this
+    rank's heads' (b, nq, 1, hd)."""
     b, nq, _, hd = q.shape
-    s_loc = cache["k"].shape[2]
-    owner, local = divmod(index % (s_loc * model.size), s_loc)
-    if owner == model.index:
+    s_loc, n = cache["k"].shape[2], length.size
+    owner, local = divmod(index % (s_loc * n), s_loc)
+    if owner == length.index:
         _write_slot(cache, k, v, local, cfg.kv_quant)
     kd, vd = _read_cache(cache, cfg.kv_quant)
-    nkv = cfg.n_kv_heads
-    rep = cfg.n_heads // nkv
-    qa = torch.cat(model.all_gather(q).unbind(0), dim=1)   # every head
-    qg = qa.float().reshape(b, nkv, rep, 1, hd)
+    nkv = kd.shape[1]
+    qa = q if model is None else torch.cat(model.all_gather(q).unbind(0),
+                                           dim=1)   # every head
+    nh = qa.shape[1]
+    qg = qa.float().reshape(b, nkv, nh // nkv, 1, hd)
     logits = torch.einsum("bgrqd,bgkd->bgrqk", qg, kd) * (hd ** -0.5)
     # this rank's filled slots: the ring's [0, min(index + 1, S)) in its range
-    n_valid = max(0, min(s_loc, min(index + 1, s_loc * model.size)
-                         - model.index * s_loc))
+    n_valid = max(0, min(s_loc, min(index + 1, s_loc * n)
+                         - length.index * s_loc))
     logits[..., n_valid:] = _NEG
     m = logits.amax(-1, keepdim=True)
     probs = torch.exp(logits - m)
     probs[..., n_valid:] = 0.0          # an empty rank: weight 0, not NaN
     part = torch.cat([m, probs.sum(-1, keepdim=True),
                       torch.einsum("bgrqk,bgkd->bgrqd", probs, vd)], dim=-1)
-    h0 = model.index * nq
-    parts = model.all_gather(part.reshape(b, nkv * rep, hd + 2))
-    parts = parts[:, :, h0:h0 + nq]                 # (tp, b, nq, hd + 2)
+    parts = length.all_gather(part.reshape(b, nh, hd + 2))
+    if model is not None:
+        h0 = model.index * nq
+        parts = parts[:, :, h0:h0 + nq]             # (n, b, nq, hd + 2)
     m_r, l_r, acc_r = parts[..., :1], parts[..., 1:2], parts[..., 2:]
     w = torch.exp(m_r - m_r.amax(0))
     out = (w * acc_r).sum(0) / (w * l_r).sum(0)
@@ -260,7 +297,7 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, *,
                window: Optional[int] = None,
                cache: Optional[Dict[str, torch.Tensor]] = None,
                cache_index: Optional[int] = None, use_kernel: bool = True,
-               model=None):
+               model=None, length=None):
     """Full-sequence path (cache is None) or single-step decode path.
 
     Decode: x is (b, 1, d); cache = {"k", "v"} slabs (b, nkv, S, hd) of THIS
@@ -268,8 +305,9 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, *,
     ``cache_index % S``; ``cache_index`` is the host's step count, so no
     step waits on the device. ``model``: the "model" ``AxisGroup`` when
     ``p`` holds a rank's heads (module docstring); the output is then that
-    rank's partial sum, in f32 (``partial_product``). Returns (out,
-    cache).
+    rank's partial sum, in f32 (``partial_product``). ``length``: the
+    group the cache is cut over by length, ``None`` for a whole ring
+    (module docstring). Returns (out, cache).
     """
     b, s, _ = x.shape
     if cache is None:
@@ -279,44 +317,28 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, *,
                                device=x.device)
     rank = model.index if model is not None else 0
     hd = cfg.hd
-    if kv_cut_by_length(cfg, model):
-        nq = p["wq"].shape[-1] // hd
-        heads = (rank * nq, (rank + 1) * nq)
-        kv = (kv_read(cfg.n_heads, cfg.n_kv_heads, heads) if cache is None
-              else (0, cfg.n_kv_heads))
-        q, k, v = _project_qkv(p, x, cfg, positions, rank, model, kv)
-        if cache is None:               # one kv head (model_view)
-            out = _attend(q, k, v, window, use_kernel)
-        else:
-            out = _decode_by_length(q, k, v, cache, cache_index, cfg, model)
-        out = out.transpose(1, 2).reshape(b, s, nq * hd)
-        return partial_product(out, p["wo"], model), cache
-    q, k, v = _project_qkv(p, x, cfg, positions, rank)
-    nq, nkv = q.shape[1], k.shape[1]
-    rep = nq // nkv
-    if rep != cfg.n_heads // cfg.n_kv_heads:
-        raise ValueError(f"{nq} query heads over {nkv} kv heads: the GQA "
-                         f"repeat of {cfg.name} is "
-                         f"{cfg.n_heads // cfg.n_kv_heads}")
-
+    nq = p["wq"].shape[-1] // hd
+    whole = kv_whole(cfg, model)
+    read = None
+    if whole:                           # one kv head read a rank (model_view)
+        read = kv_read(cfg.n_heads, cfg.n_kv_heads,
+                       (rank * nq, (rank + 1) * nq))
+        q, k, v = _project_qkv(p, x, cfg, positions, rank, model,
+                               read if cache is None else
+                               (0, cfg.n_kv_heads))   # the cache holds all
+    else:
+        q, k, v = _project_qkv(p, x, cfg, positions, rank)
+        if nq // k.shape[1] != cfg.n_heads // cfg.n_kv_heads:
+            raise ValueError(f"{nq} query heads over {k.shape[1]} kv heads: "
+                             f"the GQA repeat of {cfg.name} is "
+                             f"{cfg.n_heads // cfg.n_kv_heads}")
     if cache is None:
         out = _attend(q, k, v, window, use_kernel)
+    elif length is not None:
+        out = _decode_by_length(q, k, v, cache, cache_index, cfg, length,
+                                model if whole else None)
     else:
-        max_len = cache["k"].shape[2]
-        slot = cache_index % max_len    # ring buffer (SWA: max_len == window)
-        _write_slot(cache, k, v, slot, cfg.kv_quant)
-        kd, vd = _read_cache(cache, cfg.kv_quant)
-        # each query head's group of kv heads, without expanding the cache:
-        # q (b, nkv, rep, 1, hd) against k (b, nkv, S, hd)
-        qg = q.float().reshape(b, nkv, rep, s, hd)
-        logits = torch.einsum("bgrqd,bgkd->bgrqk", qg, kd) * (hd ** -0.5)
-        # valid = filled slots only (ring: all slots < min(idx + 1, S))
-        filled = min(cache_index + 1, max_len)
-        logits[..., filled:] = _NEG
-        probs = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bgrqk,bgkd->bgrqd", probs, vd)
-        out = out.reshape(b, nq, s, hd).to(x.dtype)
-
+        out = _decode_ring(q, k, v, cache, cache_index, cfg, read)
     out = out.transpose(1, 2).reshape(b, s, nq * hd)
     return partial_product(out, p["wo"], model), cache
 

@@ -28,13 +28,18 @@ reference's memory plan for stored state. By default every rank gathers
 each whole leaf and runs the whole model on its batch shard.
 
 The compute split over "model" (``split_model=True``), for the attention
-families, RG-LRU (recurrentgemma) and xLSTM (mLSTM, sLSTM): ``model_view``
-says which heads, kv heads, FFN columns, experts, recurrent channels and
-heads and vocabulary rows a model rank computes, read off ``param_specs``,
-and raises ``NotImplementedError`` where the split is not ported. kv heads
-that do not divide over "model" are admitted: each rank reads the kv heads
-its query heads need, and the decode cache is cut by its length
-(``decode_state_specs``). ``data_specs`` drops "model" from every spec:
+families, RG-LRU (recurrentgemma), xLSTM (mLSTM, sLSTM) and the VLM and
+audio frontends: ``model_view`` says which heads, kv heads, FFN columns,
+experts, recurrent channels and heads and head columns (vocabulary rows;
+audio: (codebook, vocabulary) columns, codebook-major) a model rank
+computes, read off ``param_specs``, and raises ``NotImplementedError``
+where the split is not ported. kv heads that do not divide over "model"
+are admitted: each rank reads the kv heads its query heads need. The
+decode cache is cut by its length over ``length_axes`` ("model" there; the
+data axes first where the batch does not divide over them), as
+``decode_state_specs`` cuts it; ``launch/mesh.make_mesh`` lays a process
+group over each such tuple of axes (``group_axes``, named by
+``axes_name``). ``data_specs`` drops "model" from every spec:
 gathering by it (ZeRO-3 over the data axes) leaves each rank its model
 blocks, with which ``models/transformer.forward(..., model=)`` runs
 Megatron's tensor parallelism, as XLA partitions the reference under these
@@ -59,7 +64,7 @@ __all__ = ["MeshShape", "dp_axes", "param_specs", "batch_specs",
            "spec_leaves", "dp_shards", "ModelView", "model_view",
            "data_specs", "has_model", "PARTIAL_OVER_MODEL",
            "PARTIAL_WHEN_WHOLE", "partial_over_model", "kv_read",
-           "SPLIT_ROADMAP"]
+           "SPLIT_ROADMAP", "length_axes", "group_axes", "axes_name"]
 
 Axes = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Axes, ...]
@@ -272,6 +277,37 @@ def decode_state_specs(state, cfg: ModelConfig, mesh, global_batch: int):
     return _map_named(leaf, state)
 
 
+def length_axes(cfg: ModelConfig, mesh, global_batch: int
+                ) -> Tuple[str, ...]:
+    """The axes ``decode_state_specs`` cuts a kv cache's length over, the
+    first major (a ring that does not divide over them stays whole):
+    "model" where the kv heads do not divide over it; where the batch does
+    not divide over the data axes, those axes first."""
+    shape = _shape_of(mesh)
+    model = (("model",) if "model" in shape.shape
+             and cfg.n_kv_heads % shape.shape["model"] else ())
+    dp = dp_axes(shape)
+    return model if global_batch % _axsize(shape, dp) == 0 else dp + model
+
+
+def group_axes(mesh) -> list:
+    """The tuples of axes, besides the single axes, over which
+    ``launch/mesh.make_mesh`` lays a process group out: the data axes
+    together and with "model", every ``length_axes`` a mesh with a "model"
+    axis can give (none on a mesh without one)."""
+    shape = _shape_of(mesh)
+    if "model" not in shape.shape:
+        return []
+    dp = dp_axes(shape)
+    return ([dp] if len(dp) > 1 else []) + ([dp + ("model",)] if dp else [])
+
+
+def axes_name(axes: Axes) -> str:
+    """The name of the group over ``axes``: an axis's own name, or the
+    names joined by "+" (the first major), as ``Mesh.groups`` keys it."""
+    return "+".join(_entry_axes(axes))
+
+
 # ---------------------------------------------------------------------------
 # sharded storage
 # ---------------------------------------------------------------------------
@@ -386,7 +422,9 @@ class ModelView:
     over "model" and are this rank's own; else the rank reads them whole
     and the decode cache is cut by length), FFN columns (the dense and
     shared-expert FFN), experts, RG-LRU channels, mLSTM and sLSTM heads and
-    vocabulary rows of the head (``None`` where the model has none).
+    the head's columns (``vocab``: vocabulary rows, or audio's K V
+    (codebook, vocabulary) columns, codebook-major; ``None`` where the
+    model has none).
     ``embed_pieces``: the embedding's model dim is cut over (data axes...,
     "model"), so after the data-axis gather a rank holds ``embed_pieces``
     strided pieces of it."""
@@ -451,10 +489,10 @@ _CUT_LEAVES = {
 def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
     """Model rank ``index``'s share of ``cfg`` under ``param_specs`` on
     ``mesh``. Raises ``NotImplementedError`` (naming the ROADMAP item)
-    where the split is not ported: a frontend, a tied head, query heads,
-    mLSTM heads or sLSTM heads (or any leaf the split cuts) that do not
-    divide over "model", kv heads that do not where a rank's query heads
-    would read parts of two. Nothing falls back to another route."""
+    where the split is not ported: a tied head, query heads, mLSTM heads
+    or sLSTM heads (or any leaf the split cuts) that do not divide over
+    "model", kv heads that do not where a rank's query heads would read
+    parts of two. Nothing falls back to another route."""
     # transformer imports launch/mesh, which imports this module
     from .recurrent import _slstm_hd, mlstm_heads
     from .transformer import block_has_ffn, init_params
@@ -469,8 +507,6 @@ def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
     why = None
     if not kinds <= set(_SPLIT_KINDS):
         why = f"mixers {sorted(kinds - set(_SPLIT_KINDS))}"
-    elif cfg.frontend is not None:
-        why = f"the {cfg.frontend} frontend"
     elif cfg.tie_embeddings:
         why = "a tied head"
     elif attn and cfg.n_heads % tp:
@@ -530,5 +566,6 @@ def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
                      else None),
         slstm_heads=(_block(n_slstm, tp, index) if n_slstm is not None
                      else None),
-        vocab=_block(cfg.vocab_size, tp, index),
+        vocab=_block(cfg.vocab_size * (cfg.n_codebooks if cfg.frontend
+                                       == "audio_codec" else 1), tp, index),
         embed_pieces=pieces)

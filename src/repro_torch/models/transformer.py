@@ -32,14 +32,17 @@ rank). The values are the same bits under all three.
 
 Split over "model" (``model=``, the "model" ``AxisGroup`` of ``launch/mesh``,
 for the families ``models/sharding.model_view`` admits: the attention families,
-recurrentgemma's RG-LRU and windowed attention, xLSTM's mLSTM and sLSTM):
-``params`` hold a rank's model blocks (each leaf gathered over the data axes
-only). The embedding's block of the model dim, laid out (V, pieces, D / (pieces
-tp)) (its spec cuts the dim over (data, model)), is looked up and the
-activations gathered over "model"; each norm's output enters the
+recurrentgemma's RG-LRU and windowed attention, xLSTM's mLSTM and sLSTM, the
+VLM and audio frontends): ``params`` hold a rank's model blocks (each leaf
+gathered over the data axes only). The embedding's block of the model dim,
+laid out (V, pieces, D / (pieces tp)) (audio: (K, V, pieces, c); its spec
+cuts the dim over (data, model)), is looked up (audio: its K lookups summed
+on the rank's pieces) and the activations gathered once over "model", then
+the VLM's patch embeddings spliced in; each norm's output enters the
 column-parallel span through ``copy_to_model``; the mixer's and the FFN's
 partial outputs are summed by ``reduce_from_model``; the head gives this rank's
-vocabulary rows of the logits. Each row-parallel product is an f32 part
+block of its columns (vocabulary rows; audio: (codebook, vocabulary) columns,
+codebook-major). Each row-parallel product is an f32 part
 (``partial_product``), summed in f32 and rounded once to the model's dtype, as
 one process rounds the whole product. The mixers split themselves
 (``attention.py``, ``recurrent.py``), some with collectives inside the
@@ -72,12 +75,10 @@ from .._device import DeviceLike, resolve_device
 from ..configs.base import ModelConfig
 from ..launch.mesh import (copy_to_model, gather_from_model,
                            partial_product, reduce_from_model, split_axis)
-from .attention import apply_attn, init_attn, init_kv_cache, \
-    kv_cut_by_length
+from .attention import apply_attn, init_attn, init_kv_cache, kv_whole
 from .layers import embed_lookup, init_dense, init_norm, normal, rms_norm, \
     swiglu_ffn
 from .moe import apply_moe, init_moe
-from .sharding import SPLIT_ROADMAP
 from .recurrent import (apply_mlstm, apply_rglru, apply_slstm, init_mlstm,
                         init_mlstm_state, init_rglru, init_rglru_state,
                         init_slstm, init_slstm_state)
@@ -253,20 +254,26 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor],
     precomputed image-patch embeddings from ``batch["patch_embeds"]`` and
     splices them over the first ``n_prefix_tokens`` positions.
     ``inputs_embeds`` skips the lookup. ``model``: the embedding is this
-    rank's (V, pieces, c) block (module docstring); the looked-up pieces
-    are gathered over "model" into (b, s, D)."""
+    rank's (V, pieces, c) block, audio's (K, V, pieces, c) (module
+    docstring); the looked-up pieces (audio: their sum over the K
+    codebooks, which is linear, so one gather carries it) are gathered over
+    "model" into (b, s, D), and the patches spliced in after."""
     if "inputs_embeds" in batch:
         return batch["inputs_embeds"]
-    tokens = batch["tokens"]
-    if split_axis(model):
-        emb = params["embed"]
-        x = embed_lookup(emb.flatten(1), tokens).unflatten(-1, emb.shape[1:])
-        return gather_from_model(x, model, dim=-1).flatten(-2)
+    tokens, emb = batch["tokens"], params["embed"]
+    split = split_axis(model)
+
+    def lookup(table, ids):         # a rank's pieces: (V, pieces x c)
+        return embed_lookup(table.flatten(-2) if split else table, ids)
+
     if cfg.frontend == "audio_codec":
-        x = sum(embed_lookup(params["embed"][k], tokens[..., k])
+        x = sum(lookup(emb[k], tokens[..., k])
                 for k in range(cfg.n_codebooks))
     else:
-        x = embed_lookup(params["embed"], tokens)
+        x = lookup(emb, tokens)
+    if split:
+        x = gather_from_model(x.unflatten(-1, emb.shape[-2:]), model,
+                              dim=-1).flatten(-2)
     if cfg.frontend == "vlm_patches" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(x.dtype)
         x = torch.cat([pe, x[:, cfg.n_prefix_tokens:]], dim=1)
@@ -276,14 +283,22 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor],
 def _head(params, x: torch.Tensor, cfg: ModelConfig, *,
           model=None) -> torch.Tensor:
     """Final norm and logits: (b, s, V), or (b, s, K, V) for audio; split
-    over ``model``, this rank's vocabulary rows (b, s, V / tp) of an
-    untied head (``sharding.model_view`` refuses a tied one)."""
+    over ``model``, this rank's block of an untied head's columns
+    (``sharding.model_view`` refuses a tied one): vocabulary rows (b, s,
+    V / tp); audio's K V columns are codebook-major, so (b, s, K / tp, V)
+    where tp divides K, else (b, s, K V / tp) (a codebook cut
+    mid-vocabulary)."""
     x = copy_to_model(rms_norm(x, params["final_norm"], cfg.norm_eps), model)
     head = params.get("lm_head")
     logits = x @ (head if head is not None else params["embed"].T)
     if cfg.frontend == "audio_codec":
         b, s, _ = x.shape
-        logits = logits.reshape(b, s, cfg.n_codebooks, cfg.vocab_size)
+        k = cfg.n_codebooks
+        if split_axis(model):
+            if k % model.size:
+                return logits
+            k //= model.size
+        logits = logits.reshape(b, s, k, cfg.vocab_size)
     return logits
 
 
@@ -321,53 +336,68 @@ def forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 # decode
 # ---------------------------------------------------------------------------
+def _length_group(cfg: ModelConfig, model, length):
+    """``length``, or by default "model" where the kv heads do not divide
+    over it (``sharding.length_axes`` of a batch that divides)."""
+    if length is None and kv_whole(cfg, model):
+        return model
+    return length if split_axis(length) else None
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
-                      device: DeviceLike = None,
-                      model=None) -> Dict[str, Any]:
+                      device: DeviceLike = None, model=None,
+                      length=None) -> Dict[str, Any]:
     """Per-pattern-position stacked caches and states + the step counter.
 
     Attention blocks get a ring-buffer KV cache (``swa``: of the window),
     recurrent ones their f32 state. The counter is a host integer: the slot
     and the mask of each step are computed on the host, so no step waits on
     the device. ``model``: a model rank's share, as ``decode_state_specs``
-    cuts it: n_kv_heads / tp kv heads where they divide, else every kv head
-    over S / tp ring slots (the cache cut by length; a ring that does not
-    divide raises ``NotImplementedError``); RG-LRU's channels, mLSTM's and
-    sLSTM's heads, d / tp of them. ``batch`` is the rank's rows.
+    cuts it: n_kv_heads / tp kv heads where they divide, else every kv
+    head; RG-LRU's channels, mLSTM's and sLSTM's heads, d / tp of them.
+    ``length``: the group (``sharding.length_axes``; default "model" where
+    the kv heads do not divide over it) whose n ranks each hold S / n ring
+    slots; a ring that does not divide over it is whole on every rank, as
+    the reference keeps it. ``batch`` is the rank's rows. A split state
+    (``model`` or ``length`` given) also holds ``rings``: each attention
+    block's whole ring length, host integers.
     """
     dev = resolve_device(device)
     tp = model.size if split_axis(model) else 1
-    by_length = kv_cut_by_length(cfg, model)
-    caches = {}
+    group = _length_group(cfg, model, length)
+    n = group.size if group is not None else 1
+    nkv = cfg.n_kv_heads if kv_whole(cfg, model) else cfg.n_kv_heads // tp
+    caches, rings = {}, {}
     for i, kind in enumerate(cfg.pattern_for_layers()):
         name = f"blk{i}_{kind}"
         if kind in ATTN_KINDS:
             wlen = min(cfg.window or max_len, max_len) if kind == "swa" \
                 else max_len
-            if by_length and wlen % tp:
-                raise NotImplementedError(
-                    f"{cfg.name}: a ring of {wlen} slots over a model axis "
-                    f"of {tp} (the cache whole on every rank) is not "
-                    f"ported; see {SPLIT_ROADMAP}")
+            rings[name] = wlen
             caches[name] = init_kv_cache(
-                cfg, batch, wlen // tp if by_length else wlen, cfg.n_groups,
-                dev, n_kv_heads=None if by_length else cfg.n_kv_heads // tp)
+                cfg, batch, wlen // n if wlen % n == 0 else wlen,
+                cfg.n_groups, dev, n_kv_heads=nkv)
         else:
             caches[name] = _MIXERS[kind][2](cfg, batch, cfg.n_groups, dev,
                                             tp=tp)
-    return {"index": 0, "caches": caches}
+    state = {"index": 0, "caches": caches}
+    if split_axis(model) or split_axis(length):
+        state["rings"] = rings
+    return state
 
 
 def _apply_block_decode(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                        cache, index: int, act_specs=None,
-                        model=None) -> torch.Tensor:
+                        cache, index: int, act_specs=None, model=None,
+                        length=None) -> torch.Tensor:
     """One token through one block; ``cache`` (this layer's views into the
-    stacked caches) is written in place."""
+    stacked caches) is written in place; ``length``: the group its ring is
+    cut over, ``None`` for a whole one."""
     h = copy_to_model(rms_norm(x, p["norm1"], cfg.norm_eps), model)
     if kind in ATTN_KINDS:
         out, _ = apply_attn(p["mixer"], h, cfg,
                             window=cfg.window if kind == "swa" else None,
-                            cache=cache, cache_index=index, model=model)
+                            cache=cache, cache_index=index, model=model,
+                            length=length)
     else:
         out, new_state = _MIXERS[kind][1](p["mixer"], h, cfg, state=cache,
                                           model=model)
@@ -381,16 +411,19 @@ def _apply_block_decode(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
 
 
 def decode_step(params, state: Dict[str, Any], tokens: torch.Tensor,
-                cfg: ModelConfig, *, act_specs=None, model=None):
+                cfg: ModelConfig, *, act_specs=None, model=None,
+                length=None):
     """One serving step. tokens: (b, 1) (audio: (b, 1, K)). ``act_specs``
     and ``model`` as in ``forward`` (split: ``state`` from
-    ``init_decode_state(..., model=)``, the logits this rank's vocabulary
-    rows).
+    ``init_decode_state(..., model=, length=)`` with the same groups, the
+    logits this rank's block of the head's columns).
 
     Returns (logits, new_state). The caches and states advance by one,
     written in place: ``new_state`` holds the same tensors as ``state``.
     """
     index = state["index"]
+    group = _length_group(cfg, model, length)
+    rings = state.get("rings", {})
     x = embed_inputs(params, {"tokens": tokens}, cfg, model=model)
     pattern = cfg.pattern_for_layers()
     for g in range(cfg.n_groups):
@@ -398,7 +431,10 @@ def decode_step(params, state: Dict[str, Any], tokens: torch.Tensor,
         gc = _group(state["caches"], g)
         for i, kind in enumerate(pattern):
             name = f"blk{i}_{kind}"
+            cut = name in rings and gc[name]["k"].shape[2] < rings[name]
             x = _apply_block_decode(gp[name], x, cfg, kind, gc[name], index,
-                                    act_specs, model)
-    return _head(params, x, cfg, model=model), {"index": index + 1,
-                                                "caches": state["caches"]}
+                                    act_specs, model,
+                                    group if cut else None)
+    return _head(params, x, cfg, model=model), {
+        "index": index + 1, "caches": state["caches"],
+        **({"rings": rings} if "rings" in state else {})}

@@ -12,7 +12,8 @@
                          own block of the update. ``split_model=True``
                          splits the compute over "model" (tensor
                          parallelism: the attention families,
-                         recurrentgemma and xLSTM): it gathers over the
+                         recurrentgemma, xLSTM and the VLM and audio
+                         frontends): it gathers over the
                          data axes only. ``split_model=False``
                          gathers each leaf whole and repeats the model on
                          every rank of a data shard: the plain route the
@@ -20,7 +21,8 @@
                          families the split does not cover.
 ``make_sharded_serve_step``  (prefill, decode) over the same mesh, split
                          over "model": the twin of the programs the
-                         reference's dry run lowers.
+                         reference's dry run lowers;
+                         ``sharded_decode_state`` a rank's decode state.
 ``make_serve_step``      one-token decode with the KV caches.
 
 The reference trains through plain attention (``use_pallas=False``): the
@@ -41,14 +43,16 @@ from .. import _tree
 from ..configs.base import ModelConfig, PSAConfig
 from ..launch.mesh import reduce_from_model, split_axis
 from ..models import sharding as shd
-from ..models.transformer import decode_step, forward, init_params, tree_map
+from ..models.transformer import (decode_step, forward, init_decode_state,
+                                  init_params, tree_map)
 from ..optim.adamw import AdamWConfig, adamw_update, global_norm, \
     sum_squares
 from ..optim.psa_compress import compress_grads, group_mean, psa_refresh
 
 __all__ = ["loss_fn", "make_train_step", "make_psa_train_step",
            "make_sharded_train_step", "make_sharded_value_and_grad",
-           "make_sharded_serve_step", "make_serve_step", "shard_batch"]
+           "make_sharded_serve_step", "sharded_decode_state",
+           "make_serve_step", "shard_batch"]
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
@@ -59,11 +63,15 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     (only its ``"moe"`` entry acts); ``remat`` as ``forward``'s.
 
     ``model``: the "model" axis of a split (``forward``'s), whose logits
-    are each rank's vocabulary rows: a vocabulary-parallel cross entropy in
-    f32. The max and the sum of exponentials are reduced over "model"
-    (the max outside autograd: the log-sum-exp's gradient does not depend
-    on it), and the gold logit comes from the rank that holds it, zeros
-    from the others, summed."""
+    are each rank's block of the head's columns: a vocabulary-parallel
+    cross entropy in f32, a codebook at a time for audio (its K V columns
+    codebook-major, so a rank may hold parts of several codebooks, or of
+    one cut mid-vocabulary). Each codebook's max and sum of exponentials
+    over the rank's columns of it (-inf and 0 where it holds none) are
+    reduced over "model" as (b, s, K) (the max outside autograd: the
+    log-sum-exp's gradient does not depend on it), and the gold logit,
+    column k V + label, comes from the rank that holds it, zeros from the
+    others, summed."""
     logits = forward(params, batch, cfg, use_kernel=False,
                      act_specs=act_specs, remat=remat,
                      model=model).to(torch.float32)
@@ -72,14 +80,25 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
         logz = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, labels[..., None])[..., 0]
         return torch.mean(logz - gold)
-    v_loc = logits.shape[-1]
-    top = model.all_reduce_(logits.detach().amax(-1).contiguous(),
-                            op=dist.ReduceOp.MAX)
-    sumexp = reduce_from_model(
-        torch.exp(logits - top[..., None]).sum(-1), model)
-    local = labels - model.index * v_loc
-    mine = (local >= 0) & (local < v_loc)
-    gold = logits.gather(-1, local.clamp(0, v_loc - 1)[..., None])[..., 0]
+    cols = logits.flatten(2)                    # (b, s, n) of K V columns
+    n, v = cols.shape[-1], cfg.vocab_size
+    n_k = cfg.n_codebooks if cfg.frontend == "audio_codec" else 1
+    c0 = model.index * n
+    spans = [(max(c0, k * v) - c0, min(c0 + n, (k + 1) * v) - c0)
+             for k in range(n_k)]
+    with torch.no_grad():
+        top = torch.stack([cols[..., lo:hi].amax(-1) if lo < hi else
+                           cols.new_full(cols.shape[:2], -math.inf)
+                           for lo, hi in spans], -1)
+    top = model.all_reduce_(top, op=dist.ReduceOp.MAX)
+    sumexp = reduce_from_model(torch.stack([
+        torch.exp(cols[..., lo:hi] - top[..., k, None]).sum(-1) if lo < hi
+        else cols.new_zeros(cols.shape[:2])
+        for k, (lo, hi) in enumerate(spans)], -1), model)
+    local = labels.reshape(top.shape) + torch.arange(
+        n_k, device=labels.device) * v - c0
+    mine = (local >= 0) & (local < n)
+    gold = cols.gather(-1, local.clamp(0, n - 1))
     gold = reduce_from_model(torch.where(mine, gold, 0.0), model)
     return torch.mean(torch.log(sumexp) + top - gold)
 
@@ -178,11 +197,10 @@ def make_psa_train_step(cfg: ModelConfig, opt: AdamWConfig, psa: PSAConfig,
 
 def _model_blocks(params, specs, mesh, view: shd.ModelView):
     """A rank's stored blocks gathered over the data axes only
-    (``sharding.data_specs``): its model blocks, the embedding's laid out
-    (V, pieces, c) for ``forward(..., model=)``."""
+    (``sharding.data_specs``): its model blocks, the embedding's model dim
+    laid out (pieces, c) for ``forward(..., model=)``."""
     local = shd.gather_tree(params, shd.data_specs(specs, mesh), mesh)
-    emb = local["embed"]
-    local["embed"] = emb.unflatten(1, (view.embed_pieces, -1))
+    local["embed"] = local["embed"].unflatten(-1, (view.embed_pieces, -1))
     return local
 
 
@@ -240,7 +258,7 @@ def make_sharded_value_and_grad(cfg: ModelConfig, mesh, *,
         loss, grads = _value_and_grad(local, batch, cfg, remat=remat,
                                       model=model)
         del local
-        grads["embed"] = grads["embed"].flatten(1)
+        grads["embed"] = grads["embed"].flatten(-2)
         if split_axis(model):
             names, leaves, structure = _tree.flatten_with_names(grads)
             leaves = [model.all_reduce_(g.to(torch.float32, copy=True))
@@ -271,14 +289,15 @@ def make_sharded_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh, *,
     clips by the whole gradient's norm and updates only this rank's
     blocks. Every rank of a data shard repeats the compute.
 
-    ``split_model=True`` (the families ``sharding.model_view`` admits; the
-    others raise ``NotImplementedError``): a step gathers over the data
-    axes only, so each rank keeps its model blocks (the reference's ZeRO-3
-    over "data"), and runs the forward and backward split over "model"
-    (``forward(..., model=)``, the vocabulary-parallel ``loss_fn``). The
-    gradients each rank holds a part of (``sharding.partial_over_model``)
-    are summed over "model" (f32), every gradient averaged over the data
-    axes, and the global norm counts each element once.
+    ``split_model=True`` (the configurations ``sharding.model_view``
+    admits; the others raise ``NotImplementedError``): a step gathers over
+    the data axes only, so each rank keeps its model blocks (the
+    reference's ZeRO-3 over "data"), and runs the forward and backward
+    split over "model" (``forward(..., model=)``, the vocabulary-parallel
+    ``loss_fn``). The gradients each rank holds a part of
+    (``sharding.partial_over_model``) are summed over "model" (f32), every
+    gradient averaged over the data axes, and the global norm counts each
+    element once.
 
     Either way the math is the reference's step on the global batch: its
     MoE routes each data shard's tokens on their own (``activation_specs``'
@@ -296,37 +315,44 @@ def make_sharded_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh, *,
     return step
 
 
+def _mesh_length_group(cfg: ModelConfig, mesh, global_batch: int):
+    """The group a decode cache's length is cut over on ``mesh``
+    (``sharding.length_axes``), ``None`` where it is not cut."""
+    axes = shd.length_axes(cfg, shd.MeshShape.from_mesh(mesh), global_batch)
+    group = mesh.group(axes) if axes else None
+    return group if split_axis(group) else None
+
+
 def make_sharded_serve_step(cfg: ModelConfig, mesh, global_batch: int):
     """(prefill, decode) on one rank of ``mesh``, the compute split over
     "model": the twin of the prefill and decode programs the reference's
     dry run lowers on its mesh (``repro/launch/dryrun.py``).
 
-    The families are those ``sharding.model_view`` admits: the attention
-    families, recurrentgemma-2b (RG-LRU, and windowed attention whose one
-    kv head does not divide) and xlstm-1.3b (mLSTM, sLSTM). Both take the
-    rank's stored blocks (``param_specs``) and gather them over the data
-    axes. ``prefill(params, batch)`` -> this rank's vocabulary rows of the
-    logits (b / dp, s, V / tp), its batch shard's (``batch_specs``),
-    through the flash kernel on the rank's query heads.
-    ``decode(params, state, tokens)`` -> (logits, state): one token against
-    ``state`` from ``init_decode_state(cfg, b / dp, max_len,
-    model=mesh.axis("model"))``, cut as ``decode_state_specs`` cuts it:
-    the kv heads over "model" where they divide, else the cache's length;
-    the recurrent states' channels and heads. ``model_view``'s refusals
-    raise ``NotImplementedError`` (a frontend, a tied head, query, mLSTM
-    or sLSTM heads that do not divide), as does a batch that does not
-    divide over the data axes (``decode_state_specs`` then cuts the cache
-    by length over the data axes too) and a ring that does not divide over
-    "model" (``init_decode_state``)."""
+    The configurations are those ``sharding.model_view`` admits: the
+    attention families, recurrentgemma-2b (RG-LRU, and windowed attention
+    whose one kv head does not divide), xlstm-1.3b (mLSTM, sLSTM),
+    paligemma-3b (patch embeddings spliced over the gathered activations)
+    and musicgen-medium (K codebook tables, a head of K V columns). Both
+    take the rank's stored blocks (``param_specs``) and gather them over
+    the data axes. ``prefill(params, batch)`` -> this rank's block of the
+    head's columns (``forward``'s), for its shard of the batch
+    (``batch_specs``: tokens and, for the VLM, ``patch_embeds``), through
+    the flash kernel on the rank's query heads.
+    ``decode(params, state, tokens)`` -> (logits, state): one token (text
+    only, as in the reference) against ``state`` from
+    ``sharded_decode_state``, cut as ``decode_state_specs`` cuts it: the
+    kv heads over "model" where they divide, else every kv head; the
+    cache's length over ``sharding.length_axes`` ("model" where the kv
+    heads do not divide; where the batch does not divide over the data
+    axes, each data rank runs the whole batch and the length is cut over
+    those axes too), a ring that does not divide over them whole on every
+    rank; the recurrent states' channels and heads, whole over the data
+    axes. ``model_view``'s refusals raise ``NotImplementedError`` (a tied
+    head, query, mLSTM or sLSTM heads that do not divide)."""
     shape = shd.MeshShape.from_mesh(mesh)
-    if shd.dp_shards(cfg, shape, global_batch) != math.prod(
-            shape.shape[a] for a in shd.dp_axes(shape)):
-        raise NotImplementedError(
-            f"a batch of {global_batch} over the data axes "
-            f"{shd.dp_axes(shape)}: the cache cut by length is not ported; "
-            f"see {shd.SPLIT_ROADMAP}")
     view = shd.model_view(cfg, shape, mesh.coords.get("model", 0))
     model = mesh.axis("model") if "model" in mesh.groups else None
+    length = _mesh_length_group(cfg, mesh, global_batch)
     pspecs = shd.param_specs(init_params(None, cfg, device="meta"), cfg,
                              shape)
 
@@ -338,9 +364,25 @@ def make_sharded_serve_step(cfg: ModelConfig, mesh, global_batch: int):
     def decode(params, state, tokens):
         with torch.inference_mode():
             local = _model_blocks(params, pspecs, mesh, view)
-            return decode_step(local, state, tokens, cfg, model=model)
+            return decode_step(local, state, tokens, cfg, model=model,
+                               length=length)
 
     return prefill, decode
+
+
+def sharded_decode_state(cfg: ModelConfig, mesh, global_batch: int,
+                         max_len: int, *, device=None):
+    """A rank's decode state for ``make_sharded_serve_step``'s decode:
+    ``init_decode_state`` of its rows of the batch (``batch_specs``: all of
+    them where the batch does not divide over the data axes) with the
+    mesh's "model" axis and length group, as ``decode_state_specs`` plans
+    it."""
+    shape = shd.MeshShape.from_mesh(mesh)
+    return init_decode_state(
+        cfg, global_batch // shd.dp_shards(cfg, shape, global_batch),
+        max_len, device=mesh.device if device is None else device,
+        model=mesh.axis("model") if "model" in mesh.groups else None,
+        length=_mesh_length_group(cfg, mesh, global_batch))
 
 
 def make_serve_step(cfg: ModelConfig):

@@ -7,14 +7,23 @@ rank holds its blocks of the parameters (``models/sharding.shard_tree`` by
 qwen2-7b (qkv bias, GQA), phi3.5-moe (experts over "model", capacity
 MOE_CF so that routing drops pairs), recurrentgemma-2b (RG-LRU, and a
 windowed attention whose one kv head does not divide: window RING, so that
-decode wraps the ring and a rank's slots start empty) and xlstm-1.3b
-(mLSTM, sLSTM; widened to XLSTM_D so that 4 mLSTM and 2 sLSTM heads
-divide), runs ``make_sharded_value_and_grad(split_model=True)`` at each
-remat, the unsplit route (``split_model=False``), one split AdamW step, and
+decode wraps the ring and a rank's slots start empty), xlstm-1.3b (mLSTM,
+sLSTM; widened to XLSTM_D so that 4 mLSTM and 2 sLSTM heads divide),
+paligemma-3b (patch embeddings spliced over the gathered activations, its
+one kv head) and musicgen-medium (4 codebook tables, a head of 4 x V
+columns, 2 codebooks a rank), runs
+``make_sharded_value_and_grad(split_model=True)`` at each remat, the
+unsplit route (``split_model=False``), one split AdamW step, and
 ``make_sharded_serve_step``'s prefill and ``DECODE_STEPS`` decode steps.
-The same ranks then lay (1, 4) out for the QUAD cases (qwen2-7b's 2 kv
-heads, xlstm's whole sLSTM FFN leaves), check the new collective's
-gradient and lay a mesh over two of them.
+Then the LONG cases decode a batch of 1, which does not divide over
+"data": h2o-danube's cache cut by length over "data" (its kv heads over
+"model"), recurrentgemma's over ("data", "model"), xlstm's states whole
+over "data"; and recurrentgemma with a ring of RING - 1 slots, which does
+not divide over "model" and is whole on every rank. The same ranks then
+lay (1, 4) out for the QUAD cases (qwen2-7b's 2 kv heads, xlstm's whole
+sLSTM FFN leaves, musicgen with 2 codebooks, each cut mid-vocabulary over
+two ranks), check the new collective's gradient and lay a mesh over two of
+them.
 
 Held: the loss against one process's ``loss_fn`` on the global batch (its
 MoE routed per data shard, ``act_specs["moe"]["n_dp"]`` = 2, as the split
@@ -26,8 +35,8 @@ decode's logits against one process's ``forward`` / ``decode_step``; the
 wire bytes a rank counted equal to ``roofline.step_wire_bytes`` exactly,
 and the model axis's all-reduces: as many more under ``"names"`` than
 under ``False`` as the mixers run inside their spans (mLSTM's gate sum),
-and under ``True`` the forward's again. The families and meshes the split
-does not cover raise.
+and under ``True`` the forward's again; the decode states' bytes equal to
+the dry run's plan. The configurations the split does not cover raise.
 
 The ranks start by ``spawn`` and import this module: it imports no JAX at
 module level. Tolerances: F32_TOL relative (f32 sums in another order:
@@ -38,6 +47,7 @@ route's step: a first step moves an element by ~lr times the sign of its
 gradient, so elements whose gradient is ~0 flip with the summation order.
 """
 import dataclasses
+import math
 import os
 import shutil
 
@@ -58,18 +68,28 @@ from repro_torch.optim.adamw import AdamWConfig
 F32_TOL = 2e-5
 SERVE_TOL = 1e-5
 SPLIT = ("h2o-danube-1.8b", "qwen2-7b", "phi3.5-moe-42b-a6.6b",
-         "recurrentgemma-2b", "xlstm-1.3b")
-UNSPLIT = ("paligemma-3b", "musicgen-medium")
+         "recurrentgemma-2b", "xlstm-1.3b", "paligemma-3b",
+         "musicgen-medium")
 REMATS = (False, True, "names")
 MESH = (("data", 2), ("model", 2))
 KV_MESH = (("data", 1), ("model", 4))
-# on KV_MESH: qwen2's 2 kv heads over 4 (the cache cut by length), and
-# xlstm at width 1024, whose sLSTM FFN (f = 1365) keeps w_ffn_up and
-# w_ffn_down whole over 4: each rank reads its part of them
+# on KV_MESH: qwen2's 2 kv heads over 4 (the cache cut by length), xlstm
+# at width 1024, whose sLSTM FFN (f = 1365) keeps w_ffn_up and w_ffn_down
+# whole over 4: each rank reads its part of them, and musicgen with 2
+# codebooks, whose K V = 512 head columns put each codebook on two ranks
+# (and whose 2 kv heads over 4 cut its cache by length)
 QUAD = {"kv_heads": ("qwen2-7b", {}),
-        "whole_ffn": ("xlstm-1.3b", {"d_model": 1024})}
+        "whole_ffn": ("xlstm-1.3b", {"d_model": 1024}),
+        "codebook_cut": ("musicgen-medium", {"n_codebooks": 2})}
+QUAD_REF = ("codebook_cut",)    # QUAD cases with over held to the reference
 SB, SS = 4, 16
 DECODE_STEPS = {"recurrentgemma-2b": 12}      # past the ring's wrap
+# a batch of 1 on MESH (max_len, decode steps): h2o-danube's ring of 8
+# slots cut over "data" (4 a rank), recurrentgemma's of RING cut over
+# ("data", "model") (2 a rank), both wrapped; xlstm's states
+LONG = {"h2o-danube-1.8b": (8, 12), "recurrentgemma-2b": (SS, 12),
+        "xlstm-1.3b": (SS, 4)}
+WHOLE_RING = "ring_whole"       # recurrentgemma, window RING - 1, on MESH
 MOE_CF = 0.5
 RING = 8                        # recurrentgemma's window: a ring of 8 slots
 XLSTM_D = 256                   # 4 mLSTM heads, 2 sLSTM heads of 128
@@ -90,6 +110,16 @@ def _steps(aid) -> int:
     return DECODE_STEPS.get(aid, 4)
 
 
+def _inputs(batch):
+    """A batch's model inputs: tokens, and the VLM's patch embeddings."""
+    return {k: v for k, v in batch.items() if k != "labels"}
+
+
+def _ring_cfg(configs):
+    return dataclasses.replace(_cfg(configs, "recurrentgemma-2b"),
+                               window=RING - 1)
+
+
 def _counters(mesh):
     return {a: (dict(g.wire_bytes), dict(g.calls))
             for a, g in mesh.groups.items()}
@@ -107,7 +137,8 @@ def _rank(rank, world, dev, work):
     from repro_torch.optim.adamw import adamw_init, adamw_update
     from repro_torch.train.step import (make_sharded_serve_step,
                                         make_sharded_train_step,
-                                        make_sharded_value_and_grad)
+                                        make_sharded_value_and_grad,
+                                        sharded_decode_state)
     mesh = make_mesh(MESH, device=dev)
     shape = shd.MeshShape.from_mesh(mesh)
     out = {"coords": mesh.coords}
@@ -164,10 +195,9 @@ def _rank(rank, world, dev, work):
                            _tree.tree_leaves(p), _tree.tree_leaves(q)))}
         prefill, decode = make_sharded_serve_step(cfg, mesh, SB)
         before = _counters(mesh)
-        res["prefill"] = prefill(params, {"tokens": local["tokens"]})
+        res["prefill"] = prefill(params, _inputs(local))
         res["prefill_wire"] = _since(mesh, before)
-        state = tt.init_decode_state(cfg, SB // 2, SS, device=dev,
-                                     model=mesh.axis("model"))
+        state = sharded_decode_state(cfg, mesh, SB, SS)
         res["decode"], res["decode_wire"] = [], []
         for t in range(_steps(aid)):
             before = _counters(mesh)
@@ -177,9 +207,56 @@ def _rank(rank, world, dev, work):
             res["decode"].append(logits)
         out[aid] = res
     moe.route = inner
+    out["long"] = _long_ranks(mesh, work)
     out["quad"] = _quad_ranks(dev, work)
     out["collective"] = _collective_grads(mesh)
     out["sub"] = _sub_mesh(rank, dev)
+    return out
+
+
+def _decode_run(cfg, mesh, params, tokens, global_batch, max_len, steps):
+    """``steps`` teacher-forced decode steps of ``make_sharded_serve_step``
+    from ``sharded_decode_state``: the logits, the wire bytes of each, the
+    state's tensor bytes and its caches' shapes."""
+    from repro_torch.train.step import (make_sharded_serve_step,
+                                        sharded_decode_state)
+    _, decode = make_sharded_serve_step(cfg, mesh, global_batch)
+    state = sharded_decode_state(cfg, mesh, global_batch, max_len)
+    names, leaves, _ = _tree.flatten_with_names(state["caches"])
+    res = {"state_bytes": sum(x.numel() * x.element_size() for x in leaves),
+           "cache_shapes": {n.lstrip("/"): tuple(x.shape)
+                            for n, x in zip(names, leaves)},
+           "decode": [], "decode_wire": []}
+    for t in range(steps):
+        before = _counters(mesh)
+        logits, state = decode(params, state, tokens[:, t:t + 1])
+        res["decode_wire"].append(_since(mesh, before))
+        res["decode"].append(logits)
+    return res
+
+
+def _long_ranks(mesh, work):
+    """Each LONG case: a batch of 1 (the global batch's first row, whole
+    on every rank) decoded on MESH; then WHOLE_RING on the SPLIT batch."""
+    shape = shd.MeshShape.from_mesh(mesh)
+    out = {}
+    for aid, (max_len, steps) in LONG.items():
+        cfg = _cfg(tcfg, aid)
+        full = torch.load(os.path.join(work, f"{aid}.pt"))
+        tokens = torch.load(os.path.join(work, f"{aid}_batch.pt"))["tokens"]
+        params = shd.shard_tree(full, shd.param_specs(full, cfg, shape),
+                                shape, mesh.coords)
+        out[aid] = _decode_run(cfg, mesh, params, tokens[:1], 1, max_len,
+                               steps)
+    cfg = _ring_cfg(tcfg)
+    full = torch.load(os.path.join(work, "recurrentgemma-2b.pt"))
+    batch = torch.load(os.path.join(work, "recurrentgemma-2b_batch.pt"))
+    local = shd.shard_tree(batch, shd.batch_specs(cfg, shape, SB), shape,
+                           mesh.coords)
+    params = shd.shard_tree(full, shd.param_specs(full, cfg, shape), shape,
+                            mesh.coords)
+    out[WHOLE_RING] = _decode_run(cfg, mesh, params, local["tokens"], SB, SS,
+                                  _steps("recurrentgemma-2b"))
     return out
 
 
@@ -202,7 +279,8 @@ def _quad_ranks(dev, work):
     and decode, with the wire bytes of each."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train.step import (make_sharded_serve_step,
-                                        make_sharded_value_and_grad)
+                                        make_sharded_value_and_grad,
+                                        sharded_decode_state)
     mesh = make_mesh(KV_MESH, device=dev)
     shape = shd.MeshShape.from_mesh(mesh)
     out = {}
@@ -220,10 +298,9 @@ def _quad_ranks(dev, work):
                "grads": shd.gather_tree(grads, pspecs, mesh)}
         prefill, decode = make_sharded_serve_step(cfg, mesh, SB)
         before = _counters(mesh)
-        res["prefill"] = prefill(params, {"tokens": batch["tokens"]})
+        res["prefill"] = prefill(params, _inputs(batch))
         res["prefill_wire"] = _since(mesh, before)
-        state = tt.init_decode_state(cfg, SB, SS, device=dev,
-                                     model=mesh.axis("model"))
+        state = sharded_decode_state(cfg, mesh, SB, SS)
         names, leaves, _ = _tree.flatten_with_names(state["caches"])
         res["cache_shapes"] = {n.lstrip("/"): tuple(x.shape)
                                for n, x in zip(names, leaves)}
@@ -262,11 +339,12 @@ def _collective_grads(mesh):
 
 
 def _assemble(ranks, key):
-    """The global (b, s, V) logits from each rank's (b / 2, s, V / 2)."""
+    """The global (b, s, C) logits (C = V, audio's K V codebook-major) from
+    each rank's (b / 2, s, C / 2), audio's (b / 2, s, K / 2, V)."""
     rows = {}
     for r in ranks:
         rows.setdefault(r["coords"]["data"], {})[r["coords"]["model"]] = \
-            key(r)
+            key(r).flatten(2)
     return torch.cat([torch.cat([rows[d][m] for m in sorted(rows[d])], -1)
                       for d in sorted(rows)], 0)
 
@@ -281,6 +359,26 @@ def split(tmp_path_factory):
     from repro_torch.data.pipeline import make_lm_batch
     from repro_torch.train.step import _value_and_grad
     work = str(tmp_path_factory.mktemp("tp"))
+    aspecs = {"act": None, "logits": None, "attn_q": None, "attn_kv": None,
+              "moe": {"dp": None, "e": None, "n_dp": 2}}
+
+    def ref_loss(jc, params, batch):
+        return float(jax.jit(lambda p, b: jloss_fn(
+            p, b, jc, remat=False, act_specs=aspecs))(
+            tt.tree_map(lambda t: t.numpy(), params),
+            {k: v.numpy() for k, v in batch.items()}))
+
+    def decoded(tc, params, tokens, max_len, steps, **kw):
+        with torch.inference_mode():
+            state = tt.init_decode_state(tc, tokens.shape[0], max_len,
+                                         device="cpu")
+            out = []
+            for t in range(steps):
+                lg, state = tt.decode_step(params, state,
+                                           tokens[:, t:t + 1], tc, **kw)
+                out.append(lg)
+        return out
+
     one = {}
     for aid in SPLIT:
         tc, jc = _cfg(tcfg, aid), _cfg(jcfg, aid)
@@ -289,26 +387,19 @@ def split(tmp_path_factory):
         batch = make_lm_batch(tc, 0, 0, SB, SS, device="cpu")
         torch.save(params, os.path.join(work, f"{aid}.pt"))
         torch.save(batch, os.path.join(work, f"{aid}_batch.pt"))
-        aspecs = {"act": None, "logits": None, "attn_q": None,
-                  "attn_kv": None,
-                  "moe": {"dp": None, "e": None, "n_dp": 2}}
-        ref_loss = float(jax.jit(lambda p, b: jloss_fn(
-            p, b, jc, remat=False, act_specs=aspecs))(
-            tt.tree_map(lambda t: t.numpy(), params),
-            {k: v.numpy() for k, v in batch.items()}))
         loss, grads = _value_and_grad(params, batch, tc, act_specs=N_DP)
         with torch.inference_mode():
-            logits = tt.forward(params, {"tokens": batch["tokens"]}, tc,
-                                act_specs=N_DP)
-            state = tt.init_decode_state(tc, SB, SS, device="cpu")
-            steps = []
-            for t in range(_steps(aid)):
-                lg, state = tt.decode_step(
-                    params, state, batch["tokens"][:, t:t + 1], tc,
-                    act_specs=N_DP)
-                steps.append(lg)
-        one[aid] = {"cfg": tc, "ref_loss": ref_loss, "loss": float(loss),
-                    "grads": grads, "prefill": logits, "decode": steps}
+            logits = tt.forward(params, _inputs(batch), tc, act_specs=N_DP)
+        one[aid] = {"cfg": tc, "ref_loss": ref_loss(jc, params, batch),
+                    "loss": float(loss), "grads": grads, "prefill": logits,
+                    "decode": decoded(tc, params, batch["tokens"], SS,
+                                      _steps(aid), act_specs=N_DP)}
+        if aid in LONG:
+            one[aid]["long"] = decoded(tc, params, batch["tokens"][:1],
+                                       *LONG[aid])
+        if aid == "recurrentgemma-2b":
+            one[WHOLE_RING] = {"cfg": _ring_cfg(tcfg), "decode": decoded(
+                _ring_cfg(tcfg), params, batch["tokens"], SS, _steps(aid))}
     for case, (aid, over) in QUAD.items():
         tc = _cfg(tcfg, aid, **over)
         if not over:                # the (2, 2) run's model and batch
@@ -324,15 +415,14 @@ def split(tmp_path_factory):
         torch.save(batch, os.path.join(work, f"{case}_batch.pt"))
         loss, grads = _value_and_grad(params, batch, tc)
         with torch.inference_mode():
-            logits = tt.forward(params, {"tokens": batch["tokens"]}, tc)
-            state = tt.init_decode_state(tc, SB, SS, device="cpu")
-            steps = []
-            for t in range(_steps(aid)):
-                lg, state = tt.decode_step(
-                    params, state, batch["tokens"][:, t:t + 1], tc)
-                steps.append(lg)
-        one[case] = {"cfg": tc, "ref_loss": None, "loss": float(loss),
-                     "grads": grads, "prefill": logits, "decode": steps}
+            logits = tt.forward(params, _inputs(batch), tc)
+        one[case] = {"cfg": tc, "loss": float(loss), "grads": grads,
+                     "ref_loss": (ref_loss(_cfg(jcfg, aid, **over), params,
+                                           batch) if case in QUAD_REF
+                                  else None),
+                     "prefill": logits,
+                     "decode": decoded(tc, params, batch["tokens"], SS,
+                                       _steps(aid))}
     ranks = spawn_ranks(_rank, 4, backend="gloo", device="cpu",
                         args=(work,))
     return ranks, one
@@ -440,14 +530,14 @@ def test_serve_prefill_and_decode_match_one_process(split, aid):
     ranks, one = split
     o = one[aid]
     got = _assemble(ranks, lambda r: r[aid]["prefill"])
-    want = o["prefill"]
+    want = o["prefill"].flatten(2)
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= SERVE_TOL * float(
         want.abs().max())
     assert len(o["decode"]) == _steps(aid)
     for t in range(_steps(aid)):
         got = _assemble(ranks, lambda r: r[aid]["decode"][t])
-        want = o["decode"][t]
+        want = o["decode"][t].flatten(2)
         assert float((got - want).abs().max()) <= SERVE_TOL * float(
             want.abs().max())
 
@@ -511,7 +601,10 @@ def test_split_on_a_model_axis_of_4(split, case):
     query head reading its kv head gathered whole, the decode cache cut by
     length (4 of 16 slots a rank, three ranks empty at the first step).
     whole_ffn: xlstm's sLSTM FFN leaves stored whole over "model", each
-    rank reading its part (their gradients summed). The loss (and the
+    rank reading its part (their gradients summed). codebook_cut:
+    musicgen's 2 codebooks over 4, each rank's head columns half a
+    codebook's vocabulary (its logits (b, s, K V / 4)), the per-codebook
+    loss reduced over the two ranks that hold it. The loss (and the
     reference's), the gradients, the prefill and the decode against one
     process, the wire bytes against the plan."""
     ranks, one = split
@@ -523,19 +616,23 @@ def test_split_on_a_model_axis_of_4(split, case):
     plans = {kind: roofline.step_wire_bytes(
         cfg, ShapeConfig(kind, SS, SB, kind), mesh, split_model=True)
         for kind in ("train", "prefill", "decode")}
-    if case == "kv_heads":
+    if case in ("kv_heads", "codebook_cut"):
         assert plans["decode"]["model"]["all-gather"] > plans["decode"][
             "data"]["all-gather"] == 0
-    else:
+    if case == "whole_ffn":
         blk = specs["groups"]["blk1_slstm"]["mixer"]
         assert not shd.has_model(blk["w_ffn_up"])
         assert not shd.has_model(blk["w_ffn_down"])
+    if case == "codebook_cut":
+        v = cfg.vocab_size
+        assert [shd.model_view(cfg, mesh, m).vocab for m in range(4)] == [
+            (0, v // 2), (v // 2, v), (v, 3 * v // 2), (3 * v // 2, 2 * v)]
     want_norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in
                                      _tree.tree_leaves(o["grads"]))))
     res = [r["quad"][case] for r in ranks]
     assert sorted(r["coords"]["model"] for r in res) == [0, 1, 2, 3]
     for r in res:
-        if case == "kv_heads":
+        if case != "whole_ffn":
             assert r["cache_shapes"]["blk0_attn/k"] == (
                 cfg.n_groups, SB, cfg.n_kv_heads, SS // 4, cfg.hd)
             np.testing.assert_allclose(r["loss"], o["ref_loss"],
@@ -553,13 +650,15 @@ def test_split_on_a_model_axis_of_4(split, case):
                     for k in want:
                         assert wire[a][0][k] == want[k], (kind, a, k)
     by_model = sorted(res, key=lambda r: r["coords"]["model"])
-    got = torch.cat([r["prefill"] for r in by_model], -1)
-    assert float((got - o["prefill"]).abs().max()) <= SERVE_TOL * float(
-        o["prefill"].abs().max())
+    got = torch.cat([r["prefill"].flatten(2) for r in by_model], -1)
+    want = o["prefill"].flatten(2)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= SERVE_TOL * float(
+        want.abs().max())
     assert len(o["decode"]) == len(res[0]["decode"])
     for t in range(len(o["decode"])):
-        got = torch.cat([r["decode"][t] for r in by_model], -1)
-        want = o["decode"][t]
+        got = torch.cat([r["decode"][t].flatten(2) for r in by_model], -1)
+        want = o["decode"][t].flatten(2)
         assert float((got - want).abs().max()) <= SERVE_TOL * float(
             want.abs().max())
 
@@ -674,12 +773,14 @@ def test_model_view_blocks_are_the_sharded_leaves(aid):
     def width(r):
         return r[1] - r[0]
 
+    cols = cfg.vocab_size * (cfg.n_codebooks if cfg.frontend
+                             == "audio_codec" else 1)    # the head's
     for m in range(2):
         view = shd.model_view(cfg, mesh, m)
         assert view.tp == 2 and view.embed_pieces == 2
-        assert view.vocab == (m * cfg.vocab_size // 2,
-                              (m + 1) * cfg.vocab_size // 2)
+        assert view.vocab == (m * cols // 2, (m + 1) * cols // 2)
         assert model_block("lm_head")[-1] == width(view.vocab)
+        assert model_block("embed")[-1] == cfg.d_model // 2
         for i, kind in enumerate(pattern):
             mixer = ("groups", f"blk{i}_{kind}", "mixer")
             ffn = ("groups", f"blk{i}_{kind}", "ffn")
@@ -726,7 +827,7 @@ def test_model_view_blocks_are_the_sharded_leaves(aid):
                 assert view.experts == (m * cfg.moe.n_experts // 2,
                                         (m + 1) * cfg.moe.n_experts // 2)
                 assert model_block(*ffn, "w_up")[1] == width(view.experts)
-    assert dspecs["embed"] == (None, "data")
+    assert dspecs["embed"][-1] == "data" and not any(dspecs["embed"][:-1])
     assert dspecs["lm_head"] == ("data", None)
 
 
@@ -736,32 +837,14 @@ def _fake_mesh(sizes):
                 torch.device("cpu"), "gloo")
 
 
-@pytest.mark.parametrize("aid", UNSPLIT)
-def test_split_refused_for_the_unsplit_families(aid):
-    """The two families the split does not cover (their frontends) raise
-    when it is asked for, naming the ROADMAP item; none takes another
-    route."""
-    from repro_torch.train.step import (make_sharded_serve_step,
-                                        make_sharded_train_step)
-    cfg = tcfg.reduced_config(tcfg.get_arch(aid))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shd.model_view(cfg, shd.MeshShape.of(*MESH))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sharded_train_step(cfg, AdamWConfig(), _fake_mesh(MESH),
-                                global_batch=SB, split_model=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sharded_serve_step(cfg, _fake_mesh(MESH), SB)
-
-
 @pytest.mark.parametrize("case", ["q_heads", "kv_groups", "mlstm_heads",
-                                  "slstm_heads", "tied", "batch", "ring"])
+                                  "slstm_heads", "tied"])
 def test_split_refused_where_it_does_not_divide(case):
     """Query heads that do not divide over "model" (6 over 4), a rank's
     query heads that would read parts of two kv heads (6 / 3 over 2),
     mLSTM heads (xlstm at width 64: one head) or sLSTM heads (width 384: 3
-    over 2) that do not divide, a tied head, a serving batch that does not
-    divide over "data", and a ring cut by length that does not divide over
-    "model" raise."""
+    over 2) that do not divide, and a tied head raise, naming ROADMAP, in
+    the train step and the serve step alike."""
     from repro_torch.train.step import (make_sharded_serve_step,
                                         make_sharded_train_step)
     cfg = _cfg(tcfg, "qwen2-7b")
@@ -776,15 +859,109 @@ def test_split_refused_where_it_does_not_divide(case):
             "mlstm_heads": 64, "slstm_heads": 384}[case])
     elif case == "tied":
         cfg = dataclasses.replace(cfg, tie_embeddings=True)
-    elif case == "ring":
-        cfg = _cfg(tcfg, "recurrentgemma-2b")
-        cfg = dataclasses.replace(cfg, window=RING - 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if case == "batch":
-            make_sharded_serve_step(cfg, _fake_mesh(sizes), SB + 1)
-        elif case == "ring":
-            tt.init_decode_state(cfg, SB // 2, SS, device="meta",
-                                 model=_Axis(2))
-        else:
-            make_sharded_train_step(cfg, AdamWConfig(), _fake_mesh(sizes),
-                                    global_batch=SB, split_model=True)
+        make_sharded_train_step(cfg, AdamWConfig(), _fake_mesh(sizes),
+                                global_batch=SB, split_model=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_sharded_serve_step(cfg, _fake_mesh(sizes), SB)
+
+
+@pytest.mark.parametrize("aid", LONG)
+def test_batch_one_decode_matches_one_process(split, aid):
+    """A batch of 1 on (2, 2), whole on every rank: h2o-danube's ring cut
+    by length over "data" (its kv heads over "model"), recurrentgemma's
+    over ("data", "model"), both past the wrap; xlstm's states whole over
+    "data". The logits against one process's, the state's bytes equal to
+    the dry run's plan, the wire bytes of each step equal to the plan."""
+    from repro_torch.launch import dryrun
+    ranks, one = split
+    cfg = one[aid]["cfg"]
+    max_len, steps = LONG[aid]
+    mesh = shd.MeshShape.of(*MESH)
+    shape = ShapeConfig("long", max_len, 1, "decode")
+    plan = dryrun.memory_plan(cfg, shape, mesh, AdamWConfig())
+    wire = roofline.step_wire_bytes(cfg, shape, mesh, split_model=True)
+    axes = shd.length_axes(cfg, mesh, 1)
+    assert axes == {"h2o-danube-1.8b": ("data",), "xlstm-1.3b": ("data",),
+                    "recurrentgemma-2b": ("data", "model")}[aid]
+    if aid != "xlstm-1.3b":
+        assert wire[shd.axes_name(axes)]["all-gather"] > 0
+    for r in ranks:
+        res = r["long"][aid]
+        assert res["state_bytes"] == plan["decode_state"]["bytes"]
+        ring = min(cfg.window or max_len, max_len)
+        for name, shp in res["cache_shapes"].items():
+            if name.endswith("/k"):
+                assert shp[1] == 1 and shp[3] == ring // math.prod(
+                    mesh.shape[a] for a in axes)
+        for w in res["decode_wire"]:
+            for a, want in wire.items():
+                for k in want:
+                    assert w[a][0][k] == want[k], (a, k)
+    for t in range(steps):
+        want = one[aid]["long"][t]
+        for r in ranks:
+            got = r["long"][aid]["decode"][t]
+            m = r["coords"]["model"]
+            part = want.flatten(2).chunk(2, -1)[m]
+            assert float((got.flatten(2) - part).abs().max()) <= \
+                SERVE_TOL * float(want.abs().max())
+
+
+def test_ring_that_does_not_divide_is_whole(split):
+    """recurrentgemma with a ring of RING - 1 slots, which does not divide
+    over "model" (its one kv head): every rank holds the whole ring, as
+    ``decode_state_specs`` plans it, and its decode past the wrap matches
+    one process; its steps gather no partials (the plan)."""
+    from repro_torch.launch import dryrun
+    ranks, one = split
+    cfg = one[WHOLE_RING]["cfg"]
+    mesh = shd.MeshShape.of(*MESH)
+    shape = ShapeConfig("ring", SS, SB, "decode")
+    plan = dryrun.memory_plan(cfg, shape, mesh, AdamWConfig())
+    wire = roofline.step_wire_bytes(cfg, shape, mesh, split_model=True)
+    assert wire["model"]["all-gather"] == roofline.step_wire_bytes(
+        cfg, ShapeConfig("ring", SS, SB, "prefill"), mesh,
+        split_model=True)["model"]["all-gather"] / SS
+    for r in ranks:
+        res = r["long"][WHOLE_RING]
+        assert res["state_bytes"] == plan["decode_state"]["bytes"]
+        assert res["cache_shapes"]["blk2_swa/k"] == (
+            cfg.n_groups, SB // 2, cfg.n_kv_heads, RING - 1, cfg.hd)
+        for w in res["decode_wire"]:
+            for a, want in wire.items():
+                for k in want:
+                    assert w[a][0][k] == want[k], (a, k)
+    for t, want in enumerate(one[WHOLE_RING]["decode"]):
+        got = _assemble(ranks, lambda r: r["long"][WHOLE_RING]["decode"][t])
+        assert float((got - want).abs().max()) <= SERVE_TOL * float(
+            want.abs().max())
+
+
+def test_long_500k_decode_state_is_the_dry_run_plan():
+    """recurrentgemma-2b's long_500k decode state on the production mesh
+    (16, 16): a batch of 1, so its one kv head's 2,048-slot ring is cut
+    over ("data", "model"), 8 slots a rank; ``init_decode_state`` with the
+    (16 x 16)-rank length group allocates exactly the dry run's plan."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    cfg = tcfg.get_arch("recurrentgemma-2b")
+    mesh = make_production_mesh()
+    shape = SHAPES["long_500k"]
+    plan = dryrun.memory_plan(cfg, shape, mesh, AdamWConfig())
+    assert shd.length_axes(cfg, mesh, shape.global_batch) == ("data",
+                                                               "model")
+    for rank in (0, 17, 255):
+        state = tt.init_decode_state(
+            cfg, shape.global_batch, shape.seq_len, device="meta",
+            model=_Axis(16, rank % 16), length=_Axis(256, rank))
+        k = state["caches"]["blk2_swa"]["k"]
+        assert state["rings"]["blk2_swa"] == cfg.window == 2048
+        assert k.shape == (cfg.n_groups, 1, 1, 8, cfg.hd)
+        leaves = [x for x in _tree.tree_leaves(state)
+                  if isinstance(x, torch.Tensor)]
+        assert sum(x.numel() * x.element_size() for x in leaves) == \
+            plan["decode_state"]["bytes"]
+        assert sum(dryrun._alloc(x.numel() * x.element_size())
+                   for x in leaves) == plan["decode_state"]["alloc"]

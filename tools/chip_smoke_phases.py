@@ -1,16 +1,19 @@
 """Run some of chip_smoke.py's training phases alone on the card.
 
     python3 tools/chip_smoke_phases.py [tp_step] [remat] [tp_serve]
-        [tp_recurrent] [tp_recurrent_serve]
+        [tp_recurrent] [tp_recurrent_serve] [tp_frontends]
+        [tp_long_decode] [tp_frontends_serve]
 
-Builds the kernels, then runs the named phases (default: all five) with
-chip_smoke.py's own functions and prints their JSON lines: ``tp_step``
-and ``tp_recurrent`` run ``sharded_step`` first (its ranks run both
-routes and the recurrent families' split, one spawn for all three),
-``tp_serve`` and ``tp_recurrent_serve`` run tp_serve's ranks (one spawn
-for both); the ``kernels`` line of the rows they timed comes last. A
-failed check is printed and the next phase still runs; the exit code is 1
-if any check or phase failed, 2 where there is no card.
+Builds the kernels, then runs the named phases (default: all eight) with
+chip_smoke.py's own functions and prints their JSON lines: ``tp_step``,
+``tp_recurrent``, ``tp_frontends`` and ``tp_long_decode`` run
+``sharded_step`` first (its ranks run both routes, the recurrent
+families' and the frontends' split and the batch-1 decodes, one spawn for
+all), ``tp_serve``, ``tp_recurrent_serve`` and ``tp_frontends_serve`` run
+tp_serve's ranks (one spawn for the three); the ``kernels`` line of the
+rows they timed comes last. A failed check is printed and the next phase
+still runs; the exit code is 1 if any check or phase failed, 2 where
+there is no card.
 """
 import sys
 import time
@@ -21,7 +24,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("tp_step", "remat", "tp_serve", "tp_recurrent",
-          "tp_recurrent_serve")
+          "tp_recurrent_serve", "tp_frontends", "tp_long_decode",
+          "tp_frontends_serve")
+SHARDED = ("tp_step", "tp_recurrent", "tp_frontends", "tp_long_decode")
 
 
 def main() -> None:
@@ -55,16 +60,22 @@ def main() -> None:
     for name in which:
         t0 = time.perf_counter()
         try:
-            if name in ("tp_step", "tp_recurrent"):
+            if name in SHARDED:
                 if sharded is None:
                     sharded = cs.sharded_step_phase(dev, card)
                 if name == "tp_step":
                     cs.tp_step_phase(dev, card, sharded)
-                else:
+                elif name == "tp_recurrent":
                     cs.tp_recurrent_phase(dev, card, sharded)
+                elif name == "tp_frontends":
+                    cs.tp_recurrent_phase(dev, card, sharded, name,
+                                          cs.TP_FRONT_TRAIN,
+                                          "_frontends_ranks")
+                else:
+                    cs.tp_long_decode_phase(dev, card, sharded)
             elif name == "remat":
                 cs.remat_phase(dev, card)
-            elif not served:        # tp_serve runs tp_recurrent_serve too
+            elif not served:        # tp_serve runs the other two serve phases
                 served = True
                 cs.tp_serve_phase(dev, rows, record, card)
         except Exception as e:      # the next phase still runs
