@@ -324,7 +324,7 @@ phase.
   kernel rows ``gram_qr_psa_refresh_*`` time row 4 at the refresh's shapes
   and ``gram_qr_sdot_spmd`` at sdot_spmd's (1, 1024, 7).
 * ``train_example``: the example twin (``train_lm_psa_compress
-  --full-100m``: d_model 768, 12 layers, vocabulary 32,000, f32) for 15
+  --full-100m``: d_model 768, 12 layers, vocabulary 32,000, f32) for 12
   steps (cut from 300, TRAIN_EXAMPLE_STEPS) on 2 pod ranks,
   checkpoints under ``build/chip_smoke_train/``
   (removed after): the last loss below the first, ms a step, tokens/s.
@@ -334,8 +334,9 @@ the roofline (``train_family_phases``), each line with the card's name and
 power limit and the memory it plans beside the peak it read:
 
 * ``train_families``: recurrentgemma-2b whole at 2 x 1024, phi3.5-moe cut
-  from 32 layers to 2 at 2 x 1024, xlstm-1.3b at 8 of 48 layers, 2 x
-  256, without remat (sLSTM loops over time on the host), paligemma-3b
+  from 32 layers to 2 at 2 x 1024, xlstm-1.3b at 4 of 48 layers (8
+  until tp_heads: its phase read 10.7 s on an H100), 2 x 256, without
+  remat (sLSTM loops over time on the host), paligemma-3b
   and musicgen-medium whole at 2 x 1024,
   one after another, each freed before the next: FAMILY_STEPS AdamW steps
   (bf16 weights, f32 moments) on one fixed batch, finite losses that fall,
@@ -388,21 +389,19 @@ power limit and the memory it plans beside the peak it read:
   wire bytes equal to the plan. The row ``flash_attention_tp_shard`` times
   row 9 at that shape against plain and SDPA and takes the ranks'
   launches.
-* ``tp_recurrent``: the split over "model" for the recurrent families,
-  run by sharded_step's 4 ranks after tp_step (``tp_recurrent_steps``):
-  recurrentgemma-2b at one 13-layer group of its pattern (9 RG-LRU, 4
-  windowed attention layers with the one kv head gathered) at 4 x 1024
-  and xlstm-1.3b at 4 of 48 layers (2 mLSTM + sLSTM pairs) at 4 x 256,
-  TP_REC_STEPS steps each: stored bytes equal to the plan, wire bytes
+* ``tp_recurrent``: the split over "model" for xlstm-1.3b, run by
+  sharded_step's 4 ranks after tp_step (``tp_recurrent_steps``) at 4 of
+  48 layers (2 mLSTM + sLSTM pairs) at 4 x 256, TP_REC_STEPS steps
+  (recurrentgemma-2b's split train step runs in tp_heads): stored bytes equal to the plan, wire bytes
   equal to ``step_wire_bytes(split_model=True)`` (the gathers and their
   reduce-scatters), the first loss and grad norm within TP_LOSS_TOL /
   TP_GNORM_TOL of one process's (``one_process``); ms, staged bytes and
   peak memory.
 * ``tp_frontends``: the same for the VLM and audio frontends, run by
-  sharded_step's ranks after tp_recurrent: paligemma-3b at 6 of 18 layers
+  sharded_step's ranks after tp_recurrent: paligemma-3b at 4 of 18 layers
   (its 256 patch positions from make_lm_batch's seed 0, spliced over the
   activations gathered over "model"; its one kv head gathered) and
-  musicgen-medium at 8 of 48 layers (4 codebook tables summed on a rank's
+  musicgen-medium at 4 of 48 layers (4 codebook tables summed on a rank's
   pieces and gathered once; a head of 4 x 2048 columns, 2 codebooks a
   rank; the loss reduced a codebook at a time over "model"), 4 x 1024
   each, one step: stored bytes and wire bytes equal to the plan, the first
@@ -421,6 +420,21 @@ power limit and the memory it plans beside the peak it read:
   to the dry run's plan (the reference's long_500k specs), the wire bytes
   of each step (the partials' gather over the length group, "data" or
   "data+model") equal to the plan; ms and staged bytes a step.
+* ``tp_heads``: query heads that do not divide over "model", run by
+  sharded_step's ranks after tp_long_decode, laid out as (1, 4):
+  recurrentgemma-2b at one 13-layer group, its 10 query heads shared 3, 3,
+  2, 2 (``wq``'s stored block 640 columns, 2.5 heads; its one kv head
+  gathered). A split train step at 2 x 1024 (remat True): stored and wire
+  bytes equal to the plan, the first loss and grad norm within
+  TP_LOSS_TOL / TP_GNORM_TOL of one process's; ms, staged bytes and peak
+  memory. Then a 2 x 2048 prefill through row 9 on each rank's own 3 or 2
+  heads (window 2048; 4 launches a rank on the tensor cores) and 5
+  teacher-forced decode steps on a 4-slot ring cut by length over
+  "model", wrapped: each rank's logits within DECODE_TOL of one
+  process's, the decode state's and the wire bytes equal to the plan. The
+  row ``flash_attention_head_offset`` times row 9 at qwen2-7b's rank 1 of
+  a model axis of 8 (its heads 4-7 reading kv heads 0 and 1) against
+  plain and SDPA before, and takes the ranks' launches.
 * ``tp_recurrent_serve``: the same cuts on tp_serve's model axis of 2, run
   by its ranks after qwen2-7b: recurrentgemma-2b's 2 x 4096 prefill
   through row 9 on 5 of 10 query heads a rank against the gathered kv head
@@ -665,12 +679,13 @@ def kernel_uncounted(drop=0):
     confined to the last 64 rows of each sequence."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
-    def attn(q, k, v, *, causal, window):
+    def attn(q, k, v, *, causal, window, group=None, q_head0=0):
         skv = k.shape[2]
         return flash_attention_cuda(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
             window=window, scale=q.shape[-1] ** -0.5,
-            q_offset=skv - q.shape[2], kv_valid=skv - drop)
+            q_offset=skv - q.shape[2], kv_valid=skv - drop, group=group,
+            q_head0=q_head0)
     return attn
 
 
@@ -679,10 +694,9 @@ def layer_check(attn, stats):
     version on the same q, k, v of every layer, appends attn_stats to
     ``stats`` and passes the plain output on, so every layer sees the
     activations of a forward through the plain version."""
-    def run(q, k, v, *, causal, window):
-        want = attn_plain(q, k, v, causal=causal, window=window)
-        stats.append(attn_stats(attn(q, k, v, causal=causal, window=window),
-                                want))
+    def run(q, k, v, **kw):
+        want = attn_plain(q, k, v, **kw)
+        stats.append(attn_stats(attn(q, k, v, **kw), want))
         return want
     return run
 
@@ -1692,9 +1706,10 @@ PROBES = ("embed", "final_norm", "groups/blk0_attn/mixer/bq",
 # script read 991 s of its 1200 with 300 once the LM family phases were
 # in), then to 25 with remat on by default (0.52 s a step) and PR 26's
 # phases: the whole script read 1,192 and 1,276 s on two slow hosts and
-# ~950 on another; then to 15 (PR 27: 33.4 s with 25, PR 26 call 8); the
+# ~950 on another; then to 15 (33.4 s with 25), then to 12 for tp_heads'
+# time (15 read 15.3 s of loop on an NVIDIA H100 80GB HBM3, 700 W); the
 # run ends in its one checkpoint, past the example's 10 warm-up steps
-TRAIN_EXAMPLE_STEPS = 15
+TRAIN_EXAMPLE_STEPS = 12
 # train_psa's steps run without remat: recomputing the forward added ~9 s
 # to the phase (39 -> 48 s, PR 26 call 3) for 6 steps whose time is the
 # embedding's all-reduce through host memory
@@ -2323,7 +2338,7 @@ def spmd_train_phases(dev, rows: dict, record, gram_qr_work, q_init,
 # reference's default, remat=True
 TRAIN_FAMILIES = (("recurrentgemma-2b", None, 2, 1024, True),
                   ("phi3.5-moe-42b-a6.6b", 2, 2, 1024, True),
-                  ("xlstm-1.3b", 8, 2, 256, False),
+                  ("xlstm-1.3b", 4, 2, 256, False),
                   ("paligemma-3b", None, 2, 1024, True),
                   ("musicgen-medium", None, 2, 1024, True))
 FAMILY_STEPS = 3              # AdamW steps on one fixed batch
@@ -2365,8 +2380,9 @@ PSA_MOE_LAYERS, PSA_MOE_STEPS, PSA_MOE_BATCH, PSA_MOE_SEQ = 1, 4, 4, 512
 # each: equal bit for bit. The backward runs on recomputed values that are
 # the same bits, but the embedding's and the MoE scatter's backward sum
 # with atomics on the card: the norm within REMAT_GNORM_TOL, relative
+# (one step at each remat: two read 7.0 s in all on the same card)
 REMAT_ARCH, REMAT_BATCH, REMAT_SEQ, REMAT_STEPS = \
-    "recurrentgemma-2b", 2, 1024, 2
+    "recurrentgemma-2b", 2, 1024, 1
 REMAT_GNORM_TOL = 1e-5
 # tp_step: sharded_step's model, mesh and batch with the compute split over
 # "model", against sharded_step's first step (the same weights and batch).
@@ -2388,14 +2404,13 @@ TP_SERVE_ARCH, TP_SERVE_LAYERS = "qwen2-7b", 4
 TP_SERVE_BATCH, TP_SERVE_SEQ, TP_DECODE_STEPS = 2, 2048, 16
 TP_SERVE_MESH = (("data", 1), ("model", 2))
 # tp_recurrent: the split over "model" for the recurrent families at full
-# width, cut in depth: recurrentgemma-2b at one group of its 13-entry
-# pattern (9 RG-LRU and 4 windowed attention layers, whose one kv head
-# every rank gathers) at 4 x 1024, xlstm-1.3b at 4 of 48 layers (2 mLSTM +
-# sLSTM pairs) at 4 x 256: TP_REC_STEPS steps each in sharded_step's ranks
-# on (2, 2), held to one process at TP_LOSS_TOL / TP_GNORM_TOL. One step
-# each: recurrentgemma's second step read 8.2 s on one host and 19.4 s on
-# another, its first 11.9 / 23.6 s (PR 27 calls 1-2)
-TP_REC_TRAIN = (("recurrentgemma-2b", 13, 4, 1024), ("xlstm-1.3b", 4, 4, 256))
+# width, cut in depth: xlstm-1.3b at 4 of 48 layers (2 mLSTM + sLSTM pairs)
+# at 4 x 256: TP_REC_STEPS steps in sharded_step's ranks on (2, 2), held to
+# one process at TP_LOSS_TOL / TP_GNORM_TOL. recurrentgemma-2b's split
+# train step at one 13-layer group ran here at 4 x 1024 on (2, 2) until
+# tp_heads took it over on (1, 4) at 2 x 1024 (its 10 heads over 4): its
+# step read 8.2-23.6 s on H100 hosts
+TP_REC_TRAIN = (("xlstm-1.3b", 4, 4, 256),)
 TP_REC_STEPS = 1
 # tp_recurrent_serve: the same cuts on tp_serve's model axis of 2 (name,
 # arch, layers, batch, prefill length, decode steps, decode max_len, dtype):
@@ -2421,14 +2436,15 @@ TP_REC_SERVE = (
      "float32"),
     ("xlstm-1.3b", "xlstm-1.3b", 4, 2, 1024, 16, 16, "float32"))
 # tp_frontends: the split over "model" for the VLM and audio frontends at
-# full width, cut in depth: paligemma-3b at 6 of 18 layers (its 256 patch
+# full width, cut in depth: paligemma-3b at 4 of 18 layers (its 256 patch
 # positions drawn by make_lm_batch from seed 0, spliced over the gathered
-# activations), musicgen-medium at 8 of 48 layers (4 codebooks, a head of 4
+# activations), musicgen-medium at 4 of 48 layers (4 codebooks, a head of 4
 # x 2048 columns, 2 codebooks a rank): TP_REC_STEPS steps each in
 # sharded_step's ranks on (2, 2) at 4 x 1024, held to one process at
-# TP_LOSS_TOL / TP_GNORM_TOL
-TP_FRONT_TRAIN = (("paligemma-3b", 6, 4, 1024),
-                  ("musicgen-medium", 8, 4, 1024))
+# TP_LOSS_TOL / TP_GNORM_TOL. Cut from 6 and 8 layers for tp_heads' time
+# (8.4 and 3.1 s a step on an NVIDIA H100 80GB HBM3, 700 W)
+TP_FRONT_TRAIN = (("paligemma-3b", 4, 4, 1024),
+                  ("musicgen-medium", 4, 4, 1024))
 # tp_frontends_serve: the same cuts on tp_serve's model axis of 2, in
 # TP_REC_SERVE's layout and its row 9 row last: a 2 x 2048 prefill (row 9
 # on 4 of paligemma's 8 query heads against its one gathered kv head, on
@@ -2463,6 +2479,22 @@ TP_LONG = (
     ("recurrentgemma-2b", "recurrentgemma-2b", 13, 4, 8, 5, "bfloat16",
      DECODE_TOL),
     ("xlstm-1.3b", "xlstm-1.3b", 4, None, 8, 2, "float32", LOGITS_TOL))
+# tp_heads: query heads that do not divide over "model", on sharded_step's 4
+# ranks laid out as TP_HEADS_MESH: TP_HEADS_ARCH at full width cut to one
+# 13-layer group (10 query heads over 4: 3, 3, 2, 2; wq's block 2.5 heads),
+# a split train step at TP_HEADS_TRAIN (batch, seq), remat True, held to
+# one process at TP_LOSS_TOL / TP_GNORM_TOL; a prefill at TP_HEADS_SERVE,
+# then TP_HEADS_DECODE teacher-forced steps on a ring of TP_HEADS_RING
+# slots (one a rank, wrapped), held at DECODE_TOL in bf16 as recurrentgemma's
+# split is (TP_REC_SERVE's comment). Row 9's head-offset row runs at
+# TP_HEADS_ROW: qwen2-7b's rank 1 of a model axis of 8 (shares 4, 4, 4, 4,
+# 3, 3, 3, 3): query heads 4-7 reading kv heads 0 and 1 (a group of 7)
+TP_HEADS_MESH = (("data", 1), ("model", 4))
+TP_HEADS_ARCH, TP_HEADS_LAYERS = "recurrentgemma-2b", 13
+TP_HEADS_TRAIN, TP_HEADS_SERVE = (2, 1024), (2, 2048)
+TP_HEADS_DECODE, TP_HEADS_RING = 5, 4
+TP_HEADS_ROW = {"arch": "qwen2-7b", "tp": 8, "rank": 1, "batch": 2,
+                "seq": 2048}
 
 
 def directional_check(cfg, batch, dev, remat=True) -> dict:
@@ -2769,6 +2801,7 @@ def sharded_rank(rank, world, dev):
     out["recurrent"] = tp_recurrent_steps(mesh, dev)
     out["frontends"] = tp_recurrent_steps(mesh, dev, TP_FRONT_TRAIN)
     out["long"] = tp_long_rank(mesh, dev)
+    out["heads"] = tp_heads_rank(dev)
     return out
 
 
@@ -2934,6 +2967,7 @@ def sharded_step_phase(dev, card: str) -> dict:
     line["_recurrent_ranks"] = [r["recurrent"] for r in ranks]
     line["_frontends_ranks"] = [r["frontends"] for r in ranks]
     line["_long_ranks"] = [r["long"] for r in ranks]
+    line["_heads_ranks"] = [r["heads"] for r in ranks]
     return line
 
 
@@ -3143,6 +3177,101 @@ def tp_long_rank(mesh, dev) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return res
+
+
+def tp_heads_rank(dev) -> dict:
+    """tp_heads' part of a sharded_step rank (after tp_long_decode): the
+    4 ranks laid out as TP_HEADS_MESH; TP_HEADS_ARCH at TP_HEADS_LAYERS
+    layers from seed 0: its blocks and AdamW moments (their bytes), one
+    split train step (remat True) on the whole TP_HEADS_TRAIN batch (a
+    data axis of 1), then on a copy of the blocks from before the step
+    the TP_HEADS_SERVE prefill, timed from its first call (its logits on
+    the host, the flash launches and routes, wire and staged bytes), the
+    decode state's bytes and TP_HEADS_DECODE teacher-forced steps."""
+    from repro_torch.data.pipeline import make_lm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import ROUTE_LAUNCHES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import init_params, tree_map
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import (make_sharded_serve_step,
+                                        make_sharded_train_step,
+                                        sharded_decode_state)
+    _, opt = sharded_cfg()
+    mesh = make_mesh(TP_HEADS_MESH, device=dev)
+    shape = shd.MeshShape.from_mesh(mesh)
+    cfg = tp_rec_cfg(TP_HEADS_ARCH, TP_HEADS_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    full = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                       device=dev)
+    params = shd.shard_tree(full, shd.param_specs(full, cfg, shape), shape,
+                            mesh.coords)
+    del full
+    gc.collect()
+    opt_state = adamw_init(params, opt)
+    torch.cuda.synchronize(dev)
+    stored = torch.cuda.memory_allocated(dev) - base
+    blocks = tree_map(lambda leaf: leaf.clone(), params)
+    b, s = TP_HEADS_TRAIN
+    step = make_sharded_train_step(cfg, opt, mesh, global_batch=b,
+                                   split_model=True)
+    whole = make_lm_batch(cfg, 0, 0, b, s, device=dev)
+    local = shd.shard_tree(whole, shd.batch_specs(cfg, shape, b), shape,
+                           mesh.coords)
+    out = {"coords": mesh.coords, "stored_bytes": stored,
+           **timed_steps(step, params, opt_state, local, mesh, dev, 1)}
+    del params, opt_state, step, whole, local
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, s = TP_HEADS_SERVE
+    inputs = serve_inputs(cfg, b, s, dev)
+    specs = shd.batch_specs(cfg, shape, b)
+    local = shd.shard_tree(inputs, {k: specs[k] for k in inputs}, shape,
+                           mesh.coords)
+    prefill, decode = make_sharded_serve_step(cfg, mesh, b)
+    torch.cuda.synchronize(dev)
+    wire0, staged = mesh.wire_bytes(), mesh.host_staged_bytes
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    logits = prefill(blocks, local)
+    torch.cuda.synchronize(dev)
+    out.update(prefill_ms=(time.perf_counter() - t0) * 1e3,
+               flash_launches=ops.LAUNCHES["flash_attention"],
+               flash_routes=dict(ROUTE_LAUNCHES),
+               prefill_staged_bytes=mesh.host_staged_bytes - staged,
+               prefill_wire={a: {k: v - wire0[a][k] for k, v in w.items()}
+                             for a, w in mesh.wire_bytes().items()},
+               prefill=logits.cpu())
+    del logits
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    state = sharded_decode_state(cfg, mesh, b, TP_HEADS_RING)
+    torch.cuda.synchronize(dev)
+    out["state_bytes"] = torch.cuda.memory_allocated(dev) - base
+    decoded, wires = [], []
+    staged = mesh.host_staged_bytes
+    t0 = time.perf_counter()
+    for t in range(TP_HEADS_DECODE):
+        wire0 = mesh.wire_bytes()
+        lg, state = decode(blocks, state, local["tokens"][:, t:t + 1])
+        wire1 = mesh.wire_bytes()
+        wires.append({a: {k: v - wire0[a][k] for k, v in w.items()}
+                      for a, w in wire1.items()})
+        decoded.append(lg)
+    torch.cuda.synchronize(dev)
+    out.update(decode_ms_a_step=(time.perf_counter() - t0) * 1e3
+               / TP_HEADS_DECODE,
+               decode_staged_bytes_a_step=(mesh.host_staged_bytes - staged)
+               / TP_HEADS_DECODE,
+               decode_wires=wires, decode=torch.cat(decoded, dim=1).cpu())
+    del blocks, state, decoded, lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def tp_step_phase(dev, card: str, sharded: dict) -> dict:
@@ -3369,6 +3498,202 @@ def tp_long_decode_phase(dev, card: str, sharded: dict) -> None:
                           for k in wire[a]),
                       f"tp_long_decode {name}: wire bytes {w}, planned "
                       f"{wire}")
+
+
+def tp_heads_phase(dev, rows: dict, record, card: str,
+                   sharded: dict) -> dict:
+    """tp_heads (module docstring): first the row
+    ``flash_attention_head_offset``, row 9 at TP_HEADS_ROW against plain
+    and SDPA on the kv heads expanded to the rank's heads; then sharded_step
+    ranks' ``tp_heads_rank`` results held to the plans and to one process,
+    the ranks' prefill launches credited to the row. A line for the train
+    step and one for the serve run. Returns ``roofline_phase``'s entry for
+    the train step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import expand_kv
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_decode_state,
+                                                init_params)
+    from repro_torch.optim.adamw import AdamWConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    # row 9 with a head offset: a model rank's heads straddling GQA groups
+    qc = get_arch(TP_HEADS_ROW["arch"])
+    rep_ = qc.n_heads // qc.n_kv_heads
+    h0, h1 = shd.share(qc.n_heads, TP_HEADS_ROW["tp"], TP_HEADS_ROW["rank"])
+    kv0, kv1 = shd.kv_read(qc.n_heads, qc.n_kv_heads, (h0, h1))
+    b, s, hd = TP_HEADS_ROW["batch"], TP_HEADS_ROW["seq"], qc.hd
+    gen = torch.Generator(device=dev).manual_seed(29)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for shape in ((b, h1 - h0, s, hd),
+                                      (b, kv1 - kv0, s, hd),
+                                      (b, kv1 - kv0, s, hd)))
+    ke, ve = (expand_kv(t, h1 - h0, rep_, h0) for t in (k, v))
+    record("flash_attention_head_offset", FLASH_SOURCE, FLASH_REPLACES,
+           lambda: ops.flash_attention(q, k, v, causal=True, group=rep_,
+                                       q_head0=h0),
+           lambda: attn_plain(q, k, v, causal=True, group=rep_, q_head0=h0),
+           lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, ke, ve, is_causal=True),
+           2 * (2 * q.numel() + k.numel() + v.numel()),
+           4.0 * b * q.shape[1] * hd * s * (s + 1) / 2, ATTN_BF16_TOL,
+           ATTN_BF16_NOTE, flop_rate=BF16_TC_FLOP_PER_S,
+           judge=attn_judge(torch.bfloat16))
+    rows["flash_attention_head_offset"].update(
+        kernel="flash_attention_wgmma_kernel", group=rep_, q_head0=h0,
+        query_heads=[h0, h1], kv_heads=[kv0, kv1],
+        library="scaled_dot_product_attention, causal, on kv expanded to "
+                "the rank's heads",
+        shape=[list(q.shape), list(k.shape)])
+    del q, k, v, ke, ve
+    cfg = tp_rec_cfg(TP_HEADS_ARCH, TP_HEADS_LAYERS)
+    mesh = shd.MeshShape.of(*TP_HEADS_MESH)
+    tp = mesh.shape["model"]
+    ranks = sorted(sharded["_heads_ranks"], key=lambda r: r["coords"][
+        "model"])
+    views = [shd.model_view(cfg, mesh, r["coords"]["model"]) for r in ranks]
+    n_attn = sum(kind in ("attn", "swa") for kind in
+                 cfg.pattern_for_layers()) * cfg.n_groups
+    launches = sum(r["flash_launches"] for r in ranks)
+    rows["flash_attention_head_offset"]["launches"] += launches
+    rows["flash_attention_head_offset"].setdefault("launches_by_phase", {})[
+        f"tp_heads:{cfg.name}"] = launches
+    # (a) the train step against one process
+    _, opt = sharded_cfg()
+    tb, ts = TP_HEADS_TRAIN
+    train_shape = ShapeConfig("tp_heads", ts, tb, "train")
+    plan = dryrun.memory_plan(cfg, train_shape, mesh, opt)
+    want_stored = plan["params"]["alloc"] + plan["opt"]["alloc"]
+    want_wire = roofline.step_wire_bytes(cfg, train_shape, mesh,
+                                         split_model=True)
+    one = one_process(cfg, tb, ts, mesh.shape["data"], dev)
+    vs = [{"loss_rel_err": abs(r["losses"][0] - one["loss"])
+           / abs(one["loss"]),
+           "grad_norm_rel_err": abs(r["grad_norms"][0] - one["grad_norm"])
+           / one["grad_norm"]} for r in ranks]
+    line = {"phase": "tp_heads", "run": "train", "arch": cfg.name,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "mesh": mesh.shape, "backend": "gloo", "batch": tb, "seq": ts,
+            "remat": True, "heads_by_rank": [v.heads for v in views],
+            "q_cols_by_rank": [v.q_cols for v in views],
+            "kv_heads_by_rank": [v.kv_heads for v in views],
+            "stored_bytes_by_rank": [r["stored_bytes"] for r in ranks],
+            "planned_stored_bytes": want_stored,
+            "losses_by_rank": [r["losses"] for r in ranks],
+            "grad_norms_by_rank": [r["grad_norms"] for r in ranks],
+            "one_process": one, "vs_one_process": vs,
+            "tolerance": {"loss": TP_LOSS_TOL, "grad_norm": TP_GNORM_TOL},
+            "step_ms_by_rank": [r["step_ms"] for r in ranks],
+            "wire_a_step_rank0": ranks[0]["wire_a_step"][0],
+            "planned_wire_a_step": want_wire,
+            "host_staged_bytes_a_step": [r["staged_a_step"] for r in ranks],
+            "peak_bytes_in_steps_by_rank": [r["peak_bytes_in_steps"]
+                                            for r in ranks],
+            "card": card}
+    emit(line)
+    for r, v in zip(ranks, vs):
+        c = r["coords"]
+        check(r["stored_bytes"] == want_stored, f"tp_heads: rank {c} stores "
+              f"{r['stored_bytes']} bytes, the plan {want_stored}")
+        check(all(np.isfinite(r["losses"])), f"tp_heads: {r['losses']}")
+        check(v["loss_rel_err"] <= TP_LOSS_TOL, f"tp_heads: rank {c} loss "
+              f"{r['losses'][0]}: {v['loss_rel_err']} from one process's")
+        check(v["grad_norm_rel_err"] <= TP_GNORM_TOL, f"tp_heads: rank {c} "
+              f"grad norm {r['grad_norms'][0]}: {v['grad_norm_rel_err']} "
+              f"from one process's")
+        for w in r["wire_a_step"]:
+            check(all(w[a][k] == want_wire[a][k] for a in want_wire
+                      for k in want_wire[a]), f"tp_heads: train wire bytes "
+                  f"{w}, planned {want_wire}")
+    # (b) the prefill and decode against one process
+    sb, ss = TP_HEADS_SERVE
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                         device=dev)
+    inputs = serve_inputs(cfg, sb, ss, dev)
+    toks = inputs["tokens"]
+    with torch.inference_mode():
+        want = forward(params, inputs, cfg)
+        pre = [compare(r["prefill"].to(dev), want[..., slice(*v.vocab)])
+               for r, v in zip(ranks, views)]
+        del want, inputs
+        state = init_decode_state(cfg, sb, TP_HEADS_RING, device=dev)
+        outs = []
+        for t in range(TP_HEADS_DECODE):
+            lg, state = decode_step(params, state, toks[:, t:t + 1], cfg)
+            outs.append(lg)
+        want = torch.cat(outs, dim=1)
+        dec = [compare(r["decode"].to(dev), want[..., slice(*v.vocab)])
+               for r, v in zip(ranks, views)]
+    del params, state, outs, toks, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    state_plan = dryrun.memory_plan(
+        cfg, ShapeConfig("tp_heads", TP_HEADS_RING, sb, "decode"), mesh,
+        AdamWConfig())["decode_state"]
+    wire = {kind: roofline.step_wire_bytes(
+        cfg, ShapeConfig(kind, ss if kind == "prefill" else TP_HEADS_RING,
+                         sb, kind), mesh, split_model=True)
+        for kind in ("prefill", "decode")}
+    names = ("rel_rms", "max_abs", "top1_agreement")
+    serve = {"phase": "tp_heads", "run": "serve", "arch": cfg.name,
+             "layers": cfg.n_layers, "dtype": cfg.dtype, "mesh": mesh.shape,
+             "backend": "gloo", "batch": sb, "seq": ss,
+             "window": cfg.window, "decode_steps": TP_HEADS_DECODE,
+             "max_len": TP_HEADS_RING,
+             "length_axes": list(shd.length_axes(cfg, mesh, sb)),
+             "prefill_vs_one_process_by_rank": [dict(zip(names, x))
+                                                for x in pre],
+             "decode_vs_one_process_by_rank": [dict(zip(names, x))
+                                               for x in dec],
+             "tolerance": DECODE_TOL,
+             "flash_launches_by_rank": [r["flash_launches"] for r in ranks],
+             "flash_routes_by_rank": [r["flash_routes"] for r in ranks],
+             "prefill_ms_by_rank": [r["prefill_ms"] for r in ranks],
+             "prefill_timed": "its first call",
+             "prefill_tokens_per_s": sb * ss / (max(
+                 r["prefill_ms"] for r in ranks) / 1e3),
+             "decode_ms_a_step_by_rank": [r["decode_ms_a_step"]
+                                          for r in ranks],
+             "prefill_staged_bytes_by_rank": [r["prefill_staged_bytes"]
+                                              for r in ranks],
+             "decode_staged_bytes_a_step_by_rank": [
+                 r["decode_staged_bytes_a_step"] for r in ranks],
+             "state_bytes_by_rank": [r["state_bytes"] for r in ranks],
+             "planned_state_bytes": state_plan["alloc"],
+             "prefill_wire_rank0": ranks[0]["prefill_wire"],
+             "decode_wire_a_step_rank0": ranks[0]["decode_wires"][0],
+             "planned_wire": wire, "card": card}
+    emit(serve)
+    for r, p_, d_ in zip(ranks, pre, dec):
+        c = r["coords"]
+        check(p_[0] <= DECODE_TOL, f"tp_heads: rank {c} prefill logits "
+              f"{p_[0]} (relative RMS) from one process > {DECODE_TOL}")
+        check(d_[0] <= DECODE_TOL, f"tp_heads: rank {c} decode logits "
+              f"{d_[0]} (relative RMS) from one process > {DECODE_TOL}")
+        check(r["state_bytes"] == state_plan["alloc"], f"tp_heads: rank {c} "
+              f"decode state {r['state_bytes']} bytes, the plan "
+              f"{state_plan['alloc']}")
+        check(r["flash_launches"] == n_attn
+              and r["flash_routes"].get("tc_bf16") == n_attn,
+              f"tp_heads: rank {c} flash launches {r['flash_launches']}, "
+              f"routes {r['flash_routes']}, expected {n_attn} on tc_bf16")
+        for kind, ws in (("prefill", [r["prefill_wire"]]),
+                         ("decode", r["decode_wires"])):
+            for w in ws:
+                check(all(w[a][k] == wire[kind][a][k] for a in wire[kind]
+                          for k in wire[kind][a]), f"tp_heads: {kind} wire "
+                      f"bytes {w}, planned {wire[kind]}")
+    check(tp == 4 and [v.heads for v in views] == [(0, 3), (3, 6), (6, 8),
+                                                   (8, 10)],
+          f"tp_heads: heads by rank {[v.heads for v in views]}")
+    return {"tp_heads:train": (cfg, train_shape, statistics.median(
+        ms for r in ranks for ms in r["step_ms"]) / 1e3, True, mesh, True)}
 
 
 def tp_serve_cfg():
@@ -3970,8 +4295,8 @@ def roofline_phase(measured: dict, card: str) -> None:
 def train_family_phases(dev, rows: dict, record, gram_qr_work,
                         measured: dict) -> None:
     """train_families, train_psa_moe, moe_shards, sharded_step, tp_step,
-    tp_recurrent, tp_frontends, tp_long_decode, remat, tp_serve (with
-    tp_recurrent_serve and tp_frontends_serve) and roofline (module
+    tp_recurrent, tp_frontends, tp_long_decode, tp_heads, remat, tp_serve
+    (with tp_recurrent_serve and tp_frontends_serve) and roofline (module
     docstring), each with the card's
     name and power limit; ``measured`` holds the earlier phases' (cfg,
     shape, seconds) and gains each new train step's."""
@@ -4004,6 +4329,7 @@ def train_family_phases(dev, rows: dict, record, gram_qr_work,
     measured.update(tp_recurrent_phase(dev, card, sh, "tp_frontends",
                                        TP_FRONT_TRAIN, "_frontends_ranks"))
     tp_long_decode_phase(dev, card, sh)
+    measured.update(tp_heads_phase(dev, rows, record, card, sh))
     remat_phase(dev, card)
     tp_serve_phase(dev, rows, record, card)
     roofline_phase(measured, card)
@@ -5934,10 +6260,10 @@ def main() -> None:
     lm_b, lm_s = 4, 2048
     toks = make_lm_batch(cfg, 0, 0, lm_b, lm_s, device=dev)["tokens"]
 
-    def attn_bf16_logits(q, k, v, *, causal, window):
+    def attn_bf16_logits(q, k, v, *, causal, window, group=None, q_head0=0):
         """Faulty control: the plain version with q k^T rounded to bf16
         before the f32 softmax, as a kernel that kept its logits in the
-        input dtype would compute."""
+        input dtype would compute (one process: plain GQA groups)."""
         rep = q.shape[1] // k.shape[1]
         k, v = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
         sq, skv = q.shape[2], k.shape[2]

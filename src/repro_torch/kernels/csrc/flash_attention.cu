@@ -1,6 +1,9 @@
 // Hopper (sm_90a) flash attention for the LM prefill path:
 //   out[b, h, i, :] = softmax_j(q[b, h, i] . k[b, g(h), j] * scale) v[b, g(h), j]
-// over the keys j visible to row i, with g(h) = h / (hq / hkv) (GQA).
+// over the keys j visible to row i, with g(h) = (h0 + h) / group - h0 / group
+// (GQA: group query heads a kv head; h0 the launch's first query head in the
+// model, so a model rank's heads may straddle groups; by default group =
+// hq / hkv and h0 = 0, g(h) = h / (hq / hkv)).
 //
 // Replaces: repro/kernels/flash_attention.py  flash_attention_pallas.
 //
@@ -178,7 +181,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              __nv_bfloat16* __restrict__ out, int hd, int hq,
-                             int hkv, int sq, int q_offset, int kv_lim,
+                             int hkv, int group, int q_head0, int sq,
+                             int q_offset, int kv_lim,
                              int causal, int use_window, int window,
                              float scale_log2) {
   using L = TcLayout<HDP>;
@@ -194,7 +198,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   auto empty = [&](int s) { return bar_q + 8u * (1 + 2 * kStages + s); };
 
   const int bh = blockIdx.x;
-  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int kvh =
+      (bh / hq) * hkv + (q_head0 + bh % hq) / group - q_head0 / group;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBlockM;
   int t_begin, t_end;
   tile_range<BN>(q0, sq, q_offset, kv_lim, causal, use_window, window,
@@ -398,7 +403,8 @@ bool make_map(hopper::EncodeTiledFn encode, CUtensorMap* map,
 
 template <int HDP>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
-                      int batch, int hq, int hkv, int sq, int skv, int hd,
+                      int batch, int hq, int hkv, int group, int q_head0,
+                      int sq, int skv, int hd,
                       int q_offset, int kv_valid, int causal, int use_window,
                       int window, float scale, cudaStream_t stream) {
   hopper::EncodeTiledFn encode = hopper::encode_tiled();
@@ -416,9 +422,9 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * hq, (sq + kTcBlockM - 1) / kTcBlockM);
   kernel<<<grid, kTcThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), hd, hq, hkv, sq,
-      q_offset, kv_valid < skv ? kv_valid : skv, causal, use_window, window,
-      scale * 1.4426950408889634f);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), hd, hq, hkv, group,
+      q_head0, sq, q_offset, kv_valid < skv ? kv_valid : skv, causal,
+      use_window, window, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
@@ -464,8 +470,9 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_simt_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
-                            float* __restrict__ out, int hq, int hkv, int sq,
-                            int skv, int q_offset, int kv_valid, int causal,
+                            float* __restrict__ out, int hq, int hkv,
+                            int group, int q_head0, int sq, int skv,
+                            int q_offset, int kv_valid, int causal,
                             int use_window, int window, float scale) {
   using L = Layout<HD>;
   constexpr int kBlockK = L::kBlockK;
@@ -480,7 +487,8 @@ flash_attention_simt_kernel(const float* __restrict__ q,
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;
   const int bh = blockIdx.y;
-  const int kvh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  const int kvh =
+      (bh / hq) * hkv + (q_head0 + bh % hq) / group - q_head0 / group;
   const float* qg = q + (size_t)bh * sq * HD;
   const float* kg = k + (size_t)kvh * skv * HD;
   const float* vg = v + (size_t)kvh * skv * HD;
@@ -601,9 +609,10 @@ flash_attention_simt_kernel(const float* __restrict__ q,
 
 template <int HD>
 cudaError_t launch_simt(const void* q, const void* k, const void* v,
-                        void* out, int batch, int hq, int hkv, int sq, int skv,
-                        int q_offset, int kv_valid, int causal, int use_window,
-                        int window, float scale, cudaStream_t stream) {
+                        void* out, int batch, int hq, int hkv, int group,
+                        int q_head0, int sq, int skv, int q_offset,
+                        int kv_valid, int causal, int use_window, int window,
+                        float scale, cudaStream_t stream) {
   auto kernel = flash_attention_simt_kernel<HD>;
   const size_t smem = Layout<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -616,21 +625,22 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v,
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, batch * hq);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), hq, hkv, sq,
-      skv, q_offset, kv_valid, causal, use_window, window, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), hq, hkv, group,
+      q_head0, sq, skv, q_offset, kv_valid, causal, use_window, window, scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_simt(int hd, const void* q, const void* k,
                           const void* v, void* out, int batch, int hq, int hkv,
-                          int sq, int skv, int q_offset, int kv_valid,
-                          int causal, int use_window, int window, float scale,
+                          int group, int q_head0, int sq, int skv,
+                          int q_offset, int kv_valid, int causal,
+                          int use_window, int window, float scale,
                           cudaStream_t stream) {
 #define REPRO_FLASH_HD(HD)                                                   \
   case HD:                                                                   \
-    return launch_simt<HD>(q, k, v, out, batch, hq, hkv, sq, skv, q_offset,  \
-                           kv_valid, causal, use_window, window, scale,      \
-                           stream);
+    return launch_simt<HD>(q, k, v, out, batch, hq, hkv, group, q_head0, sq, \
+                           skv, q_offset, kv_valid, causal, use_window,      \
+                           window, scale, stream);
   switch (hd) {
     REPRO_FLASH_HD(16)
     REPRO_FLASH_HD(32)
@@ -655,31 +665,40 @@ extern "C" {
 
 // q, out: (batch, hq, sq, hd); k, v: (batch, hkv, skv, hd); all contiguous,
 // all f32 (is_bf16 = 0: the CUDA-core kernel) or all bf16 (= 1: the
-// tensor-core kernel, whose inputs must be 16-byte aligned for TMA). hq % hkv
-// == 0, hd one of 16, 32, 64, 80, 128, 256, batch * hq <= 65535. use_window = 0
-// ignores window. Returns the CUDA error code of the launch (0 on success).
+// tensor-core kernel, whose inputs must be 16-byte aligned for TMA). Query
+// head h reads kv head (q_head0 + h) / group - q_head0 / group, which must be
+// < hkv (group = hq / hkv, q_head0 = 0: plain GQA). hd one of 16, 32, 64, 80,
+// 128, 256, batch * hq <= 65535. use_window = 0 ignores window. group and
+// q_head0 come last: a caller that passes them can also call a library built
+// from an older revision of this file, which ignores them
+// (tools/flash_variants.py --against). Returns the CUDA error code of the
+// launch (0 on success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int batch, int hq, int hkv, int sq,
                            int skv, int hd, int q_offset, int kv_valid,
                            int causal, int use_window, int window, float scale,
-                           int is_bf16, void* stream_ptr) {
+                           int is_bf16, void* stream_ptr, int group,
+                           int q_head0) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (group < 1 || q_head0 < 0 ||
+      (hq > 0 && (q_head0 + hq - 1) / group - q_head0 / group >= hkv))
+    return (int)cudaErrorInvalidValue;
   if (!is_bf16)
-    return (int)dispatch_simt(hd, q, k, v, out, batch, hq, hkv, sq, skv,
-                              q_offset, kv_valid, causal, use_window, window,
-                              scale, stream);
+    return (int)dispatch_simt(hd, q, k, v, out, batch, hq, hkv, group, q_head0,
+                              sq, skv, q_offset, kv_valid, causal, use_window,
+                              window, scale, stream);
   if (!tc_head_dim(hd)) return (int)cudaErrorInvalidValue;
   if (hd <= 64)
-    return (int)launch_tc<64>(q, k, v, out, batch, hq, hkv, sq, skv, hd,
-                              q_offset, kv_valid, causal, use_window, window,
-                              scale, stream);
+    return (int)launch_tc<64>(q, k, v, out, batch, hq, hkv, group, q_head0, sq,
+                              skv, hd, q_offset, kv_valid, causal, use_window,
+                              window, scale, stream);
   if (hd <= 128)
-    return (int)launch_tc<128>(q, k, v, out, batch, hq, hkv, sq, skv, hd,
-                               q_offset, kv_valid, causal, use_window, window,
-                               scale, stream);
-  return (int)launch_tc<256>(q, k, v, out, batch, hq, hkv, sq, skv, hd,
-                             q_offset, kv_valid, causal, use_window, window,
-                             scale, stream);
+    return (int)launch_tc<128>(q, k, v, out, batch, hq, hkv, group, q_head0,
+                               sq, skv, hd, q_offset, kv_valid, causal,
+                               use_window, window, scale, stream);
+  return (int)launch_tc<256>(q, k, v, out, batch, hq, hkv, group, q_head0, sq,
+                             skv, hd, q_offset, kv_valid, causal, use_window,
+                             window, scale, stream);
 }
 
 // Dynamic shared memory of one block of the tensor-core kernel at head dim

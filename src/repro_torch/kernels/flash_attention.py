@@ -19,6 +19,7 @@ from typing import Dict, Optional
 import torch
 
 from . import _launch
+from .ref import kv_group
 
 __all__ = ["flash_attention_cuda", "HEAD_DIMS", "ROUTE_LAUNCHES", "route",
            "padded_head_dim", "reset_route_launches", "tc_smem_bytes"]
@@ -59,7 +60,7 @@ def _lib():
     if not getattr(lib, "_repro_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.flash_attention_launch.argtypes = (
-            [vp] * 4 + [i] * 11 + [ctypes.c_float, i, vp])
+            [vp] * 4 + [i] * 11 + [ctypes.c_float, i, vp, i, i])
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_tc_smem_bytes.argtypes = [i]
         lib.flash_attention_tc_smem_bytes.restype = ctypes.c_int
@@ -75,9 +76,13 @@ def tc_smem_bytes(hd: int) -> int:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, window: Optional[int], scale: float,
-                         q_offset: int, kv_valid: int) -> torch.Tensor:
+                         q_offset: int, kv_valid: int,
+                         group: Optional[int] = None,
+                         q_head0: int = 0) -> torch.Tensor:
     """q: (b, hq, sq, hd), k/v: (b, hkv, skv, hd), all f32 or all bf16,
-    contiguous on one CUDA device, hq % hkv == 0 -> (b, hq, sq, hd).
+    contiguous on one CUDA device -> (b, hq, sq, hd). Query head i reads
+    kv head (q_head0 + i) / group - q_head0 / group (``ref.expand_kv``;
+    default group hq / hkv, hq % hkv == 0).
 
     Query row i sits at position i + q_offset of the key stream; keys at or
     past ``kv_valid`` are masked.
@@ -90,9 +95,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{v.dtype}")
     b, hq, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if k.shape != (b, hkv, skv, hd) or v.shape != k.shape or hq % hkv:
+    if k.shape != (b, hkv, skv, hd) or v.shape != k.shape:
         raise ValueError(f"shapes do not align: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    group = kv_group(hq, hkv, group, q_head0)
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash-attention kernel takes head dims "
                          f"{HEAD_DIMS}, got {hd}")
@@ -117,7 +123,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _launch.ptr(q), _launch.ptr(k), _launch.ptr(v), _launch.ptr(out),
             b, hq, hkv, sq, skv, hd, q_offset, kv_valid, int(causal),
             int(window is not None), 0 if window is None else window,
-            float(scale), int(path == "tc_bf16"), _launch.stream(dev))
+            float(scale), int(path == "tc_bf16"), _launch.stream(dev),
+            group, q_head0)
     _launch.raise_on_error(err, "flash_attention_launch")
     ROUTE_LAUNCHES[path] += 1
     return out

@@ -311,27 +311,34 @@ def ell_spmm(ell_idx: torch.Tensor, ell_val: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """GQA-aware attention. q: (b, hq, sq, hd); k/v: (b, hkv, skv, hd),
-    hq % hkv == 0. Queries align to the end of the key stream
-    (q_offset = skv - sq), so the same call serves prefill and a chunk of
-    decode.
+                    scale: Optional[float] = None,
+                    group: Optional[int] = None,
+                    q_head0: int = 0) -> torch.Tensor:
+    """GQA-aware attention. q: (b, hq, sq, hd); k/v: (b, hkv, skv, hd).
+    Queries align to the end of the key stream (q_offset = skv - sq), so
+    the same call serves prefill and a chunk of decode.
 
-    On the card the kernel reads kv head h // (hq // hkv) in place; on the
-    CPU the plain version reads the same head.
+    Query head i is the model's q_head0 + i and reads the model's kv head
+    (q_head0 + i) // ``group``, the first of k / v being q_head0 //
+    group's (``ref.expand_kv``): a model rank's heads that straddle GQA
+    groups. By default group = hq / hkv (hq % hkv == 0) and q_head0 = 0:
+    head h reads kv head h // (hq / hkv).
+
+    On the card the kernel reads that kv head in place; on the CPU the
+    plain version reads the same head.
     """
     b, hq, sq, hd = q.shape
     hkv, skv = k.shape[1], k.shape[2]
-    if hq % hkv:
-        raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
+    group = ref.kv_group(hq, hkv, group, q_head0)
     scale = (hd ** -0.5) if scale is None else scale
     if not q.is_cuda:
         return ref.flash_attention_plain(
             q, k, v, causal=causal, window=window, scale=scale,
-            q_offset=skv - sq, kv_valid=skv)
+            q_offset=skv - sq, kv_valid=skv, group=group, q_head0=q_head0)
     from .flash_attention import flash_attention_cuda
     out = flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, window=window, scale=scale,
-                               q_offset=skv - sq, kv_valid=skv)
+                               q_offset=skv - sq, kv_valid=skv, group=group,
+                               q_head0=q_head0)
     LAUNCHES["flash_attention"] += 1
     return out

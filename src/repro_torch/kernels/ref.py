@@ -204,27 +204,61 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
 
 
+def kv_group(hq: int, hkv: int, group: Optional[int] = None,
+             q_head0: int = 0) -> int:
+    """The query heads a kv head serves, ``group`` (default hq / hkv,
+    which must divide), checked against a launch of ``hq`` query heads,
+    the model's [q_head0, q_head0 + hq), given the ``hkv`` kv heads they
+    read (``expand_kv``)."""
+    if group is None:
+        if hq % hkv:
+            raise ValueError(f"query heads {hq} not a multiple of kv heads "
+                             f"{hkv}")
+        group = max(hq // hkv, 1)
+    if group < 1 or q_head0 < 0 or (
+            hq and (q_head0 + hq - 1) // group - q_head0 // group >= hkv):
+        raise ValueError(f"query heads [{q_head0}, {q_head0 + hq}) in "
+                         f"groups of {group} read more than the {hkv} kv "
+                         f"heads given")
+    return group
+
+
+def expand_kv(t: torch.Tensor, hq: int, group: int,
+              q_head0: int = 0) -> torch.Tensor:
+    """The kv heads ``t`` (b, hkv, s, hd) given to a launch of ``hq`` query
+    heads, the model's [q_head0, q_head0 + hq), one a query head: head i
+    takes the model's kv head (q_head0 + i) // group, the first of ``t``
+    being q_head0 // group's. ``repeat_interleave`` (the twin of the
+    reference's ``jnp.repeat``; not ``Tensor.repeat``, which would pair h
+    with h % hkv), then the launch's heads: the gradient is summed as
+    ``repeat_interleave``'s (an index gather's would add with atomics on
+    the card, in the gradient's dtype)."""
+    return t.repeat_interleave(group, dim=1).narrow(
+        1, q_head0 % group if hq else 0, hq)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None,
                           scale: Optional[float] = None, q_offset: int = 0,
-                          kv_valid: Optional[int] = None) -> torch.Tensor:
+                          kv_valid: Optional[int] = None,
+                          group: Optional[int] = None,
+                          q_head0: int = 0) -> torch.Tensor:
     """What the flash-attention kernel computes, in one pass.
 
-    q: (b, hq, sq, hd), k/v: (b, hkv, skv, hd), hq % hkv == 0, as the kernel
-    takes them: query head h reads kv head h // (hq // hkv), here through
-    ``repeat_interleave`` (the twin of the reference's ``jnp.repeat``; not
-    ``Tensor.repeat``, which would pair h with h % hkv). Row i sits at qpos
-    = i + q_offset; keys at kpos >= kv_valid are masked. f32 logits and
-    P V; masked logits are -1e30 and their p is 0; a row with no visible
-    key emits zeros (the kernel's l == 0 -> 1). Output in q's dtype.
+    q: (b, hq, sq, hd), k/v: (b, hkv, skv, hd), as the kernel takes them:
+    query head i reads kv head (q_head0 + i) // group - q_head0 // group
+    (by default h // (hq // hkv), hq % hkv == 0), here through
+    ``expand_kv``. Row i sits at qpos = i + q_offset; keys at kpos >=
+    kv_valid are masked. f32 logits and P V; masked logits are -1e30 and
+    their p is 0; a row with no visible key emits zeros (the kernel's l ==
+    0 -> 1). Output in q's dtype.
     """
     hq, hd = q.shape[1], q.shape[-1]
     hkv, skv = k.shape[1], k.shape[2]
-    if hq % hkv:
-        raise ValueError(f"query heads {hq} not a multiple of kv heads {hkv}")
-    k = k.repeat_interleave(hq // hkv, dim=1)
-    v = v.repeat_interleave(hq // hkv, dim=1)
+    group = kv_group(hq, hkv, group, q_head0)
+    k = expand_kv(k, hq, group, q_head0)
+    v = expand_kv(v, hq, group, q_head0)
     scale = (hd ** -0.5) if scale is None else scale
     kv_valid = skv if kv_valid is None else kv_valid
     mask = _attn_mask(q.shape[2], skv, q_offset, kv_valid, causal, window,

@@ -44,8 +44,13 @@ gradient, right where every rank's consumer of the whole is the same (the
 residual stream); ``gather_summed_from_model`` reduce-scatters it (sums it over
 the ranks, then takes the slice), right where each rank consumes the whole
 differently (a kv head read by each rank's query heads, a recurrent state
-feeding each rank's gate columns). Given ``None`` (one rank) or a one-rank
-axis, each returns its input.
+feeding each rank's gate columns). ``scatter_summed_to_model`` runs the other
+way: a reduce-scatter forward of a whole-width tensor in which each rank
+filled its own part, an all-gather of the gradient backward. On them,
+``take_share`` and ``put_share`` move a tensor between a stored block (n /
+tp, which may end mid-head) and the rank's whole heads (``share_of``:
+``models/sharding.share``). Given ``None`` (one rank) or a one-rank axis,
+each returns its input.
 
 ``make_production_mesh`` gives the reference's production mesh shapes,
 (16, 16) and (2, 16, 16), as a ``models/sharding.MeshShape``: names and
@@ -65,14 +70,16 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from .._device import DeviceLike, resolve_device
-from ..models.sharding import MeshShape, axes_name, group_axes
+from ..models.sharding import MeshShape, axes_name, group_axes, share
 
 __all__ = ["AxisGroup", "Mesh", "make_mesh", "make_test_mesh",
            "make_production_mesh", "rank_device", "spawn_ranks",
            "WIRE_FACTOR", "copy_to_model", "reduce_from_model",
            "gather_from_model", "gather_summed_from_model",
+           "scatter_summed_to_model", "share_of", "take_share", "put_share",
            "partial_product", "split_axis"]
 
 # wire bytes of a ring collective over n ranks per byte of its payload
@@ -292,6 +299,18 @@ class _GatherSummedFromModel(torch.autograd.Function):
         return ctx.group.reduce_scatter(grad, ctx.dim), None, None
 
 
+class _ScatterSummedToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return group.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return torch.cat(ctx.group.all_gather(grad.contiguous()).unbind(0),
+                         dim=ctx.dim), None, None
+
+
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` into a column-parallel span: the identity, and the gradient
     summed over ``group`` on the way back (each rank's span sees only its
@@ -337,6 +356,62 @@ def gather_summed_from_model(x: torch.Tensor, group,
     if not split_axis(group):
         return x
     return _GatherSummedFromModel.apply(x, group, dim % x.dim())
+
+
+def scatter_summed_to_model(x: torch.Tensor, group,
+                            dim: int = -1) -> torch.Tensor:
+    """This rank's block along ``dim`` (``size`` equal blocks in axis
+    order) of the sum over ``group`` of every rank's whole-width ``x`` (a
+    reduce-scatter): ``gather_summed_from_model``'s opposite. The gradient
+    comes back gathered whole (an all-gather): every rank's ``x`` feeds
+    every rank's block."""
+    if not split_axis(group):
+        return x
+    return _ScatterSummedToModel.apply(x, group, dim % x.dim())
+
+
+def share_of(n: int, group) -> Tuple[int, int]:
+    """[start, stop) of ``n`` heads this rank of ``group`` computes
+    (``models/sharding.share``); all of them unsplit."""
+    return share(n, group.size, group.index) if split_axis(group) else (0, n)
+
+
+def take_share(t: torch.Tensor, part: Tuple[int, int], n: int, group,
+               dim: int = -1) -> torch.Tensor:
+    """[start, stop) ``part`` along ``dim`` of a tensor of ``n`` there, of
+    which ``t`` holds the whole or this rank's stored block (n / size in
+    axis order): the block itself where it is ``part``, else the block
+    gathered whole (``gather_summed_from_model``: each rank reads its own
+    part of it) and narrowed."""
+    lo, hi = part
+    if (lo, hi) == (0, t.shape[dim]):
+        return t
+    if t.shape[dim] != n:
+        if part == share(n, group.size, group.index):
+            return t
+        t = gather_summed_from_model(t, group, dim)
+    return t.narrow(dim, lo, hi - lo)
+
+
+def put_share(t: torch.Tensor, part: Tuple[int, int], n: int, group,
+              dim: int = -1, whole: bool = False) -> torch.Tensor:
+    """``t``, [start, stop) ``part`` along ``dim`` of a tensor of ``n``
+    there, as that tensor's whole (``whole``) or this rank's stored block,
+    summed over ``group`` from every rank's part (zeros elsewhere): the
+    block by ``scatter_summed_to_model``, the whole by an f32 all-reduce
+    whose gradient is all-reduced too (``reduce_from_model`` inside
+    ``copy_to_model``). ``t`` itself where it is already that block, or
+    unsplit."""
+    if not split_axis(group) or (not whole and n % group.size == 0
+                                 and part == share(n, group.size,
+                                                   group.index)):
+        return t
+    dim %= t.dim()
+    full = F.pad(t, [0, 0] * (t.dim() - 1 - dim) + [part[0], n - part[1]])
+    if whole:
+        return copy_to_model(reduce_from_model(full, group).to(t.dtype),
+                             group)
+    return scatter_summed_to_model(full, group, dim)
 
 
 @dataclasses.dataclass

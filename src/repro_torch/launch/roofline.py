@@ -45,7 +45,7 @@ from .. import _tree
 from ..configs import SHAPES, get_arch
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import sharding as shd
-from ..models.recurrent import mlstm_heads
+from ..models.recurrent import _mlstm_hd, _slstm_hd, mlstm_heads
 from ..models.transformer import block_has_ffn, init_params
 from .analytic_cost import analytic_cost
 from .mesh import WIRE_FACTOR, make_production_mesh
@@ -104,21 +104,35 @@ def _axes(entry):
 
 
 def _mixer_collectives(cfg: ModelConfig, kind: str, mixer_specs,
-                       rows: int, tp: int):
+                       rows: int, tp: int, decode: bool = False):
     """The model-axis collectives inside one split block's mixer span, a
-    forward's: (all-gather result bytes, all-reduce payload elements),
-    each a list. In a train step's backward each gather's gradient is
-    reduce-scattered (the same bytes) and each all-reduce's all-reduced
-    (f32 forward, the model's dtype backward); a prefill's and a decode's
-    run forward only. ``rows``: the rank's b s (b at decode). Decode by
-    length's collectives are ``_decode_collectives``'."""
+    forward's: (all-gather result bytes, all-reduce payload elements,
+    reduce-scatter input bytes), each a list. In a train step's backward
+    each gather's gradient is reduce-scattered (the same bytes), each
+    all-reduce's all-reduced (f32 forward, the model's dtype backward) and
+    each reduce-scatter's all-gathered; a prefill's and a decode's run
+    forward only. ``rows``: the rank's b s (b at decode). Where heads do
+    not divide over "model" (``sharding.share``), the regroups between a
+    stored block and the rank's heads (``launch/mesh.take_share`` /
+    ``put_share``): attention's q gathered whole and its heads' output
+    reduce-scattered to ``wo``'s block, mLSTM's ``u`` likewise and its
+    output, sLSTM's ``h`` reduce-scattered before its gather, and at
+    decode the recurrent states' (sLSTM's channel blocks: gathered and
+    reduce-scattered, f32; mLSTM's, kept whole: an f32 all-reduce). Decode
+    by length's collectives, and at decode attention's q gather, are
+    ``_decode_collectives'``."""
     dt = cfg.torch_dtype.itemsize
     d = cfg.d_model
     cut = {k: shd.has_model(v) for k, v in mixer_specs.items()}
-    gathers, reduces = [], []
-    if kind in ("attn", "swa") and cfg.n_kv_heads % tp:
-        if cut["wk"]:                   # k and v projections gathered whole
+    gathers, reduces, scatters = [], [], []
+    if kind in ("attn", "swa"):
+        q_bytes = rows * cfg.n_heads * cfg.hd * dt
+        if cfg.n_heads % tp and cut["wq"] and not decode:
+            gathers.append(q_bytes)                     # q gathered whole
+        if cfg.n_kv_heads % tp and cut["wk"]:   # k and v gathered whole
             gathers += [rows * cfg.n_kv_heads * cfg.hd * dt] * 2
+        if cfg.n_heads % tp and cut["wo"]:
+            scatters.append(q_bytes)            # the output to wo's block
     elif kind == "rglru":
         gathers.append(rows * d * 4)                   # the f32 conv
     elif kind == "mlstm":
@@ -126,26 +140,38 @@ def _mixer_collectives(cfg: ModelConfig, kind: str, mixer_specs,
         if cut["w_if"]:
             gathers.append(2 * d * 2 * h * dt)          # w_if, whole
         reduces.append(rows * 2 * h)                    # the gates
+        if h % tp:
+            gathers.append(rows * 2 * d * dt)           # u to the heads
+            scatters.append(rows * 2 * d * dt)          # back to the block
+            if decode:                                  # the whole (c, n)
+                hd = _mlstm_hd(cfg)
+                reduces.append(rows * h * (hd * hd + hd))
     elif kind == "slstm":
         f_up = 4 * d // 3
         if cut["w_gates"]:
             gathers.append(rows * 4 * d * dt)
         gathers.append(rows * d * dt)                   # h into the FFN
+        if (d // _slstm_hd(d)) % tp:
+            scatters.append(rows * d * dt)              # h to the block
+            if decode:                                  # (c, n, h) blocks
+                gathers += [rows * d * 4] * 3
+                scatters += [rows * d * 4] * 3
         if cut["w_ffn_up"]:
             gathers.append(rows * 2 * f_up * dt)
-    return gathers, reduces
+    return gathers, reduces, scatters
 
 
 def _decode_collectives(cfg: ModelConfig, shape: ShapeConfig,
                         mesh: shd.MeshShape, rows: int):
-    """A decode step's all-gathers of attention by length, a group's
-    (``models/attention.py``; ``decode_state_specs`` cuts the caches over
-    ``sharding.length_axes``), as (group name, its ranks, result bytes),
-    for each block whose ring divides over the group (a whole ring has
-    none): every rank's partials (max, sum, weighted v: hd + 2 f32 a query
-    head) over the group, of every head where the kv heads do not divide
-    over "model" (the query heads gathered over it first), else of the
-    rank's."""
+    """A decode step's all-gathers of attention (``models/attention.py``;
+    ``decode_state_specs`` cuts the caches over ``sharding.length_axes``),
+    as (group name, its ranks, result bytes): where the kv heads do not
+    divide over "model", q gathered over it (of every query head where the
+    ring is cut by length, else of the rank's where the query heads do
+    not divide either); and for each block whose ring divides over the
+    group (a whole ring has none) every rank's partials (max, sum,
+    weighted v: hd + 2 f32 a query head) over the group, of every head
+    where the kv heads do not divide over "model", else of the rank's."""
     axes = shd.length_axes(cfg, mesh, shape.global_batch)
     n = int(np.prod([mesh.shape[a] for a in axes]))
     tp = mesh.shape.get("model", 1)
@@ -153,17 +179,17 @@ def _decode_collectives(cfg: ModelConfig, shape: ShapeConfig,
     heads = cfg.n_heads if whole else cfg.n_heads // tp
     out = []
     for kind in cfg.pattern_for_layers():
-        if kind not in ("attn", "swa") or n == 1:
+        if kind not in ("attn", "swa"):
             continue
         ring = (min(cfg.window or shape.seq_len, shape.seq_len)
                 if kind == "swa" else shape.seq_len)
-        if ring % n:
-            continue
-        if whole:
+        cut = n > 1 and ring % n == 0
+        if whole and (cut or cfg.n_heads % tp):
             out.append(("model", tp, rows * cfg.n_heads * cfg.hd
                         * cfg.torch_dtype.itemsize))
-        out.append((shd.axes_name(axes), n,
-                    n * rows * heads * (cfg.hd + 2) * 4))
+        if cut:
+            out.append((shd.axes_name(axes), n,
+                        n * rows * heads * (cfg.hd + 2) * 4))
     return out
 
 
@@ -192,12 +218,15 @@ def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
     holds a part of (``sharding.partial_over_model``) and of the norm's 4
     bytes. Inside the mixers (``_mixer_collectives``): RG-LRU's f32 conv
     gather, mLSTM's ``w_if`` gather and gate all-reduce, sLSTM's gate,
-    ``h`` and FFN gathers, and where the kv heads do not divide, the k and
-    v gathers; a train step reduce-scatters each gather's gradient and
-    all-reduces the gate sum's, and recomputes them under both
-    ``remat=True`` and ``"names"`` (they lie inside the ``"names"``
-    spans). At decode, attention by length's gathers
-    (``_decode_collectives``), on the group of ``sharding.length_axes``.
+    ``h`` and FFN gathers, where the kv heads do not divide, the k and
+    v gathers, and where the query, mLSTM or sLSTM heads do not, the
+    regroups between stored blocks and a rank's heads; a train step
+    reduce-scatters each gather's gradient, all-gathers each
+    reduce-scatter's and all-reduces the gate sum's, and recomputes them
+    under both ``remat=True`` and ``"names"`` (they lie inside the
+    ``"names"`` spans). At decode, attention's q gathers and by length
+    its partials' (``_decode_collectives``), on the group of
+    ``sharding.length_axes``.
 
     The result has an entry for each axis and for each group over a tuple
     of axes (``sharding.group_axes``), as ``launch/mesh.Mesh.wire_bytes``
@@ -251,13 +280,18 @@ def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
         # their gradients' in a train step
         runs = 1 + (int(remat is True or remat == "names") if train else 0)
         for i, kind in enumerate(pattern):
-            gathers, sums = _mixer_collectives(
+            gathers, sums, scatters = _mixer_collectives(
                 cfg, kind, spec_tree["groups"][f"blk{i}_{kind}"]["mixer"],
-                rows, tp)
+                rows, tp, shape.kind == "decode")
             for nbytes in gathers:
                 model["all-gather"] += ag(tp) * nbytes * runs * cfg.n_groups
                 if train:
                     model["reduce-scatter"] += rs(tp) * nbytes * cfg.n_groups
+            for nbytes in scatters:
+                model["reduce-scatter"] += rs(tp) * nbytes * runs \
+                    * cfg.n_groups
+                if train:
+                    model["all-gather"] += ag(tp) * nbytes * cfg.n_groups
             for elems in sums:
                 model["all-reduce"] += ar(tp) * elems * cfg.n_groups * (
                     4.0 * runs + dt * int(train))

@@ -13,19 +13,32 @@ returns an updated copy): ``apply_attn`` returns the same dict it was given.
 The reference's SPMD sharding constraints (``act_specs``) do not carry over.
 
 Split over "model" (``model=``, an ``AxisGroup``): the weights are a
-rank's blocks, so the head counts come from their shapes: n_heads / tp
-query heads, a contiguous block, and ``wo`` is row-parallel: the output is
-this rank's part of the sum, which the caller reduces over "model". Where
-the kv heads divide over "model", a rank holds n_kv_heads / tp of them
-(the GQA repeat unchanged); the replicated qkv biases are sliced to them,
-the kernel and the cache see only them. Where they do not (recurrentgemma's
-one kv head), ``wk`` / ``wv`` hold a block of the kv heads' columns: each
-rank projects its columns and gathers the whole k and v
-(``gather_summed_from_model``, the gradient summed over "model": each
-rank's query heads read them), before RoPE, which pairs columns across the
-block's edge. The full path runs the kernel on the rank's query heads
-against the one kv head they read (``sharding.kv_read``; ``model_view``
-refuses query heads that would read parts of two).
+rank's blocks as ``param_specs`` cuts them, and the rank computes whole
+query heads, its ``sharding.share`` of them (``launch/mesh.share_of``):
+n_heads / tp of them where they divide, else the first n_heads % tp ranks
+one more, and where n_heads < tp some ranks none. Where the heads divide,
+``wq``'s column block is the rank's heads and ``wo`` is row-parallel: the
+output is this rank's part of the sum, which the caller reduces over
+"model". Where they do not, ``wq``'s block (or the whole ``wq``, where n_heads
+hd does not divide) may end mid-head: the rank projects q on it, gathers it
+whole over "model" (``take_share``: ``gather_summed_from_model``, each rank
+reading its heads) before RoPE and keeps its heads; its heads' output is
+placed in the whole width and regrouped to ``wo``'s row block by a
+reduce-scatter (``put_share``: ``scatter_summed_to_model``; a whole ``wo``
+is read at its heads' rows instead), then the same f32 partial product.
+Where the kv heads divide over "model", a rank holds n_kv_heads / tp of
+them (the GQA repeat unchanged); the replicated qkv biases are sliced to
+them, the kernel and the cache see only them. Where they do not
+(recurrentgemma's one kv head, or query heads shared out unevenly), ``wk`` /
+``wv`` hold a block of the kv heads' columns: each rank projects its
+columns and gathers the whole k and v (``gather_summed_from_model``, the
+gradient summed over "model": each rank's query heads read them), before
+RoPE, which pairs columns across the block's edge. The full path runs the
+kernel on the rank's query heads against the kv heads they read
+(``sharding.kv_read``: two or more where its heads straddle a GQA group),
+query head i of the launch reading kv head (h0 + i) // group - h0 // group
+(``kernels/ops.flash_attention(..., group=, q_head0=h0)``). A rank with no
+heads launches no kernel and joins every collective.
 
 Decode by length (``length=``, the group ``sharding.length_axes`` names:
 "model" where the kv heads do not divide over it; where the batch does not
@@ -35,22 +48,25 @@ where they divide over "model", else every one); the rank that owns the
 step's slot writes it; each rank takes a partial softmax of its query
 heads over its filled slots, as (max, sum, weighted v), the partials are
 gathered over the group and combined. Where the kv heads do not divide,
-the query heads are gathered over "model" first, every head's partials
-travel in the one gather, and each rank keeps its heads' rows. A rank
-with no filled slot weighs 0. A ring that does not divide over the group
-is whole on every rank (``length=None``): every rank writes the slot of
-every kv head and reads those its query heads need, with no combine.
+q is projected for every query head (gathered over "model" as above),
+every head's partials travel in the one gather, and each rank keeps its
+heads' rows. A rank with no filled slot weighs 0. A ring that does not
+divide over the group is whole on every rank (``length=None``): every rank
+writes the slot of every kv head and reads those its query heads need
+(its heads padded to whole GQA groups), with no combine.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops as kops
+from ..kernels.ref import expand_kv
 from ..launch.mesh import (gather_summed_from_model, partial_product,
-                           split_axis)
+                           put_share, share_of, split_axis, take_share)
 from .layers import init_dense, rope
 from .sharding import kv_read
 
@@ -171,20 +187,23 @@ def kv_whole(cfg: ModelConfig, model) -> bool:
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor, rank: int = 0, model=None,
-                 kv=None):
-    """q (b, nq, s, hd), k/v (b, nkv, s, hd) with RoPE, for the heads of
-    model rank ``rank`` (all of them unsplit). ``kv``: where the kv heads
-    do not divide over ``model``, the kv heads [start, stop) to return,
-    gathered whole (module docstring)."""
+                 positions: torch.Tensor, heads, model=None, kv=None):
+    """q (b, nq, s, hd) of the query heads ``heads`` [start, stop) (all of
+    them unsplit), k/v (b, nkv, s, hd) with RoPE. q is projected on
+    ``wq``'s block and, where that is not those heads' columns, gathered
+    whole over ``model`` and narrowed (``take_share``). ``kv``: where the
+    kv heads do not divide over ``model``, the kv heads [start, stop) to
+    return, gathered whole (module docstring)."""
     b, s, _ = x.shape
     hd = cfg.hd
-    nq = p["wq"].shape[-1] // hd
-    q = x @ p["wq"]
+    nq = heads[1] - heads[0]
+    q = take_share(x @ p["wq"], (heads[0] * hd, heads[1] * hd),
+                   cfg.n_heads * hd, model)
     k = x @ p["wk"]
     v = x @ p["wv"]
     if kv is None:
         nkv = p["wk"].shape[-1] // hd
+        rank = model.index if split_axis(model) else 0
         cols = slice(rank * nkv * hd, (rank + 1) * nkv * hd)
     else:
         if k.shape[-1] != cfg.n_kv_heads * hd:     # a block of the columns
@@ -196,7 +215,7 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
     if cfg.qkv_bias:
         bq, bk, bv = p["bq"], p["bk"], p["bv"]
         if nq != cfg.n_heads:
-            bq = bq[rank * nq * hd:(rank + 1) * nq * hd]
+            bq = bq[heads[0] * hd:heads[1] * hd]
         if nkv != cfg.n_kv_heads:
             bk, bv = bk[cols], bv[cols]
         q, k, v = q + bq, k + bk, v + bv
@@ -235,44 +254,51 @@ def _read_cache(cache, quant: bool, heads=None):
 
 
 def _decode_ring(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache,
-                 index: int, cfg: ModelConfig, read=None) -> torch.Tensor:
+                 index: int, cfg: ModelConfig, read=None,
+                 q_head0: int = 0) -> torch.Tensor:
     """One token against a whole ring: ``k`` / ``v`` into slot ``index %
-    S``, then q (b, nq, 1, hd) against the kv heads ``read`` of the cache
-    (default all), each query head's group of them without expanding the
-    cache. Returns (b, nq, 1, hd)."""
+    S``, then q (b, nq, 1, hd), query heads [q_head0, q_head0 + nq) of the
+    model, against the kv heads ``read`` of the cache (default all), each
+    query head's group of them without expanding the cache (q padded with
+    zero heads to whole groups where its heads start or end mid-group).
+    Returns (b, nq, 1, hd)."""
     b, nq, s, hd = q.shape
     max_len = cache["k"].shape[2]
     _write_slot(cache, k, v, index % max_len, cfg.kv_quant)  # SWA: S = window
+    if nq == 0:                         # a rank with no heads
+        return q
     kd, vd = _read_cache(cache, cfg.kv_quant, read)
     nkv = kd.shape[1]
-    qg = q.float().reshape(b, nkv, nq // nkv, s, hd)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    lo = q_head0 % rep
+    qf = q.float()
+    if lo or nq != nkv * rep:
+        qf = F.pad(qf, (0, 0, 0, 0, lo, nkv * rep - nq - lo))
+    qg = qf.reshape(b, nkv, rep, s, hd)
     logits = torch.einsum("bgrqd,bgkd->bgrqk", qg, kd) * (hd ** -0.5)
     # valid = filled slots only (ring: all slots < min(idx + 1, S))
     logits[..., min(index + 1, max_len):] = _NEG
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrqk,bgkd->bgrqd", probs, vd)
-    return out.reshape(b, nq, s, hd).to(q.dtype)
+    return out.reshape(b, nkv * rep, s, hd)[:, lo:lo + nq].to(q.dtype)
 
 
 def _decode_by_length(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       cache, index: int, cfg: ModelConfig, length,
-                      model=None) -> torch.Tensor:
+                      heads=None) -> torch.Tensor:
     """One token against a cache cut by length over ``length`` (module
-    docstring). q: this rank's (b, nq, 1, hd); k, v: the kv heads the
-    cache holds, (b, nkv, 1, hd). ``model``: where the kv heads do not
-    divide over it, the axis to gather every query head over. Returns this
-    rank's heads' (b, nq, 1, hd)."""
-    b, nq, _, hd = q.shape
+    docstring). q: (b, nh, 1, hd), this rank's heads where the kv heads
+    divide over "model" (``heads`` None), else every query head, of which
+    ``heads`` [start, stop) are the rank's; k, v: the kv heads the cache
+    holds, (b, nkv, 1, hd). Returns the rank's heads' (b, nq, 1, hd)."""
+    b, nh, _, hd = q.shape
     s_loc, n = cache["k"].shape[2], length.size
     owner, local = divmod(index % (s_loc * n), s_loc)
     if owner == length.index:
         _write_slot(cache, k, v, local, cfg.kv_quant)
     kd, vd = _read_cache(cache, cfg.kv_quant)
     nkv = kd.shape[1]
-    qa = q if model is None else torch.cat(model.all_gather(q).unbind(0),
-                                           dim=1)   # every head
-    nh = qa.shape[1]
-    qg = qa.float().reshape(b, nkv, nh // nkv, 1, hd)
+    qg = q.float().reshape(b, nkv, nh // nkv, 1, hd)
     logits = torch.einsum("bgrqd,bgkd->bgrqk", qg, kd) * (hd ** -0.5)
     # this rank's filled slots: the ring's [0, min(index + 1, S)) in its range
     n_valid = max(0, min(s_loc, min(index + 1, s_loc * n)
@@ -284,9 +310,8 @@ def _decode_by_length(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part = torch.cat([m, probs.sum(-1, keepdim=True),
                       torch.einsum("bgrqk,bgkd->bgrqd", probs, vd)], dim=-1)
     parts = length.all_gather(part.reshape(b, nh, hd + 2))
-    if model is not None:
-        h0 = model.index * nq
-        parts = parts[:, :, h0:h0 + nq]             # (n, b, nq, hd + 2)
+    if heads is not None:
+        parts = parts[:, :, heads[0]:heads[1]]      # (n, b, nq, hd + 2)
     m_r, l_r, acc_r = parts[..., :1], parts[..., 1:2], parts[..., 2:]
     w = torch.exp(m_r - m_r.amax(0))
     out = (w * acc_r).sum(0) / (w * l_r).sum(0)
@@ -315,41 +340,60 @@ def apply_attn(p, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         positions = torch.full((b, 1), cache_index, dtype=torch.int32,
                                device=x.device)
-    rank = model.index if model is not None else 0
     hd = cfg.hd
-    nq = p["wq"].shape[-1] // hd
+    heads = share_of(cfg.n_heads, model)
     whole = kv_whole(cfg, model)
     read = None
-    if whole:                           # one kv head read a rank (model_view)
-        read = kv_read(cfg.n_heads, cfg.n_kv_heads,
-                       (rank * nq, (rank + 1) * nq))
-        q, k, v = _project_qkv(p, x, cfg, positions, rank, model,
+    if whole:                           # the kv heads a rank reads (module doc)
+        read = kv_read(cfg.n_heads, cfg.n_kv_heads, heads)
+        every = cache is not None and length is not None
+        q, k, v = _project_qkv(p, x, cfg, positions,
+                               (0, cfg.n_heads) if every else heads, model,
                                read if cache is None else
                                (0, cfg.n_kv_heads))   # the cache holds all
     else:
-        q, k, v = _project_qkv(p, x, cfg, positions, rank)
-        if nq // k.shape[1] != cfg.n_heads // cfg.n_kv_heads:
-            raise ValueError(f"{nq} query heads over {k.shape[1]} kv heads: "
-                             f"the GQA repeat of {cfg.name} is "
-                             f"{cfg.n_heads // cfg.n_kv_heads}")
+        q, k, v = _project_qkv(p, x, cfg, positions, heads, model)
     if cache is None:
-        out = _attend(q, k, v, window, use_kernel)
+        out = _attend(q, k, v, window, use_kernel,
+                      cfg.n_heads // cfg.n_kv_heads, heads[0])
     elif length is not None:
         out = _decode_by_length(q, k, v, cache, cache_index, cfg, length,
-                                model if whole else None)
+                                heads if whole else None)
     else:
-        out = _decode_ring(q, k, v, cache, cache_index, cfg, read)
-    out = out.transpose(1, 2).reshape(b, s, nq * hd)
-    return partial_product(out, p["wo"], model), cache
+        out = _decode_ring(q, k, v, cache, cache_index, cfg, read, heads[0])
+    out = out.transpose(1, 2).reshape(b, s, (heads[1] - heads[0]) * hd)
+    return _out_product(out, p["wo"], heads, cfg, model), cache
 
 
-def _attend(q, k, v, window, use_kernel: bool) -> torch.Tensor:
-    """Causal (windowed) attention of q (b, nq, s, hd) against the GQA
-    groups k / v (b, nkv, s, hd): the flash kernel, or the plain
-    ``blockwise_attention`` on the expanded kv heads."""
+def _out_product(out: torch.Tensor, wo: torch.Tensor, heads,
+                 cfg: ModelConfig, model) -> torch.Tensor:
+    """The rank's heads' output (b, s, nq hd) through ``wo``: its part of
+    the sum over "model" (``partial_product``), after the regroup to
+    ``wo``'s row block (``put_share``), or on a whole ``wo``'s rows of its
+    heads."""
+    n, cols = cfg.n_heads * cfg.hd, (heads[0] * cfg.hd, heads[1] * cfg.hd)
+    if split_axis(model) and wo.shape[0] == n:
+        wo = wo[cols[0]:cols[1]]
+    else:
+        out = put_share(out, cols, n, model)
+    return partial_product(out, wo, model)
+
+
+def _attend(q, k, v, window, use_kernel: bool, group: int,
+            q_head0: int) -> torch.Tensor:
+    """Causal (windowed) attention of q (b, nq, s, hd), query heads
+    [q_head0, q_head0 + nq) of the model, against the kv heads k / v (b,
+    nkv, s, hd) they read, ``group`` query heads a kv head: the flash
+    kernel, or the plain ``blockwise_attention`` on the kv heads expanded
+    to the query heads. No heads: no launch; the plain path runs on the
+    empty heads, so that a train step's backward reaches the kv gathers
+    on every rank."""
     if use_kernel:
-        return kops.flash_attention(q, k, v, causal=True, window=window)
-    rep = q.shape[1] // k.shape[1]
-    return blockwise_attention(
-        q, k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1),
-        causal=True, window=window)
+        if q.shape[1] == 0:
+            return q
+        return kops.flash_attention(q, k, v, causal=True, window=window,
+                                    group=group, q_head0=q_head0)
+    nq = q.shape[1]
+    return blockwise_attention(q, expand_kv(k, nq, group, q_head0),
+                               expand_kv(v, nq, group, q_head0), causal=True,
+                               window=window)

@@ -32,24 +32,35 @@ Split over "model" (``model=``, the "model" ``AxisGroup``): the weights are a
 rank's blocks under ``models/sharding.param_specs``, the input the whole
 (replicated) residual stream, the output this rank's partial sum of the
 row-parallel output projection (f32, ``partial_product``), which the caller
-reduces over "model"; the decode state holds the rank's channels or heads
-(``decode_state_specs``). Where a stored column block does not line up with the
-rank's channels or heads, the whole is gathered with
-``gather_summed_from_model`` (its gradient summed over "model"):
+reduces over "model". A rank computes its channels (RG-LRU) or whole heads
+(mLSTM, sLSTM: its ``sharding.share``, the first n % tp ranks one more
+where tp does not divide the heads, none where there are fewer heads than
+ranks); the decode state is stored as ``decode_state_specs`` cuts it.
+Where a stored block (a leaf's columns, a state's heads or channels) does
+not line up with the rank's heads, ``launch/mesh.take_share`` gathers the
+whole (``gather_summed_from_model``, its gradient summed over "model") and
+keeps the rank's part, ``put_share`` regroups the rank's part back to the
+block (a reduce-scatter, ``scatter_summed_to_model``) or, for a state kept
+whole, to the whole (an f32 all-reduce); a per-head leaf kept whole is read
+at the rank's heads (its gradient summed over "model"):
 
 * RG-LRU: ``w_in`` / ``w_gate_in`` / ``w_out`` and the gates' columns
   are the rank's channels, ``conv_w`` and ``lam`` sliced to them; the
   gates read the whole conv output, gathered in f32 (b, s, d) a layer.
-* mLSTM: ``w_up`` / ``w_gate`` / ``w_down`` and ``w_q`` / ``w_k`` /
-  ``w_v`` are the rank's heads. ``w_if``'s columns are cut [i | f], so
-  the (up, 2h) weight is gathered, each rank contracts its own ``up``
-  rows and the partial gates are all-reduced (both ways: each rank reads
-  its heads' columns of the sum).
+* mLSTM: ``w_up`` / ``w_gate`` / ``w_down`` hold a column (row) block
+  of the channels, the rank's heads where they divide. ``u`` is
+  regrouped to the rank's heads for ``w_q`` / ``w_k`` / ``w_v`` (its
+  heads of them) and the scan, and the heads' output back to the block
+  for the gate and ``w_down``. ``w_if``'s columns are cut [i | f], so the
+  (up, 2h) weight is gathered, each rank contracts its own block's
+  ``up`` rows and the partial gates are all-reduced (both ways: each rank
+  reads its heads' columns of the sum).
 * sLSTM: ``w_gates``' columns are cut gate-major (i, f | z, o at tp 2):
   each rank computes its stored columns and the (b, s, 4d) result is
-  gathered; ``r_gates`` and the time loop are head-local (no collective a
-  token); the FFN gathers ``h`` (b, s, d), then its ``[gate | up]``
-  product likewise, and takes columns [r f / tp, (r + 1) f / tp) of
+  gathered; ``r_gates`` (its heads) and the time loop are head-local (no
+  collective a token); the FFN gathers ``h`` (b, s, d) (regrouped to
+  the block first where the heads do not divide), then its ``[gate |
+  up]`` product likewise, and takes columns [r f / tp, (r + 1) f / tp) of
   both; ``w_ffn_down`` is row-parallel (or, where f does not divide, whole
   and read in part).
 
@@ -65,7 +76,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..launch.mesh import (copy_to_model, gather_summed_from_model,
-                           partial_product, reduce_from_model, split_axis)
+                           partial_product, put_share, reduce_from_model,
+                           share_of, split_axis, take_share)
 from .layers import init_dense, normal
 
 __all__ = [
@@ -114,8 +126,11 @@ def init_mlstm(gen: Optional[torch.Generator], cfg: ModelConfig,
 def init_mlstm_state(cfg: ModelConfig, batch: int, n_layers: int,
                      device: torch.device,
                      tp: int = 1) -> Dict[str, torch.Tensor]:
-    """The (c, n) state; ``tp``: a model rank's heads of ``tp``."""
-    h, hd = mlstm_heads(cfg) // tp, _mlstm_hd(cfg)
+    """The (c, n) state; ``tp``: a model rank's share of ``tp`` as
+    ``decode_state_specs`` cuts it: h / tp heads where they divide, else
+    every head."""
+    h, hd = mlstm_heads(cfg), _mlstm_hd(cfg)
+    h //= tp if h % tp == 0 else 1
     return {"c": torch.zeros((n_layers, batch, h, hd, hd), device=device),
             "n": torch.zeros((n_layers, batch, h, hd), device=device)}
 
@@ -161,11 +176,12 @@ def _mlstm_chunk_scan(q, k, v, li, lf, chunk: int):
     return torch.cat(outs, dim=2), c_state, n_state
 
 
-def _mlstm_gates(p, u: torch.Tensor, h: int, n_heads: int, model):
-    """(b, s, 2h) input and forget gate pre-activations of the ``h`` heads
-    in ``u`` (of ``n_heads``); split (``model``), the sum over "model" of
-    each rank's ``up`` rows of the gathered ``w_if`` (module docstring),
-    its heads' columns and ``b_if``'s."""
+def _mlstm_gates(p, u: torch.Tensor, heads, n_heads: int, model):
+    """(b, s, 2h) input and forget gate pre-activations of the heads
+    ``heads`` [start, stop) of ``n_heads``; split (``model``; ``u`` the
+    rank's stored block of the channels), the sum over "model" of each
+    rank's block's ``up`` rows of the gathered ``w_if`` (module
+    docstring), its heads' columns and ``b_if``'s."""
     if not split_axis(model):
         return u @ p["w_if"] + p["b_if"]
     w_if = p["w_if"]
@@ -175,10 +191,9 @@ def _mlstm_gates(p, u: torch.Tensor, h: int, n_heads: int, model):
     rows = w_if[model.index * up_loc:(model.index + 1) * up_loc]
     whole = copy_to_model(reduce_from_model(
         partial_product(u, rows, model), model).to(u.dtype), model)
-    h0 = model.index * h
-    cols = torch.cat([torch.arange(h0, h0 + h),
-                      torch.arange(n_heads + h0, n_heads + h0 + h)]
-                     ).to(u.device)
+    h0, h1 = heads
+    cols = torch.cat([torch.arange(h0, h1),
+                      torch.arange(n_heads + h0, n_heads + h1)]).to(u.device)
     return whole.index_select(-1, cols) + p["b_if"].index_select(0, cols)
 
 
@@ -186,19 +201,22 @@ def apply_mlstm(p, x: torch.Tensor, cfg: ModelConfig, *,
                 state: Optional[Dict[str, torch.Tensor]] = None,
                 chunk: Optional[int] = None, model=None):
     """Full sequence (state None) or one-token decode (state = {"c", "n"}).
-    ``model``: split over "model" (module docstring); the state holds the
-    rank's heads. Returns (out, new_state)."""
+    ``model``: split over "model" (module docstring); the state is stored
+    as ``decode_state_specs`` cuts it (the rank's heads, or every head
+    where they do not divide). Returns (out, new_state)."""
     b, s, d = x.shape
     hd = _mlstm_hd(cfg)
-    u = x @ p["w_up"]
-    up = u.shape[-1]                    # the rank's channels when split
-    h = up // hd
+    n_heads = mlstm_heads(cfg)
+    heads = share_of(n_heads, model)
+    h = heads[1] - heads[0]
+    cols = (heads[0] * hd, heads[1] * hd)
+    u_blk = x @ p["w_up"]               # the rank's block of the channels
     g = F.silu(x @ p["w_gate"])
-    uh = u.reshape(b, s, h, hd)
-    q = torch.einsum("bshd,hde->bhse", uh, p["w_q"])
-    k = torch.einsum("bshd,hde->bhse", uh, p["w_k"])
-    v = torch.einsum("bshd,hde->bhse", uh, p["w_v"])
-    gates = _mlstm_gates(p, u, h, mlstm_heads(cfg), model)      # (b, s, 2h)
+    uh = take_share(u_blk, cols, 2 * d, model).reshape(b, s, h, hd)
+    q, k, v = (torch.einsum("bshd,hde->bhse", uh,
+                            take_share(p[w], heads, n_heads, model, dim=0))
+               for w in ("w_q", "w_k", "w_v"))
+    gates = _mlstm_gates(p, u_blk, heads, n_heads, model)       # (b, s, 2h)
     li = F.logsigmoid(gates[..., :h]).transpose(1, 2)           # (b, h, s)
     lf = F.logsigmoid(gates[..., h:]).transpose(1, 2)
 
@@ -208,18 +226,23 @@ def apply_mlstm(p, x: torch.Tensor, cfg: ModelConfig, *,
         new_state = {"c": c_fin, "n": n_fin}
     else:
         # one token: C' = f C + i k v^T; out = (q.C') / max(|q.n'|, 1)
+        c0, n0 = (take_share(state[key], heads, n_heads, model, dim=1)
+                  for key in ("c", "n"))
         fi = torch.exp(lf[..., 0].float())[..., None, None]     # (b, h, 1, 1)
         ii = torch.exp(li[..., 0].float())[..., None, None]
         k0, v0 = k[:, :, 0].float(), v[:, :, 0].float()
-        c_new = fi * state["c"] + ii * torch.einsum("bhd,bhe->bhde", k0, v0)
-        n_new = fi[..., 0] * state["n"] + ii[..., 0] * k0
+        c_new = fi * c0 + ii * torch.einsum("bhd,bhe->bhde", k0, v0)
+        n_new = fi[..., 0] * n0 + ii[..., 0] * k0
         qv = q[:, :, 0].float() * hd ** -0.5
         num = torch.einsum("bhd,bhde->bhe", qv, c_new)
         den = torch.einsum("bhd,bhd->bh", qv, n_new).abs().clamp_min(1.0)
         out = (num / den[..., None])[:, :, None, :]            # (b, h, 1, hd)
-        new_state = {"c": c_new, "n": n_new}
+        new_state = {key: put_share(new, heads, n_heads, model, dim=1,
+                                    whole=state[key].shape[1] == n_heads)
+                     for key, new in (("c", c_new), ("n", n_new))}
 
-    out = out.transpose(1, 2).reshape(b, s, up).to(x.dtype)
+    out = out.transpose(1, 2).reshape(b, s, h * hd).to(x.dtype)
+    out = put_share(out, cols, 2 * d, model)     # to the block, as g
     return partial_product(out * g, p["w_down"], model), new_state
 
 
@@ -254,21 +277,26 @@ def init_slstm(gen: Optional[torch.Generator], cfg: ModelConfig,
 def init_slstm_state(cfg: ModelConfig, batch: int, n_layers: int,
                      device: torch.device,
                      tp: int = 1) -> Dict[str, torch.Tensor]:
-    """The (c, n, h) state; ``tp``: a model rank's heads of ``tp``."""
-    shape = (n_layers, batch, cfg.d_model // tp)
+    """The (c, n, h) state; ``tp``: a model rank's share of ``tp`` as
+    ``decode_state_specs`` cuts it: d / tp channels where they divide (a
+    block that may end mid-head), else every channel."""
+    d = cfg.d_model
+    shape = (n_layers, batch, d // tp if d % tp == 0 else d)
     return {key: torch.zeros(shape, device=device) for key in ("c", "n", "h")}
 
 
-def _slstm_cell(p, d: int, carry, gx: torch.Tensor, bias: torch.Tensor):
-    """One step over ``d`` channels (the rank's heads when split).
-    carry = (c, n, h) f32 (b, d); gx = x_t @ w_gates (b, 4d) in the model
-    dtype, laid out (4, heads, hd); ``bias`` the same layout."""
+def _slstm_cell(r_gates: torch.Tensor, d: int, carry, gx: torch.Tensor,
+                bias: torch.Tensor):
+    """One step over ``d`` channels (the rank's heads when split, whose
+    ``r_gates`` (h, hd, 4 hd) it takes). carry = (c, n, h) f32 (b, d);
+    gx = x_t @ w_gates (b, 4d) in the model dtype, laid out (4, heads,
+    hd); ``bias`` the same layout."""
     c, n, hprev = carry
     b = gx.shape[0]
-    nh, hd = p["r_gates"].shape[0], p["r_gates"].shape[1]
+    nh, hd = r_gates.shape[0], r_gates.shape[1]
     # the recurrent term, per head, laid out as (b, 4, h, hd)
     hh = hprev.to(gx.dtype).reshape(b, nh, hd)
-    gr = torch.einsum("bhd,hde->bhe", hh, p["r_gates"])       # (b, h, 4 hd)
+    gr = torch.einsum("bhd,hde->bhe", hh, r_gates)            # (b, h, 4 hd)
     gr = gr.reshape(b, nh, 4, hd).transpose(1, 2).reshape(b, 4 * d)
     gates = (gx + gr + bias).float()
     i = torch.exp(gates[..., :d].clamp_max(8.0))             # exp input gate
@@ -284,11 +312,16 @@ def _slstm_cell(p, d: int, carry, gx: torch.Tensor, bias: torch.Tensor):
 def apply_slstm(p, x: torch.Tensor, cfg: ModelConfig, *,
                 state: Optional[Dict[str, torch.Tensor]] = None, model=None):
     """Full sequence (state None) or one-token decode (state = {"c", "n",
-    "h"}). ``model``: split over "model" (module docstring); the state holds
-    the rank's heads. Returns (out, new_state)."""
+    "h"}). ``model``: split over "model" (module docstring); the state is
+    stored as ``decode_state_specs`` cuts it (a block of d / tp channels,
+    which may end mid-head). Returns (out, new_state)."""
     b, s, d = x.shape
-    nh_loc, hd = p["r_gates"].shape[0], p["r_gates"].shape[1]
-    d_loc = nh_loc * hd                  # the rank's channels when split
+    hd = _slstm_hd(d)
+    n_heads = d // hd
+    heads = share_of(n_heads, model)
+    cols = (heads[0] * hd, heads[1] * hd)      # the rank's channels
+    d_loc = cols[1] - cols[0]
+    r_gates = take_share(p["r_gates"], heads, n_heads, model, dim=0)
     gx = x @ p["w_gates"]                                    # (b, s, 4d)
     bias = p["b_gates"]
     f_up = 4 * d // 3
@@ -296,28 +329,33 @@ def apply_slstm(p, x: torch.Tensor, cfg: ModelConfig, *,
     if split:
         if gx.shape[-1] != 4 * d:
             gx = gather_summed_from_model(gx, model, dim=-1)
-        c0 = model.index * d_loc
-        gx = gx.unflatten(-1, (4, d))[..., c0:c0 + d_loc].flatten(-2)
-        bias = bias.unflatten(-1, (4, d))[..., c0:c0 + d_loc].flatten(-2)
+        gx = gx.unflatten(-1, (4, d))[..., cols[0]:cols[1]].flatten(-2)
+        bias = bias.unflatten(-1, (4, d))[..., cols[0]:cols[1]].flatten(-2)
     if state is None:
         zeros = torch.zeros((b, d_loc), device=x.device)
         carry = (zeros, zeros, zeros)
         hs = []
         for t in range(s):
-            carry = _slstm_cell(p, d_loc, carry, gx[:, t], bias)
+            carry = _slstm_cell(r_gates, d_loc, carry, gx[:, t], bias)
             hs.append(carry[2])
         h = torch.stack(hs, dim=1).to(x.dtype)
+        new_state = {"c": carry[0], "n": carry[1], "h": carry[2]}
     else:
-        carry = _slstm_cell(p, d_loc, (state["c"], state["n"], state["h"]),
-                            gx[:, 0], bias)
+        carry = _slstm_cell(r_gates, d_loc, tuple(
+            take_share(state[key], cols, d, model) for key in ("c", "n", "h")),
+            gx[:, 0], bias)
         h = carry[2][:, None].to(x.dtype)
-    new_state = {"c": carry[0], "n": carry[1], "h": carry[2]}
+        new_state = {key: put_share(new, cols, d, model,
+                                    whole=state[key].shape[-1] == d)
+                     for key, new in zip(("c", "n", "h"), carry)}
     # small gated FFN (xLSTM post-up/down, factor 4/3)
     w_down = p["w_ffn_down"]
     if not split:
         u = h @ p["w_ffn_up"]
         return (F.silu(u[..., :f_up]) * u[..., f_up:]) @ w_down, new_state
-    u = gather_summed_from_model(h, model, dim=-1) @ p["w_ffn_up"]
+    # h of every channel: the rank's heads regrouped to its block, gathered
+    u = take_share(put_share(h, cols, d, model), (0, d), d, model) \
+        @ p["w_ffn_up"]
     if u.shape[-1] != 2 * f_up:
         u = gather_summed_from_model(u, model, dim=-1)
     lo = model.index * f_up // model.size

@@ -33,8 +33,14 @@ audio frontends: ``model_view`` says which heads, kv heads, FFN columns,
 experts, recurrent channels and heads and head columns (vocabulary rows;
 audio: (codebook, vocabulary) columns, codebook-major) a model rank
 computes, read off ``param_specs``, and raises ``NotImplementedError``
-where the split is not ported. kv heads that do not divide over "model"
-are admitted: each rank reads the kv heads its query heads need. The
+where the split is not ported. A rank computes whole heads: query, mLSTM
+and sLSTM heads are shared out by ``share`` (the first n % tp ranks take
+one more; where n < tp some take none), while their leaves stay cut as
+``param_specs`` cuts them, a column block that may end mid-head (the
+mixers regroup between the two, ``launch/mesh.take_share`` /
+``put_share``). kv heads that do not divide over "model" are admitted:
+each rank reads the kv heads its query heads need, two or more where its
+heads straddle a GQA group. The
 decode cache is cut by its length over ``length_axes`` ("model" there; the
 data axes first where the batch does not divide over them), as
 ``decode_state_specs`` cuts it; ``launch/mesh.make_mesh`` lays a process
@@ -45,7 +51,9 @@ blocks, with which ``models/transformer.forward(..., model=)`` runs
 Megatron's tensor parallelism, as XLA partitions the reference under these
 specs. ``partial_over_model`` says which leaves' gradient each model rank
 holds a part of: ``PARTIAL_OVER_MODEL`` (replicated leaves read in part),
-and ``PARTIAL_WHEN_WHOLE`` where the dim the split cuts does not divide.
+and ``PARTIAL_WHEN_WHOLE`` where the dim the split cuts does not divide
+(``wq`` / ``wo`` where n_heads x hd does not, the per-head mLSTM and
+sLSTM leaves where their heads do not).
 """
 from __future__ import annotations
 
@@ -63,7 +71,7 @@ __all__ = ["MeshShape", "dp_axes", "param_specs", "batch_specs",
            "local_shape", "shard", "shard_tree", "gather", "gather_tree",
            "spec_leaves", "dp_shards", "ModelView", "model_view",
            "data_specs", "has_model", "PARTIAL_OVER_MODEL",
-           "PARTIAL_WHEN_WHOLE", "partial_over_model", "kv_read",
+           "PARTIAL_WHEN_WHOLE", "partial_over_model", "kv_read", "share",
            "SPLIT_ROADMAP", "length_axes", "group_axes", "axes_name"]
 
 Axes = Union[None, str, Tuple[str, ...]]
@@ -401,7 +409,10 @@ PARTIAL_OVER_MODEL = ("bq", "bk", "bv", "router", "conv_w", "lam", "b_if",
                       "b_gates")
 # leaves the split cuts over "model" but whose dim may not divide (then
 # ``param_specs`` keeps them whole): each rank reads its part of a whole one
-PARTIAL_WHEN_WHOLE = ("wk", "wv", "w_ffn_up", "w_ffn_down")
+# (its heads' columns or rows of wq / wo, its heads of the per-head mLSTM
+# and sLSTM projections, its channel block's rows of mLSTM's w_if)
+PARTIAL_WHEN_WHOLE = ("wq", "wk", "wv", "wo", "w_q", "w_k", "w_v",
+                      "w_if", "r_gates", "w_ffn_up", "w_ffn_down")
 SPLIT_ROADMAP = ('ROADMAP.md, "Configurations the port does not yet run": '
                  'the compute split over "model"')
 _SPLIT_KINDS = ("attn", "swa", "rglru", "mlstm", "slstm")
@@ -418,13 +429,19 @@ def partial_over_model(name: str, spec: Spec) -> bool:
 @dataclasses.dataclass(frozen=True)
 class ModelView:
     """What model rank ``index`` of ``tp`` computes: [start, stop) of the
-    query heads, the kv heads they read (``kv_cut``: the kv heads divide
-    over "model" and are this rank's own; else the rank reads them whole
-    and the decode cache is cut by length), FFN columns (the dense and
-    shared-expert FFN), experts, RG-LRU channels, mLSTM and sLSTM heads and
-    the head's columns (``vocab``: vocabulary rows, or audio's K V
-    (codebook, vocabulary) columns, codebook-major; ``None`` where the
-    model has none).
+    query heads (its ``share``: possibly none), the kv heads they read
+    (``kv_cut``: the kv heads divide over "model" and are this rank's own;
+    else the rank reads them whole, ``kv_read`` of its heads, and the
+    decode cache is cut by length), FFN columns (the dense and
+    shared-expert FFN), experts, RG-LRU channels, mLSTM and sLSTM heads
+    (shares) and the head's columns (``vocab``: vocabulary rows, or
+    audio's K V (codebook, vocabulary) columns, codebook-major; ``None``
+    where the model has none).
+    ``q_cols`` / ``mlstm_cols`` / ``slstm_cols``: the stored block of
+    ``wq``'s columns, of ``w_up``'s and of ``w_gates``' 4 d (gate-major),
+    which may cut a head mid-way (``None`` where the leaf is whole on
+    every rank, or the model has none): where it is not the rank's heads'
+    columns the mixer regroups between the two.
     ``embed_pieces``: the embedding's model dim is cut over (data axes...,
     "model"), so after the data-axis gather a rank holds ``embed_pieces``
     strided pieces of it."""
@@ -441,6 +458,9 @@ class ModelView:
     slstm_heads: Optional[Tuple[int, int]]
     vocab: Tuple[int, int]
     embed_pieces: int
+    q_cols: Optional[Tuple[int, int]] = None
+    mlstm_cols: Optional[Tuple[int, int]] = None
+    slstm_cols: Optional[Tuple[int, int]] = None
 
 
 def has_model(spec: Spec) -> bool:
@@ -469,30 +489,52 @@ def _block(n: int, tp: int, index: int) -> Tuple[int, int]:
     return (index * per, (index + 1) * per)
 
 
+def share(n: int, tp: int, index: int) -> Tuple[int, int]:
+    """[start, stop) of the ``n`` heads model rank ``index`` of ``tp``
+    computes: as even as whole heads allow, the first n % tp ranks one
+    more (``_block`` where tp divides n; where n < tp the last ranks
+    none)."""
+    per, extra = divmod(n, tp)
+    start = index * per + min(index, extra)
+    return (start, start + per + int(index < extra))
+
+
 def kv_read(n_heads: int, n_kv_heads: int,
             heads: Tuple[int, int]) -> Tuple[int, int]:
     """[start, stop) of the kv heads the query heads ``heads`` read (GQA:
-    query head h reads kv head h // (n_heads / n_kv_heads))."""
+    query head h reads kv head h // (n_heads / n_kv_heads)); none for no
+    heads."""
     rep = n_heads // n_kv_heads
+    if heads[1] <= heads[0]:
+        return (heads[0] // rep,) * 2
     return (heads[0] // rep, (heads[1] - 1) // rep + 1)
 
 
-# the leaves of each block kind that a split rank must hold a model block of
+# the leaves of each block kind that a split rank must hold a model block
+# of (attention's wq / wo and the per-head mLSTM and sLSTM leaves may be
+# whole: the rank reads its heads of them)
 _CUT_LEAVES = {
-    "attn": ("wq", "wo"), "swa": ("wq", "wo"),
+    "attn": (), "swa": (),
     "rglru": ("w_in", "w_gate_in", "w_rgate", "w_igate", "w_out"),
-    "mlstm": ("w_up", "w_gate", "w_q", "w_k", "w_v", "w_if", "w_down"),
-    "slstm": ("w_gates", "r_gates"),
+    "mlstm": ("w_up", "w_gate", "w_down"),
+    "slstm": ("w_gates",),
 }
+
+
+def _cols(spec: Spec, n: int, tp: int, index: int):
+    """The stored block [start, stop) of a leaf's last dim of ``n`` under
+    ``spec`` on model rank ``index`` (``None`` where it is whole)."""
+    return _block(n, tp, index) if has_model(spec[-1:]) else None
 
 
 def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
     """Model rank ``index``'s share of ``cfg`` under ``param_specs`` on
     ``mesh``. Raises ``NotImplementedError`` (naming the ROADMAP item)
-    where the split is not ported: a tied head, query heads, mLSTM heads
-    or sLSTM heads (or any leaf the split cuts) that do not divide over
-    "model", kv heads that do not where a rank's query heads would read
-    parts of two. Nothing falls back to another route."""
+    where the split is not ported: a tied head, mixers other than
+    ``_SPLIT_KINDS``', RG-LRU or sLSTM channels (or any other leaf the
+    split needs cut) that do not divide over "model". Query, mLSTM and sLSTM heads
+    that do not divide are shared out (``share``). Nothing falls back to
+    another route."""
     # transformer imports launch/mesh, which imports this module
     from .recurrent import _slstm_hd, mlstm_heads
     from .transformer import block_has_ffn, init_params
@@ -509,20 +551,9 @@ def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
         why = f"mixers {sorted(kinds - set(_SPLIT_KINDS))}"
     elif cfg.tie_embeddings:
         why = "a tied head"
-    elif attn and cfg.n_heads % tp:
-        why = (f"{cfg.n_heads} query heads over a model axis of {tp} (a "
-               f"head cut mid-way)")
-    elif attn and cfg.n_kv_heads % tp and (
-            cfg.n_heads // cfg.n_kv_heads) % (cfg.n_heads // tp):
-        why = (f"{cfg.n_heads} query heads / {cfg.n_kv_heads} kv heads over "
-               f"a model axis of {tp} (a rank's query heads reading parts "
-               f"of two kv heads)")
-    elif n_mlstm is not None and n_mlstm % tp:
-        why = f"{n_mlstm} mLSTM heads over a model axis of {tp}"
-    elif n_slstm is not None and n_slstm % tp:
-        why = f"{n_slstm} sLSTM heads over a model axis of {tp}"
-    elif "rglru" in kinds and d % tp:
-        why = f"{d} RG-LRU channels over a model axis of {tp}"
+    elif kinds & {"rglru", "slstm"} and d % tp:
+        why = (f"{d} {'RG-LRU' if 'rglru' in kinds else 'sLSTM'} channels "
+               f"over a model axis of {tp}")
     kv_cut = attn and cfg.n_kv_heads % tp == 0
     if why is None:
         specs = param_specs(init_params(None, cfg, device="meta"), cfg,
@@ -550,8 +581,11 @@ def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
     pieces = _axsize(shape, tuple(a for a in _entry_axes(emb)
                                   if a != "model"))
     m = cfg.moe
-    heads = _block(cfg.n_heads, tp, index) if attn else None
+    heads = share(cfg.n_heads, tp, index) if attn else None
     dense_ffn = any(block_has_ffn(cfg, k) for k in kinds) and m is None
+    mixers = {kind: specs["groups"][f"blk{i}_{kind}"]["mixer"]
+              for i, kind in enumerate(pattern)}
+    mixer = mixers.get("attn", mixers.get("swa"))
     return ModelView(
         tp=tp, index=index, heads=heads,
         kv_heads=(None if not attn else _block(cfg.n_kv_heads, tp, index)
@@ -562,10 +596,16 @@ def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
                   _block(cfg.d_ff, tp, index) if dense_ffn else None),
         experts=_block(m.n_experts, tp, index) if m is not None else None,
         channels=_block(d, tp, index) if "rglru" in kinds else None,
-        mlstm_heads=(_block(n_mlstm, tp, index) if n_mlstm is not None
+        mlstm_heads=(share(n_mlstm, tp, index) if n_mlstm is not None
                      else None),
-        slstm_heads=(_block(n_slstm, tp, index) if n_slstm is not None
+        slstm_heads=(share(n_slstm, tp, index) if n_slstm is not None
                      else None),
         vocab=_block(cfg.vocab_size * (cfg.n_codebooks if cfg.frontend
                                        == "audio_codec" else 1), tp, index),
-        embed_pieces=pieces)
+        embed_pieces=pieces,
+        q_cols=(_cols(mixer["wq"], cfg.n_heads * cfg.hd, tp, index)
+                if attn else None),
+        mlstm_cols=(_cols(mixers["mlstm"]["w_up"], 2 * d, tp, index)
+                    if n_mlstm is not None else None),
+        slstm_cols=(_cols(mixers["slstm"]["w_gates"], 4 * d, tp, index)
+                    if n_slstm is not None else None))

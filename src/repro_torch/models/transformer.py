@@ -33,7 +33,8 @@ rank). The values are the same bits under all three.
 Split over "model" (``model=``, the "model" ``AxisGroup`` of ``launch/mesh``,
 for the families ``models/sharding.model_view`` admits: the attention families,
 recurrentgemma's RG-LRU and windowed attention, xLSTM's mLSTM and sLSTM, the
-VLM and audio frontends): ``params`` hold a rank's model blocks (each leaf
+VLM and audio frontends, with heads that do not divide over "model" shared
+out whole): ``params`` hold a rank's model blocks (each leaf
 gathered over the data axes only). The embedding's block of the model dim,
 laid out (V, pieces, D / (pieces tp)) (audio: (K, V, pieces, c); its spec
 cuts the dim over (data, model)), is looked up (audio: its K lookups summed
@@ -354,7 +355,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     and the mask of each step are computed on the host, so no step waits on
     the device. ``model``: a model rank's share, as ``decode_state_specs``
     cuts it: n_kv_heads / tp kv heads where they divide, else every kv
-    head; RG-LRU's channels, mLSTM's and sLSTM's heads, d / tp of them.
+    head; RG-LRU's and sLSTM's channels, d / tp of them (a block that may
+    end mid-head), mLSTM's heads, h / tp of them where they divide, else
+    every one.
     ``length``: the group (``sharding.length_axes``; default "model" where
     the kv heads do not divide over it) whose n ranks each hold S / n ring
     slots; a ring that does not divide over it is whole on every rank, as

@@ -13,7 +13,8 @@
                          splits the compute over "model" (tensor
                          parallelism: the attention families,
                          recurrentgemma, xLSTM and the VLM and audio
-                         frontends): it gathers over the
+                         frontends, heads that do not divide over
+                         "model" shared out whole): it gathers over the
                          data axes only. ``split_model=False``
                          gathers each leaf whole and repeats the model on
                          every rank of a data shard: the plain route the
@@ -290,14 +291,18 @@ def make_sharded_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh, *,
     blocks. Every rank of a data shard repeats the compute.
 
     ``split_model=True`` (the configurations ``sharding.model_view``
-    admits; the others raise ``NotImplementedError``): a step gathers over
-    the data axes only, so each rank keeps its model blocks (the
-    reference's ZeRO-3 over "data"), and runs the forward and backward
-    split over "model" (``forward(..., model=)``, the vocabulary-parallel
-    ``loss_fn``). The gradients each rank holds a part of
-    (``sharding.partial_over_model``) are summed over "model" (f32), every
-    gradient averaged over the data axes, and the global norm counts each
-    element once.
+    admits: every registered architecture on the reference's production
+    meshes, query, mLSTM and sLSTM heads that do not divide over "model"
+    included, each rank computing its ``sharding.share`` of whole heads;
+    a tied head, RG-LRU or sLSTM channels that do not divide raise
+    ``NotImplementedError``): a step gathers over the data axes only, so
+    each rank keeps its model blocks (the reference's ZeRO-3 over "data"),
+    and runs the forward and backward split over "model" (``forward(...,
+    model=)``, the vocabulary-parallel ``loss_fn``). The gradients each
+    rank holds a part of (``sharding.partial_over_model``: a whole leaf
+    read at the rank's heads among them) are summed over "model" (f32),
+    every gradient averaged over the data axes, and the global norm counts
+    each element once.
 
     Either way the math is the reference's step on the global batch: its
     MoE routes each data shard's tokens on their own (``activation_specs``'
@@ -332,12 +337,17 @@ def make_sharded_serve_step(cfg: ModelConfig, mesh, global_batch: int):
     attention families, recurrentgemma-2b (RG-LRU, and windowed attention
     whose one kv head does not divide), xlstm-1.3b (mLSTM, sLSTM),
     paligemma-3b (patch embeddings spliced over the gathered activations)
-    and musicgen-medium (K codebook tables, a head of K V columns). Both
+    and musicgen-medium (K codebook tables, a head of K V columns), with
+    query, mLSTM and sLSTM heads that do not divide over "model" (each
+    rank its ``sharding.share`` of whole heads, none on some where there
+    are fewer heads than ranks: such a rank launches no kernel and joins
+    every collective), so all ten on the reference's production meshes. Both
     take the rank's stored blocks (``param_specs``) and gather them over
     the data axes. ``prefill(params, batch)`` -> this rank's block of the
     head's columns (``forward``'s), for its shard of the batch
     (``batch_specs``: tokens and, for the VLM, ``patch_embeds``), through
-    the flash kernel on the rank's query heads.
+    the flash kernel on the rank's query heads against the kv heads they
+    read.
     ``decode(params, state, tokens)`` -> (logits, state): one token (text
     only, as in the reference) against ``state`` from
     ``sharded_decode_state``, cut as ``decode_state_specs`` cuts it: the
@@ -346,9 +356,11 @@ def make_sharded_serve_step(cfg: ModelConfig, mesh, global_batch: int):
     heads do not divide; where the batch does not divide over the data
     axes, each data rank runs the whole batch and the length is cut over
     those axes too), a ring that does not divide over them whole on every
-    rank; the recurrent states' channels and heads, whole over the data
-    axes. ``model_view``'s refusals raise ``NotImplementedError`` (a tied
-    head, query, mLSTM or sLSTM heads that do not divide)."""
+    rank; the recurrent states' channels and heads (mLSTM's whole where
+    its heads do not divide, sLSTM's a channel block that may end
+    mid-head), whole over the data axes. ``model_view``'s refusals raise
+    ``NotImplementedError`` (a tied head, RG-LRU or sLSTM channels that do
+    not divide)."""
     shape = shd.MeshShape.from_mesh(mesh)
     view = shd.model_view(cfg, shape, mesh.coords.get("model", 0))
     model = mesh.axis("model") if "model" in mesh.groups else None

@@ -210,3 +210,42 @@ def test_reset_launches_zeroes_the_route_counts():
     tops.reset_launches()
     assert tfa.ROUTE_LAUNCHES == {"tc_bf16": 0, "simt_f32": 0}
     assert tops.LAUNCHES["flash_attention"] == 0
+
+
+# (hq, hkv given, group, q_head0): a model rank's query heads that straddle
+# GQA groups (qwen2-7b's 28 / 4 heads over a model axis of 8: rank 1's
+# heads 4-7 read kv heads 0 and 1), an MQA block starting mid-group, and a
+# launch whose first head is not a multiple of its group
+HEAD_OFFSETS = [(4, 2, 7, 4), (3, 1, 10, 5), (5, 3, 2, 3)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,group,q_head0", HEAD_OFFSETS)
+def test_head_offset_reads_the_kv_heads_of_the_model(hq, hkv, group, q_head0,
+                                                     dtype):
+    """``ops.flash_attention(..., group=, q_head0=)`` on the CPU: query head
+    i of the launch, the model's q_head0 + i, reads the model's kv head
+    (q_head0 + i) // group, the first given being q_head0 // group's;
+    against ``blockwise_attention`` on k / v expanded to the launch's heads
+    by that map, and against the reference's kernel on them."""
+    from repro_torch.models.attention import blockwise_attention
+    arrays = _qkv(hq * 10 + q_head0, 2, hq, hkv, 96, 96, 32)
+    q, k, v = _torch(arrays, dtype)
+    got = tops.flash_attention(q, k, v, causal=True, window=40, group=group,
+                               q_head0=q_head0)
+    heads = [(q_head0 + i) // group - q_head0 // group for i in range(hq)]
+    assert heads[-1] == hkv - 1
+    idx = torch.tensor(heads)
+    assert torch.equal(tref.expand_kv(k, hq, group, q_head0),
+                       k.index_select(1, idx))
+    want = blockwise_attention(q, k.index_select(1, idx),
+                               v.index_select(1, idx), causal=True,
+                               window=40, q_chunk=32, k_chunk=32)
+    _assert_close(got, want.float().numpy(), dtype)
+    kj, vj = (a[:, heads] for a in arrays[1:])
+    _assert_close(got, jops.flash_attention(
+        *_jax([arrays[0], kj, vj], dtype), causal=True, window=40,
+        use_pallas=True).astype(jnp.float32), dtype)
+    with pytest.raises(ValueError, match="kv heads"):
+        tops.flash_attention(q, k[:, :-1], v[:, :-1], group=group,
+                             q_head0=q_head0)

@@ -622,6 +622,30 @@ def test_flash_kernel_raises_on_what_it_does_not_take(cuda_device):
         ops.flash_attention(q, k.bfloat16(), v)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,group,q_head0,hd",
+                         [(4, 2, 7, 4, 128), (3, 1, 10, 5, 256),
+                          (5, 3, 2, 3, 64)])
+def test_flash_kernel_head_offset_matches_plain(cuda_device, hq, hkv, group,
+                                                q_head0, hd, dtype):
+    """A model rank's query heads that straddle GQA groups: query head i of
+    the launch reads kv head (q_head0 + i) // group - q_head0 // group of
+    the k / v it is given, on both kernels, against the plain version with
+    the same map and against the default map on k / v expanded to the
+    launch's heads."""
+    q, k, v = _attn_inputs(cuda_device, dtype, 2, hq, hkv, 300, 300, hd,
+                           seed=q_head0)
+    got = ops.flash_attention(q, k, v, causal=True, group=group,
+                              q_head0=q_head0)
+    want = ref.flash_attention_plain(q, k, v, causal=True, q_offset=0,
+                                     kv_valid=300, group=group,
+                                     q_head0=q_head0)
+    _assert_attn_close(got, want)
+    assert torch.equal(got, ops.flash_attention(
+        q, ref.expand_kv(k, hq, group, q_head0).contiguous(),
+        ref.expand_kv(v, hq, group, q_head0).contiguous(), causal=True))
+
+
 # bf16 goes to the tensor-core kernel (wgmma, TMA; head dims padded to 64,
 # 128 or 256 in its tiles), f32 to the CUDA-core kernel; ROUTE_LAUNCHES
 # shows which.

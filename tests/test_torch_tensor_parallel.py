@@ -22,14 +22,18 @@ over "data"; and recurrentgemma with a ring of RING - 1 slots, which does
 not divide over "model" and is whole on every rank. The same ranks then
 lay (1, 4) out for the QUAD cases (qwen2-7b's 2 kv heads, xlstm's whole
 sLSTM FFN leaves, musicgen with 2 codebooks, each cut mid-vocabulary over
-two ranks), check the new collective's gradient and lay a mesh over two of
-them.
+two ranks), run the HEADS cases (query, mLSTM and sLSTM heads that do not
+divide over "model", on (1, 4) or (2, 2): a rank computes whole heads, its
+``sharding.share``, while ``wq``'s and the mixers' stored blocks end
+mid-head), check the new collectives' gradients and lay a mesh over two
+of them.
 
 Held: the loss against one process's ``loss_fn`` on the global batch (its
 MoE routed per data shard, ``act_specs["moe"]["n_dp"]`` = 2, as the split
 step's ranks route their shards) and against the reference's; the
 gradients, gathered back, against one process and the unsplit route;
-the three remats' gradients bit for bit; the norms' gradients and the MoE
+the three remats' gradients bit for bit (HEADS: remat True alone); the
+norms' gradients and the MoE
 routes equal on the model ranks of a data shard; the prefill's and
 decode's logits against one process's ``forward`` / ``decode_step``; the
 wire bytes a rank counted equal to ``roofline.step_wire_bytes`` exactly,
@@ -94,6 +98,33 @@ MOE_CF = 0.5
 RING = 8                        # recurrentgemma's window: a ring of 8 slots
 XLSTM_D = 256                   # 4 mLSTM heads, 2 sLSTM heads of 128
 N_DP = {"moe": {"n_dp": 2}}     # one process routing as the data shards do
+# heads that do not divide over "model" (case: arch, overrides, mesh), each
+# rank computing its share of whole heads (the first n % tp one more):
+# recurrentgemma's 6 query heads over 4 (2, 2, 1, 1; wq's block 1.5 heads;
+# its one kv head gathered; its ring of RING slots cut by length and
+# wrapped; one RG-LRU and one windowed layer), qwen2's 6 / 2 over 4 (rank 1's heads 2-3 read kv heads 0 and
+# 1), 6 / 3 over 2 (each rank's 3 heads straddle a group of 2), paligemma's
+# 2 heads over 4 (two ranks hold none, as paligemma-3b's 8 over 16),
+# musicgen's 6 = 6 heads (MHA) over 4, xlstm at width 64 (1 mLSTM and 1
+# sLSTM head over 2: one rank holds none; over 4, three hold none and
+# mLSTM's w_if (128, 2) is kept whole, each rank reading its block's rows)
+# and 384 (3 sLSTM heads over 2, whose channel block ends mid-head)
+HEADS = {
+    "q_heads": ("qwen2-7b", {"n_heads": 6, "n_kv_heads": 2, "head_dim": 16},
+                KV_MESH),
+    "kv_groups": ("qwen2-7b", {"n_heads": 6, "n_kv_heads": 3,
+                               "head_dim": 16}, MESH),
+    "rg_heads": ("recurrentgemma-2b", {"n_heads": 6, "window": RING,
+                                       "block_pattern": ("rglru", "swa"),
+                                       "n_layers": 2}, KV_MESH),
+    "empty_ranks": ("paligemma-3b", {"n_heads": 2}, KV_MESH),
+    "mha_heads": ("musicgen-medium", {"n_heads": 6, "n_kv_heads": 6,
+                                      "head_dim": 16}, KV_MESH),
+    "mlstm_heads": ("xlstm-1.3b", {"d_model": 64}, MESH),
+    "slstm_heads": ("xlstm-1.3b", {"d_model": 384}, MESH),
+    "one_head_over_4": ("xlstm-1.3b", {"d_model": 64}, KV_MESH),
+}
+HEADS_REF = ("q_heads", "kv_groups", "rg_heads")   # also to the reference
 
 
 def _cfg(configs, aid, **over):
@@ -208,7 +239,9 @@ def _rank(rank, world, dev, work):
         out[aid] = res
     moe.route = inner
     out["long"] = _long_ranks(mesh, work)
-    out["quad"] = _quad_ranks(dev, work)
+    quad = make_mesh(KV_MESH, device=dev)
+    out["quad"] = _quad_ranks(quad, work)
+    out["heads"] = _heads_ranks({MESH: mesh, KV_MESH: quad}, work)
     out["collective"] = _collective_grads(mesh)
     out["sub"] = _sub_mesh(rank, dev)
     return out
@@ -274,14 +307,12 @@ def _sub_mesh(rank, dev):
             "scattered": ax.reduce_scatter(torch.full((4,), float(rank)))}
 
 
-def _quad_ranks(dev, work):
-    """Each QUAD case on KV_MESH: a train value and gradient, the prefill
-    and decode, with the wire bytes of each."""
-    from repro_torch.launch.mesh import make_mesh
+def _quad_ranks(mesh, work):
+    """Each QUAD case on ``mesh`` (KV_MESH): a train value and gradient,
+    the prefill and decode, with the wire bytes of each."""
     from repro_torch.train.step import (make_sharded_serve_step,
                                         make_sharded_value_and_grad,
                                         sharded_decode_state)
-    mesh = make_mesh(KV_MESH, device=dev)
     shape = shd.MeshShape.from_mesh(mesh)
     out = {}
     for case, (aid, over) in QUAD.items():
@@ -311,6 +342,51 @@ def _quad_ranks(dev, work):
                                    batch["tokens"][:, t:t + 1])
             res["decode_wire"].append(_since(mesh, before))
             res["decode"].append(logits)
+        out[case] = res
+    return out
+
+
+def _heads_ranks(meshes, work):
+    """Each HEADS case on its mesh (``meshes`` by its sizes): the train
+    value and gradient at remat True, the prefill with the flash calls it
+    made, ``_decode_run``'s decode from a fresh state, the wire bytes of
+    each."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.step import (make_sharded_serve_step,
+                                        make_sharded_value_and_grad)
+    inner, calls = ops.flash_attention, []
+
+    def counted(q, *args, **kw):
+        calls.append(q.shape[1])
+        return inner(q, *args, **kw)
+
+    out = {}
+    for case, (aid, over, sizes) in HEADS.items():
+        mesh = meshes[sizes]
+        shape = shd.MeshShape.from_mesh(mesh)
+        cfg = _cfg(tcfg, aid, **over)
+        full = torch.load(os.path.join(work, f"{case}.pt"))
+        batch = torch.load(os.path.join(work, f"{case}_batch.pt"))
+        pspecs = shd.param_specs(full, cfg, shape)
+        params = shd.shard_tree(full, pspecs, shape, mesh.coords)
+        local = shd.shard_tree(batch, shd.batch_specs(cfg, shape, SB), shape,
+                               mesh.coords)
+        before = _counters(mesh)
+        loss, grads, gnorm = make_sharded_value_and_grad(
+            cfg, mesh, global_batch=SB, split_model=True)(params, local)
+        res = {"coords": mesh.coords, "loss": float(loss),
+               "grad_norm": float(gnorm), "wire": _since(mesh, before),
+               "grads": shd.gather_tree(grads, pspecs, mesh)}
+        prefill, _ = make_sharded_serve_step(cfg, mesh, SB)
+        before = _counters(mesh)
+        calls.clear()
+        ops.flash_attention = counted
+        res["prefill"] = prefill(params, _inputs(local))
+        ops.flash_attention = inner
+        res["flash_calls"] = list(calls)
+        res["prefill_wire"] = _since(mesh, before)
+        res.update(_decode_run(cfg, mesh, params, local["tokens"], SB, SS,
+                               _steps(aid)))
         out[case] = res
     return out
 
@@ -419,6 +495,23 @@ def split(tmp_path_factory):
         one[case] = {"cfg": tc, "loss": float(loss), "grads": grads,
                      "ref_loss": (ref_loss(_cfg(jcfg, aid, **over), params,
                                            batch) if case in QUAD_REF
+                                  else None),
+                     "prefill": logits,
+                     "decode": decoded(tc, params, batch["tokens"], SS,
+                                       _steps(aid))}
+    for case, (aid, over, _) in HEADS.items():
+        tc = _cfg(tcfg, aid, **over)
+        params = tt.init_params(torch.Generator().manual_seed(0), tc,
+                                device="cpu")
+        batch = make_lm_batch(tc, 0, 0, SB, SS, device="cpu")
+        torch.save(params, os.path.join(work, f"{case}.pt"))
+        torch.save(batch, os.path.join(work, f"{case}_batch.pt"))
+        loss, grads = _value_and_grad(params, batch, tc)
+        with torch.inference_mode():
+            logits = tt.forward(params, _inputs(batch), tc)
+        one[case] = {"cfg": tc, "loss": float(loss), "grads": grads,
+                     "ref_loss": (ref_loss(_cfg(jcfg, aid, **over), params,
+                                           batch) if case in HEADS_REF
                                   else None),
                      "prefill": logits,
                      "decode": decoded(tc, params, batch["tokens"], SS,
@@ -722,14 +815,18 @@ class _Axis:
         self.size, self.index = size, index
 
 
-@pytest.mark.parametrize("aid", SPLIT + tuple(QUAD))
+@pytest.mark.parametrize("aid", SPLIT + tuple(QUAD) + tuple(HEADS))
 def test_decode_state_is_the_dry_run_plan(aid):
     """``init_decode_state(model=)`` allocates exactly the dry run's
     per-rank decode-state plan (``decode_state_specs``) on each model
     rank: the kv heads, or the cache's length where they do not divide,
-    and the recurrent states' channels and heads."""
+    and the recurrent states' channels and heads (whole, or a block that
+    may end mid-head, where the heads do not divide)."""
     from repro_torch.launch import dryrun
-    if aid in QUAD:
+    if aid in HEADS:
+        cfg, sizes = _cfg(tcfg, HEADS[aid][0], **HEADS[aid][1]), \
+            HEADS[aid][2]
+    elif aid in QUAD:
         cfg, sizes = _cfg(tcfg, QUAD[aid][0], **QUAD[aid][1]), KV_MESH
     else:
         cfg, sizes = _cfg(tcfg, aid), MESH
@@ -831,39 +928,218 @@ def test_model_view_blocks_are_the_sharded_leaves(aid):
     assert dspecs["lm_head"] == ("data", None)
 
 
+@pytest.mark.parametrize("multi_pod", [False, True])
+@pytest.mark.parametrize("aid", tcfg.ARCH_IDS)
+def test_model_view_admits_every_architecture_on_production_meshes(
+        aid, multi_pod):
+    """``model_view`` admits all ten registered architectures on the
+    reference's production meshes, (16, 16) and (2, 16, 16): on the 16
+    model ranks the query, mLSTM and sLSTM heads' shares partition [0, n)
+    in axis order, as even as whole heads allow (the larger first); each
+    rank's kv heads are its own block where they divide, else
+    ``kv_read`` of its heads; ``q_cols`` / ``mlstm_cols`` / ``slstm_cols``
+    are wq's, w_up's and w_gates' stored column blocks. A tied head still
+    raises, naming ROADMAP."""
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.recurrent import _slstm_hd, mlstm_heads
+    cfg = tcfg.get_arch(aid)
+    mesh = make_production_mesh(multi_pod=multi_pod)
+    tp = mesh.shape["model"]
+    views = [shd.model_view(cfg, mesh, m) for m in range(tp)]
+    kinds = set(cfg.pattern_for_layers())
+    counts = {"heads": cfg.n_heads if kinds & {"attn", "swa"} else None,
+              "mlstm_heads": mlstm_heads(cfg) if "mlstm" in kinds else None,
+              "slstm_heads": (cfg.d_model // _slstm_hd(cfg.d_model)
+                              if "slstm" in kinds else None)}
+    for field, n in counts.items():
+        spans = [getattr(v, field) for v in views]
+        if n is None:
+            assert all(sp is None for sp in spans)
+            continue
+        assert spans[0][0] == 0 and spans[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+        sizes = [hi - lo for lo, hi in spans]
+        assert sizes == sorted(sizes, reverse=True) and sizes[0] - sizes[
+            -1] <= 1 and sum(sizes) == n
+    for m, v in enumerate(views):
+        if counts["mlstm_heads"]:       # w_up's 2 d and w_gates' 4 d columns
+            assert v.mlstm_cols == (m * 2 * cfg.d_model // tp,
+                                    (m + 1) * 2 * cfg.d_model // tp)
+            assert v.slstm_cols == (m * 4 * cfg.d_model // tp,
+                                    (m + 1) * 4 * cfg.d_model // tp)
+        if v.heads is None:
+            continue
+        cols = cfg.n_heads * cfg.hd // tp
+        assert v.q_cols == (m * cols, (m + 1) * cols)
+        if v.kv_cut:
+            per = cfg.n_kv_heads // tp
+            assert v.kv_heads == (m * per, (m + 1) * per)
+        else:
+            assert v.kv_heads == shd.kv_read(cfg.n_heads, cfg.n_kv_heads,
+                                             v.heads)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        shd.model_view(dataclasses.replace(cfg, tie_embeddings=True), mesh)
+
+
+@pytest.mark.parametrize("n,tp", [(28, 16), (10, 16), (8, 16), (24, 16),
+                                  (6, 4), (2, 4), (3, 2), (32, 16)])
+def test_share_partitions_whole_heads(n, tp):
+    """``sharding.share``: the first n % tp ranks take one more head, the
+    rest n // tp (none where n < tp); ``_block`` where tp divides n;
+    ``kv_read`` of an empty share is empty."""
+    spans = [shd.share(n, tp, m) for m in range(tp)]
+    assert [hi - lo for lo, hi in spans] == [
+        n // tp + int(m < n % tp) for m in range(tp)]
+    assert spans[0][0] == 0 and spans[-1][1] == n and all(
+        a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    if n % tp == 0:
+        assert spans == [shd._block(n, tp, m) for m in range(tp)]
+    for lo, hi in spans:
+        kv = shd.kv_read(n, 1, (lo, hi))
+        assert kv == ((0, 1) if hi > lo else (kv[0], kv[0]))
+
+
+@pytest.mark.parametrize("aid", ("qwen2-7b", "recurrentgemma-2b",
+                                 "paligemma-3b", "musicgen-medium"))
+def test_roofline_plans_heads_that_do_not_divide(aid):
+    """``roofline.run_cell(split_model=True)`` plans prefill_32k on (16, 16)
+    for the four families whose query heads do not divide over 16: the
+    model axis carries the q gathers and the output regroups
+    (reduce-scatters), the FLOPs a rank a sixteenth of a batch shard's."""
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh()
+    cfg = tcfg.get_arch(aid)
+    assert cfg.n_heads % mesh.shape["model"]
+    res = roofline.run_cell(aid, "prefill_32k", mesh=mesh, split_model=True)
+    plain = roofline.run_cell(aid, "prefill_32k", mesh=mesh)
+    assert res["roofline"]["bound_s"] > 0
+    assert res["wire_by_axis"]["model"]["reduce-scatter"] > 0
+    assert res["wire_by_axis"]["model"]["all-gather"] > 0
+    np.testing.assert_allclose(res["flops_per_dev"] * 16,
+                               plain["flops_per_dev"], rtol=1e-12)
+
+
 def _fake_mesh(sizes):
     names = tuple(a for a, _ in sizes)
     return Mesh(names, dict(sizes), dict.fromkeys(names, 0), {},
                 torch.device("cpu"), "gloo")
 
 
-@pytest.mark.parametrize("case", ["q_heads", "kv_groups", "mlstm_heads",
-                                  "slstm_heads", "tied"])
+@pytest.mark.parametrize("case", ["tied", "rglru_channels",
+                                  "slstm_channels"])
 def test_split_refused_where_it_does_not_divide(case):
-    """Query heads that do not divide over "model" (6 over 4), a rank's
-    query heads that would read parts of two kv heads (6 / 3 over 2),
-    mLSTM heads (xlstm at width 64: one head) or sLSTM heads (width 384: 3
-    over 2) that do not divide, and a tied head raise, naming ROADMAP, in
-    the train step and the serve step alike."""
+    """A tied head, RG-LRU channels (recurrentgemma at width 66 over 4) and
+    sLSTM channels (xlstm at width 66 over 4) that do not divide over
+    "model" raise, naming ROADMAP, in the train step and the serve step
+    alike."""
     from repro_torch.train.step import (make_sharded_serve_step,
                                         make_sharded_train_step)
-    cfg = _cfg(tcfg, "qwen2-7b")
-    sizes = MESH
-    if case == "q_heads":
-        cfg = dataclasses.replace(cfg, n_heads=6, n_kv_heads=2)
-        sizes = KV_MESH
-    elif case == "kv_groups":
-        cfg = dataclasses.replace(cfg, n_heads=6, n_kv_heads=3)
-    elif case in ("mlstm_heads", "slstm_heads"):
-        cfg = tcfg.reduced_config(tcfg.get_arch("xlstm-1.3b"), d_model={
-            "mlstm_heads": 64, "slstm_heads": 384}[case])
-    elif case == "tied":
+    cfg, sizes = _cfg(tcfg, "qwen2-7b"), KV_MESH
+    if case == "tied":
         cfg = dataclasses.replace(cfg, tie_embeddings=True)
+    else:
+        cfg = _cfg(tcfg, {"rglru_channels": "recurrentgemma-2b",
+                          "slstm_channels": "xlstm-1.3b"}[case], d_model=66)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_sharded_train_step(cfg, AdamWConfig(), _fake_mesh(sizes),
                                 global_batch=SB, split_model=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_sharded_serve_step(cfg, _fake_mesh(sizes), SB)
+
+
+def _by_coords(res, key):
+    """The global (b, s, C) logits from each rank's block (``_assemble``'s
+    layout), ``res`` a rank's HEADS result."""
+    rows = {}
+    for r in res:
+        rows.setdefault(r["coords"]["data"], {})[r["coords"]["model"]] = \
+            key(r).flatten(2)
+    return torch.cat([torch.cat([rows[d][m] for m in sorted(rows[d])], -1)
+                      for d in sorted(rows)], 0)
+
+
+@pytest.mark.parametrize("case", HEADS)
+def test_heads_that_do_not_divide_train_as_one_process(split, case):
+    """HEADS: the split loss (and, for recurrentgemma and qwen2, the
+    reference's), every gradient leaf gathered back and the grad norm
+    against one process, at remat True."""
+    ranks, one = split
+    o = one[case]
+    want_norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in
+                                     _tree.tree_leaves(o["grads"]))))
+    if case in HEADS_REF:
+        np.testing.assert_allclose(o["loss"], o["ref_loss"], rtol=F32_TOL)
+    for r in (r["heads"][case] for r in ranks):
+        np.testing.assert_allclose(r["loss"], o["loss"], rtol=F32_TOL)
+        if case in HEADS_REF:
+            np.testing.assert_allclose(r["loss"], o["ref_loss"], rtol=F32_TOL)
+        np.testing.assert_allclose(r["grad_norm"], want_norm, rtol=F32_TOL)
+        errs = _leaf_errs(r["grads"], o["grads"])
+        assert max(errs.values()) <= F32_TOL, sorted(
+            errs.items(), key=lambda kv: -kv[1])[:3]
+
+
+@pytest.mark.parametrize("case", HEADS)
+def test_heads_that_do_not_divide_serve_as_one_process(split, case):
+    """HEADS: the prefill's and every decode step's logits, each rank's
+    block put together, against one process; each rank's prefill calls the
+    kernel once an attention layer on its own heads, a rank with none not
+    at all."""
+    ranks, one = split
+    o = one[case]
+    cfg = o["cfg"]
+    res = [r["heads"][case] for r in ranks]
+    got = _by_coords(res, lambda r: r["prefill"])
+    want = o["prefill"].flatten(2)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= SERVE_TOL * float(
+        want.abs().max())
+    assert len(o["decode"]) == len(res[0]["decode"]) == _steps(
+        HEADS[case][0])
+    for t, want in enumerate(o["decode"]):
+        got = _by_coords(res, lambda r: r["decode"][t])
+        assert float((got - want.flatten(2)).abs().max()) <= \
+            SERVE_TOL * float(want.abs().max())
+    mesh = shd.MeshShape.of(*HEADS[case][2])
+    n_attn = sum(k in ("attn", "swa") for k in cfg.pattern_for_layers()
+                 ) * cfg.n_groups
+    for r in res:
+        view = shd.model_view(cfg, mesh, r["coords"]["model"])
+        nq = 0 if view.heads is None else view.heads[1] - view.heads[0]
+        assert r["flash_calls"] == ([nq] * n_attn if nq else [])
+
+
+@pytest.mark.parametrize("case", HEADS)
+def test_heads_that_do_not_divide_bytes_equal_the_plan(split, case):
+    """HEADS: the wire bytes of the train step (remat True), the prefill
+    and each decode step equal ``step_wire_bytes`` exactly, the model axis
+    carrying the new regroups (reduce-scatters forward); the decode state's
+    bytes equal the dry run's plan on every rank, the ring cut by length."""
+    from repro_torch.launch import dryrun
+    ranks, one = split
+    cfg = one[case]["cfg"]
+    mesh = shd.MeshShape.of(*HEADS[case][2])
+    plans = {kind: roofline.step_wire_bytes(
+        cfg, ShapeConfig(kind, SS, SB, kind), mesh, split_model=True)
+        for kind in ("train", "prefill", "decode")}
+    if case != "kv_groups":     # its heads divide: its kv heads gathered
+        assert plans["prefill"]["model"]["reduce-scatter"] > 0
+    state = dryrun.memory_plan(cfg, ShapeConfig("decode", SS, SB, "decode"),
+                               mesh, AdamWConfig())["decode_state"]
+    for r in (r["heads"][case] for r in ranks):
+        for kind, wires in (("train", [r["wire"]]),
+                            ("prefill", [r["prefill_wire"]]),
+                            ("decode", r["decode_wire"])):
+            for wire in wires:
+                for a, want in plans[kind].items():
+                    for k in want:
+                        assert wire[a][0][k] == want[k], (kind, a, k)
+        assert r["state_bytes"] == state["bytes"]
+        for name, shp in r["cache_shapes"].items():
+            if name.endswith("/k"):
+                ring = min(cfg.window, SS) if "_swa/" in name else SS
+                assert shp[2:4] == (cfg.n_kv_heads,
+                                    ring // mesh.shape["model"])
 
 
 @pytest.mark.parametrize("aid", LONG)

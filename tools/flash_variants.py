@@ -130,13 +130,14 @@ def main() -> None:
         for name, info in built.items():
             lib = ctypes.CDLL(str(info["lib"]))
             lib.flash_attention_launch.argtypes = ([vp] * 4 + [i32] * 11
-                                                   + [ctypes.c_float, i32, vp])
+                                                   + [ctypes.c_float, i32, vp,
+                                                      i32, i32])
 
             def launch():
                 err = lib.flash_attention_launch(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     b, hq, hkv, s, s, hd, 0, s, 1, 0, 0, hd ** -0.5, 1,
-                    vp(torch.cuda.current_stream().cuda_stream))
+                    vp(torch.cuda.current_stream().cuda_stream), hq // hkv, 0)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
             ms = time_ms(launch)
