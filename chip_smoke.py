@@ -224,7 +224,10 @@ Phases, one JSON line each:
 * ``lm_decode``: teacher-forced ``decode_step`` over the first 64 tokens of
   each sequence against ``forward`` of those 64 tokens (the kernel below one
   tile), within DECODE_TOL; then 32 greedy tokens: decode tokens/s and the
-  KV cache's bytes.
+  KV cache's bytes. Then the int8 KV cache (``kv_quant``): KV_QUANT_STEPS
+  teacher-forced steps from a fresh state on the same prompt, the cache's
+  bytes equal to ``launch/roofline.kv_cache_bytes`` (``--kv-quant``'s
+  count) and the logits within KV_QUANT_TOL of the bf16 cache's.
 * ``profile_decode``: the same profile over 4 decode steps.
 
 Then the MoE, recurrent and frontend families (``lm_family_phases``), one
@@ -412,7 +415,9 @@ power limit and the memory it plans beside the peak it read:
   tp_frontends (``tp_long_rank``), each data rank the whole batch:
   h2o-danube-1.8b at 4 layers (its 8 kv heads over "model", its 8-slot
   ring cut by length over "data", 4 slots a rank, 6 steps),
-  recurrentgemma-2b at one 13-layer group with a 4-slot window cut over
+  recurrentgemma-2b at 3 layers (RG-LRU, RG-LRU, windowed: the first 3 of
+  its 13-entry pattern; cut from one 13-layer group for tp_tied's time)
+  with a 4-slot window cut over
   ("data", "model"), a slot a rank, 5 steps past the wrap (held at
   DECODE_TOL, TP_LONG's comment), xlstm-1.3b in f32 at 4 layers, 2 steps
   (its states whole over "data"):
@@ -422,23 +427,36 @@ power limit and the memory it plans beside the peak it read:
   "data+model") equal to the plan; ms and staged bytes a step.
 * ``tp_heads``: query heads that do not divide over "model", run by
   sharded_step's ranks after tp_long_decode, laid out as (1, 4):
-  recurrentgemma-2b at one 13-layer group, its 10 query heads shared 3, 3,
+  recurrentgemma-2b at 3 layers (RG-LRU, RG-LRU, windowed; cut from one
+  13-layer group for the script's time), its 10 query heads shared 3, 3,
   2, 2 (``wq``'s stored block 640 columns, 2.5 heads; its one kv head
   gathered). A split train step at 2 x 1024 (remat True): stored and wire
   bytes equal to the plan, the first loss and grad norm within
   TP_LOSS_TOL / TP_GNORM_TOL of one process's; ms, staged bytes and peak
   memory. Then a 2 x 2048 prefill through row 9 on each rank's own 3 or 2
-  heads (window 2048; 4 launches a rank on the tensor cores) and 5
+  heads (window 2048; 1 launch a rank on the tensor cores) and 5
   teacher-forced decode steps on a 4-slot ring cut by length over
   "model", wrapped: each rank's logits within DECODE_TOL of one
   process's, the decode state's and the wire bytes equal to the plan. The
   row ``flash_attention_head_offset`` times row 9 at qwen2-7b's rank 1 of
   a model axis of 8 (its heads 4-7 reading kv heads 0 and 1) against
   plain and SDPA before, and takes the ranks' launches.
+* ``tp_tied``: a tied head under the split over "model", run by
+  sharded_step's ranks after tp_heads on the same (1, 4):
+  tp_heads' model with ``tie_embeddings`` (d 2,560, V 256,000, no
+  ``lm_head``: the logits are x @ embed^T), in tp_heads' cells and
+  checks: a split train step at 2 x 1024 (remat True; each
+  rank's vocabulary rows of the embedding by one all-to-all, the
+  gradient back by another), a 2 x 2048 prefill through row 9 on each
+  rank's 3 or 2 heads (its launches credited to the row
+  ``flash_attention_head_offset``), 5 teacher-forced decode steps (the
+  logits an f32 reduce-scatter of each rank's part), against one tied
+  process; stored, wire and decode-state bytes equal to the plan.
 * ``tp_recurrent_serve``: the same cuts on tp_serve's model axis of 2, run
-  by its ranks after qwen2-7b: recurrentgemma-2b's 2 x 4096 prefill
+  by its ranks after qwen2-7b: recurrentgemma-2b (3 layers)
+  2 x 4096 prefill
   through row 9 on 5 of 10 query heads a rank against the gathered kv head
-  (row ``flash_attention_tp_window``, 4 launches a rank on the tensor
+  (row ``flash_attention_tp_window``, 1 launch a rank on the tensor
   cores), 20 decode steps on a 16-slot ring cut by length (8 slots a
   rank, wrapped); the same in f32 at 2 x 512 and xlstm-1.3b in f32 at 2 x
   1024 with 16 steps; logits against one process (TP_REC_SERVE's
@@ -2428,11 +2446,14 @@ TP_REC_STEPS = 1
 # 13 layers here, as they carry decode against prefill to 3.0% (lm_hybrid).
 # So recurrentgemma's check at LOGITS_TOL runs in f32 on the same weights
 # (the bf16 run's, in f32), as xlstm's does (lm_xlstm: its weights carry a
-# perturbation ~100-fold; xlstm is drawn in f32 here)
+# perturbation ~100-fold; xlstm is drawn in f32 here). recurrentgemma cut
+# from one 13-layer group to its pattern's first 3 layers (RG-LRU, RG-LRU,
+# windowed) for the script's time on slow hosts (one read 1,202 s
+# of its 1,200 there): its 2 x 4096 prefill read 4.8 s at 13 layers
 TP_REC_SERVE = (
-    ("recurrentgemma-2b", "recurrentgemma-2b", 13, 2, 4096, 20, 16,
+    ("recurrentgemma-2b", "recurrentgemma-2b", 3, 2, 4096, 20, 16,
      "bfloat16"),
-    ("recurrentgemma-2b:f32", "recurrentgemma-2b", 13, 2, 512, 20, 16,
+    ("recurrentgemma-2b:f32", "recurrentgemma-2b", 3, 2, 512, 20, 16,
      "float32"),
     ("xlstm-1.3b", "xlstm-1.3b", 4, 2, 1024, 16, 16, "float32"))
 # tp_frontends: the split over "model" for the VLM and audio frontends at
@@ -2450,11 +2471,12 @@ TP_FRONT_TRAIN = (("paligemma-3b", 4, 4, 1024),
 # on 4 of paligemma's 8 query heads against its one gathered kv head, on
 # 12 of musicgen's 24 heads, hd 64), 16 teacher-forced decode steps on a
 # 16-slot ring (paligemma's cut by length over "model", musicgen's heads
-# over "model"), against one process at LOGITS_TOL in bf16
+# over "model"), against one process at LOGITS_TOL in bf16; cut from 6 and
+# 8 layers to tp_frontends' 4 for the script's time on slow hosts
 TP_FRONT_SERVE = (
-    ("paligemma-3b", "paligemma-3b", 6, 2, 2048, 16, 16, "bfloat16",
+    ("paligemma-3b", "paligemma-3b", 4, 2, 2048, 16, 16, "bfloat16",
      "flash_attention_tp_vlm"),
-    ("musicgen-medium", "musicgen-medium", 8, 2, 2048, 16, 16, "bfloat16",
+    ("musicgen-medium", "musicgen-medium", 4, 2, 2048, 16, 16, "bfloat16",
      "flash_attention_tp_audio"))
 # tp_long_decode: a batch of 1 on sharded_step's (2, 2) (name, arch,
 # layers, window, decode max_len, steps, dtype, limit), decoded
@@ -2462,13 +2484,16 @@ TP_FRONT_SERVE = (
 # data rank the whole batch: h2o-danube-1.8b at sharded_step's 4 layers
 # (its 8 kv heads over "model": an 8-slot ring cut by length over "data",
 # 4 slots a data rank, both ranks' filled in 6 steps), recurrentgemma-2b at
-# one 13-layer group (its one kv head: a 4-slot window cut over ("data",
+# 3 layers (its one kv head: a 4-slot window cut over ("data",
 # "model"), a slot a rank, 5 steps wrap it), xlstm-1.3b in f32 at 4 layers,
 # 2 steps (its states whole over "data"). Every step gathers a rank's
 # blocks over "data" (the plan's ZeRO-3 decode) through host memory:
 # recurrentgemma's step read 3.21-4.00 s and h2o's 0.53-0.68 s (NVIDIA H100
 # 80GB HBM3, 700 W), so a 32-slot window and 40 steps (h2o a 64-slot ring)
-# took 164 s and an 8-slot window and 10 steps 51 s, cut to these.
+# took 164 s and an 8-slot window and 10 steps 51 s, cut to these;
+# recurrentgemma then cut from one 13-layer group to its pattern's first 3
+# layers (RG-LRU, RG-LRU, windowed) for tp_tied's time: its 5 steps read
+# 3.62 s each at 13 layers (NVIDIA H100 80GB HBM3, 700 W).
 # recurrentgemma in bf16 is held at DECODE_TOL, as in
 # tp_recurrent_serve (its random weights carry one-ulp flips of products
 # cut another way past LOGITS_TOL: 0.0216 at 40 steps; the split is exact
@@ -2476,12 +2501,15 @@ TP_FRONT_SERVE = (
 TP_LONG = (
     ("h2o-danube-1.8b", "h2o-danube-1.8b", 4, None, 8, 6, "bfloat16",
      LOGITS_TOL),
-    ("recurrentgemma-2b", "recurrentgemma-2b", 13, 4, 8, 5, "bfloat16",
+    ("recurrentgemma-2b", "recurrentgemma-2b", 3, 4, 8, 5, "bfloat16",
      DECODE_TOL),
     ("xlstm-1.3b", "xlstm-1.3b", 4, None, 8, 2, "float32", LOGITS_TOL))
 # tp_heads: query heads that do not divide over "model", on sharded_step's 4
-# ranks laid out as TP_HEADS_MESH: TP_HEADS_ARCH at full width cut to one
-# 13-layer group (10 query heads over 4: 3, 3, 2, 2; wq's block 2.5 heads),
+# ranks laid out as TP_HEADS_MESH: TP_HEADS_ARCH at full width cut to its
+# pattern's first TP_HEADS_LAYERS (RG-LRU, RG-LRU, windowed; one 13-layer
+# group before, whose step read 5.4-7.8 s on an NVIDIA H100 80GB HBM3 at
+# 700 W; cut for the script's time on slow hosts) (10 query heads over 4:
+# 3, 3, 2, 2; wq's block 2.5 heads),
 # a split train step at TP_HEADS_TRAIN (batch, seq), remat True, held to
 # one process at TP_LOSS_TOL / TP_GNORM_TOL; a prefill at TP_HEADS_SERVE,
 # then TP_HEADS_DECODE teacher-forced steps on a ring of TP_HEADS_RING
@@ -2490,11 +2518,23 @@ TP_LONG = (
 # TP_HEADS_ROW: qwen2-7b's rank 1 of a model axis of 8 (shares 4, 4, 4, 4,
 # 3, 3, 3, 3): query heads 4-7 reading kv heads 0 and 1 (a group of 7)
 TP_HEADS_MESH = (("data", 1), ("model", 4))
-TP_HEADS_ARCH, TP_HEADS_LAYERS = "recurrentgemma-2b", 13
+TP_HEADS_ARCH, TP_HEADS_LAYERS = "recurrentgemma-2b", 3
 TP_HEADS_TRAIN, TP_HEADS_SERVE = (2, 1024), (2, 2048)
 TP_HEADS_DECODE, TP_HEADS_RING = 5, 4
 TP_HEADS_ROW = {"arch": "qwen2-7b", "tp": 8, "rank": 1, "batch": 2,
                 "seq": 2048}
+# tp_tied: a tied head under the split over "model" on tp_heads' ranks and
+# cells (module docstring): tp_heads' model with tie_embeddings (its 3
+# layers the fewest that hold RG-LRU and a windowed layer)
+# lm_decode's int8 KV cache: KV_QUANT_STEPS teacher-forced steps against the
+# bf16 cache's. KV_QUANT_TOL is twice the reference's own gap (relative RMS
+# of the logits, int8 against bf16 cache) at qwen2-7b's 28 layers cut to
+# d_model 512 (4 heads of 128 over 2 kv heads), 4 x 5 steps, bf16: 0.02756
+# (the port there: 0.02578; at d_model 1024, 0.02792 and 0.02784), read on
+# the CPU by tools/kv_quant_gap.py. Random weights carry a rounding that
+# far at this depth: the two packages' bf16 caches read 0.0213 apart there
+KV_QUANT_STEPS = 5
+KV_QUANT_TOL = 2 * 0.02756
 
 
 def directional_check(cfg, batch, dev, remat=True) -> dict:
@@ -2802,6 +2842,7 @@ def sharded_rank(rank, world, dev):
     out["frontends"] = tp_recurrent_steps(mesh, dev, TP_FRONT_TRAIN)
     out["long"] = tp_long_rank(mesh, dev)
     out["heads"] = tp_heads_rank(dev)
+    out["tied"] = tp_heads_rank(dev, tp_tied_cfg())
     return out
 
 
@@ -2968,6 +3009,7 @@ def sharded_step_phase(dev, card: str) -> dict:
     line["_frontends_ranks"] = [r["frontends"] for r in ranks]
     line["_long_ranks"] = [r["long"] for r in ranks]
     line["_heads_ranks"] = [r["heads"] for r in ranks]
+    line["_tied_ranks"] = [r["tied"] for r in ranks]
     return line
 
 
@@ -3073,10 +3115,21 @@ def tp_steps(mesh, dev) -> dict:
 
 
 def tp_rec_cfg(arch: str, layers: int, dtype=None):
-    """``arch`` at full width cut to ``layers`` layers (in ``dtype``)."""
+    """``arch`` at full width cut to ``layers`` layers (in ``dtype``): the
+    first ``layers`` entries of its pattern where they do not fill a
+    whole one."""
     from repro_torch.configs import get_arch
     cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+    if layers % len(cfg.block_pattern):
+        cfg = dataclasses.replace(cfg,
+                                  block_pattern=cfg.block_pattern[:layers])
     return cfg if dtype is None else dataclasses.replace(cfg, dtype=dtype)
+
+
+def tp_tied_cfg():
+    """tp_tied's model: tp_heads', tied."""
+    return dataclasses.replace(tp_rec_cfg(TP_HEADS_ARCH, TP_HEADS_LAYERS),
+                               tie_embeddings=True)
 
 
 def tp_recurrent_steps(mesh, dev, cells=TP_REC_TRAIN) -> dict:
@@ -3179,10 +3232,12 @@ def tp_long_rank(mesh, dev) -> dict:
     return res
 
 
-def tp_heads_rank(dev) -> dict:
-    """tp_heads' part of a sharded_step rank (after tp_long_decode): the
-    4 ranks laid out as TP_HEADS_MESH; TP_HEADS_ARCH at TP_HEADS_LAYERS
-    layers from seed 0: its blocks and AdamW moments (their bytes), one
+def tp_heads_rank(dev, cfg=None) -> dict:
+    """tp_heads' part of a sharded_step rank (after tp_long_decode), and
+    tp_tied's (after it, ``cfg`` its model): the
+    4 ranks laid out as TP_HEADS_MESH; ``cfg`` (TP_HEADS_ARCH at
+    TP_HEADS_LAYERS layers) from seed 0: its blocks and AdamW moments
+    (their bytes), one
     split train step (remat True) on the whole TP_HEADS_TRAIN batch (a
     data axis of 1), then on a copy of the blocks from before the step
     the TP_HEADS_SERVE prefill, timed from its first call (its logits on
@@ -3201,7 +3256,7 @@ def tp_heads_rank(dev) -> dict:
     _, opt = sharded_cfg()
     mesh = make_mesh(TP_HEADS_MESH, device=dev)
     shape = shd.MeshShape.from_mesh(mesh)
-    cfg = tp_rec_cfg(TP_HEADS_ARCH, TP_HEADS_LAYERS)
+    cfg = cfg or tp_rec_cfg(TP_HEADS_ARCH, TP_HEADS_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize(dev)
@@ -3500,28 +3555,14 @@ def tp_long_decode_phase(dev, card: str, sharded: dict) -> None:
                       f"{wire}")
 
 
-def tp_heads_phase(dev, rows: dict, record, card: str,
-                   sharded: dict) -> dict:
-    """tp_heads (module docstring): first the row
-    ``flash_attention_head_offset``, row 9 at TP_HEADS_ROW against plain
-    and SDPA on the kv heads expanded to the rank's heads; then sharded_step
-    ranks' ``tp_heads_rank`` results held to the plans and to one process,
-    the ranks' prefill launches credited to the row. A line for the train
-    step and one for the serve run. Returns ``roofline_phase``'s entry for
-    the train step."""
+def tp_heads_row(dev, rows: dict, record) -> None:
+    """The row ``flash_attention_head_offset``: row 9 at TP_HEADS_ROW (a
+    model rank's heads straddling GQA groups) against plain and SDPA on
+    the kv heads expanded to the rank's heads."""
     from repro_torch.configs import get_arch
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import expand_kv
-    from repro_torch.launch import dryrun, roofline
     from repro_torch.models import sharding as shd
-    from repro_torch.models.transformer import (decode_step, forward,
-                                                init_decode_state,
-                                                init_params)
-    from repro_torch.optim.adamw import AdamWConfig
-    gc.collect()
-    torch.cuda.empty_cache()
-    # row 9 with a head offset: a model rank's heads straddling GQA groups
     qc = get_arch(TP_HEADS_ROW["arch"])
     rep_ = qc.n_heads // qc.n_kv_heads
     h0, h1 = shd.share(qc.n_heads, TP_HEADS_ROW["tp"], TP_HEADS_ROW["rank"])
@@ -3550,22 +3591,47 @@ def tp_heads_phase(dev, rows: dict, record, card: str,
                 "the rank's heads",
         shape=[list(q.shape), list(k.shape)])
     del q, k, v, ke, ve
-    cfg = tp_rec_cfg(TP_HEADS_ARCH, TP_HEADS_LAYERS)
+
+
+def tp_heads_phase(dev, rows: dict, record, card: str,
+                   sharded: dict, name: str = "tp_heads") -> dict:
+    """tp_heads, or tp_tied (``name``; module docstring): for tp_heads
+    first the row ``flash_attention_head_offset``, row 9 at TP_HEADS_ROW
+    against plain and SDPA on the kv heads expanded to the rank's heads;
+    then sharded_step ranks' ``tp_heads_rank`` results held to the plans
+    and to one process, the ranks' prefill launches credited to the row
+    (where it was timed). A line for the train step and one for the serve
+    run. Returns ``roofline_phase``'s entry for the train step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.models import sharding as shd
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_decode_state,
+                                                init_params)
+    from repro_torch.optim.adamw import AdamWConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    if name == "tp_heads":
+        tp_heads_row(dev, rows, record)
+    cfg = (tp_rec_cfg(TP_HEADS_ARCH, TP_HEADS_LAYERS) if name == "tp_heads"
+           else tp_tied_cfg())
     mesh = shd.MeshShape.of(*TP_HEADS_MESH)
     tp = mesh.shape["model"]
-    ranks = sorted(sharded["_heads_ranks"], key=lambda r: r["coords"][
-        "model"])
+    ranks = sorted(sharded["_heads_ranks" if name == "tp_heads" else
+                           "_tied_ranks"], key=lambda r: r["coords"]["model"])
     views = [shd.model_view(cfg, mesh, r["coords"]["model"]) for r in ranks]
     n_attn = sum(kind in ("attn", "swa") for kind in
                  cfg.pattern_for_layers()) * cfg.n_groups
     launches = sum(r["flash_launches"] for r in ranks)
-    rows["flash_attention_head_offset"]["launches"] += launches
-    rows["flash_attention_head_offset"].setdefault("launches_by_phase", {})[
-        f"tp_heads:{cfg.name}"] = launches
+    row = rows.get("flash_attention_head_offset")
+    if row is not None:
+        row["launches"] += launches
+        row.setdefault("launches_by_phase", {})[f"{name}:{cfg.name}"] = \
+            launches
     # (a) the train step against one process
     _, opt = sharded_cfg()
     tb, ts = TP_HEADS_TRAIN
-    train_shape = ShapeConfig("tp_heads", ts, tb, "train")
+    train_shape = ShapeConfig(name, ts, tb, "train")
     plan = dryrun.memory_plan(cfg, train_shape, mesh, opt)
     want_stored = plan["params"]["alloc"] + plan["opt"]["alloc"]
     want_wire = roofline.step_wire_bytes(cfg, train_shape, mesh,
@@ -3575,8 +3641,8 @@ def tp_heads_phase(dev, rows: dict, record, card: str,
            / abs(one["loss"]),
            "grad_norm_rel_err": abs(r["grad_norms"][0] - one["grad_norm"])
            / one["grad_norm"]} for r in ranks]
-    line = {"phase": "tp_heads", "run": "train", "arch": cfg.name,
-            "layers": cfg.n_layers, "d_model": cfg.d_model,
+    line = {"phase": name, "run": "train", "arch": cfg.name,
+            "tie_embeddings": cfg.tie_embeddings, "layers": cfg.n_layers, "d_model": cfg.d_model,
             "mesh": mesh.shape, "backend": "gloo", "batch": tb, "seq": ts,
             "remat": True, "heads_by_rank": [v.heads for v in views],
             "q_cols_by_rank": [v.q_cols for v in views],
@@ -3597,17 +3663,17 @@ def tp_heads_phase(dev, rows: dict, record, card: str,
     emit(line)
     for r, v in zip(ranks, vs):
         c = r["coords"]
-        check(r["stored_bytes"] == want_stored, f"tp_heads: rank {c} stores "
+        check(r["stored_bytes"] == want_stored, f"{name}: rank {c} stores "
               f"{r['stored_bytes']} bytes, the plan {want_stored}")
-        check(all(np.isfinite(r["losses"])), f"tp_heads: {r['losses']}")
-        check(v["loss_rel_err"] <= TP_LOSS_TOL, f"tp_heads: rank {c} loss "
+        check(all(np.isfinite(r["losses"])), f"{name}: {r['losses']}")
+        check(v["loss_rel_err"] <= TP_LOSS_TOL, f"{name}: rank {c} loss "
               f"{r['losses'][0]}: {v['loss_rel_err']} from one process's")
-        check(v["grad_norm_rel_err"] <= TP_GNORM_TOL, f"tp_heads: rank {c} "
+        check(v["grad_norm_rel_err"] <= TP_GNORM_TOL, f"{name}: rank {c} "
               f"grad norm {r['grad_norms'][0]}: {v['grad_norm_rel_err']} "
               f"from one process's")
         for w in r["wire_a_step"]:
             check(all(w[a][k] == want_wire[a][k] for a in want_wire
-                      for k in want_wire[a]), f"tp_heads: train wire bytes "
+                      for k in want_wire[a]), f"{name}: train wire bytes "
                   f"{w}, planned {want_wire}")
     # (b) the prefill and decode against one process
     sb, ss = TP_HEADS_SERVE
@@ -3634,15 +3700,15 @@ def tp_heads_phase(dev, rows: dict, record, card: str,
     gc.collect()
     torch.cuda.empty_cache()
     state_plan = dryrun.memory_plan(
-        cfg, ShapeConfig("tp_heads", TP_HEADS_RING, sb, "decode"), mesh,
+        cfg, ShapeConfig(name, TP_HEADS_RING, sb, "decode"), mesh,
         AdamWConfig())["decode_state"]
     wire = {kind: roofline.step_wire_bytes(
         cfg, ShapeConfig(kind, ss if kind == "prefill" else TP_HEADS_RING,
                          sb, kind), mesh, split_model=True)
         for kind in ("prefill", "decode")}
     names = ("rel_rms", "max_abs", "top1_agreement")
-    serve = {"phase": "tp_heads", "run": "serve", "arch": cfg.name,
-             "layers": cfg.n_layers, "dtype": cfg.dtype, "mesh": mesh.shape,
+    serve = {"phase": name, "run": "serve", "arch": cfg.name,
+             "tie_embeddings": cfg.tie_embeddings, "layers": cfg.n_layers, "dtype": cfg.dtype, "mesh": mesh.shape,
              "backend": "gloo", "batch": sb, "seq": ss,
              "window": cfg.window, "decode_steps": TP_HEADS_DECODE,
              "max_len": TP_HEADS_RING,
@@ -3672,27 +3738,27 @@ def tp_heads_phase(dev, rows: dict, record, card: str,
     emit(serve)
     for r, p_, d_ in zip(ranks, pre, dec):
         c = r["coords"]
-        check(p_[0] <= DECODE_TOL, f"tp_heads: rank {c} prefill logits "
+        check(p_[0] <= DECODE_TOL, f"{name}: rank {c} prefill logits "
               f"{p_[0]} (relative RMS) from one process > {DECODE_TOL}")
-        check(d_[0] <= DECODE_TOL, f"tp_heads: rank {c} decode logits "
+        check(d_[0] <= DECODE_TOL, f"{name}: rank {c} decode logits "
               f"{d_[0]} (relative RMS) from one process > {DECODE_TOL}")
-        check(r["state_bytes"] == state_plan["alloc"], f"tp_heads: rank {c} "
+        check(r["state_bytes"] == state_plan["alloc"], f"{name}: rank {c} "
               f"decode state {r['state_bytes']} bytes, the plan "
               f"{state_plan['alloc']}")
         check(r["flash_launches"] == n_attn
               and r["flash_routes"].get("tc_bf16") == n_attn,
-              f"tp_heads: rank {c} flash launches {r['flash_launches']}, "
+              f"{name}: rank {c} flash launches {r['flash_launches']}, "
               f"routes {r['flash_routes']}, expected {n_attn} on tc_bf16")
         for kind, ws in (("prefill", [r["prefill_wire"]]),
                          ("decode", r["decode_wires"])):
             for w in ws:
                 check(all(w[a][k] == wire[kind][a][k] for a in wire[kind]
-                          for k in wire[kind][a]), f"tp_heads: {kind} wire "
+                          for k in wire[kind][a]), f"{name}: {kind} wire "
                       f"bytes {w}, planned {wire[kind]}")
     check(tp == 4 and [v.heads for v in views] == [(0, 3), (3, 6), (6, 8),
                                                    (8, 10)],
-          f"tp_heads: heads by rank {[v.heads for v in views]}")
-    return {"tp_heads:train": (cfg, train_shape, statistics.median(
+          f"{name}: heads by rank {[v.heads for v in views]}")
+    return {f"{name}:train": (cfg, train_shape, statistics.median(
         ms for r in ranks for ms in r["step_ms"]) / 1e3, True, mesh, True)}
 
 
@@ -4295,7 +4361,8 @@ def roofline_phase(measured: dict, card: str) -> None:
 def train_family_phases(dev, rows: dict, record, gram_qr_work,
                         measured: dict) -> None:
     """train_families, train_psa_moe, moe_shards, sharded_step, tp_step,
-    tp_recurrent, tp_frontends, tp_long_decode, tp_heads, remat, tp_serve
+    tp_recurrent, tp_frontends, tp_long_decode, tp_heads, tp_tied, remat,
+    tp_serve
     (with tp_recurrent_serve and tp_frontends_serve) and roofline (module
     docstring), each with the card's
     name and power limit; ``measured`` holds the earlier phases' (cfg,
@@ -4330,6 +4397,7 @@ def train_family_phases(dev, rows: dict, record, gram_qr_work,
                                        TP_FRONT_TRAIN, "_frontends_ranks"))
     tp_long_decode_phase(dev, card, sh)
     measured.update(tp_heads_phase(dev, rows, record, card, sh))
+    measured.update(tp_heads_phase(dev, rows, record, card, sh, "tp_tied"))
     remat_phase(dev, card)
     tp_serve_phase(dev, rows, record, card)
     roofline_phase(measured, card)
@@ -6387,6 +6455,22 @@ def main() -> None:
         tf_wall = time.perf_counter() - t0
         prefilled = forward(params, {"tokens": prompt}, cfg)
         dec_rms, dec_max, dec_top1 = compare(decoded, prefilled)
+        # the int8 KV cache on the same prompt, against the bf16 cache's
+        from repro_torch.launch import roofline
+        cfg_q = dataclasses.replace(cfg, kv_quant=True)
+        qstate = init_decode_state(cfg_q, lm_b, KV_QUANT_STEPS, device=dev)
+        q_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(qstate["caches"]))
+        q_plan = roofline.kv_cache_bytes(cfg_q, ShapeConfig(
+            "lm_decode_int8", KV_QUANT_STEPS, lm_b, "decode"))
+        qouts = []
+        for t in range(KV_QUANT_STEPS):
+            lg, qstate = decode_step(params, qstate, prompt[:, t:t + 1],
+                                     cfg_q)
+            qouts.append(lg)
+        q_rms, q_max, q_top1 = compare(torch.cat(qouts, dim=1),
+                                       decoded[:, :KV_QUANT_STEPS])
+        del qstate, qouts
         nxt = decoded[:, -1:].argmax(-1).to(torch.int32)
         generated = []
         torch.cuda.synchronize()
@@ -6412,7 +6496,18 @@ def main() -> None:
           "ms_per_step": gen_wall / n_gen * 1e3,
           "vs_prefill": {"rel_rms": dec_rms, "max_abs": dec_max,
                          "top1_agreement": dec_top1, "tolerance": DECODE_TOL},
-          "first_generated": generated[0, :8].tolist()})
+          "first_generated": generated[0, :8].tolist(),
+          "int8_cache": {"steps": KV_QUANT_STEPS, "cache_bytes": q_bytes,
+                         "planned_cache_bytes": q_plan,
+                         "bf16_cache_bytes_same_length":
+                             roofline.kv_cache_bytes(cfg, ShapeConfig(
+                                 "lm_decode", KV_QUANT_STEPS, lm_b,
+                                 "decode")),
+                         "vs_bf16_cache": {"rel_rms": q_rms,
+                                           "max_abs": q_max,
+                                           "top1_agreement": q_top1,
+                                           "tolerance": KV_QUANT_TOL}},
+          "card": nvidia_smi()})
     prof = {"state": init_decode_state(cfg, lm_b, 16, device=dev)}
 
     def decode_steps():
@@ -6430,6 +6525,10 @@ def main() -> None:
     check(gen_ok, "lm_decode: non-finite logits or a token out of range")
     check(dec_rms <= DECODE_TOL, f"lm_decode: teacher-forced logits "
           f"{dec_rms} (relative RMS) from prefill > {DECODE_TOL}")
+    check(q_bytes == q_plan, f"lm_decode: the int8 cache holds {q_bytes} "
+          f"bytes, roofline --kv-quant counts {q_plan}")
+    check(q_rms <= KV_QUANT_TOL, f"lm_decode: the int8 cache's logits "
+          f"{q_rms} (relative RMS) from the bf16 cache's > {KV_QUANT_TOL}")
 
     # -- the MoE, recurrent and frontend families ----------------------------
     del params, state, prof, toks, prompt, generated, lg, nxt

@@ -26,8 +26,8 @@ collectives put on the wire as a ring implementation sends them, with the
 factors of the reference's HLO collective parser
 (``repro/launch/hlo_analysis.py``): an all-reduce 2 (n - 1) / n of its
 payload, an all-gather (n - 1) / n of its result, a reduce-scatter
-(n - 1) / n of its input, a point-to-point exchange its payload once a
-peer (the reference's collective-permute).
+and an all-to-all (n - 1) / n of its input, a point-to-point exchange
+its payload once a peer (the reference's collective-permute).
 Kept per axis, the "pod" axis's share is what crosses pods: the port's
 counterpart of the reference's ``cross_pod_bytes``. A group over a tuple
 of axes (``Mesh.group``) keeps its own count.
@@ -46,7 +46,11 @@ the ranks, then takes the slice), right where each rank consumes the whole
 differently (a kv head read by each rank's query heads, a recurrent state
 feeding each rank's gate columns). ``scatter_summed_to_model`` runs the other
 way: a reduce-scatter forward of a whole-width tensor in which each rank
-filled its own part, an all-gather of the gradient backward. On them,
+filled its own part, an all-gather of the gradient backward.
+``slice_to_model`` takes this rank's block of a whole tensor, its gradient
+all-gathered; ``rows_from_model`` turns a block of columns of every row into
+whole rows of the rank's row block by one all-to-all (a tied head's
+embedding), its gradient by another. On them,
 ``take_share`` and ``put_share`` move a tensor between a stored block (n /
 tp, which may end mid-head) and the rank's whole heads (``share_of``:
 ``models/sharding.share``). Given ``None`` (one rank) or a one-rank axis,
@@ -80,7 +84,8 @@ __all__ = ["AxisGroup", "Mesh", "make_mesh", "make_test_mesh",
            "WIRE_FACTOR", "copy_to_model", "reduce_from_model",
            "gather_from_model", "gather_summed_from_model",
            "scatter_summed_to_model", "share_of", "take_share", "put_share",
-           "partial_product", "split_axis"]
+           "partial_product", "split_axis", "rows_from_model",
+           "slice_to_model"]
 
 # wire bytes of a ring collective over n ranks per byte of its payload
 # (all-reduce), its result (all-gather) or its message (collective-permute):
@@ -120,7 +125,7 @@ class AxisGroup:
         self.backend = backend
         self.host_staged_bytes = 0
         self.wire_bytes = {"all-reduce": 0.0, "all-gather": 0.0,
-                           "reduce-scatter": 0.0,
+                           "reduce-scatter": 0.0, "all-to-all": 0.0,
                            "collective-permute": 0.0}
         self.calls = dict.fromkeys(self.wire_bytes, 0)
         self._pinned: Dict[tuple, torch.Tensor] = {}
@@ -198,6 +203,20 @@ class AxisGroup:
             out = self._from_host(buf, torch.empty(shape, dtype=t.dtype,
                                                    device=t.device))
         return out.movedim(0, dim)
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (size, ...): its slice i goes to the rank of axis index i;
+        returns (size, ...), slice j from the rank of axis index j."""
+        self._wire("all-to-all", _nbytes(t))
+        t = t.contiguous()
+        if not self._staged(t):
+            out = torch.empty_like(t)
+            dist.all_to_all_single(out, t, group=self.group)
+            return out
+        src = self._to_host(t, "a2a_in")
+        buf = self._buffer("a2a_out", t.shape, t.dtype)
+        dist.all_to_all_single(buf, src, group=self.group)
+        return self._from_host(buf, torch.empty_like(t))
 
     def exchange(self, t: torch.Tensor, peers: Sequence[int]
                  ) -> torch.Tensor:
@@ -311,6 +330,38 @@ class _ScatterSummedToModel(torch.autograd.Function):
                          dim=ctx.dim), None, None
 
 
+class _RowsFromModel(torch.autograd.Function):
+    """(V, pieces, c) column pieces of every row -> (V / tp, D) whole rows
+    of this rank's row block, by an all-to-all; backward the other way."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.shape = group, x.shape
+        rows = x.shape[0] // group.size
+        got = group.all_to_all(x.unflatten(0, (group.size, rows)))
+        return got.permute(1, 2, 0, 3).reshape(rows, -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        v, pieces, c = ctx.shape
+        parts = grad.reshape(v // ctx.group.size, pieces, ctx.group.size, c)
+        return ctx.group.all_to_all(parts.permute(2, 0, 1, 3)).reshape(
+            v, pieces, c), None
+
+
+class _SliceToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        n = x.shape[dim] // group.size
+        return x.narrow(dim, group.index * n, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return torch.cat(ctx.group.all_gather(grad.contiguous()).unbind(0),
+                         dim=ctx.dim), None, None
+
+
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` into a column-parallel span: the identity, and the gradient
     summed over ``group`` on the way back (each rank's span sees only its
@@ -368,6 +419,28 @@ def scatter_summed_to_model(x: torch.Tensor, group,
     if not split_axis(group):
         return x
     return _ScatterSummedToModel.apply(x, group, dim % x.dim())
+
+
+def rows_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of ``x``'s rows (V / size of them), whole: ``x``
+    holds a (V, pieces, c) column block of every row, whose pieces
+    interleave over ``group`` (column (p size + rank) c + k), as a tied
+    head's embedding is cut. One all-to-all sends each rank the rows it
+    takes; the gradient goes back the same way, each element to the rank
+    that holds it (no sum: one rank's rows meet each element)."""
+    if not split_axis(group):
+        return x.flatten(-2)
+    return _RowsFromModel.apply(x, group)
+
+
+def slice_to_model(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` (``size`` equal blocks in axis
+    order) of a whole ``x`` held the same on every rank; the gradient comes
+    back whole, every rank's block gathered (``gather_from_model``'s
+    opposite: each block's consumer is on one rank)."""
+    if not split_axis(group):
+        return x
+    return _SliceToModel.apply(x, group, dim % x.dim())
 
 
 def share_of(n: int, group) -> Tuple[int, int]:

@@ -28,21 +28,37 @@ forward once.
 
 Per axis, the "pod" axis's bytes are those that cross pods.
 
+A ``long_500k`` cell of an architecture that is not subquadratic is
+skipped (``"status": "skipped"``), as the reference skips it; a cell that
+runs has ``"status": "ok"``. ``kv_quant``: the int8 KV cache of
+``cfg.kv_quant``; ``analytic_cost`` ignores the flag, as the reference's
+does, so a decode cell's kv cache bytes are recounted here as the cache
+stores them (``kv_cache_bytes``), the count the reference's XLA bytes
+give.
+
+The reference CLI's ``--no-act-constraints`` has no counterpart: the port
+pins no activation layout (``models/sharding.activation_specs``).
+
 Usage:
   python -m repro_torch.launch.roofline --arch qwen2-7b --shape train_4k
   python -m repro_torch.launch.roofline --arch qwen2-7b --shape train_4k \\
       --multipod --measured-s 12.5 [--remat full|names|none]
+  python -m repro_torch.launch.roofline --arch qwen2-7b --shape decode_32k \\
+      --mesh-shape 64,4 --kv-quant --split-model [--out FILE]
+  python -m repro_torch.launch.roofline --all --out DIR
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
 
 from .. import _tree
-from ..configs import SHAPES, get_arch
+from ..configs import SHAPES, get_arch, valid_cells
 from ..configs.base import ModelConfig, ShapeConfig
 from ..models import sharding as shd
 from ..models.recurrent import _mlstm_hd, _slstm_hd, mlstm_heads
@@ -51,7 +67,7 @@ from .analytic_cost import analytic_cost
 from .mesh import WIRE_FACTOR, make_production_mesh
 
 __all__ = ["HW", "roofline_terms", "model_flops", "step_wire_bytes",
-           "run_cell"]
+           "run_cell", "kv_cache_bytes", "mesh_of", "run_all"]
 
 
 class HW:
@@ -161,6 +177,50 @@ def _mixer_collectives(cfg: ModelConfig, kind: str, mixer_specs,
     return gathers, reduces, scatters
 
 
+def _whole_mixer_gathers(mixer_specs, params) -> list:
+    """The result bytes of the model-axis gathers that make a whole mixer's
+    leaves whole (``models/transformer._whole_leaves``: each leaf
+    ``param_specs`` cuts over "model" anyway, a group's slice of it). Their
+    gradients come back as a slice: no collective."""
+    return [float(np.prod(params[k].shape[1:])) * params[k].element_size()
+            for k, spec in mixer_specs.items() if shd.has_model(spec)]
+
+
+def _tied_head_collectives(cfg: ModelConfig, shape: ShapeConfig,
+                           embed_spec, rows: int, tp: int):
+    """The model-axis collectives of a tied head split over "model"
+    (``models/transformer._tied_logits``), as (kind, bytes) a forward and
+    (kind, bytes) its backward in a train step: with the embedding cut
+    over "model", an all-to-all of the rank's V D / tp block forward and
+    of its gradient back (train, prefill), or a decode step's f32
+    reduce-scatter of b V parts; with the table whole, a slice forward and
+    the gathered gradient back (V D)."""
+    dt = cfg.torch_dtype.itemsize
+    table = float(cfg.vocab_size * cfg.d_model * dt)
+    if not shd.has_model(embed_spec):
+        return [], [("all-gather", table)]
+    if shape.kind == "decode":
+        return [("reduce-scatter", rows * cfg.vocab_size * 4.0)], []
+    return [("all-to-all", table / tp)], [("all-to-all", table / tp)]
+
+
+def kv_cache_bytes(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """The bytes of a decode cell's kv caches as ``init_decode_state``
+    stores them (``models/attention.init_kv_cache``), global: every
+    attention block's ring (``swa``: of the window) of k and v, in the
+    model's dtype, or with ``cfg.kv_quant`` 1 byte an element and an f32
+    scale a (token, kv head) for each."""
+    per = cfg.n_kv_heads * shape.global_batch * (
+        (cfg.hd + 4) if cfg.kv_quant else cfg.hd * cfg.torch_dtype.itemsize)
+    total = 0.0
+    for kind in cfg.pattern_for_layers():
+        if kind in ("attn", "swa"):
+            ring = (min(cfg.window or shape.seq_len, shape.seq_len)
+                    if kind == "swa" else shape.seq_len)
+            total += 2 * per * ring
+    return total * cfg.n_groups
+
+
 def _decode_collectives(cfg: ModelConfig, shape: ShapeConfig,
                         mesh: shd.MeshShape, rows: int):
     """A decode step's all-gathers of attention (``models/attention.py``;
@@ -216,10 +276,14 @@ def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
     f32 all-reduces of b s K (max, sum of exponentials, gold logit; K
     codebooks for audio, else 1); the f32 sum of the gradients each rank
     holds a part of (``sharding.partial_over_model``) and of the norm's 4
-    bytes. Inside the mixers (``_mixer_collectives``): RG-LRU's f32 conv
-    gather, mLSTM's ``w_if`` gather and gate all-reduce, sLSTM's gate,
-    ``h`` and FFN gathers, where the kv heads do not divide, the k and
-    v gathers, and where the query, mLSTM or sLSTM heads do not, the
+    bytes. A tied head's (``_tied_head_collectives``). A mixer every rank
+    computes whole (``sharding.whole_mixers``) has no reduce and no
+    gradient all-reduce, only the gathers of its leaves cut over "model"
+    (``_whole_mixer_gathers``), at each run. Inside the mixers
+    (``_mixer_collectives``): RG-LRU's f32 conv gather, mLSTM's ``w_if``
+    gather and gate all-reduce, sLSTM's gate, ``h`` and FFN gathers, where
+    the kv heads do not divide, the k and v gathers, and where the query,
+    mLSTM or sLSTM heads do not, the
     regroups between stored blocks and a rank's heads; a train step
     reduce-scatters each gather's gradient, all-gathers each
     reduce-scatter's and all-reduces the gate sum's, and recomputes them
@@ -232,7 +296,8 @@ def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
     of axes (``sharding.group_axes``), as ``launch/mesh.Mesh.wire_bytes``
     counts them."""
     sizes = mesh.shape
-    out = {a: {"all-reduce": 0.0, "all-gather": 0.0, "reduce-scatter": 0.0}
+    out = {a: {"all-reduce": 0.0, "all-gather": 0.0, "reduce-scatter": 0.0,
+               "all-to-all": 0.0}
            for a in list(sizes) + [shd.axes_name(t)
                                    for t in shd.group_axes(mesh)]}
     params = init_params(None, cfg, device="meta")
@@ -264,14 +329,16 @@ def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
     if split_model and shape.kind == "decode":
         for name, n, nbytes in _decode_collectives(cfg, shape, mesh, rows):
             out[name]["all-gather"] += ag(n) * nbytes * cfg.n_groups
+    whole = shd.whole_mixers(cfg, tp)
     if tp > 1:
         dt = cfg.torch_dtype.itemsize
         act = float(rows * cfg.d_model * dt)
         pattern = cfg.pattern_for_layers()
-        fwd = sum(1 + int(block_has_ffn(cfg, kind))
+        fwd = sum(int(kind not in whole) + int(block_has_ffn(cfg, kind))
                   for kind in pattern) * cfg.n_groups
         model = out["model"]
-        model["all-gather"] += ag(tp) * act
+        if shd.has_model(spec_tree["embed"]):
+            model["all-gather"] += ag(tp) * act
         model["all-reduce"] += ar(tp) * fwd * rows * cfg.d_model * 4.0 * (
             2 if train and remat is True else 1)
         if train:
@@ -279,10 +346,24 @@ def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
         # a span's collectives: forward, again under either remat, and
         # their gradients' in a train step
         runs = 1 + (int(remat is True or remat == "names") if train else 0)
+        factor = {"all-gather": ag, "reduce-scatter": rs,
+                  "all-to-all": WIRE_FACTOR["all-to-all"]}
+        if cfg.tie_embeddings:
+            fwd_c, bwd_c = _tied_head_collectives(cfg, shape,
+                                                  spec_tree["embed"], rows,
+                                                  tp)
+            for kind, nbytes in fwd_c + (bwd_c if train else []):
+                model[kind] += factor[kind](tp) * nbytes
         for i, kind in enumerate(pattern):
+            mixer = spec_tree["groups"][f"blk{i}_{kind}"]["mixer"]
+            if kind in whole:
+                for nbytes in _whole_mixer_gathers(
+                        mixer, params["groups"][f"blk{i}_{kind}"]["mixer"]):
+                    model["all-gather"] += ag(tp) * nbytes * runs \
+                        * cfg.n_groups
+                continue
             gathers, sums, scatters = _mixer_collectives(
-                cfg, kind, spec_tree["groups"][f"blk{i}_{kind}"]["mixer"],
-                rows, tp, shape.kind == "decode")
+                cfg, kind, mixer, rows, tp, shape.kind == "decode")
             for nbytes in gathers:
                 model["all-gather"] += ag(tp) * nbytes * runs * cfg.n_groups
                 if train:
@@ -298,22 +379,37 @@ def step_wire_bytes(cfg: ModelConfig, shape: ShapeConfig,
         if train:
             partial = sum(leaf.numel() for n, leaf, spec in
                           zip(names, leaves, specs)
-                          if shd.partial_over_model(n, spec))
+                          if shd.partial_over_model(n, spec, whole))
             n_k = cfg.n_codebooks if cfg.frontend == "audio_codec" else 1
             model["all-reduce"] += ar(tp) * (3 * 4.0 * rows * n_k
                                              + 4.0 * partial + 4)
     return out
 
 
+def mesh_of(mesh_shape: str) -> shd.MeshShape:
+    """A single-pod (data, model) mesh from "d,m", checked as the
+    reference checks it: two sizes whose product is 256."""
+    dims = tuple(int(t) for t in mesh_shape.split(","))
+    if len(dims) != 2 or dims[0] * dims[1] != 256:
+        raise ValueError(f"--mesh-shape {mesh_shape!r}: two sizes (data, "
+                         f"model) whose product is 256")
+    return shd.MeshShape.of(("data", dims[0]), ("model", dims[1]))
+
+
 def run_cell(arch: str, shape: Union[str, ShapeConfig], *,
              mesh: Optional[shd.MeshShape] = None,
              cfg: Optional[ModelConfig] = None,
              measured_s: Optional[float] = None,
-             remat=True, split_model: bool = False) -> Dict[str, Any]:
+             remat=True, split_model: bool = False,
+             kv_quant: bool = False) -> Dict[str, Any]:
     """The three roofline terms of one step of ``arch`` (or ``cfg``, a cut
     of it) at ``shape`` on ``mesh`` (default: the single-pod production
     mesh), per rank, the dominant one, ``bound_s`` and ``mfu_at_bound``;
     with ``measured_s``, the bound's share of that measured step.
+    ``long_500k`` on an architecture that is not subquadratic is skipped:
+    ``{"arch", "shape", "status": "skipped"}``. ``kv_quant``: the int8 KV
+    cache; a decode cell's cache bytes (``kv_cache_bytes``) replace the
+    analytic count's kv caches, which is the model dtype's.
     ``remat``: the train step's (``analytic_cost``). ``split_model``: the
     step split over "model" (``step_wire_bytes``'): a rank computes its
     batch shard's FLOPs over its model blocks, FLOPs / (shards x tp), and
@@ -324,9 +420,18 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], *,
     RoPE on the gathered k, a recurrent gate's slice), which the analytic
     model does not count."""
     cfg = get_arch(arch) if cfg is None else cfg
+    if kv_quant:
+        cfg = dataclasses.replace(cfg, kv_quant=True)
     shape = SHAPES[shape] if isinstance(shape, str) else shape
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return {"arch": cfg.name, "shape": shape.name, "status": "skipped"}
     mesh = make_production_mesh() if mesh is None else mesh
     cost = analytic_cost(cfg, shape, remat=remat)
+    if shape.kind == "decode" and cfg.kv_quant:
+        int8 = kv_cache_bytes(cfg, shape) - kv_cache_bytes(
+            dataclasses.replace(cfg, kv_quant=False), shape)
+        cost = {**cost, "cache_bytes": cost["cache_bytes"] + int8,
+                "hbm_bytes": cost["hbm_bytes"] + int8}
     dp = shd.dp_shards(cfg, mesh, shape.global_batch)
     tp = mesh.shape.get("model", 1) if split_model else 1
     flops_dev = cost["flops"] / (dp * tp)
@@ -339,8 +444,10 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], *,
                            wire_bytes_per_dev=wire_dev)
     mf = model_flops(cfg, shape)
     res = {
-        "arch": cfg.name, "shape": shape.name, "kind": shape.kind,
-        "mesh": mesh.shape, "n_devices": mesh.size, "batch_shards": dp,
+        "arch": cfg.name, "shape": shape.name, "status": "ok",
+        "kind": shape.kind, "kv_quant": cfg.kv_quant,
+        "cache_bytes": cost["cache_bytes"], "mesh": mesh.shape,
+        "n_devices": mesh.size, "batch_shards": dp,
         "remat": remat, "split_model": split_model,
         "flops_per_dev": flops_dev, "bytes_per_dev": bytes_dev,
         "wire_bytes_per_dev": wire_dev, "wire_by_axis": wire,
@@ -359,18 +466,64 @@ def run_cell(arch: str, shape: Union[str, ShapeConfig], *,
 REMAT_FLAG = {"full": True, "names": "names", "none": False}
 
 
+def run_all(out_dir: str, **kw) -> Dict[str, list]:
+    """One JSON file a ``valid_cells()`` cell in ``out_dir``
+    (``{arch}__{shape}.json``, the reference's names), a skipped cell's
+    too; a file that exists already is kept, not recomputed. In process:
+    the model is analytic. ``kw``: ``run_cell``'s. Returns the cells
+    written and kept."""
+    os.makedirs(out_dir, exist_ok=True)
+    done = {"written": [], "kept": []}
+    for cell in valid_cells():
+        tag = f"{cell['arch']}__{cell['shape']}"
+        path = os.path.join(out_dir, tag + ".json")
+        if os.path.exists(path):
+            done["kept"].append(tag)
+            continue
+        with open(path, "w") as f:
+            json.dump(run_cell(cell["arch"], cell["shape"], **kw), f,
+                      indent=1)
+        done["written"].append(tag)
+    return done
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
-    ap.add_argument("--shape", required=True, choices=list(SHAPES))
+    ap.add_argument("--arch")
+    ap.add_argument("--shape", choices=list(SHAPES))
     ap.add_argument("--multipod", action="store_true")
+    ap.add_argument("--mesh-shape", default=None,
+                    help="a single-pod (data, model) shape of 256 ranks, "
+                         "e.g. 64,4")
+    ap.add_argument("--kv-quant", action="store_true",
+                    help="int8 KV cache (decode cells)")
+    ap.add_argument("--split-model", action="store_true",
+                    help="the step split over 'model' (tensor "
+                         "parallelism): the port's counterpart of the "
+                         "partitioned program the reference plans")
     ap.add_argument("--measured-s", type=float, default=None)
     ap.add_argument("--remat", default="full", choices=list(REMAT_FLAG))
+    ap.add_argument("--out", help="a cell's JSON file; with --all, the "
+                                  "directory of one file a cell")
+    ap.add_argument("--all", action="store_true",
+                    help="every valid cell, skipping files that exist")
     args = ap.parse_args(argv)
-    res = run_cell(args.arch, args.shape,
-                   mesh=make_production_mesh(multi_pod=args.multipod),
-                   measured_s=args.measured_s,
-                   remat=REMAT_FLAG[args.remat])
+    if args.mesh_shape and args.multipod:
+        ap.error("--mesh-shape is a single-pod shape; drop --multipod")
+    mesh = (mesh_of(args.mesh_shape) if args.mesh_shape
+            else make_production_mesh(multi_pod=args.multipod))
+    kw = dict(mesh=mesh, remat=REMAT_FLAG[args.remat],
+              split_model=args.split_model, kv_quant=args.kv_quant)
+    if args.all:
+        done = run_all(args.out or os.path.join("build", "roofline"), **kw)
+        print(json.dumps({k: len(v) for k, v in done.items()}))
+        return
+    if not (args.arch and args.shape):
+        ap.error("--arch and --shape, or --all")
+    res = run_cell(args.arch, args.shape, measured_s=args.measured_s, **kw)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(res, f, indent=1)
     print(json.dumps(res, indent=1))
 
 

@@ -66,6 +66,11 @@ at the rank's heads (its gradient summed over "model"):
 
 Each gathers activations, not weights, but for ``w_if``: at the card's
 shapes a gathered activation is the smaller there (``PERF.md``).
+
+Where ``d_model`` does not divide over "model" (``sharding.whole_mixers``),
+RG-LRU and sLSTM are not split: ``param_specs`` keeps their channel leaves
+whole, as the reference's does, and every rank runs the mixer whole on its
+whole input and state (``models/transformer._whole``), called unsplit.
 """
 from __future__ import annotations
 
@@ -391,8 +396,10 @@ def init_rglru(gen: Optional[torch.Generator], cfg: ModelConfig,
 def init_rglru_state(cfg: ModelConfig, batch: int, n_layers: int,
                      device: torch.device,
                      tp: int = 1) -> Dict[str, torch.Tensor]:
-    """The (h, conv) state; ``tp``: a model rank's channels of ``tp``."""
-    d = cfg.d_model // tp
+    """The (h, conv) state; ``tp``: a model rank's channels of ``tp`` as
+    ``decode_state_specs`` cuts them: d / tp where they divide, else every
+    channel (the mixer then runs whole on every rank)."""
+    d = cfg.d_model // tp if cfg.d_model % tp == 0 else cfg.d_model
     return {"h": torch.zeros((n_layers, batch, d), device=device),
             "conv": torch.zeros((n_layers, batch, 3, d), device=device)}
 

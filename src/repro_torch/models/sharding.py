@@ -33,8 +33,13 @@ audio frontends: ``model_view`` says which heads, kv heads, FFN columns,
 experts, recurrent channels and heads and head columns (vocabulary rows;
 audio: (codebook, vocabulary) columns, codebook-major) a model rank
 computes, read off ``param_specs``, and raises ``NotImplementedError``
-where the split is not ported. A rank computes whole heads: query, mLSTM
-and sLSTM heads are shared out by ``share`` (the first n % tp ranks take
+where the split is not ported (``ValueError`` for a tied head with the
+audio frontend, which has no meaning). A tied head takes the rank's
+vocabulary rows of the embedding (``models/transformer._tied_logits``).
+RG-LRU and sLSTM channels that do not divide over "model" run that mixer
+whole on every rank (``whole_mixers``), from leaves ``param_specs`` keeps
+whole, as the reference computes them. A rank computes whole heads: query,
+mLSTM and sLSTM heads are shared out by ``share`` (the first n % tp ranks take
 one more; where n < tp some take none), while their leaves stay cut as
 ``param_specs`` cuts them, a column block that may end mid-head (the
 mixers regroup between the two, ``launch/mesh.take_share`` /
@@ -53,7 +58,7 @@ specs. ``partial_over_model`` says which leaves' gradient each model rank
 holds a part of: ``PARTIAL_OVER_MODEL`` (replicated leaves read in part),
 and ``PARTIAL_WHEN_WHOLE`` where the dim the split cuts does not divide
 (``wq`` / ``wo`` where n_heads x hd does not, the per-head mLSTM and
-sLSTM leaves where their heads do not).
+sLSTM leaves where their heads do not), never a whole mixer's.
 """
 from __future__ import annotations
 
@@ -72,7 +77,8 @@ __all__ = ["MeshShape", "dp_axes", "param_specs", "batch_specs",
            "spec_leaves", "dp_shards", "ModelView", "model_view",
            "data_specs", "has_model", "PARTIAL_OVER_MODEL",
            "PARTIAL_WHEN_WHOLE", "partial_over_model", "kv_read", "share",
-           "SPLIT_ROADMAP", "length_axes", "group_axes", "axes_name"]
+           "SPLIT_ROADMAP", "length_axes", "group_axes", "axes_name",
+           "whole_mixers", "refuse_tied_audio"]
 
 Axes = Union[None, str, Tuple[str, ...]]
 Spec = Tuple[Axes, ...]
@@ -418,12 +424,44 @@ SPLIT_ROADMAP = ('ROADMAP.md, "Configurations the port does not yet run": '
 _SPLIT_KINDS = ("attn", "swa", "rglru", "mlstm", "slstm")
 
 
-def partial_over_model(name: str, spec: Spec) -> bool:
+def whole_mixers(cfg: ModelConfig, tp: int) -> Tuple[str, ...]:
+    """The block kinds whose mixer every model rank of ``tp`` computes
+    whole: RG-LRU and sLSTM where ``d_model`` does not divide over "model"
+    (``param_specs`` then keeps their channel leaves whole, as the
+    reference's ``_maybe`` does, and ``decode_state_specs`` their state)."""
+    if tp <= 1 or cfg.d_model % tp == 0:
+        return ()
+    return tuple(k for k in ("rglru", "slstm")
+                 if k in cfg.pattern_for_layers())
+
+
+def partial_over_model(name: str, spec: Spec,
+                       whole: Tuple[str, ...] = ()) -> bool:
     """Whether the gradient of the leaf at path ``name`` (its last part
-    counts) stored under ``spec`` is each model rank's part of the whole."""
-    leaf = name.split("/")[-1]
+    counts) stored under ``spec`` is each model rank's part of the whole.
+    ``whole``: the kinds whose mixer runs whole on every rank
+    (``whole_mixers``): their mixer leaves' gradients are whole (equal on
+    every rank, or the rank's block of a whole one), never parts."""
+    parts = [p for p in name.split("/") if p]
+    if any(p.startswith("blk") and p.split("_", 1)[1] in whole
+           for p in parts) and "mixer" in parts:
+        return False
+    leaf = parts[-1]
     return leaf in PARTIAL_OVER_MODEL or (leaf in PARTIAL_WHEN_WHOLE
                                           and not has_model(spec))
+
+
+def refuse_tied_audio(cfg: ModelConfig) -> None:
+    """A tied head with the audio frontend has no meaning: the reference's
+    logits are ``None`` there (its (K, V, D) embedding has no one
+    transpose to multiply by) and its reshape fails. Raise ``ValueError``
+    naming the cause, where the reference fails."""
+    if cfg.tie_embeddings and cfg.frontend == "audio_codec":
+        raise ValueError(
+            f"{cfg.name}: tie_embeddings with the audio_codec frontend: a "
+            f"(K, V, D) embedding of {cfg.n_codebooks} codebooks has no "
+            f"transpose to serve as the head (the reference's logits are "
+            f"None there); untie it")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -444,7 +482,10 @@ class ModelView:
     columns the mixer regroups between the two.
     ``embed_pieces``: the embedding's model dim is cut over (data axes...,
     "model"), so after the data-axis gather a rank holds ``embed_pieces``
-    strided pieces of it."""
+    strided pieces of it (``embed_cut``; else the table is whole on every
+    rank, where the dim does not divide). ``whole``: the kinds whose mixer
+    every rank computes whole (``whole_mixers``); ``channels`` and
+    ``slstm_heads`` are then every channel and head."""
 
     tp: int
     index: int
@@ -461,6 +502,8 @@ class ModelView:
     q_cols: Optional[Tuple[int, int]] = None
     mlstm_cols: Optional[Tuple[int, int]] = None
     slstm_cols: Optional[Tuple[int, int]] = None
+    embed_cut: bool = True
+    whole: Tuple[str, ...] = ()
 
 
 def has_model(spec: Spec) -> bool:
@@ -530,10 +573,14 @@ def _cols(spec: Spec, n: int, tp: int, index: int):
 def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
     """Model rank ``index``'s share of ``cfg`` under ``param_specs`` on
     ``mesh``. Raises ``NotImplementedError`` (naming the ROADMAP item)
-    where the split is not ported: a tied head, mixers other than
-    ``_SPLIT_KINDS``', RG-LRU or sLSTM channels (or any other leaf the
-    split needs cut) that do not divide over "model". Query, mLSTM and sLSTM heads
-    that do not divide are shared out (``share``). Nothing falls back to
+    where the split is not ported: mixers other than ``_SPLIT_KINDS``', or
+    a leaf the split needs cut over "model" (the head's columns, an FFN's,
+    a split mixer's channels) that does not divide over it; ``ValueError``
+    for a tied head with the audio frontend (``refuse_tied_audio``). Query,
+    mLSTM and sLSTM heads that do not divide are shared out (``share``);
+    RG-LRU and sLSTM channels that do not divide run whole on every rank
+    (``whole_mixers``); a tied head takes its vocabulary rows of the
+    embedding (``models/transformer._head``). Nothing falls back to
     another route."""
     # transformer imports launch/mesh, which imports this module
     from .recurrent import _slstm_hd, mlstm_heads
@@ -546,23 +593,24 @@ def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
     d = cfg.d_model
     n_mlstm = mlstm_heads(cfg) if "mlstm" in kinds else None
     n_slstm = d // _slstm_hd(d) if "slstm" in kinds else None
+    refuse_tied_audio(cfg)
+    whole = whole_mixers(cfg, tp)
     why = None
     if not kinds <= set(_SPLIT_KINDS):
         why = f"mixers {sorted(kinds - set(_SPLIT_KINDS))}"
-    elif cfg.tie_embeddings:
-        why = "a tied head"
-    elif kinds & {"rglru", "slstm"} and d % tp:
-        why = (f"{d} {'RG-LRU' if 'rglru' in kinds else 'sLSTM'} channels "
-               f"over a model axis of {tp}")
     kv_cut = attn and cfg.n_kv_heads % tp == 0
     if why is None:
         specs = param_specs(init_params(None, cfg, device="meta"), cfg,
                             shape)
-        need = [("embed", specs["embed"]), ("lm_head", specs["lm_head"])]
+        need = ([] if cfg.tie_embeddings else
+                [("lm_head", specs["lm_head"])])
+        if cfg.tie_embeddings and cfg.vocab_size % tp:
+            need.append(("embed (a tied head's vocabulary)", (None,)))
         for i, kind in enumerate(pattern):
             blk = specs["groups"][f"blk{i}_{kind}"]
-            leaves = _CUT_LEAVES[kind] + (("wk", "wv") if kv_cut and kind
-                                          in ("attn", "swa") else ())
+            leaves = ((() if kind in whole else _CUT_LEAVES[kind])
+                      + (("wk", "wv") if kv_cut and kind in ("attn", "swa")
+                         else ()))
             need += [(f"{kind}/{k}", blk["mixer"][k]) for k in leaves]
             if block_has_ffn(cfg, kind):
                 need += [("ffn/" + k, blk["ffn"][k])
@@ -578,8 +626,9 @@ def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
             f"{cfg.name}: the compute split over 'model' is not ported for "
             f"{why}; see {SPLIT_ROADMAP}")
     emb = specs["embed"][-1]
+    embed_cut = has_model((emb,))
     pieces = _axsize(shape, tuple(a for a in _entry_axes(emb)
-                                  if a != "model"))
+                                  if a != "model")) if embed_cut else 1
     m = cfg.moe
     heads = share(cfg.n_heads, tp, index) if attn else None
     dense_ffn = any(block_has_ffn(cfg, k) for k in kinds) and m is None
@@ -595,11 +644,12 @@ def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
                   if m is not None and m.n_shared_experts else
                   _block(cfg.d_ff, tp, index) if dense_ffn else None),
         experts=_block(m.n_experts, tp, index) if m is not None else None,
-        channels=_block(d, tp, index) if "rglru" in kinds else None,
+        channels=(None if "rglru" not in kinds else (0, d)
+                  if "rglru" in whole else _block(d, tp, index)),
         mlstm_heads=(share(n_mlstm, tp, index) if n_mlstm is not None
                      else None),
-        slstm_heads=(share(n_slstm, tp, index) if n_slstm is not None
-                     else None),
+        slstm_heads=(None if n_slstm is None else (0, n_slstm)
+                     if "slstm" in whole else share(n_slstm, tp, index)),
         vocab=_block(cfg.vocab_size * (cfg.n_codebooks if cfg.frontend
                                        == "audio_codec" else 1), tp, index),
         embed_pieces=pieces,
@@ -608,4 +658,5 @@ def model_view(cfg: ModelConfig, mesh, index: int = 0) -> ModelView:
         mlstm_cols=(_cols(mixers["mlstm"]["w_up"], 2 * d, tp, index)
                     if n_mlstm is not None else None),
         slstm_cols=(_cols(mixers["slstm"]["w_gates"], 4 * d, tp, index)
-                    if n_slstm is not None else None))
+                    if n_slstm is not None else None),
+        embed_cut=embed_cut, whole=whole)

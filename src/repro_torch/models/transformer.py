@@ -43,7 +43,13 @@ the VLM's patch embeddings spliced in; each norm's output enters the
 column-parallel span through ``copy_to_model``; the mixer's and the FFN's
 partial outputs are summed by ``reduce_from_model``; the head gives this rank's
 block of its columns (vocabulary rows; audio: (codebook, vocabulary) columns,
-codebook-major). Each row-parallel product is an f32 part
+codebook-major), a tied head from the rank's vocabulary rows of the
+embedding (``_tied_logits``). A mixer whose channels do not divide over
+"model" (RG-LRU, sLSTM: ``sharding.whole_mixers``) runs whole on every rank,
+on the norm's output and its whole leaves (``_whole_leaves``), and its output
+is added as it is, with no collective either way. Where the embedding's model
+dim does not divide over its axes the table is whole on every rank and
+looked up whole. Each row-parallel product is an f32 part
 (``partial_product``), summed in f32 and rounded once to the model's dtype, as
 one process rounds the whole product. The mixers split themselves
 (``attention.py``, ``recurrent.py``), some with collectives inside the
@@ -75,7 +81,9 @@ from torch.utils import checkpoint as torch_checkpoint
 from .._device import DeviceLike, resolve_device
 from ..configs.base import ModelConfig
 from ..launch.mesh import (copy_to_model, gather_from_model,
-                           partial_product, reduce_from_model, split_axis)
+                           partial_product, reduce_from_model,
+                           rows_from_model, scatter_summed_to_model,
+                           slice_to_model, split_axis)
 from .attention import apply_attn, init_attn, init_kv_cache, kv_whole
 from .layers import embed_lookup, init_dense, init_norm, normal, rms_norm, \
     swiglu_ffn
@@ -83,6 +91,7 @@ from .moe import apply_moe, init_moe
 from .recurrent import (apply_mlstm, apply_rglru, apply_slstm, init_mlstm,
                         init_mlstm_state, init_rglru, init_rglru_state,
                         init_slstm, init_slstm_state)
+from .sharding import refuse_tied_audio, whole_mixers
 
 __all__ = ["init_params", "forward", "init_decode_state", "decode_step",
            "block_has_ffn", "embed_inputs", "tree_map", "tree_leaves",
@@ -156,6 +165,7 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, *,
     peak is the model plus one group; a single group is not copied at all
     (kimi-k2 cut to one layer holds 39 GB).
     """
+    refuse_tied_audio(cfg)
     dev = resolve_device(device)
     dt = cfg.torch_dtype
     pattern = cfg.pattern_for_layers()
@@ -207,10 +217,35 @@ def _call(fn, *args):
     return fn(*args)
 
 
+def _whole(cfg: ModelConfig, kind: str, model) -> bool:
+    """Whether every rank of a split computes ``kind``'s mixer whole
+    (``sharding.whole_mixers``)."""
+    return split_axis(model) and kind in whole_mixers(cfg, model.size)
+
+
+def _whole_leaves(p, cfg: ModelConfig, kind: str, model):
+    """A whole mixer's leaves, each whole: a leaf ``param_specs`` cuts over
+    "model" anyway (sLSTM's 4 d gate columns, its FFN's where they divide)
+    gathered along the dim it is cut on, its gradient this rank's slice
+    (``gather_from_model``: every rank's consumer is the same)."""
+    like = _MIXERS[kind][0](None, cfg, torch.device("meta"))
+    out = {}
+    for k, w in p.items():
+        cut = [i for i, (a, b) in enumerate(zip(w.shape, like[k].shape))
+               if a != b]
+        out[k] = gather_from_model(w, model, cut[0]) if cut else w
+    return out
+
+
 def _mixer(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
            use_kernel: bool, model) -> torch.Tensor:
     """Norm and mixer: the span before the save point ``mixer_out`` (a
-    rank's partial sum when split)."""
+    rank's partial sum when split; the whole output where the rank
+    computes the mixer whole, ``_whole``)."""
+    if _whole(cfg, kind, model):
+        out, _ = _MIXERS[kind][1](_whole_leaves(p["mixer"], cfg, kind, model),
+                                  rms_norm(x, p["norm1"], cfg.norm_eps), cfg)
+        return out
     h = copy_to_model(rms_norm(x, p["norm1"], cfg.norm_eps), model)
     if kind in ATTN_KINDS:
         out, _ = apply_attn(p["mixer"], h, cfg,
@@ -240,7 +275,8 @@ def _apply_block_full(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
     """One block; ``span`` runs the mixer's and the FFN's spans
     (``_recompute`` under ``remat="names"``)."""
     x = x + reduce_from_model(
-        span(_mixer, p, x, cfg, kind, use_kernel, model), model).to(x.dtype)
+        span(_mixer, p, x, cfg, kind, use_kernel, model),
+        None if _whole(cfg, kind, model) else model).to(x.dtype)
     if block_has_ffn(cfg, kind):
         x = x + reduce_from_model(
             span(_ffn, p, x, cfg, kind, act_specs, model), model).to(x.dtype)
@@ -258,11 +294,14 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor],
     rank's (V, pieces, c) block, audio's (K, V, pieces, c) (module
     docstring); the looked-up pieces (audio: their sum over the K
     codebooks, which is linear, so one gather carries it) are gathered over
-    "model" into (b, s, D), and the patches spliced in after."""
+    "model" into (b, s, D), and the patches spliced in after. A table
+    whole on every rank ((V, D), audio's (K, V, D): the model dim does not
+    divide over its axes) is looked up whole."""
     if "inputs_embeds" in batch:
         return batch["inputs_embeds"]
     tokens, emb = batch["tokens"], params["embed"]
-    split = split_axis(model)
+    split = split_axis(model) and emb.dim() == (
+        4 if cfg.frontend == "audio_codec" else 3)
 
     def lookup(table, ids):         # a rank's pieces: (V, pieces x c)
         return embed_lookup(table.flatten(-2) if split else table, ids)
@@ -281,17 +320,47 @@ def embed_inputs(params, batch: Dict[str, torch.Tensor],
     return x
 
 
+def _tied_logits(x: torch.Tensor, emb: torch.Tensor, model,
+                 exchange: bool) -> torch.Tensor:
+    """This rank's (b, s, V / tp) block of a tied head's logits, x @ E^T
+    for its vocabulary rows E[V_m]. The stored embedding cuts the model
+    dim, so a rank holds a (V, pieces, c) column block of every row. Two
+    routes: ``exchange`` (train and prefill) turns it into the rank's
+    whole rows by one all-to-all (``rows_from_model``: V D / tp elements a
+    rank, whatever the batch; the gradient goes back the same way into the
+    rank's block, summed there with the lookup's); else (decode) each rank
+    multiplies its columns of x by its block, an f32 part of every
+    vocabulary row, and a reduce-scatter sums the parts to the rank's rows
+    (b s V f32 a rank: small for a few tokens), rounded once. A table whole
+    on every rank is sliced to its rows (``slice_to_model``: its gradient
+    gathered whole)."""
+    if emb.dim() == 2:
+        return x @ slice_to_model(emb, model, 0).T
+    if exchange:
+        return x @ rows_from_model(emb, model).T
+    pieces, c = emb.shape[1:]
+    cols = x.unflatten(-1, (pieces, model.size, c))[..., model.index, :]
+    part = partial_product(cols.flatten(-2), emb.flatten(-2).T, model)
+    return scatter_summed_to_model(part, model, -1).to(x.dtype)
+
+
 def _head(params, x: torch.Tensor, cfg: ModelConfig, *,
-          model=None) -> torch.Tensor:
+          model=None, exchange: bool = True) -> torch.Tensor:
     """Final norm and logits: (b, s, V), or (b, s, K, V) for audio; split
-    over ``model``, this rank's block of an untied head's columns
-    (``sharding.model_view`` refuses a tied one): vocabulary rows (b, s,
-    V / tp); audio's K V columns are codebook-major, so (b, s, K / tp, V)
-    where tp divides K, else (b, s, K V / tp) (a codebook cut
-    mid-vocabulary)."""
+    over ``model``, this rank's block of the head's columns: vocabulary
+    rows (b, s, V / tp); audio's K V columns are codebook-major, so (b, s,
+    K / tp, V) where tp divides K, else (b, s, K V / tp) (a codebook cut
+    mid-vocabulary). A tied head (no ``lm_head``) multiplies by the
+    embedding's transpose; split, by ``_tied_logits``' route (``exchange``:
+    forward's; decode's the other)."""
     x = copy_to_model(rms_norm(x, params["final_norm"], cfg.norm_eps), model)
     head = params.get("lm_head")
-    logits = x @ (head if head is not None else params["embed"].T)
+    if head is not None:
+        logits = x @ head
+    elif split_axis(model):
+        logits = _tied_logits(x, params["embed"], model, exchange)
+    else:
+        logits = x @ params["embed"].T
     if cfg.frontend == "audio_codec":
         b, s, _ = x.shape
         k = cfg.n_codebooks
@@ -402,11 +471,15 @@ def _apply_block_decode(p, x: torch.Tensor, cfg: ModelConfig, kind: str,
                             cache=cache, cache_index=index, model=model,
                             length=length)
     else:
-        out, new_state = _MIXERS[kind][1](p["mixer"], h, cfg, state=cache,
-                                          model=model)
+        whole = _whole(cfg, kind, model)
+        out, new_state = _MIXERS[kind][1](
+            _whole_leaves(p["mixer"], cfg, kind, model) if whole
+            else p["mixer"], h, cfg, state=cache,
+            model=None if whole else model)
         for key, val in new_state.items():
             cache[key].copy_(val)
-    x = x + reduce_from_model(out, model).to(x.dtype)
+    x = x + reduce_from_model(
+        out, None if _whole(cfg, kind, model) else model).to(x.dtype)
     if block_has_ffn(cfg, kind):
         x = x + reduce_from_model(_ffn(p, x, cfg, kind, act_specs, model),
                                   model).to(x.dtype)
@@ -438,6 +511,6 @@ def decode_step(params, state: Dict[str, Any], tokens: torch.Tensor,
             x = _apply_block_decode(gp[name], x, cfg, kind, gc[name], index,
                                     act_specs, model,
                                     group if cut else None)
-    return _head(params, x, cfg, model=model), {
+    return _head(params, x, cfg, model=model, exchange=False), {
         "index": index + 1, "caches": state["caches"],
         **({"rings": rings} if "rings" in state else {})}

@@ -199,9 +199,12 @@ def make_psa_train_step(cfg: ModelConfig, opt: AdamWConfig, psa: PSAConfig,
 def _model_blocks(params, specs, mesh, view: shd.ModelView):
     """A rank's stored blocks gathered over the data axes only
     (``sharding.data_specs``): its model blocks, the embedding's model dim
-    laid out (pieces, c) for ``forward(..., model=)``."""
+    laid out (pieces, c) for ``forward(..., model=)`` where it is cut over
+    "model" (else the table is whole)."""
     local = shd.gather_tree(params, shd.data_specs(specs, mesh), mesh)
-    local["embed"] = local["embed"].unflatten(-1, (view.embed_pieces, -1))
+    if view.embed_cut:
+        local["embed"] = local["embed"].unflatten(
+            -1, (view.embed_pieces, -1))
     return local
 
 
@@ -259,11 +262,13 @@ def make_sharded_value_and_grad(cfg: ModelConfig, mesh, *,
         loss, grads = _value_and_grad(local, batch, cfg, remat=remat,
                                       model=model)
         del local
-        grads["embed"] = grads["embed"].flatten(-2)
+        if view.embed_cut:
+            grads["embed"] = grads["embed"].flatten(-2)
         if split_axis(model):
             names, leaves, structure = _tree.flatten_with_names(grads)
             leaves = [model.all_reduce_(g.to(torch.float32, copy=True))
-                      .to(g.dtype) if shd.partial_over_model(n, spec) else g
+                      .to(g.dtype)
+                      if shd.partial_over_model(n, spec, view.whole) else g
                       for n, g, spec in zip(names, leaves, spec_list)]
             grads = _tree.unflatten(structure, leaves)
         loss, grads = data_mean(loss, grads)
@@ -294,15 +299,18 @@ def make_sharded_train_step(cfg: ModelConfig, opt: AdamWConfig, mesh, *,
     admits: every registered architecture on the reference's production
     meshes, query, mLSTM and sLSTM heads that do not divide over "model"
     included, each rank computing its ``sharding.share`` of whole heads;
-    a tied head, RG-LRU or sLSTM channels that do not divide raise
-    ``NotImplementedError``): a step gathers over the data axes only, so
-    each rank keeps its model blocks (the reference's ZeRO-3 over "data"),
-    and runs the forward and backward split over "model" (``forward(...,
-    model=)``, the vocabulary-parallel ``loss_fn``). The gradients each
-    rank holds a part of (``sharding.partial_over_model``: a whole leaf
-    read at the rank's heads among them) are summed over "model" (f32),
-    every gradient averaged over the data axes, and the global norm counts
-    each element once.
+    a tied head, each rank's vocabulary rows of the embedding
+    (``models/transformer._tied_logits``); RG-LRU and sLSTM channels that
+    do not divide, that mixer whole on every rank): a step gathers over
+    the data axes only, so each rank keeps its model blocks (the
+    reference's ZeRO-3 over "data"), and runs the forward and backward
+    split over "model" (``forward(..., model=)``, the vocabulary-parallel
+    ``loss_fn``). The gradients each rank holds a part of
+    (``sharding.partial_over_model``: a whole leaf read at the rank's heads
+    among them; never a whole mixer's, which are equal on every rank) are
+    summed over "model" (f32), every gradient averaged over the data axes,
+    and the global norm counts each element once. A tied embedding's
+    gradient is the rank's own block, the head's share of it included.
 
     Either way the math is the reference's step on the global batch: its
     MoE routes each data shard's tokens on their own (``activation_specs``'
@@ -358,9 +366,11 @@ def make_sharded_serve_step(cfg: ModelConfig, mesh, global_batch: int):
     those axes too), a ring that does not divide over them whole on every
     rank; the recurrent states' channels and heads (mLSTM's whole where
     its heads do not divide, sLSTM's a channel block that may end
-    mid-head), whole over the data axes. ``model_view``'s refusals raise
-    ``NotImplementedError`` (a tied head, RG-LRU or sLSTM channels that do
-    not divide)."""
+    mid-head; a whole mixer's state whole), whole over the data axes. A
+    tied head's logits come from the rank's vocabulary rows: by an
+    all-to-all of the embedding at prefill, by an f32 reduce-scatter of
+    each rank's part at decode (``models/transformer._tied_logits``).
+    ``model_view``'s refusals raise."""
     shape = shd.MeshShape.from_mesh(mesh)
     view = shd.model_view(cfg, shape, mesh.coords.get("model", 0))
     model = mesh.axis("model") if "model" in mesh.groups else None

@@ -72,6 +72,7 @@ def _rank(rank, world, dev, work):
     ax.all_reduce_(torch.ones(10))
     ax.all_gather(torch.ones(6))
     ax.exchange(torch.ones(3), [1 - ax.index])
+    out["swapped"] = ax.all_to_all(torch.full((2, 3), float(ax.index)))
     out["scattered"] = ax.reduce_scatter(torch.arange(8.0).reshape(2, 4),
                                          dim=1)
     out["counter"] = dict(ax.wire_bytes)
@@ -222,7 +223,10 @@ def test_wire_counter_uses_the_reference_factors(sharded):
         assert r["counter"] == {"all-reduce": 2 * 1 / 2 * 40,
                                 "all-gather": 1 / 2 * 2 * 24,
                                 "reduce-scatter": 1 / 2 * 32,
+                                "all-to-all": 1 / 2 * 24,
                                 "collective-permute": 12.0}
+        assert torch.equal(r["swapped"],
+                           torch.tensor([[0.0] * 3, [1.0] * 3]))
         # the sum over both data ranks, this rank's half of the columns
         half = 2 * torch.arange(8.0).reshape(2, 4)
         col = r["coords"]["data"] * 2

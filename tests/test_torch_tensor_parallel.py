@@ -25,8 +25,9 @@ sLSTM FFN leaves, musicgen with 2 codebooks, each cut mid-vocabulary over
 two ranks), run the HEADS cases (query, mLSTM and sLSTM heads that do not
 divide over "model", on (1, 4) or (2, 2): a rank computes whole heads, its
 ``sharding.share``, while ``wq``'s and the mixers' stored blocks end
-mid-head), check the new collectives' gradients and lay a mesh over two
-of them.
+mid-head), the UNEVEN cases (a tied head; RG-LRU and sLSTM channels that
+do not divide over "model", that mixer whole on every rank), check the
+new collectives' gradients and lay a mesh over two of them.
 
 Held: the loss against one process's ``loss_fn`` on the global batch (its
 MoE routed per data shard, ``act_specs["moe"]["n_dp"]`` = 2, as the split
@@ -40,7 +41,8 @@ wire bytes a rank counted equal to ``roofline.step_wire_bytes`` exactly,
 and the model axis's all-reduces: as many more under ``"names"`` than
 under ``False`` as the mixers run inside their spans (mLSTM's gate sum),
 and under ``True`` the forward's again; the decode states' bytes equal to
-the dry run's plan. The configurations the split does not cover raise.
+the dry run's plan. A tied head with the audio frontend raises
+``ValueError``, as the reference fails there.
 
 The ranks start by ``spawn`` and import this module: it imports no JAX at
 module level. Tolerances: F32_TOL relative (f32 sums in another order:
@@ -125,6 +127,25 @@ HEADS = {
     "one_head_over_4": ("xlstm-1.3b", {"d_model": 64}, KV_MESH),
 }
 HEADS_REF = ("q_heads", "kv_groups", "rg_heads")   # also to the reference
+# a tied head (qwen2 on MESH and on KV_MESH: each rank's vocabulary rows of
+# the embedding by an all-to-all, at decode an f32 reduce-scatter of each
+# rank's part), RG-LRU channels that do not divide over "model"
+# (recurrentgemma at width 66 over 4: the mixer whole on every rank, the
+# embedding whole), both at once (tied_channels: a whole table sliced to a
+# rank's rows), and sLSTM channels (xlstm at width 62 over 4, the nearest
+# width to 66 the reference's mLSTM admits (one head of 124): the sLSTM
+# mixer whole, its gate and FFN columns gathered). Each held to one
+# process and to the reference (loss and gradients), at remat True.
+_RG66 = {"d_model": 66, "window": RING, "block_pattern": ("rglru", "swa"),
+         "n_layers": 2}
+UNEVEN = {
+    "tied": ("qwen2-7b", {"tie_embeddings": True}, MESH),
+    "tied_quad": ("qwen2-7b", {"tie_embeddings": True}, KV_MESH),
+    "rglru_channels": ("recurrentgemma-2b", _RG66, KV_MESH),
+    "tied_channels": ("recurrentgemma-2b", {**_RG66, "tie_embeddings": True},
+                      KV_MESH),
+    "slstm_channels": ("xlstm-1.3b", {"d_model": 62}, KV_MESH),
+}
 
 
 def _cfg(configs, aid, **over):
@@ -242,6 +263,7 @@ def _rank(rank, world, dev, work):
     quad = make_mesh(KV_MESH, device=dev)
     out["quad"] = _quad_ranks(quad, work)
     out["heads"] = _heads_ranks({MESH: mesh, KV_MESH: quad}, work)
+    out["uneven"] = _heads_ranks({MESH: mesh, KV_MESH: quad}, work, UNEVEN)
     out["collective"] = _collective_grads(mesh)
     out["sub"] = _sub_mesh(rank, dev)
     return out
@@ -346,11 +368,11 @@ def _quad_ranks(mesh, work):
     return out
 
 
-def _heads_ranks(meshes, work):
-    """Each HEADS case on its mesh (``meshes`` by its sizes): the train
-    value and gradient at remat True, the prefill with the flash calls it
-    made, ``_decode_run``'s decode from a fresh state, the wire bytes of
-    each."""
+def _heads_ranks(meshes, work, cases=HEADS):
+    """Each HEADS (or UNEVEN) case on its mesh (``meshes`` by its sizes):
+    the train value and gradient at remat True, the prefill with the flash
+    calls it made, ``_decode_run``'s decode from a fresh state, the wire
+    bytes of each."""
     from repro_torch.kernels import ops
     from repro_torch.train.step import (make_sharded_serve_step,
                                         make_sharded_value_and_grad)
@@ -361,7 +383,7 @@ def _heads_ranks(meshes, work):
         return inner(q, *args, **kw)
 
     out = {}
-    for case, (aid, over, sizes) in HEADS.items():
+    for case, (aid, over, sizes) in cases.items():
         mesh = meshes[sizes]
         shape = shd.MeshShape.from_mesh(mesh)
         cfg = _cfg(tcfg, aid, **over)
@@ -444,6 +466,15 @@ def split(tmp_path_factory):
             tt.tree_map(lambda t: t.numpy(), params),
             {k: v.numpy() for k, v in batch.items()}))
 
+    def ref_value_and_grad(jc, params, batch):
+        args = (tt.tree_map(lambda t: t.numpy(), params),
+                {k: v.numpy() for k, v in batch.items()})
+        loss, grads = jax.jit(jax.value_and_grad(lambda p, b: jloss_fn(
+            p, b, jc, remat=False, unroll_layers=True))).lower(*args).compile(
+            {"xla_backend_optimization_level": 0})(*args)
+        return float(loss), tt.tree_map(lambda a: torch.from_numpy(
+            np.array(a)), dict(grads))
+
     def decoded(tc, params, tokens, max_len, steps, **kw):
         with torch.inference_mode():
             state = tt.init_decode_state(tc, tokens.shape[0], max_len,
@@ -499,7 +530,7 @@ def split(tmp_path_factory):
                      "prefill": logits,
                      "decode": decoded(tc, params, batch["tokens"], SS,
                                        _steps(aid))}
-    for case, (aid, over, _) in HEADS.items():
+    for case, (aid, over, _) in {**HEADS, **UNEVEN}.items():
         tc = _cfg(tcfg, aid, **over)
         params = tt.init_params(torch.Generator().manual_seed(0), tc,
                                 device="cpu")
@@ -516,6 +547,9 @@ def split(tmp_path_factory):
                      "prefill": logits,
                      "decode": decoded(tc, params, batch["tokens"], SS,
                                        _steps(aid))}
+        if case in UNEVEN:
+            one[case]["ref_loss"], one[case]["ref_grads"] = \
+                ref_value_and_grad(_cfg(jcfg, aid, **over), params, batch)
     ranks = spawn_ranks(_rank, 4, backend="gloo", device="cpu",
                         args=(work,))
     return ranks, one
@@ -815,7 +849,8 @@ class _Axis:
         self.size, self.index = size, index
 
 
-@pytest.mark.parametrize("aid", SPLIT + tuple(QUAD) + tuple(HEADS))
+@pytest.mark.parametrize("aid", SPLIT + tuple(QUAD) + tuple(HEADS)
+                         + tuple(UNEVEN))
 def test_decode_state_is_the_dry_run_plan(aid):
     """``init_decode_state(model=)`` allocates exactly the dry run's
     per-rank decode-state plan (``decode_state_specs``) on each model
@@ -823,9 +858,9 @@ def test_decode_state_is_the_dry_run_plan(aid):
     and the recurrent states' channels and heads (whole, or a block that
     may end mid-head, where the heads do not divide)."""
     from repro_torch.launch import dryrun
-    if aid in HEADS:
-        cfg, sizes = _cfg(tcfg, HEADS[aid][0], **HEADS[aid][1]), \
-            HEADS[aid][2]
+    if aid in HEADS or aid in UNEVEN:
+        case = HEADS.get(aid) or UNEVEN[aid]
+        cfg, sizes = _cfg(tcfg, case[0], **case[1]), case[2]
     elif aid in QUAD:
         cfg, sizes = _cfg(tcfg, QUAD[aid][0], **QUAD[aid][1]), KV_MESH
     else:
@@ -938,8 +973,10 @@ def test_model_view_admits_every_architecture_on_production_meshes(
     in axis order, as even as whole heads allow (the larger first); each
     rank's kv heads are its own block where they divide, else
     ``kv_read`` of its heads; ``q_cols`` / ``mlstm_cols`` / ``slstm_cols``
-    are wq's, w_up's and w_gates' stored column blocks. A tied head still
-    raises, naming ROADMAP."""
+    are wq's, w_up's and w_gates' stored column blocks. A tied head is
+    admitted with the same vocabulary blocks, the embedding cut over
+    "model" (its rows come by an all-to-all); the audio frontend's raises
+    ``ValueError``."""
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models.recurrent import _slstm_hd, mlstm_heads
     cfg = tcfg.get_arch(aid)
@@ -977,8 +1014,14 @@ def test_model_view_admits_every_architecture_on_production_meshes(
         else:
             assert v.kv_heads == shd.kv_read(cfg.n_heads, cfg.n_kv_heads,
                                              v.heads)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shd.model_view(dataclasses.replace(cfg, tie_embeddings=True), mesh)
+    tied = dataclasses.replace(cfg, tie_embeddings=True)
+    if cfg.frontend == "audio_codec":
+        with pytest.raises(ValueError, match="audio_codec"):
+            shd.model_view(tied, mesh)
+        return
+    for m in range(tp):
+        v = shd.model_view(tied, mesh, m)
+        assert v.vocab == views[m].vocab and v.embed_cut and not v.whole
 
 
 @pytest.mark.parametrize("n,tp", [(28, 16), (10, 16), (8, 16), (24, 16),
@@ -1025,26 +1068,103 @@ def _fake_mesh(sizes):
                 torch.device("cpu"), "gloo")
 
 
-@pytest.mark.parametrize("case", ["tied", "rglru_channels",
-                                  "slstm_channels"])
-def test_split_refused_where_it_does_not_divide(case):
-    """A tied head, RG-LRU channels (recurrentgemma at width 66 over 4) and
-    sLSTM channels (xlstm at width 66 over 4) that do not divide over
-    "model" raise, naming ROADMAP, in the train step and the serve step
-    alike."""
+def test_split_refuses_a_tied_audio_head():
+    """A tied head with the audio frontend (musicgen) has no meaning (the
+    reference's logits are ``None`` there): the train step and the serve
+    step raise ``ValueError`` naming it."""
     from repro_torch.train.step import (make_sharded_serve_step,
                                         make_sharded_train_step)
-    cfg, sizes = _cfg(tcfg, "qwen2-7b"), KV_MESH
-    if case == "tied":
-        cfg = dataclasses.replace(cfg, tie_embeddings=True)
-    else:
-        cfg = _cfg(tcfg, {"rglru_channels": "recurrentgemma-2b",
-                          "slstm_channels": "xlstm-1.3b"}[case], d_model=66)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sharded_train_step(cfg, AdamWConfig(), _fake_mesh(sizes),
+    cfg = dataclasses.replace(_cfg(tcfg, "musicgen-medium"),
+                              tie_embeddings=True)
+    with pytest.raises(ValueError, match="audio_codec"):
+        make_sharded_train_step(cfg, AdamWConfig(), _fake_mesh(KV_MESH),
                                 global_batch=SB, split_model=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sharded_serve_step(cfg, _fake_mesh(sizes), SB)
+    with pytest.raises(ValueError, match="audio_codec"):
+        make_sharded_serve_step(cfg, _fake_mesh(KV_MESH), SB)
+
+
+@pytest.mark.parametrize("case", UNEVEN)
+def test_uneven_split_trains_as_one_process_and_reference(split, case):
+    """UNEVEN: the split loss against one process's and the reference's,
+    every gradient leaf gathered back against one process's and
+    ``jax.value_and_grad`` of the reference's loss (the tied ``embed``
+    carrying the lookup's and the head's), the grad norm, at remat
+    True."""
+    ranks, one = split
+    o = one[case]
+    np.testing.assert_allclose(o["loss"], o["ref_loss"], rtol=F32_TOL)
+    errs = _leaf_errs(o["grads"], o["ref_grads"])
+    assert max(errs.values()) <= F32_TOL, errs
+    want_norm = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in
+                                     _tree.tree_leaves(o["grads"]))))
+    for r in (r["uneven"][case] for r in ranks):
+        np.testing.assert_allclose(r["loss"], o["loss"], rtol=F32_TOL)
+        np.testing.assert_allclose(r["loss"], o["ref_loss"], rtol=F32_TOL)
+        np.testing.assert_allclose(r["grad_norm"], want_norm, rtol=F32_TOL)
+        for want in (o["grads"], o["ref_grads"]):
+            errs = _leaf_errs(r["grads"], want)
+            assert max(errs.values()) <= F32_TOL, sorted(
+                errs.items(), key=lambda kv: -kv[1])[:3]
+
+
+@pytest.mark.parametrize("case", UNEVEN)
+def test_uneven_split_serves_as_one_process(split, case):
+    """UNEVEN: the prefill's and every decode step's logits, each rank's
+    vocabulary block put together, against one process (a tied head's
+    decode through the reduce-scatter of f32 parts)."""
+    ranks, one = split
+    o = one[case]
+    res = [r["uneven"][case] for r in ranks]
+    got = _by_coords(res, lambda r: r["prefill"])
+    want = o["prefill"].flatten(2)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= SERVE_TOL * float(
+        want.abs().max())
+    assert len(o["decode"]) == len(res[0]["decode"])
+    for t, want in enumerate(o["decode"]):
+        got = _by_coords(res, lambda r: r["decode"][t])
+        assert float((got - want.flatten(2)).abs().max()) <= \
+            SERVE_TOL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("case", UNEVEN)
+def test_uneven_split_bytes_equal_the_plan(split, case):
+    """UNEVEN: the wire bytes of the train step, the prefill and each
+    decode step equal ``step_wire_bytes`` exactly (a tied head's
+    all-to-alls, or a whole table's gathered gradient; a whole mixer's
+    leaf gathers), the decode state's bytes the dry run's plan (a whole
+    mixer's state whole on every rank); ``model_view`` admits the
+    configuration, the whole mixers named."""
+    from repro_torch.launch import dryrun
+    ranks, one = split
+    cfg = one[case]["cfg"]
+    mesh = shd.MeshShape.of(*UNEVEN[case][2])
+    tp = mesh.shape["model"]
+    views = [shd.model_view(cfg, mesh, m) for m in range(tp)]
+    kinds = set(cfg.pattern_for_layers()) & {"rglru", "slstm"}
+    assert all(v.whole == tuple(sorted(kinds, key=("rglru", "slstm").index))
+               for v in views)
+    assert all(v.embed_cut == (cfg.d_model % tp == 0) for v in views)
+    plans = {kind: roofline.step_wire_bytes(
+        cfg, ShapeConfig(kind, SS, SB, kind), mesh, split_model=True)
+        for kind in ("train", "prefill", "decode")}
+    if case in ("tied", "tied_quad"):
+        assert plans["train"]["model"]["all-to-all"] == 2 * plans[
+            "prefill"]["model"]["all-to-all"] > 0
+        assert plans["decode"]["model"]["all-to-all"] == 0
+        assert plans["decode"]["model"]["reduce-scatter"] > 0
+    state = dryrun.memory_plan(cfg, ShapeConfig("decode", SS, SB, "decode"),
+                               mesh, AdamWConfig())["decode_state"]
+    for r in (r["uneven"][case] for r in ranks):
+        for kind, wires in (("train", [r["wire"]]),
+                            ("prefill", [r["prefill_wire"]]),
+                            ("decode", r["decode_wire"])):
+            for wire in wires:
+                for a, want in plans[kind].items():
+                    for k in want:
+                        assert wire[a][0][k] == want[k], (kind, a, k)
+                    assert wire[a][0]["collective-permute"] == 0.0
+        assert r["state_bytes"] == state["bytes"]
 
 
 def _by_coords(res, key):

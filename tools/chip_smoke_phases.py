@@ -2,15 +2,16 @@
 
     python3 tools/chip_smoke_phases.py [tp_step] [remat] [tp_serve]
         [tp_recurrent] [tp_recurrent_serve] [tp_frontends]
-        [tp_long_decode] [tp_frontends_serve] [tp_heads]
+        [tp_long_decode] [tp_frontends_serve] [tp_heads] [tp_tied]
 
-Builds the kernels, then runs the named phases (default: all nine) with
+Builds the kernels, then runs the named phases (default: all ten) with
 chip_smoke.py's own functions and prints their JSON lines: ``tp_step``,
-``tp_recurrent``, ``tp_frontends``, ``tp_long_decode`` and ``tp_heads``
-run ``sharded_step`` first (its ranks run both routes, the recurrent
-families' and the frontends' split, the batch-1 decodes and the heads
-that do not divide over "model" on (1, 4), one spawn for all; tp_heads
-also times the row ``flash_attention_head_offset``),
+``tp_recurrent``, ``tp_frontends``, ``tp_long_decode``, ``tp_heads`` and
+``tp_tied`` run ``sharded_step`` first (its ranks run both routes, the
+recurrent families' and the frontends' split, the batch-1 decodes, the
+heads that do not divide over "model" and the tied head on (1, 4), one
+spawn for all; tp_heads also times the row
+``flash_attention_head_offset``, whose launches tp_tied adds to),
 ``tp_serve``, ``tp_recurrent_serve`` and ``tp_frontends_serve`` run
 tp_serve's ranks (one spawn for the three); the ``kernels`` line of the
 rows they timed comes last. A failed check is printed and the next phase
@@ -27,9 +28,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PHASES = ("tp_step", "remat", "tp_serve", "tp_recurrent",
           "tp_recurrent_serve", "tp_frontends", "tp_long_decode",
-          "tp_frontends_serve", "tp_heads")
+          "tp_frontends_serve", "tp_heads", "tp_tied")
 SHARDED = ("tp_step", "tp_recurrent", "tp_frontends", "tp_long_decode",
-           "tp_heads")
+           "tp_heads", "tp_tied")
 
 
 def main() -> None:
@@ -74,8 +75,8 @@ def main() -> None:
                     cs.tp_recurrent_phase(dev, card, sharded, name,
                                           cs.TP_FRONT_TRAIN,
                                           "_frontends_ranks")
-                elif name == "tp_heads":
-                    cs.tp_heads_phase(dev, rows, record, card, sharded)
+                elif name in ("tp_heads", "tp_tied"):
+                    cs.tp_heads_phase(dev, rows, record, card, sharded, name)
                 else:
                     cs.tp_long_decode_phase(dev, card, sharded)
             elif name == "remat":
