@@ -389,7 +389,10 @@ power limit and the memory it plans beside the peak it read:
   2048 prefill through row 9 on 14 query / 2 kv heads a rank, then 16
   teacher-forced decode steps, the logits against one process within
   LOGITS_TOL, 4 flash launches a rank on the tensor cores, the prefill's
-  wire bytes equal to the plan. The row ``flash_attention_tp_shard`` times
+  wire bytes equal to the plan; then TP_INT8_STEPS decode steps with the
+  int8 KV cache (``kv_quant``) under the same split, within KV_QUANT_TOL
+  of the bf16 split's, the state's bytes (``k_scale`` / ``v_scale``
+  included) equal to the plan. The row ``flash_attention_tp_shard`` times
   row 9 at that shape against plain and SDPA and takes the ranks'
   launches.
 * ``tp_recurrent``: the split over "model" for xlstm-1.3b, run by
@@ -483,11 +486,12 @@ just after it; launches made to compare or time a kernel do not count.
 Every gram-apply and slab-apply launch of the main path must have taken the
 TMA route (``gram_update.ROUTE_LAUNCHES``, ``slab_ops.ROUTE_LAUNCHES``) and
 every slab tq launch the tiled kernel (``slab_ops.TQ_ROUTE_LAUNCHES``), but
-bdot_sparse's grid launches, which must take the packed route: the rows
-count them as ``tma_launches`` and ``packed_launches``. Row 1 at
-sdot_sparse's own shape (4,096 nodes of 784 x 16, r = 5) has a row of its
-own, ``batched_gram_apply_sdot_sparse``, which takes the launches of
-sdot_sparse and sparse_faulty.
+bdot_sparse's grid launches and sdot_sparse's / sparse_faulty's gram-apply
+launches, which must take the packed route: the rows count them as
+``tma_launches`` and ``packed_launches``. Row 1 at sdot_sparse's own shape
+(4,096 nodes of 784 x 16, r = 5) has a row of its own,
+``batched_gram_apply_sdot_sparse``, timed on the packed route, which takes
+the launches of sdot_sparse and sparse_faulty (SPARSE_GRAM_LAUNCHES).
 Before the last line it prints ``{"kernels": [...]}`` and the card's name and
 power limit; the last line is ``{"ok": true, "device": {...}}``. Any failed
 build, launch or check exits nonzero. With no CUDA device it exits 2 and
@@ -514,6 +518,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_TC_FLOP_PER_S = 989e12   # H100 SXM bf16 on the tensor cores, dense
 GRAM_TOL = 1e-5               # f32 sums in another order, relative to |V|
+# runs of T_o gram-apply launches at sdot_sparse's stack, all on the packed
+# route: sdot_sparse's S-DOT, SA-DOT bf16 and f32, sparse_faulty's f32, bf16
+SPARSE_GRAM_LAUNCHES = 5
 SLAB_TOL = 1e-5               # the same, relative to max |Z| or |V|
 ELL_TOL = 1e-6                # same (quantised) source both sides, rel. |out|
 GRAM_QR_TOL = 1e-5            # f32 sums in another order, relative to |G|
@@ -2421,6 +2428,9 @@ TP_GNORM_TOL = 2.0 ** -7
 TP_SERVE_ARCH, TP_SERVE_LAYERS = "qwen2-7b", 4
 TP_SERVE_BATCH, TP_SERVE_SEQ, TP_DECODE_STEPS = 2, 2048, 16
 TP_SERVE_MESH = (("data", 1), ("model", 2))
+# then TP_INT8_STEPS decode steps with the int8 KV cache under the same
+# split, within KV_QUANT_TOL of the bf16 split's, the state's bytes the plan
+TP_INT8_STEPS = 4
 # tp_recurrent: the split over "model" for the recurrent families at full
 # width, cut in depth: xlstm-1.3b at 4 of 48 layers (2 mLSTM + sLSTM pairs)
 # at 4 x 256: TP_REC_STEPS steps in sharded_step's ranks on (2, 2), held to
@@ -3778,7 +3788,8 @@ def tp_serve_rank(rank, world, dev):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import sharding as shd
     from repro_torch.models.transformer import init_decode_state, init_params
-    from repro_torch.train.step import make_sharded_serve_step
+    from repro_torch.train.step import (make_sharded_serve_step,
+                                        sharded_decode_state)
     cfg = tp_serve_cfg()
     mesh = make_mesh(TP_SERVE_MESH, device=dev)
     shape = shd.MeshShape.from_mesh(mesh)
@@ -3825,6 +3836,24 @@ def tp_serve_rank(rank, world, dev):
                decode_staged_bytes_a_step=(mesh.host_staged_bytes - staged)
                / TP_DECODE_STEPS,
                decode=torch.cat(steps, dim=1).cpu())
+    # the int8 KV cache under the same split: TP_INT8_STEPS steps from a
+    # fresh state, against the bf16 split's first steps
+    del state, steps
+    cfg_q = dataclasses.replace(cfg, kv_quant=True)
+    _, decode_q = make_sharded_serve_step(cfg_q, mesh, TP_SERVE_BATCH)
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    state = sharded_decode_state(cfg_q, mesh, TP_SERVE_BATCH, TP_SERVE_SEQ)
+    torch.cuda.synchronize(dev)
+    out["int8_state_bytes"] = torch.cuda.memory_allocated(dev) - base
+    steps = []
+    t0 = time.perf_counter()
+    for t in range(TP_INT8_STEPS):
+        lg, state = decode_q(params, state, local["tokens"][:, t:t + 1])
+        steps.append(lg)
+    torch.cuda.synchronize(dev)
+    out.update(int8_decode_ms_a_step=(time.perf_counter() - t0) * 1e3
+               / TP_INT8_STEPS, decode_int8=torch.cat(steps, dim=1).cpu())
     del params, state, steps, lg
     gc.collect()
     torch.cuda.empty_cache()
@@ -3926,12 +3955,15 @@ def tp_serve_phase(dev, rows: dict, record, card: str) -> None:
     / 2 kv heads, then teacher-forced decode, against one process at
     LOGITS_TOL. Row 9 is timed and held to its plain version at the
     shard's shape first (row ``flash_attention_tp_shard``), and takes the
-    ranks' prefill launches."""
+    ranks' prefill launches. Then TP_INT8_STEPS decode steps with the int8
+    KV cache under the same split, within KV_QUANT_TOL of the bf16 split's
+    first steps, its decode state's bytes the dry run's plan."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import make_lm_batch
     from repro_torch.kernels import ops
-    from repro_torch.launch import roofline
+    from repro_torch.launch import dryrun, roofline
     from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.models import sharding as shd
     from repro_torch.models.transformer import (decode_step, forward,
                                                 init_decode_state,
@@ -4047,6 +4079,13 @@ def tp_serve_phase(dev, rows: dict, record, card: str) -> None:
     want_wire = roofline.step_wire_bytes(
         cfg, ShapeConfig("tp_serve", s, b, "prefill"), mesh,
         split_model=True)
+    cfg_q = dataclasses.replace(cfg, kv_quant=True)
+    int8_plan = dryrun.memory_plan(
+        cfg_q, ShapeConfig("tp_serve", s, b, "decode"), mesh,
+        AdamWConfig())["decode_state"]
+    int8 = compare(
+        torch.cat([r["decode_int8"] for r in ranks], dim=-1),
+        torch.cat([r["decode"][:, :TP_INT8_STEPS] for r in ranks], dim=-1))
     line = {"phase": "tp_serve", "arch": cfg.name, "layers": cfg.n_layers,
             "mesh": mesh.shape, "backend": "gloo", "batch": b, "seq": s,
             "heads_a_rank": [hq, hkv], "decode_steps": TP_DECODE_STEPS,
@@ -4068,8 +4107,24 @@ def tp_serve_phase(dev, rows: dict, record, card: str) -> None:
                 r["decode_staged_bytes_a_step"] for r in ranks],
             "prefill_wire_rank0": ranks[0]["prefill_wire"],
             "planned_prefill_wire": want_wire,
+            "int8_kv_cache": {
+                "steps": TP_INT8_STEPS,
+                "vs_bf16_split": dict(zip(
+                    ("rel_rms", "max_abs", "top1_agreement"), int8)),
+                "tolerance": KV_QUANT_TOL,
+                "ms_a_step_by_rank": [r["int8_decode_ms_a_step"]
+                                      for r in ranks],
+                "state_bytes_by_rank": [r["int8_state_bytes"]
+                                        for r in ranks],
+                "planned_state_bytes": int8_plan["alloc"]},
             "spawn_and_run_s": spawn_s, "card": card}
     emit(line)
+    check(int8[0] <= KV_QUANT_TOL, f"tp_serve: the int8 KV cache's logits "
+          f"{int8[0]} (relative RMS) from the bf16 split's > {KV_QUANT_TOL}")
+    for r in ranks:
+        check(r["int8_state_bytes"] == int8_plan["alloc"], f"tp_serve: "
+              f"rank {r['coords']} int8 decode state {r['int8_state_bytes']} "
+              f"bytes, the plan {int8_plan['alloc']}")
     check(pre[0] <= LOGITS_TOL, f"tp_serve: prefill logits {pre[0]} "
           f"(relative RMS) from one process > {LOGITS_TOL}")
     check(dec[0] <= LOGITS_TOL, f"tp_serve: decode logits {dec[0]} "
@@ -4496,20 +4551,22 @@ def main() -> None:
     rows = {}
     record = make_record(rows)
 
-    def tma_only(where, launches, packed=False):
+    def tma_only(where, launches, packed=False, gram_packed=False):
         """Every gram-apply and slab-apply launch since the last reset took
         the TMA route and every slab tq launch the tiled kernel, but where
-        ``packed`` the grid kernels' launches, which took the packed route
-        (bulk copies): count them on the rows."""
+        ``packed`` the grid kernels' launches, and where ``gram_packed``
+        the batched gram-apply launches (at sdot_sparse's stack), which
+        took the packed route (bulk copies): count them on the rows."""
         n = {k: launches.get(k, 0) for k in (
             "batched_gram_apply", "gram_apply", "batched_slab_apply",
             "grid_block_apply", "batched_slab_tq", "grid_block_tq")}
         pk_tq = n["grid_block_tq"] if packed else 0
         pk_ap = n["grid_block_apply"] if packed else 0
+        pk_gram = n["batched_gram_apply"] if gram_packed else 0
         for label, counts, want in (
                 ("gram-apply", gram_update.ROUTE_LAUNCHES,
-                 {"tma": n["batched_gram_apply"] + n["gram_apply"],
-                  "cp_async": 0}),
+                 {"tma": n["batched_gram_apply"] + n["gram_apply"] - pk_gram,
+                  "cp_async": 0, "packed": pk_gram}),
                 ("slab-apply", slab_ops.ROUTE_LAUNCHES,
                  {"tma": n["batched_slab_apply"] + n["grid_block_apply"]
                   - pk_ap, "cp_async": 0, "packed": pk_ap,
@@ -4521,6 +4578,8 @@ def main() -> None:
                   f"route {dict(counts)}, expected {want}")
         for k in ("batched_gram_apply", "gram_apply", "batched_slab_apply"):
             rows[k]["tma_launches"] += n[k]
+        rows["batched_gram_apply"]["tma_launches"] -= pk_gram
+        rows["batched_gram_apply_sdot_sparse"]["packed_launches"] += pk_gram
         rows["grid_block_apply"]["tma_launches"] += n["grid_block_apply"] \
             - pk_ap
         if packed:
@@ -4549,8 +4608,13 @@ def main() -> None:
            GRAM_TOL, "f32 sums in another order than cuBLAS; relative to "
            "max |V|", host=True)
     # row 1 at sdot_sparse's own shape: 4,096 nodes of 784 x 14-15 samples
-    # (16 on the card), many small blocks; measured, not redesigned
+    # (16 on the card), many small nodes: the packed route (a node whole in
+    # a ring stage, X_i and Q_i bulk-copied)
     x_sp_stack, n_sp_true = _stack_data(sp_blocks, dev)
+    check(gram_update.packed_plan(n_sp, ds, x_sp_stack.shape[2], rs,
+                                  *_launch.card(0)).route == "packed",
+          "row 1 at sdot_sparse's stack: the planner did not pick the "
+          "packed route")
     q_sp_stack = torch.linalg.qr(torch.randn((n_sp, ds, rs), generator=gen,
                                              device=dev))[0].contiguous()
     record("batched_gram_apply_sdot_sparse",
@@ -4565,8 +4629,10 @@ def main() -> None:
            4.0 * x_sp_stack.numel() * rs, GRAM_TOL,
            "f32 sums in another order than cuBLAS; relative to max |V|",
            host=True)
-    rows["batched_gram_apply_sdot_sparse"]["shape"] = \
-        list(x_sp_stack.shape) + [rs]
+    rows["batched_gram_apply_sdot_sparse"].update(
+        shape=list(x_sp_stack.shape) + [rs], packed_launches=0,
+        kernel="gram_apply_packed_kernel")
+    rows["batched_gram_apply_sdot_sparse"].pop("tma_launches")
     del x_sp_stack, q_sp_stack, n_sp_true
     sw = sp_eng._w
     k_payload = ds * rs
@@ -4911,6 +4977,8 @@ def main() -> None:
                             fragment)
         for name, lib, fragment in (
             ("gram_apply", "gram_update", "gram_apply_kernelILi8ELi4E"),
+            ("gram_apply_packed", "gram_update",
+             "gram_apply_packed_kernelILi5ELb1ELi4ELi16E"),
             ("slab_apply", "slab_ops", "slab_apply_kernelILi7ELb1E"))}
     emit({"phase": "kernels",
           "gram_slab_apply_ptxas": stream_ptxas,
@@ -5004,7 +5072,7 @@ def main() -> None:
     emit({"phase": "sdot_dense", "d": d, "r": r, "nodes": n_nodes,
           "samples": n_total, "t_outer": t_outer, "runs": runs})
     psa_groups = {"gram_qr": ("gram_qr_",),
-                  "gram_apply": ("gram_apply_kernel",),
+                  "gram_apply": ("gram_apply_kernel", "gram_apply_packed"),
                   "slab_grid": ("slab_tq", "slab_apply"),
                   "gemm": ("gemm", "nvjet", "xmma", "cutlass", "splitk",
                            "gemv")}
@@ -5138,10 +5206,10 @@ def main() -> None:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0, dict(ops.LAUNCHES)
 
-    def count_path(where, launches, want, packed=False):
+    def count_path(where, launches, want, packed=False, gram_packed=False):
         """Every kernel of ``want`` launched exactly so often; add the
         launches to the rows."""
-        tma_only(where, launches, packed)
+        tma_only(where, launches, packed, gram_packed)
         for name, count in want.items():
             check(launches[name] == count, f"{where}: {launches[name]} "
                   f"{name} launches, expected {count}")
@@ -5149,10 +5217,10 @@ def main() -> None:
 
     def to_small_n_gram(count):
         """``count`` gram-apply launches of the last run were at
-        sdot_sparse's shape: move them to that row."""
-        for key in ("launches", "tma_launches"):
-            rows["batched_gram_apply"][key] -= count
-            rows["batched_gram_apply_sdot_sparse"][key] += count
+        sdot_sparse's shape (on the packed route, which ``tma_only`` counted
+        on that row): move them to that row."""
+        rows["batched_gram_apply"]["launches"] -= count
+        rows["batched_gram_apply_sdot_sparse"]["launches"] += count
 
     def with_state(program):
         """Run ``program`` whole; (its result, its final RunState)."""
@@ -5983,7 +6051,7 @@ def main() -> None:
     torch.cuda.synchronize()
     wall_sparse = time.perf_counter() - t0
     launches_sparse = dict(ops.LAUNCHES)
-    tma_only("sdot_sparse", launches_sparse)
+    tma_only("sdot_sparse", launches_sparse, gram_packed=True)
     rounds = int(sparse_res.consensus_trace.sum())
     check(launches_sparse["ell_spmm"] == rounds + 20,
           f"sparse: {launches_sparse['ell_spmm']} ELL launches, expected "
@@ -6016,7 +6084,7 @@ def main() -> None:
     torch.cuda.synchronize()
     wall_bf = time.perf_counter() - t0
     launches_bf = dict(ops.LAUNCHES)
-    tma_only("sdot_sparse bf16", launches_bf)
+    tma_only("sdot_sparse bf16", launches_bf, gram_packed=True)
     rows["ell_spmm_bf16"]["launches"] += launches_bf["ell_spmm"]
     rows["batched_gram_apply"]["launches"] += launches_bf["batched_gram_apply"]
     rows["gram_qr"]["launches"] += launches_bf["gram_qr"]
@@ -6034,7 +6102,7 @@ def main() -> None:
     torch.cuda.synchronize()
     wall_sa = time.perf_counter() - t0
     launches_sa = dict(ops.LAUNCHES)
-    tma_only("sdot_sparse sadot f32", launches_sa)
+    tma_only("sdot_sparse sadot f32", launches_sa, gram_packed=True)
     for name in ("ell_spmm", "batched_gram_apply", "gram_qr"):
         rows[name]["launches"] += launches_sa[name]
     to_small_n_gram(launches_sa["batched_gram_apply"])
@@ -6105,7 +6173,7 @@ def main() -> None:
     live_rounds = int(res_sf.consensus_trace.sum())
     count_path("sparse_faulty", launches,
                {"ell_spmm": live_rounds, "batched_gram_apply": t_sp,
-                "gram_qr": QR_PASSES * t_sp})
+                "gram_qr": QR_PASSES * t_sp}, gram_packed=True)
     to_small_n_gram(t_sp)
     res_sd, wall_sd, _ = timed_run(lambda: sdot(
         engine=FaultyConsensus(sp_graph, sp_model, seed=7, sparse=False,
@@ -6115,7 +6183,7 @@ def main() -> None:
                                payload_dtype="bfloat16", device=dev)
     res_sb, wall_sb, launches_b = timed_run(lambda: sdot(
         engine=bf_f_eng, draws=sp_draws, **sp_kw))
-    tma_only("sparse_faulty bf16", launches_b)
+    tma_only("sparse_faulty bf16", launches_b, gram_packed=True)
     check(launches_b["ell_spmm"] == live_rounds, "sparse_faulty bf16: "
           f"{launches_b['ell_spmm']} ELL launches, expected {live_rounds}")
     rows["ell_spmm_bf16"]["launches"] += launches_b["ell_spmm"]
@@ -6150,6 +6218,12 @@ def main() -> None:
     check(bf_err <= BF16_PAYLOAD_TOL, f"sparse_faulty: bf16 messages "
           f"{bf_err} from the f32 run (max per node) > {BF16_PAYLOAD_TOL}")
     del f_eng, bf_f_eng, sp_draws, res_sf, res_sd, res_sb
+    sp_row = rows["batched_gram_apply_sdot_sparse"]
+    check(sp_row["launches"] == sp_row["packed_launches"]
+          == SPARSE_GRAM_LAUNCHES * t_sp,
+          f"row 1 at sdot_sparse's stack: {sp_row['launches']} launches, "
+          f"{sp_row['packed_launches']} packed, expected "
+          f"{SPARSE_GRAM_LAUNCHES * t_sp} on the packed route")
 
     # -- bdot_sparse: B-DOT over a 4 x 4096 grid, stacked sparse row engines --
     # sdot_sparse's MNIST-width data: 4 feature slabs of 196 by 4,096 sample

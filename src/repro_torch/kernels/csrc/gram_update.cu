@@ -54,6 +54,50 @@
 // Shared memory: stages x ceil(d / 256) boxes of (min(d, 256) x bn) floats,
 // each box 1024-byte aligned; 8 x 64 floats for the warps' sums, 64 for z,
 // one mbarrier a stage. gram_update.py's ``smem_bytes`` is the same sum.
+//
+// The packed route (nodes of few samples: sdot_sparse's 4,096 nodes of 784 x
+// 16, r = 5). There a node is one tile of 64-byte rows, and the stream above
+// pays for each node what it spreads over many tiles at large n: Q_i loaded
+// into registers outside the ring, a butterfly and a cross-warp sum a column
+// batch, ~31 nodes walked one after another, each TMA box a run of 64-byte
+// segments. Yet X_i (d n floats) and Q_i (d r) are each one contiguous run
+// of memory. The packed kernel, one launch a call:
+//  * a persistent grid, at most one block an SM; block g walks the nodes
+//    [starts[g], starts[g + 1]) (the wrapper's ``packed_plan``, from the
+//    shapes alone). A ring stage holds one node whole: X_i and Q_i, each
+//    taken by one 1-D bulk copy (cp.async.bulk) completing on the stage's
+//    full mbarrier. The 8 consumer warps are two groups of 4, group g
+//    taking the range's nodes g, g + 2, ...: while one group waits at its
+//    own barriers (named 1 and 2) the other computes, so two nodes are in
+//    the SM at a time. A producer warp refills a stage as soon as the 4
+//    warps of its group have each arrived on its empty mbarrier, so no
+//    warp waits for another at the end of a node.
+//  * z = X_i^T Q_i from the stage: the group's warps take 4 ranges of the
+//    d rows, a warp's lanes being (column unit, row phase) pairs, a unit a
+//    float4 of columns (n % 4 == 0, r <= 16) or one column; each lane sums
+//    its rows in order, the row phases are added by xor shuffles in one
+//    fixed order, and the warps' sums in warp order through shared memory
+//    (two slots a group, by the parity of its nodes), divided by n_true:
+//    z'.
+//  * V_i = X_i z' from the same stage: a thread takes a row, holds z' (n <=
+//    32 rows, up to 128 values; wider r in passes) in registers and sums
+//    the row of X against it (no shuffle; the row's loads issued with no
+//    branch between them, their chunks rotated over the lanes so that a
+//    quarter warp reads 8 different banks); consecutive lanes store
+//    consecutive rows of V. X and Q are read from device memory once and V
+//    written once. A node is whole in one block: no partials, no tickets,
+//    the same bits on every run.
+//  * Columns past ceil(n_true[i]) are masked with a select in both
+//    products, so padding that holds NaN cannot leak. f32 FMAs on the CUDA
+//    cores.
+//  * What holds it back (PERF.md): with one group of 8 warps a node's
+//    compute (z, the two barriers and the warp-order sum between them, z'
+//    into registers, V) took longer than its bytes; two groups bring the
+//    compute alone under the ring alone, but 227 KB hold 3 stages, two of
+//    them computed on, so one node's bytes are in flight at a time.
+// Shared memory: stages x (d (n + r) floats, 128-byte aligned), the warps'
+// sums of z (2 slots of 4 n r floats a group), a full and an empty mbarrier
+// a stage (``packed_smem_bytes`` in gram_update.py).
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -393,6 +437,290 @@ cudaError_t launch_rows(int rows, const CUtensorMap& map, const GramArgs& a,
   return cudaErrorInvalidValue;
 }
 
+// -- the packed route -------------------------------------------------------
+constexpr int kPackedAlign = 128;     // a stage's alignment in shared memory
+constexpr int kPackedMaxStages = 8;
+constexpr int kPackedMaxN = 32;       // columns of z' a lane holds (NCOL)
+constexpr int kPackedWarps = 8;       // a packed block's consumer warps
+constexpr int kPackedGroups = 2;      // groups of them, each on its own nodes
+constexpr int kGroupWarps = kPackedWarps / kPackedGroups;
+constexpr int kPackedThreads = 32 * (kPackedWarps + 1);   // + the producer
+
+// A stage of the packed ring: X_i (d x n), then Q_i (d x r), 128-byte aligned.
+__host__ __device__ inline size_t packed_stage_bytes(int d, int n, int r) {
+  return (4 * (size_t)d * (n + r) + kPackedAlign - 1) &
+         ~(size_t)(kPackedAlign - 1);
+}
+
+// Dynamic shared memory of a packed block: alignment slack, the ring, the
+// consumer warps' sums of z in two slots a group (by the parity of the
+// group's nodes), a full and an empty mbarrier a stage.
+inline size_t packed_smem_bytes(int d, int n, int r, int stages) {
+  return kPackedAlign + stages * packed_stage_bytes(d, n, r) +
+         2 * 4 * (size_t)kPackedWarps * n * r + 16 * (size_t)stages;
+}
+
+struct PackedArgs {
+  const float* x;                   // (nodes, d, n)
+  const float* q;                   // (nodes, d, r)
+  const float* n_true;              // (nodes,)
+  float* v;                         // (nodes, d, r) output
+  const int* starts;                // (grid + 1,): a block's first node
+  int d, n, r, U, stages;           // U: lanes a row (a power of two <= 32)
+};
+
+// x[k, cu VEC : cu VEC + VEC] from a staged row, columns at or past ``ncols``
+// read as 0 (a select: NaN in the padding does not leak).
+template <int VEC>
+__device__ __forceinline__ void packed_row(const float* row, int cu, int ncols,
+                                           float (&xv)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 w = *reinterpret_cast<const float4*>(row + 4 * cu);
+    xv[0] = w.x;
+    xv[1] = w.y;
+    xv[2] = w.z;
+    xv[3] = w.w;
+  } else {
+    xv[0] = row[cu];
+  }
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) xv[e] = cu * VEC + e < ncols ? xv[e] : 0.f;
+}
+
+// A consumer group's own barrier (named 1 + group; the producer warp and
+// the other group are not in it).
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "n"(kGroupWarps * 32)
+               : "memory");
+}
+
+template <int R, bool EXACT, int VEC, int NCOL>
+__global__ void __launch_bounds__(kPackedThreads, 1)
+gram_apply_packed_kernel(const PackedArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base =
+      (raw + kPackedAlign - 1) & ~(uint32_t)(kPackedAlign - 1);
+  unsigned char* basep = smem_raw + (base - raw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d = a.d, n = a.n, r = a.r, stages = a.stages, U = a.U;
+  const uint32_t stage_bytes = (uint32_t)packed_stage_bytes(d, n, r);
+  const int slot_floats = kGroupWarps * n * r;
+  float* red0 = reinterpret_cast<float*>(basep + stages * stage_bytes);
+  const uint32_t full0 =
+      base + stages * stage_bytes + 8u * kPackedWarps * n * r;
+  const uint32_t empty0 = full0 + 8 * stages;
+  const uint32_t x_bytes = 4u * d * n, q_bytes = 4u * d * r;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(full0 + 8 * s, 1);
+      hopper::mbar_init(empty0 + 8 * s, kGroupWarps);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int first = a.starts[blockIdx.x], count =
+      a.starts[blockIdx.x + 1] - first;
+  if (warp == kPackedWarps) {
+    // the producer: node seq into stage seq % stages once the consumers
+    // are done with the node before it there
+    if (lane == 0) {
+      for (int seq = 0; seq < count; ++seq) {
+        const int s = seq % stages;
+        if (seq >= stages)
+          hopper::mbar_wait(empty0 + 8 * s, (seq / stages - 1) & 1);
+        const size_t node = first + seq;
+        const uint32_t dst = base + s * stage_bytes, bar = full0 + 8 * s;
+        hopper::mbar_expect_tx(bar, x_bytes + q_bytes);
+        hopper::bulk_load(dst, a.x + node * d * n, x_bytes, bar);
+        hopper::bulk_load(dst + x_bytes, a.q + node * d * r, q_bytes, bar);
+      }
+    }
+    return;
+  }
+
+  // group g takes the range's nodes g, g + kPackedGroups, ...
+  const int group = warp / kGroupWarps, gwarp = warp % kGroupWarps;
+  const int gtid = tid - group * kGroupWarps * 32;
+  const int units = (n + VEC - 1) / VEC, P = 32 / U;
+  const int p = lane / U, u = lane & (U - 1);
+  const bool unit_ok = u < units;
+  const int k_lo = gwarp * d / kGroupWarps;
+  const int k_hi = (gwarp + 1) * d / kGroupWarps;
+  // columns of V a pass: their rows of z' (NCOL x JB) in registers
+  constexpr int JB = R * NCOL <= 128 ? R : 128 / NCOL;
+  // V's chunk order: a row's chunks (float4s, or single columns) are read
+  // from chunk ``rot`` on, rot spreading the 8 lanes of a quarter warp over
+  // the banks
+  const int nch = VEC == 4 ? n / 4 : n;
+  const int rot = VEC == 4 && (nch & (nch - 1)) == 0
+                      ? (lane * nch / 8) % nch : 0;
+
+  // n_true a node ahead: its load is in flight while a node is computed
+  float div_next = count > group ? __ldg(a.n_true + first + group) : 0.f;
+  for (int seq = group; seq < count; seq += kPackedGroups) {
+    const int s = seq % stages, node = first + seq;
+    const float div = div_next;
+    if (seq + kPackedGroups < count)
+      div_next = __ldg(a.n_true + node + kPackedGroups);
+    const float nt = ceilf(div);
+    const int ncols = nt <= 0.f ? 0 : (nt >= (float)n ? n : (int)nt);
+    float* red =
+        red0 + (2 * group + ((seq / kPackedGroups) & 1)) * slot_floats;
+    hopper::mbar_wait(full0 + 8 * s, (seq / stages) & 1);
+    const float* xs = reinterpret_cast<const float*>(basep + s * stage_bytes);
+    const float* qs = xs + (size_t)d * n;
+
+    // z = X^T Q: this lane's unit over its row phase of the warp's rows
+    float acc[VEC][R];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+#pragma unroll
+      for (int j = 0; j < R; ++j) acc[e][j] = 0.f;
+    if (unit_ok) {
+#pragma unroll 4
+      for (int k = k_lo + p; k < k_hi; k += P) {
+        float xv[VEC];
+        packed_row<VEC>(xs + (size_t)k * n, u, ncols, xv);
+        const float* qrow = qs + (size_t)k * r;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          if (EXACT || j < r) {
+            const float qv = qrow[j];
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              acc[e][j] = fmaf(xv[e], qv, acc[e][j]);
+          }
+        }
+      }
+    }
+    // the row phases, added in one fixed order (every lane of a unit ends
+    // with the same sums); the phases share the stores of the warp's sums
+    for (int off = U; off < 32; off <<= 1) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          acc[e][j] += __shfl_xor_sync(0xffffffffu, acc[e][j], off);
+    }
+    if (unit_ok) {
+      float* rw = red + (size_t)gwarp * n * r;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          if ((EXACT || j < r) && u * VEC + e < n && (e * R + j) % P == p)
+            rw[(u * VEC + e) * r + j] = acc[e][j];
+    }
+    group_sync(group);
+    // the group's warps' sums, in warp order, divided by n_true: z' into
+    // its warp 0's part of the slot
+    for (int i = gtid; i < n * r; i += kGroupWarps * 32) {
+      float z = red[i];
+#pragma unroll
+      for (int w = 1; w < kGroupWarps; ++w) z += red[w * n * r + i];
+      red[i] = z / div;
+    }
+    group_sync(group);
+
+    // V = X z': a thread a row (rows gtid, gtid + 128, ...), JB columns of V
+    // a pass with their rows of z' in registers, in the lane's chunk order;
+    // the loads carry no branch (chunks past n, and columns at or past
+    // ncols, read as 0). Consecutive rows go to consecutive lanes.
+    float* vn = a.v + (size_t)node * d * r;
+    for (int jb = 0; jb < r; jb += JB) {
+      float zr[NCOL][JB];
+      int ch = rot;
+#pragma unroll
+      for (int cc = 0; cc < NCOL / VEC; ++cc) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+#pragma unroll
+          for (int j = 0; j < JB; ++j)
+            zr[VEC * cc + e][j] = cc < nch && jb + j < r
+                                      ? red[(VEC * ch + e) * r + jb + j]
+                                      : 0.f;
+        ch = ch + 1 == nch ? 0 : ch + 1;
+      }
+      for (int k = gtid; k < d; k += kGroupWarps * 32) {
+        const float* xr = xs + (size_t)k * n;
+        float acc2[JB];
+#pragma unroll
+        for (int j = 0; j < JB; ++j) acc2[j] = 0.f;
+        ch = rot;
+#pragma unroll
+        for (int cc = 0; cc < NCOL / VEC; ++cc) {
+          float xv[VEC];
+          if constexpr (VEC == 4) {
+            const float4 w = cc < nch
+                ? *reinterpret_cast<const float4*>(xr + 4 * ch)
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+            xv[0] = w.x;
+            xv[1] = w.y;
+            xv[2] = w.z;
+            xv[3] = w.w;
+          } else {
+            xv[0] = cc < nch ? xr[ch] : 0.f;
+          }
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            const float x = VEC * ch + e < ncols ? xv[e] : 0.f;
+#pragma unroll
+            for (int j = 0; j < JB; ++j)
+              acc2[j] = fmaf(x, zr[VEC * cc + e][j], acc2[j]);
+          }
+          ch = ch + 1 == nch ? 0 : ch + 1;
+        }
+#pragma unroll
+        for (int j = 0; j < JB; ++j)
+          if (jb + j < r) vn[(size_t)k * r + jb + j] = acc2[j];
+      }
+    }
+    // this warp is done with stage s: the producer may refill it
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(empty0 + 8 * s);
+  }
+}
+
+template <int R, bool EXACT, int VEC>
+cudaError_t launch_packed(const PackedArgs& a, int grid, size_t smem,
+                          cudaStream_t stream) {
+  auto kernel = a.n <= 16 ? gram_apply_packed_kernel<R, EXACT, VEC, 16>
+                          : gram_apply_packed_kernel<R, EXACT, VEC, 32>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kPackedThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// float4 units: r exact up to 8, else 16 columns
+cudaError_t launch_packed_vec4(const PackedArgs& a, int grid, size_t smem,
+                               cudaStream_t s) {
+  switch (a.r) {
+    case 1: return launch_packed<1, true, 4>(a, grid, smem, s);
+    case 2: return launch_packed<2, true, 4>(a, grid, smem, s);
+    case 3: return launch_packed<3, true, 4>(a, grid, smem, s);
+    case 4: return launch_packed<4, true, 4>(a, grid, smem, s);
+    case 5: return launch_packed<5, true, 4>(a, grid, smem, s);
+    case 6: return launch_packed<6, true, 4>(a, grid, smem, s);
+    case 7: return launch_packed<7, true, 4>(a, grid, smem, s);
+    case 8: return launch_packed<8, true, 4>(a, grid, smem, s);
+    default: return launch_packed<16, false, 4>(a, grid, smem, s);
+  }
+}
+
+// one column a unit: any r up to 64
+cudaError_t launch_packed_vec1(const PackedArgs& a, int grid, size_t smem,
+                               cudaStream_t s) {
+  if (a.r <= 8) return launch_packed<8, false, 1>(a, grid, smem, s);
+  if (a.r <= 16) return launch_packed<16, false, 1>(a, grid, smem, s);
+  if (a.r <= 32) return launch_packed<32, false, 1>(a, grid, smem, s);
+  return launch_packed<64, false, 1>(a, grid, smem, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -446,6 +774,40 @@ int gram_apply_launch(const float* x, const float* q, const float* n_true,
     default: err = cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// Bytes of dynamic shared memory a packed block needs for (d, n, r, stages).
+size_t gram_packed_smem_bytes(int d, int n, int r, int stages) {
+  return packed_smem_bytes(d, n, r, stages);
+}
+
+// The packed route, one launch: V[i] = X_i (X_i^T Q_i) / n_true[i], a node
+// whole in a ring stage. x: (nodes, d, n), q: (nodes, d, r), n_true:
+// (nodes,), v: (nodes, d, r), all f32, x and q 16-byte aligned with d n and
+// d r multiples of 4 (bulk copies); starts: (grid + 1,) int32, block g's
+// nodes; U lanes a row (the units' power of two, at most 32), ``stages``
+// ring stages, units of vec = 4 (n % 4 == 0, r <= 16) or 1 columns. Returns
+// the CUDA error code of the launch (0 on success).
+int gram_packed_launch(const float* x, const float* q, const float* n_true,
+                       float* v, const int* starts, int nodes, int d, int n,
+                       int r, int U, int stages, int grid, int smem, int vec,
+                       void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int units = vec == 4 ? n / 4 : n;
+  int lanes = 1;                        // the units' power of two
+  while (lanes < units) lanes <<= 1;
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                       (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+  if (r < 1 || r > 64 || d < 1 || n < 1 || n > kPackedMaxN || nodes < 1 ||
+      grid < 1 ||
+      grid > nodes || stages < 2 || stages > kPackedMaxStages ||
+      (vec != 1 && vec != 4) || (vec == 4 && (n % 4 || r > 16)) ||
+      lanes > 32 || U != lanes || !aligned || (d * n) % 4 || (d * r) % 4 ||
+      (size_t)smem < packed_smem_bytes(d, n, r, stages))
+    return (int)cudaErrorInvalidValue;
+  const PackedArgs a{x, q, n_true, v, starts, d, n, r, U, stages};
+  return (int)(vec == 4 ? launch_packed_vec4(a, grid, smem, stream)
+                        : launch_packed_vec1(a, grid, smem, stream));
 }
 
 }  // extern "C"

@@ -128,11 +128,12 @@ def test_gram_kernel_ignores_nan_padding(cuda_device, n):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("n,how", [(2500, "tma"), (14, "cp_async")])
+@pytest.mark.parametrize("n,how", [(2500, "tma"), (2498, "cp_async")])
 def test_gram_kernel_staging_routes(cuda_device, n, how):
-    """n % 4 == 0 streams X by TMA, any other n by cp.async: each launch is
-    counted on its route, both hold the plain version (1e-5 of max |V|) and
-    repeat their bits without a host wait."""
+    """n % 4 == 0 streams X by TMA, any other n by cp.async (both past the
+    packed route's PACKED_MAX_N): each launch is counted on its route, both
+    hold the plain version (1e-5 of max |V|) and repeat their bits without
+    a host wait."""
     x = torch.randn((20, 1024, n), device=cuda_device)
     q = torch.randn((20, 1024, 7), device=cuda_device)
     nt = torch.full((20,), float(n), device=cuda_device)
@@ -140,12 +141,86 @@ def test_gram_kernel_staging_routes(cuda_device, n, how):
     got = ops.batched_gram_apply(x, q, nt)
     torch.cuda.synchronize()
     assert _routes_delta(gram_update, before) == {
-        "tma": int(how == "tma"), "cp_async": int(how == "cp_async")}
+        "tma": int(how == "tma"), "cp_async": int(how == "cp_async"),
+        "packed": 0}
     want = ref.batched_gram_apply_ref(x, q, nt)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     with no_host_sync():
         again = ops.batched_gram_apply(x, q, nt)
     assert torch.equal(got, again)
+
+
+# The packed route (nodes of few samples) against the plain version: f32
+# sums in another order, relative to max |V|; the tiled route read 7.1e-7
+# at sdot_sparse's shape (chip_smoke.py's batched_gram_apply_sdot_sparse)
+PACKED_GRAM_TOL = 1e-5
+
+
+def _sparse_stack(dev, r, seed=0):
+    """sdot_sparse's stack: 4,096 nodes of 784 x 16, n_true 14 or 15, the
+    padding zero and, in a copy, NaN."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nt = 14.0 + (torch.rand(4096, generator=gen, device=dev) < 0.5).float()
+    x = torch.randn((4096, 784, 16), generator=gen, device=dev)
+    pad = torch.arange(16, device=dev) >= nt[:, None, None]
+    x = torch.where(pad, 0.0, x)
+    x_nan = torch.where(pad, float("nan"), x)
+    q = torch.randn((4096, 784, r), generator=gen, device=dev)
+    return x, x_nan, q, nt
+
+
+@pytest.mark.parametrize("r", [1, 5, 8])
+def test_packed_gram_route_matches_plain(cuda_device, r):
+    """sdot_sparse's shape takes the packed route (one launch counted on
+    ``ROUTE_LAUNCHES["packed"]``), holds the plain version within
+    PACKED_GRAM_TOL, repeats its bits without a host wait, and gives the
+    same bits where the padding holds NaN."""
+    x, x_nan, q, nt = _sparse_stack(cuda_device, r)
+    card = _launch.card(cuda_device.index or 0)
+    assert gram_update.packed_plan(4096, 784, 16, r, *card).route == "packed"
+    before = dict(gram_update.ROUTE_LAUNCHES)
+    got = ops.batched_gram_apply(x_nan, q, nt)
+    torch.cuda.synchronize()
+    assert _routes_delta(gram_update, before) == {"tma": 0, "cp_async": 0,
+                                                  "packed": 1}
+    assert bool(torch.isfinite(got).all())
+    want = ref.batched_gram_apply_ref(x, q, nt)
+    assert float((got - want).abs().max()) <= PACKED_GRAM_TOL * float(
+        want.abs().max())
+    with no_host_sync():
+        again = ops.batched_gram_apply(x_nan, q, nt)
+        zeros = ops.batched_gram_apply(x, q, nt)
+    assert torch.equal(got, again) and torch.equal(got, zeros)
+    assert gram_update.ROUTE_LAUNCHES["packed"] == before["packed"] + 3
+
+
+@pytest.mark.parametrize("n,r", [(14, 5), (3, 2), (8, 64), (16, 12)])
+def test_packed_and_tiled_gram_routes_agree(cuda_device, n, r):
+    """Single-column units (n % 4 != 0, r > 16) and float4 units with r past
+    8: both routes forced hold the plain version and each other within
+    PACKED_GRAM_TOL; forcing the packed route where it cannot take the
+    shapes raises, and so does an unaligned q."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n * r)
+    d = 96 if r > 16 else 784
+    x = torch.randn((300, d, n), generator=gen, device=cuda_device)
+    q = torch.randn((300, d, r), generator=gen, device=cuda_device)
+    nt = torch.full((300,), float(n), device=cuda_device)
+    want = ref.batched_gram_apply_ref(x, q, nt)
+    scale = PACKED_GRAM_TOL * float(want.abs().max())
+    fn = gram_update.batched_gram_apply_cuda
+    packed, tiled = (fn(x, q, nt, route=k) for k in ("packed", "tiled"))
+    torch.cuda.synchronize()
+    assert float((packed - want).abs().max()) <= scale
+    assert float((tiled - want).abs().max()) <= scale
+    with pytest.raises(ValueError):
+        fn(torch.randn((4, 5, 7), device=cuda_device),
+           torch.randn((4, 5, 3), device=cuda_device),
+           torch.full((4,), 7.0, device=cuda_device), route="packed")
+    q_off = torch.empty(300 * d * r + 1, device=cuda_device)[1:].view(
+        300, d, r)
+    q_off.copy_(q)
+    with pytest.raises(RuntimeError):
+        fn(x, q_off, nt, route="packed")
 
 
 @pytest.mark.parametrize("n,how", [(10_000, "tma"), (257, "cp_async")])
@@ -185,8 +260,13 @@ def test_kernel_plans_match_the_kernels_shared_memory(cuda_device):
                                         r)[0]
         assert slab_ops._lib().slab_apply_smem_bytes(
             p.rows, p.cols, r, p.stages) == p.smem
-    # the packed route at bdot_sparse's grid (4 x 4,096 blocks of 196 x 16)
+    # the packed routes at sdot_sparse's stack (4,096 nodes of 784 x 16)
+    # and bdot_sparse's grid (4 x 4,096 blocks of 196 x 16)
     card = _launch.card(cuda_device.index or 0)
+    p = gram_update.packed_plan(4096, 784, 16, 5, *card)
+    assert p.route == "packed"
+    assert gram_update._lib().gram_packed_smem_bytes(784, 16, 5, p.stages) \
+        == p.smem
     for kernel in ("tq", "apply"):
         p = slab_ops.packed_plan(kernel, 16_384, 4096, 196, 16, 5, *card)
         assert p.route == "packed"

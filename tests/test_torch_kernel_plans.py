@@ -138,6 +138,102 @@ def test_gram_plan_spreads_one_node_over_every_sm():
 def test_gram_plan_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         gram_update.plan(1, 1024, 100, 65, *H100)
+
+
+# -- the packed route of the gram-apply kernel ---------------------------------
+# (nodes, d, n, r): sdot_sparse's stack (4,096 nodes of 784 x 16, and its 14
+# samples unpadded: single-column units), the crossover's widest, nodes
+# fewer than the SMs, r past 8 and up to 64 at a narrow d, n = 1
+GRAM_PACKED_SHAPES = [(4096, 784, 16, 5), (4096, 784, 14, 5),
+                      (4096, 1024, 16, 7), (20, 1024, 16, 7),
+                      (300, 784, 16, 12), (300, 96, 8, 64), (7, 40, 1, 4),
+                      (4096, 784, 24, 5)]
+
+
+def _gram_packed(shape):
+    p = gram_update.packed_plan(*shape, *H100)
+    assert p.route == "packed", shape
+    return p
+
+
+@pytest.mark.parametrize("shape", GRAM_PACKED_SHAPES)
+def test_gram_packed_plan_covers_every_node_once(shape):
+    """Contiguous ranges of nodes in order, one a persistent block, at most
+    one an SM, none empty: every node in exactly one."""
+    nodes = shape[0]
+    p = _gram_packed(shape)
+    assert p.grid == min(H100[0], nodes) and len(p.starts) == p.grid + 1
+    assert p.starts[0] == 0 and p.starts[-1] == nodes
+    sizes = [b - a for a, b in zip(p.starts, p.starts[1:])]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("shape", GRAM_PACKED_SHAPES)
+def test_gram_packed_plan_fits_shared_memory(shape):
+    """The kernel's formula, a ring of 2-8 stages of one node (X_i and Q_i
+    whole), within the H100's 232,448 bytes (227 KB) a block; the units a
+    row fit one lane each."""
+    _, d, n, r = shape
+    p = _gram_packed(shape)
+    assert p.smem == gram_update.packed_smem_bytes(d, n, r, p.stages)
+    assert p.smem + gram_update.STATIC_SMEM <= H100[1] == 232_448
+    assert 2 <= p.stages <= gram_update.PACKED_MAX_STAGES
+    assert p.stages * 4 * d * (n + r) < p.smem
+    assert p.vec == (4 if n % 4 == 0 and r <= 16 else 1)
+    units = -(-n // p.vec)
+    assert units <= p.lanes <= 32 and p.lanes & (p.lanes - 1) == 0
+    assert p.lanes < 2 * units
+    assert (d * n) % 4 == 0 and (d * r) % 4 == 0
+
+
+def test_gram_packed_plan_main_path_shape():
+    """sdot_sparse's stack: float4 units, 4 lanes a row (8 row phases a
+    warp), a ring of 3 stages of 65,856 bytes (X_i 50,176, Q_i 15,680), 132
+    ranges of 31-32 nodes; the dense stack keeps the stream and its plan."""
+    p = _gram_packed((4096, 784, 16, 5))
+    assert (p.vec, p.lanes, p.stages, p.grid, p.smem) == (4, 4, 3, 132,
+                                                          203_056)
+    assert {b - a for a, b in zip(p.starts, p.starts[1:])} == {31, 32}
+    assert gram_update.packed_plan(20, 1024, 2500, 7, *H100).route == "tiled"
+    test_gram_plan_main_path_shape()
+
+
+@pytest.mark.parametrize("shape,why", [
+    ((20, 1024, 2500, 7), "n past the crossover"),
+    ((4096, 784, 30, 5), "n past the crossover, where a ring still fits"),
+    ((64, 783, 14, 5), "d n not a multiple of 4"),
+    ((64, 785, 16, 5), "d r not a multiple of 4"),
+    ((4096, 784, 16, 64), "a stage too big for a ring of two"),
+    ((3, 40, 37, 64), "more than 32 columns of z a lane"),
+    ((1, 1024, 50_000, 7), "one node, all of X")])
+def test_gram_packed_route_refused(shape, why):
+    """Where the packed kernel cannot take the shapes, or n is past the
+    crossover, the planner keeps the stream."""
+    assert gram_update.packed_plan(*shape, *H100) is gram_update.TILED, why
+
+
+def test_gram_packed_route_follows_n():
+    """At d = 784, r = 5, 4,096 nodes: packed up to PACKED_MAX_N wherever a
+    ring of two stages fits (up to n = 30: at 31 two stages of X_i and Q_i
+    and z's sums take 235,872 bytes), tiled past it."""
+    top = gram_update.PACKED_MAX_N
+    for n in range(1, 41):
+        p = gram_update.packed_plan(4096, 784, n, 5, *H100)
+        fits = gram_update.packed_layout(4096, 784, n, 5, *H100) is not None
+        assert p.route == ("packed" if n <= top and fits else "tiled"), n
+        assert fits == (n <= 30), n
+
+
+def test_gram_packed_plan_is_a_function_of_the_shapes():
+    want = [gram_update.packed_plan(*s, *H100) for s in GRAM_PACKED_SHAPES]
+    gram_update.packed_layout.cache_clear()
+    assert [gram_update.packed_plan(*s, *H100)
+            for s in GRAM_PACKED_SHAPES] == want
+    assert gram_update.packed_plan(4096, 784, 16, 5, 114, H100[1]).grid == 114
+    with pytest.raises(ValueError):
+        gram_update.packed_plan(16, 784, 16, 65, *H100)
+    with pytest.raises(ValueError):
+        gram_update.packed_plan(0, 784, 16, 5, *H100)
     with pytest.raises(ValueError):
         gram_update.plan(1, 5000, 100, 7, *H100)
 

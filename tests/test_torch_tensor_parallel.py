@@ -27,7 +27,12 @@ divide over "model", on (1, 4) or (2, 2): a rank computes whole heads, its
 ``sharding.share``, while ``wq``'s and the mixers' stored blocks end
 mid-head), the UNEVEN cases (a tied head; RG-LRU and sLSTM channels that
 do not divide over "model", that mixer whole on every rank), check the
-new collectives' gradients and lay a mesh over two of them.
+new collectives' gradients and lay a mesh over two of them. Last, the
+KV_QUANT cases decode with the int8 KV cache (``kv_quant``): qwen2-7b on
+(2, 2), its kv heads over "model" (a whole ring a rank,
+``attention._decode_ring``), h2o-danube at batch 1 with its cache cut by
+length over "data" and qwen2-7b on (1, 4) with its 2 kv heads cut by
+length over "model" (``attention._decode_by_length``).
 
 Held: the loss against one process's ``loss_fn`` on the global batch (its
 MoE routed per data shard, ``act_specs["moe"]["n_dp"]`` = 2, as the split
@@ -41,7 +46,8 @@ wire bytes a rank counted equal to ``roofline.step_wire_bytes`` exactly,
 and the model axis's all-reduces: as many more under ``"names"`` than
 under ``False`` as the mixers run inside their spans (mLSTM's gate sum),
 and under ``True`` the forward's again; the decode states' bytes equal to
-the dry run's plan. A tied head with the audio frontend raises
+the dry run's plan (KV_QUANT: ``k_scale`` / ``v_scale`` included). A
+tied head with the audio frontend raises
 ``ValueError``, as the reference fails there.
 
 The ranks start by ``spawn`` and import this module: it imports no JAX at
@@ -146,6 +152,12 @@ UNEVEN = {
                       KV_MESH),
     "slstm_channels": ("xlstm-1.3b", {"d_model": 62}, KV_MESH),
 }
+
+# the int8 KV cache under the split decode (case: arch, mesh, batch,
+# max_len, decode steps), each held to one process with the int8 cache
+KV_QUANT = {"int8_ring": ("qwen2-7b", MESH, SB, SS, 4),
+            "int8_by_length": ("h2o-danube-1.8b", MESH, 1, 8, 12),
+            "int8_kv_heads": ("qwen2-7b", KV_MESH, SB, SS, 4)}
 
 
 def _cfg(configs, aid, **over):
@@ -264,6 +276,7 @@ def _rank(rank, world, dev, work):
     out["quad"] = _quad_ranks(quad, work)
     out["heads"] = _heads_ranks({MESH: mesh, KV_MESH: quad}, work)
     out["uneven"] = _heads_ranks({MESH: mesh, KV_MESH: quad}, work, UNEVEN)
+    out["int8"] = _int8_ranks({MESH: mesh, KV_MESH: quad}, work)
     out["collective"] = _collective_grads(mesh)
     out["sub"] = _sub_mesh(rank, dev)
     return out
@@ -312,6 +325,30 @@ def _long_ranks(mesh, work):
                             mesh.coords)
     out[WHOLE_RING] = _decode_run(cfg, mesh, params, local["tokens"], SB, SS,
                                   _steps("recurrentgemma-2b"))
+    return out
+
+
+def _int8_ranks(meshes, work):
+    """Each KV_QUANT case: ``_decode_run`` with the int8 KV cache on its
+    mesh, the batch sharded (a batch of 1 whole on every rank)."""
+    out = {}
+    for case, (aid, sizes, batch, max_len, steps) in KV_QUANT.items():
+        mesh = meshes[sizes]
+        shape = shd.MeshShape.from_mesh(mesh)
+        cfg = dataclasses.replace(_cfg(tcfg, aid), kv_quant=True)
+        full = torch.load(os.path.join(work, f"{aid}.pt"))
+        params = shd.shard_tree(full, shd.param_specs(full, cfg, shape),
+                                shape, mesh.coords)
+        tokens = torch.load(os.path.join(work, f"{aid}_batch.pt"))["tokens"]
+        if batch == 1:
+            tokens = tokens[:1]
+        else:
+            tokens = shd.shard_tree(
+                {"tokens": tokens},
+                {"tokens": shd.batch_specs(cfg, shape, batch)["tokens"]},
+                shape, mesh.coords)["tokens"]
+        out[case] = {"coords": mesh.coords, **_decode_run(
+            cfg, mesh, params, tokens, batch, max_len, steps)}
     return out
 
 
@@ -507,6 +544,12 @@ def split(tmp_path_factory):
         if aid == "recurrentgemma-2b":
             one[WHOLE_RING] = {"cfg": _ring_cfg(tcfg), "decode": decoded(
                 _ring_cfg(tcfg), params, batch["tokens"], SS, _steps(aid))}
+    for case, (aid, _, batch, max_len, steps) in KV_QUANT.items():
+        tc = dataclasses.replace(_cfg(tcfg, aid), kv_quant=True)
+        tokens = torch.load(os.path.join(work, f"{aid}_batch.pt"))["tokens"]
+        one[case] = {"cfg": tc, "decode": decoded(
+            tc, torch.load(os.path.join(work, f"{aid}.pt")), tokens[:batch],
+            max_len, steps)}
     for case, (aid, over) in QUAD.items():
         tc = _cfg(tcfg, aid, **over)
         if not over:                # the (2, 2) run's model and batch
@@ -1361,3 +1404,56 @@ def test_long_500k_decode_state_is_the_dry_run_plan():
             plan["decode_state"]["bytes"]
         assert sum(dryrun._alloc(x.numel() * x.element_size())
                    for x in leaves) == plan["decode_state"]["alloc"]
+
+
+@pytest.mark.parametrize("case", KV_QUANT)
+def test_int8_split_decode_matches_one_process(split, case):
+    """The int8 KV cache under the split decode: every step's logits, each
+    rank's block put together (a batch of 1: each rank's vocabulary block),
+    against one process's decode with the int8 cache, within SERVE_TOL of
+    their largest."""
+    ranks, one = split
+    _, sizes, batch, _, steps = KV_QUANT[case]
+    tp = dict(sizes)["model"]
+    res = [r["int8"][case] for r in ranks]
+    assert len(one[case]["decode"]) == steps
+    for t, want in enumerate(one[case]["decode"]):
+        scale = SERVE_TOL * float(want.abs().max())
+        if batch == 1:
+            for r in res:
+                part = want.flatten(2).chunk(tp, -1)[r["coords"]["model"]]
+                got = r["decode"][t].flatten(2)
+                assert float((got - part).abs().max()) <= scale, (t, r[
+                    "coords"])
+        else:
+            got = _by_coords(res, lambda r: r["decode"][t])
+            assert got.shape == want.flatten(2).shape
+            assert float((got - want.flatten(2)).abs().max()) <= scale, t
+
+
+@pytest.mark.parametrize("case", KV_QUANT)
+def test_int8_split_decode_bytes_equal_the_plan(split, case):
+    """The int8 split decode's state, ``k_scale`` / ``v_scale`` included
+    (one f32 a (token, kv head), cut as k and v are), equals the dry run's
+    plan on every rank, and each step's wire bytes equal
+    ``step_wire_bytes``."""
+    from repro_torch.launch import dryrun
+    ranks, one = split
+    _, sizes, batch, max_len, _ = KV_QUANT[case]
+    cfg = one[case]["cfg"]
+    mesh = shd.MeshShape.of(*sizes)
+    shape = ShapeConfig(case, max_len, batch, "decode")
+    plan = dryrun.memory_plan(cfg, shape, mesh, AdamWConfig())
+    wire = roofline.step_wire_bytes(cfg, shape, mesh, split_model=True)
+    for r in (r["int8"][case] for r in ranks):
+        assert r["state_bytes"] == plan["decode_state"]["bytes"]
+        scales = {n: shp for n, shp in r["cache_shapes"].items()
+                  if n.endswith("_scale")}
+        assert scales
+        for name, shp in scales.items():
+            k = r["cache_shapes"][name.rsplit("/", 1)[0] + "/k"]
+            assert shp == k[:-1] + (1,), name
+        for w in r["decode_wire"]:
+            for a, want in wire.items():
+                for k in want:
+                    assert w[a][0][k] == want[k], (a, k)

@@ -4,7 +4,7 @@ repository, in turns; and the crossover of the grid kernels' two routes.
 
     python3 tools/psa_kernel_times.py [--tree DIR ...] [--rounds 1]
         [--rows ROW,ROW]
-    python3 tools/psa_kernel_times.py --crossover
+    python3 tools/psa_kernel_times.py --crossover [grid|gram|all]
 
 Each ``--tree`` is the root of a checkout (default: this one). The trees run
 in the order given and then in reverse, ``--rounds`` times over (A B B A for
@@ -36,7 +36,16 @@ forced (``route="packed"`` / ``"tiled"``), beside the library call
 r = 5 and X kept at about 200 MB (I = 4 grid rows, J = B / 4), as the
 kernel table times them; a route that cannot take a shape reads null. One
 JSON line an n, then the card. ``slab_ops.PACKED_MAX_N`` is set from these
-readings.
+readings. ``--crossover gram`` does the same for the gram-apply kernel's
+two routes (``gram_update.batched_gram_apply_cuda(route=...)``) beside the
+``torch.bmm`` pair, at n in GRAM_CROSSOVER_N with d = 784 and 1024, r = 5
+and 7, and 4,096 and 20 nodes (every column real); one JSON line a shape.
+``gram_update.PACKED_MAX_N`` is set from these readings. ``--crossover``
+alone (``all``) runs both.
+
+The row ``batched_gram_apply_sp`` times row 1 at sdot_sparse's own stack
+(4,096 nodes of 784 x 14-15 samples padded to 16, r = 5), cut as
+chip_smoke.py cuts it.
 """
 from __future__ import annotations
 
@@ -48,7 +57,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-ROWS = ("batched_gram_apply", "gram_apply", "batched_slab_tq",
+ROWS = ("batched_gram_apply", "batched_gram_apply_sp", "gram_apply",
+        "batched_slab_tq",
         "batched_slab_apply", "grid_block_tq", "grid_block_apply", "grid_block_tq_bs",
         "grid_block_apply_bs", "ell_spmm_ws", "ell_spmm_ws_bf16", "ell_spmm_er",
         "ell_spmm_er_bf16", "gram_qr_sdot", "gram_qr_fdot", "gram_qr_bdot",
@@ -92,13 +102,19 @@ def worker(tree: Path, only=None) -> dict:
                                       device=dev)
     x_bs = pad_grid_blocks([partition_samples(sl, 4096)
                             for sl in partition_features(xs, 4)], 4)
+    x_sp, n_sp = _stack_data(partition_samples(xs, 4096), dev)
     del xs
+    q_sp = torch.linalg.qr(torch.randn((4096, 784, 5), generator=gen,
+                                       device=dev))[0].contiguous()
     q_bs = torch.randn((4, x_bs.shape[2], 5), generator=gen, device=dev)
     s_bs = torch.randn((4096, x_bs.shape[3], 5), generator=gen, device=dev)
     cases = {
         "batched_gram_apply": (
             lambda: ops.batched_gram_apply(x_stack, q_stack, n_true),
             lambda: ref.batched_gram_apply_ref(x_stack, q_stack, n_true)),
+        "batched_gram_apply_sp": (
+            lambda: ops.batched_gram_apply(x_sp, q_sp, n_sp),
+            lambda: ref.batched_gram_apply_ref(x_sp, q_sp, n_sp)),
         "gram_apply": (lambda: ops.gram_apply(x_one, q_one),
                        lambda: ref.gram_apply_ref(x_one, q_one)),
         "batched_slab_tq": (
@@ -214,14 +230,70 @@ def crossover() -> None:
     print(json.dumps({"card": cs.nvidia_smi()}), flush=True)
 
 
+GRAM_CROSSOVER_N = (4, 8, 12, 14, 16, 20, 24, 28, 32)
+
+
+def gram_crossover() -> None:
+    """Both routes of the gram-apply kernel, forced, and the ``torch.bmm``
+    pair at each n of GRAM_CROSSOVER_N, d = 784 and 1024, r = 5 and 7,
+    4,096 and 20 nodes."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build, _launch, gram_update
+
+    dev = torch.device("cuda")
+    _build.build_all()
+    card = _launch.card(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fn = gram_update.batched_gram_apply_cuda
+    for nodes in (4096, 20):
+        for d in (784, 1024):
+            for r in (5, 7):
+                for n in GRAM_CROSSOVER_N:
+                    x = torch.randn((nodes, d, n), generator=gen, device=dev)
+                    q = torch.randn((nodes, d, r), generator=gen, device=dev)
+                    nt = torch.full((nodes,), float(n), device=dev)
+                    line = {"nodes": nodes, "d": d, "n": n, "r": r,
+                            "route": gram_update.packed_plan(
+                                nodes, d, n, r, *card).route,
+                            "bound_ms": cs.bound(
+                                4 * (x.numel() + 2 * q.numel() + nodes),
+                                4.0 * x.numel() * r)[0],
+                            "library_ms": cs.time_ms(
+                                lambda: torch.bmm(x, torch.bmm(x.mT, q)))}
+                    got = {}
+                    for route in ("packed", "tiled"):
+                        try:
+                            got[route] = fn(x, q, nt, route=route)
+                        except ValueError as err:   # cannot take the shape
+                            line[f"{route}_ms"] = None
+                            line[f"{route}_refused"] = str(err)
+                            continue
+                        line[f"{route}_ms"] = cs.time_ms(
+                            lambda route=route: fn(x, q, nt, route=route))
+                    if len(got) == 2:
+                        a, b = got["packed"], got["tiled"]
+                        line["rel_diff"] = float((a - b).abs().max()
+                                                 / b.abs().max())
+                    print(json.dumps(line), flush=True)
+                    del x, q, nt, got
+                    torch.cuda.empty_cache()
+    print(json.dumps({"card": cs.nvidia_smi()}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", action="append", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--rows", help="comma-separated rows to time (default: "
                     "all)")
-    ap.add_argument("--crossover", action="store_true",
-                    help="time the grid kernels' two routes against n")
+    ap.add_argument("--crossover", nargs="?", const="all",
+                    choices=("all", "grid", "gram"),
+                    help="time the grid (or gram-apply) kernels' two "
+                         "routes against n")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     only = args.rows.split(",") if args.rows else None
@@ -232,7 +304,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("psa_kernel_times: no CUDA device")
     if args.crossover:
-        crossover()
+        if args.crossover in ("all", "grid"):
+            crossover()
+        if args.crossover in ("all", "gram"):
+            gram_crossover()
         return
     trees = [t.resolve() for t in (args.tree or [ROOT])]
     ms = {str(t): {row: [] for row in only or ROWS} for t in trees}

@@ -15,7 +15,8 @@ graph's own (``HALO``). A variant whose lines are not in the
 sources any more is skipped with a note. Each variant's sources go to its
 own directory under ``build/psa_variants/`` and are built there by nvcc in
 parallel, with the flags of ``kernels/_build.py``. Each runs through the
-port's own wrapper (``ops.batched_gram_apply`` and ``ops.gram_apply``, or
+port's own wrapper (``ops.batched_gram_apply`` and ``ops.gram_apply``, the
+former also at sdot_sparse's stack on the packed route, or
 ``ops.batched_slab_apply`` and ``ops.grid_block_apply``, ``ops.gram_qr`` at
 chip_smoke.py's five Gram shapes, ``ops.ell_spmm`` over a (4096, 3920)
 payload on watts_strogatz(4096, 6, 0.1) in f32 and bf16 and on
@@ -71,6 +72,17 @@ _STREAM = [(_HALVES, ""), (_VUPDATE, "              {}\n"),
            (_PARTIAL, "            p[c * RMAX + j] = xv[0][c];\n")]
 _SLAB_STREAM = [("    for (int c4 = 4 * lane; c4 < cols; c4 += 128) {",
                  "    for (int c4 = 4 * lane; c4 < 0; c4 += 128) {")]
+_PACKED_Z = ("      for (int k = k_lo + p; k < k_hi; k += P) {",
+             "      for (int k = k_lo + p; k < 0; k += P) {")
+_PACKED_V = ("      for (int k = gtid; k < d; k += kGroupWarps * 32) {",
+             "      for (int k = gtid; k < 0; k += kGroupWarps * 32) {")
+_PACKED_GROUPS = "constexpr int kPackedGroups = 2;"
+_PACKED_WARPS = "constexpr int kPackedWarps = 8;"
+_PACKED_NO_LOAD = (
+    "        hopper::mbar_expect_tx(bar, x_bytes + q_bytes);\n"
+    "        hopper::bulk_load(dst, a.x + node * d * n, x_bytes, bar);\n"
+    "        hopper::bulk_load(dst + x_bytes, a.q + node * d * r, q_bytes, "
+    "bar);\n", "        hopper::mbar_arrive(bar);\n")
 # source -> variant -> [(text, replacement)]
 VARIANTS = {
     "gram_update": {
@@ -97,6 +109,22 @@ VARIANTS = {
         "stream_cp_async": _STREAM + [(
             "node_groups, d, n, r, bn, stages, box_rows, tma,",
             "node_groups, d, n, r, bn, stages, box_rows, 0,")],
+        # the packed route without its z product's rows, without its V
+        # product's rows, and with neither (the ring, barriers and sums)
+        "packed_no_z": [_PACKED_Z],
+        "packed_no_v": [_PACKED_V],
+        "packed_ring_only": [_PACKED_Z, _PACKED_V],
+        # no loads: each stage's mbarrier completed by a plain arrival (the
+        # compute alone, on whatever the ring holds)
+        "packed_compute_only": [_PACKED_NO_LOAD],
+        # the consumer warps as one group on one node at a time; two groups
+        # of 6 or 8 warps (the wrapper's PACKED_WARPS with them, ``PLAN``)
+        "packed_groups1": [(_PACKED_GROUPS, "constexpr int kPackedGroups = 1;")],
+        "packed_w12": [(_PACKED_WARPS, "constexpr int kPackedWarps = 12;")],
+        "packed_w16": [(_PACKED_WARPS, "constexpr int kPackedWarps = 16;")],
+        "packed_w12_compute_only": [
+            (_PACKED_WARPS, "constexpr int kPackedWarps = 12;"),
+            _PACKED_NO_LOAD],
     },
     "slab_ops": {
         "kernel": [],
@@ -163,7 +191,10 @@ HALO = {"ell_spmm": {"b64h2": (64, 2), "b32h0": (32, 0), "b32h8": (32, 8),
 STRIDE = {"gram_update": {f"n{n}": n for n in (2504, 2512, 2528, 2560, 2592)}}
 # source -> variant -> {module constant: value} for the wrapper
 _BN8 = {"_TILE_COLS": (8,)}
-PLAN = {"gram_update": {"bn8": _BN8, "stream_bn8": _BN8},
+PLAN = {"gram_update": {"bn8": _BN8, "stream_bn8": _BN8,
+                        "packed_w12": {"PACKED_WARPS": 12},
+                        "packed_w12_compute_only": {"PACKED_WARPS": 12},
+                        "packed_w16": {"PACKED_WARPS": 16}},
         "slab_ops": {"c128": {"_TILE_COLS": (128,)},
                      "c64": {"_TILE_COLS": (64,)},
                      "stream_c128": {"_TILE_COLS": (128,)}},
@@ -411,6 +442,13 @@ def main() -> None:
     q_stack = torch.linalg.qr(torch.randn((nodes, d, r), generator=gen,
                                           device=dev))[0].contiguous()
     x_one, q_one = x_stack[0, :, :2500].contiguous(), q_stack[0]
+    # sdot_sparse's stack: 4,096 nodes of 784 x 14-15 samples, padded to 16
+    xs, _, _ = gaussian_eigengap_data(784, 60_000, 5, 0.7, seed=0,
+                                      device=dev)
+    x_sp, n_sp = _stack_data(partition_samples(xs, 4096), dev)
+    del xs
+    q_sp = torch.linalg.qr(torch.randn((4096, 784, 5), generator=gen,
+                                       device=dev))[0].contiguous()
     x_pad = pad_feature_slabs(partition_features(x, nodes))
     s_slab = torch.randn((nodes, n_total, r), generator=gen, device=dev)
     x_grid = pad_grid_blocks([partition_samples(sl, 5)
@@ -422,7 +460,10 @@ def main() -> None:
                 lambda: ops.batched_gram_apply(x_stack, q_stack, n_true),
                 ref.batched_gram_apply_ref(x_stack, q_stack, n_true)),
             "gram_apply": (lambda: ops.gram_apply(x_one, q_one),
-                           ref.gram_apply_ref(x_one, q_one))},
+                           ref.gram_apply_ref(x_one, q_one)),
+            "batched_gram_apply_sp": (
+                lambda: ops.batched_gram_apply(x_sp, q_sp, n_sp),
+                ref.batched_gram_apply_ref(x_sp, q_sp, n_sp))},
         "slab_ops": {
             "batched_slab_apply": (
                 lambda: ops.batched_slab_apply(x_pad, s_slab),
@@ -476,6 +517,7 @@ def main() -> None:
         libs[(src, v)] = libs[(src, "kernel")]
     real = {src: m._lib for src, m in modules.items()}
     planners = (gram_update.plan, gram_update._device_plan,
+                gram_update.packed_layout, gram_update._device_packed_plan,
                 slab_ops.apply_plan, slab_ops._device_apply_plan,
                 gram_qr.plan, gram_qr._device_plan, ell_spmm.plan)
     runs = {}
