@@ -325,7 +325,11 @@ phase.
   shape, the bytes all-reduced a step beside the dense
   gradient's and ``compression_ratio``, and each rank's peak memory. The
   kernel rows ``gram_qr_psa_refresh_*`` time row 4 at the refresh's shapes
-  and ``gram_qr_sdot_spmd`` at sdot_spmd's (1, 1024, 7).
+  on the route its plan takes (``kernel_route``: ``cluster`` at all three)
+  and ``gram_qr_sdot_spmd`` at sdot_spmd's (1, 1024, 7); each refresh's
+  Gram launches by route equal the plan's routes of the shapes it counted
+  (``check_refresh_routes``), and sdot_spmd's ranks launch none on the
+  cluster route.
 * ``train_example``: the example twin (``train_lm_psa_compress
   --full-100m``: d_model 768, 12 layers, vocabulary 32,000, f32) for 12
   steps (cut from 300, TRAIN_EXAMPLE_STEPS) on 2 pod ranks,
@@ -355,7 +359,7 @@ power limit and the memory it plans beside the peak it read:
   a compressed leaf an OI iteration, staged bytes twice those reduced. The
   rows ``gram_qr_psa_moe_*`` time row 4 at the expert stacks' (1, 4096,
   64) and (1, 6400, 64) and the head's (4096, 64), with the refreshes'
-  launches at each.
+  launches at each, on the cluster route (checked as for train_psa).
 * ``moe_shards``: phi3.5-moe at 4 layers, a 4 x 2048 prefill with
   ``act_specs["moe"]["n_dp"] = 4`` through row 9 (4 launches, all on the
   tensor cores): each MoE layer against the same tokens as 4 quarters
@@ -973,7 +977,7 @@ def serving_phases(dev, rows: dict, work: Path) -> None:
     from repro_torch.core.sdot import sdot_program
     from repro_torch.data.pipeline import (drifting_eigengap_stream,
                                            partition_samples)
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import gram_qr, ops
     from repro_torch.serving import service as svc_mod
     from repro_torch.serving.service import (PSAService, ServiceConfig,
                                              service_summary)
@@ -1061,6 +1065,8 @@ def serving_phases(dev, rows: dict, work: Path) -> None:
     svc.finalize()
     launches = ops.LAUNCHES["gram_qr"]
     rows["gram_qr"]["launches"] += launches
+    check(gram_qr.ROUTE_LAUNCHES["cluster"] == 0, "serving: re-solve Gram "
+          f"launches on the cluster route {dict(gram_qr.ROUTE_LAUNCHES)}")
     served = service_summary(str(work / "serving"))
     post_err = float(subspace_error(svc.q_post, svc.served.device))
     # the reference's subspace after as many swaps: the last drift trigger
@@ -1763,6 +1769,7 @@ def spmd_rank(rank, world, dev, work):
     0 over each run."""
     from repro_torch.core.consensus import SpmdConsensus
     from repro_torch.core.sdot import sdot_spmd
+    from repro_torch.kernels import gram_qr
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_test_mesh
 
@@ -1799,6 +1806,7 @@ def spmd_rank(rank, world, dev, work):
             out["sdot"][f"{name}/{kind}"] = {
                 "wall_s": time.perf_counter() - t0,
                 "launches": dict(ops.LAUNCHES),
+                "gram_qr_routes": dict(gram_qr.ROUTE_LAUNCHES),
                 "q": res.q_nodes.cpu() if rank == 0 else None,
                 "trace": res.error_trace,
                 "ledger": [led.p2p, led.matrices, led.scalars,
@@ -1865,7 +1873,7 @@ def train_psa_rank(rank, world, dev, layers, steps, batch, seq,
 
     import repro_torch.train.step as step_mod
     from repro_torch.data.pipeline import make_lm_batch
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import gram_qr, ops
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.transformer import init_params
     from repro_torch.optim.adamw import adamw_init
@@ -1930,6 +1938,7 @@ def train_psa_rank(rank, world, dev, layers, steps, batch, seq,
             out["refreshes"].append({
                 "step": t, "ms": (time.perf_counter() - t0) * 1e3,
                 "gram_qr": ops.LAUNCHES["gram_qr"],
+                "routes": dict(gram_qr.ROUTE_LAUNCHES),
                 "by_shape": {str(list(k)): n for k, n in tally.items()},
                 "ortho_err": ortho})
             if t == 0 and pod.index == 0:
@@ -2066,6 +2075,33 @@ def train_psa_vs_plain(pods, plain) -> dict:
                       "error_feedback": PLAIN_EF_TOL,
                       "step_1_probes": PLAIN_AFTER_TOL}}
     return vs_plain
+
+
+def gram_qr_route(shape, is_bf16: bool = False) -> str:
+    """The route row 4's plan takes for a V of ``shape`` ((..., d, r)) on
+    card 0."""
+    from repro_torch.kernels import _launch, gram_qr
+    *lead, d, r = shape
+    return gram_qr.plan(int(np.prod(lead)) if lead else 1, d, r, is_bf16,
+                        _launch.card(0)[0]).route
+
+
+def check_refresh_routes(phase: str, pods) -> None:
+    """Each refresh's Gram launches by route (``gram_qr.ROUTE_LAUNCHES``
+    counted by the rank) against the plan's route of each shape it counted;
+    the one-matrix shapes (the heads, the expert stacks) on the cluster
+    route."""
+    for o in pods:
+        for rf in o["refreshes"]:
+            want = {"tc_bf16": 0, "simt": 0, "cluster": 0}
+            for key, n in rf["by_shape"].items():
+                shape = json.loads(key)
+                how = gram_qr_route(shape)
+                want[how] += n
+                check(how == "cluster" or (len(shape) == 3 and shape[0] > 1),
+                      f"{phase}: the Gram plan takes {how} at {shape}")
+            check(rf["routes"] == want, f"{phase}: Gram launches by route "
+                  f"{rf['routes']} at step {rf['step']}, expected {want}")
 
 
 def check_vs_plain(pods, plain, vs_plain) -> None:
@@ -2212,6 +2248,8 @@ def spmd_train_phases(dev, rows: dict, record, gram_qr_work, q_init,
                   "the fused dense run")
             check(qr == [2 * len(sched)] * SPMD_NODES, f"sdot_spmd {key}: "
                   f"Gram launches a rank {qr}, expected {2 * len(sched)}")
+            check(all(o["gram_qr_routes"]["cluster"] == 0 for o in runs),
+                  f"sdot_spmd {key}: Gram launches on the cluster route")
     emit({"phase": "sdot_spmd", "ranks": SPMD_NODES, "backend": "gloo",
           "d": d, "r": r, "samples_a_rank": SPMD_SAMPLES // SPMD_NODES,
           "runs": sdot_out})
@@ -2321,11 +2359,13 @@ def spmd_train_phases(dev, rows: dict, record, gram_qr_work, q_init,
                "relative to max |G|")
         rows[name]["launches"] = by_shape.get(str(list(shape)), 0)
         rows[name]["shape"] = list(shape)
+        rows[name]["kernel_route"] = gram_qr_route(shape)
         del vq
     check(sum(rows[f"gram_qr_psa_refresh_{k}"]["launches"]
               for k in ("a3584", "a18944", "head"))
           == sum(rf["gram_qr"] for o in pods for rf in o["refreshes"]),
           f"train_psa: Gram launches by shape {by_shape}")
+    check_refresh_routes("train_psa", pods)
 
     # -- train_example: the example twin, --full-100m ------------------------
     ex_dir = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
@@ -4370,10 +4410,12 @@ def train_psa_moe_phase(dev, rows: dict, record, gram_qr_work,
                "relative to max |G|")
         rows[name]["launches"] = by_shape.get(str(list(shape)), 0)
         rows[name]["shape"] = list(shape)
+        rows[name]["kernel_route"] = gram_qr_route(shape)
         del vq
     check(sum(rows[f"gram_qr_psa_moe_{k}"]["launches"] for k, _ in shapes)
           == sum(rf["gram_qr"] for o in pods for rf in o["refreshes"]),
           f"train_psa_moe: Gram launches by shape {by_shape}")
+    check_refresh_routes("train_psa_moe", pods)
     line["_step_s"] = step_ms / 1e3
     return line
 
@@ -4556,7 +4598,8 @@ def main() -> None:
         the TMA route and every slab tq launch the tiled kernel, but where
         ``packed`` the grid kernels' launches, and where ``gram_packed``
         the batched gram-apply launches (at sdot_sparse's stack), which
-        took the packed route (bulk copies): count them on the rows."""
+        took the packed route (bulk copies): count them on the rows. No
+        Gram launch took the cluster route (r <= 8 here)."""
         n = {k: launches.get(k, 0) for k in (
             "batched_gram_apply", "gram_apply", "batched_slab_apply",
             "grid_block_apply", "batched_slab_tq", "grid_block_tq")}
@@ -4576,6 +4619,8 @@ def main() -> None:
                   "packed": pk_tq, "packed_cp_async": 0})):
             check(dict(counts) == want, f"{where}: {label} launches by "
                   f"route {dict(counts)}, expected {want}")
+        check(gram_qr.ROUTE_LAUNCHES["cluster"] == 0, f"{where}: Gram "
+              f"launches on the cluster route {dict(gram_qr.ROUTE_LAUNCHES)}")
         for k in ("batched_gram_apply", "gram_apply", "batched_slab_apply"):
             rows[k]["tma_launches"] += n[k]
         rows["batched_gram_apply"]["tma_launches"] -= pk_gram
@@ -4890,7 +4935,7 @@ def main() -> None:
             "library_ms": time_ms(lambda: torch.bmm(vq.mT, vq)),
             "bound_ms": b_ms, "bound_by": b_by,
             "launch_floor_ms": launch_floor_ms,
-            "route": gram_qr.route(shape[2], dtype == torch.bfloat16),
+            "route": gram_qr_route(shape, dtype == torch.bfloat16),
             "host_us": host_us(lambda: ops.gram_qr(vq)),
             "library_host_us": host_us(lambda: torch.bmm(vq.mT, vq))}
         del vq, got, again, want

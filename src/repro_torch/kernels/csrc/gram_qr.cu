@@ -61,11 +61,43 @@
 //  * Ragged edges: rows past a range or d, and columns past r, are masked;
 //    any d >= 1 and r >= 1 are taken (no padding of d, unlike ops.py's TPU
 //    path).
+//
+// The cluster route (few matrices above r = 8 on the CUDA cores, the PSA
+// trainer's refresh Grams: one or two matrices of d = 3584-18944 by r = 64):
+// there the staged route's time was its fold's, two serial levels of
+// tickets and ordered sums on one SM each (PERF.md, row 4). Here a tile
+// pair is taken by thread block clusters of C = 16 blocks
+// (cudaLaunchKernelEx with a cluster dimension, past the portable 8):
+//  * the pair's micro-tiles on or above the diagonal (36 of a diagonal
+//    pair's 8 x 8) are cut into P parts; each part is summed over all rows
+//    by its own K clusters, block k of row cluster kk taking range kk C + k
+//    of the rows (K = 1, no fold, unless a block would take more than 512
+//    rows). An H100 holds 7 clusters of 16 at once: a matrix alone gets P
+//    = 7 parts of 5-6 micro-tiles;
+//  * a block stages its range as above; thread t keeps one micro-tile's
+//    sums over every phases-th row (``Tri``: 256 / per phases of per
+//    threads, so every warp but the last is busy) and the phases are added
+//    in order through shared memory, padded so that no load conflicts;
+//  * each block pushes slice k of its part's sums into the shared memory
+//    of block k (distributed shared memory), then one cluster barrier, and
+//    block k adds the C copies of slice k in rank order: no global
+//    partials, tickets or fences inside a cluster. The barrier that makes
+//    the pushes safe (every block started) is arrived at on entry and
+//    waited on after the sums, so its latency hides behind them;
+//  * K = 1: block k writes its slice of G. K > 1: it writes its slice as
+//    the row cluster's partial, takes the slice's ticket, and the last of
+//    the K sums the partials in cluster order and writes that slice of G:
+//    one level, spread over C SMs.
+// Every launch gives the same bits; G is written from the upper triangle's
+// sums to both triangles, as above.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -89,6 +121,10 @@ struct QrArgs {
   int stride;                    // elements between staged rows
   int buf_elems;                 // elements of one staging buffer
   size_t total;                  // batch * d * r
+  int cluster;                   // blocks a cluster (cluster route), else 1
+  int clusters;                  // row clusters a part (cluster route)
+  int parts;                     // parts of a tile pair (cluster route)
+  int recv_offset;               // bytes: the slices' copies (cluster route)
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -296,6 +332,128 @@ struct Simt {
   }
 };
 
+// Cluster route: the micro-tiles on or above the diagonal only, and of
+// those one part, micro-tiles [e0, e1) (row by row along the upper
+// triangle of the 8 x 8 micro-tiles: a diagonal tile pair has 36, an
+// off-diagonal pair 64). Thread t owns micro-tile e0 + t % per (per = e1 -
+// e0) over every phases-th row from phase t / per (phases = 256 / per: 7
+// of 36 threads for a whole diagonal pair, 42 of 6 for a sixth of one), so
+// every warp but the last is busy. The sums stay in micro-tile order: sum w
+// = (m M + n) per + e - e0 is (m, n) of micro-tile e (``element``), count()
+// = per M M of them.
+template <typename In, int T, bool VEC>
+struct Tri {
+  static constexpr bool kDirect = false;
+  static constexpr int M = T / 8;
+  float acc[M][M];
+  int i0, j0, phase, phases, per, e0;
+  bool active, diag;
+
+  // micro-tile e of the upper triangle (diagonal pair) or of all 64
+  __device__ __forceinline__ void micro(int e, int& ta, int& tb) const {
+    ta = 0;
+    if (diag) {
+      while (e >= 8 - ta) {
+        e -= 8 - ta;
+        ++ta;
+      }
+      tb = ta + e;
+    } else {
+      ta = e / 8;
+      tb = e % 8;
+    }
+  }
+
+  __device__ __forceinline__ int count() const { return per * M * M; }
+
+  // (ii, jj) in the T x T tile of sum w
+  __device__ __forceinline__ void element(int w, int& ii, int& jj) const {
+    const int q = w / per;
+    int ta, tb;
+    micro(e0 + w - q * per, ta, tb);
+    ii = ta * M + q / M;
+    jj = tb * M + q % M;
+  }
+
+  __device__ void init(int r, int ti, int tj, int first, int end) {
+    diag = ti == tj;
+    e0 = first;
+    per = end - first;
+    phases = kThreads / per;
+    phase = threadIdx.x / per;
+    int ta, tb;
+    micro(e0 + threadIdx.x - phase * per, ta, tb);
+    i0 = ti * T + ta * M;
+    j0 = tj * T + tb * M;
+    active = phase < phases && i0 < r && j0 < r;
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int n = 0; n < M; ++n) acc[m][n] = 0.f;
+  }
+
+  // every phases-th row from the thread's phase; four rows' values are
+  // loaded before their FMAs
+  __device__ void rows(const In* buf, int stride, int rows) {
+    if (!active) return;
+    int k = phase;
+    for (; k + 3 * phases < rows; k += 4 * phases) {
+      float x[4][M], y[4][M];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        load_micro<In, M, VEC>(buf + (k + u * phases) * stride + i0, x[u]);
+        load_micro<In, M, VEC>(buf + (k + u * phases) * stride + j0, y[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+#pragma unroll
+          for (int n = 0; n < M; ++n)
+            acc[m][n] = fmaf(x[u][m], y[u][n], acc[m][n]);
+    }
+    for (; k < rows; k += phases) {
+      float x[M], y[M];
+      load_micro<In, M, VEC>(buf + k * stride + i0, x);
+      load_micro<In, M, VEC>(buf + k * stride + j0, y);
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+#pragma unroll
+        for (int n = 0; n < M; ++n) acc[m][n] = fmaf(x[m], y[n], acc[m][n]);
+    }
+  }
+
+  // the threads' sums into shared memory, (m, n) of thread t at (m M + n)
+  // (kThreads + per) + t: a warp's stores run along consecutive words, and
+  // so do ``phase_sum``'s loads, (m M + n) (kThreads + per) + e - e0 +
+  // phase per = (m M + n) kThreads + w + phase per (no bank conflicts)
+  __device__ void store(float* red) const {
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int n = 0; n < M; ++n)
+        red[(m * M + n) * (kThreads + per) + threadIdx.x] =
+            active ? acc[m][n] : 0.f;
+  }
+
+  // sum w over the phases, added in phase order; eight phases' loads are
+  // in flight before their adds
+  __device__ __forceinline__ float phase_sum(const float* red, int w) const {
+    const float* at = red + (w / per) * kThreads + w;
+    float s = at[0];
+    for (int ph = 1; ph < phases; ph += 8) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        v[u] = ph + u < phases ? at[(ph + u) * per] : 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (ph + u < phases) s += v[u];
+    }
+    return s;
+  }
+};
+
 // -- tensor cores (bf16) -----------------------------------------------------
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   const void* p) {
@@ -406,21 +564,12 @@ __device__ __forceinline__ void write_gram(const float* tile, float* gb,
   }
 }
 
-template <typename In, int T, class Route>
-__global__ void __launch_bounds__(kThreads) gram_qr_kernel(QrArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int flag;
-  const int it = blockIdx.x;                      // = items[it]: (unit,
-  const int unit = it / a.ranges;                 // range of the unit)
-  const int range = it - unit * a.ranges;
-  const int b = unit / a.pairs;
-  int ti, tj;
-  tile_pair(unit - b * a.pairs, (a.r + T - 1) / T, ti, tj);
-  const int k_begin = range * a.rows_per_range;
-  const int k_end = min(a.d, k_begin + a.rows_per_range);
-
-  Route route;
-  route.init(a.r, ti, tj);
+// Rows [k_begin, k_end) of matrix b into ``route``'s sums (initialised),
+// staged at the start of shared memory (``smem``), by all threads.
+template <typename In, class Route>
+__device__ __forceinline__ void range_rows(const QrArgs& a, int b,
+                                           int k_begin, int k_end,
+                                           Route& route, unsigned char* smem) {
   if constexpr (Route::kDirect) {
     route.direct(a, b, k_begin, k_end);
   } else {
@@ -449,6 +598,23 @@ __global__ void __launch_bounds__(kThreads) gram_qr_kernel(QrArgs a) {
       off = next_off;
     }
   }
+}
+
+template <typename In, int T, class Route>
+__global__ void __launch_bounds__(kThreads) gram_qr_kernel(QrArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int flag;
+  const int it = blockIdx.x;                      // = items[it]: (unit,
+  const int unit = it / a.ranges;                 // range of the unit)
+  const int range = it - unit * a.ranges;
+  const int b = unit / a.pairs;
+  int ti, tj;
+  tile_pair(unit - b * a.pairs, (a.r + T - 1) / T, ti, tj);
+  const int k_begin = range * a.rows_per_range;
+  const int k_end = min(a.d, k_begin + a.rows_per_range);
+  Route route;
+  route.init(a.r, ti, tj);
+  range_rows<In>(a, b, k_begin, k_end, route, smem);
 
   float* tile = reinterpret_cast<float*>(smem);
   route.finish(tile, ti, tj);
@@ -467,6 +633,182 @@ __global__ void __launch_bounds__(kThreads) gram_qr_kernel(QrArgs a) {
   if (!flag) return;                 // not the unit's last range
   __syncthreads();
   write_gram<T>(tile, gb, a.r, ti, tj);
+}
+
+// -- cluster route -------------------------------------------------------------
+constexpr int kMaxCluster = 16;
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Sum w of ``route``'s part (value s) -> G[b], to both triangles (a sum
+// below a diagonal pair's diagonal to neither: its mirror is written from
+// above).
+template <int T, class Route>
+__device__ __forceinline__ void write_sum(const Route& route, float s,
+                                          float* gb, int r, int ti, int tj,
+                                          int w) {
+  int ii, jj;
+  route.element(w, ii, jj);
+  const int i = ti * T + ii, j = tj * T + jj;
+  if (i >= r || j >= r || (ti == tj && ii > jj)) return;
+  gb[(size_t)i * r + j] = s;
+  if (ti < tj || ii < jj) gb[(size_t)j * r + i] = s;
+}
+
+// Block (unit, part p, row cluster kk, rank k) of a cluster route launch,
+// blocks of a cluster consecutive: a tile pair's micro-tiles are cut into
+// ``parts`` parts, each taken by ``clusters`` clusters of C blocks, block k
+// of row cluster kk summing range kk C + k of the matrix's rows for its
+// part. The part's sums go, slice by slice, to the shared memory of the
+// block that owns the slice (distributed shared memory); after one cluster
+// barrier block k adds the C blocks' copies of slice k in rank order. See
+// the file's note.
+template <typename In, int T, class Route>
+__global__ void __launch_bounds__(kThreads)
+    gram_qr_cluster_kernel(QrArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int flag;
+  cluster_arrive_relaxed();          // this block has started (see below)
+  const int C = a.cluster, per_unit = a.parts * a.ranges;
+  const int unit = blockIdx.x / per_unit;
+  int at = blockIdx.x - unit * per_unit;
+  const int part = at / a.ranges;
+  const int range = at - part * a.ranges;      // kk C + rank
+  const int rank = range % C, kk = range / C;
+  const int b = unit / a.pairs;
+  int ti, tj;
+  tile_pair(unit - b * a.pairs, (a.r + T - 1) / T, ti, tj);
+  const int micro = ti == tj ? 36 : 64;
+  Route route;
+  route.init(a.r, ti, tj, part * micro / a.parts,
+             (part + 1) * micro / a.parts);
+  // the matrix's groups of 8 rows cut as evenly as whole groups allow
+  // (gram_qr.py ``cluster_range``); rows_per_range is the most a range
+  // takes
+  const long long groups = (a.d + 7) / 8;
+  const int k_begin = min(a.d, (int)(8 * (range * groups / a.ranges)));
+  const int k_end = min(a.d, (int)(8 * ((range + 1) * groups / a.ranges)));
+  range_rows<In>(a, b, k_begin, k_end, route, smem);
+
+  float* red = reinterpret_cast<float*>(smem);
+  float* recv = reinterpret_cast<float*>(smem + a.recv_offset);
+  route.store(red);
+  __syncthreads();
+  // slice k: sums [k n, k n + n) of the part's count (the last may be
+  // short, or empty)
+  const int count = route.count(), n = (count + C - 1) / C;
+  const int mine = max(0, min(n, count - rank * n));
+  // every block of the cluster has started, so its shared memory may be
+  // written (the arrival at the top; its wait is hidden behind the sums)
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_wait();
+  for (int w = threadIdx.x; w < count; w += kThreads) {
+    const int owner = w / n;
+    cluster.map_shared_rank(recv, owner)[rank * n + w - owner * n] =
+        route.phase_sum(red, w);
+  }
+  cluster_arrive();                  // this block's copies are out
+  cluster_wait();                    // and every block's are in
+  // slice ``rank`` of the cluster's sum: the blocks' copies in rank order
+  float* gb = a.g + (size_t)b * a.r * a.r;
+  float* part_sums = a.partial +
+                     (size_t)(unit * a.parts + part) * a.clusters * T * T;
+  for (int x = threadIdx.x; x < mine; x += kThreads) {
+    float v[kMaxCluster];
+#pragma unroll
+    for (int q = 0; q < kMaxCluster; ++q)
+      v[q] = q < C ? recv[q * n + x] : 0.f;
+    float s = v[0];
+#pragma unroll
+    for (int q = 1; q < kMaxCluster; ++q)
+      if (q < C) s += v[q];
+    if (a.clusters == 1)
+      write_sum<T>(route, s, gb, a.r, ti, tj, rank * n + x);
+    else
+      part_sums[(size_t)kk * T * T + rank * n + x] = s;
+  }
+  if (a.clusters == 1) return;
+  // the row clusters' partials of this slice, then the slice's ticket: the
+  // last of the part's clusters sums the partials in cluster order
+  __threadfence();
+  __syncthreads();
+  int* ticket = a.tickets + (unit * a.parts + part) * C + rank;
+  if (threadIdx.x == 0) flag = atomicAdd(ticket, 1) == a.clusters - 1;
+  __syncthreads();
+  if (!flag) return;
+  __threadfence();
+  hopper::ordered_sum<2>(part_sums + rank * n, (size_t)T * T, a.clusters,
+                         mine, recv, 1.f);
+  if (threadIdx.x == 0) *ticket = 0;
+  __syncthreads();
+  for (int x = threadIdx.x; x < mine; x += kThreads)
+    write_sum<T>(route, recv[x], gb, a.r, ti, tj, rank * n + x);
+}
+
+// Launch (occupancy == nullptr) or ask how many clusters of the launch's
+// size fit the card at once (into *occupancy).
+template <typename In, int T, class Route>
+cudaError_t launch_cluster(const QrArgs& a, int blocks, int smem,
+                           cudaStream_t s, int* occupancy) {
+  auto kernel = gram_qr_cluster_kernel<In, T, Route>;
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 200 * 1024);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    attr = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute dims[1];
+  dims[0].id = cudaLaunchAttributeClusterDimension;
+  dims[0].val.clusterDim.x = a.cluster;
+  dims[0].val.clusterDim.y = 1;
+  dims[0].val.clusterDim.z = 1;
+  cfg.attrs = dims;
+  cfg.numAttrs = 1;
+  if (occupancy != nullptr)
+    return cudaOccupancyMaxActiveClusters(occupancy, kernel, &cfg);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename In>
+cudaError_t dispatch_cluster(const QrArgs& a, int tile, int vec, int blocks,
+                             int smem, cudaStream_t s, int* occupancy) {
+  switch (tile) {
+    case 16:
+      return launch_cluster<In, 16, Tri<In, 16, false>>(a, blocks, smem, s,
+                                                        occupancy);
+    case 32:
+      return vec ? launch_cluster<In, 32, Tri<In, 32, true>>(
+                       a, blocks, smem, s, occupancy)
+                 : launch_cluster<In, 32, Tri<In, 32, false>>(
+                       a, blocks, smem, s, occupancy);
+    case 64:
+      return vec ? launch_cluster<In, 64, Tri<In, 64, true>>(
+                       a, blocks, smem, s, occupancy)
+                 : launch_cluster<In, 64, Tri<In, 64, false>>(
+                       a, blocks, smem, s, occupancy);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename In, int T, class Route>
@@ -512,29 +854,61 @@ extern "C" {
 // bf16 only, tile 64; else CUDA cores with tiles of ``tile``), vec (16-byte
 // shared-memory reads), pairs, ranges (a tile pair), rows_per_range,
 // chunk_rows, stride, buf_elems, blocks, smem, n_groups, the offsets of the
-// groups and the unit groups in table. One
+// groups and the unit groups in table, cluster (the cluster route's blocks
+// a cluster, 2-16; 1: the staged or direct route), clusters (the row
+// clusters of a part; ranges = cluster * clusters), parts (of a tile
+// pair's micro-tiles) and recv_offset (bytes of shared memory before the
+// slices' copies, a multiple of 16). One
 // array, so a launch converts few arguments on the host. Returns the CUDA
-// error code of the launch (0 on success).
-int gram_qr_launch(const void* v, float* g, float* partial, int* tickets,
-                   const int* table, const int* params, void* stream_ptr) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+// error code of the launch (0 on success): a cluster launch the card
+// refuses is an error, never another route.
+static int qr_run(const void* v, float* g, float* partial, int* tickets,
+                  const int* table, const int* params, cudaStream_t s,
+                  int* occupancy) {
   const int is_bf16 = params[0], batch = params[1], d = params[2],
             r = params[3], tile = params[4], tc = params[5], vec = params[6],
             pairs = params[7], ranges = params[8];
   const int blocks = params[13], smem = params[14];
+  const int cluster = params[18], clusters = params[19], parts = params[20],
+            recv_offset = params[21];
   if (batch < 1 || d < 1 || r < 1 || blocks < 1 || params[10] % 16 != 0 ||
-      ranges < 1 || blocks != batch * pairs * ranges ||
+      ranges < 1 || parts < 1 || blocks != batch * pairs * parts * ranges ||
       (tc && (!is_bf16 || tile != 64 || r % 8 != 0)) ||
-      (vec && (is_bf16 || tile < 32 || r % 4 != 0)))
+      (vec && (is_bf16 || tile < 32 || r % 4 != 0)) || cluster < 1 ||
+      (cluster > 1 && (tc || tile < 16 || cluster > kMaxCluster ||
+                       (cluster & (cluster - 1)) != 0 || clusters < 1 ||
+                       ranges != cluster * clusters || parts > 36 ||
+                       recv_offset % 16 != 0 ||
+                       recv_offset + tile * tile * 4 > smem)) ||
+      (cluster == 1 && (parts != 1 || occupancy != nullptr)))
     return (int)cudaErrorInvalidValue;
-  QrArgs a{v, g, partial, tickets, table, table + params[16],
-           table + params[17], params[15], d, r, pairs, ranges,
-           params[9], params[10], params[11], params[12],
-           (size_t)batch * d * r};
+  QrArgs a{v, g, partial, tickets, table,
+           table ? table + params[16] : nullptr,
+           table ? table + params[17] : nullptr, params[15], d, r, pairs,
+           ranges, params[9], params[10], params[11], params[12],
+           (size_t)batch * d * r, cluster, clusters, parts, recv_offset};
+  if (cluster > 1)
+    return (int)(is_bf16 ? dispatch_cluster<__nv_bfloat16>(
+                               a, tile, vec, blocks, smem, s, occupancy)
+                         : dispatch_cluster<float>(a, tile, vec, blocks,
+                                                   smem, s, occupancy));
   if (tc) return (int)launch<__nv_bfloat16, 64, Tc>(a, blocks, smem, s);
   return (int)(is_bf16 ? dispatch_simt<__nv_bfloat16>(a, tile, vec, blocks,
                                                        smem, s)
                        : dispatch_simt<float>(a, tile, vec, blocks, smem, s));
+}
+
+int gram_qr_launch(const void* v, float* g, float* partial, int* tickets,
+                   const int* table, const int* params, void* stream_ptr) {
+  return qr_run(v, g, partial, tickets, table, params,
+                static_cast<cudaStream_t>(stream_ptr), nullptr);
+}
+
+// How many clusters of a cluster route plan (``params`` as above) the card
+// holds at once, into *out (cudaOccupancyMaxActiveClusters). Returns the
+// CUDA error code.
+int gram_qr_cluster_occupancy(const int* params, int* out) {
+  return qr_run(nullptr, nullptr, nullptr, nullptr, nullptr, params, 0, out);
 }
 
 }  // extern "C"

@@ -1005,16 +1005,95 @@ def test_gram_qr_kernel_at_plan_shapes(cuda_device, dtype, d, r):
     ops.reset_launches()
     got = ops.gram_qr(v)
     torch.cuda.synchronize()
-    how = gram_qr.route(r, dtype == torch.bfloat16)
+    how = gram_qr.plan(3, d, r, dtype == torch.bfloat16,
+                       _launch.card(cuda_device.index or 0)[0]).route
     assert ops.LAUNCHES["gram_qr"] == 1
     assert gram_qr.ROUTE_LAUNCHES == {"tc_bf16": int(how == "tc_bf16"),
-                                      "simt": int(how == "simt")}
+                                      "simt": int(how == "simt"),
+                                      "cluster": int(how == "cluster")}
     want = ref.gram_qr_ref(v.double())
     assert float((got - want).abs().max()) <= GRAM_QR_TOL * float(
         want.abs().max())
     with no_host_sync():
         again = ops.gram_qr(v)
     assert torch.equal(got, again) and torch.equal(got, got.mT)
+
+
+# the PSA trainer's refresh Grams (train_psa: qwen2-7b's d_model and d_ff
+# leaves two a launch, its head one; train_psa_moe: phi3.5-moe's expert
+# stacks and head), ragged d, other widths
+QR_CLUSTER_SHAPES = [(2, 3584, 64), (2, 18944, 64), (3584, 64),
+                     (1, 4096, 64), (1, 6400, 64), (4096, 64),
+                     (1, 3583, 64), (1, 4095, 64), (1, 6401, 64),
+                     (1, 4096, 9), (1, 4096, 33), (2, 5000, 64)]
+
+
+@pytest.mark.parametrize("shape", QR_CLUSTER_SHAPES)
+def test_gram_qr_cluster_route_at_refresh_shapes(cuda_device, shape):
+    """The plan takes the cluster route at the refresh's shapes (and at
+    ragged d and r): one launch counted on it, within GRAM_QR_TOL of the
+    Gram in float64, exactly symmetric, the same bits twice. GRAM_QR_TOL
+    is the staged route's; the cluster route read at most 2.0e-7 of max
+    |G| from float64 at the refresh shapes on an H100, and cuBLAS's f32
+    Gram 6.6e-6 (tools/gram_qr_accuracy.py)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    v = torch.randn(shape, generator=gen, device=cuda_device)
+    batch = 1 if len(shape) == 2 else shape[0]
+    p = gram_qr.plan(batch, *shape[-2:], False,
+                     _launch.card(cuda_device.index or 0)[0])
+    assert p.route == "cluster"
+    ops.reset_launches()
+    got = ops.gram_qr(v)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["gram_qr"] == 1
+    assert gram_qr.ROUTE_LAUNCHES == {"tc_bf16": 0, "simt": 0, "cluster": 1}
+    want = ref.gram_qr_ref(v.double())
+    assert float((got - want).abs().max()) <= GRAM_QR_TOL * float(
+        want.abs().max())
+    with no_host_sync():
+        again = ops.gram_qr(v)
+    assert torch.equal(got, again) and torch.equal(got, got.mT)
+
+
+@pytest.mark.parametrize("d,r", [(55, 64), (700, 16), (16384, 128)])
+def test_gram_qr_cluster_route_forced_matches_staged(cuda_device, d, r):
+    """The cluster route forced where the plan may not take it (one short
+    matrix; three tile pairs) against the staged route on the same V:
+    within GRAM_QR_TOL of max |G| of each other, both exactly symmetric."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + r)
+    v = torch.randn((1, d, r), generator=gen, device=cuda_device)
+    got = gram_qr.gram_qr_cuda(v, route="cluster")
+    want = gram_qr.gram_qr_cuda(v, route="simt")
+    assert float((got - want).abs().max()) <= GRAM_QR_TOL * float(
+        want.abs().max())
+    assert torch.equal(got, got.mT) and torch.equal(want, want.mT)
+
+
+def test_gram_qr_cluster_route_raises_instead_of_falling_back(
+        cuda_device, monkeypatch):
+    """A cluster launch the kernel refuses (here 32 blocks a cluster, past
+    the card's 16) raises, and no route counts a launch; a route that
+    cannot take the shapes is refused before any launch."""
+    import dataclasses
+    v = torch.randn((1, 4096, 64), device=cuda_device)
+    real = gram_qr.plan
+    monkeypatch.setattr(gram_qr, "plan", lambda *a: dataclasses.replace(
+        real(*a), cluster=32, clusters=4))
+    gram_qr._device_plan.cache_clear()
+    ops.reset_launches()
+    try:
+        with pytest.raises(RuntimeError):
+            gram_qr.gram_qr_cuda(v)
+    finally:
+        gram_qr._device_plan.cache_clear()
+    assert gram_qr.ROUTE_LAUNCHES == {"tc_bf16": 0, "simt": 0, "cluster": 0}
+    monkeypatch.setattr(gram_qr, "plan", real)
+    for shape, dtype in (((1, 4096, 7), torch.float32),
+                         ((1, 4096, 64), torch.bfloat16)):
+        with pytest.raises(ValueError):
+            gram_qr.gram_qr_cuda(torch.ones(shape, dtype=dtype,
+                                            device=cuda_device),
+                                 route="cluster")
 
 
 def test_gram_qr_kernel_reads_unaligned_views(cuda_device):
@@ -1025,6 +1104,16 @@ def test_gram_qr_kernel_reads_unaligned_views(cuda_device):
     v = flat[1:].view(20, 1024, 7)
     assert v.data_ptr() % 16 != 0
     assert torch.equal(ops.gram_qr(v), ops.gram_qr(v.clone()))
+
+
+def test_gram_qr_cluster_route_reads_unaligned_views(cuda_device):
+    """The same on the cluster route, at a refresh shape."""
+    flat = torch.randn(4096 * 64 + 1, device=cuda_device)
+    v = flat[1:].view(1, 4096, 64)
+    assert v.data_ptr() % 16 != 0
+    ops.reset_launches()
+    assert torch.equal(ops.gram_qr(v), ops.gram_qr(v.clone()))
+    assert gram_qr.ROUTE_LAUNCHES["cluster"] == 2
 
 
 def _ell_graph(kind, n, dev):

@@ -9,6 +9,7 @@ without a card: every column (or row) falls in exactly one work item, each
 unit's partials are summed in one fixed order, and the staging fits shared
 memory.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -477,6 +478,38 @@ def _qr_rows(p, batch, d):
     return seen
 
 
+def _check_cluster(p, batch, d, esize):
+    """A cluster route plan: each part of each tile pair takes every row of
+    its matrix in exactly one of its ranges, in order, whole groups of 8
+    rows (so 16-byte aligned), none empty where d >= 8 ranges; clusters of
+    at most 16 blocks dividing the ranges and the blocks, all of them at
+    once on the card where the tile pairs fit it; partials (one fold level)
+    only where a part has more than one row cluster; the staging buffers,
+    the threads' sums and the slices' copies within 227 KB."""
+    units = batch * p.pairs
+    assert p.cluster in (2, 4, 8, 16) and p.ranges == p.cluster * p.clusters
+    assert p.blocks == units * p.parts * p.ranges
+    assert p.blocks % p.cluster == 0 and 1 <= p.parts <= 36
+    if units <= H100[0] // p.cluster - gram_qr.CLUSTER_SPARE:
+        assert p.blocks // p.cluster <= H100[0] // p.cluster - 1
+    for u in range(units):
+        for part in range(p.parts):
+            first = (u * p.parts + part) * p.ranges
+            rows = [p.block_rows(first + c, d) for c in range(p.ranges)]
+            assert {unit for unit, _ in rows} == {u}
+            assert [k for _, rg in rows for k in rg] == list(range(d))
+            assert all(rg.start * p.stride * esize % 16 == 0
+                       and len(rg) <= p.rows_per_range for _, rg in rows)
+            if d >= 8 * p.ranges:
+                assert all(len(rg) > 0 for _, rg in rows)
+    assert p.groups == () and p.slots == (
+        units * p.parts * p.clusters if p.clusters > 1 else 0)
+    assert p.tickets == units * p.parts * p.cluster
+    assert p.recv_offset % 16 == 0 and p.smem == p.recv_offset + 4 * p.tile ** 2
+    assert 2 * p.buf_elems * esize <= p.recv_offset and p.smem <= H100[1]
+    assert p.rows_per_range % 8 == 0 and p.chunk_rows % 16 == 0
+
+
 @pytest.mark.parametrize("is_bf16", [False, True])
 @pytest.mark.parametrize("r", QR_R)
 @pytest.mark.parametrize("d", QR_D)
@@ -485,10 +518,14 @@ def test_gram_qr_plan_covers_every_row_once(d, r, is_bf16):
     pair; ranges start a whole number of 16-byte units into their matrix
     and none is empty; the blocks fit one wave (one an SM) unless the
     batch alone exceeds it; the staging buffers and the phase sums fit
-    shared memory."""
+    shared memory. A plan on the cluster route is held to the same by
+    ``_check_cluster``, for each part of each tile pair."""
     batch = 3
     p = gram_qr.plan(batch, d, r, is_bf16, H100[0])
     esize = 2 if is_bf16 else 4
+    if p.route == "cluster":
+        _check_cluster(p, batch, d, esize)
+        return
     for unit, ranges in _qr_rows(p, batch, d).items():
         rows = [k for rg in ranges for k in rg]
         assert rows == list(range(d)), unit
@@ -501,17 +538,20 @@ def test_gram_qr_plan_covers_every_row_once(d, r, is_bf16):
     _check_fold(p.items, p.groups, p.unit_groups, batch * p.pairs, p.slots)
 
 
-@pytest.mark.parametrize("r,is_bf16,want", [
-    (7, False, ("simt", 8)), (7, True, ("simt", 8)), (16, True, ("simt", 16)),
-    (24, True, ("tc_bf16", 64)), (33, True, ("simt", 64)),
-    (64, True, ("tc_bf16", 64)), (128, True, ("tc_bf16", 64)),
-    (128, False, ("simt", 64))])
-def test_gram_qr_route_follows_type_and_width(r, is_bf16, want):
+@pytest.mark.parametrize("r,is_bf16,how,want", [
+    (7, False, "simt", ("simt", 8)), (7, True, "simt", ("simt", 8)),
+    (16, True, "simt", ("cluster", 16)), (24, True, "tc_bf16", ("tc_bf16", 64)),
+    (33, True, "simt", ("cluster", 64)), (64, True, "tc_bf16", ("tc_bf16", 64)),
+    (128, True, "tc_bf16", ("tc_bf16", 64)),
+    (128, False, "simt", ("cluster", 64))])
+def test_gram_qr_route_follows_type_and_width(r, is_bf16, how, want):
     """bf16 goes to the tensor cores where r is a multiple of 8 above 16;
-    f32 never does (TF32 would move the Gram)."""
+    f32 never does (TF32 would move the Gram). The CUDA cores' shapes above
+    r = 8 of two matrices (6 tile pairs at r = 128) take the cluster
+    route; r <= 8 reads rows straight into registers."""
     p = gram_qr.plan(2, 1000, r, is_bf16, H100[0])
     assert (p.route, p.tile) == want
-    assert gram_qr.route(r, is_bf16) == want[0]
+    assert gram_qr.route(r, is_bf16) == how
 
 
 def test_gram_qr_plan_main_path_shapes():
@@ -520,7 +560,8 @@ def test_gram_qr_plan_main_path_shapes():
     into registers, no partials; (1, 16384, 7): 4 ranges of 4096 rows, one
     group; the tall (16384, 128): 3 tile pairs of 44 ranges (132 blocks,
     one an SM), folded a tile pair in 7 groups of at most 7 and then the
-    groups' sums."""
+    groups' sums, in bf16 (the tensor cores); in f32 the cluster route,
+    each tile pair's rows in 2 row clusters of 16 ranges of 512 rows."""
     p = gram_qr.plan(20, 1024, 7, False, H100[0])
     assert (p.ranges, p.rows_per_range, p.blocks, p.slots) == (
         1, 1024, 20, 0)
@@ -529,11 +570,83 @@ def test_gram_qr_plan_main_path_shapes():
             gram_qr.plan(20, 55, 7, False, H100[0]).blocks) == (4, 20)
     p = gram_qr.plan(1, 16384, 7, False, H100[0])
     assert (p.ranges, p.rows_per_range, p.groups) == (4, 4096, ((0, 4, -1),))
-    for is_bf16 in (False, True):
-        p = gram_qr.plan(1, 16384, 128, is_bf16, H100[0])
-        assert (p.pairs, p.ranges, p.blocks) == (3, 44, 132)
-        assert [c for _, c, _ in p.groups] == ([7] * 6 + [2]) * 3
-        assert p.unit_groups == (0, 7, 14, 21) and p.slots == 153
+    p = gram_qr.plan(1, 16384, 128, True, H100[0])
+    assert (p.pairs, p.ranges, p.blocks) == (3, 44, 132)
+    assert [c for _, c, _ in p.groups] == ([7] * 6 + [2]) * 3
+    assert p.unit_groups == (0, 7, 14, 21) and p.slots == 153
+    p = gram_qr.plan(1, 16384, 128, False, H100[0])
+    assert (p.route, p.pairs, p.parts, p.clusters, p.ranges, p.blocks) == (
+        "cluster", 3, 1, 2, 32, 96)
+    assert p.rows_per_range == 512 and p.slots == 6
+
+
+# the PSA trainer's refresh Grams (B, d, r = 64): train_psa's qwen2-7b
+# (d_model, d_ff two a launch, the head alone), train_psa_moe's phi3.5-moe
+# (the expert stacks' d_model and d_expert, the head)
+QR_REFRESH = [(2, 3584), (2, 18944), (1, 3584), (1, 4096), (1, 6400),
+              (1, 4096)]
+
+
+@pytest.mark.parametrize("batch,d", QR_REFRESH)
+def test_gram_qr_plan_takes_cluster_at_refresh_shapes(batch, d):
+    """The refresh's f32 Grams take the cluster route: its clusters fit
+    the card at once, and the rows of a part are split over row clusters
+    (one fold level) only where a block would take more than
+    CLUSTER_MAX_ROWS."""
+    p = gram_qr.plan(batch, d, 64, False, H100[0])
+    assert p.route == "cluster" and p.tile == 64 and p.pairs == 1
+    assert p.blocks // p.cluster <= H100[0] // p.cluster - 1
+    assert (p.clusters > 1) == (
+        d > p.cluster * gram_qr.CLUSTER_MAX_ROWS)
+    _check_cluster(p, batch, d, 4)
+
+
+# the main path's r = 7 Grams: S-DOT's nodes, F-DOT's slabs, B-DOT's row
+# slabs, sdot_spmd's one node a rank -> (rows a range, chunk rows)
+QR_MAIN = {(20, 1024): (1024, 1024), (20, 55): (56, 64), (4, 256): (256, 256),
+           (1, 1024): (1024, 1024)}
+
+
+@pytest.mark.parametrize("batch,d", sorted(QR_MAIN))
+def test_gram_qr_plan_main_path_r7_unchanged(batch, d):
+    """The main path's r = 7 plans, field by field, as before the cluster
+    route: one block a matrix reading its rows straight into registers,
+    no partials, no cluster."""
+    rows, chunk = QR_MAIN[(batch, d)]
+    p = gram_qr.plan(batch, d, 7, False, H100[0])
+    assert dataclasses.asdict(p) == {
+        "route": "simt", "tile": 8, "vec": False, "pairs": 1, "ranges": 1,
+        "rows_per_range": rows, "chunk_rows": chunk, "stride": 7,
+        "buf_elems": 0, "smem": 2304,
+        "items": tuple((u, 0, 1, 1, -1, -1) for u in range(batch)),
+        "groups": (), "unit_groups": (0,) * (batch + 1), "slots": 0,
+        "cluster": 1, "clusters": 1, "parts": 1, "recv_offset": 0}
+    assert p.tickets == batch
+
+
+@pytest.mark.parametrize("batch,d,r", [(1, 55, 64), (1, 700, 16),
+                                       (2, 257, 33), (3, 16384, 128),
+                                       (20, 1024, 64), (1, 4096, 9)])
+def test_gram_qr_cluster_plan_forced_covers_every_row_once(batch, d, r):
+    """The cluster route forced (the crossover's timings), where the plan
+    would not take it too: the same invariants."""
+    p = gram_qr.plan(batch, d, r, False, H100[0], "cluster")
+    assert p.route == "cluster"
+    _check_cluster(p, batch, d, 4)
+
+
+def test_gram_qr_plan_refuses_what_the_routes_do_not_take():
+    """An empty shape; the cluster route at r <= 8 (the direct route's) or
+    on the tensor cores' bf16 shapes; a route of another type."""
+    for shape in ((0, 1024, 64), (1, 0, 64), (1, 1024, 0)):
+        with pytest.raises(ValueError):
+            gram_qr.plan(*shape, False, H100[0])
+        with pytest.raises(ValueError):
+            gram_qr.plan(*shape, False, H100[0], "cluster")
+    for r, is_bf16, force in ((7, False, "cluster"), (64, True, "cluster"),
+                              (64, False, "tc_bf16"), (64, True, "simt")):
+        with pytest.raises(ValueError):
+            gram_qr.plan(1, 4096, r, is_bf16, H100[0], force)
 
 
 def test_gram_qr_plan_is_a_function_of_the_shapes():

@@ -3,12 +3,14 @@ on the card.
 
     python3 tools/gram_qr_accuracy.py
 
-For bf16 V at (B, d, r) = (1 | 3, 16384, 32 | 64 | 128) and two tall f32
-shapes, seeds 0 and 1: the largest error on the diagonal and off it, and
+For bf16 V at (B, d, r) = (1 | 3, 16384, 32 | 64 | 128), two tall f32
+shapes and the PSA trainer's refresh shapes in f32 (the cluster route),
+seeds 0 and 1: the largest error on the diagonal and off it, and
 the mean signed error on the diagonal, of ``ops.gram_qr`` (the kernel) and
 of ``ref.gram_qr_ref`` (the plain version: V promoted to f32, one batched
-cuBLAS product), each against V^T V in float64, beside max |G|. One JSON
-line a case, then the card's name and power limit.
+cuBLAS product), each against V^T V in float64, beside max |G|, and the
+kernel's largest error relative to max |G|, with the route its plan
+takes. One JSON line a case, then the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -22,7 +24,10 @@ ROOT = Path(__file__).resolve().parents[1]
 CASES = [((1, 16384, 128), "bfloat16"), ((3, 16384, 128), "bfloat16"),
          ((1, 16384, 64), "bfloat16"), ((3, 16384, 64), "bfloat16"),
          ((3, 16384, 32), "bfloat16"), ((3, 1024, 64), "bfloat16"),
-         ((1, 16384, 128), "float32"), ((20, 1024, 7), "float32")]
+         ((1, 16384, 128), "float32"), ((20, 1024, 7), "float32"),
+         ((2, 3584, 64), "float32"), ((2, 18944, 64), "float32"),
+         ((1, 3584, 64), "float32"), ((1, 4096, 64), "float32"),
+         ((1, 6400, 64), "float32")]
 
 
 def main() -> None:
@@ -30,7 +35,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("gram_qr_accuracy: no CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import gram_qr, ops, ref
+    from repro_torch.kernels import _launch, gram_qr, ops, ref
 
     dev = torch.device("cuda")
     for shape, dtype in CASES:
@@ -48,11 +53,15 @@ def main() -> None:
                         "off_max": float(e[:, ~eye].abs().max())
                         if r > 1 else 0.0,
                         "diag_mean_signed": float(e[:, eye].mean())}
+            got = ops.gram_qr(v)
             print(json.dumps({
                 "shape": list(shape), "dtype": dtype, "seed": seed,
-                "route": gram_qr.route(r, dtype == "bfloat16"),
+                "route": gram_qr.plan(batch, d, r, dtype == "bfloat16",
+                                      _launch.card(0)[0]).route,
                 "max_abs_g": float(exact.abs().max()),
-                "kernel": errors(ops.gram_qr(v)),
+                "kernel_rel_max": float((got.double() - exact).abs().max()
+                                        / exact.abs().max()),
+                "kernel": errors(got),
                 "plain": errors(ref.gram_qr_ref(v))}), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,

@@ -4,7 +4,7 @@ repository, in turns; and the crossover of the grid kernels' two routes.
 
     python3 tools/psa_kernel_times.py [--tree DIR ...] [--rounds 1]
         [--rows ROW,ROW]
-    python3 tools/psa_kernel_times.py --crossover [grid|gram|all]
+    python3 tools/psa_kernel_times.py --crossover [grid|gram|qr|all]
 
 Each ``--tree`` is the root of a checkout (default: this one). The trees run
 in the order given and then in reverse, ``--rounds`` times over (A B B A for
@@ -21,8 +21,10 @@ payload on watts_strogatz(4096, 6, 0.1, seed 1) in f32 and with bf16
 messages, and on erdos_renyi(4096, 0.0015, seed 1, not resampled until
 connected) in f32 and bf16; and the CholeskyQR Gram (``ops.gram_qr``) at
 chip_smoke.py's five shapes (S-DOT (20, 1024, 7), F-DOT (20, 55, 7), B-DOT
-(4, 256, 7) and (1, 16384, 128) in f32 and bf16), and at (1, 16384, 7)
-in f32 (four ranges of r = 7 folded in one launch). For each: device time
+(4, 256, 7) and (1, 16384, 128) in f32 and bf16), at (1, 16384, 7)
+in f32 (four ranges of r = 7 folded in one launch), and at the PSA
+trainer's refresh shapes (``gram_qr_psa_*``: (1, 3584 / 4096 / 6400, 64)
+and (2, 3584 / 18944, 64) in f32). For each: device time
 a launch as chip_smoke.py takes it (CUDA events around 20 launches behind a
 spin of the card, median of 5), the
 host's time to issue one call, the largest error relative to the plain
@@ -40,8 +42,16 @@ readings. ``--crossover gram`` does the same for the gram-apply kernel's
 two routes (``gram_update.batched_gram_apply_cuda(route=...)``) beside the
 ``torch.bmm`` pair, at n in GRAM_CROSSOVER_N with d = 784 and 1024, r = 5
 and 7, and 4,096 and 20 nodes (every column real); one JSON line a shape.
-``gram_update.PACKED_MAX_N`` is set from these readings. ``--crossover``
-alone (``all``) runs both.
+``gram_update.PACKED_MAX_N`` is set from these readings. ``--crossover
+qr`` does the same for the CholeskyQR Gram's routes
+(``gram_qr.gram_qr_cuda(route=...)``: the staged ``simt`` route and the
+``cluster`` route) beside ``torch.matmul(v.mT, v)``, at d in QR_CROSSOVER_D,
+r in QR_CROSSOVER_R and B in QR_CROSSOVER_B in f32, and in bf16 where the
+type's route is ``simt`` (r = 16); first how many clusters of 16 and of
+8 blocks the card holds at once (``gram_qr.cluster_occupancy`` at (1,
+4096, 64)), then one JSON line a shape, with the route the plan takes.
+``gram_qr.takes_cluster`` is set from these readings.
+``--crossover`` alone (``all``) runs all three.
 
 The row ``batched_gram_apply_sp`` times row 1 at sdot_sparse's own stack
 (4,096 nodes of 784 x 14-15 samples padded to 16, r = 5), cut as
@@ -62,7 +72,9 @@ ROWS = ("batched_gram_apply", "batched_gram_apply_sp", "gram_apply",
         "batched_slab_apply", "grid_block_tq", "grid_block_apply", "grid_block_tq_bs",
         "grid_block_apply_bs", "ell_spmm_ws", "ell_spmm_ws_bf16", "ell_spmm_er",
         "ell_spmm_er_bf16", "gram_qr_sdot", "gram_qr_fdot", "gram_qr_bdot",
-        "gram_qr_bench_f32", "gram_qr_bench_bf16", "gram_qr_tall7")
+        "gram_qr_bench_f32", "gram_qr_bench_bf16", "gram_qr_tall7",
+        "gram_qr_psa_a3584", "gram_qr_psa_a4096", "gram_qr_psa_a6400",
+        "gram_qr_psa_b3584", "gram_qr_psa_b18944")
 
 
 def worker(tree: Path, only=None) -> dict:
@@ -153,7 +165,12 @@ def worker(tree: Path, only=None) -> dict:
             ("bdot", (4, 256, r), torch.float32),
             ("bench_f32", (1, 16384, 128), torch.float32),
             ("bench_bf16", (1, 16384, 128), torch.bfloat16),
-            ("tall7", (1, 16384, 7), torch.float32)):
+            ("tall7", (1, 16384, 7), torch.float32),
+            ("psa_a3584", (1, 3584, 64), torch.float32),
+            ("psa_a4096", (1, 4096, 64), torch.float32),
+            ("psa_a6400", (1, 6400, 64), torch.float32),
+            ("psa_b3584", (2, 3584, 64), torch.float32),
+            ("psa_b18944", (2, 18944, 64), torch.float32)):
         vq = torch.randn(shape, generator=gen, device=dev).to(dtype)
         cases[f"gram_qr_{label}"] = (lambda vq=vq: ops.gram_qr(vq),
                                      lambda vq=vq: ref.gram_qr_ref(vq))
@@ -284,6 +301,68 @@ def gram_crossover() -> None:
     print(json.dumps({"card": cs.nvidia_smi()}), flush=True)
 
 
+QR_CROSSOVER_D = (512, 1024, 2048, 3584, 4096, 6400, 8192, 12288, 18944,
+                  20000)
+QR_CROSSOVER_R = (16, 32, 48, 64, 128)
+QR_CROSSOVER_B = (1, 2, 4, 20)
+
+
+def qr_crossover() -> None:
+    """The Gram's staged and cluster routes, forced, and the library call
+    at each (B, d, r) of the QR_CROSSOVER grids (f32; bf16 at r = 16)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build, _launch, gram_qr
+
+    dev = torch.device("cuda")
+    _build.build_all()
+    sm = _launch.card(0)[0]
+    occupancy = {}
+    for size in (gram_qr.CLUSTER, 8):
+        saved, gram_qr.CLUSTER = gram_qr.CLUSTER, size
+        gram_qr.plan.cache_clear()
+        gram_qr._device_plan.cache_clear()
+        occupancy[size] = gram_qr.cluster_occupancy(1, 4096, 64)
+        gram_qr.CLUSTER = saved
+    gram_qr.plan.cache_clear()
+    gram_qr._device_plan.cache_clear()
+    print(json.dumps({"clusters_at_once": occupancy}), flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = [(b, d, r, dtype) for dtype in (torch.float32, torch.bfloat16)
+              for b in QR_CROSSOVER_B for r in QR_CROSSOVER_R
+              for d in QR_CROSSOVER_D
+              if gram_qr.route(r, dtype == torch.bfloat16) == "simt"]
+    for b, d, r, dtype in shapes:
+        v = torch.randn((b, d, r), generator=gen, device=dev).to(dtype)
+        is_bf16 = dtype == torch.bfloat16
+        line = {"batch": b, "d": d, "r": r,
+                "dtype": str(dtype).removeprefix("torch."),
+                "route": gram_qr.plan(b, d, r, is_bf16, sm).route,
+                "bound_ms": cs.bound(v.numel() * v.element_size()
+                                     + 4 * b * r * r,
+                                     float(b * d * r * (r + 1)))[0],
+                "library_ms": cs.time_ms(lambda: torch.matmul(v.mT, v))}
+        got = {}
+        for route in ("simt", "cluster"):
+            try:
+                got[route] = gram_qr.gram_qr_cuda(v, route=route)
+            except ValueError as err:        # this route cannot take it
+                line[f"{route}_ms"], line[f"{route}_refused"] = None, str(
+                    err)
+                continue
+            line[f"{route}_ms"] = cs.time_ms(
+                lambda route=route: gram_qr.gram_qr_cuda(v, route=route))
+        if len(got) == 2:
+            a, c = got["simt"], got["cluster"]
+            line["rel_diff"] = float((a - c).abs().max() / a.abs().max())
+        print(json.dumps(line), flush=True)
+        del v, got
+    print(json.dumps({"card": cs.nvidia_smi()}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tree", action="append", type=Path)
@@ -291,9 +370,9 @@ def main() -> None:
     ap.add_argument("--rows", help="comma-separated rows to time (default: "
                     "all)")
     ap.add_argument("--crossover", nargs="?", const="all",
-                    choices=("all", "grid", "gram"),
-                    help="time the grid (or gram-apply) kernels' two "
-                         "routes against n")
+                    choices=("all", "grid", "gram", "qr"),
+                    help="time the grid (gram-apply, Gram) kernels' "
+                         "routes against their shapes")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
     only = args.rows.split(",") if args.rows else None
@@ -308,6 +387,8 @@ def main() -> None:
             crossover()
         if args.crossover in ("all", "gram"):
             gram_crossover()
+        if args.crossover in ("all", "qr"):
+            qr_crossover()
         return
     trees = [t.resolve() for t in (args.tree or [ROOT])]
     ms = {str(t): {row: [] for row in only or ROWS} for t in trees}

@@ -141,15 +141,29 @@ VARIANTS = {
     },
 }
 _QR_FOLD = "  hopper::fold_partials(a.items"
+# MIN_RANGE_BYTES of the Gram plans timed beside the planner's
+_QR_RANGES = (1024, 8192, 16384, 32768, 65536, 131072, 1 << 40)
+_QR_CLUSTER_PLANS = {
+    "cluster8": {"CLUSTER": 8}, "cluster4": {"CLUSTER": 4},
+    **{f"cmin{n}": {"CLUSTER_MIN_ROWS": n} for n in (8, 32, 64, 128)},
+    **{f"cmax{n}": {"CLUSTER_MAX_ROWS": n} for n in (64, 128, 256, 1024,
+                                                      1 << 20)},
+    **{f"cparts{n}": {"CLUSTER_MAX_PARTS": n} for n in (1, 2, 4)},
+    **{f"cspare{n}": {"CLUSTER_SPARE": n} for n in (0, -3, -6)},
+    "staged": {"CLUSTER_MAX_UNITS": 0}}
 _QR_STAGE = ("    hopper::cp_async_16(hopper::smem_u32(buf + u * U), v + at,\n"
              "                        left >= (size_t)U ? 16 : (int)(left * "
              "sizeof(In)));\n")
 VARIANTS["gram_qr"] = {
     "kernel": [],
     # the plan with other range sizes (PLAN)
-    **{f"range{b}": [] for b in (1024, 8192, 16384, 1 << 40)},
+    **{f"range{b}": [] for b in _QR_RANGES},
     # the ranges' partials are written but not folded
     "no_fold": [(_QR_FOLD, "  return;\n" + _QR_FOLD)],
+    # nothing staged or summed: the launch, the partials' writes and the
+    # fold alone (of zero tiles)
+    "fold_only": [("    const int chunks = k_end > k_begin\n",
+                   "    const int chunks = k_end < 0\n")],
     # the flat copy as plain 16-byte loads (the tail unit left out)
     "plain_stage": [(_QR_STAGE, "    if (left >= (size_t)U)\n"
                      "      *reinterpret_cast<uint4*>(buf + u * U) =\n"
@@ -157,6 +171,20 @@ VARIANTS["gram_qr"] = {
     # no sums (the staged rows are not read; above r = 8)
     "no_compute": [("      route.rows(buf0 + (c & 1) * a.buf_elems + off, "
                     "a.stride, k1 - k0);\n", "      {}\n")],
+    # the plan's constants of the cluster route (PLAN): clusters of 8 (the
+    # portable size) or 4, a block's least rows, and no cluster route (the
+    # staged ranges and their two-level fold, the parent's launch)
+    **{v: [] for v in _QR_CLUSTER_PLANS},
+    # the cluster route's pieces: each thread's own phase in place of the
+    # phases' sum, the slices' copies kept in the block's own shared memory
+    # (no distributed shared memory), no partials' ticket or fold across
+    # row clusters
+    "cl_no_phase_sum": [("        route.phase_sum(red, w);", "        red[w];")],
+    "cl_no_push": [("    cluster.map_shared_rank(recv, owner)[rank * n + w - "
+                    "owner * n] =", "    recv[rank * n + w - owner * n] =")],
+    "cl_no_fold": [("  __threadfence();\n  __syncthreads();\n  int* ticket",
+                    "  return;\n  __threadfence();\n"
+                    "  __syncthreads();\n  int* ticket")],
     # a tile pair's only range writes nothing
     "no_write": [("    write_gram<T>(tile, gb, a.r, ti, tj);\n    return;\n  }\n"
                   "  const int slot",
@@ -182,6 +210,16 @@ VARIANTS["ell_spmm"] = {
     # nothing is copied (the sums read whatever shared memory holds)
     "no_stage": [("        hopper::cp_async_16(hopper::smem_u32(d), src, 16);\n",
                   "        {}\n")]}
+# the PSA trainer's refresh Grams (chip_smoke.py's train_psa and
+# train_psa_moe rows), and one range of 32 rows: a launch that writes no
+# partial, the floor of a one-block Gram at r = 64 (f32)
+QR_REFRESH_SHAPES = (
+    ("psa_a3584", (1, 3584, 64)), ("psa_a4096", (1, 4096, 64)),
+    ("psa_a6400", (1, 6400, 64)), ("psa_b3584", (2, 3584, 64)),
+    ("psa_b18944", (2, 18944, 64)), ("floor_d32", (1, 32, 64)))
+# the cluster route forced where the plan does not take it: one cluster
+# (32 rows, mostly empty ranges: the route's floor) and 512 rows
+QR_FORCED_CLUSTER = (("cl_floor_d32", (1, 32, 64)), ("cl_d512", (1, 512, 64)))
 # source -> variant -> the ELL kernel's (band, halo) in place of the
 # graph's own
 HALO = {"ell_spmm": {"b64h2": (64, 2), "b32h0": (32, 0), "b32h8": (32, 8),
@@ -198,8 +236,8 @@ PLAN = {"gram_update": {"bn8": _BN8, "stream_bn8": _BN8,
         "slab_ops": {"c128": {"_TILE_COLS": (128,)},
                      "c64": {"_TILE_COLS": (64,)},
                      "stream_c128": {"_TILE_COLS": (128,)}},
-        "gram_qr": {f"range{b}": {"MIN_RANGE_BYTES": b}
-                    for b in (1024, 8192, 16384, 1 << 40)},
+        "gram_qr": {**{f"range{b}": {"MIN_RANGE_BYTES": b}
+                       for b in _QR_RANGES}, **_QR_CLUSTER_PLANS},
 }
 
 
@@ -493,10 +531,17 @@ def main() -> None:
             ("fdot", (nodes, 55, r), torch.float32),
             ("bdot", (4, 256, r), torch.float32),
             ("bench_f32", (1, 16384, 128), torch.float32),
-            ("bench_bf16", (1, 16384, 128), torch.bfloat16)):
+            ("bench_bf16", (1, 16384, 128), torch.bfloat16),
+            *((label, shape, torch.float32)
+              for label, shape in QR_REFRESH_SHAPES)):
         vq = torch.randn(shape, generator=gen, device=dev).to(dtype)
         cases["gram_qr"][label] = (lambda vq=vq: ops.gram_qr(vq),
                                    ref.gram_qr_ref(vq))
+    for label, shape in QR_FORCED_CLUSTER:
+        vq = torch.randn(shape, generator=gen, device=dev)
+        cases["gram_qr"][label] = (
+            lambda vq=vq: gram_qr.gram_qr_cuda(vq, route="cluster"),
+            ref.gram_qr_ref(vq))
     modules = {"gram_update": gram_update, "slab_ops": slab_ops,
                "gram_qr": gram_qr, "ell_spmm": ell_spmm}
     libs = {key: modules[key[0]]._typed(ctypes.CDLL(str(path)))
@@ -550,7 +595,8 @@ def main() -> None:
                 setattr(module, k, value)
             for fn in planners:
                 fn.cache_clear()
-    print(json.dumps({"card": nvidia_smi(), "median_ms": {
+    print(json.dumps({"card": nvidia_smi(), "launch_floor_ms": time_ms(
+        lambda: torch.cuda._sleep(1)), "median_ms": {
         k: statistics.median(v) for k, v in runs.items()}}), flush=True)
 
 
